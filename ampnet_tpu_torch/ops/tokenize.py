@@ -1,0 +1,126 @@
+"""Feature-tokenization math: z-scoring + token sampling.
+
+Port of ``ampnet_tpu/ops/tokenize.py``. Randomness comes from an explicit
+``torch.Generator``; the samplers also take precomputed uniforms ``u`` so
+that a test can feed both packages the same draws.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def fit_scaler(
+    x: np.ndarray,
+    node_mask: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Dataset-level StandardScaler fit (population std, host numpy), for
+    scaler='precomputed': the same normalization at train and eval."""
+    x = np.asarray(x, dtype=np.float32)
+    if node_mask is not None:
+        x = x[np.asarray(node_mask, dtype=bool)]
+    return x.mean(axis=0).astype(np.float32), x.std(axis=0).astype(np.float32)
+
+
+def standardize(
+    x: torch.Tensor,
+    mean: Optional[torch.Tensor] = None,
+    std: Optional[torch.Tensor] = None,
+    node_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Column z-scoring with sklearn StandardScaler semantics (population
+    std, zero-variance columns scaled by 1). Given mean/std are used as
+    they are; otherwise the stats come from the masked-in rows."""
+    if mean is None or std is None:
+        if node_mask is not None:
+            w = node_mask.to(x.dtype)[:, None]
+            n = w.sum().clamp_min(1.0)
+            mean = (x * w).sum(0) / n
+            var = (w * (x - mean) ** 2).sum(0) / n
+        else:
+            mean = x.mean(0)
+            var = x.var(0, unbiased=False)
+        std = var.sqrt()
+    scale = torch.where(std == 0.0, torch.ones_like(std), std)
+    return (x - mean) / scale
+
+
+def _uniforms(shape, device, generator: Optional[torch.Generator],
+              u: Optional[torch.Tensor]) -> torch.Tensor:
+    if u is not None:
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"uniforms of shape {tuple(u.shape)}, expected {tuple(shape)}")
+        return u.to(device=device, dtype=torch.float32)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def _inverse_cdf_sample(
+    weights: torch.Tensor,   # [N, F] nonnegative, every row sum > 0
+    num_samples: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,   # [N, num_samples] in [0, 1)
+) -> torch.Tensor:
+    """Weighted sampling WITH replacement via inverse-CDF lookup.
+
+    idx = #{j : cdf_j <= u * total}: the first index whose cdf strictly
+    exceeds the target, so zero-weight features are never selected. The
+    clamp guards the measure-zero f32 case target == total.
+    """
+    cdf = torch.cumsum(weights, dim=1)
+    u = _uniforms((weights.shape[0], num_samples), weights.device, generator, u)
+    tgt = u * cdf[:, -1:]
+    idx = torch.searchsorted(cdf.contiguous(), tgt.contiguous(), right=True)
+    return idx.clamp_max(weights.shape[1] - 1)
+
+
+def sample_present_features(
+    x: torch.Tensor,
+    num_samples: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per node, `num_samples` indices uniform over the node's nonzero
+    features, with replacement (amp_gcn.py:132-135); nodes with none fall
+    back to uniform over all features. Returns [N, num_samples] int64."""
+    present = x != 0
+    any_present = present.any(dim=1, keepdim=True)
+    weights = (present | ~any_present).to(torch.float32)
+    return _inverse_cdf_sample(weights, num_samples, generator, u)
+
+
+def tfidf_sample_features(
+    x: torch.Tensor,
+    num_samples: int,
+    node_mask: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per node, `num_samples` present features with replacement, weighted
+    by TF-IDF (idf_j = log(N / (1 + df_j))). With `node_mask`, N is the
+    REAL node count: the padded count would add log(N_pad/N_real) to every
+    idf and flatten the weighting. Returns [N, num_samples] int64."""
+    present = x != 0
+    n_real = (node_mask.to(torch.float32).sum() if node_mask is not None
+              else torch.tensor(float(x.shape[0]), device=x.device))
+    df = present.sum(dim=0).to(torch.float32)
+    idf = torch.log(n_real / (1.0 + df))
+    weights = x.abs() * idf.clamp_min(1e-3)[None, :]
+    any_present = present.any(dim=1, keepdim=True)
+    weights = torch.where(present, weights, torch.zeros_like(weights))
+    weights = torch.where(any_present, weights, torch.ones_like(weights))
+    return _inverse_cdf_sample(weights, num_samples, generator, u)
+
+
+def gather_tokens(
+    x_norm: torch.Tensor,
+    sampled_idx: torch.Tensor,
+    feat_embedding: torch.Tensor,
+) -> torch.Tensor:
+    """token[n, s] = concat(feat_embedding[idx[n,s]], x_norm[n, idx[n,s]])
+    (amp_gcn.py:145-146). Returns [N, S, feat_dim + 1]."""
+    idx = sampled_idx.long()
+    emb = feat_embedding[idx]
+    vals = torch.take_along_dim(x_norm, idx, dim=1)
+    return torch.cat([emb, vals[..., None]], dim=-1)
