@@ -1,6 +1,10 @@
 """Convert a flax AMPGCN param tree (nested dicts of numpy arrays, as
 ``jax.device_get(variables['params'])`` gives) into the port's
-``state_dict``, so that both packages compute with the same weights.
+``state_dict``, so that both packages compute with the same weights. Any
+tree of that structure converts the same way: a gradient tree comes out
+under the names of ``model.named_parameters()`` (to compare with ``.grad``
+or to feed the port's optimizer), and so does the param tree after an optax
+step.
 
 AMPConv parameters keep their layout; flax Dense kernels are [in, out]
 and torch Linear weights [out, in], hence the transposes.
@@ -18,7 +22,8 @@ def _t(a) -> torch.Tensor:
 
 
 def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map the JAX package's AMPGCN params onto the port's AMPGCN."""
+    """Map the JAX package's AMPGCN params (or a tree shaped like them:
+    gradients, updated params) onto the port's AMPGCN parameter names."""
     sd = {"tokenizer.feature_embedding_table":
           _t(params["tokenizer"]["feature_embedding_table"])}
     for conv in ("conv1", "conv2"):

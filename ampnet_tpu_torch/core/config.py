@@ -1,14 +1,14 @@
 """Config dataclasses for the PyTorch port.
 
-Field-for-field copies of the attention, tokenizer and model configs of
-the JAX package (``ampnet_tpu/core/config.py``), kept here so the port
+Field-for-field copies of the attention, tokenizer, model and training
+configs of the JAX package (``ampnet_tpu/core/config.py``), kept here so the port
 imports nothing of that package. Defaults and validation are identical,
 so one config value means the same model in both packages.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 
 @dataclass(frozen=True)
@@ -98,3 +98,38 @@ class AMPGCNConfig:
             softmax=self.attn_softmax,
             use_pallas=self.use_pallas,
         )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / loop settings (reference: cora_benchmark_graphsaint.py:84-92,
+    cora_benchmark_full.py:50-58)."""
+
+    learning_rate: float = 0.1
+    weight_decay: float = 1e-4
+    epochs: int = 50
+    seed: int = 1
+    grad_clip: Optional[float] = None
+    # CosineAnnealingWarmRestarts, stepped per iteration; None disables.
+    cosine_t0: Optional[int] = 400
+    cosine_t_mult: int = 2
+    eta_min: float = 0.0
+    checkpoint_every: int = 10   # epochs
+    log_every: int = 1
+    run_dir: Optional[str] = None
+    # final-eval ensemble size over token-sampling draws
+    num_eval_samples: int = 1
+    # evaluate every K epochs and report final metrics from the
+    # best-validation-accuracy params; 0 disables.
+    select_best_every: int = 0
+    # SAINT loop (not ported yet): log every K sampler steps; 0 = last step.
+    log_every_steps: int = 0
+    # SAINT subgraph loss (not ported yet): 'sum' | 'mean'.
+    saint_loss: str = "sum"
+    # full-batch loop: run K epochs per chunk and read their metrics back
+    # from the device once per chunk; K is clipped (gcd) to divide
+    # select_best_every / checkpoint_every so those land on chunk
+    # boundaries. Same math as K single steps.
+    epochs_per_dispatch: int = 1
+    # profiler capture of this many steps (not ported yet: must stay 0).
+    profile_steps: int = 0

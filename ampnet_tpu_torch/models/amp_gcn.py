@@ -1,10 +1,13 @@
-"""AMPGCN — tokenize -> 2x AMPConv -> mean-pool -> classify (inference).
+"""AMPGCN — tokenize -> 2x AMPConv -> mean-pool -> classify.
 
-Port of the plain-stack, average-pooling forward of
+Port of the plain-stack, average-pooling model of
 ``ampnet_tpu/models/amp_gcn.py`` with the ``raw_residual`` heads ('mlp',
-'gcn', 'gcn2'). This is the deterministic forward that evaluation runs:
-dropout and edge dropout are training-time and are not applied. The
-transformer block and CLS pooling are not ported yet and raise.
+'gcn', 'gcn2'): edge dropout -> tokenization -> dropout -> AMPConv1 ->
+ReLU -> dropout -> AMPConv2 -> ReLU -> dropout -> token mean-pool ->
+linear head -> log_softmax. ``deterministic=True`` (evaluation) applies no
+dropout; ``deterministic=False`` (training) draws every mask from the
+generator it is given. The transformer block and CLS pooling are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from torch import nn
 
 from ampnet_tpu_torch.core.config import AMPGCNConfig
 from ampnet_tpu_torch.core.graph import Graph
-from ampnet_tpu_torch.models.layers import AMPConv, GCNConv
+from ampnet_tpu_torch.models.layers import AMPConv, GCNConv, dropout, dropout_edges
 from ampnet_tpu_torch.models.tokenizer import FeatureTokenizer
 from ampnet_tpu_torch.ops.hopper.format import EdgeLayout
 from ampnet_tpu_torch.ops.tokenize import standardize
@@ -84,24 +87,41 @@ class AMPGCN(nn.Module):
     def forward(
         self,
         graph: Graph,
+        deterministic: bool = True,
         sampled_idx: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         edge_layout: Optional[EdgeLayout] = None,
     ) -> torch.Tensor:
         """Log-probs [N, C] (sigmoid probs when softmax_out=False).
         Token sampling draws from ``generator`` unless ``sampled_idx`` is
-        given; ``edge_layout`` activates cfg.use_pallas."""
+        given; with ``deterministic=False`` edge dropout and the dropouts
+        draw from it too, in the order of the forward. ``edge_layout``
+        activates cfg.use_pallas."""
         cfg = self.config
         edge_mask = graph.edge_mask
+        rate = 0.0 if deterministic else cfg.dropout_rate
+        adj_rate = 0.0 if deterministic else cfg.dropout_adj_rate
+        if (rate > 0.0 or adj_rate > 0.0) and generator is None:
+            raise ValueError("deterministic=False with a dropout rate > 0 draws "
+                             "its masks from an explicit generator: pass one")
+
+        # edge dropout (training only): the dropped mask is what every
+        # consumer sees: both convs' validity slots (receiver and sender
+        # side), their degree counts, and the GCN hops of the head
+        if adj_rate > 0.0:
+            edge_mask = dropout_edges(generator, edge_mask, adj_rate)
+
         tokens, _ = self.tokenizer(
             graph.x, node_mask=graph.node_mask, sampled_idx=sampled_idx,
             scaler_mean=self.scaler_mean, scaler_std=self.scaler_std,
             generator=generator)
         x = tokens
         for conv in (self.conv1, self.conv2):
+            x = dropout(x, rate, generator)                      # d1, d2
             x, _ = conv(x, graph.senders, graph.receivers, edge_mask,
                         return_weights=False, layout=edge_layout)
             x = torch.relu(x)
+        x = dropout(x, rate, generator)                          # d3
         head_in = x.mean(dim=1)
 
         if self.raw_mode:
@@ -113,8 +133,10 @@ class AMPGCN(nn.Module):
                 xr = torch.relu(self.raw_residual_conv1(
                     xr, graph.senders, graph.receivers, edge_mask))
                 if self.raw_mode == "gcn2":
+                    xr = dropout(xr, rate, generator)            # draw1
                     xr = torch.relu(self.raw_residual_conv2(
                         xr, graph.senders, graph.receivers, edge_mask))
+            xr = dropout(xr, rate, generator)                    # draw
             head_in = torch.cat([head_in, xr], dim=-1)
 
         logits = self.final_linear_out(head_in)

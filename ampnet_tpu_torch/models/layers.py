@@ -5,6 +5,8 @@ package's layout (``w_qkv`` [D, 3D], ``w_out`` [D, D] as (in, out)) and
 its torch-MHA init: xavier-uniform ``w_qkv``, kaiming-uniform ``w_out``
 (torch Linear's default), zero biases. Initialization draws from an
 explicit CPU ``torch.Generator``; move the module with ``.to(device)``.
+The training-time noise (``dropout``, ``dropout_edges``) draws from an
+explicit generator on the tensor's device.
 """
 from __future__ import annotations
 
@@ -21,7 +23,29 @@ from ampnet_tpu_torch.ops.edge_attention import (
 )
 from ampnet_tpu_torch.ops.gcn import gcn_aggregate
 from ampnet_tpu_torch.ops.hopper.edge_attention_fused import amp_edge_attention_fused
-from ampnet_tpu_torch.ops.hopper.format import EdgeLayout, edge_slot_valid
+from ampnet_tpu_torch.ops.hopper.format import (
+    EdgeLayout,
+    edge_slot_valid,
+    snd_slot_valid,
+)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate). rate 0 returns x itself and draws nothing."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+def dropout_edges(generator: torch.Generator, edge_mask: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """Randomly drop edges (PyG dropout_adj): each real edge kept with
+    probability 1 - rate; a masked edge stays masked."""
+    keep = torch.rand(edge_mask.shape, generator=generator,
+                      device=edge_mask.device) >= rate
+    return edge_mask & keep
 
 
 class AMPConv(nn.Module):
@@ -31,7 +55,8 @@ class AMPConv(nn.Module):
              (out [N,S,D], head-averaged attention weights [E,S,S] | None)
 
     With ``use_pallas`` and a layout, the layer runs the fused Hopper
-    kernels (any D divisible by num_heads: no TPU lane constraint)."""
+    kernels, forward and backward (any D divisible by num_heads: no TPU
+    lane constraint)."""
 
     def __init__(self, embed_dim: int, num_heads: int, softmax: bool = True,
                  use_pallas: bool = False,
@@ -65,15 +90,23 @@ class AMPConv(nn.Module):
             raise ValueError(f"expected last dim {self.embed_dim}, got {tuple(x.shape)}")
         params = self.params()
         if self.use_pallas and layout is not None:
-            # the runtime edge mask reaches the kernels through validity;
-            # trip counts stay structural (layout.recv_ptr)
+            # the runtime edge mask reaches the kernels through validity, on
+            # the receiver side and (for the backward) the sender side alike;
+            # trip counts stay structural (layout.recv_ptr, layout.snd_ptr)
             tile_valid = (layout.tile_valid if edge_mask is None
                           else edge_slot_valid(layout, edge_mask))
+            snd = {}
+            if layout.snd_ptr is not None and torch.is_grad_enabled():
+                snd = dict(
+                    snd_receivers=layout.snd_receivers,
+                    snd_valid=(layout.snd_valid if edge_mask is None
+                               else snd_slot_valid(layout, edge_mask)),
+                    snd_ptr=layout.snd_ptr, snd_slots=layout.snd_slots)
             out = amp_edge_attention_fused(
                 x, params, receivers, edge_mask, layout.tile_senders,
                 tile_valid, layout.recv_ptr, layout.recv_slots,
                 num_heads=self.num_heads, softmax=self.softmax,
-                tile_nodes=layout.tile_nodes)
+                tile_nodes=layout.tile_nodes, **snd)
             weights = (edge_attention_weights(x, senders, receivers, params,
                                               self.num_heads, softmax=self.softmax)
                        if return_weights else None)

@@ -40,18 +40,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowBatch = 8;  // global row loads each thread keeps in flight
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Shared memory per block, in floats (s2 = s rounded up to 2, s4 to 4;
 // the pad rows stay 0, so the register tiles below need no guards on reads):
 //   qs  [s2][d + 1]  this receiver's query rows, pre-scaled by 1/sqrt(dh)

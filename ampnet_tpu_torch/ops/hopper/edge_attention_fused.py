@@ -1,8 +1,11 @@
-"""Fused AMPConv edge attention on Hopper: the forward of the JAX
-package's ``amp_edge_attention_pallas`` / ``_pallas_core_dynamic``
-(``ampnet_tpu/ops/pallas/edge_attention_fused.py:1953-2098, 2430-2505``).
+"""Fused AMPConv edge attention on Hopper: the JAX package's
+``amp_edge_attention_pallas`` with its forward ``_pallas_core_dynamic`` and
+the scatter-free branch of its backward ``_pallas_bwd_dynamic``
+(``ampnet_tpu/ops/pallas/edge_attention_fused.py:1953-2098, 2430-2505,
+2101-2219``).
 
-Two hand-written kernels (``csrc/``), each beside its plain torch version:
+Two hand-written forward kernels (``csrc/``), each beside its plain torch
+version:
 
 * ``edge_attention_sums`` (K1) — per-receiver SUM of per-edge multi-head
   attention messages over projected q / k|v rows. Counterpart of both
@@ -20,10 +23,19 @@ packages take the same math path for the same config. Around K1 the glue
 stays plain torch, as the JAX package leaves it to XLA: the QKV
 projection, the mean, the out-projection.
 
+The op is a ``torch.autograd.Function``. When a gradient is needed its
+forward is K1 plus glue whatever the dispatch says (the JAX rule: the
+training forward keeps the sums and counts for the backward, which the
+whole-layer kernel never materializes), and its backward runs the two
+backward kernels of ``edge_attention_bwd_scatterfree.py`` (K3 pass R, K4
+pass S) between torch glue: the out-projection gradients and dsum before
+them, the in-projection gradients (``_finish_bwd``) after. It needs the
+sender side of the layout; without it the backward raises (the stream
+backward of ``edge_attention_bwd.py`` is not ported).
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in
-``<wrapper>.launches``. The op is forward-only: autograd asking it for a
-gradient raises.
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -35,7 +47,17 @@ import torch.nn.functional as F
 
 from ampnet_tpu_torch.ops.edge_attention import MHAParams, attention_core
 from ampnet_tpu_torch.ops.hopper import build
+from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
 from ampnet_tpu_torch.ops.hopper.format import DEFAULT_TILE_NODES
+from ampnet_tpu_torch.ops.hopper.launch import (
+    I,
+    P,
+    check_f32_rows,
+    check_smem,
+    check_walk,
+    entry,
+    stream,
+)
 from ampnet_tpu_torch.ops.segment import segment_count
 
 # The JAX package's dispatch constants (its env-var defaults), mirrored so
@@ -43,9 +65,6 @@ from ampnet_tpu_torch.ops.segment import segment_count
 _VMEM_KV_BUDGET = 80 * 1024 * 1024
 _VMEM_TOTAL_BUDGET = 96 * 1024 * 1024
 _V6_VMEM_LIMIT = 120 * 1024 * 1024
-
-# per-block dynamic shared memory on Hopper (232,448 bytes)
-_MAX_SMEM = 227 * 1024
 
 
 def _softmax_stack_bytes(group: int, sp: int) -> int:
@@ -138,58 +157,29 @@ def edge_attention_layer_plain(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
 
 # ---------------------------------------------------------------- kernels
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ampnet_edge_attention_sums": [_P, _I, _P, _I, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _P],
-    "ampnet_edge_attention_layer": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _P],
-    "ampnet_qkv_projection": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ampnet_edge_attention_smem_bytes": [_I, _I, _I],
+    "ampnet_edge_attention_sums": [P, I, P, I, P, P, P, P, P,
+                                   I, I, I, I, I, I, P],
+    "ampnet_edge_attention_layer": [P, I, P, P, P, P, P, P, P, P,
+                                    I, I, I, I, I, I, P],
+    "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
 }
 
 
 def _entry(lib_name: str, fn_name: str):
-    lib = build.load(lib_name)
-    fn = getattr(lib, fn_name)
-    fn.argtypes = _SIGNATURES[fn_name]
-    fn.restype = ctypes.c_size_t if fn_name.endswith("_bytes") else ctypes.c_int
-    return lib, fn
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _check_f32_rows(name, t, device, rows, cols):
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32 on {device}, got {t.dtype} on {t.device}")
-    if t.dim() != 2 or tuple(t.shape) != (rows, cols) or t.stride(1) != 1:
-        raise ValueError(f"{name}: expected [{rows}, {cols}] rows with unit column "
-                         f"stride, got {tuple(t.shape)} strides {t.stride()}")
-
-
-def _check_index(name, t, device, numel=None):
-    if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous int32 on {device}, "
-                         f"got {t.dtype} on {t.device}")
-    if numel is not None and t.numel() != numel:
-        raise ValueError(f"{name}: expected {numel} elements, got {t.numel()}")
+    return entry(lib_name, fn_name, _SIGNATURES[fn_name])
 
 
 def _check_layout(device, tile_senders, tile_valid, recv_ptr, recv_slots):
-    _check_index("tile_senders", tile_senders, device)
-    _check_index("tile_valid", tile_valid, device, tile_senders.numel())
-    _check_index("recv_ptr", recv_ptr, device)
-    _check_index("recv_slots", recv_slots, device)
+    check_walk(device, tile_senders, tile_valid, recv_ptr, recv_slots,
+               ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
 
 
 def _check_smem(s, d, num_heads):
-    lib, fn = _entry("edge_attention", "ampnet_edge_attention_smem_bytes")
-    need = fn(s, d, num_heads)
-    if need > _MAX_SMEM:
-        raise ValueError(f"edge attention at S={s}, D={d}, H={num_heads} needs "
-                         f"{need} B of shared memory per block (> {_MAX_SMEM})")
+    _, fn = entry("edge_attention", "ampnet_edge_attention_smem_bytes",
+                  [I, I, I], ctypes.c_size_t)
+    check_smem(fn(s, d, num_heads),
+               f"edge attention at S={s}, D={d}, H={num_heads}")
 
 
 def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
@@ -208,8 +198,8 @@ def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
     d = q_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    _check_f32_rows("q_rows", q_rows, dev, nt * sp, d)
-    _check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
+    check_f32_rows("q_rows", q_rows, dev, nt * sp, d)
+    check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
     _check_layout(dev, tile_senders, tile_valid, recv_ptr, recv_slots)
     _check_smem(s, d, num_heads)
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
@@ -218,7 +208,7 @@ def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
         q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
         tile_senders.data_ptr(), tile_valid.data_ptr(), recv_ptr.data_ptr(),
         recv_slots.data_ptr(), out.data_ptr(), nt, s, sp, d, num_heads,
-        int(softmax), _stream()), "edge_attention_sums")
+        int(softmax), stream()), "edge_attention_sums")
     edge_attention_sums.launches += 1
     return out
 
@@ -243,9 +233,9 @@ def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     d = x_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    _check_f32_rows("x_rows", x_rows, dev, nt * sp, d)
-    _check_f32_rows("w_qkv", w_qkv, dev, d, 3 * d)
-    _check_f32_rows("w_out", w_out, dev, d, d)
+    check_f32_rows("x_rows", x_rows, dev, nt * sp, d)
+    check_f32_rows("w_qkv", w_qkv, dev, d, 3 * d)
+    check_f32_rows("w_out", w_out, dev, d, d)
     for name, t, numel in (("b_qkv", b_qkv, 3 * d), ("b_out", b_out, d), ("invdeg", invdeg, nt)):
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() != numel:
             raise ValueError(f"{name}: expected {numel} contiguous float32 on {dev}")
@@ -255,17 +245,17 @@ def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     _check_smem(s, d, num_heads)
     qkv = torch.empty(nt * sp, 3 * d, dtype=torch.float32, device=dev)
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    stream = _stream()
+    cuda_stream = stream()
     lib, proj = _entry("qkv_projection", "ampnet_qkv_projection")
     build.check(lib, proj(x_rows.data_ptr(), x_rows.stride(0), w_qkv.data_ptr(),
                           b_qkv.data_ptr(), qkv.data_ptr(), 3 * d, nt * sp, 3 * d,
-                          d, stream), "qkv_projection")
+                          d, cuda_stream), "qkv_projection")
     lib, attn = _entry("edge_attention", "ampnet_edge_attention_layer")
     build.check(lib, attn(qkv.data_ptr(), 3 * d, tile_senders.data_ptr(),
                           tile_valid.data_ptr(), recv_ptr.data_ptr(),
                           recv_slots.data_ptr(), invdeg.data_ptr(),
                           w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-                          nt, s, sp, d, num_heads, int(softmax), stream),
+                          nt, s, sp, d, num_heads, int(softmax), cuda_stream),
                 "edge_attention_layer")
     edge_attention_layer.launches += 1
     return out
@@ -273,7 +263,8 @@ def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
 
 edge_attention_layer.launches = 0
 
-KERNEL_WRAPPERS = (edge_attention_sums, edge_attention_layer)
+KERNEL_WRAPPERS = (edge_attention_sums, edge_attention_layer,
+                   bwd.edge_attention_bwd_dq, bwd.edge_attention_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
@@ -285,11 +276,13 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
 
 
+
 # ---------------------------------------------------------------- the op
 
 
-def _forward(x, params, receivers, edge_mask, tile_senders, tile_valid,
-             recv_ptr, recv_slots, num_heads, softmax, tile_nodes, gather):
+def _grid(x, tile_senders, recv_ptr, tile_nodes, gather):
+    """Checks x against the layout; returns (nt, sp, gather) with the row
+    stride and the gather resolved ONCE, so forward and backward agree."""
     num_tiles = tile_senders.shape[0]
     n, s, d = x.shape
     if x.dtype != torch.float32:
@@ -306,45 +299,104 @@ def _forward(x, params, receivers, edge_mask, tile_senders, tile_valid,
     if recv_ptr.numel() != nt + 1:
         raise ValueError(f"recv_ptr has {recv_ptr.numel()} entries, expected {nt + 1}")
     sp = -(-s // 8) * 8          # the JAX package's f32 token-row stride
-    itemsize = 4
-    gather = _resolve_gather(gather, max(n, nt) * sp, d, itemsize,
+    gather = _resolve_gather(gather, max(n, nt) * sp, d, 4,
                              tile_rows=tile_nodes * sp)
-    # pad tokens to the row stride BEFORE projecting, and node rows to the
-    # tile grid; pad rows are never read as keys or kept as queries
-    x_rows = F.pad(x, (0, 0, 0, sp - s, 0, nt - n)).reshape(nt * sp, d)
-    count = segment_count(receivers, n, edge_mask)
-
-    if _v6_usable(n, nt, sp, d, itemsize, tile_nodes, _auto_group(sp), gather):
-        invdeg = torch.where(count > 0, 1.0 / count.clamp_min(1.0),
-                             torch.zeros_like(count))
-        rows = edge_attention_layer(
-            x_rows, params.w_qkv.contiguous(), params.b_qkv.contiguous(),
-            params.w_out.contiguous(), params.b_out.contiguous(),
-            F.pad(invdeg, (0, nt - n)), tile_senders, tile_valid, recv_ptr,
-            recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax)
-        return rows[: n * sp].reshape(n, sp, d)[:, :s]
-
-    qkv = x_rows @ params.w_qkv + params.b_qkv
-    sums = edge_attention_sums(
-        qkv[:, :d], qkv[:, d:], tile_senders, tile_valid, recv_ptr, recv_slots,
-        s=s, sp=sp, num_heads=num_heads, softmax=softmax)
-    sums = sums[: n * sp].reshape(n, sp, d)[:, :s]
-    mean = sums / count.clamp_min(1.0)[:, None, None]
-    out = mean @ params.w_out + params.b_out
-    return torch.where((count > 0)[:, None, None], out, torch.zeros_like(out))
+    return nt, sp, gather
 
 
-class _FusedForward(torch.autograd.Function):
+def _token_rows(x, nt, sp):
+    """[N, S, D] -> [NT*sp, D]: tokens padded to the row stride and node
+    rows to the tile grid; pad rows are never read as keys or kept as
+    queries."""
+    n, s, d = x.shape
+    return F.pad(x, (0, 0, 0, sp - s, 0, nt - n)).reshape(nt * sp, d)
+
+
+def _finish_bwd(x, w_qkv, dq_nodes, dkv_nodes):
+    """In-projection gradients without the [N, S, 3D] concat: dq and dkv go
+    through separate products against the split w_qkv columns."""
+    d = dq_nodes.shape[-1]
+    dx = dq_nodes @ w_qkv[:, :d].T + dkv_nodes @ w_qkv[:, d:].T
+    d_wqkv = torch.cat([torch.einsum("nsd,nse->de", x, dq_nodes),
+                        torch.einsum("nsd,nse->de", x, dkv_nodes)], dim=1)
+    d_bqkv = torch.cat([dq_nodes.sum(dim=(0, 1)), dkv_nodes.sum(dim=(0, 1))])
+    return dx, d_wqkv, d_bqkv
+
+
+class _FusedOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_qkv, b_qkv, w_out, b_out, args):
-        return _forward(x, MHAParams(w_qkv, b_qkv, w_out, b_out), *args)
+        (receivers, edge_mask, tile_senders, tile_valid, recv_ptr, recv_slots,
+         snd, num_heads, softmax, tile_nodes, gather, training) = args
+        # snd: None, or the sender-tiled side pass S walks (snd_receivers,
+        # snd_valid, snd_ptr, snd_slots)
+        n, s, d = x.shape
+        nt, sp, gather = _grid(x, tile_senders, recv_ptr, tile_nodes, gather)
+        x_rows = _token_rows(x, nt, sp)
+        count = segment_count(receivers, n, edge_mask)
+
+        # the whole-layer kernel never materializes the sums the backward
+        # needs, so it is the no-grad route only (the JAX rule)
+        if not training and _v6_usable(n, nt, sp, d, 4, tile_nodes,
+                                       _auto_group(sp), gather):
+            invdeg = torch.where(count > 0, 1.0 / count.clamp_min(1.0),
+                                 torch.zeros_like(count))
+            rows = edge_attention_layer(
+                x_rows, w_qkv.contiguous(), b_qkv.contiguous(),
+                w_out.contiguous(), b_out.contiguous(),
+                F.pad(invdeg, (0, nt - n)), tile_senders, tile_valid, recv_ptr,
+                recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+            return rows[: n * sp].reshape(n, sp, d)[:, :s]
+
+        qkv = x_rows @ w_qkv + b_qkv
+        sums = edge_attention_sums(
+            qkv[:, :d], qkv[:, d:], tile_senders, tile_valid, recv_ptr, recv_slots,
+            s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+        sums = sums[: n * sp].reshape(n, sp, d)[:, :s]
+        mean = sums / count.clamp_min(1.0)[:, None, None]
+        out = mean @ w_out + b_out
+        out = torch.where((count > 0)[:, None, None], out, torch.zeros_like(out))
+        if training:
+            ctx.save_for_backward(x, w_qkv, b_qkv, w_out, sums, count, tile_senders,
+                                  tile_valid, recv_ptr, recv_slots, *(snd or ()))
+            ctx.kernel_args = dict(s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+        return out
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "amp_edge_attention_fused is forward-only: its backward kernels "
-            "are not ported yet — use the plain path (use_pallas=False) to "
-            "train")
+    def backward(ctx, gout):
+        (x, w_qkv, b_qkv, w_out, sums, count, tile_senders, tile_valid, recv_ptr,
+         recv_slots, *snd) = ctx.saved_tensors
+        if not snd:
+            raise NotImplementedError(
+                "the fused op's backward is the scatter-free one and needs the "
+                "sender side of the layout (compute_layout(sender_layout=True): "
+                "snd_receivers, snd_valid, snd_ptr, snd_slots); the stream "
+                "backward of edge_attention_bwd.py is not ported")
+        kw = ctx.kernel_args
+        n, s, d = x.shape
+        nt, sp = recv_ptr.numel() - 1, kw["sp"]
+        qkv = _token_rows(x, nt, sp) @ w_qkv + b_qkv
+
+        # out-projection and mean, in torch as the JAX package leaves them to XLA
+        gm = torch.where((count > 0)[:, None, None], gout, torch.zeros_like(gout))
+        denom = count.clamp_min(1.0)[:, None, None]
+        d_wout = torch.einsum("nsd,nse->de", sums / denom, gm)
+        d_bout = gm.sum(dim=(0, 1))
+        # packed [Q | dsum] rows; dsum = gradient of the per-receiver SUM of
+        # messages, 0 on pad token rows and pad node rows
+        qdm = qkv.new_zeros(nt, sp, 2 * d)
+        qdm[:, :, :d] = qkv[:, :d].reshape(nt, sp, d)
+        qdm[:n, :s, d:] = (gm @ w_out.T) / denom
+        qdm = qdm.reshape(nt * sp, 2 * d)
+
+        dq_rows = bwd.edge_attention_bwd_dq(
+            qkv[:, :d], qkv[:, d:], qdm[:, d:], tile_senders, tile_valid,
+            recv_ptr, recv_slots, **kw)
+        dkv_rows = bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *snd, **kw)
+        dq_nodes = dq_rows.reshape(nt, sp, d)[:n, :s]
+        dkv_nodes = dkv_rows.reshape(nt, sp, 2 * d)[:n, :s]
+        dx, d_wqkv, d_bqkv = _finish_bwd(x, w_qkv, dq_nodes, dkv_nodes)
+        return dx, d_wqkv, d_bqkv, d_wout, d_bout, None
 
 
 def amp_edge_attention_fused(
@@ -360,14 +412,35 @@ def amp_edge_attention_fused(
     softmax: bool = True,
     tile_nodes: int = DEFAULT_TILE_NODES,
     gather: str = "auto",
+    snd_receivers: Optional[torch.Tensor] = None,  # [T, EMAXS] the sender-tiled
+    snd_valid: Optional[torch.Tensor] = None,      # side (snd_valid may carry
+    snd_ptr: Optional[torch.Tensor] = None,        # the RUNTIME mask): needed
+    snd_slots: Optional[torch.Tensor] = None,      # by the backward
 ) -> torch.Tensor:
-    """AMPConv forward through the Hopper kernels; same result as
+    """AMPConv through the Hopper kernels; same result and gradients as
     ``ops.edge_attention.amp_edge_attention`` ([N, S, D]).
 
     ``gather`` ('auto' | 'vmem' | 'dma') only feeds the JAX package's
     dispatch rule, which picks K2 (its v6 whole-layer kernel) or K1 plus
-    torch glue; K1 itself is the same kernel for both gathers."""
-    return _FusedForward.apply(
+    torch glue for a forward that needs no gradient; each kernel is the same
+    for both gathers. When autograd will ask for a gradient the forward is
+    K1 plus glue, and the backward (K3, K4) needs the four ``snd_*`` arrays."""
+    snd = (snd_receivers, snd_valid, snd_ptr, snd_slots)
+    if any(t is None for t in snd):
+        if any(t is not None for t in snd):
+            raise ValueError("pass all of snd_receivers, snd_valid, snd_ptr and "
+                             "snd_slots, or none of them")
+        snd = None
+    elif snd_receivers.shape[0] != tile_senders.shape[0]:
+        raise ValueError(
+            f"sender layout has {snd_receivers.shape[0]} tiles vs receiver "
+            f"layout's {tile_senders.shape[0]} — both must be built with the "
+            f"same tile_nodes over the same padded node count")
+    # whether autograd will record this call (Function.forward cannot tell:
+    # it runs with grad mode off and sees needs_input_grad under no_grad too)
+    training = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *params))
+    return _FusedOp.apply(
         x, params.w_qkv, params.b_qkv, params.w_out, params.b_out,
         (receivers, edge_mask, tile_senders, tile_valid, recv_ptr, recv_slots,
-         num_heads, softmax, tile_nodes, gather))
+         snd, num_heads, softmax, tile_nodes, gather, training))

@@ -10,8 +10,11 @@ The Hopper kernels run one thread block per receiver, not per tile, so
 this module also derives a receiver-major index over the same slots
 (``receiver_index``): the CSR pointer ``recv_ptr`` [T*TN + 1] and the
 flat slots ``recv_slots`` (slot = tile * EMAX + position), in input order
-within each receiver. It is built from the STRUCTURAL layout; a runtime
-edge mask reaches the kernels through ``tile_valid`` alone.
+within each receiver. The backward's pass S runs one block per SENDER
+over the sender-tiled side, so the same function, given that side, makes
+``snd_ptr``/``snd_slots``. Both are built from the STRUCTURAL layout; a
+runtime edge mask reaches the kernels through the validity slots alone
+(``edge_slot_valid``, ``snd_slot_valid``).
 """
 from __future__ import annotations
 
@@ -114,6 +117,8 @@ def receiver_index(recv_local: np.ndarray, counts: np.ndarray,
     Returns (recv_ptr [T*TN + 1] int32, recv_slots [sum(counts)] int32):
     the live slots of global receiver n are
     recv_slots[recv_ptr[n]:recv_ptr[n + 1]], in input (slot) order.
+    Given the sender-tiled side (snd_local, snd_counts) it is the
+    sender-major index over that side's slots.
     """
     t, emax = recv_local.shape
     live = np.arange(emax)[None, :] < np.asarray(counts)[:, None]
@@ -143,7 +148,8 @@ class EdgeLayout:
     ``tile_*`` and ``edge_slot`` equal the JAX package's EdgeLayout;
     ``recv_ptr``/``recv_slots`` are the receiver-major index the Hopper
     kernels walk; ``snd_*`` is the same edges bucketed by SENDER tile, for
-    the scatter-free backward."""
+    the scatter-free backward, with ``snd_ptr``/``snd_slots`` the
+    sender-major index its pass S walks."""
 
     tile_senders: torch.Tensor          # [T, EMAX]
     tile_recv: torch.Tensor             # [T, EMAX]
@@ -157,6 +163,8 @@ class EdgeLayout:
     snd_valid: Optional[torch.Tensor] = None
     snd_counts: Optional[torch.Tensor] = None
     snd_edge_slot: Optional[torch.Tensor] = None
+    snd_ptr: Optional[torch.Tensor] = None        # [T*TN + 1]
+    snd_slots: Optional[torch.Tensor] = None      # [sum(snd_counts)]
     tile_nodes: int = DEFAULT_TILE_NODES
 
     def to(self, device) -> "EdgeLayout":
@@ -188,9 +196,11 @@ def compute_layout(graph, tile_nodes: int = DEFAULT_TILE_NODES,
         stcsr = build_tiled_csr(receivers, senders, mask, n_pad,
                                 tile_nodes=tile_nodes,
                                 edges_per_tile=snd_edges_per_tile)
+        snd_ptr, snd_slots = receiver_index(stcsr.recv_local, stcsr.counts, tile_nodes)
         snd = dict(snd_receivers=stcsr.senders, snd_local=stcsr.recv_local,
                    snd_valid=stcsr.valid, snd_counts=stcsr.counts,
-                   snd_edge_slot=stcsr.edge_slot)
+                   snd_edge_slot=stcsr.edge_slot, snd_ptr=snd_ptr,
+                   snd_slots=snd_slots)
     arrays = dict(tile_senders=tcsr.senders, tile_recv=tcsr.recv_local,
                   tile_valid=tcsr.valid, tile_counts=tcsr.counts,
                   edge_slot=tcsr.edge_slot, recv_ptr=recv_ptr,
@@ -203,13 +213,23 @@ def compute_layout(graph, tile_nodes: int = DEFAULT_TILE_NODES,
     )
 
 
-def edge_slot_valid(layout: EdgeLayout, edge_mask: torch.Tensor) -> torch.Tensor:
-    """Scatter a RUNTIME edge mask into the layout's validity slots
-    ([T, EMAX] int32); masked and pad slots read 0. Trip counts stay
-    structural (recv_ptr), so a dropped edge is walked and weighted 0."""
-    t, emax = layout.tile_valid.shape
-    slot = layout.edge_slot.long()
+def _scatter_mask(edge_slot: torch.Tensor, shape, edge_mask: torch.Tensor) -> torch.Tensor:
+    t, emax = shape
+    slot = edge_slot.long()
     slot = torch.where(slot < 0, torch.full_like(slot, t * emax), slot)
     flat = torch.zeros(t * emax + 1, dtype=torch.int32, device=slot.device)
     flat[slot] = edge_mask.to(torch.int32)
     return flat[:-1].reshape(t, emax)
+
+
+def edge_slot_valid(layout: EdgeLayout, edge_mask: torch.Tensor) -> torch.Tensor:
+    """Scatter a RUNTIME edge mask into the layout's validity slots
+    ([T, EMAX] int32); masked and pad slots read 0. Trip counts stay
+    structural (recv_ptr), so a dropped edge is walked and weighted 0."""
+    return _scatter_mask(layout.edge_slot, layout.tile_valid.shape, edge_mask)
+
+
+def snd_slot_valid(layout: EdgeLayout, edge_mask: torch.Tensor) -> torch.Tensor:
+    """The same scatter into the SENDER-tiled side's validity slots
+    ([T, EMAXS] int32), for the backward's pass S."""
+    return _scatter_mask(layout.snd_edge_slot, layout.snd_valid.shape, edge_mask)

@@ -1,3 +1,25 @@
-from ampnet_tpu_torch.train.state import make_eval_step
+from ampnet_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    load_checkpoint_params,
+    restore_best,
+    resume_or_create,
+    save_checkpoint,
+)
+from ampnet_tpu_torch.train.loop import train_full_batch
+from ampnet_tpu_torch.train.losses import masked_accuracy, masked_mean_nll, nll_loss
+from ampnet_tpu_torch.train.optim import cosine_warm_restarts, make_optimizer
+from ampnet_tpu_torch.train.rundir import Logfile, create_run_dir
+from ampnet_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
 
-__all__ = ["make_eval_step"]
+__all__ = [
+    "cosine_warm_restarts", "make_optimizer", "nll_loss", "masked_mean_nll",
+    "masked_accuracy", "TrainState", "create_train_state", "make_train_step",
+    "make_eval_step", "save_checkpoint", "load_checkpoint",
+    "load_checkpoint_params", "restore_best", "resume_or_create",
+    "train_full_batch", "create_run_dir", "Logfile",
+]

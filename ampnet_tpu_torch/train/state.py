@@ -1,18 +1,80 @@
-"""Evaluation step (``make_eval_step`` of ``ampnet_tpu/train/state.py``).
+"""Train state and step builders (``ampnet_tpu/train/state.py`` in torch).
 
-The deterministic forward (no dropout) that produces every accuracy the
-recipes report. Token sampling still draws (the reference samples at eval
-too); ``num_eval_samples`` > 1 averages log-probs over that many draws.
+The training step runs the model with dropout and edge dropout on, takes
+the masked mean NLL, and lets ``loss.backward()`` go through the fused
+op's backward kernels. The eval step is the deterministic forward (no
+dropout) that produces every accuracy the recipes report. Token sampling
+draws in both (the reference samples at eval too); ``num_eval_samples`` > 1
+averages log-probs over that many draws.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ampnet_tpu_torch.core.graph import Graph
 from ampnet_tpu_torch.ops.hopper.format import EdgeLayout
 from ampnet_tpu_torch.train.losses import masked_accuracy, masked_mean_nll
+from ampnet_tpu_torch.train.optim import Optimizer
+
+
+@dataclass
+class TrainState:
+    """What a training run carries from step to step. Unlike the JAX
+    package's immutable state, a step updates it IN PLACE: the model's
+    parameters, the optimizer's moments, the generator and the count."""
+
+    model: torch.nn.Module
+    optimizer: Optimizer
+    generator: torch.Generator     # token sampling, dropout, edge dropout
+    step: int = 0
+
+
+def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
+                       seed: int = 0) -> TrainState:
+    """The model is already initialized (from its own generator); ``seed``
+    seeds the training noise, drawn on the model's device."""
+    device = next(model.parameters()).device
+    return TrainState(model, optimizer,
+                      torch.Generator(device=device).manual_seed(seed))
+
+
+def make_train_step(
+    model: torch.nn.Module,
+    loss_mode: str = "full",
+) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """step(state, graph, layout=None) -> (state, metrics): one optimizer
+    step on the masked mean NLL (loss_mode='full'). Metrics are 0-d tensors
+    left on the device (``loss``, ``train_acc``, and ``test_acc`` when the
+    graph has a test mask), taken from the training forward. The GraphSAINT
+    losses are not ported yet."""
+    if loss_mode != "full":
+        raise NotImplementedError(
+            f"loss_mode={loss_mode!r}: only the full-batch loss is ported yet")
+
+    def step(state: TrainState, graph: Graph,
+             layout: Optional[EdgeLayout] = None):
+        if state.model is not model:
+            raise ValueError("the state belongs to another model than this step")
+        state.optimizer.zero_grad()
+        logits = model(graph, deterministic=False, generator=state.generator,
+                       edge_layout=layout)
+        train = graph.train_mask & graph.node_mask
+        loss = masked_mean_nll(logits, graph.y, train)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            metrics = {"loss": loss.detach(),
+                       "train_acc": masked_accuracy(logits, graph.y, train)}
+            if graph.test_mask is not None:
+                metrics["test_acc"] = masked_accuracy(
+                    logits, graph.y, graph.test_mask & graph.node_mask)
+        return state, metrics
+
+    return step
 
 
 def make_eval_step(

@@ -22,7 +22,8 @@ def _fields(cls):
     return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("name", ["AttentionConfig", "TokenizerConfig", "AMPGCNConfig"])
+@pytest.mark.parametrize("name", ["AttentionConfig", "TokenizerConfig", "AMPGCNConfig",
+                                  "TrainConfig"])
 def test_configs_match_jax(name):
     ours, theirs = getattr(cfg, name), getattr(jcfg, name)
     assert _fields(ours) == _fields(theirs)
@@ -96,6 +97,11 @@ def _imports(path: Path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "ampnet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"ampnet_tpu_torch/ops/hopper/edge_attention_bwd_scatterfree.py",
+            "ampnet_tpu_torch/ops/hopper/launch.py", "ampnet_tpu_torch/train/optim.py",
+            "ampnet_tpu_torch/train/checkpoint.py", "ampnet_tpu_torch/train/rundir.py",
+            "ampnet_tpu_torch/train/loop.py", "chip_smoke.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card against their plain versions, and
-the fused path on the card against the plain torch path on the CPU.
+the fused path (forward and gradients) on the card against the plain torch
+path on the CPU.
 
 Needs an NVIDIA GPU: every test is marked `cuda` and skips where
 torch.cuda.is_available() is false. Imports no JAX, so that it runs on a
@@ -16,8 +17,13 @@ from ampnet_tpu_torch.core.config import AMPGCNConfig
 from ampnet_tpu_torch.core.graph import from_arrays
 from ampnet_tpu_torch.models import AMPGCN
 from ampnet_tpu_torch.ops.edge_attention import MHAParams, amp_edge_attention
+from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
 from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
-from ampnet_tpu_torch.ops.hopper.format import compute_layout, edge_slot_valid
+from ampnet_tpu_torch.ops.hopper.format import (
+    compute_layout,
+    edge_slot_valid,
+    snd_slot_valid,
+)
 
 RTOL, ATOL = 2e-4, 2e-5
 pytestmark = pytest.mark.cuda
@@ -31,13 +37,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def graph(seed, n=40, e=160, f=12):
-    """Node n-1 is never a receiver; every 7th live edge is masked at run
-    time."""
+def graph(seed, n=40, e=160, f=12, first_sender=0):
+    """Node n-1 is never a receiver (and no node below first_sender a
+    sender); every 7th live edge is masked at run time."""
     rng = np.random.default_rng(seed)
     x = (rng.random((n, f)) < 0.4).astype(np.float32)
     x[x.sum(1) == 0, 0] = 1.0
-    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n - 1, e)])
+    ei = np.stack([rng.integers(first_sender, n, e), rng.integers(0, n - 1, e)])
     split = rng.random(n)
     g = from_arrays(x, ei, y=rng.integers(0, 3, n), train_mask=split < 0.5,
                     val_mask=split >= 0.5, pad_nodes_to=48, pad_edges_to=256)
@@ -87,6 +93,78 @@ def test_kernels_match_plain_on_card(cuda, s, d, h, softmax):
     assert (got.reshape(nt, sp, d)[39] == 0).all()
 
 
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", SHAPES)
+def test_backward_kernels_match_plain_on_card(cuda, s, d, h, softmax):
+    """K3 (pass R) and K4 (pass S) against their plain versions, with a
+    runtime mask, a receiver and a sender of degree 0, SP > S and D=100."""
+    g, mask = graph(0, first_sender=1)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    nt = lay.recv_ptr.numel() - 1
+    sp = -(-s // 8) * 8
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=cuda)
+    qdm = torch.cat([qkv[:, :d], torch.randn(nt * sp, d, generator=gen, device=cuda)], 1)
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax)
+    before = eaf.launch_counts()
+
+    r_idx = (lay.tile_senders, edge_slot_valid(lay, mask.to(cuda)), lay.recv_ptr, lay.recv_slots)
+    got = bwd.edge_attention_bwd_dq(qkv[:, :d], qkv[:, d:], qdm[:, d:], *r_idx, **kw)
+    ref = bwd.edge_attention_bwd_dq_plain(qkv[:, :d], qkv[:, d:], qdm[:, d:], *r_idx, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    assert (got.reshape(nt, sp, d)[39] == 0).all()       # receiver of degree 0
+    assert (got.reshape(nt, sp, d)[:, s:] == 0).all()    # pad token rows
+
+    s_idx = (lay.snd_receivers, snd_slot_valid(lay, mask.to(cuda)), lay.snd_ptr, lay.snd_slots)
+    got = bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *s_idx, **kw)
+    ref = bwd.edge_attention_bwd_dkv_plain(qdm, qkv[:, d:], *s_idx, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    assert (got.reshape(nt, sp, 2 * d)[0] == 0).all()    # sender of degree 0
+    assert (got.reshape(nt, sp, 2 * d)[:, s:] == 0).all()
+    after = eaf.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "edge_attention_sums": 0, "edge_attention_layer": 0,
+        "edge_attention_bwd_dq": 1, "edge_attention_bwd_dkv": 1}
+    # no atomics: a second launch repeats the first bit for bit
+    assert torch.equal(got, bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *s_idx, **kw))
+
+
+@pytest.mark.parametrize("s,d,h,gather", [(20, 128, 4, "vmem"), (40, 128, 4, "dma"),
+                                          (7, 100, 4, "auto")])
+def test_fused_op_gradients_on_card_match_plain_cpu(cuda, s, d, h, gather):
+    """The five gradients of the fused op on the card (K1 forward, K3 + K4
+    backward, whatever the dispatch says) against autograd through the
+    plain oracle on the CPU; D=100 has no TPU lane limit here."""
+    g, mask = graph(3, first_sender=1)
+    p = params(4, d)
+    x = torch.randn(48, s, d, generator=torch.Generator().manual_seed(5))
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    leaves = [t.to(cuda).requires_grad_() for t in (x, *p)]
+    eaf.reset_launch_counts()
+    out = eaf.amp_edge_attention_fused(
+        leaves[0], MHAParams(*leaves[1:]), g.receivers.to(cuda), mask.to(cuda),
+        lay.tile_senders, edge_slot_valid(lay, mask.to(cuda)), lay.recv_ptr,
+        lay.recv_slots, h, tile_nodes=16, gather=gather,
+        snd_receivers=lay.snd_receivers, snd_valid=snd_slot_valid(lay, mask.to(cuda)),
+        snd_ptr=lay.snd_ptr, snd_slots=lay.snd_slots)
+    (out * out.cos()).sum().backward()
+    assert eaf.launch_counts() == {
+        "edge_attention_sums": 1, "edge_attention_layer": 0,
+        "edge_attention_bwd_dq": 1, "edge_attention_bwd_dkv": 1}
+    cpu = [t.clone().requires_grad_() for t in (x, *p)]
+    ref, _ = amp_edge_attention(cpu[0], g.senders, g.receivers, mask,
+                                MHAParams(*cpu[1:]), h)
+    (ref * ref.cos()).sum().backward()
+    for name, a, b in zip(("x", "w_qkv", "b_qkv", "w_out", "b_out"), leaves, cpu):
+        # f32 sums over 48 nodes x S tokens in another order: scaled by the
+        # gradient's largest entry
+        scale = float(b.grad.abs().max())
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=RTOL,
+                                   atol=1e-5 * max(scale, 1.0), msg=lambda m: f"{name}: {m}")
+
+
 @pytest.mark.parametrize("gather,kernel", [("dma", "edge_attention_sums"),
                                            ("vmem", "edge_attention_layer")])
 def test_fused_op_on_card_matches_plain_cpu(cuda, gather, kernel):
@@ -103,6 +181,31 @@ def test_fused_op_on_card_matches_plain_cpu(cuda, gather, kernel):
     assert eaf.launch_counts()[kernel] == 1 and sum(eaf.launch_counts().values()) == 1
     ref, _ = amp_edge_attention(x, g.senders, g.receivers, mask, p, h)
     torch.testing.assert_close(got.cpu(), ref, rtol=RTOL, atol=ATOL)
+
+
+def test_fused_op_backward_needs_the_sender_side_and_the_shared_memory(cuda):
+    """No silent fallback: a gradient without the sender layout raises, and
+    so does a backward kernel at a shape whose shared memory does not fit."""
+    g, mask = graph(3)
+    d, h, s = 16, 2, 4
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    x = torch.randn(48, s, d, device=cuda, requires_grad=True)
+    out = eaf.amp_edge_attention_fused(
+        x, MHAParams(*(t.to(cuda) for t in params(4, d))), g.receivers.to(cuda),
+        None, lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots, h,
+        tile_nodes=16)
+    with pytest.raises(NotImplementedError, match="sender side"):
+        out.sum().backward()
+    nt = lay.recv_ptr.numel() - 1
+    big = torch.zeros(nt * 96, 4 * 128, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        bwd.edge_attention_bwd_dq(big[:, :128], big[:, 128:384], big[:, 384:],
+                                  lay.tile_senders, lay.tile_valid, lay.recv_ptr,
+                                  lay.recv_slots, s=96, sp=96, num_heads=4, softmax=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        bwd.edge_attention_bwd_dkv(big[:, :256], big[:, 256:], lay.snd_receivers,
+                                   lay.snd_valid, lay.snd_ptr, lay.snd_slots,
+                                   s=96, sp=96, num_heads=4, softmax=True)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

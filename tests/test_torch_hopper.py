@@ -246,6 +246,9 @@ def test_fused_op_rejects_mismatched_tile_nodes(rng):
 
 
 def test_fused_op_is_forward_only(rng):
+    """Without the sender side of the layout the op stays forward-only: the
+    backward raises and names what is missing, it does not recompute through
+    the plain path."""
     _, gt = make_graphs(rng)
     _, pt = make_params(rng)
     lt = fmt.compute_layout(gt, tile_nodes=TN)
@@ -253,5 +256,6 @@ def test_fused_op_is_forward_only(rng):
     out = eaf.amp_edge_attention_fused(x, pt, gt.receivers, gt.edge_mask,
                                        lt.tile_senders, lt.tile_valid,
                                        lt.recv_ptr, lt.recv_slots, H, tile_nodes=TN)
-    with pytest.raises(NotImplementedError, match="forward-only"):
+    with pytest.raises(NotImplementedError, match="sender side.*stream backward"):
         out.sum().backward()
+    assert x.grad is None
