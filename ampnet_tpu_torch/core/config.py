@@ -122,9 +122,9 @@ class TrainConfig:
     # evaluate every K epochs and report final metrics from the
     # best-validation-accuracy params; 0 disables.
     select_best_every: int = 0
-    # SAINT loop (not ported yet): log every K sampler steps; 0 = last step.
+    # SAINT loop: log every K sampler steps; 0 = last step only.
     log_every_steps: int = 0
-    # SAINT subgraph loss (not ported yet): 'sum' | 'mean'.
+    # SAINT subgraph loss: 'sum' | 'mean' (node_norm-weighted).
     saint_loss: str = "sum"
     # full-batch loop: run K epochs per chunk and read their metrics back
     # from the device once per chunk; K is clipped (gcd) to divide

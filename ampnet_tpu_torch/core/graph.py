@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,6 +145,17 @@ def _pad_checked_edges(a: np.ndarray, e: int, e_pad: int) -> np.ndarray:
     out = np.zeros((e_pad,) + a.shape[1:], a.dtype)
     out[:e] = a
     return out
+
+
+def build_csr(edge_index: np.ndarray, num_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side CSR (indptr, indices) over SENDERS, for random walks."""
+    senders = np.asarray(edge_index[0])
+    receivers = np.asarray(edge_index[1])
+    order = np.argsort(senders, kind="stable")
+    indices = receivers[order].astype(np.int32)
+    indptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum(np.bincount(senders[order], minlength=num_nodes))
+    return indptr, indices
 
 
 def pad_graph(g: Graph, n_pad: int, e_pad: int) -> Graph:

@@ -11,7 +11,7 @@ ported yet and raise.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,12 +91,15 @@ class AMPGCN(nn.Module):
         sampled_idx: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         edge_layout: Optional[EdgeLayout] = None,
+        fused_fns: Optional[Sequence[Callable]] = None,
     ) -> torch.Tensor:
         """Log-probs [N, C] (sigmoid probs when softmax_out=False).
         Token sampling draws from ``generator`` unless ``sampled_idx`` is
         given; with ``deterministic=False`` edge dropout and the dropouts
         draw from it too, in the order of the forward. ``edge_layout``
-        activates cfg.use_pallas."""
+        activates cfg.use_pallas; ``fused_fns`` = (fn, fn), one fused call
+        per conv (``train/pallas_step.py::make_fused_fns``), replaces the
+        call each conv would build from the layout."""
         cfg = self.config
         edge_mask = graph.edge_mask
         rate = 0.0 if deterministic else cfg.dropout_rate
@@ -109,6 +112,11 @@ class AMPGCN(nn.Module):
         # consumer sees: both convs' validity slots (receiver and sender
         # side), their degree counts, and the GCN hops of the head
         if adj_rate > 0.0:
+            if fused_fns is not None:
+                raise ValueError(
+                    "dropout_adj_rate > 0 on the fused path requires an "
+                    "EdgeLayout (edge_layout=...): fused_fns closures read only "
+                    "structural validity")
             edge_mask = dropout_edges(generator, edge_mask, adj_rate)
 
         tokens, _ = self.tokenizer(
@@ -116,10 +124,11 @@ class AMPGCN(nn.Module):
             scaler_mean=self.scaler_mean, scaler_std=self.scaler_std,
             generator=generator)
         x = tokens
-        for conv in (self.conv1, self.conv2):
+        for i, conv in enumerate((self.conv1, self.conv2)):
             x = dropout(x, rate, generator)                      # d1, d2
             x, _ = conv(x, graph.senders, graph.receivers, edge_mask,
-                        return_weights=False, layout=edge_layout)
+                        return_weights=False, layout=edge_layout,
+                        fused_fn=None if fused_fns is None else fused_fns[i])
             x = torch.relu(x)
         x = dropout(x, rate, generator)                          # d3
         head_in = x.mean(dim=1)

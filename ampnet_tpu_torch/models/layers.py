@@ -11,7 +11,7 @@ explicit generator on the tensor's device.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -56,7 +56,10 @@ class AMPConv(nn.Module):
 
     With ``use_pallas`` and a layout, the layer runs the fused Hopper
     kernels, forward and backward (any D divisible by num_heads: no TPU
-    lane constraint)."""
+    lane constraint): the scatter-free backward when the layout has its
+    sender side, the stream backward when it has none. ``fused_fn(x,
+    params)`` replaces the call the layer would build itself
+    (``train/pallas_step.py::make_fused_fns``)."""
 
     def __init__(self, embed_dim: int, num_heads: int, softmax: bool = True,
                  use_pallas: bool = False,
@@ -85,11 +88,12 @@ class AMPConv(nn.Module):
         edge_mask: Optional[torch.Tensor] = None,
         return_weights: bool = True,
         layout: Optional[EdgeLayout] = None,
+        fused_fn: Optional[Callable[[torch.Tensor, MHAParams], torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         if x.shape[-1] != self.embed_dim:
             raise ValueError(f"expected last dim {self.embed_dim}, got {tuple(x.shape)}")
         params = self.params()
-        if self.use_pallas and layout is not None:
+        if fused_fn is None and self.use_pallas and layout is not None:
             # the runtime edge mask reaches the kernels through validity, on
             # the receiver side and (for the backward) the sender side alike;
             # trip counts stay structural (layout.recv_ptr, layout.snd_ptr)
@@ -102,11 +106,16 @@ class AMPConv(nn.Module):
                     snd_valid=(layout.snd_valid if edge_mask is None
                                else snd_slot_valid(layout, edge_mask)),
                     snd_ptr=layout.snd_ptr, snd_slots=layout.snd_slots)
-            out = amp_edge_attention_fused(
-                x, params, receivers, edge_mask, layout.tile_senders,
-                tile_valid, layout.recv_ptr, layout.recv_slots,
-                num_heads=self.num_heads, softmax=self.softmax,
-                tile_nodes=layout.tile_nodes, **snd)
+
+            def fused_fn(xx, pp):
+                return amp_edge_attention_fused(
+                    xx, pp, receivers, edge_mask, layout.tile_senders,
+                    tile_valid, layout.recv_ptr, layout.recv_slots,
+                    num_heads=self.num_heads, softmax=self.softmax,
+                    tile_nodes=layout.tile_nodes, **snd)
+
+        if fused_fn is not None:
+            out = fused_fn(x, params)
             weights = (edge_attention_weights(x, senders, receivers, params,
                                               self.num_heads, softmax=self.softmax)
                        if return_weights else None)

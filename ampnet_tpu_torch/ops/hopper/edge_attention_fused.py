@@ -1,8 +1,8 @@
 """Fused AMPConv edge attention on Hopper: the JAX package's
 ``amp_edge_attention_pallas`` with its forward ``_pallas_core_dynamic`` and
-the scatter-free branch of its backward ``_pallas_bwd_dynamic``
+its backward ``_pallas_bwd_dynamic``, scatter-free and stream branch
 (``ampnet_tpu/ops/pallas/edge_attention_fused.py:1953-2098, 2430-2505,
-2101-2219``).
+2101-2296``).
 
 Two hand-written forward kernels (``csrc/``), each beside its plain torch
 version:
@@ -26,12 +26,14 @@ projection, the mean, the out-projection.
 The op is a ``torch.autograd.Function``. When a gradient is needed its
 forward is K1 plus glue whatever the dispatch says (the JAX rule: the
 training forward keeps the sums and counts for the backward, which the
-whole-layer kernel never materializes), and its backward runs the two
-backward kernels of ``edge_attention_bwd_scatterfree.py`` (K3 pass R, K4
-pass S) between torch glue: the out-projection gradients and dsum before
-them, the in-projection gradients (``_finish_bwd``) after. It needs the
-sender side of the layout; without it the backward raises (the stream
-backward of ``edge_attention_bwd.py`` is not ported).
+whole-layer kernel never materializes). Its backward is kernels between
+torch glue (the out-projection gradients and dsum before them, the
+in-projection gradients ``_finish_bwd`` after): with the sender side of
+the layout and ``scatterfree`` the two kernels of
+``edge_attention_bwd_scatterfree.py`` (K3 pass R, K4 pass S); without a
+sender side, or with ``scatterfree=False``, the stream backward of
+``edge_attention_bwd.py`` (K5 pass A, then pass B in torch).
+``fused_bwd=False`` takes the gradients by autograd through the plain op.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in
@@ -40,13 +42,19 @@ launches its kernel or raises. Each wrapper counts its launches in
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ampnet_tpu_torch.ops.edge_attention import MHAParams, attention_core
+from ampnet_tpu_torch.ops.edge_attention import (
+    MHAParams,
+    amp_edge_attention,
+    attention_core,
+)
 from ampnet_tpu_torch.ops.hopper import build
+from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as bwd_stream
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
 from ampnet_tpu_torch.ops.hopper.format import DEFAULT_TILE_NODES
 from ampnet_tpu_torch.ops.hopper.launch import (
@@ -59,6 +67,11 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     stream,
 )
 from ampnet_tpu_torch.ops.segment import segment_count
+
+# Which fused backward a layout WITH a sender side gets when the caller does
+# not say (the JAX package's environment variable and default): scatter-free
+# unless AMPNET_SCATTERFREE_BWD is set to something other than 1.
+SCATTERFREE_BWD_DEFAULT = os.environ.get("AMPNET_SCATTERFREE_BWD", "1") == "1"
 
 # The JAX package's dispatch constants (its env-var defaults), mirrored so
 # the choice between K1 and K2 is the one the JAX package makes.
@@ -264,7 +277,8 @@ def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
 edge_attention_layer.launches = 0
 
 KERNEL_WRAPPERS = (edge_attention_sums, edge_attention_layer,
-                   bwd.edge_attention_bwd_dq, bwd.edge_attention_bwd_dkv)
+                   bwd.edge_attention_bwd_dq, bwd.edge_attention_bwd_dkv,
+                   bwd_stream.edge_attention_bwd_stream)
 
 
 def reset_launch_counts() -> None:
@@ -274,7 +288,6 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-
 
 
 # ---------------------------------------------------------------- the op
@@ -326,10 +339,12 @@ def _finish_bwd(x, w_qkv, dq_nodes, dkv_nodes):
 class _FusedOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_qkv, b_qkv, w_out, b_out, args):
-        (receivers, edge_mask, tile_senders, tile_valid, recv_ptr, recv_slots,
-         snd, num_heads, softmax, tile_nodes, gather, training) = args
+        (senders, receivers, edge_mask, tile_senders, tile_valid, recv_ptr,
+         recv_slots, snd, num_heads, softmax, tile_nodes, gather, backward) = args
         # snd: None, or the sender-tiled side pass S walks (snd_receivers,
-        # snd_valid, snd_ptr, snd_slots)
+        # snd_valid, snd_ptr, snd_slots). backward: None (no gradient will be
+        # asked), 'scatterfree' (K3 + K4), 'stream' (K5 + pass B) or 'plain'
+        # (autograd through the plain op).
         n, s, d = x.shape
         nt, sp, gather = _grid(x, tile_senders, recv_ptr, tile_nodes, gather)
         x_rows = _token_rows(x, nt, sp)
@@ -337,8 +352,8 @@ class _FusedOp(torch.autograd.Function):
 
         # the whole-layer kernel never materializes the sums the backward
         # needs, so it is the no-grad route only (the JAX rule)
-        if not training and _v6_usable(n, nt, sp, d, 4, tile_nodes,
-                                       _auto_group(sp), gather):
+        if backward is None and _v6_usable(n, nt, sp, d, 4, tile_nodes,
+                                           _auto_group(sp), gather):
             invdeg = torch.where(count > 0, 1.0 / count.clamp_min(1.0),
                                  torch.zeros_like(count))
             rows = edge_attention_layer(
@@ -356,22 +371,25 @@ class _FusedOp(torch.autograd.Function):
         mean = sums / count.clamp_min(1.0)[:, None, None]
         out = mean @ w_out + b_out
         out = torch.where((count > 0)[:, None, None], out, torch.zeros_like(out))
-        if training:
+        ctx.backward_route = backward
+        if backward == "plain":
+            ctx.save_for_backward(x, w_qkv, b_qkv, w_out, b_out, senders, receivers,
+                                  edge_mask)
+            ctx.kernel_args = dict(num_heads=num_heads, softmax=softmax)
+        elif backward is not None:
             ctx.save_for_backward(x, w_qkv, b_qkv, w_out, sums, count, tile_senders,
                                   tile_valid, recv_ptr, recv_slots, *(snd or ()))
             ctx.kernel_args = dict(s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+            # the JAX rule: only the dma gather folds its stream in chunks
+            ctx.chunked = gather != "vmem"
         return out
 
     @staticmethod
     def backward(ctx, gout):
+        if ctx.backward_route == "plain":
+            return (*_plain_bwd(ctx.saved_tensors, gout, **ctx.kernel_args), None)
         (x, w_qkv, b_qkv, w_out, sums, count, tile_senders, tile_valid, recv_ptr,
          recv_slots, *snd) = ctx.saved_tensors
-        if not snd:
-            raise NotImplementedError(
-                "the fused op's backward is the scatter-free one and needs the "
-                "sender side of the layout (compute_layout(sender_layout=True): "
-                "snd_receivers, snd_valid, snd_ptr, snd_slots); the stream "
-                "backward of edge_attention_bwd.py is not ported")
         kw = ctx.kernel_args
         n, s, d = x.shape
         nt, sp = recv_ptr.numel() - 1, kw["sp"]
@@ -382,21 +400,38 @@ class _FusedOp(torch.autograd.Function):
         denom = count.clamp_min(1.0)[:, None, None]
         d_wout = torch.einsum("nsd,nse->de", sums / denom, gm)
         d_bout = gm.sum(dim=(0, 1))
-        # packed [Q | dsum] rows; dsum = gradient of the per-receiver SUM of
-        # messages, 0 on pad token rows and pad node rows
-        qdm = qkv.new_zeros(nt, sp, 2 * d)
-        qdm[:, :, :d] = qkv[:, :d].reshape(nt, sp, d)
-        qdm[:n, :s, d:] = (gm @ w_out.T) / denom
-        qdm = qdm.reshape(nt * sp, 2 * d)
+        # dsum = gradient of the per-receiver SUM of messages, 0 on pad token
+        # rows and pad node rows
+        dsum_rows = _token_rows((gm @ w_out.T) / denom, nt, sp)
 
-        dq_rows = bwd.edge_attention_bwd_dq(
-            qkv[:, :d], qkv[:, d:], qdm[:, d:], tile_senders, tile_valid,
-            recv_ptr, recv_slots, **kw)
-        dkv_rows = bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *snd, **kw)
+        if ctx.backward_route == "scatterfree":
+            qdm = torch.cat([qkv[:, :d], dsum_rows], dim=1)     # packed [Q | dsum]
+            dq_rows = bwd.edge_attention_bwd_dq(
+                qkv[:, :d], qkv[:, d:], dsum_rows, tile_senders, tile_valid,
+                recv_ptr, recv_slots, **kw)
+            dkv_rows = bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *snd, **kw)
+            dkv_nodes = dkv_rows.reshape(nt, sp, 2 * d)[:n, :s]
+        else:
+            dq_rows, dkv_nodes = bwd_stream.stream_backward(
+                qkv[:, :d], qkv[:, d:], dsum_rows, tile_senders, tile_valid,
+                recv_ptr, recv_slots, **kw,
+                chunk_bytes=bwd_stream._STREAM_CHUNK_BYTES if ctx.chunked else None)
+            dkv_nodes = dkv_nodes[:n]
         dq_nodes = dq_rows.reshape(nt, sp, d)[:n, :s]
-        dkv_nodes = dkv_rows.reshape(nt, sp, 2 * d)[:n, :s]
         dx, d_wqkv, d_bqkv = _finish_bwd(x, w_qkv, dq_nodes, dkv_nodes)
         return dx, d_wqkv, d_bqkv, d_wout, d_bout, None
+
+
+def _plain_bwd(saved, gout, *, num_heads, softmax):
+    """fused_bwd=False: the five gradients by autograd through the plain op
+    (the JAX package's ``bwd_xla``), the forward recomputed."""
+    x, w_qkv, b_qkv, w_out, b_out, senders, receivers, edge_mask = saved
+    leaves = [t.detach().requires_grad_() for t in (x, w_qkv, b_qkv, w_out, b_out)]
+    with torch.enable_grad():
+        out, _ = amp_edge_attention(
+            leaves[0], senders, receivers, edge_mask, MHAParams(*leaves[1:]),
+            num_heads, softmax=softmax, return_weights=False)
+    return torch.autograd.grad(out, leaves, gout)
 
 
 def amp_edge_attention_fused(
@@ -415,7 +450,10 @@ def amp_edge_attention_fused(
     snd_receivers: Optional[torch.Tensor] = None,  # [T, EMAXS] the sender-tiled
     snd_valid: Optional[torch.Tensor] = None,      # side (snd_valid may carry
     snd_ptr: Optional[torch.Tensor] = None,        # the RUNTIME mask): needed
-    snd_slots: Optional[torch.Tensor] = None,      # by the backward
+    snd_slots: Optional[torch.Tensor] = None,      # by passes R and S
+    scatterfree: Optional[bool] = None,  # None = AMPNET_SCATTERFREE_BWD
+    fused_bwd: bool = True,
+    senders: Optional[torch.Tensor] = None,        # [E], for fused_bwd=False
 ) -> torch.Tensor:
     """AMPConv through the Hopper kernels; same result and gradients as
     ``ops.edge_attention.amp_edge_attention`` ([N, S, D]).
@@ -424,7 +462,11 @@ def amp_edge_attention_fused(
     dispatch rule, which picks K2 (its v6 whole-layer kernel) or K1 plus
     torch glue for a forward that needs no gradient; each kernel is the same
     for both gathers. When autograd will ask for a gradient the forward is
-    K1 plus glue, and the backward (K3, K4) needs the four ``snd_*`` arrays."""
+    K1 plus glue. The backward is the scatter-free one (K3, K4) when the
+    four ``snd_*`` arrays are given and ``scatterfree`` holds, else the
+    stream backward (K5, then pass B in torch, folded in tile chunks under
+    the 'dma' gather); ``fused_bwd=False`` recomputes through the plain op
+    under autograd instead and needs ``senders``."""
     snd = (snd_receivers, snd_valid, snd_ptr, snd_slots)
     if any(t is None for t in snd):
         if any(t is not None for t in snd):
@@ -436,11 +478,21 @@ def amp_edge_attention_fused(
             f"sender layout has {snd_receivers.shape[0]} tiles vs receiver "
             f"layout's {tile_senders.shape[0]} — both must be built with the "
             f"same tile_nodes over the same padded node count")
+    if scatterfree is None:
+        scatterfree = SCATTERFREE_BWD_DEFAULT
+    if not scatterfree:
+        snd = None
+    if not fused_bwd and senders is None:
+        raise ValueError("fused_bwd=False differentiates the plain op and needs "
+                         "the edge list's senders")
     # whether autograd will record this call (Function.forward cannot tell:
-    # it runs with grad mode off and sees needs_input_grad under no_grad too)
-    training = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, *params))
+    # it runs with grad mode off and sees needs_input_grad under no_grad too),
+    # and which backward it then gets
+    backward = None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        backward = ("plain" if not fused_bwd
+                    else "scatterfree" if snd is not None else "stream")
     return _FusedOp.apply(
         x, params.w_qkv, params.b_qkv, params.w_out, params.b_out,
-        (receivers, edge_mask, tile_senders, tile_valid, recv_ptr, recv_slots,
-         snd, num_heads, softmax, tile_nodes, gather, training))
+        (senders, receivers, edge_mask, tile_senders, tile_valid, recv_ptr,
+         recv_slots, snd, num_heads, softmax, tile_nodes, gather, backward))

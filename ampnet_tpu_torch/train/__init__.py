@@ -5,8 +5,14 @@ from ampnet_tpu_torch.train.checkpoint import (
     resume_or_create,
     save_checkpoint,
 )
-from ampnet_tpu_torch.train.loop import train_full_batch
-from ampnet_tpu_torch.train.losses import masked_accuracy, masked_mean_nll, nll_loss
+from ampnet_tpu_torch.train.loop import train_full_batch, train_saint
+from ampnet_tpu_torch.train.losses import (
+    masked_accuracy,
+    masked_mean_nll,
+    nll_loss,
+    saint_weighted_mean_nll,
+    saint_weighted_nll,
+)
 from ampnet_tpu_torch.train.optim import cosine_warm_restarts, make_optimizer
 from ampnet_tpu_torch.train.rundir import Logfile, create_run_dir
 from ampnet_tpu_torch.train.state import (
@@ -21,5 +27,6 @@ __all__ = [
     "masked_accuracy", "TrainState", "create_train_state", "make_train_step",
     "make_eval_step", "save_checkpoint", "load_checkpoint",
     "load_checkpoint_params", "restore_best", "resume_or_create",
-    "train_full_batch", "create_run_dir", "Logfile",
+    "train_full_batch", "train_saint", "saint_weighted_nll",
+    "saint_weighted_mean_nll", "create_run_dir", "Logfile",
 ]

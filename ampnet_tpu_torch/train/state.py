@@ -1,7 +1,7 @@
 """Train state and step builders (``ampnet_tpu/train/state.py`` in torch).
 
 The training step runs the model with dropout and edge dropout on, takes
-the masked mean NLL, and lets ``loss.backward()`` go through the fused
+the masked mean NLL (or a GraphSAINT node_norm-weighted loss), and lets ``loss.backward()`` go through the fused
 op's backward kernels. The eval step is the deterministic forward (no
 dropout) that produces every accuracy the recipes report. Token sampling
 draws in both (the reference samples at eval too); ``num_eval_samples`` > 1
@@ -16,7 +16,12 @@ import torch
 
 from ampnet_tpu_torch.core.graph import Graph
 from ampnet_tpu_torch.ops.hopper.format import EdgeLayout
-from ampnet_tpu_torch.train.losses import masked_accuracy, masked_mean_nll
+from ampnet_tpu_torch.train.losses import (
+    masked_accuracy,
+    masked_mean_nll,
+    saint_weighted_mean_nll,
+    saint_weighted_nll,
+)
 from ampnet_tpu_torch.train.optim import Optimizer
 
 
@@ -41,32 +46,51 @@ def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
                       torch.Generator(device=device).manual_seed(seed))
 
 
+LOSS_MODES = ("full", "saint", "saint_mean")
+
+
+def training_loss(loss_mode: str, logits: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """'full': masked mean NLL; 'saint': node_norm-weighted NLL sum;
+    'saint_mean': node_norm-weighted NLL mean (the stabilized recipe); all
+    over the graph's real training nodes."""
+    train = graph.train_mask & graph.node_mask
+    if loss_mode == "saint":
+        return saint_weighted_nll(logits, graph.y, graph.node_norm, train)
+    if loss_mode == "saint_mean":
+        return saint_weighted_mean_nll(logits, graph.y, graph.node_norm, train)
+    return masked_mean_nll(logits, graph.y, train)
+
+
 def make_train_step(
     model: torch.nn.Module,
     loss_mode: str = "full",
+    forward: Optional[Callable[..., torch.Tensor]] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """step(state, graph, layout=None) -> (state, metrics): one optimizer
-    step on the masked mean NLL (loss_mode='full'). Metrics are 0-d tensors
-    left on the device (``loss``, ``train_acc``, and ``test_acc`` when the
-    graph has a test mask), taken from the training forward. The GraphSAINT
-    losses are not ported yet."""
-    if loss_mode != "full":
-        raise NotImplementedError(
-            f"loss_mode={loss_mode!r}: only the full-batch loss is ported yet")
+    step on the loss ``loss_mode`` names (``training_loss``). Metrics are 0-d
+    tensors left on the device (``loss``, ``train_acc``, and ``test_acc``
+    when the graph has a test mask), taken from the training forward.
+    ``forward(graph, layout, generator)`` replaces the model call (the
+    fused-closure step of ``train/pallas_step.py``)."""
+    if loss_mode not in LOSS_MODES:
+        raise ValueError(f"unknown loss_mode {loss_mode!r}: one of {LOSS_MODES}")
+    if forward is None:
+        def forward(graph, layout, generator):
+            return model(graph, deterministic=False, generator=generator,
+                         edge_layout=layout)
 
     def step(state: TrainState, graph: Graph,
              layout: Optional[EdgeLayout] = None):
         if state.model is not model:
             raise ValueError("the state belongs to another model than this step")
         state.optimizer.zero_grad()
-        logits = model(graph, deterministic=False, generator=state.generator,
-                       edge_layout=layout)
-        train = graph.train_mask & graph.node_mask
-        loss = masked_mean_nll(logits, graph.y, train)
+        logits = forward(graph, layout, state.generator)
+        loss = training_loss(loss_mode, logits, graph)
         loss.backward()
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
+            train = graph.train_mask & graph.node_mask
             metrics = {"loss": loss.detach(),
                        "train_acc": masked_accuracy(logits, graph.y, train)}
             if graph.test_mask is not None:

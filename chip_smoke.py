@@ -3,8 +3,9 @@
 Builds the Hopper kernels from ampnet_tpu_torch/ops/hopper/csrc, holds each
 against its plain torch version on the card at the main path's shapes
 (K1 edge_attention_sums, K2 edge_attention_layer, K3 edge_attention_bwd_dq,
-K4 edge_attention_bwd_dkv), then drives the port at full width on the
-Cora-shaped surrogate:
+K4 edge_attention_bwd_dkv, K5 edge_attention_bwd_stream with its pass B and
+the chunked fold), then drives the port at full width on the Cora-shaped
+surrogate:
 
   A  inference, the recommended recipe (S=40, tfidf, gcn2 head), 8-draw
      make_eval_step: K1 twice per draw;
@@ -17,7 +18,19 @@ Cora-shaped surrogate:
      float64 autograd on the CPU through the plain oracle, every parameter;
      the loss must be finite and fall;
   D  a few training steps at S=20 (row stride SP=24 > S): the training
-     forward runs K1 where inference runs K2.
+     forward runs K1 where inference runs K2;
+  E  GraphSAINT training, the stabilized recipe (S=40, tfidf, gcn2 head, no
+     edge dropout; sampler of 8 roots x 150 steps, coverage 100; lr 3e-3
+     cosine over the run, clip 1.0, saint_loss='mean', selection every epoch
+     with the 8-draw full-graph eval) through train_saint, cut to
+     SAINT_EPOCHS x SAINT_STEPS: subgraphs share one per-tile edge budget,
+     each step launches 2 K1 + 2 K3 + 2 K4; the loss must fall;
+  F  the same sampler's subgraphs through make_pallas_train_step with
+     compute_layout(sender_layout=False): each step launches 2 K1 + 2 K5 and
+     no K3 / K4. One step's gradients are held against float64 autograd on
+     the CPU and against path E's backward (K3 + K4) on the same subgraph
+     and draw; the loss must fall; one more step runs on the full graph, so
+     that K5 runs at the size of its kernel phase.
 
 Each path's launch counts are set to 0 just before it runs and read right
 after; for A and B one draw with a fixed sampled_idx is checked against the
@@ -68,6 +81,12 @@ RELU_INPUTS = ("conv1", "conv2", "raw_residual_proj", "raw_residual_conv1",
                "raw_residual_conv2")
 # epochs of path C (the recipe's 150) and of the short S=20 path D
 TRAIN_EPOCHS, SHORT_EPOCHS = 150, 3
+# paths E and F: the recipe's 50 epochs x 200 subgraphs cut to this depth
+SAINT_EPOCHS, SAINT_STEPS = 3, 30
+# the chunked fold of the stream backward, against the unchunked one
+FOLD_BUDGET = 128 * 1024 * 1024
+KERNELS = ("edge_attention_sums", "edge_attention_layer", "edge_attention_bwd_dq",
+           "edge_attention_bwd_dkv", "edge_attention_bwd_stream")
 # modules whose outputs are compared stage by stage when the logits disagree
 STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv1",
           "raw_residual_conv2", "final_linear_out")
@@ -78,6 +97,15 @@ PEAK_BYTES = 3.35e12
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def launches(k1=0, k2=0, k3=0, k4=0, k5=0) -> dict:
+    """Launch counts by wrapper, as launch_counts() reports them."""
+    return dict(zip(KERNELS, (k1, k2, k3, k4, k5)))
+
+
+def finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
 
 
 def pin_ieee_f32() -> None:
@@ -172,9 +200,10 @@ def cora(seed: int, device):
 
 
 def kernel_phases(graph, layout, gen, dev):
-    """K1, K3 and K4 at S=40 and S=20, K2 at S=20, each against its plain
-    version."""
+    """K1, K3, K4 and K5 at S=40 and S=20, K2 at S=20, each against its plain
+    version; K5's pass B and chunked fold beside it."""
     from ampnet_tpu_torch.models.layers import AMPConv
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper.format import edge_slot_valid, snd_slot_valid
@@ -254,6 +283,58 @@ def kernel_phases(graph, layout, gen, dev):
                 qdm, kv, *snd_idx, **kw), 3),
             bound_ms=b, bound_by=by, library_ms=None)
 
+        # K5 on the same rows: dq as K3, and the per-edge dk|dv stream on the
+        # slots the walk visits (the others are never written)
+        dq, stream = sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw)
+        dq_ref, stream_ref = sb.edge_attention_bwd_stream_plain(q, kv, dsum, *idx, **kw)
+        torch.cuda.synchronize()
+        walked = layout.recv_slots.long()
+        per_slot = (-1, sp, 2 * d)
+        err = max(compare(f"edge_attention_bwd_stream S={s} dq", dq, dq_ref),
+                  compare(f"edge_attention_bwd_stream S={s} stream",
+                          stream.view(per_slot)[walked], stream_ref.view(per_slot)[walked]))
+        del dq_ref, stream_ref
+        # K3's bytes plus the stream's S rows per walked slot, written once; 5
+        # products of 2*S*S*D per live edge
+        stream_bytes = walked.numel() * s * 2 * d * 4
+        b, by = bound_ms(5 * d * n * s * 4 + index_bytes + stream_bytes,
+                         10 * s * s * d * live_edges)
+        dkv = torch.zeros(nt, s, 2 * d, device=dev)
+        rows[f"edge_attention_bwd_stream_s{s}"] = dict(
+            name="edge_attention_bwd_stream", route="cuda",
+            source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd.cu",
+            replaces="ampnet_tpu/ops/pallas/edge_attention_bwd.py:"
+                     + ("694" if s == 40 else "178"),
+            max_abs_err=err,
+            ms=cuda_ms(lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw), 10),
+            plain_ms=cuda_ms(lambda: sb.edge_attention_bwd_stream_plain(
+                q, kv, dsum, *idx, **kw), 3),
+            bound_ms=b, bound_by=by, library_ms=None,
+            stream_bytes=stream.numel() * 4, walked_stream_bytes=stream_bytes,
+            pass_b_ms=cuda_ms(lambda: sb.stream_to_senders(
+                stream, layout.tile_senders, walked, 0, dkv, s=s, sp=sp), 10))
+        del stream, dkv
+        # pass A + pass B, one launch against tile chunks under FOLD_BUDGET,
+        # and both against K4's per-sender sums
+        dq_1, dkv_1 = sb.stream_backward(q, kv, dsum, *idx, **kw)
+        before = sb.edge_attention_bwd_stream.launches
+        dq_c, dkv_c = sb.stream_backward(q, kv, dsum, *idx, **kw, chunk_bytes=FOLD_BUDGET)
+        torch.cuda.synchronize()
+        chunks = sb.edge_attention_bwd_stream.launches - before
+        if s == 40 and chunks < 3:
+            fail(f"the chunked fold at S=40 ran {chunks} chunks under {FOLD_BUDGET} B")
+        if not torch.equal(dq_c, dq_1):
+            fail(f"chunked fold S={s}: dq differs from the unchunked run")
+        k4 = bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw).view(nt, sp, 2 * d)[:, :s]
+        rows[f"edge_attention_bwd_stream_s{s}"].update(
+            fold_chunks=chunks,
+            fold_max_abs_err=compare(f"chunked fold S={s}", dkv_c, dkv_1),
+            fold_vs_pass_s_max_abs_err=compare(f"stream backward vs pass S, S={s}", dkv_1, k4),
+            fold_ms=cuda_ms(lambda: sb.stream_backward(q, kv, dsum, *idx, **kw), 5),
+            fold_chunked_ms=cuda_ms(lambda: sb.stream_backward(
+                q, kv, dsum, *idx, **kw, chunk_bytes=FOLD_BUDGET), 5))
+        del dq_1, dkv_1, dq_c, dkv_c, k4
+
     s, sp = 20, 24
     conv = AMPConv(d, h, generator=torch.Generator().manual_seed(1)).to(dev)
     with torch.no_grad():
@@ -311,12 +392,13 @@ def drive_path(name, cfg, data, graph, layout, seed, dev):
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = eaf.launch_counts()
     metrics = {k: float(v) for k, v in metrics.items()}
-    if not all(map(lambda v: v == v and abs(v) != float("inf"), metrics.values())):
+    if not finite(metrics.values()):
         fail(f"path {name}: non-finite metrics {metrics}")
     t0 = time.perf_counter()
-    step(graph, torch.Generator(device=dev).manual_seed(seed + 1), layout)
+    for i in range(5):
+        step(graph, torch.Generator(device=dev).manual_seed(seed + 1 + i), layout)
     torch.cuda.synchronize()
-    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_ms = (time.perf_counter() - t0) * 1e3 / 5
 
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     sampler = (tfidf_sample_features if cfg.token_sampling == "tfidf"
@@ -366,13 +448,20 @@ def relu_branch_hooks(model, branches, flips=None):
         for n in RELU_INPUTS if hasattr(model, n)]
 
 
-def gradient_check(name, model, graph, layout, seed):
+def gradient_check(name, model, graph, layout, seed, want=None, loss_mode="full",
+                   fused=False, also=None):
     """One training forward + backward with dropout rates 0 and a fixed
-    sampled_idx: the card's gradients (through K1, K3, K4) against float64
-    autograd on the CPU through the plain oracle, every parameter."""
+    sampled_idx: the card's gradients against float64 autograd on the CPU
+    through the plain oracle, every parameter. ``want``: the launches of
+    that one forward + backward (default 2 K1 + 2 K3 + 2 K4). ``fused``:
+    the convs run through make_fused_fns closures over ``layout`` (the
+    make_pallas_train_step route) instead of edge_layout. ``also`` = (layout,
+    launches): the card's gradients through that other layout's backward
+    must agree too."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.tokenize import tfidf_sample_features
-    from ampnet_tpu_torch.train.losses import masked_mean_nll
+    from ampnet_tpu_torch.train.pallas_step import make_fused_fns
+    from ampnet_tpu_torch.train.state import training_loss
 
     cfg = model.config
     gen = torch.Generator(device=graph.x.device).manual_seed(seed + 3)
@@ -381,13 +470,15 @@ def gradient_check(name, model, graph, layout, seed):
 
     branches, flips = {}, {}
 
-    def grads(m, g, idx, lay, record):
+    def grads(m, g, idx, lay, record, fused_fns=False):
         m.config = dataclasses.replace(cfg, dropout_rate=0.0, dropout_adj_rate=0.0)
         hooks = relu_branch_hooks(m, branches, None if record else flips)
         try:
             m.zero_grad(set_to_none=True)
-            logits = m(g, deterministic=False, sampled_idx=idx, edge_layout=lay)
-            loss = masked_mean_nll(logits, g.y, g.train_mask & g.node_mask)
+            conv = (dict(fused_fns=make_fused_fns(m, g, lay)) if fused_fns
+                    else dict(edge_layout=lay))
+            logits = m(g, deterministic=False, sampled_idx=idx, **conv)
+            loss = training_loss(loss_mode, logits, g)
             loss.backward()
         finally:
             m.config = cfg
@@ -397,36 +488,57 @@ def gradient_check(name, model, graph, layout, seed):
         m.zero_grad(set_to_none=True)
         return float(loss.detach()), out
 
-    eaf.reset_launch_counts()
-    loss_card, card = grads(model, graph, sidx, layout, True)
-    torch.cuda.synchronize()
-    counts = eaf.launch_counts()
-    if counts != {"edge_attention_sums": 2, "edge_attention_layer": 0,
-                  "edge_attention_bwd_dq": 2, "edge_attention_bwd_dkv": 2}:
-        fail(f"path {name}: one forward + backward launched {counts}")
+    def card_grads(lay, want_counts, fused_fns):
+        eaf.reset_launch_counts()
+        loss, out = grads(model, graph, sidx, lay, True, fused_fns)
+        torch.cuda.synchronize()
+        counts = eaf.launch_counts()
+        if counts != want_counts:
+            fail(f"path {name}: one forward + backward launched {counts}, "
+                 f"expected {want_counts}")
+        return loss, out
+
+    loss_card, card = card_grads(layout, want or launches(k1=2, k3=2, k4=2), fused)
     ref_model = copy.deepcopy(model).to("cpu", torch.float64)
     for conv in (ref_model.conv1, ref_model.conv2):
         conv.use_pallas = False
     g = graph.to("cpu")
     g.x = g.x.double()
     loss_ref, ref = grads(ref_model, g, sidx.cpu(), None, False)
-    rel = {}
-    for k in ref:
-        scale = float(ref[k].abs().max())
-        if scale == 0.0 or not torch.isfinite(card[k]).all():
-            fail(f"path {name}: gradient of {k}: reference max {scale}, "
-                 f"card finite={bool(torch.isfinite(card[k]).all())}")
-        rel[k] = float((card[k] - ref[k]).abs().max()) / scale
-    worst = max(rel, key=rel.get)
-    if rel[worst] > GRAD_RTOL:
-        print(json.dumps({"grad_rel_err": rel, "relu_branches_moved": flips,
-                          "precision": precision_state()}),
-              file=sys.stderr)
-        fail(f"path {name}: gradient of {worst} disagrees with float64 autograd on "
-             f"the CPU (max abs err {rel[worst]:.3g} of its largest entry)")
-    return dict(loss_card=loss_card, loss_cpu_f64=loss_ref, parameters=len(rel),
-                grad_max_rel_err=rel[worst], grad_worst_parameter=worst,
-                relu_branches_moved=flips)
+
+    def worst_rel_err(got, what):
+        rel = {}
+        for k in ref:
+            scale = float(ref[k].abs().max())
+            if scale == 0.0 or not torch.isfinite(got[k]).all():
+                fail(f"path {name}: gradient of {k}: reference max {scale}, "
+                     f"card finite={bool(torch.isfinite(got[k]).all())}")
+            rel[k] = float((got[k] - ref[k]).abs().max()) / scale
+        worst = max(rel, key=rel.get)
+        if rel[worst] > GRAD_RTOL:
+            print(json.dumps({"grad_rel_err": rel, "relu_branches_moved": flips,
+                              "precision": precision_state()}),
+                  file=sys.stderr)
+            fail(f"path {name}: gradient of {worst} {what} disagrees with float64 "
+                 f"autograd on the CPU (max abs err {rel[worst]:.3g} of its largest entry)")
+        return worst, rel[worst]
+
+    worst, err = worst_rel_err(card, "")
+    report = dict(loss_card=loss_card, loss_cpu_f64=loss_ref, parameters=len(ref),
+                  grad_max_rel_err=err, grad_worst_parameter=worst,
+                  relu_branches_moved=flips)
+    if also is not None:
+        _, other = card_grads(also[0], also[1], False)
+        _, report["other_backward_grad_max_rel_err"] = worst_rel_err(
+            other, "through the other backward")
+        # the two backwards against each other, on the same draw
+        report["between_backwards_max_rel_err"] = max(
+            float((card[k] - other[k]).abs().max()) / float(ref[k].abs().max())
+            for k in ref)
+        if report["between_backwards_max_rel_err"] > GRAD_RTOL:
+            fail(f"path {name}: the two backwards disagree "
+                 f"({report['between_backwards_max_rel_err']:.3g})")
+    return report
 
 
 def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients):
@@ -452,8 +564,7 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients):
     step(state, graph, layout)
     torch.cuda.synchronize()
     per_step = eaf.launch_counts()
-    if per_step != {"edge_attention_sums": 2, "edge_attention_layer": 0,
-                    "edge_attention_bwd_dq": 2, "edge_attention_bwd_dkv": 2}:
+    if per_step != launches(k1=2, k3=2, k4=2):
         fail(f"path {name}: one training step launched {per_step}, expected "
              f"2 K1 + 2 K3 + 2 K4 and no K2")
     step(state, graph, layout)
@@ -473,8 +584,7 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients):
     counts = eaf.launch_counts()
     history, final = result["history"], result["final_metrics"]
     losses = [row["loss"] for row in history]
-    if len(history) != tcfg.epochs or not all(map(lambda v: v == v and abs(v) != float("inf"),
-                                                  losses + list(final.values()))):
+    if len(history) != tcfg.epochs or not finite(losses + list(final.values())):
         fail(f"path {name}: {len(history)} epochs of {tcfg.epochs}, or a "
              f"non-finite loss or metric ({final})")
     tail = losses[-min(10, len(losses) - 1):]
@@ -486,6 +596,187 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients):
                   final_test_acc=final.get("test_acc"), final_val_acc=final.get("val_acc"),
                   per_step_launches=per_step, launches=counts)
     return counts, report
+
+
+class StepLog:
+    """A Logfile that also keeps the per-step loss of train_saint's rows and
+    the budget lines."""
+
+    def __init__(self):
+        self.losses, self.budget_lines = [], []
+
+    def log(self, msg: str) -> None:
+        print(msg, flush=True)
+        m = re.search(r"Train loss: ([-0-9.einfa]+)", msg)
+        if m:
+            self.losses.append(float(m.group(1)))
+        if "budget regrown" in msg:
+            self.budget_lines.append(msg)
+
+
+def loss_fell(name, losses, k=10):
+    head, tail = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    if not finite(losses) or not tail < head:
+        fail(f"path {name}: the loss did not fall: mean of the first {k} steps "
+             f"{head:.4f}, of the last {k} {tail:.4f}")
+    return dict(steps=len(losses), loss_first_mean=head, loss_last_mean=tail)
+
+
+def saint_sampler(data, seed_steps):
+    from ampnet_tpu_torch.data.graphsaint import GraphSaintRandomWalkSampler
+
+    return GraphSaintRandomWalkSampler(
+        data.x, data.edge_index, y=data.y, train_mask=data.train_mask,
+        val_mask=data.val_mask, test_mask=data.test_mask, batch_size=8,
+        walk_length=150, num_steps=seed_steps, sample_coverage=100, seed=1)
+
+
+def warm_steps_ms(step, state, subs, layouts, passes=5):
+    """Host time of one step over prepared subgraphs (already on the card,
+    layouts built), after one pass over them to warm up: the median pass's
+    mean step, with the fastest and the slowest pass."""
+    times = []
+    for i in range(passes + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g, lay in zip(subs, layouts):
+            step(state, g, lay)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3 / len(subs))
+    times.sort()
+    return times[len(times) // 2], [times[0], times[-1]]
+
+
+def drive_saint(cfg, data, graph, seed, dev):
+    """Paths E and F: GraphSAINT subgraph training of the stabilized recipe
+    through train_saint (layouts with the sender side: K1 + K3 + K4) and
+    through make_pallas_train_step on layouts without one (K1 + K5)."""
+    from ampnet_tpu_torch.core.config import TrainConfig
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.train import (create_train_state, make_optimizer,
+                                        make_train_step, train_saint)
+    from ampnet_tpu_torch.train.loop import _saint_layout_budget
+    from ampnet_tpu_torch.train.pallas_step import make_pallas_train_step
+
+    total = SAINT_EPOCHS * SAINT_STEPS
+    tcfg = TrainConfig(learning_rate=3e-3, weight_decay=5e-4, epochs=SAINT_EPOCHS,
+                       seed=seed, cosine_t0=total, cosine_t_mult=1, grad_clip=1.0,
+                       checkpoint_every=0, select_best_every=1, num_eval_samples=8,
+                       log_every_steps=1, saint_loss="mean")
+
+    def optimizer(model):
+        return make_optimizer(model.parameters(), tcfg.learning_rate,
+                              weight_decay=tcfg.weight_decay, cosine_t0=tcfg.cosine_t0,
+                              cosine_t_mult=1, grad_clip=tcfg.grad_clip)
+
+    t0 = time.perf_counter()
+    sampler = saint_sampler(data, SAINT_STEPS)
+    budget = _saint_layout_budget(sampler)
+    name_e = "E S=40 GraphSAINT, train_saint"
+    report_e = dict(path=name_e, cut=f"{SAINT_EPOCHS} epochs x {SAINT_STEPS} subgraphs "
+                                     f"of the recipe's 50 x 200",
+                    sampler_build_s=time.perf_counter() - t0,
+                    pad_nodes_to=sampler.pad_nodes_to, pad_edges_to=sampler.pad_edges_to,
+                    edge_budget=budget)
+
+    # ten subgraphs of a sampler of their own, prepared once: both layouts on
+    # the host (timed), everything moved to the card
+    probe_sampler = saint_sampler(data, 10)
+    host = list(probe_sampler)
+    t0 = time.perf_counter()
+    with_snd = [compute_layout(g, edges_per_tile=budget) for g in host]
+    report_e["host_layout_ms"] = (time.perf_counter() - t0) * 1e2
+    t0 = time.perf_counter()
+    without = [compute_layout(g, edges_per_tile=budget, sender_layout=False) for g in host]
+    host_layout_ms_f = (time.perf_counter() - t0) * 1e2
+    subs = [g.to(dev) for g in host]
+    with_snd = [lay.to(dev) for lay in with_snd]
+    without = [lay.to(dev) for lay in without]
+    report_e["subgraph_nodes_edges"] = [[g.num_nodes, g.num_edges] for g in host]
+
+    probe = recipe_model(cfg, data, seed, dev)
+    state = create_train_state(probe, optimizer(probe), seed=seed)
+    step_e = make_train_step(probe, loss_mode="saint_mean")
+    eaf.reset_launch_counts()
+    step_e(state, subs[0], with_snd[0])
+    torch.cuda.synchronize()
+    per_step = eaf.launch_counts()
+    if per_step != launches(k1=2, k3=2, k4=2):
+        fail(f"path {name_e}: one step launched {per_step}, expected 2 K1 + 2 K3 + 2 K4")
+    report_e["train_step_warm_ms"], report_e["train_step_warm_ms_range"] = warm_steps_ms(
+        step_e, state, subs, with_snd)
+
+    model = recipe_model(cfg, data, seed, dev)
+    log = StepLog()
+    eaf.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_saint(model, sampler, graph, tcfg, log=log)
+    torch.cuda.synchronize()
+    report_e["train_saint_s"] = time.perf_counter() - t0
+    counts_e = eaf.launch_counts()
+    final = result["final_metrics"]
+    if len(result["history"]) != SAINT_EPOCHS or len(log.losses) != total \
+            or not finite(final.values()):
+        fail(f"path {name_e}: {len(result['history'])} epochs, {len(log.losses)} step "
+             f"rows, final metrics {final}")
+    report_e.update(loss_fell(name_e, log.losses), budget_regrown=log.budget_lines,
+                    final_test_acc=final.get("test_acc"),
+                    final_val_acc=final.get("val_acc"),
+                    per_step_launches=per_step, launches=counts_e)
+    evals = SAINT_EPOCHS + 1                               # selection + final, 8 draws
+    want_e = launches(k1=2 * total + 2 * 8 * evals, k3=2 * total, k4=2 * total)
+    if counts_e != want_e:
+        fail(f"path {name_e} launched {counts_e}, expected {want_e}")
+
+    # ---- path F
+    name_f = "F S=40 GraphSAINT, make_pallas_train_step without a sender side"
+    report_f = dict(path=name_f, cut=f"{total} subgraphs", host_layout_ms=host_layout_ms_f)
+    probe = recipe_model(cfg, data, seed, dev)
+    state = create_train_state(probe, optimizer(probe), seed=seed)
+    step_f = make_pallas_train_step(probe, loss_mode="saint_mean")
+    eaf.reset_launch_counts()
+    step_f(state, subs[0], without[0])
+    torch.cuda.synchronize()
+    per_step = eaf.launch_counts()
+    if per_step != launches(k1=2, k5=2):
+        fail(f"path {name_f}: one step launched {per_step}, expected 2 K1 + 2 K5 and "
+             f"no K3 / K4")
+    report_f["train_step_warm_ms"], report_f["train_step_warm_ms_range"] = warm_steps_ms(
+        step_f, state, subs, without)
+    # after the timing: the float64 reference keeps the host's cores busy
+    report_f["gradient_check"] = gradient_check(
+        name_f, recipe_model(cfg, data, seed, dev), subs[0], without[0], seed,
+        want=launches(k1=2, k5=2), loss_mode="saint_mean", fused=True,
+        also=(with_snd[0], launches(k1=2, k3=2, k4=2)))
+
+    model = recipe_model(cfg, data, seed, dev)
+    state = create_train_state(model, optimizer(model), seed=seed)
+    step_f = make_pallas_train_step(model, loss_mode="saint_mean")
+    sampler = saint_sampler(data, total)
+    losses = []
+    eaf.reset_launch_counts()
+    t0 = time.perf_counter()
+    for sub in sampler.prefetch():
+        lay = compute_layout(sub, edges_per_tile=budget, sender_layout=False)
+        state, metrics = step_f(state, sub.to(dev), lay.to(dev))
+        losses.append(metrics["loss"])
+    losses = [float(v) for v in losses]
+    # one step on the full graph: K5 at the size of its kernel phase
+    full_layout = compute_layout(graph, sender_layout=False)
+    _, metrics = make_pallas_train_step(model, loss_mode="full")(state, graph, full_layout)
+    torch.cuda.synchronize()
+    report_f["steps_s"] = time.perf_counter() - t0
+    counts_f = eaf.launch_counts()
+    if not finite([float(metrics["loss"])]):
+        fail(f"path {name_f}: the full-graph step's loss is {float(metrics['loss'])}")
+    report_f.update(loss_fell(name_f, losses), full_graph_step_loss=float(metrics["loss"]),
+                    per_step_launches=per_step, launches=counts_f)
+    want_f = launches(k1=2 * (total + 1), k5=2 * (total + 1))
+    if counts_f != want_f:
+        fail(f"path {name_f} launched {counts_f}, expected {want_f}")
+    return counts_e, report_e, counts_f, report_f
 
 
 def main() -> int:
@@ -537,16 +828,14 @@ def main() -> int:
     counts_a, path_a = drive_path("A S=40 recommended recipe", recipe, data, graph,
                                   layout, args.seed, dev)
     print(json.dumps(path_a), flush=True)
-    if counts_a != {"edge_attention_sums": 16, "edge_attention_layer": 0,
-                    "edge_attention_bwd_dq": 0, "edge_attention_bwd_dkv": 0}:
+    if counts_a != launches(k1=16):
         fail(f"path A launched {counts_a}, expected 16 edge_attention_sums")
 
     reference = AMPGCNConfig(num_sampled_vectors=20, use_pallas=True)
     counts_b, path_b = drive_path("B S=20 reference recipe", reference, data, graph,
                                   layout, args.seed, dev)
     print(json.dumps(path_b), flush=True)
-    if counts_b != {"edge_attention_sums": 0, "edge_attention_layer": 16,
-                    "edge_attention_bwd_dq": 0, "edge_attention_bwd_dkv": 0}:
+    if counts_b != launches(k2=16):
         fail(f"path B launched {counts_b}, expected 16 edge_attention_layer")
 
     # path C: the recommended recipe's training loop at full width
@@ -558,9 +847,8 @@ def main() -> int:
                                       tcfg, data, graph, args.seed, dev, True)
     print(json.dumps(path_c), flush=True)
     evals = TRAIN_EPOCHS // tcfg.select_best_every + 1      # selection + final
-    want_c = {"edge_attention_sums": 2 * TRAIN_EPOCHS + 2 * 8 * evals,
-              "edge_attention_layer": 0, "edge_attention_bwd_dq": 2 * TRAIN_EPOCHS,
-              "edge_attention_bwd_dkv": 2 * TRAIN_EPOCHS}
+    want_c = launches(k1=2 * TRAIN_EPOCHS + 2 * 8 * evals, k3=2 * TRAIN_EPOCHS,
+                      k4=2 * TRAIN_EPOCHS)
     if counts_c != want_c:
         fail(f"path C launched {counts_c}, expected {want_c}")
 
@@ -571,19 +859,26 @@ def main() -> int:
     counts_d, path_d = drive_training("D S=20 reference recipe, training", reference,
                                       short, data, graph, args.seed, dev, False)
     print(json.dumps(path_d), flush=True)
-    want_d = {"edge_attention_sums": 2 * SHORT_EPOCHS, "edge_attention_layer": 2,
-              "edge_attention_bwd_dq": 2 * SHORT_EPOCHS,
-              "edge_attention_bwd_dkv": 2 * SHORT_EPOCHS}
+    want_d = launches(k1=2 * SHORT_EPOCHS, k2=2, k3=2 * SHORT_EPOCHS, k4=2 * SHORT_EPOCHS)
     if counts_d != want_d:
         fail(f"path D launched {counts_d}, expected {want_d}")
 
+    # paths E and F: GraphSAINT subgraph training, through both backwards
+    saint = dataclasses.replace(recipe, dropout_adj_rate=0.0)
+    counts_e, path_e, counts_f, path_f = drive_saint(saint, data, graph, args.seed, dev)
+    print(json.dumps(path_e), flush=True)
+    print(json.dumps(path_f), flush=True)
+
     # launches: K2 from the inference path that runs it (B); K1, K3, K4 from
-    # the training path C (K1's count includes that path's eval forwards)
+    # the training path C (K1's count includes that path's eval forwards); K5
+    # from path F
     kernels = [
         dict(rows["edge_attention_sums_s40"], launches=counts_c["edge_attention_sums"]),
         dict(rows["edge_attention_layer_s20"], launches=counts_b["edge_attention_layer"]),
         dict(rows["edge_attention_bwd_dq_s40"], launches=counts_c["edge_attention_bwd_dq"]),
         dict(rows["edge_attention_bwd_dkv_s40"], launches=counts_c["edge_attention_bwd_dkv"]),
+        dict(rows["edge_attention_bwd_stream_s40"],
+             launches=counts_f["edge_attention_bwd_stream"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

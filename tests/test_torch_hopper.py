@@ -246,16 +246,24 @@ def test_fused_op_rejects_mismatched_tile_nodes(rng):
 
 
 def test_fused_op_is_forward_only(rng):
-    """Without the sender side of the layout the op stays forward-only: the
-    backward raises and names what is missing, it does not recompute through
-    the plain path."""
+    """Without the sender side of the layout the op is no longer
+    forward-only: the same call now goes backward through the stream
+    backward and yields the gradients of the scatter-free backward."""
     _, gt = make_graphs(rng)
     _, pt = make_params(rng)
+    l0 = fmt.compute_layout(gt, tile_nodes=TN, sender_layout=False)
     lt = fmt.compute_layout(gt, tile_nodes=TN)
-    x = torch.randn(16, S, D, requires_grad=True)
-    out = eaf.amp_edge_attention_fused(x, pt, gt.receivers, gt.edge_mask,
-                                       lt.tile_senders, lt.tile_valid,
-                                       lt.recv_ptr, lt.recv_slots, H, tile_nodes=TN)
-    with pytest.raises(NotImplementedError, match="sender side.*stream backward"):
+    x0 = torch.randn(16, S, D)
+    grads = []
+    for lay, snd in ((l0, {}), (lt, dict(snd_receivers=lt.snd_receivers,
+                                         snd_valid=lt.snd_valid, snd_ptr=lt.snd_ptr,
+                                         snd_slots=lt.snd_slots))):
+        x = x0.clone().requires_grad_()
+        out = eaf.amp_edge_attention_fused(x, pt, gt.receivers, gt.edge_mask,
+                                           lay.tile_senders, lay.tile_valid,
+                                           lay.recv_ptr, lay.recv_slots, H,
+                                           tile_nodes=TN, **snd)
         out.sum().backward()
-    assert x.grad is None
+        grads.append(x.grad)
+    assert float(grads[0].abs().max()) > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)

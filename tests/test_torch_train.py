@@ -366,7 +366,7 @@ def test_resume_continues_exactly(tmp_path):
 
 def test_unported_training_options_raise():
     g, make = tiny_problem()
-    with pytest.raises(NotImplementedError, match="loss_mode"):
-        make_train_step(make(), loss_mode="saint")
+    with pytest.raises(ValueError, match="loss_mode"):
+        make_train_step(make(), loss_mode="sum")
     with pytest.raises(NotImplementedError, match="profile_steps"):
         train_full_batch(make(), g, TrainConfig(**LOOP, epochs=1, profile_steps=2))
