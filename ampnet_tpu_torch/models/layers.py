@@ -112,7 +112,8 @@ class AMPConv(nn.Module):
                     xx, pp, receivers, edge_mask, layout.tile_senders,
                     tile_valid, layout.recv_ptr, layout.recv_slots,
                     num_heads=self.num_heads, softmax=self.softmax,
-                    tile_nodes=layout.tile_nodes, **snd)
+                    tile_nodes=layout.tile_nodes, tile_recv=layout.tile_recv,
+                    tile_counts=layout.tile_counts, **snd)
 
         if fused_fn is not None:
             out = fused_fn(x, params)

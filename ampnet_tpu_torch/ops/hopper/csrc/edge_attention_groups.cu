@@ -1,0 +1,218 @@
+// Edge-group forward kernels on Hopper (sm_90a), f32: the per-receiver SUM
+// of per-edge attention messages with the work cut by EDGES, not by
+// receivers.
+//
+// Replaces the non-default TPU forward bodies of ampnet_tpu/ops/pallas/
+// edge_attention_fused.py:
+//   * K6 ampnet_edge_attention_sums_mm <- _fused_kernel_vmem_v2_mm (:731) and
+//     _fused_kernel_dma_v8 (:1126) with _mm_scatter_epilogue (:1088): the
+//     messages of a tile are buffered on chip and summed onto their
+//     receivers by a {0,1} one-hot product, validity folded in as a select;
+//     also the attention launch of K7 (_fused_kernel_vmem_v6_mm, :865), whose
+//     projection and mean/out-projection launches are in qkv_projection.cu;
+//   * K9 ampnet_edge_attention_sums_v1 <- _fused_kernel (:186) and
+//     _fused_kernel_vmem (:294): G packed edges per step, G | EMAX, every
+//     group walked, each edge's message scaled by its validity and added to
+//     its receiver's rows on its own.
+//
+// Design. One block takes one run of G consecutive layout slots of one
+// tile (slots are in edge order, so a receiver may span groups and blocks,
+// and a group may hold several receivers). The block computes each live
+// slot's message with the shared per-edge steps (attention_tiles.cuh); the
+// receiver's Q rows are loaded again only when the receiver changes from one
+// slot to the next. A TPU tile reduces its group loop into one VMEM
+// accumulator; blocks here run in no order and share nothing, so the
+// reduction across blocks is an f32 atomicAdd into a ZEROED output: the
+// sums are right to rounding but their order, and so their last bits, may
+// change from launch to launch.
+//   K6 keeps the group's G messages in shared memory (they never go to
+//   device memory, as msgT never leaves VMEM) and then reduces them as the
+//   one-hot product does: for every receiver of the group, the select-sum
+//   of the slots that are valid and point at it, added to the output with
+//   ONE atomic per element, whatever the number of its edges in the group.
+//   The trip count is structural (groups below ceil(count / G) of the tile);
+//   a slot beyond EMAX in a ragged last group, and a slot masked at run
+//   time, are selected out and cost no gather.
+//   K9 buffers nothing: each message goes from registers to the output,
+//   times the slot's validity, one atomic per element and EDGE. Every
+//   group of the tile is launched, padding included; a slot of validity 0
+//   contributes exactly 0 and is not gathered. The TPU bodies compute a
+//   dense [G*SP, G*SP] score block and mask it to its diagonal blocks, a
+//   way to feed the matrix unit one large product; the off-diagonal
+//   products are discarded there and are not computed here.
+// The TPU's group sizes (19 at S=40, 32 at S=20) would need G x 20 KB of
+// messages in K6; a block has 227 KB, so the group is this kernel's own
+// launch parameter (it moves the order of summation only).
+//
+// Bound (H100 SXM), as K1's: 4*S^2*D FLOP per live edge against the q, k|v
+// and output rows once (~230 MB at the S=40 Cora shapes): bound by
+// operations at S=40 (0.13 ms), by bytes at S=20.
+
+#include "attention_tiles.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kMaxGroup = 32;
+
+// qs + ks + vs + ps of attention_tiles.cuh, and K6's message buffer
+__host__ __device__ inline size_t smem_floats(int s, int d, int h, int buffered) {
+  const int s2 = (s + 1) / 2 * 2, s4 = (s + 3) / 4 * 4;
+  return (size_t)(s2 + s4) * (d + 1) + (size_t)s * d + (size_t)h * s4 * s +
+         (size_t)buffered * s * d;
+}
+
+// kBuffered: K6 (messages buffered, one-hot reduce). Else K9 (per-edge add).
+template <bool kBuffered>
+__global__ void __launch_bounds__(kThreads)
+edge_group_kernel(const float* __restrict__ q, int ldq,
+                  const float* __restrict__ kv, int ldkv,
+                  const int* __restrict__ tile_senders,
+                  const int* __restrict__ tile_recv,
+                  const int* __restrict__ tile_valid,
+                  const int* __restrict__ tile_counts,
+                  float* __restrict__ out, int emax, int groups_per_tile,
+                  int group, int tile_nodes, int s, int sp, int d, int num_heads,
+                  int softmax) {
+  extern __shared__ float smem[];
+  __shared__ int recv_s[kMaxGroup], live_s[kMaxGroup], lead_s[kMaxGroup];
+  const int tile = blockIdx.x / groups_per_tile;
+  const int slot0 = (blockIdx.x % groups_per_tile) * group;
+  if (kBuffered && slot0 >= tile_counts[tile]) return;  // structural trip count
+  const int tid = threadIdx.x;
+  const int dh = d / num_heads, ld = d + 1;
+  const int s2 = (s + 1) / 2 * 2, s4 = (s + 3) / 4 * 4;
+  const int nslots = min(group, emax - slot0);  // ragged last group: fewer slots
+  const size_t base = (size_t)tile * emax + slot0;
+
+  if (tid < nslots) {
+    recv_s[tid] = tile * tile_nodes + tile_recv[base + tid];
+    live_s[tid] = tile_valid[base + tid] != 0;
+  }
+  __syncthreads();
+  if (tid < nslots) {
+    // leader: the first live slot of the group that points at its receiver
+    int lead = live_s[tid];
+    for (int j = 0; j < tid; ++j) lead &= !(live_s[j] && recv_s[j] == recv_s[tid]);
+    lead_s[tid] = lead;
+  }
+  int any = 0;
+  for (int j = 0; j < nslots; ++j) any |= live_s[j];
+  if (!any) return;  // the same for every thread
+
+  float* qs = smem;
+  float* ks = qs + s2 * ld;
+  float* vs = ks + s4 * ld;
+  float* ps = vs + s * d;
+  float* msg = ps + num_heads * s4 * s;  // K6: [group][s][d]
+  // pad rows of qs / ks / ps must read 0
+  const int zeroed = (s2 + s4) * ld + s * d + num_heads * s4 * s;
+  for (int e = tid; e < zeroed; e += kThreads) smem[e] = 0.0f;
+
+  const float scale = 1.0f / sqrtf((float)dh);
+  int cur = -1;  // the receiver whose Q rows are in qs
+  for (int j = 0; j < nslots; ++j) {
+    if (!live_s[j]) continue;
+    const int r = recv_s[j];
+    const size_t krow0 = (size_t)tile_senders[base + j] * sp;
+    __syncthreads();  // the previous slot is done with qs, ks, vs and ps
+    if (r != cur) load_tile(q, (size_t)r * sp, ldq, 0, d, s, qs, ld, scale);
+    cur = r;
+    load_tile(kv, krow0, ldkv, 0, d, s, ks, ld, 1.0f);
+    load_tile(kv, krow0, ldkv, d, d, s, vs, d, 1.0f);
+    __syncthreads();
+    score_tiles(qs, ks, ps, s, 1, s, d, num_heads);
+    __syncthreads();
+    if (softmax) {
+      softmax_segments(ps, s, 1, s, num_heads);
+      __syncthreads();
+    }
+    if (kBuffered) {
+      float* mj = msg + (size_t)j * s * d;
+      message_tiles(ps, s, vs, s, s, d, num_heads,
+                    [&](int i, int c, float a) { mj[i * d + c] = a; });
+    } else {
+      float* orow = out + (size_t)r * sp * d;
+      const float w = (float)tile_valid[base + j];
+      message_tiles(ps, s, vs, s, s, d, num_heads,
+                    [&](int i, int c, float a) { atomicAdd(orow + i * d + c, a * w); });
+    }
+  }
+  if (!kBuffered) return;
+  __syncthreads();
+
+  // out[r] += sum_j sel[r][j] * msg[j], sel[r][j] = live[j] && recv[j] == r:
+  // one pass per receiver of the group (its leader slot), one atomic per
+  // element. Rows i < s of a receiver are contiguous, s * d floats.
+  for (int j = 0; j < nslots; ++j) {
+    if (!lead_s[j]) continue;
+    float* orow = out + (size_t)recv_s[j] * sp * d;
+    for (int e = tid; e < s * d; e += kThreads) {
+      float a = msg[(size_t)j * s * d + e];
+      for (int j2 = j + 1; j2 < nslots; ++j2)
+        if (live_s[j2] && recv_s[j2] == recv_s[j]) a += msg[(size_t)j2 * s * d + e];
+      atomicAdd(orow + e, a);
+    }
+  }
+}
+
+template <bool kBuffered>
+int launch(const float* q, int ldq, const float* kv, int ldkv,
+           const int* tile_senders, const int* tile_recv, const int* tile_valid,
+           const int* tile_counts, float* out, int num_tiles, int emax, int group,
+           int tile_nodes, int s, int sp, int d, int num_heads, int softmax,
+           cudaStream_t stream) {
+  if (group < 1 || group > kMaxGroup) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      smem_floats(s, d, num_heads, kBuffered ? group : 0) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_group_kernel<kBuffered>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int groups_per_tile = (emax + group - 1) / group;
+  if (num_tiles > 0 && groups_per_tile > 0) {
+    edge_group_kernel<kBuffered><<<num_tiles * groups_per_tile, kThreads, smem, stream>>>(
+        q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, tile_counts, out,
+        emax, groups_per_tile, group, tile_nodes, s, sp, d, num_heads, softmax);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory one block needs; buffered = the group size
+// for K6 (its message buffer), 0 for K9.
+size_t ampnet_edge_group_smem_bytes(int s, int d, int num_heads, int buffered) {
+  return smem_floats(s, d, num_heads, buffered) * sizeof(float);
+}
+
+// K6. q: [num_tiles*tile_nodes*sp] rows of d floats (row stride ldq); kv:
+// rows of k|v (2d floats, stride ldkv); tile_senders / tile_recv / tile_valid:
+// [num_tiles, emax]; tile_counts: [num_tiles] structural live slots; out:
+// [num_tiles*tile_nodes*sp, d] contiguous and ZEROED by the caller.
+int ampnet_edge_attention_sums_mm(const float* q, int ldq, const float* kv, int ldkv,
+                                  const int* tile_senders, const int* tile_recv,
+                                  const int* tile_valid, const int* tile_counts,
+                                  float* out, int num_tiles, int emax, int group,
+                                  int tile_nodes, int s, int sp, int d,
+                                  int num_heads, int softmax, void* stream) {
+  return launch<true>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid,
+                      tile_counts, out, num_tiles, emax, group, tile_nodes, s, sp,
+                      d, num_heads, softmax, (cudaStream_t)stream);
+}
+
+// K9. As K6 without tile_counts: every group of every tile is launched
+// (the caller checks that group divides emax).
+int ampnet_edge_attention_sums_v1(const float* q, int ldq, const float* kv, int ldkv,
+                                  const int* tile_senders, const int* tile_recv,
+                                  const int* tile_valid, float* out, int num_tiles,
+                                  int emax, int group, int tile_nodes, int s, int sp,
+                                  int d, int num_heads, int softmax, void* stream) {
+  return launch<false>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid,
+                       nullptr, out, num_tiles, emax, group, tile_nodes, s, sp, d,
+                       num_heads, softmax, (cudaStream_t)stream);
+}
+
+}  // extern "C"

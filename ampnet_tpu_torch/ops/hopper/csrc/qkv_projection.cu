@@ -1,5 +1,6 @@
 // Row projection C = A @ B + bias on Hopper (sm_90a), f32: the first of
-// the two launches of K2 (edge_attention_layer).
+// the two launches of K2 (edge_attention_layer), and the first and the last
+// of the three launches of K7 (edge_attention_layer_mm).
 //
 // Replaces the in-kernel QKV projection of _fused_kernel_vmem_v6
 // (ampnet_tpu/ops/pallas/edge_attention_fused.py:822-840). There, grid
@@ -14,6 +15,16 @@
 // 138 MB of traffic (0.04 ms at 3.35 TB/s): bound by operations. A plain
 // shared-memory tiled product on the CUDA cores: 64 x 64 output tiles,
 // 16-deep k steps, a 4 x 4 register block per thread.
+//
+// K7's last launch (ampnet_mean_out_projection) replaces the epilogue of
+// _fused_kernel_vmem_v6_mm (:932-939, with inv_col of :920 and
+// _mm_scatter_epilogue :1121-1122): the edge-group kernel leaves no block
+// that owns a finished receiver (its sums meet in device memory through
+// atomics), so the mean as a per-receiver row scale AFTER the reduce, the
+// out-projection and the bias on live rows are this launch: the same tiled
+// product with row r of A scaled by invdeg[r / sp], the bias added where
+// invdeg > 0, and pad token rows (r % sp >= s) written as 0. A receiver of
+// degree 0 has zero sums and invdeg 0 and comes out exactly 0.
 
 #include "common.cuh"
 
@@ -22,10 +33,13 @@ namespace {
 constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
 constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
 
+// kMean: the K7 epilogue (row scale, live-row bias, zero pad rows).
+template <bool kMean>
 __global__ void __launch_bounds__(kThreads)
 projection_kernel(const float* __restrict__ a, int lda,
                   const float* __restrict__ b,
                   const float* __restrict__ bias,
+                  const float* __restrict__ row_scale, int sp, int s,
                   float* __restrict__ c, int ldc, int m, int n, int k) {
   __shared__ float as[kBK][kBM + 4];  // A tile, transposed: as[kk][row]
   __shared__ float bs[kBK][kBN];
@@ -38,7 +52,9 @@ projection_kernel(const float* __restrict__ a, int lda,
     for (int l = tid; l < kBM * kBK; l += kThreads) {
       const int r = l / kBK, kk = l % kBK;
       const int gr = row0 + r, gk = k0 + kk;
-      as[kk][r] = (gr < m && gk < k) ? a[(size_t)gr * lda + gk] : 0.0f;
+      float v = (gr < m && gk < k) ? a[(size_t)gr * lda + gk] : 0.0f;
+      if (kMean && gr < m) v *= row_scale[gr / sp];
+      as[kk][r] = v;
     }
     for (int l = tid; l < kBK * kBN; l += kThreads) {
       const int kk = l / kBN, cc = l % kBN;
@@ -65,10 +81,13 @@ projection_kernel(const float* __restrict__ a, int lda,
   for (int i = 0; i < kTM; ++i) {
     const int gr = row0 + ty * kTM + i;
     if (gr >= m) continue;
+    const bool pad = kMean && gr % sp >= s;
+    const bool live = !kMean || row_scale[gr / sp] > 0.0f;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int gc = col0 + tx * kTN + j;
-      if (gc < n) c[(size_t)gr * ldc + gc] = acc[i][j] + bias[gc];
+      if (gc < n)
+        c[(size_t)gr * ldc + gc] = pad ? 0.0f : live ? acc[i][j] + bias[gc] : acc[i][j];
     }
   }
 }
@@ -84,8 +103,23 @@ int ampnet_qkv_projection(const float* a, int lda, const float* b,
                           int k, void* stream) {
   if (m > 0 && n > 0) {
     dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
-    projection_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        a, lda, b, bias, c, ldc, m, n, k);
+    projection_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        a, lda, b, bias, nullptr, 1, 1, c, ldc, m, n, k);
+  }
+  return (int)cudaGetLastError();
+}
+
+// c = (invdeg[row / sp] * sums) @ w_out (+ b_out on rows of a live receiver);
+// rows with row % sp >= s are written as 0. sums: [m, k] (row stride lda),
+// invdeg: [m / sp], w_out: [k, n] contiguous, b_out: [n], c: [m, n].
+int ampnet_mean_out_projection(const float* sums, int lda, const float* invdeg,
+                               const float* w_out, const float* b_out, float* c,
+                               int ldc, int m, int n, int k, int sp, int s,
+                               void* stream) {
+  if (m > 0 && n > 0) {
+    dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
+    projection_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        sums, lda, w_out, b_out, invdeg, sp, s, c, ldc, m, n, k);
   }
   return (int)cudaGetLastError();
 }

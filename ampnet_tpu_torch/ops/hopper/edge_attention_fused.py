@@ -17,16 +17,26 @@ version:
   then the K1 walk with the 1/degree fold and the out-projection and
   live-row bias in its epilogue.
 
+The JAX package's non-default forward routes have their kernels in
+``edge_attention_variants.py``: scatter-as-matmul (K6 sums, K7 whole
+layer), the packed v1 groups (K9) and the receiver chunks (K8, no caller on
+the model path).
+
 ``amp_edge_attention_fused`` chooses between them with the JAX package's
-own predicates and constants (``_resolve_gather``, ``_v6_usable``), so both
-packages take the same math path for the same config. Around K1 the glue
-stays plain torch, as the JAX package leaves it to XLA: the QKV
-projection, the mean, the out-projection.
+own predicates and constants (``_resolve_gather``, ``_v6_usable``,
+``MM_SCATTER_DEFAULT``, ``DMA_V1_DEFAULT``), so both packages take the same
+math path for the same config: ``mm_scatter`` turns K1 into K6 and K2 into
+K7; a 'dma' gather under ``DMA_V1_DEFAULT`` runs K9.
+``amp_edge_attention_fused_core`` / ``make_fused_edge_attention`` are the
+fixed-graph entry points (the JAX package's
+``amp_edge_attention_pallas_core`` / ``make_pallas_edge_attention``). Around
+K1, K6 and K9 the glue stays plain torch, as the JAX package leaves it to
+XLA: the QKV projection, the mean, the out-projection.
 
 The op is a ``torch.autograd.Function``. When a gradient is needed its
-forward is K1 plus glue whatever the dispatch says (the JAX rule: the
-training forward keeps the sums and counts for the backward, which the
-whole-layer kernel never materializes). Its backward is kernels between
+forward is a sums kernel (K1, or K6 / K9 on their routes) plus glue, never
+a whole-layer kernel (the JAX rule: the training forward keeps the sums and
+counts for the backward, which K2 and K7 never materialize). Its backward is kernels between
 torch glue (the out-projection gradients and dsum before them, the
 in-projection gradients ``_finish_bwd`` after): with the sender side of
 the layout and ``scatterfree`` the two kernels of
@@ -43,8 +53,9 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,7 +67,13 @@ from ampnet_tpu_torch.ops.edge_attention import (
 from ampnet_tpu_torch.ops.hopper import build
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as bwd_stream
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
-from ampnet_tpu_torch.ops.hopper.format import DEFAULT_TILE_NODES
+from ampnet_tpu_torch.ops.hopper import edge_attention_variants as variants
+from ampnet_tpu_torch.ops.hopper.format import (
+    DEFAULT_TILE_NODES,
+    TiledCSR,
+    build_tiled_csr,
+    receiver_index,
+)
 from ampnet_tpu_torch.ops.hopper.launch import (
     I,
     P,
@@ -72,6 +89,12 @@ from ampnet_tpu_torch.ops.segment import segment_count
 # not say (the JAX package's environment variable and default): scatter-free
 # unless AMPNET_SCATTERFREE_BWD is set to something other than 1.
 SCATTERFREE_BWD_DEFAULT = os.environ.get("AMPNET_SCATTERFREE_BWD", "1") == "1"
+# Scatter-as-matmul accumulate when the caller does not say (K6 for K1, K7
+# for K2), and the packed v1 groups (K9) on the 'dma' gather: the JAX
+# package's environment variables, both off by default, both read at call
+# time.
+MM_SCATTER_DEFAULT = os.environ.get("AMPNET_MM_SCATTER", "0") == "1"
+DMA_V1_DEFAULT = os.environ.get("AMPNET_DMA_V1", "0") == "1"
 
 # The JAX package's dispatch constants (its env-var defaults), mirrored so
 # the choice between K1 and K2 is the one the JAX package makes.
@@ -278,7 +301,7 @@ edge_attention_layer.launches = 0
 
 KERNEL_WRAPPERS = (edge_attention_sums, edge_attention_layer,
                    bwd.edge_attention_bwd_dq, bwd.edge_attention_bwd_dkv,
-                   bwd_stream.edge_attention_bwd_stream)
+                   bwd_stream.edge_attention_bwd_stream, *variants.KERNEL_WRAPPERS)
 
 
 def reset_launch_counts() -> None:
@@ -336,50 +359,97 @@ def _finish_bwd(x, w_qkv, dq_nodes, dkv_nodes):
     return dx, d_wqkv, d_bqkv
 
 
+class _Route(NamedTuple):
+    """What the forward dispatch reads beside x and the parameters."""
+    receivers: torch.Tensor
+    edge_mask: Optional[torch.Tensor]
+    tile_senders: torch.Tensor
+    tile_valid: torch.Tensor
+    recv_ptr: torch.Tensor
+    recv_slots: torch.Tensor
+    tile_recv: Optional[torch.Tensor]     # K6, K7, K9 walk slots, not receivers
+    tile_counts: Optional[torch.Tensor]   # K6, K7: structural trip counts
+    num_heads: int
+    softmax: bool
+    tile_nodes: int
+    gather: str
+    mm_scatter: bool
+    dma_v1: bool
+    group: int                            # the JAX group, read by _v6_usable only
+
+
+def _forward(x, w_qkv, b_qkv, w_out, b_out, r: _Route, keep_parts: bool):
+    """The JAX package's forward dispatch (``_pallas_core_dynamic``).
+    Returns (out, sums, count, sp, gather); sums and count are None on the
+    whole-layer route, which ``keep_parts`` rules out (it never
+    materializes the sums a fused backward needs)."""
+    n, s, d = x.shape
+    nt, sp, gather = _grid(x, r.tile_senders, r.recv_ptr, r.tile_nodes, r.gather)
+    x_rows = _token_rows(x, nt, sp)
+    count = segment_count(r.receivers, n, r.edge_mask)
+    kw = dict(s=s, sp=sp, num_heads=r.num_heads, softmax=r.softmax)
+    walk = (r.tile_senders, r.tile_valid, r.recv_ptr, r.recv_slots)
+    v1 = gather != "vmem" and r.dma_v1
+    if (v1 or r.mm_scatter) and r.tile_recv is None:
+        raise ValueError("mm_scatter and the packed v1 groups walk the layout's "
+                         "slots: pass tile_recv (and tile_counts for mm_scatter)")
+    if r.mm_scatter and not v1 and r.tile_counts is None:
+        raise ValueError("mm_scatter needs the layout's structural tile_counts")
+    slots = (r.tile_senders, r.tile_recv, r.tile_valid)
+
+    if not keep_parts and _v6_usable(n, nt, sp, d, 4, r.tile_nodes,
+                                     r.group or _auto_group(sp), gather):
+        invdeg = torch.where(count > 0, 1.0 / count.clamp_min(1.0),
+                             torch.zeros_like(count))
+        weights = (w_qkv.contiguous(), b_qkv.contiguous(), w_out.contiguous(),
+                   b_out.contiguous(), F.pad(invdeg, (0, nt - n)))
+        if r.mm_scatter:
+            rows = variants.edge_attention_layer_mm(
+                x_rows, *weights, *slots, r.tile_counts, **kw, tile_nodes=r.tile_nodes)
+        else:
+            rows = edge_attention_layer(x_rows, *weights, *walk, **kw)
+        return rows[: n * sp].reshape(n, sp, d)[:, :s], None, None, sp, gather
+
+    qkv = x_rows @ w_qkv + b_qkv
+    q_rows, kv_rows = qkv[:, :d], qkv[:, d:]
+    if v1:       # mm_scatter is ignored on this route, as in the JAX package
+        emax = r.tile_senders.shape[1]
+        sums = variants.edge_attention_sums_v1(
+            q_rows, kv_rows, *slots, **kw, tile_nodes=r.tile_nodes,
+            group=8 if emax % 8 == 0 else 1, gather=gather)
+    elif r.mm_scatter:
+        sums = variants.edge_attention_sums_mm(
+            q_rows, kv_rows, *slots, r.tile_counts, **kw, tile_nodes=r.tile_nodes)
+    else:
+        sums = edge_attention_sums(q_rows, kv_rows, *walk, **kw)
+    sums = sums[: n * sp].reshape(n, sp, d)[:, :s]
+    mean = sums / count.clamp_min(1.0)[:, None, None]
+    out = mean @ w_out + b_out
+    out = torch.where((count > 0)[:, None, None], out, torch.zeros_like(out))
+    return out, sums, count, sp, gather
+
+
 class _FusedOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_qkv, b_qkv, w_out, b_out, args):
-        (senders, receivers, edge_mask, tile_senders, tile_valid, recv_ptr,
-         recv_slots, snd, num_heads, softmax, tile_nodes, gather, backward) = args
+        route, senders, snd, backward = args
         # snd: None, or the sender-tiled side pass S walks (snd_receivers,
         # snd_valid, snd_ptr, snd_slots). backward: None (no gradient will be
         # asked), 'scatterfree' (K3 + K4), 'stream' (K5 + pass B) or 'plain'
         # (autograd through the plain op).
-        n, s, d = x.shape
-        nt, sp, gather = _grid(x, tile_senders, recv_ptr, tile_nodes, gather)
-        x_rows = _token_rows(x, nt, sp)
-        count = segment_count(receivers, n, edge_mask)
-
-        # the whole-layer kernel never materializes the sums the backward
-        # needs, so it is the no-grad route only (the JAX rule)
-        if backward is None and _v6_usable(n, nt, sp, d, 4, tile_nodes,
-                                           _auto_group(sp), gather):
-            invdeg = torch.where(count > 0, 1.0 / count.clamp_min(1.0),
-                                 torch.zeros_like(count))
-            rows = edge_attention_layer(
-                x_rows, w_qkv.contiguous(), b_qkv.contiguous(),
-                w_out.contiguous(), b_out.contiguous(),
-                F.pad(invdeg, (0, nt - n)), tile_senders, tile_valid, recv_ptr,
-                recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax)
-            return rows[: n * sp].reshape(n, sp, d)[:, :s]
-
-        qkv = x_rows @ w_qkv + b_qkv
-        sums = edge_attention_sums(
-            qkv[:, :d], qkv[:, d:], tile_senders, tile_valid, recv_ptr, recv_slots,
-            s=s, sp=sp, num_heads=num_heads, softmax=softmax)
-        sums = sums[: n * sp].reshape(n, sp, d)[:, :s]
-        mean = sums / count.clamp_min(1.0)[:, None, None]
-        out = mean @ w_out + b_out
-        out = torch.where((count > 0)[:, None, None], out, torch.zeros_like(out))
+        out, sums, count, sp, gather = _forward(
+            x, w_qkv, b_qkv, w_out, b_out, route, keep_parts=backward is not None)
         ctx.backward_route = backward
         if backward == "plain":
-            ctx.save_for_backward(x, w_qkv, b_qkv, w_out, b_out, senders, receivers,
-                                  edge_mask)
-            ctx.kernel_args = dict(num_heads=num_heads, softmax=softmax)
+            ctx.save_for_backward(x, w_qkv, b_qkv, w_out, b_out, senders,
+                                  route.receivers, route.edge_mask)
+            ctx.kernel_args = dict(num_heads=route.num_heads, softmax=route.softmax)
         elif backward is not None:
-            ctx.save_for_backward(x, w_qkv, b_qkv, w_out, sums, count, tile_senders,
-                                  tile_valid, recv_ptr, recv_slots, *(snd or ()))
-            ctx.kernel_args = dict(s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+            ctx.save_for_backward(x, w_qkv, b_qkv, w_out, sums, count,
+                                  route.tile_senders, route.tile_valid, route.recv_ptr,
+                                  route.recv_slots, *(snd or ()))
+            ctx.kernel_args = dict(s=x.shape[1], sp=sp, num_heads=route.num_heads,
+                                   softmax=route.softmax)
             # the JAX rule: only the dma gather folds its stream in chunks
             ctx.chunked = gather != "vmem"
         return out
@@ -454,6 +524,10 @@ def amp_edge_attention_fused(
     scatterfree: Optional[bool] = None,  # None = AMPNET_SCATTERFREE_BWD
     fused_bwd: bool = True,
     senders: Optional[torch.Tensor] = None,        # [E], for fused_bwd=False
+    mm_scatter: Optional[bool] = None,   # None = AMPNET_MM_SCATTER
+    tile_recv: Optional[torch.Tensor] = None,      # [T, EMAX] receiver rows and
+    tile_counts: Optional[torch.Tensor] = None,    # [T] STRUCTURAL counts: the
+    #                                    mm_scatter and v1 routes walk slots
 ) -> torch.Tensor:
     """AMPConv through the Hopper kernels; same result and gradients as
     ``ops.edge_attention.amp_edge_attention`` ([N, S, D]).
@@ -466,7 +540,13 @@ def amp_edge_attention_fused(
     four ``snd_*`` arrays are given and ``scatterfree`` holds, else the
     stream backward (K5, then pass B in torch, folded in tile chunks under
     the 'dma' gather); ``fused_bwd=False`` recomputes through the plain op
-    under autograd instead and needs ``senders``."""
+    under autograd instead and needs ``senders``.
+
+    ``mm_scatter`` takes the scatter-as-matmul forward: K7 where K2 would
+    run, K6 where K1 would (also under autograd: the backward does not
+    depend on how the forward accumulates). With ``DMA_V1_DEFAULT`` a 'dma'
+    gather runs the packed v1 groups (K9) whatever ``mm_scatter`` says.
+    These routes need ``tile_recv`` (and ``tile_counts`` for mm_scatter)."""
     snd = (snd_receivers, snd_valid, snd_ptr, snd_slots)
     if any(t is None for t in snd):
         if any(t is not None for t in snd):
@@ -482,6 +562,8 @@ def amp_edge_attention_fused(
         scatterfree = SCATTERFREE_BWD_DEFAULT
     if not scatterfree:
         snd = None
+    if mm_scatter is None:
+        mm_scatter = MM_SCATTER_DEFAULT
     if not fused_bwd and senders is None:
         raise ValueError("fused_bwd=False differentiates the plain op and needs "
                          "the edge list's senders")
@@ -492,7 +574,99 @@ def amp_edge_attention_fused(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
         backward = ("plain" if not fused_bwd
                     else "scatterfree" if snd is not None else "stream")
-    return _FusedOp.apply(
-        x, params.w_qkv, params.b_qkv, params.w_out, params.b_out,
-        (senders, receivers, edge_mask, tile_senders, tile_valid, recv_ptr,
-         recv_slots, snd, num_heads, softmax, tile_nodes, gather, backward))
+    route = _Route(receivers, edge_mask, tile_senders, tile_valid, recv_ptr,
+                   recv_slots, tile_recv, tile_counts, num_heads, softmax, tile_nodes,
+                   gather, mm_scatter, DMA_V1_DEFAULT, 0)
+    return _FusedOp.apply(x, *params, (route, senders, snd, backward))
+
+
+# ---------------------------------------------------------------- fixed graphs
+
+
+def _route_of(tcsr: TiledCSR, device, receivers, edge_mask, num_heads, softmax,
+              gather, group) -> _Route:
+    """A host-side TiledCSR as the dispatch reads it, its arrays on device."""
+    counts = (tcsr.counts if tcsr.counts is not None
+              else (np.asarray(tcsr.valid) != 0).sum(-1))
+    ptr, slots = receiver_index(np.asarray(tcsr.recv_local), counts, tcsr.tile_nodes)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.int32)).to(device)
+         for k, v in dict(senders=tcsr.senders, recv=tcsr.recv_local, valid=tcsr.valid,
+                          counts=counts, ptr=ptr, slots=slots).items()}
+    return _Route(receivers, edge_mask, t["senders"], t["valid"], t["ptr"], t["slots"],
+                  t["recv"], t["counts"], num_heads, softmax, tcsr.tile_nodes, gather,
+                  MM_SCATTER_DEFAULT, DMA_V1_DEFAULT, group)
+
+
+def amp_edge_attention_fused_core(
+    x: torch.Tensor,                 # [N, S, D]
+    params: MHAParams,
+    tcsr: TiledCSR,                  # host layout (build_tiled_csr)
+    receivers: torch.Tensor,         # [E] (degree counts)
+    edge_mask: Optional[torch.Tensor],
+    num_heads: int,
+    softmax: bool = True,
+    gather: str = "auto",
+    group: int = 0,
+) -> torch.Tensor:
+    """Forward only, over a host-side layout (the JAX package's
+    ``amp_edge_attention_pallas_core``): the dispatch of
+    ``amp_edge_attention_fused`` for a forward that keeps nothing, with
+    ``mm_scatter`` taken from ``MM_SCATTER_DEFAULT``. ``group`` is the JAX
+    edge group (0 = its automatic choice); here it only enters the
+    ``_v6_usable`` accounting. No autograd graph is recorded."""
+    route = _route_of(tcsr, x.device, receivers, edge_mask, num_heads, softmax,
+                      gather, group)
+    with torch.no_grad():
+        return _forward(x, *params, route, keep_parts=False)[0]
+
+
+class _FixedGraphOp(torch.autograd.Function):
+    """The forward through the kernels, whole-layer route included; the
+    backward by autograd through the plain op."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, b_qkv, w_out, b_out, args):
+        route, senders = args
+        ctx.save_for_backward(x, w_qkv, b_qkv, w_out, b_out, senders,
+                              route.receivers, route.edge_mask)
+        ctx.kernel_args = dict(num_heads=route.num_heads, softmax=route.softmax)
+        return _forward(x, w_qkv, b_qkv, w_out, b_out, route, keep_parts=False)[0]
+
+    @staticmethod
+    def backward(ctx, gout):
+        return (*_plain_bwd(ctx.saved_tensors, gout, **ctx.kernel_args), None)
+
+
+def make_fused_edge_attention(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    edge_mask: np.ndarray,
+    num_nodes_padded: int,
+    num_heads: int,
+    softmax: bool = True,
+    tile_nodes: int = DEFAULT_TILE_NODES,
+    group: int = 0,
+    gather: str = "auto",
+):
+    """A fused edge-attention closure for a FIXED graph structure (the JAX
+    package's ``make_pallas_edge_attention``): the layout is built once on
+    the host and moved to the device of the first x it sees. Returns
+    fn(x [N, S, D], params) -> out [N, S, D]; its backward recomputes the
+    gradients through the plain op. ``MM_SCATTER_DEFAULT`` and
+    ``DMA_V1_DEFAULT`` are read at each call."""
+    tcsr = build_tiled_csr(senders, receivers, edge_mask, num_nodes_padded,
+                           tile_nodes, max(group, 1))
+    on_device = {}
+
+    def fused(x: torch.Tensor, params: MHAParams) -> torch.Tensor:
+        if x.device not in on_device:
+            on_device[x.device] = (
+                _route_of(tcsr, x.device, torch.as_tensor(receivers, device=x.device),
+                          torch.as_tensor(edge_mask, device=x.device), num_heads,
+                          softmax, gather, group),
+                torch.as_tensor(senders, device=x.device))
+        route, snd = on_device[x.device]
+        route = route._replace(mm_scatter=MM_SCATTER_DEFAULT, dma_v1=DMA_V1_DEFAULT)
+        return _FixedGraphOp.apply(x, *params, (route, snd))
+
+    return fused

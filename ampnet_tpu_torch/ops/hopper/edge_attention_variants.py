@@ -1,0 +1,425 @@
+"""The non-default forward routes of the fused AMPConv op on Hopper: the
+JAX package's scatter-as-matmul bodies, its receiver-chunked body and its
+packed v1 groups (``ampnet_tpu/ops/pallas/edge_attention_fused.py``), each
+a hand-written kernel (``csrc/``) beside its plain torch version. All four
+compute what K1 ``edge_attention_sums`` / K2 ``edge_attention_layer``
+compute, by another cut of the work:
+
+* ``edge_attention_sums_mm`` (K6) — ``_fused_kernel_vmem_v2_mm`` and
+  ``_fused_kernel_dma_v8``: work cut by EDGE GROUPS (a run of G layout slots
+  of one tile), the group's messages kept on chip and summed onto their
+  receivers as a {0,1} one-hot product, validity as a select. One kernel
+  for both gathers (Hopper reads K|V from device memory either way).
+* ``edge_attention_layer_mm`` (K7) — ``_fused_kernel_vmem_v6_mm``: the whole
+  layer over K6's body: the projection launch, K6's attention launch, then
+  a launch with the mean as a per-receiver row scale AFTER the reduce, the
+  out-projection and the bias on live rows.
+* ``edge_attention_sums_chunked`` (K8) — ``_fused_kernel_chunked`` over
+  ``format.build_chunked_csr``: chunks of up to C edges of one receiver, one
+  Q read, the chunk's K|V side by side, per-edge softmax, one value product
+  over the contracted rows, one accumulate. No caller on the model path, as
+  in the JAX package.
+* ``edge_attention_sums_v1`` (K9) — ``_fused_kernel`` ('dma') and
+  ``_fused_kernel_vmem`` ('vmem'): G packed edges per step (G | EMAX), every
+  group walked, each message scaled by its validity and added on its own.
+  One kernel for both gathers; the 'vmem' body's skip of a group whose first
+  slot is padding is a per-slot skip here, so a runtime mask on a group's
+  first slot cannot drop the group.
+
+K6, K7 and K9 reduce across thread blocks with f32 atomics into a zeroed
+output: right to rounding, but not bit-reproducible from launch to launch
+(K1, K2 and K8 are). The group of K6 is the port's own launch parameter
+(``MM_GROUP``): the JAX groups (19 at S=40, 32 at S=20) would not fit a
+block's shared memory, and the group moves the order of summation only.
+
+A wrapper given CPU tensors runs its plain version, which repeats the
+kernel's arithmetic (groups and one-hot reduce, packed groups and per-edge
+adds, chunks and per-edge softmax segments); given CUDA tensors it launches
+its kernel or raises. Each wrapper counts its launches in
+``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ampnet_tpu_torch.ops.edge_attention import (
+    _merge_heads,
+    _scores,
+    _split_heads,
+    attention_core,
+)
+from ampnet_tpu_torch.ops.hopper import build
+from ampnet_tpu_torch.ops.hopper.launch import (
+    I,
+    MAX_SMEM,
+    P,
+    check_f32_rows,
+    check_index,
+    check_smem,
+    entry,
+    stream,
+)
+
+# K6's edge group: the largest that leaves room for the per-edge buffers at
+# S=40, D=128 (4 x 20 KB of messages beside 87 KB), also used at S=20.
+MM_GROUP = 4
+
+_SIGNATURES = {
+    "ampnet_edge_attention_sums_mm": [P, I, P, I, P, P, P, P, P,
+                                      I, I, I, I, I, I, I, I, I, P],
+    "ampnet_edge_attention_sums_v1": [P, I, P, I, P, P, P, P,
+                                      I, I, I, I, I, I, I, I, I, P],
+    "ampnet_edge_attention_sums_chunked": [P, I, P, I, P, P, P, P, P,
+                                           I, I, I, I, I, I, I, I, P],
+    "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
+    "ampnet_mean_out_projection": [P, I, P, P, P, P, I, I, I, I, I, I, P],
+}
+
+
+def _entry(lib_name: str, fn_name: str):
+    return entry(lib_name, fn_name, _SIGNATURES[fn_name])
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def _messages(q_rows, kv_rows, recv, snd, *, s, sp, num_heads, softmax):
+    """[L, s, D] attention messages of L (receiver node, sender node) pairs."""
+    d = q_rows.shape[1]
+    q = q_rows.reshape(-1, sp, d)[:, :s][recv]
+    kv = kv_rows.reshape(-1, sp, 2 * d)[:, :s][snd]
+    return attention_core(q, kv[..., :d], kv[..., d:], num_heads, softmax=softmax)[0]
+
+
+def _pad_rows(acc, sp):
+    """[NT, s, D] -> [NT*sp, D] with pad token rows 0."""
+    nt, s, d = acc.shape
+    return F.pad(acc, (0, 0, 0, sp - s)).reshape(nt * sp, d)
+
+
+def edge_attention_sums_mm_plain(q_rows, kv_rows, tile_senders, tile_recv,
+                                 tile_valid, tile_counts, *, s, sp, num_heads,
+                                 softmax, tile_nodes, group):
+    """K6 in plain torch: the messages of each tile's live groups in a
+    buffer [T, EG, s, D] (EG = the slots padded to whole groups; a slot
+    that is masked, or beyond the tile's structural trip count, stays 0),
+    then per tile the one-hot product sel [TN, EG] . msg [EG, s*D] with
+    sel = (receiver row == n) & valid."""
+    t, emax = tile_senders.shape
+    d = q_rows.shape[1]
+    dev = q_rows.device
+    eg = -(-emax // group) * group
+    pad = (0, eg - emax)
+    snd, recv, valid = (F.pad(a, pad) for a in (tile_senders, tile_recv, tile_valid))
+    live_groups = (tile_counts + group - 1) // group                      # [T]
+    selected = ((torch.arange(eg, device=dev)[None, :] // group < live_groups[:, None])
+                & (valid != 0))                                           # [T, EG]
+    tile_idx, pos = torch.nonzero(selected, as_tuple=True)
+    msg = torch.zeros(t, eg, s, d, dtype=torch.float32, device=dev)
+    msg[tile_idx, pos] = _messages(
+        q_rows, kv_rows, tile_idx * tile_nodes + recv[tile_idx, pos].long(),
+        snd[tile_idx, pos].long(), s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+    sel = ((torch.arange(tile_nodes, device=dev)[None, :, None] == recv[:, None, :])
+           & selected[:, None, :]).to(torch.float32)                      # [T, TN, EG]
+    acc = torch.einsum("tne,tesd->tnsd", sel, msg)
+    return _pad_rows(acc.reshape(t * tile_nodes, s, d), sp)
+
+
+def edge_attention_layer_mm_plain(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
+                                  tile_senders, tile_recv, tile_valid, tile_counts,
+                                  *, s, sp, num_heads, softmax, tile_nodes, group):
+    """K7 in plain torch: project, K6's sums, then the mean as a row scale
+    after the reduce, the out-projection, b_out on live rows only."""
+    d = x_rows.shape[1]
+    qkv = x_rows @ w_qkv + b_qkv
+    sums = edge_attention_sums_mm_plain(
+        qkv[:, :d], qkv[:, d:], tile_senders, tile_recv, tile_valid, tile_counts,
+        s=s, sp=sp, num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes,
+        group=group)
+    mean = sums.reshape(-1, sp, d)[:, :s] * invdeg[:, None, None]
+    out = mean @ w_out + b_out * (invdeg > 0).to(mean.dtype)[:, None, None]
+    return _pad_rows(out, sp)
+
+
+def edge_attention_sums_v1_plain(q_rows, kv_rows, tile_senders, tile_recv,
+                                 tile_valid, *, s, sp, num_heads, softmax,
+                                 tile_nodes, group):
+    """K9 in plain torch: every slot of every packed group, padding
+    included, gets its message; each is scaled by its validity and added to
+    its receiver's rows on its own."""
+    t, emax = tile_senders.shape
+    if emax % group:
+        raise ValueError(f"the packed groups need group | EMAX, got {group} and {emax}")
+    d = q_rows.shape[1]
+    dev = q_rows.device
+    recv = (torch.arange(t, device=dev)[:, None] * tile_nodes + tile_recv).reshape(-1)
+    msg = _messages(q_rows, kv_rows, recv, tile_senders.reshape(-1).long(),
+                    s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+    acc = torch.zeros(t * tile_nodes, s, d, dtype=torch.float32, device=dev)
+    acc.index_add_(0, recv, msg * tile_valid.reshape(-1).to(torch.float32)[:, None, None])
+    return _pad_rows(acc, sp)
+
+
+def edge_attention_sums_chunked_plain(q_rows, kv_rows, chunk_senders, chunk_valid,
+                                      chunk_start, chunk_count, *, s, sp, num_heads,
+                                      softmax, chunk):
+    """K8 in plain torch: per live chunk one Q read, the chunk's K|V side by
+    side [C*s, 2D] (an invalid slot is not gathered and holds zeros), scores
+    [H, s, C*s], a softmax over each edge's own segment of s columns, the
+    invalid segments' weights 0, ONE value product over the C*s contracted
+    rows, and one accumulate per chunk."""
+    nt = chunk_start.numel()
+    d = q_rows.shape[1]
+    dev = q_rows.device
+    count = chunk_count.long()
+    recv = torch.repeat_interleave(torch.arange(nt, device=dev), count)   # [NC]
+    nc = recv.numel()
+    first_of_recv = torch.cumsum(count, 0) - count
+    flat = chunk_start.long()[recv] + torch.arange(nc, device=dev) - first_of_recv[recv]
+    snd = chunk_senders.reshape(-1, chunk)[flat].long()                   # [NC, C]
+    ok = chunk_valid.reshape(-1, chunk)[flat] != 0                        # [NC, C]
+    q = q_rows.reshape(nt, sp, d)[:, :s][recv]                            # [NC, s, D]
+    kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]                       # [NC, C, s, 2D]
+    kv = torch.where(ok[:, :, None, None], kv, torch.zeros_like(kv))
+    k2 = kv[..., :d].reshape(nc, chunk * s, d)
+    v2 = kv[..., d:].reshape(nc, chunk * s, d)
+    w = _scores(q, k2, num_heads).reshape(nc, num_heads, s, chunk, s)
+    if softmax:
+        w = torch.softmax(w, dim=-1)
+    w = torch.where(ok[:, None, None, :, None], w, torch.zeros_like(w))
+    out = _merge_heads(w.reshape(nc, num_heads, s, chunk * s) @ _split_heads(v2, num_heads))
+    acc = torch.zeros(nt, s, d, dtype=torch.float32, device=dev)
+    acc.index_add_(0, recv, out)
+    return _pad_rows(acc, sp)
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def _check_rows(q_rows, kv_rows, nt, sp, num_heads):
+    d = q_rows.shape[1]
+    if d % num_heads:
+        raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
+    check_f32_rows("q_rows", q_rows, q_rows.device, nt * sp, d)
+    check_f32_rows("kv_rows", kv_rows, q_rows.device, nt * sp, 2 * d)
+    return d
+
+
+def _check_tiled(device, tile_senders, tile_recv, tile_valid, tile_counts=None):
+    check_index("tile_senders", tile_senders, device)
+    check_index("tile_recv", tile_recv, device, tile_senders.numel())
+    check_index("tile_valid", tile_valid, device, tile_senders.numel())
+    if tile_counts is not None:
+        check_index("tile_counts", tile_counts, device, tile_senders.shape[0])
+
+
+def _group_smem(s, d, num_heads, buffered):
+    _, fn = entry("edge_attention_groups", "ampnet_edge_group_smem_bytes",
+                  [I, I, I, I], ctypes.c_size_t)
+    return fn(s, d, num_heads, buffered)
+
+
+def _mm_group(s, d, num_heads, group):
+    """K6's group: the caller's, checked against the shared memory; else the
+    largest up to MM_GROUP that fits."""
+    if group is None:
+        group = MM_GROUP
+        while group > 1 and _group_smem(s, d, num_heads, group) > MAX_SMEM:
+            group -= 1
+    elif not 1 <= group <= 32:
+        raise ValueError(f"group={group} must be in 1..32")
+    check_smem(_group_smem(s, d, num_heads, group),
+               f"edge-group attention at S={s}, D={d}, H={num_heads}, group={group}")
+    return group
+
+
+def _launch_sums_mm(q_rows, ldq, kv_rows, ldkv, tile_senders, tile_recv, tile_valid,
+                    tile_counts, *, s, sp, d, num_heads, softmax, tile_nodes, group):
+    """K6's launch into a zeroed [NT*sp, D] buffer (no checks, no count)."""
+    t, emax = tile_senders.shape
+    out = torch.zeros(t * tile_nodes * sp, d, dtype=torch.float32,
+                      device=tile_senders.device)
+    lib, fn = _entry("edge_attention_groups", "ampnet_edge_attention_sums_mm")
+    build.check(lib, fn(
+        q_rows, ldq, kv_rows, ldkv, tile_senders.data_ptr(), tile_recv.data_ptr(),
+        tile_valid.data_ptr(), tile_counts.data_ptr(), out.data_ptr(), t, emax,
+        group, tile_nodes, s, sp, d, num_heads, int(softmax), stream()),
+        "edge_attention_sums_mm")
+    return out
+
+
+def edge_attention_sums_mm(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
+                           tile_counts, *, s, sp, num_heads, softmax, tile_nodes,
+                           group: Optional[int] = None):
+    """K6: per-receiver sums [NT*sp, D] f32 (pad token rows 0) by edge
+    groups. The layout arrays are the tiled layout's own ([T, EMAX] int32
+    senders, receiver rows and validity, which may carry a runtime mask, and
+    the [T] STRUCTURAL counts). ``group`` None = ``MM_GROUP`` (lowered to
+    what fits). CPU tensors run the plain version."""
+    if not q_rows.is_cuda:
+        return edge_attention_sums_mm_plain(
+            q_rows, kv_rows, tile_senders, tile_recv, tile_valid, tile_counts,
+            s=s, sp=sp, num_heads=num_heads, softmax=softmax,
+            tile_nodes=tile_nodes, group=MM_GROUP if group is None else group)
+    nt = tile_senders.shape[0] * tile_nodes
+    d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
+    _check_tiled(q_rows.device, tile_senders, tile_recv, tile_valid, tile_counts)
+    group = _mm_group(s, d, num_heads, group)
+    out = _launch_sums_mm(
+        q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
+        tile_senders, tile_recv, tile_valid, tile_counts, s=s, sp=sp, d=d,
+        num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes, group=group)
+    edge_attention_sums_mm.launches += 1
+    return out
+
+
+edge_attention_sums_mm.launches = 0
+
+
+def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
+                            tile_senders, tile_recv, tile_valid, tile_counts, *,
+                            s, sp, num_heads, softmax, tile_nodes,
+                            group: Optional[int] = None):
+    """K7: the whole layer over raw token rows x_rows [NT*sp, D] -> output
+    rows [NT*sp, D] f32 (pad token rows 0; a receiver of degree 0 exactly
+    0). invdeg [NT] is 1/degree of the runtime mask (0 for degree 0). Three
+    launches: the q|k|v projection, K6's attention into zeroed sums, then the
+    mean row scale, out-projection and live-row bias."""
+    if not x_rows.is_cuda:
+        return edge_attention_layer_mm_plain(
+            x_rows, w_qkv, b_qkv, w_out, b_out, invdeg, tile_senders, tile_recv,
+            tile_valid, tile_counts, s=s, sp=sp, num_heads=num_heads,
+            softmax=softmax, tile_nodes=tile_nodes,
+            group=MM_GROUP if group is None else group)
+    dev = x_rows.device
+    nt = tile_senders.shape[0] * tile_nodes
+    d = x_rows.shape[1]
+    if d % num_heads:
+        raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
+    check_f32_rows("x_rows", x_rows, dev, nt * sp, d)
+    check_f32_rows("w_qkv", w_qkv, dev, d, 3 * d)
+    check_f32_rows("w_out", w_out, dev, d, d)
+    for name, t, numel in (("b_qkv", b_qkv, 3 * d), ("b_out", b_out, d), ("invdeg", invdeg, nt)):
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() != numel:
+            raise ValueError(f"{name}: expected {numel} contiguous float32 on {dev}")
+    if not w_qkv.is_contiguous() or not w_out.is_contiguous():
+        raise ValueError("w_qkv and w_out must be contiguous")
+    _check_tiled(dev, tile_senders, tile_recv, tile_valid, tile_counts)
+    group = _mm_group(s, d, num_heads, group)
+    qkv = torch.empty(nt * sp, 3 * d, dtype=torch.float32, device=dev)
+    out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
+    cuda_stream = stream()
+    lib, proj = _entry("qkv_projection", "ampnet_qkv_projection")
+    build.check(lib, proj(x_rows.data_ptr(), x_rows.stride(0), w_qkv.data_ptr(),
+                          b_qkv.data_ptr(), qkv.data_ptr(), 3 * d, nt * sp, 3 * d,
+                          d, cuda_stream), "qkv_projection")
+    sums = _launch_sums_mm(
+        qkv.data_ptr(), 3 * d, qkv.data_ptr() + 4 * d, 3 * d, tile_senders, tile_recv,
+        tile_valid, tile_counts, s=s, sp=sp, d=d, num_heads=num_heads,
+        softmax=softmax, tile_nodes=tile_nodes, group=group)
+    lib, epi = _entry("qkv_projection", "ampnet_mean_out_projection")
+    build.check(lib, epi(sums.data_ptr(), d, invdeg.data_ptr(), w_out.data_ptr(),
+                         b_out.data_ptr(), out.data_ptr(), d, nt * sp, d, d, sp, s,
+                         cuda_stream), "mean_out_projection")
+    edge_attention_layer_mm.launches += 1
+    return out
+
+
+edge_attention_layer_mm.launches = 0
+
+
+def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid, *,
+                           s, sp, num_heads, softmax, tile_nodes, group,
+                           gather: str = "dma"):
+    """K9: per-receiver sums [NT*sp, D] f32 (pad token rows 0) by packed
+    groups of ``group`` edges (``group`` must divide EMAX), every group
+    walked, per-edge adds scaled by validity. ``gather`` names the JAX body
+    ('dma': ``_fused_kernel``, 'vmem': ``_fused_kernel_vmem``); one kernel
+    serves both. CPU tensors run the plain version."""
+    if gather not in ("dma", "vmem"):
+        raise ValueError(f"gather must be 'dma' or 'vmem', got {gather!r}")
+    t, emax = tile_senders.shape
+    if not q_rows.is_cuda:
+        return edge_attention_sums_v1_plain(
+            q_rows, kv_rows, tile_senders, tile_recv, tile_valid, s=s, sp=sp,
+            num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes, group=group)
+    if emax % group:
+        raise ValueError(f"the packed groups need group | EMAX, got {group} and {emax}")
+    nt = t * tile_nodes
+    d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
+    _check_tiled(q_rows.device, tile_senders, tile_recv, tile_valid)
+    check_smem(_group_smem(s, d, num_heads, 0),
+               f"packed-group attention at S={s}, D={d}, H={num_heads}")
+    out = torch.zeros(nt * sp, d, dtype=torch.float32, device=q_rows.device)
+    lib, fn = _entry("edge_attention_groups", "ampnet_edge_attention_sums_v1")
+    build.check(lib, fn(
+        q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
+        tile_senders.data_ptr(), tile_recv.data_ptr(), tile_valid.data_ptr(),
+        out.data_ptr(), t, emax, group, tile_nodes, s, sp, d, num_heads,
+        int(softmax), stream()), "edge_attention_sums_v1")
+    edge_attention_sums_v1.launches += 1
+    return out
+
+
+edge_attention_sums_v1.launches = 0
+
+
+def _chunk_piece(s, d, num_heads, chunk, piece):
+    """Edges of a chunk per step: the caller's, else the chunk in the fewest
+    equal pieces that fit a block's shared memory; checked against it."""
+    _, fn = entry("edge_attention_chunked", "ampnet_edge_chunk_smem_bytes",
+                  [I, I, I, I], ctypes.c_size_t)
+    if piece is None:
+        fits = max((p for p in range(1, chunk + 1)
+                    if fn(s, d, num_heads, p) <= MAX_SMEM), default=1)
+        piece = -(-chunk // -(-chunk // fits))
+    elif not 1 <= piece <= chunk:
+        raise ValueError(f"piece={piece} must be in 1..chunk={chunk}")
+    check_smem(fn(s, d, num_heads, piece),
+               f"chunked attention at S={s}, D={d}, H={num_heads}, piece={piece}")
+    return piece
+
+
+def edge_attention_sums_chunked(q_rows, kv_rows, chunk_senders, chunk_valid,
+                                chunk_start, chunk_count, *, s, sp, num_heads,
+                                softmax, chunk, piece: Optional[int] = None):
+    """K8: per-receiver sums [NT*sp, D] f32 (pad token rows 0) over the
+    chunked layout (``format.compute_chunked_layout``): [T, NCMAX*chunk]
+    int32 senders and validity (which may carry a runtime mask), and each
+    receiver's first flat chunk and number of chunks ([NT] int32 each).
+    ``piece``: edges of a chunk taken per step, None = as many as fit.
+    CPU tensors run the plain version."""
+    if not q_rows.is_cuda:
+        return edge_attention_sums_chunked_plain(
+            q_rows, kv_rows, chunk_senders, chunk_valid, chunk_start, chunk_count,
+            s=s, sp=sp, num_heads=num_heads, softmax=softmax, chunk=chunk)
+    dev = q_rows.device
+    nt = chunk_start.numel()
+    d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
+    check_index("chunk_senders", chunk_senders, dev)
+    check_index("chunk_valid", chunk_valid, dev, chunk_senders.numel())
+    check_index("chunk_start", chunk_start, dev)
+    check_index("chunk_count", chunk_count, dev, nt)
+    if chunk_senders.numel() % chunk or not 1 <= chunk <= 32:
+        raise ValueError(f"chunk={chunk} must be in 1..32 and divide the "
+                         f"{chunk_senders.numel()} slots")
+    piece = _chunk_piece(s, d, num_heads, chunk, piece)
+    out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
+    lib, fn = _entry("edge_attention_chunked", "ampnet_edge_attention_sums_chunked")
+    build.check(lib, fn(
+        q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
+        chunk_senders.data_ptr(), chunk_valid.data_ptr(), chunk_start.data_ptr(),
+        chunk_count.data_ptr(), out.data_ptr(), nt, chunk, piece, s, sp, d,
+        num_heads, int(softmax), stream()), "edge_attention_sums_chunked")
+    edge_attention_sums_chunked.launches += 1
+    return out
+
+
+edge_attention_sums_chunked.launches = 0
+
+KERNEL_WRAPPERS = (edge_attention_sums_mm, edge_attention_layer_mm,
+                   edge_attention_sums_chunked, edge_attention_sums_v1)

@@ -15,6 +15,13 @@ over the sender-tiled side, so the same function, given that side, makes
 ``snd_ptr``/``snd_slots``. Both are built from the STRUCTURAL layout; a
 runtime edge mask reaches the kernels through the validity slots alone
 (``edge_slot_valid``, ``snd_slot_valid``).
+
+A second layout, ``ChunkedCSR`` (``build_chunked_csr``, also the JAX
+package's, array for array), groups the edges into chunks of up to C that
+share one receiver, for the chunked kernel. A receiver's chunks are
+consecutive in its tile, so ``chunk_index`` gives that kernel's per-receiver
+walk; ``chunk_slot_valid`` scatters a runtime mask into this layout's own
+slot numbering.
 """
 from __future__ import annotations
 
@@ -110,6 +117,113 @@ def build_tiled_csr(
     )
 
 
+class ChunkedCSR(NamedTuple):
+    """Receiver-centric chunked layout: chunks of up to C edges sharing ONE
+    receiver (a receiver of higher degree spans several consecutive
+    chunks), receiver-major within each tile."""
+
+    senders: np.ndarray      # [T, NCMAX*C] int32 global sender (chunk-major)
+    chunk_recv: np.ndarray   # [T, NCMAX] int32 receiver row within tile
+    valid: np.ndarray        # [T, NCMAX*C] int32 0/1 (may carry runtime masks)
+    tile_nodes: int          # TN
+    num_tiles: int           # T
+    chunk_edges: int         # C
+    chunks_per_tile: int     # NCMAX (multiple of 128)
+    counts: Optional[np.ndarray] = None     # [T] int32 live chunks per tile
+    edge_slot: Optional[np.ndarray] = None  # [E] int32 flat slot
+    #                          tile * (NCMAX*C) + chunk*C + j (-1 = masked)
+
+
+def build_chunked_csr(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    edge_mask: np.ndarray,
+    num_nodes_padded: int,
+    tile_nodes: int = DEFAULT_TILE_NODES,
+    chunk_edges: int = 8,
+    chunks_per_tile: int = 0,
+) -> ChunkedCSR:
+    """Pass chunks_per_tile > 0 to FIX the per-tile chunk budget so
+    layouts for different subgraphs share one static shape."""
+    senders = np.asarray(senders)
+    receivers = np.asarray(receivers)
+    edge_mask = np.asarray(edge_mask).astype(bool)
+
+    tn = tile_nodes
+    c = chunk_edges
+    t = -(-num_nodes_padded // tn)
+
+    sel = np.nonzero(edge_mask)[0]
+    s, r = senders[sel], receivers[sel]
+    order = np.argsort(r, kind="stable")   # receiver-major
+    s, r, sel = s[order], r[order], sel[order]
+
+    # ceil(deg / C) chunks per receiver
+    deg = np.bincount(r, minlength=num_nodes_padded)
+    chunks_of_recv = -(-deg // c)
+    tile_of_recv = np.arange(num_nodes_padded) // tn
+    chunk_counts = np.bincount(tile_of_recv, weights=chunks_of_recv,
+                               minlength=t).astype(np.int64)
+    need = int(chunk_counts.max()) if chunk_counts.size else 1
+    if chunks_per_tile:
+        if need > chunks_per_tile:
+            raise ValueError(
+                f"tile chunk budget {chunks_per_tile} < required {need}; "
+                f"raise chunks_per_tile or lower tile_nodes"
+            )
+        if chunks_per_tile % 128:
+            raise ValueError("chunks_per_tile must be a multiple of 128")
+        ncmax = chunks_per_tile
+    else:
+        ncmax = ((max(need, 1) + 127) // 128) * 128
+
+    out_s = np.zeros((t, ncmax * c), np.int32)
+    out_r = np.zeros((t, ncmax), np.int32)
+    out_v = np.zeros((t, ncmax * c), np.int32)
+    edge_slot = np.full(len(senders), -1, np.int64)
+
+    # walk receiver runs in order; chunks land consecutively per tile
+    run_starts = np.nonzero(np.diff(r, prepend=-1))[0]
+    run_ends = np.append(run_starts[1:], len(r))
+    next_chunk = np.zeros(t, np.int64)
+    for a, b in zip(run_starts, run_ends):
+        recv = int(r[a])
+        ti = recv // tn
+        for off in range(a, b, c):
+            k = min(c, b - off)
+            ci = int(next_chunk[ti])
+            next_chunk[ti] += 1
+            out_r[ti, ci] = recv % tn
+            out_s[ti, ci * c : ci * c + k] = s[off : off + k]
+            out_v[ti, ci * c : ci * c + k] = 1
+            edge_slot[sel[off : off + k]] = ti * (ncmax * c) + ci * c + np.arange(k)
+    counts = next_chunk.astype(np.int32)
+    return ChunkedCSR(
+        out_s, out_r, out_v, tn, t, c, ncmax,
+        counts=counts, edge_slot=edge_slot.astype(np.int32),
+    )
+
+
+def chunk_index(chunk_recv: np.ndarray, counts: np.ndarray,
+                tile_nodes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-receiver walk over a chunked layout: (chunk_start [T*TN] int32,
+    chunk_count [T*TN] int32). The chunks of global receiver n are the flat
+    chunks chunk_start[n] .. chunk_start[n] + chunk_count[n] - 1 (flat =
+    tile * NCMAX + chunk). Raises unless each tile's live chunks are
+    receiver-major, as build_chunked_csr lays them out."""
+    t, ncmax = chunk_recv.shape
+    live = np.arange(ncmax)[None, :] < np.asarray(counts)[:, None]
+    tile_idx, ci = np.nonzero(live)                       # tile-major, chunk asc
+    recv = tile_idx.astype(np.int64) * tile_nodes + chunk_recv[tile_idx, ci]
+    if (np.diff(recv) < 0).any():
+        raise ValueError("chunked layout is not receiver-major within its tiles")
+    count = np.bincount(recv, minlength=t * tile_nodes)
+    start = np.zeros(t * tile_nodes, np.int64)
+    first = np.nonzero(np.diff(recv, prepend=-1))[0]      # first chunk of each run
+    start[recv[first]] = tile_idx[first].astype(np.int64) * ncmax + ci[first]
+    return start.astype(np.int32), count.astype(np.int32)
+
+
 def receiver_index(recv_local: np.ndarray, counts: np.ndarray,
                    tile_nodes: int) -> tuple[np.ndarray, np.ndarray]:
     """Receiver-major index over a tiled layout's structural slots.
@@ -141,6 +255,15 @@ def default_edge_budget(num_edges_padded: int, num_tiles: int,
     return ((budget + step - 1) // step) * step
 
 
+def _tensors_to(layout, device):
+    """A copy of a layout dataclass with its tensors on ``device``."""
+    return dataclasses.replace(layout, **{
+        f.name: getattr(layout, f.name).to(device)
+        for f in dataclasses.fields(layout)
+        if isinstance(getattr(layout, f.name), torch.Tensor)
+    })
+
+
 @dataclass
 class EdgeLayout:
     """Device-side layout tensors handed to the fused op (int32).
@@ -168,11 +291,7 @@ class EdgeLayout:
     tile_nodes: int = DEFAULT_TILE_NODES
 
     def to(self, device) -> "EdgeLayout":
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
-        })
+        return _tensors_to(self, device)
 
 
 def compute_layout(graph, tile_nodes: int = DEFAULT_TILE_NODES,
@@ -213,6 +332,46 @@ def compute_layout(graph, tile_nodes: int = DEFAULT_TILE_NODES,
     )
 
 
+@dataclass
+class ChunkedLayout:
+    """Device-side chunked layout handed to the chunked kernel (int32):
+    ``build_chunked_csr``'s arrays and ``chunk_index``'s walk over them."""
+
+    senders: torch.Tensor        # [T, NCMAX*C]
+    chunk_recv: torch.Tensor     # [T, NCMAX]
+    valid: torch.Tensor          # [T, NCMAX*C] structural 0/1
+    counts: torch.Tensor         # [T] live chunks per tile
+    edge_slot: torch.Tensor      # [E] (-1 = masked out)
+    chunk_start: torch.Tensor    # [T*TN]
+    chunk_count: torch.Tensor    # [T*TN]
+    chunk_edges: int = 8
+    tile_nodes: int = DEFAULT_TILE_NODES
+
+    def to(self, device) -> "ChunkedLayout":
+        return _tensors_to(self, device)
+
+
+def compute_chunked_layout(graph, tile_nodes: int = DEFAULT_TILE_NODES,
+                           chunk_edges: int = 8,
+                           chunks_per_tile: int = 0) -> ChunkedLayout:
+    """Host-side chunked layout build for a padded Graph; the tensors land
+    on the graph's device."""
+    ck = build_chunked_csr(
+        graph.senders.cpu().numpy(), graph.receivers.cpu().numpy(),
+        graph.edge_mask.cpu().numpy(), graph.num_nodes_padded,
+        tile_nodes=tile_nodes, chunk_edges=chunk_edges,
+        chunks_per_tile=chunks_per_tile)
+    start, count = chunk_index(ck.chunk_recv, ck.counts, tile_nodes)
+    arrays = dict(senders=ck.senders, chunk_recv=ck.chunk_recv, valid=ck.valid,
+                  counts=ck.counts, edge_slot=ck.edge_slot, chunk_start=start,
+                  chunk_count=count)
+    device = graph.senders.device
+    return ChunkedLayout(
+        **{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in arrays.items()},
+        chunk_edges=chunk_edges, tile_nodes=tile_nodes)
+
+
 def _scatter_mask(edge_slot: torch.Tensor, shape, edge_mask: torch.Tensor) -> torch.Tensor:
     t, emax = shape
     slot = edge_slot.long()
@@ -233,3 +392,10 @@ def snd_slot_valid(layout: EdgeLayout, edge_mask: torch.Tensor) -> torch.Tensor:
     """The same scatter into the SENDER-tiled side's validity slots
     ([T, EMAXS] int32), for the backward's pass S."""
     return _scatter_mask(layout.snd_edge_slot, layout.snd_valid.shape, edge_mask)
+
+
+def chunk_slot_valid(layout: ChunkedLayout, edge_mask: torch.Tensor) -> torch.Tensor:
+    """The same scatter into the chunked layout's validity slots
+    ([T, NCMAX*C] int32; slot = tile*(NCMAX*C) + chunk*C + j). The chunks
+    stay structural, so a dropped edge leaves a hole in its chunk."""
+    return _scatter_mask(layout.edge_slot, layout.valid.shape, edge_mask)

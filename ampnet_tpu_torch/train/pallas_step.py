@@ -47,7 +47,8 @@ def make_fused_fns(model: torch.nn.Module, graph: Graph, layout: EdgeLayout,
             layout.tile_valid, layout.recv_ptr, layout.recv_slots,
             num_heads=cfg.num_heads, softmax=cfg.attn_softmax,
             tile_nodes=tile_nodes, gather=gather, fused_bwd=fused_bwd,
-            senders=graph.senders, **snd)
+            senders=graph.senders, tile_recv=layout.tile_recv,
+            tile_counts=layout.tile_counts, **snd)
 
     return (fused, fused)
 

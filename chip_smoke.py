@@ -4,7 +4,10 @@ Builds the Hopper kernels from ampnet_tpu_torch/ops/hopper/csrc, holds each
 against its plain torch version on the card at the main path's shapes
 (K1 edge_attention_sums, K2 edge_attention_layer, K3 edge_attention_bwd_dq,
 K4 edge_attention_bwd_dkv, K5 edge_attention_bwd_stream with its pass B and
-the chunked fold), then drives the port at full width on the Cora-shaped
+the chunked fold; the non-default forward routes K6 edge_attention_sums_mm,
+K7 edge_attention_layer_mm, K8 edge_attention_sums_chunked and K9
+edge_attention_sums_v1, each also against K1's sums or K2's layer on the
+same inputs), then drives the port at full width on the Cora-shaped
 surrogate:
 
   A  inference, the recommended recipe (S=40, tfidf, gcn2 head), 8-draw
@@ -12,7 +15,8 @@ surrogate:
   B  inference, the reference recipe's S=20: K2 twice per draw;
   C  training, the recommended recipe: create_train_state +
      train_full_batch (Adam with L2, clip 1.0, best-validation selection
-     every 10 epochs with the 8-draw eval, 10 epochs per chunk). Each
+     every 10 epochs with the 8-draw eval, 10 epochs per chunk), cut to
+     TRAIN_EPOCHS of the recipe's 150. Each
      training step launches 2 K1 + 2 K3 + 2 K4 and no K2. One step's
      gradients (dropout rates 0, fixed sampled_idx) are held against
      float64 autograd on the CPU through the plain oracle, every parameter;
@@ -30,7 +34,16 @@ surrogate:
      no K3 / K4. One step's gradients are held against float64 autograd on
      the CPU and against path E's backward (K3 + K4) on the same subgraph
      and draw; the loss must fall; one more step runs on the full graph, so
-     that K5 runs at the size of its kernel phase.
+     that K5 runs at the size of its kernel phase;
+  G  the evals of A and B with MM_SCATTER_DEFAULT set: K6 twice per draw at
+     S=40, K7 twice per draw at S=20; the fixed draw's logits also against
+     path A's / B's own;
+  H  a few training steps of the recommended recipe with MM_SCATTER_DEFAULT
+     set: 2 K6 + 2 K3 + 2 K4 per step and no K1, gradients checked as in C;
+     then the steps of D (S=20) with it: K6 where D runs K1;
+  I  the eval of A with DMA_V1_DEFAULT set: K9 twice per draw and no K1.
+K8 has no caller on the model path (as in the JAX package): its phase calls
+the public wrapper on the chunked layout of the same graph.
 
 Each path's launch counts are set to 0 just before it runs and read right
 after; for A and B one draw with a fixed sampled_idx is checked against the
@@ -46,6 +59,7 @@ that neither the environment nor a library default can loosen the checks.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -79,14 +93,18 @@ GRAD_RTOL = 1e-4
 # modules whose output goes straight into a ReLU
 RELU_INPUTS = ("conv1", "conv2", "raw_residual_proj", "raw_residual_conv1",
                "raw_residual_conv2")
-# epochs of path C (the recipe's 150) and of the short S=20 path D
-TRAIN_EPOCHS, SHORT_EPOCHS = 150, 3
+# epochs of path C (of the recipe's 150) and of the short paths D and H
+TRAIN_EPOCHS, SHORT_EPOCHS = 50, 3
 # paths E and F: the recipe's 50 epochs x 200 subgraphs cut to this depth
-SAINT_EPOCHS, SAINT_STEPS = 3, 30
+SAINT_EPOCHS, SAINT_STEPS = 2, 30
 # the chunked fold of the stream backward, against the unchunked one
 FOLD_BUDGET = 128 * 1024 * 1024
 KERNELS = ("edge_attention_sums", "edge_attention_layer", "edge_attention_bwd_dq",
-           "edge_attention_bwd_dkv", "edge_attention_bwd_stream")
+           "edge_attention_bwd_dkv", "edge_attention_bwd_stream",
+           "edge_attention_sums_mm", "edge_attention_layer_mm",
+           "edge_attention_sums_chunked", "edge_attention_sums_v1")
+# K8's chunk: build_chunked_csr's default
+CHUNK_EDGES = 8
 # modules whose outputs are compared stage by stage when the logits disagree
 STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv1",
           "raw_residual_conv2", "final_linear_out")
@@ -99,9 +117,23 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def launches(k1=0, k2=0, k3=0, k4=0, k5=0) -> dict:
+def launches(k1=0, k2=0, k3=0, k4=0, k5=0, k6=0, k7=0, k8=0, k9=0) -> dict:
     """Launch counts by wrapper, as launch_counts() reports them."""
-    return dict(zip(KERNELS, (k1, k2, k3, k4, k5)))
+    return dict(zip(KERNELS, (k1, k2, k3, k4, k5, k6, k7, k8, k9)))
+
+
+@contextlib.contextmanager
+def dispatch_flag(name):
+    """A dispatch constant of the fused op (an environment default) set for
+    the block."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    before = getattr(eaf, name)
+    setattr(eaf, name, True)
+    try:
+        yield
+    finally:
+        setattr(eaf, name, before)
 
 
 def finite(values) -> bool:
@@ -181,10 +213,10 @@ def bound_ms(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name, got, ref):
+def compare(name, got, ref, what="its plain version"):
     err = float((got - ref).abs().max())
     if not torch.allclose(got, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
-        fail(f"{name}: kernel disagrees with its plain version (max abs err {err:.3g})")
+        fail(f"{name}: kernel disagrees with {what} (max abs err {err:.3g})")
     return err
 
 
@@ -200,13 +232,18 @@ def cora(seed: int, device):
 
 
 def kernel_phases(graph, layout, gen, dev):
-    """K1, K3, K4 and K5 at S=40 and S=20, K2 at S=20, each against its plain
-    version; K5's pass B and chunked fold beside it."""
+    """K1, K3, K4, K5, K6, K8 and K9 at S=40 and S=20, K2 and K7 at S=20, each
+    against its plain version (K6, K8, K9 also against K1's sums, K7 against
+    K2's layer); K5's pass B and chunked fold beside it. Returns the rows and
+    K8's launches in its driven phase."""
     from ampnet_tpu_torch.models.layers import AMPConv
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
-    from ampnet_tpu_torch.ops.hopper.format import edge_slot_valid, snd_slot_valid
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+    from ampnet_tpu_torch.ops.hopper.format import (chunk_slot_valid,
+                                                    compute_chunked_layout,
+                                                    edge_slot_valid, snd_slot_valid)
     from ampnet_tpu_torch.ops.segment import segment_count
 
     d, h = 128, 4
@@ -227,6 +264,17 @@ def kernel_phases(graph, layout, gen, dev):
     count = segment_count(graph.receivers, n, mask)
     index_bytes = 4 * (2 * layout.tile_senders.numel() + layout.recv_ptr.numel()
                        + layout.recv_slots.numel())
+    # what the slot-walking kernels (K6, K7, K9) and the chunked one (K8) read
+    tn = layout.tile_nodes
+    slots = (layout.tile_senders, layout.tile_recv, valid)
+    slot_bytes = 4 * 3 * layout.tile_senders.numel()
+    chunked = compute_chunked_layout(graph, chunk_edges=CHUNK_EDGES)
+    chunk_valid = chunk_slot_valid(chunked, mask)
+    if int(chunk_valid.sum()) != live_edges:
+        fail("the chunked layout's runtime validity counts other edges than the tiled one's")
+    chunk_args = (chunked.senders, chunk_valid, chunked.chunk_start, chunked.chunk_count)
+    chunk_bytes = 4 * (2 * chunked.senders.numel() + 2 * chunked.chunk_start.numel())
+    k8_launches = 0
     rows = {}
     for s in (40, 20):
         sp = -(-s // 8) * 8
@@ -236,6 +284,7 @@ def kernel_phases(graph, layout, gen, dev):
         ref = eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *idx, **kw)
         torch.cuda.synchronize()
         err = compare(f"edge_attention_sums S={s}", got, ref)
+        k1_sums = got
         b, by = bound_ms(4 * d * n * s * 4 + index_bytes, 4 * s * s * d * live_edges)
         rows[f"edge_attention_sums_s{s}"] = dict(
             name="edge_attention_sums", route="cuda",
@@ -246,6 +295,62 @@ def kernel_phases(graph, layout, gen, dev):
             plain_ms=cuda_ms(lambda: eaf.edge_attention_sums_plain(
                 qkv[:, :d], qkv[:, d:], *idx, **kw), 3),
             bound_ms=b, bound_by=by, library_ms=None)
+
+        # K6, K9, K8 on the same rows: against their plain versions and K1's sums
+        q, kv = qkv[:, :d], qkv[:, d:]
+        rows_bytes, flops = 4 * d * n * s * 4, 4 * s * s * d * live_edges
+
+        def variant_row(name, replaces, source, run, plain, index_bytes):
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            b, by = bound_ms(rows_bytes + index_bytes, flops)
+            return dict(
+                name=name, route="cuda",
+                source=f"ampnet_tpu_torch/ops/hopper/csrc/{source}",
+                replaces=f"ampnet_tpu/ops/pallas/edge_attention_fused.py:{replaces}",
+                max_abs_err=compare(f"{name} S={s}", got, ref),
+                k1_max_abs_err=compare(f"{name} S={s}", got, k1_sums, "K1's sums"),
+                ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+                bound_ms=b, bound_by=by, library_ms=None)
+
+        mm = dict(**kw, tile_nodes=tn)
+        rows[f"edge_attention_sums_mm_s{s}"] = variant_row(
+            "edge_attention_sums_mm", 1126 if s == 40 else 731, "edge_attention_groups.cu",
+            lambda: eav.edge_attention_sums_mm(q, kv, *slots, layout.tile_counts, **mm),
+            lambda: eav.edge_attention_sums_mm_plain(q, kv, *slots, layout.tile_counts, **mm,
+                                                     group=eav.MM_GROUP),
+            slot_bytes + 4 * layout.tile_counts.numel())
+        rows[f"edge_attention_sums_mm_s{s}"].update(
+            group=eav.MM_GROUP,
+            by_group_ms={g: cuda_ms(lambda: eav.edge_attention_sums_mm(
+                q, kv, *slots, layout.tile_counts, **mm, group=g), 10)
+                for g in ((1, 2, 6) if s == 40 else (1, 2, 8, 16))})
+        for gather in ("dma", "vmem"):     # one kernel, held under both names
+            compare(f"edge_attention_sums_v1 S={s} gather={gather}",
+                    eav.edge_attention_sums_v1(q, kv, *slots, **mm, group=8, gather=gather),
+                    k1_sums, "K1's sums")
+        rows[f"edge_attention_sums_v1_s{s}"] = variant_row(
+            "edge_attention_sums_v1", 186 if s == 40 else 294, "edge_attention_groups.cu",
+            lambda: eav.edge_attention_sums_v1(q, kv, *slots, **mm, group=8,
+                                               gather="dma" if s == 40 else "vmem"),
+            lambda: eav.edge_attention_sums_v1_plain(q, kv, *slots, **mm, group=8),
+            slot_bytes)
+        ck = dict(**kw, chunk=CHUNK_EDGES)
+        eaf.reset_launch_counts()          # K8's phase of its own
+        eav.edge_attention_sums_chunked(q, kv, *chunk_args, **ck)
+        torch.cuda.synchronize()
+        k8_launches += eaf.launch_counts()["edge_attention_sums_chunked"]
+        rows[f"edge_attention_sums_chunked_s{s}"] = variant_row(
+            "edge_attention_sums_chunked", 1225, "edge_attention_chunked.cu",
+            lambda: eav.edge_attention_sums_chunked(q, kv, *chunk_args, **ck),
+            lambda: eav.edge_attention_sums_chunked_plain(q, kv, *chunk_args, **ck),
+            chunk_bytes)
+        rows[f"edge_attention_sums_chunked_s{s}"].update(
+            chunk=CHUNK_EDGES, live_chunks=int(chunked.chunk_count.sum()),
+            by_piece_ms={p: cuda_ms(lambda: eav.edge_attention_sums_chunked(
+                q, kv, *chunk_args, **ck, piece=p), 10)
+                for p in ((1, 2) if s == 40 else (1, 2, 3, 4, 7))})
+        del k1_sums
 
         # K3 / K4 on the same rows, dsum random: [Q | dsum] packed per row
         qdm = torch.cat([qkv[:, :d], torch.randn(nt * sp, d, generator=gen, device=dev)], 1)
@@ -363,7 +468,27 @@ def kernel_phases(graph, layout, gen, dev):
         ms=cuda_ms(lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw), 20),
         plain_ms=cuda_ms(lambda: eaf.edge_attention_layer_plain(x_rows, *w, invdeg, *idx, **kw), 3),
         bound_ms=b, bound_by=by, library_ms=None)
-    return rows
+
+    # K7 on the same rows and weights: against its plain version and K2's layer
+    mm = dict(**kw, tile_nodes=tn)
+    got7 = eav.edge_attention_layer_mm(x_rows, *w, invdeg, *slots, layout.tile_counts, **mm)
+    ref7 = eav.edge_attention_layer_mm_plain(x_rows, *w, invdeg, *slots, layout.tile_counts,
+                                             **mm, group=eav.MM_GROUP)
+    torch.cuda.synchronize()
+    b, by = bound_ms(nbytes - index_bytes + slot_bytes + 4 * layout.tile_counts.numel(), flops)
+    rows["edge_attention_layer_mm_s20"] = dict(
+        name="edge_attention_layer_mm", route="cuda",
+        source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_groups.cu "
+               "+ ampnet_tpu_torch/ops/hopper/csrc/qkv_projection.cu",
+        replaces="ampnet_tpu/ops/pallas/edge_attention_fused.py:865",
+        max_abs_err=compare("edge_attention_layer_mm S=20", got7, ref7),
+        k2_max_abs_err=compare("edge_attention_layer_mm S=20", got7, got, "K2's layer"),
+        ms=cuda_ms(lambda: eav.edge_attention_layer_mm(
+            x_rows, *w, invdeg, *slots, layout.tile_counts, **mm), 20),
+        plain_ms=cuda_ms(lambda: eav.edge_attention_layer_mm_plain(
+            x_rows, *w, invdeg, *slots, layout.tile_counts, **mm, group=eav.MM_GROUP), 3),
+        bound_ms=b, bound_by=by, library_ms=None)
+    return rows, k8_launches
 
 
 def recipe_model(cfg, data, seed, dev):
@@ -375,9 +500,11 @@ def recipe_model(cfg, data, seed, dev):
                   generator=torch.Generator().manual_seed(seed), device=dev)
 
 
-def drive_path(name, cfg, data, graph, layout, seed, dev):
+def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None):
     """One 8-draw eval step through make_eval_step, counts read around it,
-    then one fixed draw on the card against the same forward on the CPU."""
+    then one fixed draw on the card against the same forward on the CPU (and
+    against ``same_as``, another route's logits of that draw). Returns the
+    counts, the report and the draw's logits."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.tokenize import sample_present_features, tfidf_sample_features
     from ampnet_tpu_torch.train import make_eval_step
@@ -423,9 +550,15 @@ def drive_path(name, cfg, data, graph, layout, seed, dev):
             "precision": precision_state()}), file=sys.stderr)
         fail(f"path {name}: card logits disagree with the CPU float64 forward "
              f"(max abs err {err:.3g})")
-    return counts, dict(path=name, metrics=metrics, eval_step_first_ms=first_ms,
-                        eval_step_warm_ms=warm_ms, cpu_f64_max_abs_err=err,
-                        stage_max_abs_err=stage_err)
+    report = dict(path=name, metrics=metrics, eval_step_first_ms=first_ms,
+                  eval_step_warm_ms=warm_ms, cpu_f64_max_abs_err=err,
+                  stage_max_abs_err=stage_err)
+    if same_as is not None:
+        report["other_route_max_abs_err"] = float((card - same_as).abs().max())
+        if not torch.allclose(card, same_as, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+            fail(f"path {name}: logits disagree with the default route's "
+                 f"(max abs err {report['other_route_max_abs_err']:.3g})")
+    return counts, report, card
 
 
 def relu_branch_hooks(model, branches, flips=None):
@@ -541,10 +674,12 @@ def gradient_check(name, model, graph, layout, seed, want=None, loss_mode="full"
     return report
 
 
-def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients):
+def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
+                   want_step=None):
     """create_train_state + train_full_batch, counts read around it; before
     that, on a model of its own, the gradient check, one step's launch
-    counts and the warm step time."""
+    counts (``want_step``, default 2 K1 + 2 K3 + 2 K4) and the warm step
+    time."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper.format import compute_layout
     from ampnet_tpu_torch.train import (Logfile, create_train_state, make_optimizer,
@@ -553,8 +688,10 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients):
     layout = compute_layout(graph)
     probe = recipe_model(cfg, data, seed, dev)
     report = dict(path=name)
+    want_step = want_step or launches(k1=2, k3=2, k4=2)
     if check_gradients:
-        report["gradient_check"] = gradient_check(name, probe, graph, layout, seed)
+        report["gradient_check"] = gradient_check(name, probe, graph, layout, seed,
+                                                  want=want_step)
     state = create_train_state(
         probe, make_optimizer(probe.parameters(), tcfg.learning_rate,
                               weight_decay=tcfg.weight_decay, cosine_t0=tcfg.cosine_t0,
@@ -564,9 +701,8 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients):
     step(state, graph, layout)
     torch.cuda.synchronize()
     per_step = eaf.launch_counts()
-    if per_step != launches(k1=2, k3=2, k4=2):
-        fail(f"path {name}: one training step launched {per_step}, expected "
-             f"2 K1 + 2 K3 + 2 K4 and no K2")
+    if per_step != want_step:
+        fail(f"path {name}: one training step launched {per_step}, expected {want_step}")
     step(state, graph, layout)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -819,21 +955,23 @@ def main() -> int:
         "nodes_without_in_edge": int((indeg == 0).sum()),
         "nodes_without_out_edge": int((outdeg == 0).sum())}}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    rows = kernel_phases(graph, layout, gen, dev)
+    rows, k8_launches = kernel_phases(graph, layout, gen, dev)
     print(json.dumps({"kernel_phases": rows}), flush=True)
+    if k8_launches != 2:
+        fail(f"K8's phase launched it {k8_launches} times, expected 2 (S=40 and S=20)")
 
     recipe = AMPGCNConfig(num_sampled_vectors=40, token_sampling="tfidf",
                           scaler="precomputed", dropout_rate=0.3,
                           raw_residual="gcn2", use_pallas=True)
-    counts_a, path_a = drive_path("A S=40 recommended recipe", recipe, data, graph,
-                                  layout, args.seed, dev)
+    counts_a, path_a, logits_a = drive_path("A S=40 recommended recipe", recipe, data,
+                                            graph, layout, args.seed, dev)
     print(json.dumps(path_a), flush=True)
     if counts_a != launches(k1=16):
         fail(f"path A launched {counts_a}, expected 16 edge_attention_sums")
 
     reference = AMPGCNConfig(num_sampled_vectors=20, use_pallas=True)
-    counts_b, path_b = drive_path("B S=20 reference recipe", reference, data, graph,
-                                  layout, args.seed, dev)
+    counts_b, path_b, logits_b = drive_path("B S=20 reference recipe", reference, data,
+                                            graph, layout, args.seed, dev)
     print(json.dumps(path_b), flush=True)
     if counts_b != launches(k2=16):
         fail(f"path B launched {counts_b}, expected 16 edge_attention_layer")
@@ -869,9 +1007,49 @@ def main() -> int:
     print(json.dumps(path_e), flush=True)
     print(json.dumps(path_f), flush=True)
 
+    # paths G, H, I: the non-default forward routes behind the same entry points
+    with dispatch_flag("MM_SCATTER_DEFAULT"):
+        counts_g40, path_g40, _ = drive_path(
+            "G S=40 recommended recipe, mm_scatter", recipe, data, graph, layout,
+            args.seed, dev, same_as=logits_a)
+        counts_g20, path_g20, _ = drive_path(
+            "G S=20 reference recipe, mm_scatter", reference, data, graph, layout,
+            args.seed, dev, same_as=logits_b)
+        print(json.dumps(path_g40), flush=True)
+        print(json.dumps(path_g20), flush=True)
+        if counts_g40 != launches(k6=16) or counts_g20 != launches(k7=16):
+            fail(f"path G launched {counts_g40} at S=40 and {counts_g20} at S=20, expected "
+                 f"16 edge_attention_sums_mm and 16 edge_attention_layer_mm")
+        short40 = dataclasses.replace(short, weight_decay=1e-3, grad_clip=1.0)
+        counts_h, path_h = drive_training(
+            "H S=40 recommended recipe, training with mm_scatter", recipe, short40, data,
+            graph, args.seed, dev, True, want_step=launches(k6=2, k3=2, k4=2))
+        print(json.dumps(path_h), flush=True)
+        # the final eval's one draw runs K6 twice more
+        want_h = launches(k6=2 * SHORT_EPOCHS + 2, k3=2 * SHORT_EPOCHS, k4=2 * SHORT_EPOCHS)
+        if counts_h != want_h:
+            fail(f"path H launched {counts_h}, expected {want_h}")
+        # and at S=20, as path D: K6 where D runs K1; the final eval's draw is K7
+        counts_h20, path_h20 = drive_training(
+            "H S=20 reference recipe, training with mm_scatter", reference, short, data,
+            graph, args.seed, dev, False, want_step=launches(k6=2, k3=2, k4=2))
+        print(json.dumps(path_h20), flush=True)
+        want_h20 = launches(k6=2 * SHORT_EPOCHS, k7=2, k3=2 * SHORT_EPOCHS,
+                            k4=2 * SHORT_EPOCHS)
+        if counts_h20 != want_h20:
+            fail(f"path H at S=20 launched {counts_h20}, expected {want_h20}")
+    with dispatch_flag("DMA_V1_DEFAULT"):
+        counts_i, path_i, _ = drive_path(
+            "I S=40 recommended recipe, DMA_V1_DEFAULT", recipe, data, graph, layout,
+            args.seed, dev, same_as=logits_a)
+        print(json.dumps(path_i), flush=True)
+        if counts_i != launches(k9=16):
+            fail(f"path I launched {counts_i}, expected 16 edge_attention_sums_v1")
+
     # launches: K2 from the inference path that runs it (B); K1, K3, K4 from
     # the training path C (K1's count includes that path's eval forwards); K5
-    # from path F
+    # from path F; K6 from the training path H, K7 from path G at S=20, K9
+    # from path I; K8 from its own phase (no model path calls it)
     kernels = [
         dict(rows["edge_attention_sums_s40"], launches=counts_c["edge_attention_sums"]),
         dict(rows["edge_attention_layer_s20"], launches=counts_b["edge_attention_layer"]),
@@ -879,7 +1057,15 @@ def main() -> int:
         dict(rows["edge_attention_bwd_dkv_s40"], launches=counts_c["edge_attention_bwd_dkv"]),
         dict(rows["edge_attention_bwd_stream_s40"],
              launches=counts_f["edge_attention_bwd_stream"]),
+        dict(rows["edge_attention_sums_mm_s40"], launches=counts_h["edge_attention_sums_mm"]),
+        dict(rows["edge_attention_layer_mm_s20"],
+             launches=counts_g20["edge_attention_layer_mm"]),
+        dict(rows["edge_attention_sums_chunked_s40"], launches=k8_launches),
+        dict(rows["edge_attention_sums_v1_s40"], launches=counts_i["edge_attention_sums_v1"]),
     ]
+    if len(kernels) != len(KERNELS) or any(k["launches"] < 1 for k in kernels):
+        fail(f"a kernel of the paths was never launched: "
+             f"{ {k['name']: k['launches'] for k in kernels} }")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

@@ -104,8 +104,8 @@ PORT_MODULES = {
     "models": ["__init__", "amp_gcn", "layers", "tokenizer"],
     "ops": ["__init__", "edge_attention", "gcn", "segment", "tokenize"],
     "ops/hopper": ["__init__", "build", "edge_attention_bwd",
-                   "edge_attention_bwd_scatterfree", "edge_attention_fused", "format",
-                   "launch"],
+                   "edge_attention_bwd_scatterfree", "edge_attention_fused",
+                   "edge_attention_variants", "format", "launch"],
     "train": ["__init__", "checkpoint", "loop", "losses", "optim", "pallas_step",
               "rundir", "state"],
 }

@@ -20,7 +20,10 @@ from ampnet_tpu_torch.ops.edge_attention import MHAParams, amp_edge_attention
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
 from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
 from ampnet_tpu_torch.ops.hopper.format import (
+    chunk_slot_valid,
+    compute_chunked_layout,
     compute_layout,
     edge_slot_valid,
     snd_slot_valid,
@@ -61,6 +64,11 @@ def params(seed, d):
 
 
 SHAPES = [(4, 16, 2), (20, 128, 4), (40, 128, 4), (7, 100, 4)]
+
+
+def launched(**counts):
+    """launch_counts() with every wrapper at 0 but the named ones."""
+    return {**dict.fromkeys(eaf.launch_counts(), 0), **counts}
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -125,10 +133,8 @@ def test_backward_kernels_match_plain_on_card(cuda, s, d, h, softmax):
     assert (got.reshape(nt, sp, 2 * d)[0] == 0).all()    # sender of degree 0
     assert (got.reshape(nt, sp, 2 * d)[:, s:] == 0).all()
     after = eaf.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        "edge_attention_sums": 0, "edge_attention_layer": 0,
-        "edge_attention_bwd_dq": 1, "edge_attention_bwd_dkv": 1,
-        "edge_attention_bwd_stream": 0}
+    assert {k: after[k] - before[k] for k in after} == launched(
+        edge_attention_bwd_dq=1, edge_attention_bwd_dkv=1)
     # no atomics: a second launch repeats the first bit for bit
     assert torch.equal(got, bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *s_idx, **kw))
 
@@ -207,10 +213,8 @@ def test_fused_op_gradients_on_card_match_plain_cpu(cuda, s, d, h, gather):
         snd_receivers=lay.snd_receivers, snd_valid=snd_slot_valid(lay, mask.to(cuda)),
         snd_ptr=lay.snd_ptr, snd_slots=lay.snd_slots)
     (out * out.cos()).sum().backward()
-    assert eaf.launch_counts() == {
-        "edge_attention_sums": 1, "edge_attention_layer": 0,
-        "edge_attention_bwd_dq": 1, "edge_attention_bwd_dkv": 1,
-        "edge_attention_bwd_stream": 0}
+    assert eaf.launch_counts() == launched(
+        edge_attention_sums=1, edge_attention_bwd_dq=1, edge_attention_bwd_dkv=1)
     cpu = [t.clone().requires_grad_() for t in (x, *p)]
     ref, _ = amp_edge_attention(cpu[0], g.senders, g.receivers, mask,
                                 MHAParams(*cpu[1:]), h)
@@ -271,9 +275,8 @@ def test_fused_op_stream_gradients_on_card_match_plain_cpu(cuda, monkeypatch, s,
         return [t.grad.cpu() for t in leaves], eaf.launch_counts()
 
     got, counts = grads(lay, {})
-    assert counts == {
-        "edge_attention_sums": 1, "edge_attention_layer": 0, "edge_attention_bwd_dq": 0,
-        "edge_attention_bwd_dkv": 0, "edge_attention_bwd_stream": t if chunks > 1 else 1}
+    assert counts == launched(edge_attention_sums=1,
+                              edge_attention_bwd_stream=t if chunks > 1 else 1)
     via_r_s, _ = grads(full, dict(
         snd_receivers=full.snd_receivers, snd_valid=snd_slot_valid(full, mask.to(cuda)),
         snd_ptr=full.snd_ptr, snd_slots=full.snd_slots))
@@ -324,6 +327,161 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         eaf.edge_attention_sums(big[:, :128], big[:, 128:], lay.tile_senders,
                                 lay.tile_valid, lay.recv_ptr, lay.recv_slots,
                                 s=200, sp=200, num_heads=4, softmax=True)
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", SHAPES)
+def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
+    """K6, K8 and K9 against their plain versions and against K1's sums, with
+    a runtime mask, a receiver of degree 0, SP > S and D=100. K6 at its
+    default group and at group 3 (receivers span groups; 128 slots leave a
+    ragged last group); K9 under both gather names; K8 at chunks of 3 edges
+    (partial and multi-chunk receivers: in-degrees reach 8), whole and in
+    pieces of 2. K8 repeats bit for bit; K6 and K9 sum through atomics and
+    are held to the tolerance only."""
+    g, mask = graph(0)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    valid = edge_slot_valid(lay, mask.to(cuda))
+    nt = lay.recv_ptr.numel() - 1
+    sp = -(-s // 8) * 8
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=cuda)
+    q, kv = qkv[:, :d], qkv[:, d:]
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax)
+    k1 = eaf.edge_attention_sums(q, kv, lay.tile_senders, valid, lay.recv_ptr,
+                                 lay.recv_slots, **kw)
+    slots = (lay.tile_senders, lay.tile_recv, valid)
+    before = eaf.launch_counts()
+
+    def check(got, ref):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got, k1, rtol=RTOL, atol=ATOL)
+        assert (got.reshape(nt, sp, d)[39] == 0).all()     # degree 0: exact zeros
+        assert (got.reshape(nt, sp, d)[:, s:] == 0).all()  # pad token rows
+
+    for group in (None, 3):
+        check(eav.edge_attention_sums_mm(q, kv, *slots, lay.tile_counts, **kw,
+                                         tile_nodes=16, group=group),
+              eav.edge_attention_sums_mm_plain(q, kv, *slots, lay.tile_counts, **kw,
+                                               tile_nodes=16, group=group or eav.MM_GROUP))
+    for gather in ("dma", "vmem"):
+        check(eav.edge_attention_sums_v1(q, kv, *slots, **kw, tile_nodes=16, group=8,
+                                         gather=gather),
+              eav.edge_attention_sums_v1_plain(q, kv, *slots, **kw, tile_nodes=16, group=8))
+    ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=3).to(cuda)
+    assert int(ck.chunk_count.max()) >= 2
+    chunks = (ck.senders, chunk_slot_valid(ck, mask.to(cuda)), ck.chunk_start,
+              ck.chunk_count)
+    ref = eav.edge_attention_sums_chunked_plain(q, kv, *chunks, **kw, chunk=3)
+    whole = eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=3)
+    check(whole, ref)
+    check(eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=3, piece=2), ref)
+    assert torch.equal(whole, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=3))
+    after = eaf.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == launched(
+        edge_attention_sums_mm=2, edge_attention_sums_v1=2,
+        edge_attention_sums_chunked=3)
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", SHAPES)
+def test_layer_mm_matches_plain_and_k2_on_card(cuda, s, d, h, softmax):
+    """K7 against its plain version and against K2's layer on the same rows."""
+    g, mask = graph(0)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    valid = edge_slot_valid(lay, mask.to(cuda))
+    nt = lay.recv_ptr.numel() - 1
+    sp = -(-s // 8) * 8
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x_rows = torch.randn(nt * sp, d, generator=gen, device=cuda)
+    w = [t.to(cuda) for t in params(2, d)]
+    deg = torch.bincount(g.receivers[mask], minlength=nt).to(cuda, torch.float32)
+    invdeg = torch.where(deg > 0, 1.0 / deg.clamp_min(1.0), torch.zeros_like(deg))
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax)
+    slots = (lay.tile_senders, lay.tile_recv, valid, lay.tile_counts)
+    before = eaf.launch_counts()
+    got = eav.edge_attention_layer_mm(x_rows, *w, invdeg, *slots, **kw, tile_nodes=16)
+    ref = eav.edge_attention_layer_mm_plain(x_rows, *w, invdeg, *slots, **kw,
+                                            tile_nodes=16, group=eav.MM_GROUP)
+    k2 = eaf.edge_attention_layer(x_rows, *w, invdeg, lay.tile_senders, valid,
+                                  lay.recv_ptr, lay.recv_slots, **kw)
+    torch.cuda.synchronize()
+    after = eaf.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == launched(
+        edge_attention_layer_mm=1, edge_attention_layer=1)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got, k2, rtol=RTOL, atol=ATOL)
+    assert (got.reshape(nt, sp, d)[39] == 0).all()
+    assert (got.reshape(nt, sp, d)[:, s:] == 0).all()
+
+
+@pytest.mark.parametrize("route,grad,want", [
+    ("mm-dma", False, dict(edge_attention_sums_mm=1)),
+    ("mm-vmem", False, dict(edge_attention_layer_mm=1)),
+    ("mm-vmem", True, dict(edge_attention_sums_mm=1, edge_attention_bwd_dq=1,
+                           edge_attention_bwd_dkv=1)),
+    ("v1-dma", False, dict(edge_attention_sums_v1=1)),
+    ("v1-dma", True, dict(edge_attention_sums_v1=1, edge_attention_bwd_dq=1,
+                          edge_attention_bwd_dkv=1)),
+    ("v1-vmem", False, dict(edge_attention_layer=1)),
+])
+def test_fused_op_variant_routes_on_card(cuda, monkeypatch, route, grad, want):
+    """mm_scatter and DMA_V1_DEFAULT pick K6 / K7 / K9 as the JAX dispatch
+    does, forward and (the backward unchanged) gradients against the plain
+    oracle on the CPU."""
+    kind, gather = route.split("-")
+    monkeypatch.setattr(eaf, "DMA_V1_DEFAULT", kind == "v1")
+    g, mask = graph(3, first_sender=1)
+    d, h, s = 128, 4, 20
+    p = params(4, d)
+    x = torch.randn(48, s, d, generator=torch.Generator().manual_seed(5))
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    leaves = [t.to(cuda).requires_grad_(grad) for t in (x, *p)]
+    eaf.reset_launch_counts()
+    out = eaf.amp_edge_attention_fused(
+        leaves[0], MHAParams(*leaves[1:]), g.receivers.to(cuda), mask.to(cuda),
+        lay.tile_senders, edge_slot_valid(lay, mask.to(cuda)), lay.recv_ptr,
+        lay.recv_slots, h, tile_nodes=16, gather=gather,
+        snd_receivers=lay.snd_receivers, snd_valid=snd_slot_valid(lay, mask.to(cuda)),
+        snd_ptr=lay.snd_ptr, snd_slots=lay.snd_slots, mm_scatter=kind == "mm",
+        tile_recv=lay.tile_recv, tile_counts=lay.tile_counts)
+    cpu = [t.clone().requires_grad_(grad) for t in (x, *p)]
+    ref, _ = amp_edge_attention(cpu[0], g.senders, g.receivers, mask, MHAParams(*cpu[1:]), h)
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=RTOL, atol=ATOL)
+    if grad:
+        (out * out.cos()).sum().backward()
+        (ref * ref.cos()).sum().backward()
+        for name, a, b in zip(("x", "w_qkv", "b_qkv", "w_out", "b_out"), leaves, cpu):
+            scale = float(b.grad.abs().max())
+            torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=RTOL,
+                                       atol=1e-5 * max(scale, 1.0),
+                                       msg=lambda m: f"{name}: {m}")
+    assert eaf.launch_counts() == launched(**want)
+
+
+def test_variant_kernels_refuse_what_does_not_fit(cuda):
+    """No silent fallback: a group or a piece beyond a block's shared memory,
+    and a packed group that does not divide EMAX, raise before any launch."""
+    g, _ = graph(0)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    nt = lay.recv_ptr.numel() - 1
+    qkv = torch.zeros(nt * 40, 3 * 128, device=cuda)
+    q, kv = qkv[:, :128], qkv[:, 128:]
+    kw = dict(s=40, sp=40, num_heads=4, softmax=True)
+    slots = (lay.tile_senders, lay.tile_recv, lay.tile_valid)
+    with pytest.raises(ValueError, match="shared memory"):
+        eav.edge_attention_sums_mm(q, kv, *slots, lay.tile_counts, **kw, tile_nodes=16,
+                                   group=8)
+    with pytest.raises(ValueError, match="EMAX"):
+        eav.edge_attention_sums_v1(q, kv, *slots, **kw, tile_nodes=16, group=5)
+    ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=8).to(cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        eav.edge_attention_sums_chunked(q, kv, ck.senders, ck.valid, ck.chunk_start,
+                                        ck.chunk_count, **kw, chunk=8, piece=8)
+    with pytest.raises(ValueError, match="int32"):
+        eav.edge_attention_sums_mm(q, kv, lay.tile_senders.long(), lay.tile_recv,
+                                   lay.tile_valid, lay.tile_counts, **kw, tile_nodes=16)
 
 
 @pytest.mark.parametrize("s", [20, 40])
