@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -76,6 +77,23 @@ def build_all() -> Dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {stem: lib for stem, (_, lib) in paths.items()}
+
+
+_PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '[^']*ILi(\d+)E[^']*'.*?(\d+) bytes spill stores, "
+    r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+
+
+def parse_ptxas(log: str) -> Dict[int, Dict[str, int]]:
+    """Per instantiation of a kernel template in an ``-Xptxas -v`` log (by
+    the template's int argument): registers per thread and spill bytes."""
+    return {int(t): dict(regs=int(r), spill_stores=int(st), spill_loads=int(ld))
+            for t, st, ld, r in _PTXAS_ENTRY.findall(log)}
+
+
+def ptxas_report(name: str) -> Dict[int, Dict[str, int]]:
+    """``parse_ptxas`` of csrc/<name>.cu's build log (builds first if needed)."""
+    return parse_ptxas(build_all()[name].with_suffix(".log").read_text())
 
 
 def load(name: str) -> ctypes.CDLL:

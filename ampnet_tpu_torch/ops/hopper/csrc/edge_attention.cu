@@ -2,10 +2,12 @@
 //
 // Replaces the TPU forward kernels of ampnet_tpu/ops/pallas/
 // edge_attention_fused.py:
-//   * K1 ampnet_edge_attention_sums  <- _fused_kernel_vmem_v2 (:691, body
-//     _tile_attention_accumulate :379) and _fused_kernel_vmem_v4 (:942):
-//     the per-receiver SUM over live in-edges of the multi-head message
-//     softmax(Q K^T / sqrt(dh)) V (raw scores with softmax=0);
+//   * K1's first body, ampnet_edge_attention_sums_simt <- _fused_kernel_vmem_v2
+//     (:691, body _tile_attention_accumulate :379) and _fused_kernel_vmem_v4
+//     (:942): the per-receiver SUM over live in-edges of the multi-head
+//     message softmax(Q K^T / sqrt(dh)) V (raw scores with softmax=0). K1
+//     runs on the tensor cores now (edge_attention_tc.cu); this CUDA-core
+//     instantiation stays exported as a same-card baseline only;
 //   * K2 ampnet_edge_attention_layer <- _fused_kernel_vmem_v6 (:763): the
 //     same walk with each edge pre-scaled by its receiver's 1/degree (the
 //     accumulator holds the MEAN), then the out-projection and b_out on
@@ -247,14 +249,15 @@ size_t ampnet_edge_attention_smem_bytes(int s, int d, int num_heads) {
   return smem_floats(s, d, num_heads) * sizeof(float);
 }
 
-// K1. q: [num_nodes*sp] rows of d floats, row stride ldq; kv: rows of
-// k|v (2d floats), row stride ldkv; out: [num_nodes*sp, d] contiguous.
-int ampnet_edge_attention_sums(const float* q, int ldq, const float* kv,
-                               int ldkv, const int* tile_senders,
-                               const int* tile_valid, const int* recv_ptr,
-                               const int* recv_slots, float* out,
-                               int num_nodes, int s, int sp, int d,
-                               int num_heads, int softmax, void* stream) {
+// K1's CUDA-core body (the baseline of edge_attention_tc.cu). q:
+// [num_nodes*sp] rows of d floats, row stride ldq; kv: rows of k|v (2d
+// floats), row stride ldkv; out: [num_nodes*sp, d] contiguous.
+int ampnet_edge_attention_sums_simt(const float* q, int ldq, const float* kv,
+                                    int ldkv, const int* tile_senders,
+                                    const int* tile_valid, const int* recv_ptr,
+                                    const int* recv_slots, float* out,
+                                    int num_nodes, int s, int sp, int d,
+                                    int num_heads, int softmax, void* stream) {
   return launch<false>(q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr,
                        recv_slots, nullptr, nullptr, nullptr, out, num_nodes,
                        s, sp, d, num_heads, softmax, (cudaStream_t)stream);

@@ -8,10 +8,12 @@
 //     _dq_kernel_dma (:211), math _dq_group_math (:61): per edge, recompute
 //     the scores and the softmax, dW = dMsg V^T, the softmax backward
 //     dS = W (dW - rowsum(dW W)), dQ = dS K / sqrt(dh); summed per RECEIVER;
-//   * K4 ampnet_edge_attention_bwd_dkv <- pass S, _dkv_kernel_vmem (:280) and
-//     _dkv_kernel_dma (:319), math _dkv_group_math (:105): the same
-//     recompute, then dV = W^T dMsg and dK = dS^T Q / sqrt(dh); summed per
-//     SENDER;
+//   * K4's first body, ampnet_edge_attention_bwd_dkv_simt <- pass S,
+//     _dkv_kernel_vmem (:280) and _dkv_kernel_dma (:319), math
+//     _dkv_group_math (:105): the same recompute, then dV = W^T dMsg and dK
+//     = dS^T Q / sqrt(dh); summed per SENDER. K4 runs on the tensor cores
+//     now (edge_attention_bwd_tc.cu); this CUDA-core instantiation stays
+//     exported as a same-card baseline only;
 // and the four stream-backward bodies of ampnet_tpu/ops/pallas/
 // edge_attention_bwd.py (pass A):
 //   * K5 ampnet_edge_attention_bwd_stream <- _bwd_kernel_vmem_v2 (:178),
@@ -358,16 +360,16 @@ int ampnet_edge_attention_bwd_dq(const float* q, int ldq, const float* dsum,
                      num_heads, softmax, (cudaStream_t)stream);
 }
 
-// K4. qdm: rows of q|dsum (2d floats, stride ldqdm); kv as above;
-// snd_receivers / snd_valid over the sender-tiled slots, snd_ptr /
-// snd_slots the sender-major index; dkv: [num_nodes*sp, 2d] contiguous
-// rows of dk|dv.
-int ampnet_edge_attention_bwd_dkv(const float* qdm, int ldqdm, const float* kv,
-                                  int ldkv, const int* snd_receivers,
-                                  const int* snd_valid, const int* snd_ptr,
-                                  const int* snd_slots, float* dkv, int num_nodes,
-                                  int s, int sp, int d, int num_heads,
-                                  int softmax, void* stream) {
+// K4's CUDA-core body (the baseline of edge_attention_bwd_tc.cu). qdm:
+// rows of q|dsum (2d floats, stride ldqdm); kv as above; snd_receivers /
+// snd_valid over the sender-tiled slots, snd_ptr / snd_slots the
+// sender-major index; dkv: [num_nodes*sp, 2d] contiguous rows of dk|dv.
+int ampnet_edge_attention_bwd_dkv_simt(const float* qdm, int ldqdm, const float* kv,
+                                       int ldkv, const int* snd_receivers,
+                                       const int* snd_valid, const int* snd_ptr,
+                                       const int* snd_slots, float* dkv, int num_nodes,
+                                       int s, int sp, int d, int num_heads,
+                                       int softmax, void* stream) {
   return launch<kDkv>(qdm, ldqdm, qdm + d, ldqdm, kv, ldkv, snd_receivers,
                       snd_valid, snd_ptr, snd_slots, dkv, nullptr, 0, num_nodes, 0,
                       s, sp, d, num_heads, softmax, (cudaStream_t)stream);

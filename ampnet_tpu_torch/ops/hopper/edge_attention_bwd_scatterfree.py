@@ -2,17 +2,20 @@
 and S of the JAX package's ``fused_edge_bwd_dq`` / ``fused_edge_bwd_dkv``
 (``ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py``).
 
-Two hand-written kernels (``csrc/edge_attention_bwd.cu``), each beside its
-plain torch version:
+Two hand-written kernels, each beside its plain torch version:
 
 * ``edge_attention_bwd_dq`` (K3) — pass R: per edge, recompute the scores
   and the softmax, dW = dMsg V^T, the softmax backward, dQ = dS K / sqrt(dh);
   summed per receiver over the receiver-major index. Counterpart of both
-  ``_dq_kernel_vmem`` and ``_dq_kernel_dma``.
+  ``_dq_kernel_vmem`` and ``_dq_kernel_dma`` (``csrc/edge_attention_bwd.cu``,
+  on the CUDA cores).
 * ``edge_attention_bwd_dkv`` (K4) — pass S: the same recompute over the
   sender-tiled side, dV = W^T dMsg and dK = dS^T Q / sqrt(dh), summed per
   sender over the sender-major index (``format.py``: ``snd_ptr``,
-  ``snd_slots``). Counterpart of ``_dkv_kernel_vmem`` and ``_dkv_kernel_dma``.
+  ``snd_slots``). Counterpart of ``_dkv_kernel_vmem`` and ``_dkv_kernel_dma``,
+  on the tensor cores in 3xTF32 (``csrc/edge_attention_bwd_tc.cu``); its
+  CUDA-core predecessor stays callable as ``_edge_attention_bwd_dkv_simt``,
+  a same-card baseline that no model path calls.
 
 One kernel per pass serves both gathers: Hopper reads the gathered rows
 from device memory either way. Neither uses atomics, so the sums are taken
@@ -36,6 +39,7 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     P,
     check_f32_rows,
     check_smem,
+    check_tensor_core,
     check_walk,
     entry,
     stream,
@@ -49,6 +53,7 @@ _SIGNATURES = {
     "ampnet_edge_attention_bwd_dkv": [P, I, P, I, P, P, P, P, P,
                                       I, I, I, I, I, I, P],
 }
+_SIGNATURES["ampnet_edge_attention_bwd_dkv_simt"] = _SIGNATURES["ampnet_edge_attention_bwd_dkv"]
 
 
 # ---------------------------------------------------------------- plain versions
@@ -176,18 +181,9 @@ def edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
 edge_attention_bwd_dq.launches = 0
 
 
-def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
-                           snd_slots, *, s, sp, num_heads, softmax):
-    """K4, pass S: dK|dV rows [NT*sp, 2D] f32 (pad token rows 0).
-
-    qdm_rows [NT*sp, 2D] packs [Q | dsum] per row; kv_rows [NT*sp, 2D]; both
-    may be row-strided views. snd_receivers holds GLOBAL receiver ids over
-    the sender-tiled slots, snd_valid may carry a runtime mask, snd_ptr /
-    snd_slots are the sender-major index. CPU tensors run the plain version."""
-    if not kv_rows.is_cuda:
-        return edge_attention_bwd_dkv_plain(
-            qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr, snd_slots,
-            s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+def _launch_dkv(lib_name, fn_name, qdm_rows, kv_rows, snd_receivers, snd_valid,
+                snd_ptr, snd_slots, *, s, sp, num_heads, softmax):
+    """Checks, then one launch of a K4 body; returns dK|dV."""
     dev = kv_rows.device
     nt = snd_ptr.numel() - 1
     d = kv_rows.shape[1] // 2
@@ -195,17 +191,52 @@ def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
     check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
     check_walk(dev, snd_receivers, snd_valid, snd_ptr, snd_slots,
                ("snd_receivers", "snd_valid", "snd_ptr", "snd_slots"))
-    _check_shape("edge_attention_bwd_dkv", s, d, num_heads, dkv=True)
+    what = fn_name.removeprefix("ampnet_")
+    if fn_name.endswith("_simt"):
+        _check_shape(what, s, d, num_heads, dkv=True)
+    else:
+        check_tensor_core(what, s, d, num_heads, ("qdm_rows", qdm_rows))
     out = torch.empty(nt * sp, 2 * d, dtype=torch.float32, device=dev)
-    name = "ampnet_edge_attention_bwd_dkv"
-    lib, fn = entry(_LIB, name, _SIGNATURES[name])
+    lib, fn = entry(lib_name, fn_name, _SIGNATURES[fn_name])
     build.check(lib, fn(
         qdm_rows.data_ptr(), qdm_rows.stride(0), kv_rows.data_ptr(),
         kv_rows.stride(0), snd_receivers.data_ptr(), snd_valid.data_ptr(),
         snd_ptr.data_ptr(), snd_slots.data_ptr(), out.data_ptr(), nt, s, sp, d,
-        num_heads, int(softmax), stream()), "edge_attention_bwd_dkv")
+        num_heads, int(softmax), stream()), what)
+    return out
+
+
+def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
+                           snd_slots, *, s, sp, num_heads, softmax):
+    """K4, pass S: dK|dV rows [NT*sp, 2D] f32 (pad token rows 0).
+
+    qdm_rows [NT*sp, 2D] packs [Q | dsum] per row; kv_rows [NT*sp, 2D]; both
+    may be row-strided views. qdm_rows is gathered in 16-byte copies: its
+    address and row stride must be multiples of 16 bytes and D even. The
+    kernel takes S <= 48, D/H <= 32 and H * ceil(S/16) <= 12 warps (8 up to
+    S=24; ``launch.tensor_core_range_error``) and raises beyond that.
+    snd_receivers holds GLOBAL receiver ids over the sender-tiled slots,
+    snd_valid may carry a runtime mask, snd_ptr / snd_slots are the
+    sender-major index. CPU tensors run the plain version."""
+    if not kv_rows.is_cuda:
+        return edge_attention_bwd_dkv_plain(
+            qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr, snd_slots,
+            s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+    out = _launch_dkv("edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv", qdm_rows,
+                      kv_rows, snd_receivers, snd_valid, snd_ptr, snd_slots, s=s, sp=sp,
+                      num_heads=num_heads, softmax=softmax)
     edge_attention_bwd_dkv.launches += 1
     return out
 
 
 edge_attention_bwd_dkv.launches = 0
+
+
+def _edge_attention_bwd_dkv_simt(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
+                                 snd_slots, *, s, sp, num_heads, softmax):
+    """K4's CUDA-core predecessor (``csrc/edge_attention_bwd.cu``), CUDA
+    tensors only: a same-card baseline for the timings and the card tests.
+    No launch count, no caller on a model path."""
+    return _launch_dkv("edge_attention_bwd", "ampnet_edge_attention_bwd_dkv_simt",
+                       qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr, snd_slots,
+                       s=s, sp=sp, num_heads=num_heads, softmax=softmax)

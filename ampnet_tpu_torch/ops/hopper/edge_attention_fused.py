@@ -11,7 +11,10 @@ version:
   attention messages over projected q / k|v rows. Counterpart of both
   ``_fused_kernel_vmem_v2`` ('vmem' gather) and ``_fused_kernel_vmem_v4``
   ('dma' gather): Hopper has no VMEM-resident/DMA split, K|V are read
-  from device memory either way, so one kernel serves both modes.
+  from device memory either way, so one kernel serves both modes. It runs
+  on the tensor cores in 3xTF32 (``csrc/edge_attention_tc.cu``); its
+  CUDA-core predecessor stays callable as ``_edge_attention_sums_simt``, a
+  same-card baseline that no model path calls.
 * ``edge_attention_layer`` (K2) — the whole layer, counterpart of
   ``_fused_kernel_vmem_v6``: a projection launch (q|k|v for every row),
   then the K1 walk with the 1/degree fold and the out-projection and
@@ -79,6 +82,7 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     P,
     check_f32_rows,
     check_smem,
+    check_tensor_core,
     check_walk,
     entry,
     stream,
@@ -200,6 +204,7 @@ _SIGNATURES = {
                                     I, I, I, I, I, I, P],
     "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
 }
+_SIGNATURES["ampnet_edge_attention_sums_simt"] = _SIGNATURES["ampnet_edge_attention_sums"]
 
 
 def _entry(lib_name: str, fn_name: str):
@@ -218,17 +223,9 @@ def _check_smem(s, d, num_heads):
                f"edge attention at S={s}, D={d}, H={num_heads}")
 
 
-def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
-                        recv_slots, *, s, sp, num_heads, softmax):
-    """K1: per-receiver sums [NT*sp, D] f32 (pad token rows 0).
-
-    q_rows [NT*sp, D] and kv_rows [NT*sp, 2D] may be row-strided views
-    (e.g. column slices of one packed q|k|v buffer); the layout arrays are
-    int32 (format.py). CPU tensors run the plain version."""
-    if not q_rows.is_cuda:
-        return edge_attention_sums_plain(
-            q_rows, kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
-            s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+def _launch_sums(lib_name, fn_name, q_rows, kv_rows, tile_senders, tile_valid,
+                 recv_ptr, recv_slots, *, s, sp, num_heads, softmax):
+    """Checks, then one launch of a K1 body; returns the sums."""
     dev = q_rows.device
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
@@ -237,16 +234,51 @@ def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
     check_f32_rows("q_rows", q_rows, dev, nt * sp, d)
     check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
     _check_layout(dev, tile_senders, tile_valid, recv_ptr, recv_slots)
-    _check_smem(s, d, num_heads)
+    if fn_name.endswith("_simt"):
+        _check_smem(s, d, num_heads)
+    else:
+        check_tensor_core(fn_name.removeprefix("ampnet_"), s, d, num_heads,
+                          ("kv_rows", kv_rows))
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    lib, fn = _entry("edge_attention", "ampnet_edge_attention_sums")
+    lib, fn = _entry(lib_name, fn_name)
     build.check(lib, fn(
         q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
         tile_senders.data_ptr(), tile_valid.data_ptr(), recv_ptr.data_ptr(),
         recv_slots.data_ptr(), out.data_ptr(), nt, s, sp, d, num_heads,
-        int(softmax), stream()), "edge_attention_sums")
+        int(softmax), stream()), fn_name.removeprefix("ampnet_"))
+    return out
+
+
+def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
+                        recv_slots, *, s, sp, num_heads, softmax):
+    """K1: per-receiver sums [NT*sp, D] f32 (pad token rows 0).
+
+    q_rows [NT*sp, D] and kv_rows [NT*sp, 2D] may be row-strided views
+    (e.g. column slices of one packed q|k|v buffer); kv_rows is gathered in
+    16-byte copies, so its address and row stride must be multiples of 16
+    bytes and D even. The kernel takes S <= 48, D/H <= 32 and H * ceil(S/16)
+    <= 12 warps (8 up to S=24; ``launch.tensor_core_range_error``); beyond
+    that, and on rows it cannot copy, it raises. The layout arrays are int32
+    (format.py). CPU tensors run the plain version."""
+    if not q_rows.is_cuda:
+        return edge_attention_sums_plain(
+            q_rows, kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
+            s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+    out = _launch_sums("edge_attention_tc", "ampnet_edge_attention_sums", q_rows,
+                       kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
+                       s=s, sp=sp, num_heads=num_heads, softmax=softmax)
     edge_attention_sums.launches += 1
     return out
+
+
+def _edge_attention_sums_simt(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
+                              recv_slots, *, s, sp, num_heads, softmax):
+    """K1's CUDA-core predecessor (``csrc/edge_attention.cu``), CUDA tensors
+    only: a same-card baseline for the timings and the card tests. No
+    launch count, no caller on a model path."""
+    return _launch_sums("edge_attention", "ampnet_edge_attention_sums_simt", q_rows,
+                        kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
+                        s=s, sp=sp, num_heads=num_heads, softmax=softmax)
 
 
 edge_attention_sums.launches = 0

@@ -2,8 +2,10 @@
 
 Builds the Hopper kernels from ampnet_tpu_torch/ops/hopper/csrc, holds each
 against its plain torch version on the card at the main path's shapes
-(K1 edge_attention_sums, K2 edge_attention_layer, K3 edge_attention_bwd_dq,
-K4 edge_attention_bwd_dkv, K5 edge_attention_bwd_stream with its pass B and
+(K1 edge_attention_sums and K4 edge_attention_bwd_dkv on the tensor cores in
+3xTF32, each also timed in turns against its CUDA-core predecessor, the
+`_simt` baseline; K2 edge_attention_layer, K3 edge_attention_bwd_dq,
+K5 edge_attention_bwd_stream with its pass B and
 the chunked fold; the non-default forward routes K6 edge_attention_sums_mm,
 K7 edge_attention_layer_mm, K8 edge_attention_sums_chunked and K9
 edge_attention_sums_v1, each also against K1's sums or K2's layer on the
@@ -108,7 +110,9 @@ CHUNK_EDGES = 8
 # modules whose outputs are compared stage by stage when the logits disagree
 STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv1",
           "raw_residual_conv2", "final_linear_out")
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3. The
+# tensor-core kernels (K1, K4) compute f32 products in 3xTF32 (three TF32
+# products each); their bound stays that of the f32 operations.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -208,9 +212,68 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_profile(fn, reps: int = 3) -> dict:
+    """torch.profiler over ``reps`` calls of fn (after one to warm up): the
+    card's kernel time per call and the kernels that take most of it. With
+    the host-timed call beside it, this is the device's busy share; an
+    empty trace (no CUPTI on the machine) reports device_ms None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:       # a measurement, not a check: say why it is missing
+        return dict(device_ms=None, error=str(e)[:200])
+    # kernels, copies and fills on the card; not the ranges that annotate them
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    by_kernel = {}
+    for e in on_card:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return dict(device_ms=sum(by_kernel.values()) if by_kernel else None,
+                kernels_per_call=len(on_card) / reps,
+                top_kernels_ms=[[name[:80], ms] for name, ms in top])
+
+
+def busy_share(profile_report: dict, warm_ms: float) -> dict:
+    """The profile with the device's busy share of the unprofiled warm step."""
+    if profile_report["device_ms"] is not None:
+        profile_report["busy_share"] = profile_report["device_ms"] / warm_ms
+    return profile_report
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def in_turns(old, new, iters: int = 10):
+    """(new ms, old ms): old, new, new, old on the same inputs, each the mean
+    of ``iters`` launches; each result the mean of its two turns."""
+    t = [cuda_ms(fn, iters) for fn in (old, new, new, old)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
+def tensor_core_row(row, lib, info_fn, nt, s, d, h, old, new, ptxas):
+    """A tensor-core kernel's row: its time in turns with its CUDA-core
+    predecessor, and what its launch runs with (registers, spills from
+    ptxas, blocks per SM, ring stages)."""
+    from ampnet_tpu_torch.ops.hopper.launch import kernel_info
+
+    ms, prev_ms = in_turns(old, new)
+    info = kernel_info(lib, info_fn, nt, s, d, h)
+    report = ptxas[(lib, -(-s // 8))]
+    row.update(ms=ms, prev_ms=prev_ms, speedup=prev_ms / ms, regs=info["regs"],
+               spills=report["spill_stores"] + report["spill_loads"],
+               blocks_per_sm=info["blocks_per_sm"], stages=info["stages"],
+               smem_bytes=info["smem_bytes"], precision="3xtf32")
+    return row
 
 
 def compare(name, got, ref, what="its plain version"):
@@ -231,11 +294,12 @@ def cora(seed: int, device):
     return d, g.to(device)
 
 
-def kernel_phases(graph, layout, gen, dev):
+def kernel_phases(graph, layout, gen, dev, ptxas):
     """K1, K3, K4, K5, K6, K8 and K9 at S=40 and S=20, K2 and K7 at S=20, each
     against its plain version (K6, K8, K9 also against K1's sums, K7 against
-    K2's layer); K5's pass B and chunked fold beside it. Returns the rows and
-    K8's launches in its driven phase."""
+    K2's layer; K1's and K4's `_simt` predecessors too, timed in turns with
+    them); K5's pass B and chunked fold beside it. Returns the rows and K8's
+    launches in its driven phase."""
     from ampnet_tpu_torch.models.layers import AMPConv
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
@@ -282,19 +346,27 @@ def kernel_phases(graph, layout, gen, dev):
         kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
         got = eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *idx, **kw)
         ref = eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *idx, **kw)
+        old = eaf._edge_attention_sums_simt(qkv[:, :d], qkv[:, d:], *idx, **kw)
         torch.cuda.synchronize()
         err = compare(f"edge_attention_sums S={s}", got, ref)
+        prev_err = compare(f"edge_attention_sums_simt S={s}", old, ref)
+        if not torch.equal(got, eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *idx, **kw)):
+            fail(f"edge_attention_sums S={s}: a second launch differs from the first")
         k1_sums = got
+        del old
         b, by = bound_ms(4 * d * n * s * 4 + index_bytes, 4 * s * s * d * live_edges)
-        rows[f"edge_attention_sums_s{s}"] = dict(
+        rows[f"edge_attention_sums_s{s}"] = tensor_core_row(dict(
             name="edge_attention_sums", route="cuda",
-            source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention.cu",
-            replaces="ampnet_tpu/ops/pallas/edge_attention_fused.py:942",
-            max_abs_err=err,
-            ms=cuda_ms(lambda: eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *idx, **kw), 20),
+            source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_tc.cu",
+            replaces="ampnet_tpu/ops/pallas/edge_attention_fused.py:"
+                     + ("942" if s == 40 else "691"),
+            max_abs_err=err, prev_max_abs_err=prev_err,
             plain_ms=cuda_ms(lambda: eaf.edge_attention_sums_plain(
                 qkv[:, :d], qkv[:, d:], *idx, **kw), 3),
-            bound_ms=b, bound_by=by, library_ms=None)
+            bound_ms=b, bound_by=by, library_ms=None),
+            "edge_attention_tc", "ampnet_edge_attention_sums_info", nt, s, d, h,
+            lambda: eaf._edge_attention_sums_simt(qkv[:, :d], qkv[:, d:], *idx, **kw),
+            lambda: eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *idx, **kw), ptxas)
 
         # K6, K9, K8 on the same rows: against their plain versions and K1's sums
         q, kv = qkv[:, :d], qkv[:, d:]
@@ -373,20 +445,27 @@ def kernel_phases(graph, layout, gen, dev):
             bound_ms=b, bound_by=by, library_ms=None)
         got = bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw)
         ref = bwd.edge_attention_bwd_dkv_plain(qdm, kv, *snd_idx, **kw)
+        old = bwd._edge_attention_bwd_dkv_simt(qdm, kv, *snd_idx, **kw)
         torch.cuda.synchronize()
         err = compare(f"edge_attention_bwd_dkv S={s}", got, ref)
+        prev_err = compare(f"edge_attention_bwd_dkv_simt S={s}", old, ref)
+        if not torch.equal(got, bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw)):
+            fail(f"edge_attention_bwd_dkv S={s}: a second launch differs from the first")
+        del old
         # q|dsum, k|v read and dk|dv written once; 4 products per edge
         b, by = bound_ms(6 * d * n * s * 4 + snd_index_bytes, 8 * s * s * d * live_edges)
-        rows[f"edge_attention_bwd_dkv_s{s}"] = dict(
+        rows[f"edge_attention_bwd_dkv_s{s}"] = tensor_core_row(dict(
             name="edge_attention_bwd_dkv", route="cuda",
-            source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd.cu",
+            source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd_tc.cu",
             replaces="ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:"
                      + ("319" if s == 40 else "280"),
-            max_abs_err=err,
-            ms=cuda_ms(lambda: bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw), 20),
+            max_abs_err=err, prev_max_abs_err=prev_err,
             plain_ms=cuda_ms(lambda: bwd.edge_attention_bwd_dkv_plain(
                 qdm, kv, *snd_idx, **kw), 3),
-            bound_ms=b, bound_by=by, library_ms=None)
+            bound_ms=b, bound_by=by, library_ms=None),
+            "edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv_info", nt, s, d, h,
+            lambda: bwd._edge_attention_bwd_dkv_simt(qdm, kv, *snd_idx, **kw),
+            lambda: bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw), ptxas)
 
         # K5 on the same rows: dq as K3, and the per-edge dk|dv stream on the
         # slots the walk visits (the others are never written)
@@ -500,11 +579,12 @@ def recipe_model(cfg, data, seed, dev):
                   generator=torch.Generator().manual_seed(seed), device=dev)
 
 
-def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None):
+def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None, profiled=False):
     """One 8-draw eval step through make_eval_step, counts read around it,
     then one fixed draw on the card against the same forward on the CPU (and
-    against ``same_as``, another route's logits of that draw). Returns the
-    counts, the report and the draw's logits."""
+    against ``same_as``, another route's logits of that draw). ``profiled``:
+    the warm step's kernel time from torch.profiler too. Returns the counts,
+    the report and the draw's logits."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.tokenize import sample_present_features, tfidf_sample_features
     from ampnet_tpu_torch.train import make_eval_step
@@ -526,6 +606,8 @@ def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None):
         step(graph, torch.Generator(device=dev).manual_seed(seed + 1 + i), layout)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3 / 5
+    profile_report = (device_profile(lambda: step(
+        graph, torch.Generator(device=dev).manual_seed(seed), layout)) if profiled else None)
 
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     sampler = (tfidf_sample_features if cfg.token_sampling == "tfidf"
@@ -553,6 +635,8 @@ def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None):
     report = dict(path=name, metrics=metrics, eval_step_first_ms=first_ms,
                   eval_step_warm_ms=warm_ms, cpu_f64_max_abs_err=err,
                   stage_max_abs_err=stage_err)
+    if profile_report:
+        report["profile"] = busy_share(profile_report, warm_ms)
     if same_as is not None:
         report["other_route_max_abs_err"] = float((card - same_as).abs().max())
         if not torch.allclose(card, same_as, rtol=MODEL_RTOL, atol=MODEL_ATOL):
@@ -710,6 +794,8 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
         step(state, graph, layout)
     torch.cuda.synchronize()
     report["train_step_warm_ms"] = (time.perf_counter() - t0) * 1e2
+    report["profile"] = busy_share(device_profile(lambda: step(state, graph, layout)),
+                                   report["train_step_warm_ms"])
 
     model = recipe_model(cfg, data, seed, dev)
     eaf.reset_launch_counts()
@@ -940,6 +1026,10 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs.values():
         print(lib.with_suffix(".log").read_text().strip())
+    # per instantiation of the tensor-core kernels (by ceil(S/8)): registers, spills
+    ptxas = {(stem, tiles): r for stem in ("edge_attention_tc", "edge_attention_bwd_tc")
+             for tiles, r in build.ptxas_report(stem).items()}
+    print(json.dumps({"ptxas": {f"{k[0]}<{k[1]}>": v for k, v in ptxas.items()}}), flush=True)
 
     data, graph = cora(args.seed, dev)
     layout = compute_layout(graph)
@@ -955,7 +1045,7 @@ def main() -> int:
         "nodes_without_in_edge": int((indeg == 0).sum()),
         "nodes_without_out_edge": int((outdeg == 0).sum())}}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    rows, k8_launches = kernel_phases(graph, layout, gen, dev)
+    rows, k8_launches = kernel_phases(graph, layout, gen, dev, ptxas)
     print(json.dumps({"kernel_phases": rows}), flush=True)
     if k8_launches != 2:
         fail(f"K8's phase launched it {k8_launches} times, expected 2 (S=40 and S=20)")
@@ -964,14 +1054,14 @@ def main() -> int:
                           scaler="precomputed", dropout_rate=0.3,
                           raw_residual="gcn2", use_pallas=True)
     counts_a, path_a, logits_a = drive_path("A S=40 recommended recipe", recipe, data,
-                                            graph, layout, args.seed, dev)
+                                            graph, layout, args.seed, dev, profiled=True)
     print(json.dumps(path_a), flush=True)
     if counts_a != launches(k1=16):
         fail(f"path A launched {counts_a}, expected 16 edge_attention_sums")
 
     reference = AMPGCNConfig(num_sampled_vectors=20, use_pallas=True)
     counts_b, path_b, logits_b = drive_path("B S=20 reference recipe", reference, data,
-                                            graph, layout, args.seed, dev)
+                                            graph, layout, args.seed, dev, profiled=True)
     print(json.dumps(path_b), flush=True)
     if counts_b != launches(k2=16):
         fail(f"path B launched {counts_b}, expected 16 edge_attention_layer")
@@ -1050,6 +1140,11 @@ def main() -> int:
     # the training path C (K1's count includes that path's eval forwards); K5
     # from path F; K6 from the training path H, K7 from path G at S=20, K9
     # from path I; K8 from its own phase (no model path calls it)
+    # K1's and K4's rows also carry their S=20 numbers (path D's shape)
+    tc_keys = ("ms", "prev_ms", "speedup", "max_abs_err", "bound_ms", "plain_ms", "regs",
+               "spills", "blocks_per_sm", "stages")
+    for name in ("edge_attention_sums", "edge_attention_bwd_dkv"):
+        rows[f"{name}_s40"]["s20"] = {k: rows[f"{name}_s20"][k] for k in tc_keys}
     kernels = [
         dict(rows["edge_attention_sums_s40"], launches=counts_c["edge_attention_sums"]),
         dict(rows["edge_attention_layer_s20"], launches=counts_b["edge_attention_layer"]),
@@ -1067,8 +1162,9 @@ def main() -> int:
         fail(f"a kernel of the paths was never launched: "
              f"{ {k['name']: k['launches'] for k in kernels} }")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "prev_ms", "speedup", "regs",
+            "spills", "blocks_per_sm", "stages", "precision", "s20")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

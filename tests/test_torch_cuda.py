@@ -105,8 +105,9 @@ def test_kernels_match_plain_on_card(cuda, s, d, h, softmax):
 @pytest.mark.parametrize("softmax", [True, False])
 @pytest.mark.parametrize("s,d,h", SHAPES)
 def test_backward_kernels_match_plain_on_card(cuda, s, d, h, softmax):
-    """K3 (pass R) and K4 (pass S) against their plain versions, with a
-    runtime mask, a receiver and a sender of degree 0, SP > S and D=100."""
+    """K3 (pass R) and K4 (pass S, on the tensor cores) against their plain
+    versions, with a runtime mask, a receiver and a sender of degree 0, SP >
+    S and D=100."""
     g, mask = graph(0, first_sender=1)
     lay = compute_layout(g, tile_nodes=16).to(cuda)
     nt = lay.recv_ptr.numel() - 1
@@ -302,7 +303,7 @@ def test_backward_kernels_refuse_a_shape_beyond_shared_memory(cuda):
     kw = dict(s=96, sp=96, num_heads=4, softmax=True)
     with pytest.raises(ValueError, match="shared memory"):
         bwd.edge_attention_bwd_dq(big[:, :128], big[:, 128:384], big[:, 384:], *r_idx, **kw)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="range"):        # K4: beyond its instantiations
         bwd.edge_attention_bwd_dkv(big[:, :256], big[:, 256:], lay.snd_receivers,
                                    lay.snd_valid, lay.snd_ptr, lay.snd_slots, **kw)
     with pytest.raises(ValueError, match="shared memory"):
@@ -322,7 +323,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         eaf.edge_attention_sums(q[:, :16].double(), q[:, 16:], lay.tile_senders,
                                 lay.tile_valid, lay.recv_ptr, lay.recv_slots, **kw)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="range"):
         big = torch.zeros(nt * 200, 3 * 128, device=cuda)
         eaf.edge_attention_sums(big[:, :128], big[:, 128:], lay.tile_senders,
                                 lay.tile_valid, lay.recv_ptr, lay.recv_slots,
@@ -497,3 +498,145 @@ def test_ampgcn_on_card_matches_cpu(cuda, s):
                     edge_layout=compute_layout(g.to(cuda), tile_nodes=16)).cpu()
         ref = model.to("cpu")(g, sampled_idx=idx, edge_layout=compute_layout(g, tile_nodes=16))
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# ---- K1 and K4 on the tensor cores (3xTF32, a cp.async ring, persistent
+# blocks), and their CUDA-core predecessors kept as same-card baselines
+
+
+def hub_graph(seed):
+    """Node 0 receives from 40 senders and node 1 sends to 40 receivers (the
+    ring wraps many times within one node), with random edges beside them;
+    every 7th other edge is masked at run time."""
+    rng = np.random.default_rng(seed)
+    n = 44
+    x = (rng.random((n, 12)) < 0.4).astype(np.float32)
+    x[x.sum(1) == 0, 0] = 1.0
+    hub = np.concatenate([np.stack([np.arange(2, 42), np.zeros(40, int)]),
+                          np.stack([np.ones(40, int), np.arange(2, 42)])], axis=1)
+    ei = np.concatenate([hub, np.stack([rng.integers(2, n, 100), rng.integers(2, n, 100)])], 1)
+    split = rng.random(n)
+    g = from_arrays(x, ei, y=rng.integers(0, 3, n), train_mask=split < 0.5,
+                    val_mask=split >= 0.5, pad_nodes_to=48, pad_edges_to=256)
+    mask = g.edge_mask.clone()
+    other = torch.nonzero(mask & (g.receivers != 0) & (g.senders != 1))[:, 0]
+    mask[other[::7]] = False
+    return g, mask
+
+
+def tc_inputs(cuda, g, mask, s, d, h, softmax):
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    nt = lay.recv_ptr.numel() - 1
+    sp = -(-s // 8) * 8
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=cuda)
+    qdm = torch.cat([qkv[:, :d], torch.randn(nt * sp, d, generator=gen, device=cuda)], 1)
+    r_idx = (lay.tile_senders, edge_slot_valid(lay, mask.to(cuda)), lay.recv_ptr, lay.recv_slots)
+    s_idx = (lay.snd_receivers, snd_slot_valid(lay, mask.to(cuda)), lay.snd_ptr, lay.snd_slots)
+    return lay, nt, sp, qkv, qdm, r_idx, s_idx, dict(s=s, sp=sp, num_heads=h, softmax=softmax)
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s", [40, 20])
+def test_tc_kernels_on_nodes_of_degree_40(cuda, s, softmax):
+    """Sums over 40 edges: with raw scores their terms grow with the degree
+    and cancel, so, as the gradient tests do for f32 sums, atol scales with
+    the largest entry (the tensor cores add each product's 8-term sum with
+    truncation: about twice the error of the CUDA-core kernels, PERF.md)."""
+    g, mask = hub_graph(0)
+    d, h = 128, 4
+    lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, s, d, h, softmax)
+    assert int(lay.recv_ptr[1] - lay.recv_ptr[0]) >= 40
+    assert int(lay.snd_ptr[2] - lay.snd_ptr[1]) >= 40
+    for got, ref in (
+            (eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *r_idx, **kw),
+             eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *r_idx, **kw)),
+            (bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *s_idx, **kw),
+             bwd.edge_attention_bwd_dkv_plain(qdm, qkv[:, d:], *s_idx, **kw))):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL,
+                                   atol=ATOL * max(1.0, float(ref.abs().max())))
+
+
+def test_tc_kernels_write_zeros_where_every_edge_is_masked(cuda):
+    """The receiver 0 and the sender 1 keep their 40 structural edges, all
+    masked at run time: no gather, exact zeros, and their neighbours'
+    sums unchanged against the plain versions."""
+    g, mask = hub_graph(1)
+    mask = mask & (g.receivers != 0) & (g.senders != 1)
+    d, h = 128, 4
+    lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, 40, d, h, True)
+    assert int(lay.recv_ptr[1] - lay.recv_ptr[0]) >= 40
+    got = eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *r_idx, **kw)
+    torch.cuda.synchronize()
+    assert (got.reshape(nt, sp, d)[0] == 0).all()
+    torch.testing.assert_close(got, eaf.edge_attention_sums_plain(
+        qkv[:, :d], qkv[:, d:], *r_idx, **kw), rtol=RTOL, atol=ATOL)
+    got = bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *s_idx, **kw)
+    torch.cuda.synchronize()
+    assert (got.reshape(nt, sp, 2 * d)[1] == 0).all()
+    torch.testing.assert_close(got, bwd.edge_attention_bwd_dkv_plain(
+        qdm, qkv[:, d:], *s_idx, **kw), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("s,d,h", [(40, 128, 4), (7, 100, 4)])
+def test_tc_kernels_take_strided_views_and_repeat_bit_for_bit(cuda, s, d, h):
+    """q / k|v as column views of one q|k|v buffer, [Q | dMsg] as a view of
+    a wider buffer: the same bits as on contiguous copies, and a second
+    launch repeats the first (no atomics)."""
+    g, mask = graph(0, first_sender=1)
+    lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, s, d, h, True)
+    q, kv = qkv[:, :d], qkv[:, d:]
+    assert kv.stride(0) == 3 * d
+    got = eaf.edge_attention_sums(q, kv, *r_idx, **kw)
+    assert torch.equal(got, eaf.edge_attention_sums(q.contiguous(), kv.contiguous(), *r_idx, **kw))
+    assert torch.equal(got, eaf.edge_attention_sums(q, kv, *r_idx, **kw))
+    wide = torch.zeros(nt * sp, 2 * d + 8, device=cuda)
+    wide[:, 4: 2 * d + 4] = qdm
+    view = wide[:, 4: 2 * d + 4]
+    got = bwd.edge_attention_bwd_dkv(view, kv, *s_idx, **kw)
+    assert torch.equal(got, bwd.edge_attention_bwd_dkv(qdm, kv.contiguous(), *s_idx, **kw))
+    assert torch.equal(got, bwd.edge_attention_bwd_dkv(view, kv, *s_idx, **kw))
+
+
+def test_tc_kernels_refuse_what_they_do_not_take(cuda):
+    """No fallback: rows the 16-byte copies cannot gather, and S beyond the
+    instantiated range, raise before any launch."""
+    g, mask = graph(0, first_sender=1)
+    d = 128
+    lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, 40, d, 4, True)
+    buf = torch.zeros(nt * sp, 3 * d + 4, device=cuda)
+    before = eaf.launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        eaf.edge_attention_sums(buf[:, :d], buf[:, d + 1: 3 * d + 1], *r_idx, **kw)
+    with pytest.raises(ValueError, match="16-byte"):
+        bwd.edge_attention_bwd_dkv(buf[:, 1: 2 * d + 1], qkv[:, d:], *s_idx, **kw)
+    with pytest.raises(ValueError, match="16-byte"):                 # row stride 3D + 2
+        odd = torch.zeros(nt * sp, 3 * d + 2, device=cuda)
+        eaf.edge_attention_sums(odd[:, :d], odd[:, d: 3 * d], *r_idx, **kw)
+    big = torch.zeros(nt * 56, 3 * d, device=cuda)
+    kw56 = dict(s=49, sp=56, num_heads=4, softmax=True)
+    with pytest.raises(ValueError, match="range"):
+        eaf.edge_attention_sums(big[:, :d], big[:, d:], *r_idx, **kw56)
+    with pytest.raises(ValueError, match="range"):
+        bwd.edge_attention_bwd_dkv(big[:, : 2 * d], big[:, d:], *s_idx, **kw56)
+    assert eaf.launch_counts() == before
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", SHAPES)
+def test_simt_baselines_match_plain_on_card(cuda, s, d, h, softmax):
+    """K1's and K4's CUDA-core predecessors, kept for same-card timings,
+    against the same plain versions; they count no launch."""
+    g, mask = graph(0, first_sender=1)
+    lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, s, d, h, softmax)
+    before = eaf.launch_counts()
+    got = eaf._edge_attention_sums_simt(qkv[:, :d], qkv[:, d:], *r_idx, **kw)
+    ref = eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *r_idx, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    got = bwd._edge_attention_bwd_dkv_simt(qdm, qkv[:, d:], *s_idx, **kw)
+    ref = bwd.edge_attention_bwd_dkv_plain(qdm, qkv[:, d:], *s_idx, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    assert eaf.launch_counts() == before
