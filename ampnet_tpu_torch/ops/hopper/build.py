@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Union
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -80,18 +80,24 @@ def build_all() -> Dict[str, Path]:
 
 
 _PTXAS_ENTRY = re.compile(
-    r"Compiling entry function '[^']*ILi(\d+)E[^']*'.*?(\d+) bytes spill stores, "
+    r"Compiling entry function '([^']*)'.*?(\d+) bytes spill stores, "
     r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+_TEMPLATE_INT = re.compile(r"ILi(\d+)E")
 
 
-def parse_ptxas(log: str) -> Dict[int, Dict[str, int]]:
-    """Per instantiation of a kernel template in an ``-Xptxas -v`` log (by
-    the template's int argument): registers per thread and spill bytes."""
-    return {int(t): dict(regs=int(r), spill_stores=int(st), spill_loads=int(ld))
-            for t, st, ld, r in _PTXAS_ENTRY.findall(log)}
+def parse_ptxas(log: str) -> Dict[Union[int, str], Dict[str, int]]:
+    """Per kernel in an ``-Xptxas -v`` log: registers per thread and spill
+    bytes, keyed by the first int argument of a kernel template's
+    instantiation, or by the mangled name of a kernel that is no template."""
+    out = {}
+    for name, st, ld, r in _PTXAS_ENTRY.findall(log):
+        t = _TEMPLATE_INT.search(name)
+        out[int(t.group(1)) if t else name] = dict(
+            regs=int(r), spill_stores=int(st), spill_loads=int(ld))
+    return out
 
 
-def ptxas_report(name: str) -> Dict[int, Dict[str, int]]:
+def ptxas_report(name: str) -> Dict[Union[int, str], Dict[str, int]]:
     """``parse_ptxas`` of csrc/<name>.cu's build log (builds first if needed)."""
     return parse_ptxas(build_all()[name].with_suffix(".log").read_text())
 

@@ -2,17 +2,23 @@
 //
 // Replaces the TPU forward kernels of ampnet_tpu/ops/pallas/
 // edge_attention_fused.py:
-//   * K1's first body, ampnet_edge_attention_sums_simt <- _fused_kernel_vmem_v2
-//     (:691, body _tile_attention_accumulate :379) and _fused_kernel_vmem_v4
-//     (:942): the per-receiver SUM over live in-edges of the multi-head
-//     message softmax(Q K^T / sqrt(dh)) V (raw scores with softmax=0). K1
-//     runs on the tensor cores now (edge_attention_tc.cu); this CUDA-core
-//     instantiation stays exported as a same-card baseline only;
-//   * K2 ampnet_edge_attention_layer <- _fused_kernel_vmem_v6 (:763): the
-//     same walk with each edge pre-scaled by its receiver's 1/degree (the
-//     accumulator holds the MEAN), then the out-projection and b_out on
-//     live rows only, in the epilogue. Its QKV projection is the separate
-//     launch in qkv_projection.cu.
+//   * K1's CUDA-core body, ampnet_edge_attention_sums_simt <-
+//     _fused_kernel_vmem_v2 (:691, body _tile_attention_accumulate :379)
+//     and _fused_kernel_vmem_v4 (:942): the per-receiver SUM over live
+//     in-edges of the multi-head message softmax(Q K^T / sqrt(dh)) V (raw
+//     scores with softmax=0);
+//   * K2's CUDA-core attention launch, ampnet_edge_attention_layer_simt <-
+//     _fused_kernel_vmem_v6 (:763): the same walk with each edge pre-scaled
+//     by its receiver's 1/degree (the accumulator holds the MEAN), then the
+//     out-projection and b_out on live rows only, in the epilogue. Its QKV
+//     projection is the separate launch in qkv_projection.cu.
+// K1 and K2 run on the tensor cores (edge_attention_tc.cu,
+// edge_attention_layer_tc.cu) within their instantiated range; these bodies
+// are the route beyond it (S > 48, D/H > 32, more than 12 warps, rows the
+// 16-byte copies cannot take), at every shape: where a block's working
+// set (smem_floats, mirrored in launch.py) exceeds the 227 KB of shared
+// memory a block may have, the same body keeps it in device memory instead,
+// one slice per resident block, and the blocks walk the receivers in turn.
 //
 // Design. A TPU tile of TN receivers carries a TN*SP*D f32 accumulator
 // (5.2 MB at S=40) through a sequential grid; that cannot be one thread
@@ -56,21 +62,20 @@ __host__ __device__ inline size_t smem_floats(int s, int d, int h) {
   return (size_t)(s2 + s4) * (d + 1) + (size_t)s * d * 2 + (size_t)h * s4 * s;
 }
 
+// One receiver n, its working set at smem (shared or device memory).
 template <bool kLayer>
-__global__ void __launch_bounds__(kThreads)
-edge_attention_kernel(const float* __restrict__ q, int ldq,
-                      const float* __restrict__ kv, int ldkv,
-                      const int* __restrict__ tile_senders,
-                      const int* __restrict__ tile_valid,
-                      const int* __restrict__ recv_ptr,
-                      const int* __restrict__ recv_slots,
-                      const float* __restrict__ invdeg,
-                      const float* __restrict__ w_out,
-                      const float* __restrict__ b_out,
-                      float* __restrict__ out,
-                      int s, int sp, int d, int num_heads, int softmax) {
-  extern __shared__ float smem[];
-  const int n = blockIdx.x;
+__device__ __forceinline__ void
+receiver_sums(int n, float* smem, const float* __restrict__ q, int ldq,
+              const float* __restrict__ kv, int ldkv,
+              const int* __restrict__ tile_senders,
+              const int* __restrict__ tile_valid,
+              const int* __restrict__ recv_ptr,
+              const int* __restrict__ recv_slots,
+              const float* __restrict__ invdeg,
+              const float* __restrict__ w_out,
+              const float* __restrict__ b_out,
+              float* __restrict__ out,
+              int s, int sp, int d, int num_heads, int softmax) {
   const int tid = threadIdx.x;
   const int dh = d / num_heads;
   const int ld = d + 1;
@@ -87,8 +92,10 @@ edge_attention_kernel(const float* __restrict__ q, int ldq,
   const float scale = 1.0f / sqrtf((float)dh);
   const size_t qrow0 = (size_t)n * sp;
 
-  // zero everything once (pad rows of qs/ks/ps must read 0), then Q
+  // zero everything once (pad rows of qs/ks/ps must read 0), then Q; the
+  // block's previous receiver is done with its working set
   const int total = (int)smem_floats(s, d, num_heads);
+  __syncthreads();
   for (int e = tid; e < total; e += kThreads) smem[e] = 0.0f;
   __syncthreads();
   if (beg < end) {
@@ -219,23 +226,61 @@ edge_attention_kernel(const float* __restrict__ q, int ldq,
   for (int e = s * d + tid; e < sp * d; e += kThreads) orow[e] = 0.0f;
 }
 
+// kDeviceMem = false: one block per receiver, its working set in dynamic
+// shared memory. kDeviceMem = true: block b works in work[b * smem_floats]
+// and takes receivers b, b + gridDim.x, ...
+template <bool kLayer, bool kDeviceMem>
+__global__ void __launch_bounds__(kThreads)
+edge_attention_kernel(const float* __restrict__ q, int ldq,
+                      const float* __restrict__ kv, int ldkv,
+                      const int* __restrict__ tile_senders,
+                      const int* __restrict__ tile_valid,
+                      const int* __restrict__ recv_ptr,
+                      const int* __restrict__ recv_slots,
+                      const float* __restrict__ invdeg,
+                      const float* __restrict__ w_out,
+                      const float* __restrict__ b_out,
+                      float* __restrict__ out, float* __restrict__ work,
+                      int num_nodes, int s, int sp, int d, int num_heads,
+                      int softmax) {
+  extern __shared__ float shared[];
+  if (!kDeviceMem) {  // no loop: the loop costs this body registers
+    receiver_sums<kLayer>(blockIdx.x, shared, q, ldq, kv, ldkv, tile_senders, tile_valid,
+                          recv_ptr, recv_slots, invdeg, w_out, b_out, out, s, sp, d,
+                          num_heads, softmax);
+    return;
+  }
+  float* smem = work + blockIdx.x * smem_floats(s, d, num_heads);
+  for (int n = blockIdx.x; n < num_nodes; n += gridDim.x)
+    receiver_sums<kLayer>(n, smem, q, ldq, kv, ldkv, tile_senders, tile_valid,
+                          recv_ptr, recv_slots, invdeg, w_out, b_out, out, s,
+                          sp, d, num_heads, softmax);
+}
+
+// work == nullptr: the working set in shared memory (the caller checked
+// that it fits); else work_blocks slices of smem_floats in device memory.
 template <bool kLayer>
 int launch(const float* q, int ldq, const float* kv, int ldkv,
            const int* tile_senders, const int* tile_valid,
            const int* recv_ptr, const int* recv_slots,
            const float* invdeg, const float* w_out, const float* b_out,
-           float* out, int num_nodes, int s, int sp, int d, int num_heads,
-           int softmax, cudaStream_t stream) {
+           float* out, float* work, int work_blocks, int num_nodes, int s,
+           int sp, int d, int num_heads, int softmax, cudaStream_t stream) {
+  if (num_nodes <= 0) return (int)cudaGetLastError();
+  if (work != nullptr) {
+    edge_attention_kernel<kLayer, true><<<work_blocks, kThreads, 0, stream>>>(
+        q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots,
+        invdeg, w_out, b_out, out, work, num_nodes, s, sp, d, num_heads, softmax);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = smem_floats(s, d, num_heads) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_attention_kernel<kLayer>,
+      edge_attention_kernel<kLayer, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (num_nodes > 0) {
-    edge_attention_kernel<kLayer><<<num_nodes, kThreads, smem, stream>>>(
-        q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots,
-        invdeg, w_out, b_out, out, s, sp, d, num_heads, softmax);
-  }
+  edge_attention_kernel<kLayer, false><<<num_nodes, kThreads, smem, stream>>>(
+      q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots,
+      invdeg, w_out, b_out, out, nullptr, num_nodes, s, sp, d, num_heads, softmax);
   return (int)cudaGetLastError();
 }
 
@@ -243,38 +288,43 @@ int launch(const float* q, int ldq, const float* kv, int ldkv,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs (the wrapper checks it
-// against the card's per-block limit before launching).
+// Bytes of working set one block needs (the wrapper puts it in shared
+// memory where it fits the card's per-block limit, else in device memory).
 size_t ampnet_edge_attention_smem_bytes(int s, int d, int num_heads) {
   return smem_floats(s, d, num_heads) * sizeof(float);
 }
 
-// K1's CUDA-core body (the baseline of edge_attention_tc.cu). q:
+// K1's CUDA-core body (the route beyond edge_attention_tc.cu's range). q:
 // [num_nodes*sp] rows of d floats, row stride ldq; kv: rows of k|v (2d
-// floats), row stride ldkv; out: [num_nodes*sp, d] contiguous.
+// floats), row stride ldkv; out: [num_nodes*sp, d] contiguous; work: null
+// (shared memory) or work_blocks * smem_bytes of device memory.
 int ampnet_edge_attention_sums_simt(const float* q, int ldq, const float* kv,
                                     int ldkv, const int* tile_senders,
                                     const int* tile_valid, const int* recv_ptr,
                                     const int* recv_slots, float* out,
                                     int num_nodes, int s, int sp, int d,
-                                    int num_heads, int softmax, void* stream) {
+                                    int num_heads, int softmax, float* work,
+                                    int work_blocks, void* stream) {
   return launch<false>(q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr,
-                       recv_slots, nullptr, nullptr, nullptr, out, num_nodes,
-                       s, sp, d, num_heads, softmax, (cudaStream_t)stream);
+                       recv_slots, nullptr, nullptr, nullptr, out, work,
+                       work_blocks, num_nodes, s, sp, d, num_heads, softmax,
+                       (cudaStream_t)stream);
 }
 
-// K2 attention launch over projected rows (q|k|v packed per row, stride
-// ldqkv): invdeg [num_nodes], w_out [d, d] (in, out), b_out [d].
-int ampnet_edge_attention_layer(const float* qkv, int ldqkv,
+// K2's CUDA-core attention launch over projected rows (q|k|v packed per
+// row, stride ldqkv): invdeg [num_nodes], w_out [d, d] (in, out), b_out [d];
+// work as K1's.
+int ampnet_edge_attention_layer_simt(const float* qkv, int ldqkv,
                                 const int* tile_senders, const int* tile_valid,
                                 const int* recv_ptr, const int* recv_slots,
                                 const float* invdeg, const float* w_out,
                                 const float* b_out, float* out, int num_nodes,
                                 int s, int sp, int d, int num_heads,
-                                int softmax, void* stream) {
+                                int softmax, float* work, int work_blocks,
+                                void* stream) {
   return launch<true>(qkv, ldqkv, qkv + d, ldqkv, tile_senders, tile_valid,
-                      recv_ptr, recv_slots, invdeg, w_out, b_out, out,
-                      num_nodes, s, sp, d, num_heads, softmax,
+                      recv_ptr, recv_slots, invdeg, w_out, b_out, out, work,
+                      work_blocks, num_nodes, s, sp, d, num_heads, softmax,
                       (cudaStream_t)stream);
 }
 

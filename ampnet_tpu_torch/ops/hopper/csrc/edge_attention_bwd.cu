@@ -4,16 +4,18 @@
 //
 // Replaces the TPU backward kernels of ampnet_tpu/ops/pallas/
 // edge_attention_bwd_scatterfree.py:
-//   * K3 ampnet_edge_attention_bwd_dq  <- pass R, _dq_kernel_vmem (:167) and
-//     _dq_kernel_dma (:211), math _dq_group_math (:61): per edge, recompute
-//     the scores and the softmax, dW = dMsg V^T, the softmax backward
-//     dS = W (dW - rowsum(dW W)), dQ = dS K / sqrt(dh); summed per RECEIVER;
-//   * K4's first body, ampnet_edge_attention_bwd_dkv_simt <- pass S,
+//   * K3's CUDA-core body, ampnet_edge_attention_bwd_dq_simt <- pass R,
+//     _dq_kernel_vmem (:167) and _dq_kernel_dma (:211), math _dq_group_math
+//     (:61): per edge, recompute the scores and the softmax, dW = dMsg V^T,
+//     the softmax backward dS = W (dW - rowsum(dW W)), dQ = dS K / sqrt(dh);
+//     summed per RECEIVER;
+//   * K4's CUDA-core body, ampnet_edge_attention_bwd_dkv_simt <- pass S,
 //     _dkv_kernel_vmem (:280) and _dkv_kernel_dma (:319), math
 //     _dkv_group_math (:105): the same recompute, then dV = W^T dMsg and dK
-//     = dS^T Q / sqrt(dh); summed per SENDER. K4 runs on the tensor cores
-//     now (edge_attention_bwd_tc.cu); this CUDA-core instantiation stays
-//     exported as a same-card baseline only;
+//     = dS^T Q / sqrt(dh); summed per SENDER. K3 and K4 run on the tensor
+//     cores (edge_attention_bwd_dq_tc.cu, edge_attention_bwd_tc.cu) within
+//     their instantiated range; these two bodies are the route beyond it,
+//     at every shape (below);
 // and the four stream-backward bodies of ampnet_tpu/ops/pallas/
 // edge_attention_bwd.py (pass A):
 //   * K5 ampnet_edge_attention_bwd_stream <- _bwd_kernel_vmem_v2 (:178),
@@ -39,6 +41,10 @@
 // Rows are SP apart; only the S real rows are read (the pad-key mask) and
 // pad rows are written as 0. Device memory is read either way on Hopper,
 // so one kernel per pass serves the 'vmem' and the 'dma' body alike.
+// Where a block's working set (smem_floats, mirrored in launch.py) exceeds
+// the 227 KB of shared memory a block may have, the same body keeps it in
+// device memory instead, one slice per resident block, and the blocks walk
+// the nodes in turn.
 //
 // All three share one kernel body: what differs is which side is the
 // block's own and the last products. K5 is K3's block (one per receiver,
@@ -146,26 +152,27 @@ __device__ __forceinline__ void store_2x4(float* dst, int s4, int s, int i0, int
   }
 }
 
-// kMode = kDq:     K3, block n is a receiver, peers are its senders.
-// kMode = kDkv:    K4, block n is a sender, peers are its receivers; dm must
+// The block's node n = node0 + local, its working set at smem (shared or
+// device memory).
+// kMode = kDq:     K3, node n is a receiver, peers are its senders.
+// kMode = kDkv:    K4, node n is a sender, peers are its receivers; dm must
 //                  be q + d of one packed [Q | dMsg] row array (ldq == lddm).
-// kMode = kStream: K5, K3's block for receiver node0 + blockIdx.x; out takes
-//                  the dQ rows of the launched range, stream the dK | dV
-//                  rows of each walked slot, counted from slot0.
+// kMode = kStream: K5, K3's work for receiver n; out takes the dQ rows of
+//                  the launched range, stream the dK | dV rows of each
+//                  walked slot, counted from slot0.
 template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-edge_attention_bwd_kernel(const float* __restrict__ q, int ldq,
-                          const float* __restrict__ dm, int lddm,
-                          const float* __restrict__ kv, int ldkv,
-                          const int* __restrict__ peer_ids,
-                          const int* __restrict__ valid,
-                          const int* __restrict__ ptr,
-                          const int* __restrict__ slots,
-                          float* __restrict__ out,
-                          float* __restrict__ stream, int node0, int slot0,
-                          int s, int sp, int d, int num_heads, int softmax) {
-  extern __shared__ float smem[];
-  const int n = node0 + blockIdx.x;
+__device__ __forceinline__ void
+node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
+              const float* __restrict__ dm, int lddm,
+              const float* __restrict__ kv, int ldkv,
+              const int* __restrict__ peer_ids,
+              const int* __restrict__ valid,
+              const int* __restrict__ ptr,
+              const int* __restrict__ slots,
+              float* __restrict__ out,
+              float* __restrict__ stream, int node0, int slot0,
+              int s, int sp, int d, int num_heads, int softmax) {
+  const int n = node0 + local;
   const int tid = threadIdx.x;
   const int dh = d / num_heads;
   const int ld = d + 1;
@@ -184,8 +191,10 @@ edge_attention_bwd_kernel(const float* __restrict__ q, int ldq,
   const float scale = 1.0f / sqrtf((float)dh);
   const size_t own0 = (size_t)n * sp;
 
-  // zero everything once (pad rows and columns must read 0), then own rows
+  // zero everything once (pad rows and columns must read 0), then own rows;
+  // the block's previous node is done with its working set
   const int total = (int)smem_floats(s, d, num_heads, kMode);
+  __syncthreads();
   for (int e = tid; e < total; e += kThreads) smem[e] = 0.0f;
   __syncthreads();
   if (beg < end) {
@@ -311,27 +320,64 @@ edge_attention_bwd_kernel(const float* __restrict__ q, int ldq,
   }
   __syncthreads();
 
-  float* orow = out + (size_t)blockIdx.x * sp * dacc;
+  float* orow = out + (size_t)local * sp * dacc;
   for (int e = tid; e < s * dacc; e += kThreads) orow[e] = acc[e];
   for (int e = s * dacc + tid; e < sp * dacc; e += kThreads) orow[e] = 0.0f;
 }
 
+// kDeviceMem = false: one block per node, its working set in dynamic shared
+// memory. kDeviceMem = true: block b works in work[b * smem_floats] and
+// takes the nodes b, b + gridDim.x, ... of the launched range.
+template <int kMode, bool kDeviceMem>
+__global__ void __launch_bounds__(kThreads)
+edge_attention_bwd_kernel(const float* __restrict__ q, int ldq,
+                          const float* __restrict__ dm, int lddm,
+                          const float* __restrict__ kv, int ldkv,
+                          const int* __restrict__ peer_ids,
+                          const int* __restrict__ valid,
+                          const int* __restrict__ ptr,
+                          const int* __restrict__ slots,
+                          float* __restrict__ out,
+                          float* __restrict__ stream, float* __restrict__ work,
+                          int node0, int num_nodes, int slot0, int s, int sp,
+                          int d, int num_heads, int softmax) {
+  extern __shared__ float shared[];
+  if (!kDeviceMem) {  // no loop: the loop costs this body registers
+    node_backward<kMode>(blockIdx.x, shared, q, ldq, dm, lddm, kv, ldkv, peer_ids, valid,
+                         ptr, slots, out, stream, node0, slot0, s, sp, d, num_heads,
+                         softmax);
+    return;
+  }
+  float* smem = work + blockIdx.x * smem_floats(s, d, num_heads, kMode);
+  for (int local = blockIdx.x; local < num_nodes; local += gridDim.x)
+    node_backward<kMode>(local, smem, q, ldq, dm, lddm, kv, ldkv, peer_ids, valid,
+                         ptr, slots, out, stream, node0, slot0, s, sp, d,
+                         num_heads, softmax);
+}
+
+// work == nullptr: the working set in shared memory (the caller checked
+// that it fits); else work_blocks slices of smem_floats in device memory.
 template <int kMode>
 int launch(const float* q, int ldq, const float* dm, int lddm, const float* kv,
            int ldkv, const int* peer_ids, const int* valid, const int* ptr,
-           const int* slots, float* out, float* stream_out, int node0,
-           int num_nodes, int slot0, int s, int sp, int d, int num_heads,
-           int softmax, cudaStream_t stream) {
+           const int* slots, float* out, float* stream_out, float* work,
+           int work_blocks, int node0, int num_nodes, int slot0, int s, int sp,
+           int d, int num_heads, int softmax, cudaStream_t stream) {
+  if (num_nodes <= 0) return (int)cudaGetLastError();
+  if (work != nullptr) {
+    edge_attention_bwd_kernel<kMode, true><<<work_blocks, kThreads, 0, stream>>>(
+        q, ldq, dm, lddm, kv, ldkv, peer_ids, valid, ptr, slots, out, stream_out,
+        work, node0, num_nodes, slot0, s, sp, d, num_heads, softmax);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = smem_floats(s, d, num_heads, kMode) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_attention_bwd_kernel<kMode>,
+      edge_attention_bwd_kernel<kMode, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (num_nodes > 0) {
-    edge_attention_bwd_kernel<kMode><<<num_nodes, kThreads, smem, stream>>>(
-        q, ldq, dm, lddm, kv, ldkv, peer_ids, valid, ptr, slots, out, stream_out,
-        node0, slot0, s, sp, d, num_heads, softmax);
-  }
+  edge_attention_bwd_kernel<kMode, false><<<num_nodes, kThreads, smem, stream>>>(
+      q, ldq, dm, lddm, kv, ldkv, peer_ids, valid, ptr, slots, out, stream_out,
+      nullptr, node0, num_nodes, slot0, s, sp, d, num_heads, softmax);
   return (int)cudaGetLastError();
 }
 
@@ -339,28 +385,33 @@ int launch(const float* q, int ldq, const float* dm, int lddm, const float* kv,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs (mode 0: K3, 1: K4, 2: K5);
-// the wrappers check it against the card's per-block limit before launching.
+// Bytes of working set one block needs (mode 0: K3, 1: K4, 2: K5); the
+// wrappers put it in shared memory where it fits the card's per-block limit,
+// else in device memory.
 size_t ampnet_edge_attention_bwd_smem_bytes(int s, int d, int num_heads, int mode) {
   return smem_floats(s, d, num_heads, mode) * sizeof(float);
 }
 
-// K3. q, dsum: [num_nodes*sp] rows of d floats (row strides ldq, lddsum);
-// kv: rows of k|v (2d floats, stride ldkv); tile_senders / tile_valid over
-// the receiver-tiled slots, recv_ptr / recv_slots the receiver-major
-// index; dq: [num_nodes*sp, d] contiguous.
-int ampnet_edge_attention_bwd_dq(const float* q, int ldq, const float* dsum,
+// K3's CUDA-core body (the route beyond edge_attention_bwd_dq_tc.cu's
+// range). q, dsum: [num_nodes*sp] rows of d floats (row strides ldq,
+// lddsum); kv: rows of k|v (2d floats, stride ldkv); tile_senders /
+// tile_valid over the receiver-tiled slots, recv_ptr / recv_slots the
+// receiver-major index; dq: [num_nodes*sp, d] contiguous; work: null
+// (shared memory) or work_blocks * smem_bytes of device memory.
+int ampnet_edge_attention_bwd_dq_simt(const float* q, int ldq, const float* dsum,
                                  int lddsum, const float* kv, int ldkv,
                                  const int* tile_senders, const int* tile_valid,
                                  const int* recv_ptr, const int* recv_slots,
                                  float* dq, int num_nodes, int s, int sp, int d,
-                                 int num_heads, int softmax, void* stream) {
+                                 int num_heads, int softmax, float* work,
+                                 int work_blocks, void* stream) {
   return launch<kDq>(q, ldq, dsum, lddsum, kv, ldkv, tile_senders, tile_valid,
-                     recv_ptr, recv_slots, dq, nullptr, 0, num_nodes, 0, s, sp, d,
-                     num_heads, softmax, (cudaStream_t)stream);
+                     recv_ptr, recv_slots, dq, nullptr, work, work_blocks, 0,
+                     num_nodes, 0, s, sp, d, num_heads, softmax,
+                     (cudaStream_t)stream);
 }
 
-// K4's CUDA-core body (the baseline of edge_attention_bwd_tc.cu). qdm:
+// K4's CUDA-core body (the route beyond edge_attention_bwd_tc.cu's range). qdm:
 // rows of q|dsum (2d floats, stride ldqdm); kv as above; snd_receivers /
 // snd_valid over the sender-tiled slots, snd_ptr / snd_slots the
 // sender-major index; dkv: [num_nodes*sp, 2d] contiguous rows of dk|dv.
@@ -369,10 +420,12 @@ int ampnet_edge_attention_bwd_dkv_simt(const float* qdm, int ldqdm, const float*
                                        const int* snd_valid, const int* snd_ptr,
                                        const int* snd_slots, float* dkv, int num_nodes,
                                        int s, int sp, int d, int num_heads,
-                                       int softmax, void* stream) {
+                                       int softmax, float* work, int work_blocks,
+                                       void* stream) {
   return launch<kDkv>(qdm, ldqdm, qdm + d, ldqdm, kv, ldkv, snd_receivers,
-                      snd_valid, snd_ptr, snd_slots, dkv, nullptr, 0, num_nodes, 0,
-                      s, sp, d, num_heads, softmax, (cudaStream_t)stream);
+                      snd_valid, snd_ptr, snd_slots, dkv, nullptr, work,
+                      work_blocks, 0, num_nodes, 0, s, sp, d, num_heads, softmax,
+                      (cudaStream_t)stream);
 }
 
 // K5. Inputs as K3, for the num_nodes receivers from node0 on (a range of
@@ -386,10 +439,12 @@ int ampnet_edge_attention_bwd_stream(const float* q, int ldq, const float* dsum,
                                      const int* recv_ptr, const int* recv_slots,
                                      float* dq, float* dkv_stream, int node0,
                                      int num_nodes, int slot0, int s, int sp, int d,
-                                     int num_heads, int softmax, void* stream) {
+                                     int num_heads, int softmax, float* work,
+                                     int work_blocks, void* stream) {
   return launch<kStream>(q, ldq, dsum, lddsum, kv, ldkv, tile_senders, tile_valid,
-                         recv_ptr, recv_slots, dq, dkv_stream, node0, num_nodes,
-                         slot0, s, sp, d, num_heads, softmax, (cudaStream_t)stream);
+                         recv_ptr, recv_slots, dq, dkv_stream, work, work_blocks,
+                         node0, num_nodes, slot0, s, sp, d, num_heads, softmax,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -8,10 +8,9 @@
 // _dkv_kernel_dma (:319), math _dkv_group_math (:105): per edge, recompute
 // the scores and the softmax, dW = dMsg V^T, the softmax backward dS = W (dW
 // - rowsum(dW W)) (dS = dW and W the raw scaled scores with softmax=0), then
-// dV = W^T dMsg and dK = dS^T Q / sqrt(dh), summed per SENDER. K3 and K5 keep
-// the CUDA-core body of edge_attention_bwd.cu, where this kernel's
-// predecessor stays exported as ampnet_edge_attention_bwd_dkv_simt (a
-// same-card baseline; no wrapper calls it).
+// dV = W^T dMsg and dK = dS^T Q / sqrt(dh), summed per SENDER. Beyond the
+// instantiated range the wrapper routes to K4's CUDA-core body,
+// ampnet_edge_attention_bwd_dkv_simt in edge_attention_bwd.cu.
 //
 // Bound (H100 SXM): 8*S^2*D FLOP per live edge (16.9 GFLOP at the S=40 Cora
 // shapes, 0.25 ms at the 67 TFLOP/s f32 rate) against ~338 MB (0.10 ms at
@@ -56,7 +55,7 @@
 // dMsg row, their dS is 0); rows S..SP-1 of the output are written as 0;
 // dh not a multiple of 8 is zero-padded within the head. Instantiated for
 // S <= 48 (NQT = ceil(S/8) query tiles), dh <= 32 and at most 12 warps (8
-// up to S=24).
+// up to S=24); the wrapper routes other shapes to the CUDA-core body.
 
 #include "common.cuh"
 #include "mma_tf32.cuh"

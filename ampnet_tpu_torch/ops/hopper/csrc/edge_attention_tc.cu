@@ -1,281 +1,17 @@
 // K1 on Hopper's tensor cores: the per-receiver sums of per-edge attention,
-// f32 in 3xTF32 (mma_tf32.cuh), with the next edges' gathers in flight.
+// f32 in 3xTF32, with the next edges' gathers in flight. The kernel body is
+// edge_attention_tc.cuh (shared with K2's attention launch,
+// edge_attention_layer_tc.cu); the design notes are there.
 //
 // Replaces the TPU forward kernels of ampnet_tpu/ops/pallas/
 // edge_attention_fused.py _fused_kernel_vmem_v2 (:691, body
 // _tile_attention_accumulate :379) and _fused_kernel_vmem_v4 (:942): per
 // receiver, the SUM over live in-edges of the multi-head message
-// softmax(Q K^T / sqrt(dh)) V (raw scaled scores with softmax=0). K2's
-// whole-layer kernel keeps the CUDA-core body of edge_attention.cu, where
-// this kernel's predecessor stays exported as ampnet_edge_attention_sums_simt
-// (a same-card baseline; no wrapper calls it).
-//
-// Bound (H100 SXM): 4*S^2*D FLOP per live edge (8.5 GFLOP at the S=40 Cora
-// shapes, 0.13 ms at the 67 TFLOP/s f32 rate) against ~226 MB of compulsory
-// traffic (0.07 ms at 3.35 TB/s): bound by operations at the f32 rate. The
-// CUDA-core predecessor was held back by shared-memory loads (6 words per 8
-// FMAs), by residency (107.8 KB of shared memory a block) and by a
-// synchronous 40 KB gather at the start of every edge. Here:
-//
-// * One warp per (head, 16-row query tile): 12 warps at S=40, 8 at S=20.
-//   Per edge the warp takes the 16 x S score tile on mma.sync m16n8k8 into
-//   registers, the row softmax there (max and sum over the thread's values,
-//   then across the quad with __shfl_xor 1 and 2; expf), and adds P V into
-//   its 16 x dh output accumulator O, also in registers. The score tile's C
-//   fragment is P V's A fragment with no shuffle (mma_tf32.cuh), so V's B
-//   fragment reads keys 2t and 2t + 1. Q's fragments are loaded once per
-//   receiver, scaled by 1/sqrt(dh), and kept as f32: splitting them into
-//   TF32 hi/lo costs 48 instructions an edge, and 16 more registers would
-//   cost the second block per SM.
-// * Shared memory holds only a ring of 2 or 3 stages of gathered K|V rows
-//   (S x 2D f32, row stride 2D + 4 so that both fragment patterns are free
-//   of bank conflicts at D = 128 and 100), filled with 16-byte cp.async.cg
-//   and one commit group per edge: the next edges' rows are in flight while
-//   the current edge computes, and one __syncthreads per edge both publishes
-//   a stage and frees the previous one. The launch picks 3 stages unless 2
-//   keep more blocks on an SM.
-// * A persistent grid (blocks per SM x SMs, from the occupancy of the
-//   instantiation) walks receivers n = blockIdx.x, + gridDim.x, ...; the
-//   ring runs across receiver boundaries, so receivers of in-degree 0-4 do
-//   not drain the pipeline. A slot masked at run time is never gathered.
-// * Each receiver's rows are summed by one block in in-edge order: no
-//   atomics, bit-reproducible.
-//
-// Trouble spots: pad query rows (rows S .. of a 16-row tile are the NEXT
-// node's rows in q) are read as 0 and never written; rows S..SP-1 of the
-// output are written as 0. Pad keys of the last 8-key tile (the sender's pad
-// token rows, which hold the projection's bias) are not read: their scores
-// are -inf before the softmax and their values 0. Head widths that are not
-// a multiple of 8 (D=100, H=4: dh=25) are zero-padded within the head.
-// Instantiated for S <= 48 (NKT = ceil(S/8) key tiles), dh <= 32 and at most
-// 12 warps (8 up to S=24, K4's rule); the wrapper raises beyond that, and on rows the 16-byte copies
-// cannot take.
+// softmax(Q K^T / sqrt(dh)) V (raw scaled scores with softmax=0). Beyond the
+// instantiated range the wrapper routes to K1's CUDA-core body,
+// ampnet_edge_attention_sums_simt in edge_attention.cu.
 
-#include "common.cuh"
-#include "mma_tf32.cuh"
-
-namespace {
-
-constexpr int kMaxWarps = 12;
-constexpr int kMaxThreads = 32 * kMaxWarps;
-
-// Two blocks of up to 384 threads per SM leave 80 registers a thread: enough
-// without spills for S <= 24 and S = 33-40 (NKT = 1-3, 5), not for S = 25-32
-// and 41-48 (NKT = 4, 6), which get one block per SM (ptxas, on sm_90a).
-template <int NKT>
-__global__ void __launch_bounds__(kMaxThreads, NKT == 4 || NKT == 6 ? 1 : 2)
-sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ kv,
-               int ldkv, const int* __restrict__ tile_senders,
-               const int* __restrict__ tile_valid, const int* __restrict__ recv_ptr,
-               const int* __restrict__ recv_slots, float* __restrict__ out,
-               int num_nodes, int s, int sp, int d, int num_heads, int softmax,
-               int stages) {
-  extern __shared__ __align__(16) float smem[];
-  // [4][threads] float4: each lane's own Q fragments; then the ring
-  float4* qfrag = reinterpret_cast<float4*>(smem) + threadIdx.x;
-  float* ring = smem + 16 * blockDim.x;
-  const int ldr = 2 * d + 4;
-  const int stage_floats = s * ldr;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int mtiles = (s + 15) / 16;
-  const int dh = d / num_heads;
-  const int hc = (warp / mtiles) * dh;  // the warp's head, first column
-  const int m0 = 16 * (warp % mtiles);  // the warp's first query row
-  const float scale = 1.0f / sqrtf((float)dh);
-
-  LiveWalk prod;  // the gathers run stages - 1 live edges ahead
-  prod.start(recv_ptr, blockIdx.x, num_nodes);
-  for (int i = 0; i < stages - 1; ++i) {
-    const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
-    if (slot >= 0)
-      fill_stage(ring + i * stage_floats, ldr, kv, (size_t)tile_senders[slot] * sp, ldkv, s, d);
-    cp_async_commit();
-  }
-  int stage = 0;  // the stage of the next live edge
-
-  for (int n = blockIdx.x; n < num_nodes; n += gridDim.x) {
-    const size_t qrow0 = (size_t)n * sp;
-    const int r0 = m0 + g, r1 = r0 + 8;
-    // A fragments of Q / sqrt(dh), one per 8 head columns, kept in shared
-    // memory by the lane that owns them (registers decide the blocks per SM)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int c0 = 8 * kk + t, c1 = c0 + 4;
-      const float* q0 = q + (qrow0 + r0) * ldq + hc;
-      const float* q1 = q + (qrow0 + r1) * ldq + hc;
-      qfrag[kk * blockDim.x] = make_float4(r0 < s && c0 < dh ? q0[c0] * scale : 0.0f,
-                                           r1 < s && c0 < dh ? q1[c0] * scale : 0.0f,
-                                           r0 < s && c1 < dh ? q0[c1] * scale : 0.0f,
-                                           r1 < s && c1 < dh ? q1[c1] * scale : 0.0f);
-    }
-    float o[4][4];
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[nn][e] = 0.0f;
-
-    const int end = recv_ptr[n + 1];
-    for (int k = recv_ptr[n]; k < end; ++k) {
-      const int valid = tile_valid[recv_slots[k]];
-      if (valid == 0) continue;  // the same for every thread of the block
-      cp_async_wait(stages - 2);
-      __syncthreads();  // this edge's stage has landed; the previous one is free
-      const float* kr = ring + stage * stage_floats + hc;
-      const float* vr = kr + d;
-      const int free_stage = stage == 0 ? stages - 1 : stage - 1;
-      stage = stage + 1 == stages ? 0 : stage + 1;
-
-      // scores: 16 queries x 8*NKT keys
-      float sc[NKT][4];
-#pragma unroll
-      for (int j = 0; j < NKT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
-#pragma unroll 1  // unrolled, the fragments of all k-steps stay live: spills
-      for (int kk = 0; kk < 4; ++kk) {
-        if (8 * kk >= dh) break;
-        const FragA a = split_a(qfrag[kk * blockDim.x]);
-        const int c0 = 8 * kk + t, c1 = c0 + 4;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          const int key = 8 * j + g;
-          const float* kp = kr + key * ldr;
-          mma_3xtf32(sc[j], a, split_b(key < s && c0 < dh ? kp[c0] : 0.0f,
-                                       key < s && c1 < dh ? kp[c1] : 0.0f));
-        }
-      }
-
-      {  // the gather of the edge stages - 1 ahead, while the products run
-        const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
-        if (slot >= 0)
-          fill_stage(ring + free_stage * stage_floats, ldr, kv, (size_t)tile_senders[slot] * sp,
-                     ldkv, s, d);
-        cp_async_commit();
-      }
-
-      const float w = (float)valid;
-      if (softmax) {  // rows g (sc[j][0..1]) and g + 8 (sc[j][2..3])
-        float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          const int key = 8 * j + 2 * t;
-          if (key >= s) sc[j][0] = sc[j][2] = -INFINITY;
-          if (key + 1 >= s) sc[j][1] = sc[j][3] = -INFINITY;
-          mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-          mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-        }
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          sc[j][0] = expf(sc[j][0] - mx0);
-          sc[j][1] = expf(sc[j][1] - mx0);
-          sc[j][2] = expf(sc[j][2] - mx1);
-          sc[j][3] = expf(sc[j][3] - mx1);
-          sum0 += sc[j][0] + sc[j][1];
-          sum1 += sc[j][2] + sc[j][3];
-        }
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-        const float inv0 = w / sum0, inv1 = w / sum1;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          sc[j][0] *= inv0;
-          sc[j][1] *= inv0;
-          sc[j][2] *= inv1;
-          sc[j][3] *= inv1;
-        }
-      } else {  // pad keys scored 0 (their rows read as 0)
-#pragma unroll
-        for (int j = 0; j < NKT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sc[j][e] *= w;
-      }
-
-      // O += P V: P's A fragment is the score tile's C fragment
-#pragma unroll
-      for (int j = 0; j < NKT; ++j) {
-        const FragA a = c_as_a(sc[j]);
-        const int key = 8 * j + 2 * t;
-        const float* v0 = vr + key * ldr;
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) {
-          if (8 * nn >= dh) break;
-          const int c = 8 * nn + g;
-          mma_3xtf32(o[nn], a, split_b(key < s && c < dh ? v0[c] : 0.0f,
-                                       key + 1 < s && c < dh ? v0[ldr + c] : 0.0f));
-        }
-      }
-    }
-
-    float* orow = out + qrow0 * d + hc;
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn) {
-      if (8 * nn >= dh) break;
-      const int c = 8 * nn + 2 * t;
-      if (r0 < s) {
-        if (c < dh) orow[r0 * d + c] = o[nn][0];
-        if (c + 1 < dh) orow[r0 * d + c + 1] = o[nn][1];
-      }
-      if (r1 < s) {
-        if (c < dh) orow[r1 * d + c] = o[nn][2];
-        if (c + 1 < dh) orow[r1 * d + c + 1] = o[nn][3];
-      }
-    }
-    float* pad = out + qrow0 * d;
-    for (int e = s * d + threadIdx.x; e < sp * d; e += blockDim.x) pad[e] = 0.0f;
-  }
-  cp_async_wait(0);
-}
-
-// A persistent launch (blocks per SM x SMs, at most one block per receiver),
-// or, with info, what it would run with.
-template <int NKT>
-int launch(const float* q, int ldq, const float* kv, int ldkv, const int* tile_senders,
-           const int* tile_valid, const int* recv_ptr, const int* recv_slots, float* out,
-           int num_nodes, int s, int sp, int d, int num_heads, int softmax,
-           cudaStream_t stream, int* info) {
-  static RingPlan plan;
-  const int threads = 32 * num_heads * ((s + 15) / 16);
-  const size_t fixed = (size_t)threads * 16 * sizeof(float);  // Q fragments
-  const int err = ring_plan(sums_tc_kernel<NKT>, threads, s, d, fixed, plan);
-  if (err) return err;
-  const int grid = num_nodes < plan.blocks_per_sm * plan.sms ? num_nodes
-                                                             : plan.blocks_per_sm * plan.sms;
-  if (info) return ring_info(sums_tc_kernel<NKT>, plan, grid, info);
-  if (grid > 0)
-    sums_tc_kernel<NKT><<<grid, threads, plan.smem, stream>>>(
-        q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots, out, num_nodes, s,
-        sp, d, num_heads, softmax, plan.stages);
-  return (int)cudaGetLastError();
-}
-
-int dispatch(const float* q, int ldq, const float* kv, int ldkv, const int* tile_senders,
-             const int* tile_valid, const int* recv_ptr, const int* recv_slots, float* out,
-             int num_nodes, int s, int sp, int d, int num_heads, int softmax,
-             cudaStream_t stream, int* info) {
-  if (s < 1 || num_heads < 1 || d % num_heads || d / num_heads > 32 ||
-      num_heads * ((s + 15) / 16) > (s <= 24 ? 8 : kMaxWarps))
-    return (int)cudaErrorInvalidValue;
-#define AMPNET_K1_CASE(N)                                                                 \
-  case N:                                                                                 \
-    return launch<N>(q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots, out, \
-                     num_nodes, s, sp, d, num_heads, softmax, stream, info);
-  switch ((s + 7) / 8) {
-    AMPNET_K1_CASE(1) AMPNET_K1_CASE(2) AMPNET_K1_CASE(3)
-    AMPNET_K1_CASE(4) AMPNET_K1_CASE(5) AMPNET_K1_CASE(6)
-  }
-#undef AMPNET_K1_CASE
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
+#include "edge_attention_tc.cuh"
 
 extern "C" {
 
@@ -288,8 +24,9 @@ int ampnet_edge_attention_sums(const float* q, int ldq, const float* kv, int ldk
                                const int* recv_ptr, const int* recv_slots, float* out,
                                int num_nodes, int s, int sp, int d, int num_heads,
                                int softmax, void* stream) {
-  return dispatch(q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots, out,
-                  num_nodes, s, sp, d, num_heads, softmax, (cudaStream_t)stream, nullptr);
+  return dispatch_sums_tc<false>(q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr,
+                                 recv_slots, nullptr, nullptr, nullptr, out, num_nodes, s, sp,
+                                 d, num_heads, softmax, (cudaStream_t)stream, nullptr);
 }
 
 // What a K1 launch over num_nodes receivers at (s, d, num_heads) would run
@@ -297,8 +34,9 @@ int ampnet_edge_attention_sums(const float* q, int ldq, const float* kv, int ldk
 // bytes per thread (spills), blocks per SM, ring stages, grid, threads per
 // block, dynamic shared memory bytes.
 int ampnet_edge_attention_sums_info(int num_nodes, int s, int d, int num_heads, int* info) {
-  return dispatch(nullptr, 0, nullptr, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  num_nodes, s, s, d, num_heads, 1, nullptr, info);
+  return dispatch_sums_tc<false>(nullptr, 0, nullptr, 0, nullptr, nullptr, nullptr, nullptr,
+                                 nullptr, nullptr, nullptr, nullptr, num_nodes, s, s, d,
+                                 num_heads, 1, nullptr, info);
 }
 
 }  // extern "C"

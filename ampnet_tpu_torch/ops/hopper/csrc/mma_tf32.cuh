@@ -111,6 +111,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
 }
 
+// the same copy, or 16 zero bytes where !in (gmem must still be a valid
+// address: the source size is 0)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool in) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }

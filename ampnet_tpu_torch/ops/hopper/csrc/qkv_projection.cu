@@ -1,6 +1,8 @@
-// Row projection C = A @ B + bias on Hopper (sm_90a), f32: the first of
-// the two launches of K2 (edge_attention_layer), and the first and the last
-// of the three launches of K7 (edge_attention_layer_mm).
+// Row projection C = A @ B + bias on Hopper (sm_90a), f32 on the CUDA
+// cores: the first and the last of the three launches of K7
+// (edge_attention_layer_mm), and the first launch of K2's CUDA-core route
+// (edge_attention_layer beyond the tensor-core range; within it K2 projects
+// in edge_attention_layer_tc.cu).
 //
 // Replaces the in-kernel QKV projection of _fused_kernel_vmem_v6
 // (ampnet_tpu/ops/pallas/edge_attention_fused.py:822-840). There, grid

@@ -35,14 +35,12 @@ launches its kernel or raises. The wrapper counts its launches in
 """
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ampnet_tpu_torch.ops.hopper import build
 from ampnet_tpu_torch.ops.hopper.edge_attention_bwd_scatterfree import (
     _merge,
     _recompute,
@@ -52,14 +50,13 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     I,
     P,
     check_f32_rows,
-    check_smem,
     check_walk,
     entry,
-    stream,
+    launch_body,
 )
 
 _LIB = "edge_attention_bwd"
-_SIGNATURE = [P, I, P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+_SIGNATURE = [P, I, P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P, I, P]
 
 # Cap on the LIVE part of the per-edge dK|dV stream (the JAX package's
 # constant and environment variable): tiles run in chunks sized to it.
@@ -155,21 +152,16 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
     check_walk(dev, tile_senders, tile_valid, recv_ptr, recv_slots,
                ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
     t0, t1, tn, emax = _tile_range(tile_senders, recv_ptr, tiles)
-    _, smem = entry(_LIB, "ampnet_edge_attention_bwd_smem_bytes", [I, I, I, I],
-                    ctypes.c_size_t)
-    check_smem(smem(s, d, num_heads, 2),
-               f"edge_attention_bwd_stream at S={s}, D={d}, H={num_heads}")
     nodes = (t1 - t0) * tn
     dq = torch.empty(nodes * sp, d, dtype=torch.float32, device=dev)
     out = torch.empty((t1 - t0) * emax * sp, 2 * d, dtype=torch.float32, device=dev)
-    lib, fn = entry(_LIB, "ampnet_edge_attention_bwd_stream", _SIGNATURE)
-    build.check(lib, fn(
-        q_rows.data_ptr(), q_rows.stride(0), dsum_rows.data_ptr(),
-        dsum_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
-        tile_senders.data_ptr(), tile_valid.data_ptr(), recv_ptr.data_ptr(),
-        recv_slots.data_ptr(), dq.data_ptr(), out.data_ptr(), t0 * tn, nodes,
-        t0 * emax, s, sp, d, num_heads, int(softmax), stream()),
-        "edge_attention_bwd_stream")
+    launch_body("edge_attention_bwd_stream", "simt",
+                entry(_LIB, "ampnet_edge_attention_bwd_stream", _SIGNATURE), (
+                    q_rows.data_ptr(), q_rows.stride(0), dsum_rows.data_ptr(),
+                    dsum_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
+                    tile_senders.data_ptr(), tile_valid.data_ptr(), recv_ptr.data_ptr(),
+                    recv_slots.data_ptr(), dq.data_ptr(), out.data_ptr(), t0 * tn, nodes,
+                    t0 * emax, s, sp, d, num_heads, int(softmax)), s, d, num_heads, nodes, dev)
     edge_attention_bwd_stream.launches += 1
     return dq, out
 

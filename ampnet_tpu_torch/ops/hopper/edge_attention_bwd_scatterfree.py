@@ -7,15 +7,16 @@ Two hand-written kernels, each beside its plain torch version:
 * ``edge_attention_bwd_dq`` (K3) — pass R: per edge, recompute the scores
   and the softmax, dW = dMsg V^T, the softmax backward, dQ = dS K / sqrt(dh);
   summed per receiver over the receiver-major index. Counterpart of both
-  ``_dq_kernel_vmem`` and ``_dq_kernel_dma`` (``csrc/edge_attention_bwd.cu``,
-  on the CUDA cores).
+  ``_dq_kernel_vmem`` and ``_dq_kernel_dma``.
 * ``edge_attention_bwd_dkv`` (K4) — pass S: the same recompute over the
   sender-tiled side, dV = W^T dMsg and dK = dS^T Q / sqrt(dh), summed per
   sender over the sender-major index (``format.py``: ``snd_ptr``,
-  ``snd_slots``). Counterpart of ``_dkv_kernel_vmem`` and ``_dkv_kernel_dma``,
-  on the tensor cores in 3xTF32 (``csrc/edge_attention_bwd_tc.cu``); its
-  CUDA-core predecessor stays callable as ``_edge_attention_bwd_dkv_simt``,
-  a same-card baseline that no model path calls.
+  ``snd_slots``). Counterpart of ``_dkv_kernel_vmem`` and ``_dkv_kernel_dma``.
+
+Each has two bodies (``launch.body``): on the tensor cores in 3xTF32
+(``csrc/edge_attention_bwd_dq_tc.cu``, ``csrc/edge_attention_bwd_tc.cu``)
+within their instantiated range, on the CUDA cores (``csrc/edge_attention_bwd.cu``)
+beyond it, at any shape.
 
 One kernel per pass serves both gathers: Hopper reads the gathered rows
 from device memory either way. Neither uses atomics, so the sums are taken
@@ -25,26 +26,26 @@ The plain versions spell the same arithmetic out in tensor math over the
 same index (gather, recompute, softmax backward, ``index_add_``); they are
 not autograd of the forward. A wrapper given CPU tensors runs its plain
 version; given CUDA tensors it launches its kernel or raises. Each wrapper
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches``, and by body in
+``<wrapper>.body_launches``.
 """
 from __future__ import annotations
 
-import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from ampnet_tpu_torch.ops.hopper.launch import (
+    BODIES,
     I,
     P,
+    body_of,
     check_f32_rows,
-    check_smem,
-    check_tensor_core,
     check_walk,
+    count_launch,
     entry,
-    stream,
+    launch_body,
 )
-from ampnet_tpu_torch.ops.hopper import build
 
 _LIB = "edge_attention_bwd"
 _SIGNATURES = {
@@ -53,7 +54,15 @@ _SIGNATURES = {
     "ampnet_edge_attention_bwd_dkv": [P, I, P, I, P, P, P, P, P,
                                       I, I, I, I, I, I, P],
 }
-_SIGNATURES["ampnet_edge_attention_bwd_dkv_simt"] = _SIGNATURES["ampnet_edge_attention_bwd_dkv"]
+# the CUDA-core bodies also take their device-memory working set (pointer,
+# blocks; 0, 0 for shared memory) before the stream
+_SIGNATURES["ampnet_edge_attention_bwd_dq_simt"] = _SIGNATURES["ampnet_edge_attention_bwd_dq"][:-1] + [P, I, P]
+_SIGNATURES["ampnet_edge_attention_bwd_dkv_simt"] = _SIGNATURES["ampnet_edge_attention_bwd_dkv"][:-1] + [P, I, P]
+# (library, entry point) of each body
+_DQ = {"tc": ("edge_attention_bwd_dq_tc", "ampnet_edge_attention_bwd_dq"),
+       "simt": (_LIB, "ampnet_edge_attention_bwd_dq_simt")}
+_DKV = {"tc": ("edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv"),
+        "simt": (_LIB, "ampnet_edge_attention_bwd_dkv_simt")}
 
 
 # ---------------------------------------------------------------- plain versions
@@ -136,22 +145,16 @@ def edge_attention_bwd_dkv_plain(qdm_rows, kv_rows, snd_receivers, snd_valid,
 # ---------------------------------------------------------------- kernels
 
 
-def _check_shape(kernel: str, s: int, d: int, num_heads: int, dkv: bool) -> None:
-    if d % num_heads:
-        raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    _, fn = entry(_LIB, "ampnet_edge_attention_bwd_smem_bytes", [I, I, I, I],
-                  ctypes.c_size_t)
-    check_smem(fn(s, d, num_heads, int(dkv)),
-               f"{kernel} at S={s}, D={d}, H={num_heads}")
-
-
 def edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
-                          recv_ptr, recv_slots, *, s, sp, num_heads, softmax):
+                          recv_ptr, recv_slots, *, s, sp, num_heads, softmax, body=None):
     """K3, pass R: dQ rows [NT*sp, D] f32 (pad token rows 0).
 
     q_rows, dsum_rows [NT*sp, D] and kv_rows [NT*sp, 2D] may be row-strided
     views; dsum is the gradient of the per-receiver SUM of messages. The
-    index arrays are int32 (format.py). CPU tensors run the plain version."""
+    tensor-core body gathers kv_rows in 16-byte copies within K1's range;
+    beyond it, or on rows it cannot copy, the CUDA-core body runs
+    (``launch.body``; ``body`` names one, else the rule picks). The index
+    arrays are int32 (format.py). CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_bwd_dq_plain(
             q_rows, kv_rows, dsum_rows, tile_senders, tile_valid, recv_ptr,
@@ -159,84 +162,64 @@ def edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
     dev = q_rows.device
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
+    if d % num_heads:
+        raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
     check_f32_rows("q_rows", q_rows, dev, nt * sp, d)
     check_f32_rows("dsum_rows", dsum_rows, dev, nt * sp, d)
     check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
     check_walk(dev, tile_senders, tile_valid, recv_ptr, recv_slots,
                ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
-    _check_shape("edge_attention_bwd_dq", s, d, num_heads, dkv=False)
+    body = body_of("edge_attention_bwd_dq", body, s, d, num_heads, ("kv_rows", kv_rows))
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    name = "ampnet_edge_attention_bwd_dq"
-    lib, fn = entry(_LIB, name, _SIGNATURES[name])
-    build.check(lib, fn(
+    lib_name, name = _DQ[body]
+    launch_body("edge_attention_bwd_dq", body, entry(lib_name, name, _SIGNATURES[name]), (
         q_rows.data_ptr(), q_rows.stride(0), dsum_rows.data_ptr(),
         dsum_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
         tile_senders.data_ptr(), tile_valid.data_ptr(), recv_ptr.data_ptr(),
         recv_slots.data_ptr(), out.data_ptr(), nt, s, sp, d, num_heads,
-        int(softmax), stream()), "edge_attention_bwd_dq")
-    edge_attention_bwd_dq.launches += 1
-    return out
-
-
-edge_attention_bwd_dq.launches = 0
-
-
-def _launch_dkv(lib_name, fn_name, qdm_rows, kv_rows, snd_receivers, snd_valid,
-                snd_ptr, snd_slots, *, s, sp, num_heads, softmax):
-    """Checks, then one launch of a K4 body; returns dK|dV."""
-    dev = kv_rows.device
-    nt = snd_ptr.numel() - 1
-    d = kv_rows.shape[1] // 2
-    check_f32_rows("qdm_rows", qdm_rows, dev, nt * sp, 2 * d)
-    check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
-    check_walk(dev, snd_receivers, snd_valid, snd_ptr, snd_slots,
-               ("snd_receivers", "snd_valid", "snd_ptr", "snd_slots"))
-    what = fn_name.removeprefix("ampnet_")
-    if fn_name.endswith("_simt"):
-        _check_shape(what, s, d, num_heads, dkv=True)
-    else:
-        check_tensor_core(what, s, d, num_heads, ("qdm_rows", qdm_rows))
-    out = torch.empty(nt * sp, 2 * d, dtype=torch.float32, device=dev)
-    lib, fn = entry(lib_name, fn_name, _SIGNATURES[fn_name])
-    build.check(lib, fn(
-        qdm_rows.data_ptr(), qdm_rows.stride(0), kv_rows.data_ptr(),
-        kv_rows.stride(0), snd_receivers.data_ptr(), snd_valid.data_ptr(),
-        snd_ptr.data_ptr(), snd_slots.data_ptr(), out.data_ptr(), nt, s, sp, d,
-        num_heads, int(softmax), stream()), what)
+        int(softmax)), s, d, num_heads, nt, dev)
+    count_launch(edge_attention_bwd_dq, body)
     return out
 
 
 def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
-                           snd_slots, *, s, sp, num_heads, softmax):
+                           snd_slots, *, s, sp, num_heads, softmax, body=None):
     """K4, pass S: dK|dV rows [NT*sp, 2D] f32 (pad token rows 0).
 
     qdm_rows [NT*sp, 2D] packs [Q | dsum] per row; kv_rows [NT*sp, 2D]; both
-    may be row-strided views. qdm_rows is gathered in 16-byte copies: its
-    address and row stride must be multiples of 16 bytes and D even. The
-    kernel takes S <= 48, D/H <= 32 and H * ceil(S/16) <= 12 warps (8 up to
-    S=24; ``launch.tensor_core_range_error``) and raises beyond that.
-    snd_receivers holds GLOBAL receiver ids over the sender-tiled slots,
-    snd_valid may carry a runtime mask, snd_ptr / snd_slots are the
-    sender-major index. CPU tensors run the plain version."""
+    may be row-strided views. The tensor-core body gathers qdm_rows in
+    16-byte copies and takes S <= 48, D/H <= 32 and H * ceil(S/16) <= 12
+    warps (8 up to S=24; ``launch.tensor_core_range_error``); beyond that,
+    or on rows it cannot copy, the CUDA-core body runs (``launch.body``;
+    ``body`` names one, else the rule picks). snd_receivers holds GLOBAL
+    receiver ids over the sender-tiled slots, snd_valid may carry a runtime
+    mask, snd_ptr / snd_slots are the sender-major index. CPU tensors run
+    the plain version."""
     if not kv_rows.is_cuda:
         return edge_attention_bwd_dkv_plain(
             qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr, snd_slots,
             s=s, sp=sp, num_heads=num_heads, softmax=softmax)
-    out = _launch_dkv("edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv", qdm_rows,
-                      kv_rows, snd_receivers, snd_valid, snd_ptr, snd_slots, s=s, sp=sp,
-                      num_heads=num_heads, softmax=softmax)
-    edge_attention_bwd_dkv.launches += 1
+    dev = kv_rows.device
+    nt = snd_ptr.numel() - 1
+    d = kv_rows.shape[1] // 2
+    if d % num_heads:
+        raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
+    check_f32_rows("qdm_rows", qdm_rows, dev, nt * sp, 2 * d)
+    check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
+    check_walk(dev, snd_receivers, snd_valid, snd_ptr, snd_slots,
+               ("snd_receivers", "snd_valid", "snd_ptr", "snd_slots"))
+    body = body_of("edge_attention_bwd_dkv", body, s, d, num_heads, ("qdm_rows", qdm_rows))
+    out = torch.empty(nt * sp, 2 * d, dtype=torch.float32, device=dev)
+    lib_name, name = _DKV[body]
+    launch_body("edge_attention_bwd_dkv", body, entry(lib_name, name, _SIGNATURES[name]), (
+        qdm_rows.data_ptr(), qdm_rows.stride(0), kv_rows.data_ptr(),
+        kv_rows.stride(0), snd_receivers.data_ptr(), snd_valid.data_ptr(),
+        snd_ptr.data_ptr(), snd_slots.data_ptr(), out.data_ptr(), nt, s, sp, d,
+        num_heads, int(softmax)), s, d, num_heads, nt, dev)
+    count_launch(edge_attention_bwd_dkv, body)
     return out
 
 
-edge_attention_bwd_dkv.launches = 0
-
-
-def _edge_attention_bwd_dkv_simt(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
-                                 snd_slots, *, s, sp, num_heads, softmax):
-    """K4's CUDA-core predecessor (``csrc/edge_attention_bwd.cu``), CUDA
-    tensors only: a same-card baseline for the timings and the card tests.
-    No launch count, no caller on a model path."""
-    return _launch_dkv("edge_attention_bwd", "ampnet_edge_attention_bwd_dkv_simt",
-                       qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr, snd_slots,
-                       s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+for _wrapper in (edge_attention_bwd_dq, edge_attention_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.body_launches = dict.fromkeys(BODIES, 0)

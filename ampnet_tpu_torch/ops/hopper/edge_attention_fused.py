@@ -11,14 +11,17 @@ version:
   attention messages over projected q / k|v rows. Counterpart of both
   ``_fused_kernel_vmem_v2`` ('vmem' gather) and ``_fused_kernel_vmem_v4``
   ('dma' gather): Hopper has no VMEM-resident/DMA split, K|V are read
-  from device memory either way, so one kernel serves both modes. It runs
-  on the tensor cores in 3xTF32 (``csrc/edge_attention_tc.cu``); its
-  CUDA-core predecessor stays callable as ``_edge_attention_sums_simt``, a
-  same-card baseline that no model path calls.
+  from device memory either way, so one kernel serves both modes.
 * ``edge_attention_layer`` (K2) — the whole layer, counterpart of
   ``_fused_kernel_vmem_v6``: a projection launch (q|k|v for every row),
   then the K1 walk with the 1/degree fold and the out-projection and
   live-row bias in its epilogue.
+
+Each has two bodies (``launch.body``): on the tensor cores in 3xTF32
+(``csrc/edge_attention_tc.cu``, ``csrc/edge_attention_layer_tc.cu``, one
+kernel template in ``csrc/edge_attention_tc.cuh``) within their
+instantiated range, on the CUDA cores (``csrc/edge_attention.cu``, and
+``csrc/qkv_projection.cu`` for K2's projection) beyond it, at any shape.
 
 The JAX package's non-default forward routes have their kernels in
 ``edge_attention_variants.py``: scatter-as-matmul (K6 sums, K7 whole
@@ -50,11 +53,10 @@ sender side, or with ``scatterfree=False``, the stream backward of
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``, K1-K4 also by body in ``<wrapper>.body_launches``.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import NamedTuple, Optional
 
@@ -78,13 +80,15 @@ from ampnet_tpu_torch.ops.hopper.format import (
     receiver_index,
 )
 from ampnet_tpu_torch.ops.hopper.launch import (
+    BODIES,
     I,
     P,
+    body_of,
     check_f32_rows,
-    check_smem,
-    check_tensor_core,
     check_walk,
+    count_launch,
     entry,
+    launch_body,
     stream,
 )
 from ampnet_tpu_torch.ops.segment import segment_count
@@ -204,7 +208,19 @@ _SIGNATURES = {
                                     I, I, I, I, I, I, P],
     "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
 }
-_SIGNATURES["ampnet_edge_attention_sums_simt"] = _SIGNATURES["ampnet_edge_attention_sums"]
+# the CUDA-core bodies also take their device-memory working set (pointer,
+# blocks; 0, 0 for shared memory) before the stream
+_SIGNATURES["ampnet_edge_attention_sums_simt"] = _SIGNATURES["ampnet_edge_attention_sums"][:-1] + [P, I, P]
+_SIGNATURES["ampnet_edge_attention_layer_simt"] = _SIGNATURES["ampnet_edge_attention_layer"][:-1] + [P, I, P]
+_SIGNATURES["ampnet_edge_attention_layer_projection"] = _SIGNATURES["ampnet_qkv_projection"]
+# (library, entry point) of each body: K1's sums, K2's projection and
+# attention launches
+_SUMS = {"tc": ("edge_attention_tc", "ampnet_edge_attention_sums"),
+         "simt": ("edge_attention", "ampnet_edge_attention_sums_simt")}
+_LAYER_PROJECTION = {"tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer_projection"),
+                     "simt": ("qkv_projection", "ampnet_qkv_projection")}
+_LAYER_ATTENTION = {"tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer"),
+                    "simt": ("edge_attention", "ampnet_edge_attention_layer_simt")}
 
 
 def _entry(lib_name: str, fn_name: str):
@@ -216,16 +232,22 @@ def _check_layout(device, tile_senders, tile_valid, recv_ptr, recv_slots):
                ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
 
 
-def _check_smem(s, d, num_heads):
-    _, fn = entry("edge_attention", "ampnet_edge_attention_smem_bytes",
-                  [I, I, I], ctypes.c_size_t)
-    check_smem(fn(s, d, num_heads),
-               f"edge attention at S={s}, D={d}, H={num_heads}")
+def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
+                        recv_slots, *, s, sp, num_heads, softmax, body=None):
+    """K1: per-receiver sums [NT*sp, D] f32 (pad token rows 0).
 
-
-def _launch_sums(lib_name, fn_name, q_rows, kv_rows, tile_senders, tile_valid,
-                 recv_ptr, recv_slots, *, s, sp, num_heads, softmax):
-    """Checks, then one launch of a K1 body; returns the sums."""
+    q_rows [NT*sp, D] and kv_rows [NT*sp, 2D] may be row-strided views
+    (e.g. column slices of one packed q|k|v buffer). The tensor-core body
+    gathers kv_rows in 16-byte copies and takes S <= 48, D/H <= 32 and H *
+    ceil(S/16) <= 12 warps (8 up to S=24; ``launch.tensor_core_range_error``);
+    beyond that, or where kv_rows' address, row stride or width is not a
+    multiple of 16 bytes, the CUDA-core body runs (``launch.body``; ``body``
+    names one, else the rule picks). The layout arrays are int32
+    (format.py). CPU tensors run the plain version."""
+    if not q_rows.is_cuda:
+        return edge_attention_sums_plain(
+            q_rows, kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
+            s=s, sp=sp, num_heads=num_heads, softmax=softmax)
     dev = q_rows.device
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
@@ -234,63 +256,52 @@ def _launch_sums(lib_name, fn_name, q_rows, kv_rows, tile_senders, tile_valid,
     check_f32_rows("q_rows", q_rows, dev, nt * sp, d)
     check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
     _check_layout(dev, tile_senders, tile_valid, recv_ptr, recv_slots)
-    if fn_name.endswith("_simt"):
-        _check_smem(s, d, num_heads)
-    else:
-        check_tensor_core(fn_name.removeprefix("ampnet_"), s, d, num_heads,
-                          ("kv_rows", kv_rows))
+    body = body_of("edge_attention_sums", body, s, d, num_heads, ("kv_rows", kv_rows))
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    lib, fn = _entry(lib_name, fn_name)
-    build.check(lib, fn(
+    launch_body("edge_attention_sums", body, _entry(*_SUMS[body]), (
         q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
         tile_senders.data_ptr(), tile_valid.data_ptr(), recv_ptr.data_ptr(),
         recv_slots.data_ptr(), out.data_ptr(), nt, s, sp, d, num_heads,
-        int(softmax), stream()), fn_name.removeprefix("ampnet_"))
+        int(softmax)), s, d, num_heads, nt, dev)
+    count_launch(edge_attention_sums, body)
     return out
 
 
-def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
-                        recv_slots, *, s, sp, num_heads, softmax):
-    """K1: per-receiver sums [NT*sp, D] f32 (pad token rows 0).
+def _layer_projection(x_rows, w_qkv, b_qkv, body):
+    """K2's first launch: q|k|v rows [rows, 3D] = x_rows @ w_qkv + b_qkv."""
+    rows, d = x_rows.shape
+    qkv = torch.empty(rows, 3 * d, dtype=torch.float32, device=x_rows.device)
+    lib, proj = _entry(*_LAYER_PROJECTION[body])
+    build.check(lib, proj(x_rows.data_ptr(), x_rows.stride(0), w_qkv.data_ptr(),
+                          b_qkv.data_ptr(), qkv.data_ptr(), 3 * d, rows, 3 * d, d,
+                          stream()), f"edge_attention_layer projection ({body})")
+    return qkv
 
-    q_rows [NT*sp, D] and kv_rows [NT*sp, 2D] may be row-strided views
-    (e.g. column slices of one packed q|k|v buffer); kv_rows is gathered in
-    16-byte copies, so its address and row stride must be multiples of 16
-    bytes and D even. The kernel takes S <= 48, D/H <= 32 and H * ceil(S/16)
-    <= 12 warps (8 up to S=24; ``launch.tensor_core_range_error``); beyond
-    that, and on rows it cannot copy, it raises. The layout arrays are int32
-    (format.py). CPU tensors run the plain version."""
-    if not q_rows.is_cuda:
-        return edge_attention_sums_plain(
-            q_rows, kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
-            s=s, sp=sp, num_heads=num_heads, softmax=softmax)
-    out = _launch_sums("edge_attention_tc", "ampnet_edge_attention_sums", q_rows,
-                       kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
-                       s=s, sp=sp, num_heads=num_heads, softmax=softmax)
-    edge_attention_sums.launches += 1
+
+def _layer_attention(qkv, w_out, b_out, invdeg, tile_senders, tile_valid, recv_ptr,
+                     recv_slots, *, s, sp, num_heads, softmax, body):
+    """K2's second launch: the mean over in-edges, the out-projection and
+    the live-row bias, over q|k|v rows."""
+    nt = recv_ptr.numel() - 1
+    d = w_out.shape[0]
+    out = torch.empty(nt * sp, d, dtype=torch.float32, device=qkv.device)
+    launch_body("edge_attention_layer", body, _entry(*_LAYER_ATTENTION[body]), (
+        qkv.data_ptr(), qkv.stride(0), tile_senders.data_ptr(), tile_valid.data_ptr(),
+        recv_ptr.data_ptr(), recv_slots.data_ptr(), invdeg.data_ptr(), w_out.data_ptr(),
+        b_out.data_ptr(), out.data_ptr(), nt, s, sp, d, num_heads, int(softmax)),
+        s, d, num_heads, nt, qkv.device)
     return out
-
-
-def _edge_attention_sums_simt(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
-                              recv_slots, *, s, sp, num_heads, softmax):
-    """K1's CUDA-core predecessor (``csrc/edge_attention.cu``), CUDA tensors
-    only: a same-card baseline for the timings and the card tests. No
-    launch count, no caller on a model path."""
-    return _launch_sums("edge_attention", "ampnet_edge_attention_sums_simt", q_rows,
-                        kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
-                        s=s, sp=sp, num_heads=num_heads, softmax=softmax)
-
-
-edge_attention_sums.launches = 0
 
 
 def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
                          tile_senders, tile_valid, recv_ptr, recv_slots, *,
-                         s, sp, num_heads, softmax):
+                         s, sp, num_heads, softmax, body=None):
     """K2: the whole layer over raw token rows x_rows [NT*sp, D] -> output
     rows [NT*sp, D] f32 (pad token rows 0). invdeg [NT] is 1/degree of the
     runtime mask (0 for degree 0). Two launches: the q|k|v projection, then
-    attention with the mean, out-projection and live-row bias fused."""
+    attention with the mean, out-projection and live-row bias fused. The
+    bodies and the rule between them are K1's (the tensor-core projection
+    also copies x_rows and w_qkv in 16-byte pieces)."""
     if not x_rows.is_cuda:
         return edge_attention_layer_plain(
             x_rows, w_qkv, b_qkv, w_out, b_out, invdeg, tile_senders,
@@ -310,26 +321,19 @@ def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     if not w_qkv.is_contiguous() or not w_out.is_contiguous():
         raise ValueError("w_qkv and w_out must be contiguous")
     _check_layout(dev, tile_senders, tile_valid, recv_ptr, recv_slots)
-    _check_smem(s, d, num_heads)
-    qkv = torch.empty(nt * sp, 3 * d, dtype=torch.float32, device=dev)
-    out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    cuda_stream = stream()
-    lib, proj = _entry("qkv_projection", "ampnet_qkv_projection")
-    build.check(lib, proj(x_rows.data_ptr(), x_rows.stride(0), w_qkv.data_ptr(),
-                          b_qkv.data_ptr(), qkv.data_ptr(), 3 * d, nt * sp, 3 * d,
-                          d, cuda_stream), "qkv_projection")
-    lib, attn = _entry("edge_attention", "ampnet_edge_attention_layer")
-    build.check(lib, attn(qkv.data_ptr(), 3 * d, tile_senders.data_ptr(),
-                          tile_valid.data_ptr(), recv_ptr.data_ptr(),
-                          recv_slots.data_ptr(), invdeg.data_ptr(),
-                          w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-                          nt, s, sp, d, num_heads, int(softmax), cuda_stream),
-                "edge_attention_layer")
-    edge_attention_layer.launches += 1
+    body = body_of("edge_attention_layer", body, s, d, num_heads,
+                   ("x_rows", x_rows), ("w_qkv", w_qkv))
+    qkv = _layer_projection(x_rows, w_qkv, b_qkv, body)
+    out = _layer_attention(qkv, w_out, b_out, invdeg, tile_senders, tile_valid, recv_ptr,
+                           recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax,
+                           body=body)
+    count_launch(edge_attention_layer, body)
     return out
 
 
-edge_attention_layer.launches = 0
+for _wrapper in (edge_attention_sums, edge_attention_layer):
+    _wrapper.launches = 0
+    _wrapper.body_launches = dict.fromkeys(BODIES, 0)
 
 KERNEL_WRAPPERS = (edge_attention_sums, edge_attention_layer,
                    bwd.edge_attention_bwd_dq, bwd.edge_attention_bwd_dkv,
@@ -339,10 +343,18 @@ KERNEL_WRAPPERS = (edge_attention_sums, edge_attention_layer,
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "body_launches"):
+            fn.body_launches = dict.fromkeys(BODIES, 0)
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def body_launch_counts() -> dict:
+    """K1-K4's launches by body: {wrapper: {'tc': n, 'simt': m}}."""
+    return {fn.__name__: dict(fn.body_launches) for fn in KERNEL_WRAPPERS
+            if hasattr(fn, "body_launches")}
 
 
 # ---------------------------------------------------------------- the op
@@ -578,7 +590,11 @@ def amp_edge_attention_fused(
     run, K6 where K1 would (also under autograd: the backward does not
     depend on how the forward accumulates). With ``DMA_V1_DEFAULT`` a 'dma'
     gather runs the packed v1 groups (K9) whatever ``mm_scatter`` says.
-    These routes need ``tile_recv`` (and ``tile_counts`` for mm_scatter)."""
+    These routes need ``tile_recv`` (and ``tile_counts`` for mm_scatter).
+
+    K1-K4 each run the body ``launch.body`` picks at x's (S, D) and
+    ``num_heads``: the tensor cores within their range, else the CUDA
+    cores."""
     snd = (snd_receivers, snd_valid, snd_ptr, snd_slots)
     if any(t is None for t in snd):
         if any(t is not None for t in snd):

@@ -1,7 +1,15 @@
 """What every kernel wrapper of the port shares: the ctypes entry points of
-the libraries ``build.py`` makes, the current stream, and the checks a
-wrapper runs before it hands pointers to a kernel (device, type, shape,
-contiguity, shared memory). A check raises; nothing here falls back."""
+the libraries ``build.py`` makes, the current stream, the checks a wrapper
+runs before it hands pointers to a kernel (device, type, shape, contiguity,
+shared memory), and the rule that picks a kernel's body.
+
+K1-K4 each have two hand-written bodies: one on the tensor cores (3xTF32)
+within the range they are instantiated for, and one on the CUDA cores
+beyond it, at any shape. ``body`` picks between them from (S, D, H) and
+whether the gathered rows take 16-byte copies, before any launch. The
+CUDA-core bodies (K5's too) keep their working set in shared memory where
+it fits a block and in device memory beyond that (``simt_work``). A check
+raises; nothing here falls back after a failed launch."""
 from __future__ import annotations
 
 import ctypes
@@ -61,12 +69,14 @@ def check_smem(need: int, what: str) -> None:
                          f"(> {MAX_SMEM})")
 
 
-# The range the tensor-core kernels (K1 csrc/edge_attention_tc.cu, K4
+# The range the tensor-core kernels (K1 csrc/edge_attention_tc.cu, K2
+# csrc/edge_attention_layer_tc.cu, K3 csrc/edge_attention_bwd_dq_tc.cu, K4
 # csrc/edge_attention_bwd_tc.cu) are instantiated for: S in key tiles of 8
 # (at most 6), a head in k-steps of 8 columns (at most 4), one warp per
-# (head, 16-row tile), at most 12 warps (8 up to S=24, where K4 caps its
-# registers for two blocks of 256 threads per SM). Within it a block's
-# shared memory stays under the 227 KB it may have (201 KB for K4 at S=48).
+# (head, 16-row tile), at most 12 warps (8 up to S=24, where K3 and K4 cap
+# their registers for two blocks of 256 threads per SM). Within it a
+# block's shared memory stays under the 227 KB it may have (201 KB for K4
+# at S=48).
 TC_MAX_S, TC_MAX_DH = 48, 32
 
 
@@ -97,15 +107,125 @@ def gathered_rows_error(name: str, data_ptr: int, row_stride: int, width: int) -
     return None
 
 
+def _rows_error(gathered: Sequence[Tuple[str, torch.Tensor]]) -> Optional[str]:
+    for name, rows in gathered:
+        err = gathered_rows_error(name, rows.data_ptr(), rows.stride(0), rows.shape[1])
+        if err:
+            return err
+    return None
+
+
 def check_tensor_core(what: str, s: int, d: int, num_heads: int,
-                      gathered: Tuple[str, torch.Tensor]) -> None:
+                      *gathered: Tuple[str, torch.Tensor]) -> None:
     """Raise ValueError where a tensor-core kernel does not take the shape
-    or the rows it gathers."""
-    name, rows = gathered
-    err = (tensor_core_range_error(s, d, num_heads)
-           or gathered_rows_error(name, rows.data_ptr(), rows.stride(0), rows.shape[1]))
+    or the rows it copies in 16-byte pieces (``(name, rows)`` pairs)."""
+    err = tensor_core_range_error(s, d, num_heads) or _rows_error(gathered)
     if err:
         raise ValueError(f"{what}: {err}")
+
+
+# ---- the two bodies of K1-K4, and the rule between them
+
+# the kernels with a tensor-core body; K5 (edge_attention_bwd_stream) has
+# its CUDA-core body only
+TENSOR_CORE_KERNELS = ("edge_attention_sums", "edge_attention_layer",
+                       "edge_attention_bwd_dq", "edge_attention_bwd_dkv")
+CUDA_CORE_KERNELS = TENSOR_CORE_KERNELS + ("edge_attention_bwd_stream",)
+BODIES = ("tc", "simt")
+# a CUDA-core body whose working set exceeds MAX_SMEM keeps it in device
+# memory: one slice per resident block, at most this many blocks per SM and
+# this many bytes in all
+WORK_BLOCKS_PER_SM = 2
+WORK_BYTES = 256 * 1024 * 1024
+
+
+def simt_smem_bytes(kernel: str, s: int, d: int, num_heads: int) -> int:
+    """Working set per block of a kernel's CUDA-core body: the
+    ``smem_floats`` of csrc/edge_attention.cu (K1, and K2's attention
+    launch) and of csrc/edge_attention_bwd.cu (K3, K4, K5), in bytes. The
+    libraries' ``*_smem_bytes`` entry points give the same numbers (a card
+    test holds the two together)."""
+    if kernel not in CUDA_CORE_KERNELS:
+        raise ValueError(f"{kernel} has no CUDA-core body of this family")
+    s2, s4 = -(-s // 2) * 2, -(-s // 4) * 4
+    if kernel in ("edge_attention_sums", "edge_attention_layer"):
+        floats = (s2 + s4) * (d + 1) + s * d * 2 + num_heads * s4 * s
+    else:
+        floats = ((2 * s2 + 2 * s4) * (d + 1) + 2 * num_heads * s4 * s4
+                  + s * d * (2 if kernel == "edge_attention_bwd_dkv" else 1))
+    return 4 * floats
+
+
+def simt_work_blocks(kernel: str, s: int, d: int, num_heads: int, num_nodes: int,
+                     sm_count: int) -> int:
+    """0 where the CUDA-core body's working set fits a block's shared
+    memory; else the number of blocks that walk the ``num_nodes`` nodes,
+    each with its slice of device memory."""
+    per_block = simt_smem_bytes(kernel, s, d, num_heads)
+    if per_block <= MAX_SMEM:
+        return 0
+    return max(1, min(num_nodes, WORK_BLOCKS_PER_SM * sm_count, WORK_BYTES // per_block))
+
+
+def simt_work(kernel: str, s: int, d: int, num_heads: int, num_nodes: int, device):
+    """(buffer, blocks) of a CUDA-core launch: (None, 0) for shared memory,
+    else a device-memory buffer of ``blocks`` working sets. The caller keeps
+    the buffer until the launch is queued and passes its pointer (0 for
+    None) and ``blocks`` to the entry point."""
+    blocks = simt_work_blocks(kernel, s, d, num_heads, num_nodes,
+                              torch.cuda.get_device_properties(device).multi_processor_count)
+    if not blocks:
+        return None, 0
+    floats = simt_smem_bytes(kernel, s, d, num_heads) // 4
+    return torch.empty(blocks * floats, dtype=torch.float32, device=device), blocks
+
+
+def body(kernel: str, s: int, d: int, num_heads: int, rows_aligned: bool) -> str:
+    """The body a kernel runs at (S, D, H): 'tc' (tensor cores) within the
+    instantiated range where the gathered rows take 16-byte copies, else
+    'simt' (CUDA cores)."""
+    if kernel not in CUDA_CORE_KERNELS:
+        raise ValueError(f"unknown kernel {kernel}")
+    if d % num_heads:
+        raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
+    if (kernel in TENSOR_CORE_KERNELS and rows_aligned
+            and tensor_core_range_error(s, d, num_heads) is None):
+        return "tc"
+    return "simt"
+
+
+def body_of(kernel: str, body_name: Optional[str], s: int, d: int, num_heads: int,
+            *gathered: Tuple[str, torch.Tensor]) -> str:
+    """The body a wrapper runs on the rows it was given: ``body_name`` where
+    the caller names one (raises where the tensor-core body does not take
+    the call), else ``body``'s choice."""
+    if body_name is None:
+        return body(kernel, s, d, num_heads, _rows_error(gathered) is None)
+    if body_name == "tc":
+        check_tensor_core(kernel, s, d, num_heads, *gathered)
+    elif body_name != "simt":
+        raise ValueError(f"{kernel}: body {body_name!r} is not one of {BODIES}")
+    return body_name
+
+
+def launch_body(kernel: str, body_name: str, lib_fn, args: Sequence, s: int, d: int,
+                num_heads: int, num_nodes: int, device) -> None:
+    """One launch of a kernel's body through its entry point ``lib_fn``
+    (library, function): ``args``, then for the CUDA-core body its working
+    set in device memory (pointer, blocks; 0, 0 for shared memory), then
+    the stream."""
+    lib, fn = lib_fn
+    if body_name == "simt":
+        # freed on return, once the launch is queued: the stream orders its reuse
+        work, blocks = simt_work(kernel, s, d, num_heads, num_nodes, device)
+        args = (*args, 0 if work is None else work.data_ptr(), blocks)
+    build.check(lib, fn(*args, stream()), f"{kernel} ({body_name})")
+
+
+def count_launch(wrapper, body_name: str) -> None:
+    """One launch of ``wrapper``'s kernel, by the body that ran."""
+    wrapper.launches += 1
+    wrapper.body_launches[body_name] += 1
 
 
 def kernel_info(lib_name: str, fn_name: str, num_nodes: int, s: int, d: int,

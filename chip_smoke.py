@@ -2,15 +2,19 @@
 
 Builds the Hopper kernels from ampnet_tpu_torch/ops/hopper/csrc, holds each
 against its plain torch version on the card at the main path's shapes
-(K1 edge_attention_sums and K4 edge_attention_bwd_dkv on the tensor cores in
-3xTF32, each also timed in turns against its CUDA-core predecessor, the
-`_simt` baseline; K2 edge_attention_layer, K3 edge_attention_bwd_dq,
-K5 edge_attention_bwd_stream with its pass B and
+(K1 edge_attention_sums, K2 edge_attention_layer, K3 edge_attention_bwd_dq
+and K4 edge_attention_bwd_dkv on the tensor cores in 3xTF32, each also held
+against and timed in turns with its CUDA-core body, K2's two launches also
+apart; K5 edge_attention_bwd_stream with its pass B and
 the chunked fold; the non-default forward routes K6 edge_attention_sums_mm,
 K7 edge_attention_layer_mm, K8 edge_attention_sums_chunked and K9
 edge_attention_sums_v1, each also against K1's sums or K2's layer on the
-same inputs), then drives the port at full width on the Cora-shaped
-surrogate:
+same inputs), drives AMPConv at the shapes beyond the tensor-core range
+(`routes`: the CUDA-core bodies, their working set in device memory where
+it exceeds a block's shared memory, each against float64 on the CPU), then
+drives the port at full width
+on the Cora-shaped surrogate, where every K1-K4 launch must run the
+tensor-core body:
 
   A  inference, the recommended recipe (S=40, tfidf, gcn2 head), 8-draw
      make_eval_step: K1 twice per draw;
@@ -110,11 +114,34 @@ CHUNK_EDGES = 8
 # modules whose outputs are compared stage by stage when the logits disagree
 STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv1",
           "raw_residual_conv2", "final_linear_out")
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3. The
-# tensor-core kernels (K1, K4) compute f32 products in 3xTF32 (three TF32
-# products each); their bound stays that of the f32 operations.
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, TF32 on
+# the tensor cores, HBM3. The tensor-core kernels (K1-K4) compute each f32
+# product as three TF32 products (3xTF32): their operations are priced at
+# three times the FLOP over the TF32 peak.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# the libraries of the tensor-core bodies (K1, K2, K3, K4)
+TENSOR_CORE_LIBS = ("edge_attention_tc", "edge_attention_layer_tc", "edge_attention_bwd_dq_tc",
+                    "edge_attention_bwd_tc")
+# the `routes` phase: AMPConv at shapes beyond the tensor-core range (S, D,
+# H, training, the body K1-K4 must run, the kernels whose working set must
+# be in device memory). An eval runs on a graph of Cora's node count
+# (the JAX gather rule then picks K1, not K2, from S=29 on) with every 10th
+# of its edges, a training step on the edges among its first ROUTE_NODES
+# nodes: the float64 reference on the host is the phase's cost.
+ROUTES = (
+    (40, 128, 1, True, "simt", ()),     # D/H = 128
+    (40, 128, 2, True, "simt", ()),     # D/H = 64
+    (20, 128, 8, True, "simt", ()),     # 16 warps where S <= 24 takes 8
+    (40, 128, 8, True, "simt", ()),     # 24 warps; K4's CUDA-core body at 225,920 B
+    (49, 128, 4, False, "simt", ()),    # an eval through K1's CUDA-core body
+    (40, 3, 1, True, "simt", ()),       # odd D: no 16-byte copies
+    (40, 100, 4, True, "tc", ()),       # dh = 25: stays on the tensor cores
+    (96, 128, 4, False, "simt", ("edge_attention_sums",)),    # 345 KB a block
+    (49, 128, 4, True, "simt", ("edge_attention_bwd_dkv",)),  # 242 KB a block
+)
+ROUTE_NODES = 768
 
 
 def fail(msg: str) -> None:
@@ -248,8 +275,12 @@ def busy_share(profile_report: dict, warm_ms: float) -> dict:
     return profile_report
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+def bound_ms(nbytes: float, flops: float, tensor_cores: bool = False):
+    """(ms, what bounds it): the larger of the bytes over the memory rate and
+    the f32 operations over the CUDA cores' rate, or, for a kernel on the
+    tensor cores in 3xTF32, three TF32 products per f32 product over theirs."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 3 * flops / PEAK_TF32_FLOPS if tensor_cores else flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -261,17 +292,20 @@ def in_turns(old, new, iters: int = 10):
 
 
 def tensor_core_row(row, lib, info_fn, nt, s, d, h, old, new, ptxas):
-    """A tensor-core kernel's row: its time in turns with its CUDA-core
-    predecessor, and what its launch runs with (registers, spills from
-    ptxas, blocks per SM, ring stages)."""
+    """A tensor-core kernel's row: its time in turns with its CUDA-core body
+    (``prev_ms``), and what its launch runs with (registers, spills from
+    ptxas, blocks per SM, ring stages). ``spills`` counts every kernel of
+    the library that the launch runs (K2: the projection's too)."""
     from ampnet_tpu_torch.ops.hopper.launch import kernel_info
 
     ms, prev_ms = in_turns(old, new)
     info = kernel_info(lib, info_fn, nt, s, d, h)
     report = ptxas[(lib, -(-s // 8))]
+    spills = report["spill_stores"] + report["spill_loads"]
+    spills += sum(r["spill_stores"] + r["spill_loads"] for (stem, key), r in ptxas.items()
+                  if stem == lib and isinstance(key, str))
     row.update(ms=ms, prev_ms=prev_ms, speedup=prev_ms / ms, regs=info["regs"],
-               spills=report["spill_stores"] + report["spill_loads"],
-               blocks_per_sm=info["blocks_per_sm"], stages=info["stages"],
+               spills=spills, blocks_per_sm=info["blocks_per_sm"], stages=info["stages"],
                smem_bytes=info["smem_bytes"], precision="3xtf32")
     return row
 
@@ -346,15 +380,15 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
         kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
         got = eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *idx, **kw)
         ref = eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *idx, **kw)
-        old = eaf._edge_attention_sums_simt(qkv[:, :d], qkv[:, d:], *idx, **kw)
+        old = eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *idx, **kw, body="simt")
         torch.cuda.synchronize()
         err = compare(f"edge_attention_sums S={s}", got, ref)
-        prev_err = compare(f"edge_attention_sums_simt S={s}", old, ref)
+        prev_err = compare(f"edge_attention_sums (CUDA cores) S={s}", old, ref)
         if not torch.equal(got, eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *idx, **kw)):
             fail(f"edge_attention_sums S={s}: a second launch differs from the first")
         k1_sums = got
         del old
-        b, by = bound_ms(4 * d * n * s * 4 + index_bytes, 4 * s * s * d * live_edges)
+        b, by = bound_ms(4 * d * n * s * 4 + index_bytes, 4 * s * s * d * live_edges, True)
         rows[f"edge_attention_sums_s{s}"] = tensor_core_row(dict(
             name="edge_attention_sums", route="cuda",
             source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_tc.cu",
@@ -365,7 +399,7 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
                 qkv[:, :d], qkv[:, d:], *idx, **kw), 3),
             bound_ms=b, bound_by=by, library_ms=None),
             "edge_attention_tc", "ampnet_edge_attention_sums_info", nt, s, d, h,
-            lambda: eaf._edge_attention_sums_simt(qkv[:, :d], qkv[:, d:], *idx, **kw),
+            lambda: eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *idx, **kw, body="simt"),
             lambda: eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *idx, **kw), ptxas)
 
         # K6, K9, K8 on the same rows: against their plain versions and K1's sums
@@ -429,31 +463,38 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
         q, kv, dsum = qkv[:, :d], qkv[:, d:], qdm[:, d:]
         got = bwd.edge_attention_bwd_dq(q, kv, dsum, *idx, **kw)
         ref = bwd.edge_attention_bwd_dq_plain(q, kv, dsum, *idx, **kw)
+        old = bwd.edge_attention_bwd_dq(q, kv, dsum, *idx, **kw, body="simt")
         torch.cuda.synchronize()
         err = compare(f"edge_attention_bwd_dq S={s}", got, ref)
+        prev_err = compare(f"edge_attention_bwd_dq (CUDA cores) S={s}", old, ref)
+        if not torch.equal(got, bwd.edge_attention_bwd_dq(q, kv, dsum, *idx, **kw)):
+            fail(f"edge_attention_bwd_dq S={s}: a second launch differs from the first")
+        del old
         # q, dsum, k|v read and dq written once; 3 products of 2*S*S*D per edge
-        b, by = bound_ms(5 * d * n * s * 4 + index_bytes, 6 * s * s * d * live_edges)
-        rows[f"edge_attention_bwd_dq_s{s}"] = dict(
+        b, by = bound_ms(5 * d * n * s * 4 + index_bytes, 6 * s * s * d * live_edges, True)
+        rows[f"edge_attention_bwd_dq_s{s}"] = tensor_core_row(dict(
             name="edge_attention_bwd_dq", route="cuda",
-            source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd.cu",
+            source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd_dq_tc.cu",
             replaces="ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:"
                      + ("211" if s == 40 else "167"),
-            max_abs_err=err,
-            ms=cuda_ms(lambda: bwd.edge_attention_bwd_dq(q, kv, dsum, *idx, **kw), 20),
+            max_abs_err=err, prev_max_abs_err=prev_err,
             plain_ms=cuda_ms(lambda: bwd.edge_attention_bwd_dq_plain(
                 q, kv, dsum, *idx, **kw), 3),
-            bound_ms=b, bound_by=by, library_ms=None)
+            bound_ms=b, bound_by=by, library_ms=None),
+            "edge_attention_bwd_dq_tc", "ampnet_edge_attention_bwd_dq_info", nt, s, d, h,
+            lambda: bwd.edge_attention_bwd_dq(q, kv, dsum, *idx, **kw, body="simt"),
+            lambda: bwd.edge_attention_bwd_dq(q, kv, dsum, *idx, **kw), ptxas)
         got = bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw)
         ref = bwd.edge_attention_bwd_dkv_plain(qdm, kv, *snd_idx, **kw)
-        old = bwd._edge_attention_bwd_dkv_simt(qdm, kv, *snd_idx, **kw)
+        old = bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw, body="simt")
         torch.cuda.synchronize()
         err = compare(f"edge_attention_bwd_dkv S={s}", got, ref)
-        prev_err = compare(f"edge_attention_bwd_dkv_simt S={s}", old, ref)
+        prev_err = compare(f"edge_attention_bwd_dkv (CUDA cores) S={s}", old, ref)
         if not torch.equal(got, bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw)):
             fail(f"edge_attention_bwd_dkv S={s}: a second launch differs from the first")
         del old
         # q|dsum, k|v read and dk|dv written once; 4 products per edge
-        b, by = bound_ms(6 * d * n * s * 4 + snd_index_bytes, 8 * s * s * d * live_edges)
+        b, by = bound_ms(6 * d * n * s * 4 + snd_index_bytes, 8 * s * s * d * live_edges, True)
         rows[f"edge_attention_bwd_dkv_s{s}"] = tensor_core_row(dict(
             name="edge_attention_bwd_dkv", route="cuda",
             source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd_tc.cu",
@@ -464,7 +505,7 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
                 qdm, kv, *snd_idx, **kw), 3),
             bound_ms=b, bound_by=by, library_ms=None),
             "edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv_info", nt, s, d, h,
-            lambda: bwd._edge_attention_bwd_dkv_simt(qdm, kv, *snd_idx, **kw),
+            lambda: bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw, body="simt"),
             lambda: bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw), ptxas)
 
         # K5 on the same rows: dq as K3, and the per-edge dk|dv stream on the
@@ -531,22 +572,51 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
     kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
     got = eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw)
     ref = eaf.edge_attention_layer_plain(x_rows, *w, invdeg, *idx, **kw)
+    old = eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw, body="simt")
     torch.cuda.synchronize()
     err = compare("edge_attention_layer S=20", got, ref)
+    prev_err = compare("edge_attention_layer (CUDA cores) S=20", old, ref)
+    if not torch.equal(got, eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw)):
+        fail("edge_attention_layer S=20: a second launch differs from the first")
+    if not (got.view(nt, sp, d)[:n][count == 0] == 0).all():
+        fail("edge_attention_layer S=20: a receiver without a live edge is not exactly 0")
+    del old
     live_recv = int((count > 0).sum())
     flops = (2 * n * s * d * 3 * d + 4 * s * s * d * live_edges
              + 2 * s * d * d * live_recv)
     nbytes = 4 * (2 * n * s * d + 4 * d * d + 4 * d + nt) + index_bytes
-    b, by = bound_ms(nbytes, flops)
-    rows["edge_attention_layer_s20"] = dict(
+    b, by = bound_ms(nbytes, flops, True)
+    # its two launches alone, each body in turns with the other's
+    qkv = eaf._layer_projection(x_rows, w[0], w[1], "tc")
+    compare("edge_attention_layer projection S=20", qkv, x_rows @ w[0] + w[1], "x @ w_qkv + b_qkv")
+    projection_ms, prev_projection_ms = in_turns(
+        lambda: eaf._layer_projection(x_rows, w[0], w[1], "simt"),
+        lambda: eaf._layer_projection(x_rows, w[0], w[1], "tc"))
+    # one library call computes the projection: f32 cuBLAS (TF32 off)
+    projection_library_ms = in_turns(
+        lambda: eaf._layer_projection(x_rows, w[0], w[1], "tc"),
+        lambda: torch.addmm(w[1], x_rows, w[0]))[0]
+    attention_ms, prev_attention_ms = in_turns(
+        lambda: eaf._layer_attention(qkv, *w[2:], invdeg, *idx, **kw, body="simt"),
+        lambda: eaf._layer_attention(qkv, *w[2:], invdeg, *idx, **kw, body="tc"))
+    staged_w = staged_w_attention(qkv, w, invdeg, idx, nt, kw)
+    del qkv
+    rows["edge_attention_layer_s20"] = tensor_core_row(dict(
         name="edge_attention_layer", route="cuda",
-        source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention.cu "
-               "+ ampnet_tpu_torch/ops/hopper/csrc/qkv_projection.cu",
+        source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_layer_tc.cu "
+               "+ ampnet_tpu_torch/ops/hopper/csrc/edge_attention_tc.cuh",
         replaces="ampnet_tpu/ops/pallas/edge_attention_fused.py:763",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw), 20),
+        max_abs_err=err, prev_max_abs_err=prev_err,
         plain_ms=cuda_ms(lambda: eaf.edge_attention_layer_plain(x_rows, *w, invdeg, *idx, **kw), 3),
-        bound_ms=b, bound_by=by, library_ms=None)
+        bound_ms=b, bound_by=by, library_ms=None,
+        projection_ms=projection_ms, prev_projection_ms=prev_projection_ms,
+        projection_library_ms=projection_library_ms,
+        attention_ms=attention_ms, prev_attention_ms=prev_attention_ms, staged_w=staged_w,
+        projection_bound_ms=bound_ms(4 * (n * s * 4 * d + 3 * d * d + 3 * d),
+                                     2 * n * s * d * 3 * d, True)[0]),
+        "edge_attention_layer_tc", "ampnet_edge_attention_layer_info", nt, s, d, h,
+        lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw, body="simt"),
+        lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw), ptxas)
 
     # K7 on the same rows and weights: against its plain version and K2's layer
     mm = dict(**kw, tile_nodes=tn)
@@ -568,6 +638,138 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
             x_rows, *w, invdeg, *slots, layout.tile_counts, **mm, group=eav.MM_GROUP), 3),
         bound_ms=b, bound_by=by, library_ms=None)
     return rows, k8_launches
+
+
+def staged_w_attention(qkv, w, invdeg, idx, nt, kw):
+    """K2's attention launch with w_out staged in shared memory once per
+    block, against the launch that reads it from L2: the same bits, the two
+    timed in turns, and what each runs with."""
+    from ampnet_tpu_torch.ops.hopper import build
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper.launch import entry, kernel_info, stream
+
+    s, sp, h, d = kw["s"], kw["sp"], kw["num_heads"], w[2].shape[0]
+    lib, staged = entry("edge_attention_layer_tc", "ampnet_edge_attention_layer_staged_w",
+                        eaf._SIGNATURES["ampnet_edge_attention_layer"])
+
+    def run():
+        out = torch.empty(nt * sp, d, device=qkv.device)
+        build.check(lib, staged(qkv.data_ptr(), qkv.stride(0), *(t.data_ptr() for t in idx),
+                                invdeg.data_ptr(), w[2].data_ptr(), w[3].data_ptr(),
+                                out.data_ptr(), nt, s, sp, d, h, int(kw["softmax"]), stream()),
+                    "edge_attention_layer (staged w_out)")
+        return out
+
+    l2 = lambda: eaf._layer_attention(qkv, *w[2:], invdeg, *idx, **kw, body="tc")  # noqa: E731
+    if not torch.equal(run(), l2()):
+        fail("edge_attention_layer: staging w_out in shared memory changed the result")
+    ms, l2_ms = in_turns(l2, run)
+    info = {k: kernel_info("edge_attention_layer_tc", fn, nt, s, d, h)["blocks_per_sm"]
+            for k, fn in (("staged", "ampnet_edge_attention_layer_staged_w_info"),
+                          ("l2", "ampnet_edge_attention_layer_info"))}
+    return dict(attention_ms=ms, l2_attention_ms=l2_ms, blocks_per_sm=info["staged"],
+                l2_blocks_per_sm=info["l2"])
+
+
+def route_phase(data, gen, dev):
+    """AMPConv at the shapes of ROUTES, forward and (training) one backward
+    with dropout 0 on the card, each against the same layer in float64 on
+    the CPU through the plain oracle: the output at the model limits, every
+    gradient (x's too) within GRAD_RTOL of its largest entry. The launches
+    must show the body that ran; the report names the kernels whose
+    working set was in device memory."""
+    from ampnet_tpu_torch.core.graph import from_arrays
+    from ampnet_tpu_torch.models.layers import AMPConv
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.ops.hopper.launch import simt_work_blocks
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ei = data.edge_index
+    small = ei[:, (ei < ROUTE_NODES).all(0)]
+    graphs = {}
+    for train, (x_feat, edges) in ((False, (data.x, ei[:, ::10])),
+                                   (True, (data.x[:ROUTE_NODES], small))):
+        g = from_arrays(x_feat, edges).to(dev)
+        mask = g.edge_mask.clone()
+        mask[torch.nonzero(mask)[::7, 0]] = False             # dropped at run time
+        graphs[train] = (g, mask, compute_layout(g))
+    report = []
+    for s, d, h, train, want, want_device_memory in ROUTES:
+        graph, mask, layout = graphs[train]
+        n = graph.num_nodes_padded
+        name = f"S={s} D={d} H={h} {'training' if train else 'eval'}"
+        conv = AMPConv(d, h, use_pallas=True, generator=torch.Generator().manual_seed(s + d + h))
+        conv = conv.to(dev)
+        with torch.no_grad():
+            conv.b_qkv.normal_(0.0, 0.1, generator=gen)
+            conv.b_out.normal_(0.0, 0.1, generator=gen)
+        x = torch.randn(n, s, d, generator=gen, device=dev)
+        gout = torch.randn(n, s, d, generator=gen, device=dev)
+
+        def run(layer, xx, lay, args):
+            xx = xx.detach().requires_grad_(train)
+            with torch.set_grad_enabled(train):
+                out, _ = layer(xx, *args, return_weights=False, layout=lay)
+                if train:
+                    (out * gout.to(out)).sum().backward()
+            grads = {"x": xx.grad} if train else {}
+            grads.update({k: p.grad for k, p in layer.named_parameters() if train})
+            return out.detach(), grads
+
+        eaf.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, grads = run(conv, x, layout, (graph.senders, graph.receivers, mask))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts, bodies = eaf.launch_counts(), eaf.body_launch_counts()
+        expected = launches(k1=1, k3=1, k4=1) if train else launches(k1=1)
+        if counts != expected:
+            fail(f"routes {name}: launched {counts}; expected {expected}")
+        ran = {k: b for k, b in bodies.items() if counts[k]}
+        if any(b[want] != counts[k] for k, b in ran.items()):
+            fail(f"routes {name}: the kernels ran the bodies {ran}, expected {want}")
+        nodes = layout.recv_ptr.numel() - 1
+        device_memory = tuple(k for k in ran if want == "simt"
+                              and simt_work_blocks(k, s, d, h, nodes, sms))
+        if device_memory != want_device_memory:
+            fail(f"routes {name}: working sets in device memory {device_memory}, "
+                 f"expected {want_device_memory}")
+
+        ref_conv = copy.deepcopy(conv).to("cpu", torch.float64)
+        ref_conv.use_pallas = False
+        g = graph.to("cpu")
+        ref, ref_grads = run(ref_conv, x.cpu().double(), None,
+                             (g.senders, g.receivers, mask.cpu()))
+        out_err = float((out.cpu().double() - ref).abs().max())
+        if not torch.isfinite(out).all() or not torch.allclose(
+                out.cpu().double(), ref, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+            fail(f"routes {name}: the output disagrees with float64 on the CPU "
+                 f"(max abs err {out_err:.3g})")
+        rel = {}
+        for k, r in ref_grads.items():
+            scale = float(r.abs().max())
+            rel[k] = float((grads[k].cpu().double() - r).abs().max()) / max(scale, 1e-30)
+            if not rel[k] <= GRAD_RTOL:
+                fail(f"routes {name}: gradient of {k} disagrees with float64 autograd "
+                     f"({rel[k]:.3g} of its largest entry {scale:.3g})")
+        report.append(dict(case=name, body=want, launches={k: v for k, v in counts.items() if v},
+                           working_set_in_device_memory=device_memory, out_max_abs_err=out_err,
+                           grad_max_rel_err=max(rel.values()) if rel else None, card_ms=ms))
+        del x, gout, out, grads, ref, ref_grads
+    return dict(graphs={("training" if t else "eval"): dict(
+        nodes=g.num_nodes_padded, edges=int(g.edge_mask.sum()), live_edges=int(m.sum()))
+        for t, (g, m, _) in graphs.items()}, cases=report)
+
+
+def tensor_cores_only(name, counts):
+    """Fail where a path at the recipes' shapes ran a CUDA-core body."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    bodies = eaf.body_launch_counts()
+    if any(b["simt"] for b in bodies.values()):
+        fail(f"path {name}: a kernel ran its CUDA-core body ({bodies}; launches {counts})")
+    return bodies
 
 
 def recipe_model(cfg, data, seed, dev):
@@ -598,6 +800,7 @@ def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None, profiled
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = eaf.launch_counts()
+    tensor_cores_only(name, counts)
     metrics = {k: float(v) for k, v in metrics.items()}
     if not finite(metrics.values()):
         fail(f"path {name}: non-finite metrics {metrics}")
@@ -787,6 +990,7 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
     per_step = eaf.launch_counts()
     if per_step != want_step:
         fail(f"path {name}: one training step launched {per_step}, expected {want_step}")
+    tensor_cores_only(name, per_step)
     step(state, graph, layout)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -804,6 +1008,7 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
     torch.cuda.synchronize()
     report["train_full_batch_s"] = time.perf_counter() - t0
     counts = eaf.launch_counts()
+    tensor_cores_only(name, counts)
     history, final = result["history"], result["final_metrics"]
     losses = [row["loss"] for row in history]
     if len(history) != tcfg.epochs or not finite(losses + list(final.values())):
@@ -938,6 +1143,7 @@ def drive_saint(cfg, data, graph, seed, dev):
     torch.cuda.synchronize()
     report_e["train_saint_s"] = time.perf_counter() - t0
     counts_e = eaf.launch_counts()
+    tensor_cores_only(name_e, counts_e)
     final = result["final_metrics"]
     if len(result["history"]) != SAINT_EPOCHS or len(log.losses) != total \
             or not finite(final.values()):
@@ -991,6 +1197,7 @@ def drive_saint(cfg, data, graph, seed, dev):
     torch.cuda.synchronize()
     report_f["steps_s"] = time.perf_counter() - t0
     counts_f = eaf.launch_counts()
+    tensor_cores_only(name_f, counts_f)
     if not finite([float(metrics["loss"])]):
         fail(f"path {name_f}: the full-graph step's loss is {float(metrics['loss'])}")
     report_f.update(loss_fell(name_f, losses), full_graph_step_loss=float(metrics["loss"]),
@@ -1026,8 +1233,9 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs.values():
         print(lib.with_suffix(".log").read_text().strip())
-    # per instantiation of the tensor-core kernels (by ceil(S/8)): registers, spills
-    ptxas = {(stem, tiles): r for stem in ("edge_attention_tc", "edge_attention_bwd_tc")
+    # per instantiation of the tensor-core kernels (by ceil(S/8); K2's
+    # projection by its name): registers, spills
+    ptxas = {(stem, tiles): r for stem in TENSOR_CORE_LIBS
              for tiles, r in build.ptxas_report(stem).items()}
     print(json.dumps({"ptxas": {f"{k[0]}<{k[1]}>": v for k, v in ptxas.items()}}), flush=True)
 
@@ -1049,6 +1257,10 @@ def main() -> int:
     print(json.dumps({"kernel_phases": rows}), flush=True)
     if k8_launches != 2:
         fail(f"K8's phase launched it {k8_launches} times, expected 2 (S=40 and S=20)")
+    t0 = time.perf_counter()
+    routes = route_phase(data, gen, dev)
+    routes["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"routes": routes}), flush=True)
 
     recipe = AMPGCNConfig(num_sampled_vectors=40, token_sampling="tfidf",
                           scaler="precomputed", dropout_rate=0.3,
@@ -1140,10 +1352,10 @@ def main() -> int:
     # the training path C (K1's count includes that path's eval forwards); K5
     # from path F; K6 from the training path H, K7 from path G at S=20, K9
     # from path I; K8 from its own phase (no model path calls it)
-    # K1's and K4's rows also carry their S=20 numbers (path D's shape)
+    # K1's, K3's and K4's rows also carry their S=20 numbers (path D's shape)
     tc_keys = ("ms", "prev_ms", "speedup", "max_abs_err", "bound_ms", "plain_ms", "regs",
                "spills", "blocks_per_sm", "stages")
-    for name in ("edge_attention_sums", "edge_attention_bwd_dkv"):
+    for name in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv"):
         rows[f"{name}_s40"]["s20"] = {k: rows[f"{name}_s20"][k] for k in tc_keys}
     kernels = [
         dict(rows["edge_attention_sums_s40"], launches=counts_c["edge_attention_sums"]),
@@ -1163,7 +1375,8 @@ def main() -> int:
              f"{ {k['name']: k['launches'] for k in kernels} }")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "prev_ms", "speedup", "regs",
-            "spills", "blocks_per_sm", "stages", "precision", "s20")
+            "spills", "blocks_per_sm", "stages", "precision", "projection_ms", "attention_ms",
+            "prev_projection_ms", "prev_attention_ms", "s20")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -109,7 +109,9 @@ PORT_MODULES = {
     "train": ["__init__", "checkpoint", "loop", "losses", "optim", "pallas_step",
               "rundir", "state"],
 }
-PORT_FILES = ["chip_smoke.py"] + [
+# the port's scripts outside the package
+PORT_SCRIPTS = ["chip_smoke.py", "scripts/torch_body_sweep.py"]
+PORT_FILES = PORT_SCRIPTS + [
     "/".join(filter(None, ("ampnet_tpu_torch", sub, f"{mod}.py")))
     for sub, mods in PORT_MODULES.items() for mod in mods]
 
@@ -117,7 +119,7 @@ PORT_FILES = ["chip_smoke.py"] + [
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """The list above names every file of the port (a new module must be
     added to it), and none of them imports what is forbidden."""
-    files = sorted((ROOT / "ampnet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "ampnet_tpu_torch").rglob("*.py")) + [ROOT / p for p in PORT_SCRIPTS]
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert names == set(PORT_FILES)
     for path in files:

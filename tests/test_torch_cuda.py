@@ -21,6 +21,7 @@ from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
 from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
 from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+from ampnet_tpu_torch.ops.hopper import launch
 from ampnet_tpu_torch.ops.hopper.format import (
     chunk_slot_valid,
     compute_chunked_layout,
@@ -292,23 +293,45 @@ def test_fused_op_stream_gradients_on_card_match_plain_cpu(cuda, monkeypatch, s,
                                        msg=lambda m: f"{name} vs {what}: {m}")
 
 
-def test_backward_kernels_refuse_a_shape_beyond_shared_memory(cuda):
-    """No silent fallback: a backward kernel at a shape whose shared memory
-    does not fit raises before it launches."""
-    g, mask = graph(3)
-    lay = compute_layout(g, tile_nodes=16).to(cuda)
-    nt = lay.recv_ptr.numel() - 1
-    big = torch.zeros(nt * 96, 4 * 128, device=cuda)
-    r_idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
-    kw = dict(s=96, sp=96, num_heads=4, softmax=True)
-    with pytest.raises(ValueError, match="shared memory"):
-        bwd.edge_attention_bwd_dq(big[:, :128], big[:, 128:384], big[:, 384:], *r_idx, **kw)
-    with pytest.raises(ValueError, match="range"):        # K4: beyond its instantiations
-        bwd.edge_attention_bwd_dkv(big[:, :256], big[:, 256:], lay.snd_receivers,
-                                   lay.snd_valid, lay.snd_ptr, lay.snd_slots, **kw)
-    with pytest.raises(ValueError, match="shared memory"):
-        sb.edge_attention_bwd_stream(big[:, :128], big[:, 128:384], big[:, 384:],
-                                     *r_idx, **kw)
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", [(96, 128, 4), (49, 128, 4), (20, 1024, 1)])
+def test_cuda_core_bodies_beyond_shared_memory_match_plain(cuda, s, d, h, softmax):
+    """Where a CUDA-core body's working set exceeds a block's shared memory
+    (launch.simt_work_blocks > 0), K1-K5 keep it in device memory and agree
+    with their plain versions; each launch counts under the CUDA-core body."""
+    g, mask = graph(3, first_sender=1)
+    lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, s, d, h, softmax)
+    q, kv, dsum = qkv[:, :d], qkv[:, d:], qdm[:, d:]
+    w, invdeg = layer_inputs(cuda, g, mask, nt, d)
+    x_rows = q.contiguous()
+    eaf.reset_launch_counts()
+    runs = {
+        "edge_attention_sums": (lambda: eaf.edge_attention_sums(q, kv, *r_idx, **kw),
+                                lambda: eaf.edge_attention_sums_plain(q, kv, *r_idx, **kw)),
+        "edge_attention_layer": (
+            lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *r_idx, **kw),
+            lambda: eaf.edge_attention_layer_plain(x_rows, *w, invdeg, *r_idx, **kw)),
+        "edge_attention_bwd_dq": (
+            lambda: bwd.edge_attention_bwd_dq(q, kv, dsum, *r_idx, **kw),
+            lambda: bwd.edge_attention_bwd_dq_plain(q, kv, dsum, *r_idx, **kw)),
+        "edge_attention_bwd_dkv": (
+            lambda: bwd.edge_attention_bwd_dkv(qdm, kv, *s_idx, **kw),
+            lambda: bwd.edge_attention_bwd_dkv_plain(qdm, kv, *s_idx, **kw)),
+        "edge_attention_bwd_stream": (
+            lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *r_idx, **kw)[0],
+            lambda: sb.edge_attention_bwd_stream_plain(q, kv, dsum, *r_idx, **kw)[0]),
+    }
+    in_device_memory = 0
+    for name, (run, plain) in runs.items():
+        in_device_memory += launch.simt_work_blocks(name, s, d, h, nt, 132) > 0
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL * max(1.0, float(ref.abs().max())),
+                                   msg=lambda m: f"{name}: {m}")
+        assert torch.equal(got, run())
+    assert in_device_memory >= 1
+    bodies = eaf.body_launch_counts()
+    assert all(b == dict(tc=0, simt=2) for b in bodies.values()), bodies
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -327,7 +350,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         big = torch.zeros(nt * 200, 3 * 128, device=cuda)
         eaf.edge_attention_sums(big[:, :128], big[:, 128:], lay.tile_senders,
                                 lay.tile_valid, lay.recv_ptr, lay.recv_slots,
-                                s=200, sp=200, num_heads=4, softmax=True)
+                                s=200, sp=200, num_heads=4, softmax=True, body="tc")
+    with pytest.raises(ValueError, match="multiple of num_heads"):
+        eaf.edge_attention_sums(q[:, :15], q[:, 15:45], lay.tile_senders, lay.tile_valid,
+                                lay.recv_ptr, lay.recv_slots, **kw)
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -500,8 +526,8 @@ def test_ampgcn_on_card_matches_cpu(cuda, s):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
-# ---- K1 and K4 on the tensor cores (3xTF32, a cp.async ring, persistent
-# blocks), and their CUDA-core predecessors kept as same-card baselines
+# ---- K1-K4 on the tensor cores (3xTF32, a cp.async ring, persistent
+# blocks), and their CUDA-core bodies, the route beyond the tensor cores' range
 
 
 def hub_graph(seed):
@@ -548,14 +574,24 @@ def test_tc_kernels_on_nodes_of_degree_40(cuda, s, softmax):
     lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, s, d, h, softmax)
     assert int(lay.recv_ptr[1] - lay.recv_ptr[0]) >= 40
     assert int(lay.snd_ptr[2] - lay.snd_ptr[1]) >= 40
+    q, kv, dsum = qkv[:, :d], qkv[:, d:], qdm[:, d:]
+    w, invdeg = layer_inputs(cuda, g, mask, nt, d)
+    x_rows = q.contiguous()
+    before = eaf.body_launch_counts()
     for got, ref in (
-            (eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *r_idx, **kw),
-             eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *r_idx, **kw)),
-            (bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *s_idx, **kw),
-             bwd.edge_attention_bwd_dkv_plain(qdm, qkv[:, d:], *s_idx, **kw))):
+            (eaf.edge_attention_sums(q, kv, *r_idx, **kw),
+             eaf.edge_attention_sums_plain(q, kv, *r_idx, **kw)),
+            (eaf.edge_attention_layer(x_rows, *w, invdeg, *r_idx, **kw),
+             eaf.edge_attention_layer_plain(x_rows, *w, invdeg, *r_idx, **kw)),
+            (bwd.edge_attention_bwd_dq(q, kv, dsum, *r_idx, **kw),
+             bwd.edge_attention_bwd_dq_plain(q, kv, dsum, *r_idx, **kw)),
+            (bwd.edge_attention_bwd_dkv(qdm, kv, *s_idx, **kw),
+             bwd.edge_attention_bwd_dkv_plain(qdm, kv, *s_idx, **kw))):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=RTOL,
                                    atol=ATOL * max(1.0, float(ref.abs().max())))
+    after = eaf.body_launch_counts()
+    assert all(after[k]["tc"] == before[k]["tc"] + 1 for k in after)
 
 
 def test_tc_kernels_write_zeros_where_every_edge_is_masked(cuda):
@@ -577,6 +613,19 @@ def test_tc_kernels_write_zeros_where_every_edge_is_masked(cuda):
     assert (got.reshape(nt, sp, 2 * d)[1] == 0).all()
     torch.testing.assert_close(got, bwd.edge_attention_bwd_dkv_plain(
         qdm, qkv[:, d:], *s_idx, **kw), rtol=RTOL, atol=ATOL)
+    got = bwd.edge_attention_bwd_dq(qkv[:, :d], qkv[:, d:], qdm[:, d:], *r_idx, **kw)
+    torch.cuda.synchronize()
+    assert (got.reshape(nt, sp, d)[0] == 0).all()
+    torch.testing.assert_close(got, bwd.edge_attention_bwd_dq_plain(
+        qkv[:, :d], qkv[:, d:], qdm[:, d:], *r_idx, **kw), rtol=RTOL, atol=ATOL)
+    w, invdeg = layer_inputs(cuda, g, mask, nt, d)
+    assert float(invdeg[0]) == 0.0
+    x_rows = qkv[:, :d].contiguous()
+    got = eaf.edge_attention_layer(x_rows, *w, invdeg, *r_idx, **kw)
+    torch.cuda.synchronize()
+    assert (got.reshape(nt, sp, d)[0] == 0).all()          # no b_out where no edge lives
+    torch.testing.assert_close(got, eaf.edge_attention_layer_plain(
+        x_rows, *w, invdeg, *r_idx, **kw), rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("s,d,h", [(40, 128, 4), (7, 100, 4)])
@@ -599,44 +648,160 @@ def test_tc_kernels_take_strided_views_and_repeat_bit_for_bit(cuda, s, d, h):
     assert torch.equal(got, bwd.edge_attention_bwd_dkv(view, kv, *s_idx, **kw))
 
 
+def layer_inputs(cuda, g, mask, nt, d):
+    """K2's weights and the runtime mask's 1/degree per receiver."""
+    w = [t.to(cuda) for t in params(2, d)]
+    deg = torch.bincount(g.receivers[mask], minlength=nt).to(cuda, torch.float32)
+    return w, torch.where(deg > 0, 1.0 / deg.clamp_min(1.0), torch.zeros_like(deg))
+
+
 def test_tc_kernels_refuse_what_they_do_not_take(cuda):
-    """No fallback: rows the 16-byte copies cannot gather, and S beyond the
-    instantiated range, raise before any launch."""
+    """Called for their tensor-core body, the wrappers raise before any
+    launch on rows the 16-byte copies cannot gather and on S beyond the
+    instantiated range; left to the rule, they take the CUDA-core body
+    there and agree with the plain versions."""
     g, mask = graph(0, first_sender=1)
     d = 128
     lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, 40, d, 4, True)
-    buf = torch.zeros(nt * sp, 3 * d + 4, device=cuda)
-    before = eaf.launch_counts()
+    buf = torch.randn(nt * sp, 3 * d + 4, generator=torch.Generator(device=cuda).manual_seed(3),
+                      device=cuda)
+    before = eaf.body_launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
-        eaf.edge_attention_sums(buf[:, :d], buf[:, d + 1: 3 * d + 1], *r_idx, **kw)
+        eaf.edge_attention_sums(buf[:, :d], buf[:, d + 1: 3 * d + 1], *r_idx, **kw, body="tc")
     with pytest.raises(ValueError, match="16-byte"):
-        bwd.edge_attention_bwd_dkv(buf[:, 1: 2 * d + 1], qkv[:, d:], *s_idx, **kw)
-    with pytest.raises(ValueError, match="16-byte"):                 # row stride 3D + 2
-        odd = torch.zeros(nt * sp, 3 * d + 2, device=cuda)
-        eaf.edge_attention_sums(odd[:, :d], odd[:, d: 3 * d], *r_idx, **kw)
-    big = torch.zeros(nt * 56, 3 * d, device=cuda)
+        bwd.edge_attention_bwd_dq(buf[:, :d], buf[:, d + 1: 3 * d + 1], qdm[:, d:], *r_idx,
+                                  **kw, body="tc")
+    with pytest.raises(ValueError, match="16-byte"):
+        bwd.edge_attention_bwd_dkv(buf[:, 1: 2 * d + 1], qkv[:, d:], *s_idx, **kw, body="tc")
+    big = torch.randn(nt * 56, 3 * d, generator=torch.Generator(device=cuda).manual_seed(4),
+                      device=cuda)
     kw56 = dict(s=49, sp=56, num_heads=4, softmax=True)
     with pytest.raises(ValueError, match="range"):
-        eaf.edge_attention_sums(big[:, :d], big[:, d:], *r_idx, **kw56)
+        eaf.edge_attention_sums(big[:, :d], big[:, d:], *r_idx, **kw56, body="tc")
     with pytest.raises(ValueError, match="range"):
-        bwd.edge_attention_bwd_dkv(big[:, : 2 * d], big[:, d:], *s_idx, **kw56)
-    assert eaf.launch_counts() == before
+        bwd.edge_attention_bwd_dkv(big[:, : 2 * d], big[:, d:], *s_idx, **kw56, body="tc")
+    assert eaf.body_launch_counts() == before
+
+    q, kv = buf[:, :d], buf[:, d + 1: 3 * d + 1]
+    for got, ref in (
+            (eaf.edge_attention_sums(q, kv, *r_idx, **kw),
+             eaf.edge_attention_sums_plain(q, kv, *r_idx, **kw)),
+            (bwd.edge_attention_bwd_dq(q, kv, qdm[:, d:], *r_idx, **kw),
+             bwd.edge_attention_bwd_dq_plain(q, kv, qdm[:, d:], *r_idx, **kw)),
+            (eaf.edge_attention_sums(big[:, :d], big[:, d:], *r_idx, **kw56),
+             eaf.edge_attention_sums_plain(big[:, :d], big[:, d:], *r_idx, **kw56)),
+            # K4's CUDA-core body at 242 KB: its working set in device memory
+            (bwd.edge_attention_bwd_dkv(big[:, : 2 * d], big[:, d:], *s_idx, **kw56),
+             bwd.edge_attention_bwd_dkv_plain(big[:, : 2 * d], big[:, d:], *s_idx, **kw56))):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    after = eaf.body_launch_counts()
+    assert after["edge_attention_sums"]["simt"] == before["edge_attention_sums"]["simt"] + 2
+    assert after["edge_attention_bwd_dq"]["simt"] == before["edge_attention_bwd_dq"]["simt"] + 1
+    assert after["edge_attention_bwd_dkv"]["simt"] == before["edge_attention_bwd_dkv"]["simt"] + 1
 
 
 @pytest.mark.parametrize("softmax", [True, False])
 @pytest.mark.parametrize("s,d,h", SHAPES)
 def test_simt_baselines_match_plain_on_card(cuda, s, d, h, softmax):
-    """K1's and K4's CUDA-core predecessors, kept for same-card timings,
-    against the same plain versions; they count no launch."""
+    """The CUDA-core bodies of K1-K4, named by ``body``, against the same
+    plain versions; each launch counts under its body."""
     g, mask = graph(0, first_sender=1)
     lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, s, d, h, softmax)
-    before = eaf.launch_counts()
-    got = eaf._edge_attention_sums_simt(qkv[:, :d], qkv[:, d:], *r_idx, **kw)
-    ref = eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *r_idx, **kw)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
-    got = bwd._edge_attention_bwd_dkv_simt(qdm, qkv[:, d:], *s_idx, **kw)
-    ref = bwd.edge_attention_bwd_dkv_plain(qdm, qkv[:, d:], *s_idx, **kw)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
-    assert eaf.launch_counts() == before
+    q, kv, dsum = qkv[:, :d], qkv[:, d:], qdm[:, d:]
+    w, invdeg = layer_inputs(cuda, g, mask, nt, d)
+    x_rows = q.contiguous()
+    before = eaf.body_launch_counts()
+    for got, ref in (
+            (eaf.edge_attention_sums(q, kv, *r_idx, **kw, body="simt"),
+             eaf.edge_attention_sums_plain(q, kv, *r_idx, **kw)),
+            (eaf.edge_attention_layer(x_rows, *w, invdeg, *r_idx, **kw, body="simt"),
+             eaf.edge_attention_layer_plain(x_rows, *w, invdeg, *r_idx, **kw)),
+            (bwd.edge_attention_bwd_dq(q, kv, dsum, *r_idx, **kw, body="simt"),
+             bwd.edge_attention_bwd_dq_plain(q, kv, dsum, *r_idx, **kw)),
+            (bwd.edge_attention_bwd_dkv(qdm, kv, *s_idx, **kw, body="simt"),
+             bwd.edge_attention_bwd_dkv_plain(qdm, kv, *s_idx, **kw))):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    after = eaf.body_launch_counts()
+    assert all(after[k] == dict(tc=before[k]["tc"], simt=before[k]["simt"] + 1) for k in after)
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", SHAPES)
+def test_k2_k3_tensor_core_bodies_match_plain_and_cuda_cores(cuda, s, d, h, softmax):
+    """K2 (both launches) and K3 on the tensor cores against their plain
+    versions and their CUDA-core bodies on the same inputs, receivers of
+    degree 0 exact zeros, and a second launch bit-equal to the first."""
+    g, mask = graph(0, first_sender=1)
+    lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, s, d, h, softmax)
+    q, kv, dsum = qkv[:, :d], qkv[:, d:], qdm[:, d:]
+    w, invdeg = layer_inputs(cuda, g, mask, nt, d)
+    x_rows = q.contiguous()
+    for run, plain in (
+            (lambda body: bwd.edge_attention_bwd_dq(q, kv, dsum, *r_idx, **kw, body=body),
+             lambda: bwd.edge_attention_bwd_dq_plain(q, kv, dsum, *r_idx, **kw)),
+            (lambda body: eaf.edge_attention_layer(x_rows, *w, invdeg, *r_idx, **kw, body=body),
+             lambda: eaf.edge_attention_layer_plain(x_rows, *w, invdeg, *r_idx, **kw))):
+        got, simt, ref = run("tc"), run("simt"), plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got, simt, rtol=RTOL, atol=ATOL)
+        assert (got.reshape(nt, sp, d)[39] == 0).all()       # receiver of degree 0
+        assert (got.reshape(nt, sp, d)[:, s:] == 0).all()    # pad token rows
+        assert torch.equal(got, run("tc"))
+    qkv_tc = eaf._layer_projection(x_rows, w[0], w[1], "tc")
+    torch.testing.assert_close(qkv_tc, x_rows @ w[0] + w[1], rtol=RTOL, atol=ATOL)
+
+
+def test_simt_shared_memory_mirror_matches_the_libraries(cuda):
+    """launch.simt_smem_bytes against the CUDA-core libraries' own
+    *_smem_bytes entry points, across the fault list's shapes."""
+    import ctypes
+
+    _, k1 = launch.entry("edge_attention", "ampnet_edge_attention_smem_bytes",
+                         [launch.I] * 3, ctypes.c_size_t)
+    _, k34 = launch.entry("edge_attention_bwd", "ampnet_edge_attention_bwd_smem_bytes",
+                          [launch.I] * 4, ctypes.c_size_t)
+    for s, d, h in [(40, 128, 4), (20, 128, 4), (40, 128, 8), (49, 128, 4), (96, 128, 4),
+                    (7, 100, 4), (40, 3, 1), (33, 64, 2)]:
+        for kernel in ("edge_attention_sums", "edge_attention_layer"):
+            assert launch.simt_smem_bytes(kernel, s, d, h) == k1(s, d, h)
+        for mode, kernel in enumerate(("edge_attention_bwd_dq", "edge_attention_bwd_dkv",
+                                       "edge_attention_bwd_stream")):
+            assert launch.simt_smem_bytes(kernel, s, d, h) == k34(s, d, h, mode)
+
+
+@pytest.mark.parametrize("s,d,h,want", [
+    (40, 128, 2, "simt"), (20, 128, 8, "simt"), (40, 128, 8, "simt"), (40, 3, 1, "simt"),
+    (40, 100, 4, "tc"), (49, 128, 4, "simt"), (96, 128, 4, "simt")])
+def test_fused_op_routes_beyond_the_tensor_cores(cuda, s, d, h, want):
+    """The fused op at shapes the tensor-core bodies do not take: the
+    forward and the five gradients through the CUDA-core bodies (the
+    launches say which body ran; at S=49 K4's and at S=96 every working set
+    is in device memory) against autograd through the plain oracle on the
+    CPU."""
+    g, mask = graph(3, first_sender=1)
+    p = params(4, d)
+    x = torch.randn(48, s, d, generator=torch.Generator().manual_seed(5))
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    leaves = [t.to(cuda).requires_grad_() for t in (x, *p)]
+    eaf.reset_launch_counts()
+    out = eaf.amp_edge_attention_fused(
+        leaves[0], MHAParams(*leaves[1:]), g.receivers.to(cuda), mask.to(cuda),
+        lay.tile_senders, edge_slot_valid(lay, mask.to(cuda)), lay.recv_ptr,
+        lay.recv_slots, h, tile_nodes=16, snd_receivers=lay.snd_receivers,
+        snd_valid=snd_slot_valid(lay, mask.to(cuda)), snd_ptr=lay.snd_ptr,
+        snd_slots=lay.snd_slots)
+    (out * out.cos()).sum().backward()
+    bodies = eaf.body_launch_counts()
+    for k in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv"):
+        assert bodies[k][want] == 1 and sum(bodies[k].values()) == 1, bodies
+    cpu = [t.clone().requires_grad_() for t in (x, *p)]
+    ref, _ = amp_edge_attention(cpu[0], g.senders, g.receivers, mask, MHAParams(*cpu[1:]), h)
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=RTOL, atol=ATOL)
+    (ref * ref.cos()).sum().backward()
+    for name, a, b in zip(("x", "w_qkv", "b_qkv", "w_out", "b_out"), leaves, cpu):
+        scale = float(b.grad.abs().max())
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=RTOL, atol=1e-5 * max(scale, 1.0),
+                                   msg=lambda m: f"{name}: {m}")

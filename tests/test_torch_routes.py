@@ -1,0 +1,231 @@
+"""Which body each kernel of the fused op runs at a shape, on the CPU.
+
+K1-K4 each have a tensor-core body (within the range it is instantiated
+for, on rows that take 16-byte copies) and a CUDA-core body (beyond it, at
+any shape: its working set sits in shared memory where it fits a block, in
+device memory beyond that). The rule (``launch.body``, ``launch.body_of``
+on the rows a wrapper is given, ``launch.simt_work_blocks``) reads shapes,
+addresses and strides only, so this file sees the decision the card makes.
+AMPConv keeps the fused op at every shape: at shapes beyond shared memory
+it is held against the JAX AMPGCN's XLA path with the same converted
+parameters and the same injected ``sampled_idx`` (logits rtol 1e-4 / atol
+1e-5; loss rtol 1e-5; gradients rtol 2e-4 with atol 2e-6 times the largest
+entry, as ``tests/test_torch_train.py`` holds them: f32 sums in another
+order)."""
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ampnet_tpu.core.config import AMPGCNConfig as JaxConfig
+from ampnet_tpu.core.graph import from_arrays as jax_from_arrays
+from ampnet_tpu.models import AMPGCN as JaxAMPGCN
+from ampnet_tpu.train.losses import masked_mean_nll as jax_masked_mean_nll
+from ampnet_tpu_torch.convert import flax_to_state_dict
+from ampnet_tpu_torch.core.config import AMPGCNConfig
+from ampnet_tpu_torch.core.graph import from_arrays
+from ampnet_tpu_torch.models import AMPGCN
+from ampnet_tpu_torch.ops.hopper import launch
+from ampnet_tpu_torch.ops.hopper.format import compute_layout
+from ampnet_tpu_torch.ops.tokenize import fit_scaler
+from ampnet_tpu_torch.train.losses import masked_mean_nll
+
+K1, K2, K3, K4, K5 = ("edge_attention_sums", "edge_attention_layer", "edge_attention_bwd_dq",
+                      "edge_attention_bwd_dkv", "edge_attention_bwd_stream")
+TC, SIMT = "tc", "simt"
+
+# (S, D, H) -> the body of K1, K2, K3, K4 in the fused op
+ROUTES = [
+    ((40, 128, 4), (TC, TC, TC, TC)),            # the recommended recipe
+    ((20, 128, 4), (TC, TC, TC, TC)),            # the reference recipe's S
+    ((40, 100, 4), (TC, TC, TC, TC)),            # dh = 25, zero-padded in the head
+    ((4, 16, 2), (TC, TC, TC, TC)),
+    ((40, 128, 1), (SIMT, SIMT, SIMT, SIMT)),    # D/H = 128
+    ((40, 128, 2), (SIMT, SIMT, SIMT, SIMT)),    # D/H = 64
+    ((20, 128, 8), (SIMT, SIMT, SIMT, SIMT)),    # 16 warps where S <= 24 takes 8
+    ((40, 128, 8), (SIMT, SIMT, SIMT, SIMT)),    # 24 warps; K4 at 225,920 B
+    ((49, 128, 4), (SIMT, SIMT, SIMT, SIMT)),    # a seventh key tile; K4 at 241,968 B
+    ((96, 128, 4), (SIMT, SIMT, SIMT, SIMT)),
+    ((40, 3, 1), (SIMT, SIMT, SIMT, SIMT)),      # odd D: no 16-byte copies
+    ((40, 6, 2), (SIMT, SIMT, SIMT, TC)),        # [Q | dMsg] rows of 12 floats copy, k|v at 6 not
+]
+
+
+def op_rows(s, d):
+    """The rows the fused op hands K1-K4: column views of one q|k|v buffer,
+    token rows, the weights and packed [Q | dMsg] rows (CPU tensors of the
+    same shapes, strides and offsets)."""
+    rows = 8 * -(-s // 8) * 4
+    qkv = torch.zeros(rows, 3 * d)
+    x_rows, w_qkv = torch.zeros(rows, d), torch.zeros(d, 3 * d)
+    qdm = torch.cat([qkv[:, :d], torch.zeros(rows, d)], dim=1)
+    return {K1: [("kv_rows", qkv[:, d:])], K2: [("x_rows", x_rows), ("w_qkv", w_qkv)],
+            K3: [("kv_rows", qkv[:, d:])], K4: [("qdm_rows", qdm)]}
+
+
+@pytest.mark.parametrize("shape,want", ROUTES)
+def test_fused_op_bodies_over_the_fault_list_and_the_repo_shapes(shape, want):
+    gathered = op_rows(shape[0], shape[1])
+    got = tuple(launch.body_of(k, None, *shape, *gathered[k]) for k in (K1, K2, K3, K4))
+    assert got == want
+    # K5 has its CUDA-core body only
+    assert launch.body(K5, *shape, rows_aligned=True) == SIMT
+
+
+@pytest.mark.parametrize("kernel", [K1, K2, K3, K4, K5])
+def test_body_refuses_d_not_a_multiple_of_h(kernel):
+    with pytest.raises(ValueError, match="multiple of num_heads"):
+        launch.body(kernel, 40, 100, 3, rows_aligned=True)
+
+
+@pytest.mark.parametrize("kernel,shape,nbytes", [
+    (K3, (96, 128, 4), 542_208), (K1, (96, 128, 4), 344_832),
+    (K4, (49, 128, 4), 241_968), (K1, (49, 128, 4), 143_576),
+    (K4, (40, 128, 8), 225_920), (K1, (40, 128, 4), 107_840),
+    (K4, (40, 128, 4), 174_720), (K2, (20, 128, 4), 4 * (40 * 129 + 5120 + 1600)),
+    (K5, (40, 128, 4), 4 * (160 * 129 + 12800 + 5120)),
+])
+def test_simt_shared_memory_mirror_at_known_values(kernel, shape, nbytes):
+    """The CUDA-core bodies' smem_floats (csrc/edge_attention.cu:54-57,
+    csrc/edge_attention_bwd.cu:86-90), in bytes; MAX_SMEM is Hopper's 227 KB."""
+    assert launch.simt_smem_bytes(kernel, *shape) == nbytes
+    assert launch.MAX_SMEM == 232_448
+
+
+@pytest.mark.parametrize("kernel,shape,nodes,blocks", [
+    (K4, (40, 128, 8), 2752, 0),        # 225,920 B: shared memory
+    (K1, (49, 128, 4), 2752, 0),
+    (K1, (96, 128, 4), 2752, 264),      # 344,832 B: two blocks per SM of 132
+    (K4, (49, 128, 4), 2752, 264),
+    (K3, (96, 128, 4), 100, 100),       # no more blocks than nodes
+    (K5, (96, 128, 4), 2752, 264),
+    (K2, (20, 1024, 1), 2752, 264),     # wide rows: 329,440 B
+    (K4, (400, 128, 4), 2752, 42),      # 6.4 MB a block: the 256 MiB cap
+])
+def test_simt_working_set_moves_to_device_memory_beyond_shared_memory(
+        kernel, shape, nodes, blocks):
+    assert launch.simt_work_blocks(kernel, *shape, nodes, sm_count=132) == blocks
+    per_block = launch.simt_smem_bytes(kernel, *shape)
+    assert (blocks == 0) == (per_block <= launch.MAX_SMEM)
+    assert blocks * per_block <= launch.WORK_BYTES
+
+
+def test_body_takes_the_tensor_cores_only_on_aligned_rows():
+    assert launch.body(K1, 40, 128, 4, rows_aligned=True) == TC
+    assert launch.body(K1, 40, 128, 4, rows_aligned=False) == SIMT
+    assert launch.body(K5, 40, 128, 4, rows_aligned=True) == SIMT
+    assert launch.body(K4, 96, 128, 4, rows_aligned=True) == SIMT
+    with pytest.raises(ValueError):
+        launch.body("edge_attention_sums_mm", 40, 128, 4, True)
+
+
+def test_body_of_checks_a_named_body():
+    qkv = torch.zeros(64, 3 * 128)
+    assert launch.body_of(K1, "simt", 40, 128, 4, ("kv_rows", qkv[:, 128:])) == SIMT
+    with pytest.raises(ValueError, match="range"):
+        launch.body_of(K1, "tc", 49, 128, 4, ("kv_rows", qkv[:, 128:]))
+    with pytest.raises(ValueError, match="16-byte"):
+        launch.body_of(K1, "tc", 40, 128, 4, ("kv_rows", qkv[:, 129:-1]))
+    with pytest.raises(ValueError, match="is not one of"):
+        launch.body_of(K1, "wgmma", 40, 128, 4, ("kv_rows", qkv[:, 128:]))
+
+
+def test_count_launch_splits_by_body():
+    def wrapper():
+        pass
+    wrapper.launches, wrapper.body_launches = 0, dict.fromkeys(launch.BODIES, 0)
+    for b in (TC, SIMT, TC):
+        launch.count_launch(wrapper, b)
+    assert wrapper.launches == 3 and wrapper.body_launches == {TC: 2, SIMT: 1}
+
+
+# ---- AMPConv beyond shared memory: the fused op against the JAX XLA path
+
+F = 24
+
+
+def both_models(rng, d, h, s):
+    n = 14
+    x = (rng.random((n, F)) < 0.3).astype(np.float32)
+    x[x.sum(1) == 0, 0] = 1.0
+    ei = np.stack([rng.integers(0, n, 40), rng.integers(0, n - 1, 40)])
+    split = rng.random(n)
+    kw = dict(y=rng.integers(0, 3, n), train_mask=split < 0.4,
+              val_mask=(split >= 0.4) & (split < 0.7), test_mask=split >= 0.7,
+              pad_nodes_to=16, pad_edges_to=48)
+    gj, gt = jax_from_arrays(x, ei, **kw), from_arrays(x, ei, **kw)
+    cfg = dict(embedding_dim=d, num_heads=h, num_node_features=F, num_sampled_vectors=s,
+               output_dim=3, feat_emb_dim=d - 1, val_emb_dim=1, token_sampling="tfidf",
+               scaler="precomputed", raw_residual="gcn2", dropout_rate=0.0,
+               dropout_adj_rate=0.0)
+    stats = fit_scaler(x)
+    jm = JaxAMPGCN(config=JaxConfig(**cfg), scaler_stats=stats)
+    k = jax.random.PRNGKey(0)
+    params = jm.init({"params": k, "sample": k, "dropout": k, "edges": k}, gj,
+                     return_aux=False)["params"]
+    tm = AMPGCN(AMPGCNConfig(**cfg, use_pallas=True), scaler_stats=stats, device="cpu")
+    tm.load_state_dict(flax_to_state_dict(jax.device_get(params)), strict=True)
+    return jm, params, tm, gj, gt
+
+
+@pytest.mark.parametrize("train,s", [(False, 96), (True, 64)])
+def test_ampconv_beyond_shared_memory_matches_jax_xla(rng, train, s):
+    """D=16, H=8: an eval at S=96 needs K1 or K2, whose CUDA-core body
+    needs 320 KB a block; a training step at S=64 needs K3 and K4 (283 KB
+    and 288 KB). The torch AMPConv keeps the fused op without a warning
+    (on the card those bodies work in device memory); the JAX model runs
+    its XLA path."""
+    d, h = 16, 8
+    kernels = (K3, K4) if train else (K1, K2)
+    assert all(launch.simt_smem_bytes(k, s, d, h) > launch.MAX_SMEM for k in kernels)
+    jm, params, tm, gj, gt = both_models(rng, d, h, s)
+    idx = rng.integers(0, F, (16, s))
+    layout = compute_layout(gt, tile_nodes=8)
+    if not train:
+        ref = jm.apply({"params": params}, gj, deterministic=True,
+                       sampled_idx=jnp.asarray(idx), return_aux=False).logits
+        with warnings.catch_warnings(), torch.no_grad():
+            warnings.simplefilter("error")
+            got = tm(gt, sampled_idx=torch.from_numpy(idx), edge_layout=layout)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+        return
+
+    def loss_fn(p):
+        k = jax.random.PRNGKey(1)
+        out = jm.apply({"params": p}, gj, deterministic=False, return_aux=False,
+                       sampled_idx=jnp.asarray(idx), rngs={"sample": k, "dropout": k, "edges": k})
+        return jax_masked_mean_nll(out.logits, gj.y, gj.train_mask & gj.node_mask)
+
+    loss_j, grads_j = jax.value_and_grad(loss_fn)(params)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        logits = tm(gt, deterministic=False, sampled_idx=torch.from_numpy(idx),
+                    edge_layout=layout)
+    loss = masked_mean_nll(logits, gt.y, gt.train_mask & gt.node_mask)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(loss_j), rtol=1e-5)
+    ref = flax_to_state_dict(jax.device_get(grads_j))
+    for name, p in tm.named_parameters():
+        r = ref[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), r, rtol=2e-4,
+                                   atol=2e-6 * max(1.0, np.abs(r).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("train,s,d,h", [(False, 49, 64, 4), (True, 40, 128, 8),
+                                         (True, 20, 64, 1)])
+def test_ampconv_stays_fused_where_a_body_takes_the_call(rng, train, s, d, h):
+    """Beyond the tensor cores, within the CUDA-core bodies' shared memory,
+    the layer keeps the fused op (its plain versions here): no warning."""
+    assert launch.body(K1, s, d, h, rows_aligned=True) == SIMT
+    assert launch.simt_smem_bytes(K1, s, d, h) <= launch.MAX_SMEM
+    _, _, tm, _, gt = both_models(rng, d, h, s)
+    idx = torch.from_numpy(rng.integers(0, F, (16, s)))
+    layout = compute_layout(gt, tile_nodes=8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with torch.set_grad_enabled(train):
+            out = tm(gt, deterministic=not train, sampled_idx=idx, edge_layout=layout)
+    assert torch.isfinite(out).all()

@@ -1,17 +1,22 @@
-"""Why K1 and K4 take three TF32 products per f32 product, on the CPU.
+"""Why the tensor-core kernels take three TF32 products per f32 product,
+on the CPU.
 
-The tensor-core kernels (csrc/edge_attention_tc.cu, csrc/edge_attention_bwd_tc.cu,
-helpers in csrc/mma_tf32.cuh) split each f32 operand x into TF32 parts
+The tensor-core kernels (csrc/edge_attention_tc.cuh for K1 and K2's
+attention, csrc/edge_attention_layer_tc.cu for K2's projection,
+csrc/edge_attention_bwd_dq_tc.cu for K3, csrc/edge_attention_bwd_tc.cu for
+K4, helpers in csrc/mma_tf32.cuh) split each f32 operand x into TF32 parts
 hi = rna(x), lo = rna(x - hi) and take a product as lo*hi + hi*lo + hi*hi.
 Here that arithmetic is emulated in torch: TF32 rounding is round to nearest
 (ties away from zero) at 10 mantissa bits, each TF32 product is exact (11 x
 11 significant bits) and is added in f32, as mma.sync accumulates. Applied
-to K1's per-receiver sums and to K4's per-sender dK|dV over 17 edges at S=40
-(D=128 and D=100, H=4), the 3-product scheme stays within the tolerance at
-which chip_smoke.py holds a kernel against its plain version (rtol = atol =
-1e-4) and within the card tests' (rtol 2e-4, atol 2e-5) of float64, and one
-TF32 product does not. Also: the shape and alignment rules the kernels'
-wrappers apply before a launch.
+to K1's per-receiver sums, K3's per-receiver dQ and K4's per-sender dK|dV
+over 17 edges at S=40, to K2's q|k|v projection of a receiver's and its
+senders' token rows and to its out-projection of a receiver's mean (D=128
+and D=100, H=4), the 3-product scheme stays within the tolerance at which
+chip_smoke.py holds a kernel against its plain version (rtol = atol = 1e-4)
+and within the card tests' (rtol 2e-4, atol 2e-5) of float64, and one TF32
+product does not. Also: the shape and alignment rules the kernels' wrappers
+apply before a launch.
 """
 import numpy as np
 import pytest
@@ -93,9 +98,58 @@ def k4_dkv(kv, qdm, mm):
     return torch.cat([dk, dv], dim=-1)
 
 
+def k3_dq(qdm, kv, mm):
+    """K3 for one receiver, its products in the kernel's order: per edge S =
+    (Q / sqrt(dh)) K^T, dW = dMsg V^T, the softmax over keys and its
+    backward, dQ += dS K; 1/sqrt(dh) applied once at the end."""
+    d = qdm.shape[-1] // 2
+    scale = 1.0 / (d // H) ** 0.5
+    qh, dmh = heads(qdm[:, :d]) * scale, heads(qdm[:, d:])
+    acc = torch.zeros(H, S, d // H, dtype=qdm.dtype)
+    for e in range(kv.shape[0]):
+        kh, vh = heads(kv[e, :, :d]), heads(kv[e, :, d:])
+        w = torch.softmax(mm(qh, kh.transpose(-1, -2)), dim=-1)    # over keys
+        dw = mm(dmh, vh.transpose(-1, -2))
+        ds = w * (dw - (dw * w).sum(dim=-1, keepdim=True))
+        acc = acc + mm(ds, kh)
+    return acc * scale
+
+
+def layer_weights(d: int, dtype):
+    """AMPConv's init (xavier w_qkv, kaiming-uniform w_out) with biases
+    N(0, 0.1), as chip_smoke.py's K2 phase draws them."""
+    rng = np.random.default_rng(2)
+    bound = (6.0 / (4 * d)) ** 0.5
+    ws = (rng.uniform(-bound, bound, (d, 3 * d)), rng.normal(0.0, 0.1, 3 * d),
+          rng.uniform(-d ** -0.5, d ** -0.5, (d, d)), rng.normal(0.0, 0.1, d))
+    return [torch.from_numpy(w.astype(np.float32)).to(dtype) for w in ws]
+
+
+def k2_projection(own, peers, mm):
+    """K2's first launch on a receiver's and its senders' token rows."""
+    d = own.shape[-1] // 2
+    w_qkv, b_qkv, _, _ = layer_weights(d, own.dtype)
+    return mm(torch.cat([own[:, :d], peers[:, :, :d].reshape(-1, d)]), w_qkv) + b_qkv
+
+
+def k2_out_projection(own, peers, mm):
+    """K2's epilogue, mean @ w_out + b_out, for a receiver of in-degree 1
+    (Cora's most common): its mean is one message, the largest input the
+    out-projection gets (a mean over 17 edges is ~4x smaller, and one TF32
+    product then misses only the card tests' atol). The mean itself is
+    taken in float64, so that only the out-projection's arithmetic differs."""
+    d = own.shape[-1] // 2
+    _, _, w_out, b_out = layer_weights(d, own.dtype)
+    mean = k1_sums(own[:, :d].double(), peers[:1].double(), torch.matmul).to(own.dtype)
+    return mm(mean.transpose(0, 1).reshape(S, d), w_out) + b_out
+
+
 KERNELS = {
     "k1": lambda own, peers, mm: k1_sums(own[:, : own.shape[1] // 2], peers, mm),
     "k4": lambda own, peers, mm: k4_dkv(own, peers, mm),
+    "k3": k3_dq,
+    "k2_projection": k2_projection,
+    "k2_out_projection": k2_out_projection,
 }
 
 
@@ -103,7 +157,7 @@ def within(got, ref, rtol, atol) -> bool:
     return torch.allclose(got.double(), ref, rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k4"])
+@pytest.mark.parametrize("kernel", list(KERNELS))
 @pytest.mark.parametrize("d", [128, 100])
 def test_three_tf32_products_hold_the_kernel_tolerance(kernel, d):
     own, peers = inputs(d)
@@ -114,7 +168,7 @@ def test_three_tf32_products_hold_the_kernel_tolerance(kernel, d):
     assert within(got, ref, CARD_RTOL, CARD_ATOL), err
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k4"])
+@pytest.mark.parametrize("kernel", list(KERNELS))
 @pytest.mark.parametrize("d", [128, 100])
 def test_one_tf32_product_misses_the_kernel_tolerance(kernel, d):
     own, peers = inputs(d)
@@ -189,3 +243,11 @@ ptxas info    : Used 74 registers, used 1 barriers
 """
     assert parse_ptxas(log) == {5: dict(regs=80, spill_stores=12, spill_loads=28),
                                 3: dict(regs=74, spill_stores=0, spill_loads=0)}
+    plain = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120projection_tc_kernelEPKfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120projection_tc_kernelEPKfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+"""
+    assert parse_ptxas(plain + log)["_ZN12_GLOBAL__N_120projection_tc_kernelEPKfi"] == \
+        dict(regs=96, spill_stores=0, spill_loads=0)
+    assert parse_ptxas(plain + log)[5]["regs"] == 80
