@@ -1,16 +1,22 @@
-// Edge-group forward kernels on Hopper (sm_90a), f32: the per-receiver SUM
-// of per-edge attention messages with the work cut by EDGES, not by
-// receivers.
+// Edge-group forward kernels on Hopper (sm_90a), f32 on the CUDA cores: the
+// per-receiver SUM of per-edge attention messages with the work cut by
+// EDGES, not by receivers. K6 and K9 run on the tensor cores
+// (edge_attention_groups_tc.cu) within their instantiated range; these
+// bodies are the route beyond it (S > 48, D/H > 32, more than 12 warps, rows
+// the 16-byte copies cannot take), at every shape: where a block's working
+// set (smem_floats, mirrored in launch.py) exceeds the 227 KB of shared
+// memory a block may have, the same body keeps it in device memory instead,
+// one slice per resident block, and the blocks walk the items in turn.
 //
 // Replaces the non-default TPU forward bodies of ampnet_tpu/ops/pallas/
 // edge_attention_fused.py:
-//   * K6 ampnet_edge_attention_sums_mm <- _fused_kernel_vmem_v2_mm (:731) and
+//   * K6 ampnet_edge_attention_sums_mm_simt <- _fused_kernel_vmem_v2_mm (:731) and
 //     _fused_kernel_dma_v8 (:1126) with _mm_scatter_epilogue (:1088): the
 //     messages of a tile are buffered on chip and summed onto their
 //     receivers by a {0,1} one-hot product, validity folded in as a select;
 //     also the attention launch of K7 (_fused_kernel_vmem_v6_mm, :865), whose
 //     projection and mean/out-projection launches are in qkv_projection.cu;
-//   * K9 ampnet_edge_attention_sums_v1 <- _fused_kernel (:186) and
+//   * K9 ampnet_edge_attention_sums_v1_simt <- _fused_kernel (:186) and
 //     _fused_kernel_vmem (:294): G packed edges per step, G | EMAX, every
 //     group walked, each edge's message scaled by its validity and added to
 //     its receiver's rows on its own.
@@ -41,8 +47,9 @@
 //   way to feed the matrix unit one large product; the off-diagonal
 //   products are discarded there and are not computed here.
 // The TPU's group sizes (19 at S=40, 32 at S=20) would need G x 20 KB of
-// messages in K6; a block has 227 KB, so the group is this kernel's own
-// launch parameter (it moves the order of summation only).
+// messages in K6; this body's default group is the largest up to 4 that
+// keeps the working set in shared memory (the group moves the order of
+// summation only).
 //
 // Bound (H100 SXM), as K1's: 4*S^2*D FLOP per live edge against the q, k|v
 // and output rows once (~230 MB at the S=40 Cora shapes): bound by
@@ -62,22 +69,27 @@ __host__ __device__ inline size_t smem_floats(int s, int d, int h, int buffered)
          (size_t)buffered * s * d;
 }
 
-// kBuffered: K6 (messages buffered, one-hot reduce). Else K9 (per-edge add).
+// One item (tile, group) = blockIdx.x or the items of a persistent block,
+// its working set at smem (shared or device memory), its slot tables at
+// tables ([3][kMaxGroup]). kBuffered: K6 (messages buffered, one-hot
+// reduce). Else K9 (per-edge add).
 template <bool kBuffered>
-__global__ void __launch_bounds__(kThreads)
-edge_group_kernel(const float* __restrict__ q, int ldq,
-                  const float* __restrict__ kv, int ldkv,
-                  const int* __restrict__ tile_senders,
-                  const int* __restrict__ tile_recv,
-                  const int* __restrict__ tile_valid,
-                  const int* __restrict__ tile_counts,
-                  float* __restrict__ out, int emax, int groups_per_tile,
-                  int group, int tile_nodes, int s, int sp, int d, int num_heads,
-                  int softmax) {
-  extern __shared__ float smem[];
-  __shared__ int recv_s[kMaxGroup], live_s[kMaxGroup], lead_s[kMaxGroup];
-  const int tile = blockIdx.x / groups_per_tile;
-  const int slot0 = (blockIdx.x % groups_per_tile) * group;
+__device__ __forceinline__ void
+group_sums(int item, float* smem, int* tables, const float* __restrict__ q, int ldq,
+           const float* __restrict__ kv, int ldkv,
+           const int* __restrict__ tile_senders,
+           const int* __restrict__ tile_recv,
+           const int* __restrict__ tile_valid,
+           const int* __restrict__ tile_counts,
+           float* __restrict__ out, int emax, int groups_per_tile,
+           int group, int tile_nodes, int s, int sp, int d, int num_heads,
+           int softmax) {
+  int* recv_s = tables;
+  int* live_s = recv_s + kMaxGroup;
+  int* lead_s = live_s + kMaxGroup;
+  const int tile = item / groups_per_tile;
+  const int slot0 = (item % groups_per_tile) * group;
+  __syncthreads();  // the block's previous item is done with its working set
   if (kBuffered && slot0 >= tile_counts[tile]) return;  // structural trip count
   const int tid = threadIdx.x;
   const int dh = d / num_heads, ld = d + 1;
@@ -156,25 +168,62 @@ edge_group_kernel(const float* __restrict__ q, int ldq,
   }
 }
 
+// kDeviceMem = false: one block per item, its working set in dynamic shared
+// memory. kDeviceMem = true: block b works in work[b * smem_floats] and
+// takes items b, b + gridDim.x, ...
+template <bool kBuffered, bool kDeviceMem>
+__global__ void __launch_bounds__(kThreads)
+edge_group_kernel(const float* __restrict__ q, int ldq,
+                  const float* __restrict__ kv, int ldkv,
+                  const int* __restrict__ tile_senders,
+                  const int* __restrict__ tile_recv,
+                  const int* __restrict__ tile_valid,
+                  const int* __restrict__ tile_counts,
+                  float* __restrict__ out, float* __restrict__ work, int items,
+                  int emax, int groups_per_tile, int group, int tile_nodes, int s,
+                  int sp, int d, int num_heads, int softmax) {
+  extern __shared__ float shared[];
+  __shared__ int tables[3 * kMaxGroup];
+  if (!kDeviceMem) {  // no loop: the loop costs this body registers
+    group_sums<kBuffered>(blockIdx.x, shared, tables, q, ldq, kv, ldkv, tile_senders,
+                          tile_recv, tile_valid, tile_counts, out, emax, groups_per_tile,
+                          group, tile_nodes, s, sp, d, num_heads, softmax);
+    return;
+  }
+  float* smem = work + blockIdx.x * smem_floats(s, d, num_heads, kBuffered ? group : 0);
+  for (int item = blockIdx.x; item < items; item += gridDim.x)
+    group_sums<kBuffered>(item, smem, tables, q, ldq, kv, ldkv, tile_senders, tile_recv,
+                          tile_valid, tile_counts, out, emax, groups_per_tile, group,
+                          tile_nodes, s, sp, d, num_heads, softmax);
+}
+
+// work == nullptr: the working set in shared memory (the caller checked
+// that it fits); else work_blocks slices of smem_floats in device memory.
 template <bool kBuffered>
 int launch(const float* q, int ldq, const float* kv, int ldkv,
            const int* tile_senders, const int* tile_recv, const int* tile_valid,
-           const int* tile_counts, float* out, int num_tiles, int emax, int group,
-           int tile_nodes, int s, int sp, int d, int num_heads, int softmax,
-           cudaStream_t stream) {
+           const int* tile_counts, float* out, float* work, int work_blocks,
+           int num_tiles, int emax, int group, int tile_nodes, int s, int sp, int d,
+           int num_heads, int softmax, cudaStream_t stream) {
   if (group < 1 || group > kMaxGroup) return (int)cudaErrorInvalidValue;
+  const int groups_per_tile = (emax + group - 1) / group;
+  const int items = num_tiles * groups_per_tile;
+  if (items <= 0) return (int)cudaGetLastError();
+  if (work != nullptr) {
+    edge_group_kernel<kBuffered, true><<<work_blocks, kThreads, 0, stream>>>(
+        q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, tile_counts, out, work,
+        items, emax, groups_per_tile, group, tile_nodes, s, sp, d, num_heads, softmax);
+    return (int)cudaGetLastError();
+  }
   const size_t smem =
       smem_floats(s, d, num_heads, kBuffered ? group : 0) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_group_kernel<kBuffered>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge_group_kernel<kBuffered, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int groups_per_tile = (emax + group - 1) / group;
-  if (num_tiles > 0 && groups_per_tile > 0) {
-    edge_group_kernel<kBuffered><<<num_tiles * groups_per_tile, kThreads, smem, stream>>>(
-        q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, tile_counts, out,
-        emax, groups_per_tile, group, tile_nodes, s, sp, d, num_heads, softmax);
-  }
+  edge_group_kernel<kBuffered, false><<<items, kThreads, smem, stream>>>(
+      q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, tile_counts, out, nullptr,
+      items, emax, groups_per_tile, group, tile_nodes, s, sp, d, num_heads, softmax);
   return (int)cudaGetLastError();
 }
 
@@ -182,36 +231,42 @@ int launch(const float* q, int ldq, const float* kv, int ldkv,
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs; buffered = the group size
-// for K6 (its message buffer), 0 for K9.
+// Bytes of working set one block needs (the wrapper puts it in shared
+// memory where it fits the card's per-block limit, else in device memory);
+// buffered = the group size for K6 (its message buffer), 0 for K9.
 size_t ampnet_edge_group_smem_bytes(int s, int d, int num_heads, int buffered) {
   return smem_floats(s, d, num_heads, buffered) * sizeof(float);
 }
 
-// K6. q: [num_tiles*tile_nodes*sp] rows of d floats (row stride ldq); kv:
-// rows of k|v (2d floats, stride ldkv); tile_senders / tile_recv / tile_valid:
-// [num_tiles, emax]; tile_counts: [num_tiles] structural live slots; out:
-// [num_tiles*tile_nodes*sp, d] contiguous and ZEROED by the caller.
-int ampnet_edge_attention_sums_mm(const float* q, int ldq, const float* kv, int ldkv,
-                                  const int* tile_senders, const int* tile_recv,
-                                  const int* tile_valid, const int* tile_counts,
-                                  float* out, int num_tiles, int emax, int group,
-                                  int tile_nodes, int s, int sp, int d,
-                                  int num_heads, int softmax, void* stream) {
-  return launch<true>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid,
-                      tile_counts, out, num_tiles, emax, group, tile_nodes, s, sp,
-                      d, num_heads, softmax, (cudaStream_t)stream);
+// K6's CUDA-core body (the route beyond edge_attention_groups_tc.cu's
+// range). q: [num_tiles*tile_nodes*sp] rows of d floats (row stride ldq);
+// kv: rows of k|v (2d floats, stride ldkv); tile_senders / tile_recv /
+// tile_valid: [num_tiles, emax]; tile_counts: [num_tiles] structural live
+// slots; out: [num_tiles*tile_nodes*sp, d] contiguous and ZEROED by the
+// caller; work: null (shared memory) or work_blocks * smem_bytes of device
+// memory. group 1..32.
+int ampnet_edge_attention_sums_mm_simt(const float* q, int ldq, const float* kv, int ldkv,
+                                       const int* tile_senders, const int* tile_recv,
+                                       const int* tile_valid, const int* tile_counts,
+                                       float* out, int num_tiles, int emax, int group,
+                                       int tile_nodes, int s, int sp, int d, int num_heads,
+                                       int softmax, float* work, int work_blocks,
+                                       void* stream) {
+  return launch<true>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, tile_counts,
+                      out, work, work_blocks, num_tiles, emax, group, tile_nodes, s, sp, d,
+                      num_heads, softmax, (cudaStream_t)stream);
 }
 
-// K9. As K6 without tile_counts: every group of every tile is launched
-// (the caller checks that group divides emax).
-int ampnet_edge_attention_sums_v1(const float* q, int ldq, const float* kv, int ldkv,
-                                  const int* tile_senders, const int* tile_recv,
-                                  const int* tile_valid, float* out, int num_tiles,
-                                  int emax, int group, int tile_nodes, int s, int sp,
-                                  int d, int num_heads, int softmax, void* stream) {
-  return launch<false>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid,
-                       nullptr, out, num_tiles, emax, group, tile_nodes, s, sp, d,
+// K9's CUDA-core body. As K6's without tile_counts: every group of every
+// tile is walked (the caller checks that group divides emax).
+int ampnet_edge_attention_sums_v1_simt(const float* q, int ldq, const float* kv, int ldkv,
+                                       const int* tile_senders, const int* tile_recv,
+                                       const int* tile_valid, float* out, int num_tiles,
+                                       int emax, int group, int tile_nodes, int s, int sp,
+                                       int d, int num_heads, int softmax, float* work,
+                                       int work_blocks, void* stream) {
+  return launch<false>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, nullptr, out,
+                       work, work_blocks, num_tiles, emax, group, tile_nodes, s, sp, d,
                        num_heads, softmax, (cudaStream_t)stream);
 }
 

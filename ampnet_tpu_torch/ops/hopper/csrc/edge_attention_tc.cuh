@@ -1,7 +1,10 @@
 // The per-receiver walk on Hopper's tensor cores that K1 (edge_attention_tc.cu,
 // the per-receiver sums) and K2's attention launch (edge_attention_layer_tc.cu,
 // the whole layer) share: f32 in 3xTF32 (mma_tf32.cuh), with the next edges'
-// gathers in flight. One kernel template; kLayer adds K2's two steps.
+// gathers in flight. One kernel template; kLayer adds K2's two steps. Its
+// per-edge steps (Q's fragments, the score tile, the softmax and P V) are
+// device functions that the edge-group kernel (edge_attention_groups_tc.cu,
+// K6 and K9) calls too.
 //
 // Per receiver, the SUM over live in-edges of the multi-head message
 // softmax(Q K^T / sqrt(dh)) V (raw scaled scores with softmax=0); with kLayer
@@ -69,6 +72,118 @@ namespace {
 constexpr int kMaxWarps = 12;
 constexpr int kMaxThreads = 32 * kMaxWarps;
 
+// ---- the per-edge steps of one warp (head hc.., query rows r0 = m0 + g and
+// r1 = r0 + 8 of its 16-row tile), shared with the edge-group kernel
+// (edge_attention_groups_tc.cu)
+
+// A fragments of Q / sqrt(dh) of node row block qrow0, one per 8 head
+// columns, into the lane's own slots of qfrag (rows past s and columns past
+// dh read as 0: the next node's rows are never read)
+__device__ __forceinline__ void load_q_frags(float4* qfrag, const float* __restrict__ q,
+                                             size_t qrow0, int ldq, int hc, int r0, int r1,
+                                             int s, int dh, int t, float scale) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c0 = 8 * kk + t, c1 = c0 + 4;
+    const float* q0 = q + (qrow0 + r0) * ldq + hc;
+    const float* q1 = q + (qrow0 + r1) * ldq + hc;
+    qfrag[kk * blockDim.x] = make_float4(r0 < s && c0 < dh ? q0[c0] * scale : 0.0f,
+                                         r1 < s && c0 < dh ? q1[c0] * scale : 0.0f,
+                                         r0 < s && c1 < dh ? q0[c1] * scale : 0.0f,
+                                         r1 < s && c1 < dh ? q1[c1] * scale : 0.0f);
+  }
+}
+
+// sc = the 16 queries x 8*NKT keys score tile against the keys kr (a ring
+// stage at the warp's head column, row stride ldr)
+template <int NKT>
+__device__ __forceinline__ void score_tile(float (&sc)[NKT][4], const float4* qfrag,
+                                           const float* kr, int ldr, int s, int dh, int g,
+                                           int t) {
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+#pragma unroll 1  // unrolled, the fragments of all k-steps stay live: spills
+  for (int kk = 0; kk < 4; ++kk) {
+    if (8 * kk >= dh) break;
+    const FragA a = split_a(qfrag[kk * blockDim.x]);
+    const int c0 = 8 * kk + t, c1 = c0 + 4;
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+      const int key = 8 * j + g;
+      const float* kp = kr + key * ldr;
+      mma_3xtf32(sc[j], a, split_b(key < s && c0 < dh ? kp[c0] : 0.0f,
+                                   key < s && c1 < dh ? kp[c1] : 0.0f));
+    }
+  }
+}
+
+// The row softmax of sc times w (with softmax=0 the raw scores times w),
+// then o += P V against the values vr (the ring stage's V half)
+template <int NKT>
+__device__ __forceinline__ void softmax_pv(float (&sc)[NKT][4], float (&o)[4][4],
+                                           const float* vr, int ldr, int s, int dh, int g,
+                                           int t, float w, int softmax) {
+  if (softmax) {  // rows g (sc[j][0..1]) and g + 8 (sc[j][2..3])
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+      const int key = 8 * j + 2 * t;
+      if (key >= s) sc[j][0] = sc[j][2] = -INFINITY;
+      if (key + 1 >= s) sc[j][1] = sc[j][3] = -INFINITY;
+      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+      sc[j][0] = expf(sc[j][0] - mx0);
+      sc[j][1] = expf(sc[j][1] - mx0);
+      sc[j][2] = expf(sc[j][2] - mx1);
+      sc[j][3] = expf(sc[j][3] - mx1);
+      sum0 += sc[j][0] + sc[j][1];
+      sum1 += sc[j][2] + sc[j][3];
+    }
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+    const float inv0 = w / sum0, inv1 = w / sum1;
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+      sc[j][0] *= inv0;
+      sc[j][1] *= inv0;
+      sc[j][2] *= inv1;
+      sc[j][3] *= inv1;
+    }
+  } else {  // pad keys scored 0 (their rows read as 0)
+#pragma unroll
+    for (int j = 0; j < NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] *= w;
+  }
+
+  // O += P V: P's A fragment is the score tile's C fragment
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    const FragA a = c_as_a(sc[j]);
+    const int key = 8 * j + 2 * t;
+    const float* v0 = vr + key * ldr;
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn) {
+      if (8 * nn >= dh) break;
+      const int c = 8 * nn + g;
+      mma_3xtf32(o[nn], a, split_b(key < s && c < dh ? v0[c] : 0.0f,
+                                   key + 1 < s && c < dh ? v0[ldr + c] : 0.0f));
+    }
+  }
+}
+
 // Two blocks of up to 384 threads per SM leave 80 registers a thread: enough
 // without spills for S <= 24 and S = 33-40 (NKT = 1-3, 5), not for S = 25-32
 // and 41-48 (NKT = 4, 6), which get one block per SM (ptxas, on sm_90a). With
@@ -120,18 +235,9 @@ sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ k
     const size_t qrow0 = (size_t)n * sp;
     const int r0 = m0 + g, r1 = r0 + 8;
     const float inv_n = kLayer ? invdeg[n] : 1.0f;
-    // A fragments of Q / sqrt(dh), one per 8 head columns, kept in shared
-    // memory by the lane that owns them (registers decide the blocks per SM)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int c0 = 8 * kk + t, c1 = c0 + 4;
-      const float* q0 = q + (qrow0 + r0) * ldq + hc;
-      const float* q1 = q + (qrow0 + r1) * ldq + hc;
-      qfrag[kk * blockDim.x] = make_float4(r0 < s && c0 < dh ? q0[c0] * scale : 0.0f,
-                                           r1 < s && c0 < dh ? q1[c0] * scale : 0.0f,
-                                           r0 < s && c1 < dh ? q0[c1] * scale : 0.0f,
-                                           r1 < s && c1 < dh ? q1[c1] * scale : 0.0f);
-    }
+    // A fragments of Q / sqrt(dh), kept in shared memory by the lane that
+    // owns them (registers decide the blocks per SM)
+    load_q_frags(qfrag, q, qrow0, ldq, hc, r0, r1, s, dh, t, scale);
     float o[4][4];
 #pragma unroll
     for (int nn = 0; nn < 4; ++nn)
@@ -149,25 +255,8 @@ sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ k
       const int free_stage = stage == 0 ? stages - 1 : stage - 1;
       stage = stage + 1 == stages ? 0 : stage + 1;
 
-      // scores: 16 queries x 8*NKT keys
-      float sc[NKT][4];
-#pragma unroll
-      for (int j = 0; j < NKT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
-#pragma unroll 1  // unrolled, the fragments of all k-steps stay live: spills
-      for (int kk = 0; kk < 4; ++kk) {
-        if (8 * kk >= dh) break;
-        const FragA a = split_a(qfrag[kk * blockDim.x]);
-        const int c0 = 8 * kk + t, c1 = c0 + 4;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          const int key = 8 * j + g;
-          const float* kp = kr + key * ldr;
-          mma_3xtf32(sc[j], a, split_b(key < s && c0 < dh ? kp[c0] : 0.0f,
-                                       key < s && c1 < dh ? kp[c1] : 0.0f));
-        }
-      }
+      float sc[NKT][4];  // scores: 16 queries x 8*NKT keys
+      score_tile<NKT>(sc, qfrag, kr, ldr, s, dh, g, t);
 
       {  // the gather of the edge stages - 1 ahead, while the products run
         const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
@@ -177,64 +266,7 @@ sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ k
         cp_async_commit();
       }
 
-      const float w = (float)valid * inv_n;
-      if (softmax) {  // rows g (sc[j][0..1]) and g + 8 (sc[j][2..3])
-        float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          const int key = 8 * j + 2 * t;
-          if (key >= s) sc[j][0] = sc[j][2] = -INFINITY;
-          if (key + 1 >= s) sc[j][1] = sc[j][3] = -INFINITY;
-          mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-          mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-        }
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          sc[j][0] = expf(sc[j][0] - mx0);
-          sc[j][1] = expf(sc[j][1] - mx0);
-          sc[j][2] = expf(sc[j][2] - mx1);
-          sc[j][3] = expf(sc[j][3] - mx1);
-          sum0 += sc[j][0] + sc[j][1];
-          sum1 += sc[j][2] + sc[j][3];
-        }
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-        const float inv0 = w / sum0, inv1 = w / sum1;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          sc[j][0] *= inv0;
-          sc[j][1] *= inv0;
-          sc[j][2] *= inv1;
-          sc[j][3] *= inv1;
-        }
-      } else {  // pad keys scored 0 (their rows read as 0)
-#pragma unroll
-        for (int j = 0; j < NKT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sc[j][e] *= w;
-      }
-
-      // O += P V: P's A fragment is the score tile's C fragment
-#pragma unroll
-      for (int j = 0; j < NKT; ++j) {
-        const FragA a = c_as_a(sc[j]);
-        const int key = 8 * j + 2 * t;
-        const float* v0 = vr + key * ldr;
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) {
-          if (8 * nn >= dh) break;
-          const int c = 8 * nn + g;
-          mma_3xtf32(o[nn], a, split_b(key < s && c < dh ? v0[c] : 0.0f,
-                                       key + 1 < s && c < dh ? v0[ldr + c] : 0.0f));
-        }
-      }
+      softmax_pv<NKT>(sc, o, vr, ldr, s, dh, g, t, (float)valid * inv_n, softmax);
     }
 
     float* orow = out + qrow0 * d;

@@ -53,7 +53,9 @@ sender side, or with ``scatterfree=False``, the stream backward of
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in
-``<wrapper>.launches``, K1-K4 also by body in ``<wrapper>.body_launches``.
+``<wrapper>.launches``, K1-K4, K6, K7 and K9 also by body in
+``<wrapper>.body_launches``; ``device_memory_launch_counts()`` counts the
+CUDA-core launches whose working set was in device memory.
 """
 from __future__ import annotations
 
@@ -87,6 +89,7 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     check_f32_rows,
     check_walk,
     count_launch,
+    device_memory_launches,
     entry,
     launch_body,
     stream,
@@ -345,6 +348,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "body_launches"):
             fn.body_launches = dict.fromkeys(BODIES, 0)
+    device_memory_launches.clear()
 
 
 def launch_counts() -> dict:
@@ -352,9 +356,16 @@ def launch_counts() -> dict:
 
 
 def body_launch_counts() -> dict:
-    """K1-K4's launches by body: {wrapper: {'tc': n, 'simt': m}}."""
+    """The launches by body of the kernels that have two (K1-K4, K6, K7,
+    K9): {wrapper: {'tc': n, 'simt': m}}."""
     return {fn.__name__: dict(fn.body_launches) for fn in KERNEL_WRAPPERS
             if hasattr(fn, "body_launches")}
+
+
+def device_memory_launch_counts() -> dict:
+    """The launches of a CUDA-core body whose working set was in device
+    memory: {kernel: n}, K7's attention launch under K6's name."""
+    return dict(device_memory_launches)
 
 
 # ---------------------------------------------------------------- the op

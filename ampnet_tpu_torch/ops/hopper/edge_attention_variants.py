@@ -26,17 +26,27 @@ compute, by another cut of the work:
   slot is padding is a per-slot skip here, so a runtime mask on a group's
   first slot cannot drop the group.
 
-K6, K7 and K9 reduce across thread blocks with f32 atomics into a zeroed
+K6 and K9 have two bodies each (``launch.body``), as K1 has: on the
+tensor cores in 3xTF32 (``csrc/edge_attention_groups_tc.cu``: one warp per
+head and 16-row query tile, each receiver's run of slots in a group summed
+in registers and added to the output with f32 atomics) within their
+instantiated range, on the CUDA cores (``csrc/edge_attention_groups.cu``,
+K6's group of messages buffered in shared memory) beyond it, at any shape:
+where that body's working set exceeds a block's shared memory it is kept in
+device memory (``launch.simt_work``). K7's attention launch is K6's, on
+K6's route.
+
+K6, K7 and K9 reduce across warps and blocks with f32 atomics into a zeroed
 output: right to rounding, but not bit-reproducible from launch to launch
 (K1, K2 and K8 are). The group of K6 is the port's own launch parameter
-(``MM_GROUP``): the JAX groups (19 at S=40, 32 at S=20) would not fit a
-block's shared memory, and the group moves the order of summation only.
+(``MM_GROUP``); it moves the order of summation only.
 
 A wrapper given CPU tensors runs its plain version, which repeats the
 kernel's arithmetic (groups and one-hot reduce, packed groups and per-edge
 adds, chunks and per-edge softmax segments); given CUDA tensors it launches
 its kernel or raises. Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``, K6, K7 and K9 also by body in
+``<wrapper>.body_launches``.
 """
 from __future__ import annotations
 
@@ -54,19 +64,31 @@ from ampnet_tpu_torch.ops.edge_attention import (
 )
 from ampnet_tpu_torch.ops.hopper import build
 from ampnet_tpu_torch.ops.hopper.launch import (
+    BODIES,
     I,
     MAX_SMEM,
     P,
+    body_of,
     check_f32_rows,
     check_index,
     check_smem,
+    count_launch,
     entry,
+    launch_body,
+    simt_smem_bytes,
     stream,
 )
 
-# K6's edge group: the largest that leaves room for the per-edge buffers at
-# S=40, D=128 (4 x 20 KB of messages beside 87 KB), also used at S=20.
+# K6's edge group where the caller names none. On the tensor cores: how
+# many layout slots a run of register sums may span before it is added to
+# the output (the fastest of 1, 4, 8 and the JAX group in chip_smoke.py's
+# by_group_ms, at S=40 and S=20; smaller groups balance the blocks' walks
+# better than larger ones save flushes). On the CUDA cores: the largest
+# group up to it whose buffer of messages leaves the working set in shared
+# memory (4 x 20 KB beside 87 KB at S=40, D=128), else 1; there at most
+# SIMT_MAX_GROUP (csrc kMaxGroup).
 MM_GROUP = 4
+SIMT_MAX_GROUP = 32
 
 _SIGNATURES = {
     "ampnet_edge_attention_sums_mm": [P, I, P, I, P, P, P, P, P,
@@ -78,6 +100,15 @@ _SIGNATURES = {
     "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
     "ampnet_mean_out_projection": [P, I, P, P, P, P, I, I, I, I, I, I, P],
 }
+# the CUDA-core bodies also take their device-memory working set (pointer,
+# blocks; 0, 0 for shared memory) before the stream
+for _name in ("ampnet_edge_attention_sums_mm", "ampnet_edge_attention_sums_v1"):
+    _SIGNATURES[_name + "_simt"] = _SIGNATURES[_name][:-1] + [P, I, P]
+# (library, entry point) of each body of K6 and K9
+_SUMS_MM = {"tc": ("edge_attention_groups_tc", "ampnet_edge_attention_sums_mm"),
+            "simt": ("edge_attention_groups", "ampnet_edge_attention_sums_mm_simt")}
+_SUMS_V1 = {"tc": ("edge_attention_groups_tc", "ampnet_edge_attention_sums_v1"),
+            "simt": ("edge_attention_groups", "ampnet_edge_attention_sums_v1_simt")}
 
 
 def _entry(lib_name: str, fn_name: str):
@@ -217,49 +248,49 @@ def _check_tiled(device, tile_senders, tile_recv, tile_valid, tile_counts=None):
         check_index("tile_counts", tile_counts, device, tile_senders.shape[0])
 
 
-def _group_smem(s, d, num_heads, buffered):
-    _, fn = entry("edge_attention_groups", "ampnet_edge_group_smem_bytes",
-                  [I, I, I, I], ctypes.c_size_t)
-    return fn(s, d, num_heads, buffered)
-
-
-def _mm_group(s, d, num_heads, group):
-    """K6's group: the caller's, checked against the shared memory; else the
-    largest up to MM_GROUP that fits."""
+def _mm_group(body, s, d, num_heads, group):
+    """K6's group on ``body``: the caller's (1..SIMT_MAX_GROUP on the CUDA
+    cores), else MM_GROUP on the tensor cores and on the CUDA cores the
+    largest up to MM_GROUP that keeps the working set in shared memory
+    (else 1: in device memory)."""
     if group is None:
-        group = MM_GROUP
-        while group > 1 and _group_smem(s, d, num_heads, group) > MAX_SMEM:
-            group -= 1
-    elif not 1 <= group <= 32:
-        raise ValueError(f"group={group} must be in 1..32")
-    check_smem(_group_smem(s, d, num_heads, group),
-               f"edge-group attention at S={s}, D={d}, H={num_heads}, group={group}")
+        if body == "tc":
+            return MM_GROUP
+        return max([g for g in range(1, MM_GROUP + 1) if simt_smem_bytes(
+            "edge_attention_sums_mm", s, d, num_heads, g) <= MAX_SMEM], default=1)
+    top = SIMT_MAX_GROUP if body == "simt" else None
+    if group < 1 or (top is not None and group > top):
+        raise ValueError(f"group={group} must be at least 1"
+                         + (f" and at most {top} on the CUDA cores" if top else ""))
     return group
 
 
-def _launch_sums_mm(q_rows, ldq, kv_rows, ldkv, tile_senders, tile_recv, tile_valid,
-                    tile_counts, *, s, sp, d, num_heads, softmax, tile_nodes, group):
-    """K6's launch into a zeroed [NT*sp, D] buffer (no checks, no count)."""
+def _launch_groups(kernel, body, ptrs, tile_senders, tile_recv, tile_valid, tile_counts,
+                   *, s, sp, d, num_heads, softmax, tile_nodes, group):
+    """One launch of K6 (``tile_counts`` given) or K9 on ``body`` over q and
+    k|v rows at ``ptrs`` = (q, ldq, kv, ldkv), into a zeroed [NT*sp, D]
+    buffer (no checks, no count)."""
     t, emax = tile_senders.shape
-    out = torch.zeros(t * tile_nodes * sp, d, dtype=torch.float32,
-                      device=tile_senders.device)
-    lib, fn = _entry("edge_attention_groups", "ampnet_edge_attention_sums_mm")
-    build.check(lib, fn(
-        q_rows, ldq, kv_rows, ldkv, tile_senders.data_ptr(), tile_recv.data_ptr(),
-        tile_valid.data_ptr(), tile_counts.data_ptr(), out.data_ptr(), t, emax,
-        group, tile_nodes, s, sp, d, num_heads, int(softmax), stream()),
-        "edge_attention_sums_mm")
+    dev = tile_senders.device
+    out = torch.zeros(t * tile_nodes * sp, d, dtype=torch.float32, device=dev)
+    counts = () if tile_counts is None else (tile_counts.data_ptr(),)
+    lib_fn = _entry(*(_SUMS_MM if tile_counts is not None else _SUMS_V1)[body])
+    launch_body(kernel, body, lib_fn, (
+        *ptrs, tile_senders.data_ptr(), tile_recv.data_ptr(), tile_valid.data_ptr(), *counts,
+        out.data_ptr(), t, emax, group, tile_nodes, s, sp, d, num_heads, int(softmax)),
+        s, d, num_heads, t * -(-emax // group), dev, group)
     return out
 
 
 def edge_attention_sums_mm(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
                            tile_counts, *, s, sp, num_heads, softmax, tile_nodes,
-                           group: Optional[int] = None):
+                           group: Optional[int] = None, body: Optional[str] = None):
     """K6: per-receiver sums [NT*sp, D] f32 (pad token rows 0) by edge
     groups. The layout arrays are the tiled layout's own ([T, EMAX] int32
     senders, receiver rows and validity, which may carry a runtime mask, and
-    the [T] STRUCTURAL counts). ``group`` None = ``MM_GROUP`` (lowered to
-    what fits). CPU tensors run the plain version."""
+    the [T] STRUCTURAL counts). The body is K1's rule (``launch.body_of`` on
+    kv_rows; ``body`` names one); ``group`` None = its default
+    (``_mm_group``). CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_sums_mm_plain(
             q_rows, kv_rows, tile_senders, tile_recv, tile_valid, tile_counts,
@@ -268,27 +299,28 @@ def edge_attention_sums_mm(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
     nt = tile_senders.shape[0] * tile_nodes
     d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
     _check_tiled(q_rows.device, tile_senders, tile_recv, tile_valid, tile_counts)
-    group = _mm_group(s, d, num_heads, group)
-    out = _launch_sums_mm(
-        q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
+    body = body_of("edge_attention_sums_mm", body, s, d, num_heads, ("kv_rows", kv_rows))
+    out = _launch_groups(
+        "edge_attention_sums_mm", body,
+        (q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0)),
         tile_senders, tile_recv, tile_valid, tile_counts, s=s, sp=sp, d=d,
-        num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes, group=group)
-    edge_attention_sums_mm.launches += 1
+        num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes,
+        group=_mm_group(body, s, d, num_heads, group))
+    count_launch(edge_attention_sums_mm, body)
     return out
-
-
-edge_attention_sums_mm.launches = 0
 
 
 def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
                             tile_senders, tile_recv, tile_valid, tile_counts, *,
                             s, sp, num_heads, softmax, tile_nodes,
-                            group: Optional[int] = None):
+                            group: Optional[int] = None, body: Optional[str] = None):
     """K7: the whole layer over raw token rows x_rows [NT*sp, D] -> output
     rows [NT*sp, D] f32 (pad token rows 0; a receiver of degree 0 exactly
     0). invdeg [NT] is 1/degree of the runtime mask (0 for degree 0). Three
-    launches: the q|k|v projection, K6's attention into zeroed sums, then the
-    mean row scale, out-projection and live-row bias."""
+    launches: the q|k|v projection, K6's attention into zeroed sums (on
+    K6's body for the k|v view of the projected rows), then the mean row
+    scale, out-projection and live-row bias. The first and the last launch
+    take any shape (a tiled product in static shared memory)."""
     if not x_rows.is_cuda:
         return edge_attention_layer_mm_plain(
             x_rows, w_qkv, b_qkv, w_out, b_out, invdeg, tile_senders, tile_recv,
@@ -309,37 +341,36 @@ def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     if not w_qkv.is_contiguous() or not w_out.is_contiguous():
         raise ValueError("w_qkv and w_out must be contiguous")
     _check_tiled(dev, tile_senders, tile_recv, tile_valid, tile_counts)
-    group = _mm_group(s, d, num_heads, group)
     qkv = torch.empty(nt * sp, 3 * d, dtype=torch.float32, device=dev)
+    body = body_of("edge_attention_sums_mm", body, s, d, num_heads, ("kv_rows", qkv[:, d:]))
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
     cuda_stream = stream()
     lib, proj = _entry("qkv_projection", "ampnet_qkv_projection")
     build.check(lib, proj(x_rows.data_ptr(), x_rows.stride(0), w_qkv.data_ptr(),
                           b_qkv.data_ptr(), qkv.data_ptr(), 3 * d, nt * sp, 3 * d,
                           d, cuda_stream), "qkv_projection")
-    sums = _launch_sums_mm(
-        qkv.data_ptr(), 3 * d, qkv.data_ptr() + 4 * d, 3 * d, tile_senders, tile_recv,
-        tile_valid, tile_counts, s=s, sp=sp, d=d, num_heads=num_heads,
-        softmax=softmax, tile_nodes=tile_nodes, group=group)
+    sums = _launch_groups(
+        "edge_attention_sums_mm", body, (qkv.data_ptr(), 3 * d, qkv.data_ptr() + 4 * d, 3 * d),
+        tile_senders, tile_recv, tile_valid, tile_counts, s=s, sp=sp, d=d,
+        num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes,
+        group=_mm_group(body, s, d, num_heads, group))
     lib, epi = _entry("qkv_projection", "ampnet_mean_out_projection")
     build.check(lib, epi(sums.data_ptr(), d, invdeg.data_ptr(), w_out.data_ptr(),
                          b_out.data_ptr(), out.data_ptr(), d, nt * sp, d, d, sp, s,
                          cuda_stream), "mean_out_projection")
-    edge_attention_layer_mm.launches += 1
+    count_launch(edge_attention_layer_mm, body)
     return out
-
-
-edge_attention_layer_mm.launches = 0
 
 
 def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid, *,
                            s, sp, num_heads, softmax, tile_nodes, group,
-                           gather: str = "dma"):
+                           gather: str = "dma", body: Optional[str] = None):
     """K9: per-receiver sums [NT*sp, D] f32 (pad token rows 0) by packed
     groups of ``group`` edges (``group`` must divide EMAX), every group
-    walked, per-edge adds scaled by validity. ``gather`` names the JAX body
+    walked, each slot scaled by its validity. ``gather`` names the JAX body
     ('dma': ``_fused_kernel``, 'vmem': ``_fused_kernel_vmem``); one kernel
-    serves both. CPU tensors run the plain version."""
+    serves both. The body is K6's rule (``body`` names one; at most
+    SIMT_MAX_GROUP on the CUDA cores). CPU tensors run the plain version."""
     if gather not in ("dma", "vmem"):
         raise ValueError(f"gather must be 'dma' or 'vmem', got {gather!r}")
     t, emax = tile_senders.shape
@@ -352,20 +383,16 @@ def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
     nt = t * tile_nodes
     d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
     _check_tiled(q_rows.device, tile_senders, tile_recv, tile_valid)
-    check_smem(_group_smem(s, d, num_heads, 0),
-               f"packed-group attention at S={s}, D={d}, H={num_heads}")
-    out = torch.zeros(nt * sp, d, dtype=torch.float32, device=q_rows.device)
-    lib, fn = _entry("edge_attention_groups", "ampnet_edge_attention_sums_v1")
-    build.check(lib, fn(
-        q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
-        tile_senders.data_ptr(), tile_recv.data_ptr(), tile_valid.data_ptr(),
-        out.data_ptr(), t, emax, group, tile_nodes, s, sp, d, num_heads,
-        int(softmax), stream()), "edge_attention_sums_v1")
-    edge_attention_sums_v1.launches += 1
+    body = body_of("edge_attention_sums_v1", body, s, d, num_heads, ("kv_rows", kv_rows))
+    if body == "simt" and group > SIMT_MAX_GROUP:
+        raise ValueError(f"group={group} must be at most {SIMT_MAX_GROUP} on the CUDA cores")
+    out = _launch_groups(
+        "edge_attention_sums_v1", body,
+        (q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0)),
+        tile_senders, tile_recv, tile_valid, None, s=s, sp=sp, d=d, num_heads=num_heads,
+        softmax=softmax, tile_nodes=tile_nodes, group=group)
+    count_launch(edge_attention_sums_v1, body)
     return out
-
-
-edge_attention_sums_v1.launches = 0
 
 
 def _chunk_piece(s, d, num_heads, chunk, piece):
@@ -420,6 +447,9 @@ def edge_attention_sums_chunked(q_rows, kv_rows, chunk_senders, chunk_valid,
 
 
 edge_attention_sums_chunked.launches = 0
+for _wrapper in (edge_attention_sums_mm, edge_attention_layer_mm, edge_attention_sums_v1):
+    _wrapper.launches = 0
+    _wrapper.body_launches = dict.fromkeys(BODIES, 0)
 
 KERNEL_WRAPPERS = (edge_attention_sums_mm, edge_attention_layer_mm,
                    edge_attention_sums_chunked, edge_attention_sums_v1)

@@ -3,17 +3,17 @@ the libraries ``build.py`` makes, the current stream, the checks a wrapper
 runs before it hands pointers to a kernel (device, type, shape, contiguity,
 shared memory), and the rule that picks a kernel's body.
 
-K1-K4 each have two hand-written bodies: one on the tensor cores (3xTF32)
-within the range they are instantiated for, and one on the CUDA cores
-beyond it, at any shape. ``body`` picks between them from (S, D, H) and
-whether the gathered rows take 16-byte copies, before any launch. The
+K1-K4, K6 and K9 each have two hand-written bodies: one on the tensor
+cores (3xTF32) within the range they are instantiated for, and one on the
+CUDA cores beyond it, at any shape. ``body`` picks between them from (S,
+D, H) and whether the gathered rows take 16-byte copies, before any launch. The
 CUDA-core bodies (K5's too) keep their working set in shared memory where
 it fits a block and in device memory beyond that (``simt_work``). A check
 raises; nothing here falls back after a failed launch."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,8 +71,9 @@ def check_smem(need: int, what: str) -> None:
 
 # The range the tensor-core kernels (K1 csrc/edge_attention_tc.cu, K2
 # csrc/edge_attention_layer_tc.cu, K3 csrc/edge_attention_bwd_dq_tc.cu, K4
-# csrc/edge_attention_bwd_tc.cu) are instantiated for: S in key tiles of 8
-# (at most 6), a head in k-steps of 8 columns (at most 4), one warp per
+# csrc/edge_attention_bwd_tc.cu, K6 and K9 csrc/edge_attention_groups_tc.cu)
+# are instantiated for: S in key tiles of 8 (at most 6), a head in k-steps
+# of 8 columns (at most 4), one warp per
 # (head, 16-row tile), at most 12 warps (8 up to S=24, where K3 and K4 cap
 # their registers for two blocks of 256 threads per SM). Within it a
 # block's shared memory stays under the 227 KB it may have (201 KB for K4
@@ -124,13 +125,17 @@ def check_tensor_core(what: str, s: int, d: int, num_heads: int,
         raise ValueError(f"{what}: {err}")
 
 
-# ---- the two bodies of K1-K4, and the rule between them
+# ---- the two bodies of K1-K4, K6 and K9, and the rule between them
 
 # the kernels with a tensor-core body; K5 (edge_attention_bwd_stream) has
-# its CUDA-core body only
+# its CUDA-core body only. K7 (edge_attention_layer_mm) runs K6's bodies in
+# its attention launch.
 TENSOR_CORE_KERNELS = ("edge_attention_sums", "edge_attention_layer",
-                       "edge_attention_bwd_dq", "edge_attention_bwd_dkv")
+                       "edge_attention_bwd_dq", "edge_attention_bwd_dkv",
+                       "edge_attention_sums_mm", "edge_attention_sums_v1")
 CUDA_CORE_KERNELS = TENSOR_CORE_KERNELS + ("edge_attention_bwd_stream",)
+# the edge-group kernels: their blocks walk (tile, group) items, not nodes
+GROUP_KERNELS = ("edge_attention_sums_mm", "edge_attention_sums_v1")
 BODIES = ("tc", "simt")
 # a CUDA-core body whose working set exceeds MAX_SMEM keeps it in device
 # memory: one slice per resident block, at most this many blocks per SM and
@@ -139,16 +144,20 @@ WORK_BLOCKS_PER_SM = 2
 WORK_BYTES = 256 * 1024 * 1024
 
 
-def simt_smem_bytes(kernel: str, s: int, d: int, num_heads: int) -> int:
+def simt_smem_bytes(kernel: str, s: int, d: int, num_heads: int, group: int = 0) -> int:
     """Working set per block of a kernel's CUDA-core body: the
     ``smem_floats`` of csrc/edge_attention.cu (K1, and K2's attention
-    launch) and of csrc/edge_attention_bwd.cu (K3, K4, K5), in bytes. The
-    libraries' ``*_smem_bytes`` entry points give the same numbers (a card
-    test holds the two together)."""
+    launch), of csrc/edge_attention_bwd.cu (K3, K4, K5) and of
+    csrc/edge_attention_groups.cu (K6 with its buffer of ``group`` messages,
+    K9), in bytes. The libraries' ``*_smem_bytes`` entry points give the
+    same numbers (a card test holds the two together)."""
     if kernel not in CUDA_CORE_KERNELS:
         raise ValueError(f"{kernel} has no CUDA-core body of this family")
     s2, s4 = -(-s // 2) * 2, -(-s // 4) * 4
-    if kernel in ("edge_attention_sums", "edge_attention_layer"):
+    if kernel in GROUP_KERNELS:
+        buffered = group if kernel == "edge_attention_sums_mm" else 0
+        floats = (s2 + s4) * (d + 1) + s * d * (1 + buffered) + num_heads * s4 * s
+    elif kernel in ("edge_attention_sums", "edge_attention_layer"):
         floats = (s2 + s4) * (d + 1) + s * d * 2 + num_heads * s4 * s
     else:
         floats = ((2 * s2 + 2 * s4) * (d + 1) + 2 * num_heads * s4 * s4
@@ -157,26 +166,28 @@ def simt_smem_bytes(kernel: str, s: int, d: int, num_heads: int) -> int:
 
 
 def simt_work_blocks(kernel: str, s: int, d: int, num_heads: int, num_nodes: int,
-                     sm_count: int) -> int:
+                     sm_count: int, group: int = 0) -> int:
     """0 where the CUDA-core body's working set fits a block's shared
-    memory; else the number of blocks that walk the ``num_nodes`` nodes,
-    each with its slice of device memory."""
-    per_block = simt_smem_bytes(kernel, s, d, num_heads)
+    memory; else the number of blocks that walk the ``num_nodes`` nodes (K6
+    and K9: (tile, group) items), each with its slice of device memory."""
+    per_block = simt_smem_bytes(kernel, s, d, num_heads, group)
     if per_block <= MAX_SMEM:
         return 0
     return max(1, min(num_nodes, WORK_BLOCKS_PER_SM * sm_count, WORK_BYTES // per_block))
 
 
-def simt_work(kernel: str, s: int, d: int, num_heads: int, num_nodes: int, device):
+def simt_work(kernel: str, s: int, d: int, num_heads: int, num_nodes: int, device,
+              group: int = 0):
     """(buffer, blocks) of a CUDA-core launch: (None, 0) for shared memory,
     else a device-memory buffer of ``blocks`` working sets. The caller keeps
     the buffer until the launch is queued and passes its pointer (0 for
     None) and ``blocks`` to the entry point."""
     blocks = simt_work_blocks(kernel, s, d, num_heads, num_nodes,
-                              torch.cuda.get_device_properties(device).multi_processor_count)
+                              torch.cuda.get_device_properties(device).multi_processor_count,
+                              group)
     if not blocks:
         return None, 0
-    floats = simt_smem_bytes(kernel, s, d, num_heads) // 4
+    floats = simt_smem_bytes(kernel, s, d, num_heads, group) // 4
     return torch.empty(blocks * floats, dtype=torch.float32, device=device), blocks
 
 
@@ -208,8 +219,13 @@ def body_of(kernel: str, body_name: Optional[str], s: int, d: int, num_heads: in
     return body_name
 
 
+# launches of a CUDA-core body whose working set was in device memory, by
+# kernel (K7's attention launch is K6's); cleared with the launch counts
+device_memory_launches: Dict[str, int] = {}
+
+
 def launch_body(kernel: str, body_name: str, lib_fn, args: Sequence, s: int, d: int,
-                num_heads: int, num_nodes: int, device) -> None:
+                num_heads: int, num_nodes: int, device, group: int = 0) -> None:
     """One launch of a kernel's body through its entry point ``lib_fn``
     (library, function): ``args``, then for the CUDA-core body its working
     set in device memory (pointer, blocks; 0, 0 for shared memory), then
@@ -217,8 +233,10 @@ def launch_body(kernel: str, body_name: str, lib_fn, args: Sequence, s: int, d: 
     lib, fn = lib_fn
     if body_name == "simt":
         # freed on return, once the launch is queued: the stream orders its reuse
-        work, blocks = simt_work(kernel, s, d, num_heads, num_nodes, device)
+        work, blocks = simt_work(kernel, s, d, num_heads, num_nodes, device, group)
         args = (*args, 0 if work is None else work.data_ptr(), blocks)
+        if work is not None:
+            device_memory_launches[kernel] = device_memory_launches.get(kernel, 0) + 1
     build.check(lib, fn(*args, stream()), f"{kernel} ({body_name})")
 
 
@@ -230,8 +248,8 @@ def count_launch(wrapper, body_name: str) -> None:
 
 def kernel_info(lib_name: str, fn_name: str, num_nodes: int, s: int, d: int,
                 num_heads: int) -> dict:
-    """What a tensor-core kernel's launch at these shapes runs with (its
-    ``*_info`` entry point): registers and local (spill) bytes per thread,
+    """What a tensor-core kernel's launch over ``num_nodes`` nodes (K6, K9:
+    items) at these shapes runs with (its ``*_info`` entry point): registers and local (spill) bytes per thread,
     blocks per SM, ring stages, grid, threads and shared memory per block."""
     lib, fn = entry(lib_name, fn_name, [I, I, I, I, P])
     info = (ctypes.c_int * 7)()

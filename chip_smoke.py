@@ -2,19 +2,19 @@
 
 Builds the Hopper kernels from ampnet_tpu_torch/ops/hopper/csrc, holds each
 against its plain torch version on the card at the main path's shapes
-(K1 edge_attention_sums, K2 edge_attention_layer, K3 edge_attention_bwd_dq
-and K4 edge_attention_bwd_dkv on the tensor cores in 3xTF32, each also held
+(K1 edge_attention_sums, K2 edge_attention_layer, K3 edge_attention_bwd_dq,
+K4 edge_attention_bwd_dkv and the edge-group sums K6 edge_attention_sums_mm
+and K9 edge_attention_sums_v1 on the tensor cores in 3xTF32, each also held
 against and timed in turns with its CUDA-core body, K2's two launches also
-apart; K5 edge_attention_bwd_stream with its pass B and
-the chunked fold; the non-default forward routes K6 edge_attention_sums_mm,
-K7 edge_attention_layer_mm, K8 edge_attention_sums_chunked and K9
-edge_attention_sums_v1, each also against K1's sums or K2's layer on the
-same inputs), drives AMPConv at the shapes beyond the tensor-core range
-(`routes`: the CUDA-core bodies, their working set in device memory where
-it exceeds a block's shared memory, each against float64 on the CPU), then
-drives the port at full width
-on the Cora-shaped surrogate, where every K1-K4 launch must run the
-tensor-core body:
+apart; K5 edge_attention_bwd_stream with its pass B and the chunked fold;
+K7 edge_attention_layer_mm, whose attention launch is K6's, and K8
+edge_attention_sums_chunked; K6, K8 and K9 also against K1's sums, K7
+against K2's layer on the same inputs), drives AMPConv at the shapes beyond
+the tensor-core range (`routes`, with K1, K6 or K9 forward: the CUDA-core
+bodies, their working set in device memory where it exceeds a block's
+shared memory, each against float64 on the CPU), then drives the port at
+full width on the Cora-shaped surrogate, where every launch of K1-K4, K6,
+K7 and K9 must run the tensor-core body:
 
   A  inference, the recommended recipe (S=40, tfidf, gcn2 head), 8-draw
      make_eval_step: K1 twice per draw;
@@ -121,25 +121,32 @@ STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-# the libraries of the tensor-core bodies (K1, K2, K3, K4)
+# the libraries of the tensor-core bodies (K1, K2, K3, K4; K6 and K9)
 TENSOR_CORE_LIBS = ("edge_attention_tc", "edge_attention_layer_tc", "edge_attention_bwd_dq_tc",
-                    "edge_attention_bwd_tc")
+                    "edge_attention_bwd_tc", "edge_attention_groups_tc")
 # the `routes` phase: AMPConv at shapes beyond the tensor-core range (S, D,
-# H, training, the body K1-K4 must run, the kernels whose working set must
-# be in device memory). An eval runs on a graph of Cora's node count
-# (the JAX gather rule then picks K1, not K2, from S=29 on) with every 10th
-# of its edges, a training step on the edges among its first ROUTE_NODES
-# nodes: the float64 reference on the host is the phase's cost.
+# H, training, the body K1-K4 (K6, K9) must run, the kernels whose working
+# set must be in device memory, the forward route: K1, or K6 under
+# MM_SCATTER_DEFAULT, or K9 under DMA_V1_DEFAULT). An eval runs on a graph
+# of Cora's node count (the JAX gather rule then picks K1, not K2, from S=29
+# on: 'dma', so K6 and K9 too) with every 10th of its edges, a training step
+# on the edges among its first ROUTE_NODES nodes: the float64 reference on
+# the host is the phase's cost.
+MM, V1 = "MM_SCATTER_DEFAULT", "DMA_V1_DEFAULT"
 ROUTES = (
-    (40, 128, 1, True, "simt", ()),     # D/H = 128
-    (40, 128, 2, True, "simt", ()),     # D/H = 64
-    (20, 128, 8, True, "simt", ()),     # 16 warps where S <= 24 takes 8
-    (40, 128, 8, True, "simt", ()),     # 24 warps; K4's CUDA-core body at 225,920 B
-    (49, 128, 4, False, "simt", ()),    # an eval through K1's CUDA-core body
-    (40, 3, 1, True, "simt", ()),       # odd D: no 16-byte copies
-    (40, 100, 4, True, "tc", ()),       # dh = 25: stays on the tensor cores
-    (96, 128, 4, False, "simt", ("edge_attention_sums",)),    # 345 KB a block
-    (49, 128, 4, True, "simt", ("edge_attention_bwd_dkv",)),  # 242 KB a block
+    (40, 128, 1, True, "simt", (), None),     # D/H = 128
+    (40, 128, 2, True, "simt", (), None),     # D/H = 64
+    (20, 128, 8, True, "simt", (), None),     # 16 warps where S <= 24 takes 8
+    (40, 128, 8, True, "simt", (), None),     # 24 warps; K4's CUDA-core body at 225,920 B
+    (49, 128, 4, False, "simt", (), None),    # an eval through K1's CUDA-core body
+    (40, 3, 1, True, "simt", (), None),       # odd D: no 16-byte copies
+    (40, 100, 4, True, "tc", (), None),       # dh = 25: stays on the tensor cores
+    (96, 128, 4, False, "simt", ("edge_attention_sums",), None),    # 345 KB a block
+    (49, 128, 4, True, "simt", ("edge_attention_bwd_dkv",), None),  # 242 KB a block
+    (96, 128, 4, False, "simt", ("edge_attention_sums_mm",), MM),   # K6 at group 1: 345 KB
+    (96, 128, 4, False, "simt", ("edge_attention_sums_v1",), V1),   # K9: 296 KB
+    (49, 128, 4, True, "simt", ("edge_attention_bwd_dkv",), MM),    # K6 beyond the tensor cores
+    (40, 128, 8, True, "simt", (), MM),       # K6 beyond the warp limit
 )
 ROUTE_NODES = 768
 
@@ -277,8 +284,9 @@ def busy_share(profile_report: dict, warm_ms: float) -> dict:
 
 def bound_ms(nbytes: float, flops: float, tensor_cores: bool = False):
     """(ms, what bounds it): the larger of the bytes over the memory rate and
-    the f32 operations over the CUDA cores' rate, or, for a kernel on the
-    tensor cores in 3xTF32, three TF32 products per f32 product over theirs."""
+    the f32 operations over the CUDA cores' rate, or, for f32 products the
+    card can run on its tensor cores in 3xTF32, three TF32 products per f32
+    product over theirs."""
     t_bytes = nbytes / PEAK_BYTES
     t_ops = 3 * flops / PEAK_TF32_FLOPS if tensor_cores else flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -406,41 +414,59 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
         q, kv = qkv[:, :d], qkv[:, d:]
         rows_bytes, flops = 4 * d * n * s * 4, 4 * s * s * d * live_edges
 
-        def variant_row(name, replaces, source, run, plain, index_bytes):
+        def variant_row(name, replaces, source, run, plain, index_bytes, tensor_cores=False):
+            """The row of K6, K8 or K9 without its time."""
             got, ref = run(), plain()
             torch.cuda.synchronize()
-            b, by = bound_ms(rows_bytes + index_bytes, flops)
+            b, by = bound_ms(rows_bytes + index_bytes, flops, tensor_cores)
             return dict(
                 name=name, route="cuda",
                 source=f"ampnet_tpu_torch/ops/hopper/csrc/{source}",
                 replaces=f"ampnet_tpu/ops/pallas/edge_attention_fused.py:{replaces}",
                 max_abs_err=compare(f"{name} S={s}", got, ref),
                 k1_max_abs_err=compare(f"{name} S={s}", got, k1_sums, "K1's sums"),
-                ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b, bound_by=by, library_ms=None)
+                plain_ms=cuda_ms(plain, 3), bound_ms=b, bound_by=by, library_ms=None,
+                **({"f32_bound_ms": bound_ms(rows_bytes + index_bytes, flops)[0]}
+                   if tensor_cores else {}))
 
+        # K6 and K9 on the tensor cores: their CUDA-core bodies held against
+        # the plain versions too, and timed in turns with them
         mm = dict(**kw, tile_nodes=tn)
-        rows[f"edge_attention_sums_mm_s{s}"] = variant_row(
-            "edge_attention_sums_mm", 1126 if s == 40 else 731, "edge_attention_groups.cu",
-            lambda: eav.edge_attention_sums_mm(q, kv, *slots, layout.tile_counts, **mm),
-            lambda: eav.edge_attention_sums_mm_plain(q, kv, *slots, layout.tile_counts, **mm,
-                                                     group=eav.MM_GROUP),
-            slot_bytes + 4 * layout.tile_counts.numel())
-        rows[f"edge_attention_sums_mm_s{s}"].update(
-            group=eav.MM_GROUP,
-            by_group_ms={g: cuda_ms(lambda: eav.edge_attention_sums_mm(
+        tiles, emax = layout.tile_senders.shape
+        for name, replaces, run, plain, index_bytes, group in (
+                ("edge_attention_sums_mm", 1126 if s == 40 else 731,
+                 lambda body=None, g=None: eav.edge_attention_sums_mm(
+                     q, kv, *slots, layout.tile_counts, **mm, group=g, body=body),
+                 lambda: eav.edge_attention_sums_mm_plain(q, kv, *slots, layout.tile_counts,
+                                                          **mm, group=eav.MM_GROUP),
+                 slot_bytes + 4 * layout.tile_counts.numel(), eav.MM_GROUP),
+                ("edge_attention_sums_v1", 186 if s == 40 else 294,
+                 lambda body=None, g=None: eav.edge_attention_sums_v1(
+                     q, kv, *slots, **mm, group=8, gather="dma" if s == 40 else "vmem",
+                     body=body),
+                 lambda: eav.edge_attention_sums_v1_plain(q, kv, *slots, **mm, group=8),
+                 slot_bytes, 8)):
+            row = variant_row(name, replaces, "edge_attention_groups_tc.cu", run, plain,
+                              index_bytes, tensor_cores=True)
+            old, ref = run("simt"), plain()
+            row["prev_max_abs_err"] = compare(f"{name} (CUDA cores) S={s}", old, ref)
+            row["prev_k1_max_abs_err"] = compare(f"{name} (CUDA cores) S={s}", old, k1_sums,
+                                                 "K1's sums")
+            del old, ref
+            rows[f"{name}_s{s}"] = tensor_core_row(
+                row, "edge_attention_groups_tc", "ampnet_edge_attention_groups_info",
+                tiles * -(-emax // group), s, d, h, lambda: run("simt"), run, ptxas)
+            rows[f"{name}_s{s}"]["group"] = group
+        # K6's group: how many slots a run of register sums may span (the
+        # JAX group, 768 // SP, last)
+        rows[f"edge_attention_sums_mm_s{s}"]["by_group_ms"] = {
+            g: cuda_ms(lambda: eav.edge_attention_sums_mm(
                 q, kv, *slots, layout.tile_counts, **mm, group=g), 10)
-                for g in ((1, 2, 6) if s == 40 else (1, 2, 8, 16))})
+            for g in (1, 4, 8, 768 // sp)}
         for gather in ("dma", "vmem"):     # one kernel, held under both names
             compare(f"edge_attention_sums_v1 S={s} gather={gather}",
                     eav.edge_attention_sums_v1(q, kv, *slots, **mm, group=8, gather=gather),
                     k1_sums, "K1's sums")
-        rows[f"edge_attention_sums_v1_s{s}"] = variant_row(
-            "edge_attention_sums_v1", 186 if s == 40 else 294, "edge_attention_groups.cu",
-            lambda: eav.edge_attention_sums_v1(q, kv, *slots, **mm, group=8,
-                                               gather="dma" if s == 40 else "vmem"),
-            lambda: eav.edge_attention_sums_v1_plain(q, kv, *slots, **mm, group=8),
-            slot_bytes)
         ck = dict(**kw, chunk=CHUNK_EDGES)
         eaf.reset_launch_counts()          # K8's phase of its own
         eav.edge_attention_sums_chunked(q, kv, *chunk_args, **ck)
@@ -452,6 +478,7 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
             lambda: eav.edge_attention_sums_chunked_plain(q, kv, *chunk_args, **ck),
             chunk_bytes)
         rows[f"edge_attention_sums_chunked_s{s}"].update(
+            ms=cuda_ms(lambda: eav.edge_attention_sums_chunked(q, kv, *chunk_args, **ck), 20),
             chunk=CHUNK_EDGES, live_chunks=int(chunked.chunk_count.sum()),
             by_piece_ms={p: cuda_ms(lambda: eav.edge_attention_sums_chunked(
                 q, kv, *chunk_args, **ck, piece=p), 10)
@@ -618,25 +645,35 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
         lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw, body="simt"),
         lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw), ptxas)
 
-    # K7 on the same rows and weights: against its plain version and K2's layer
+    # K7 on the same rows and weights: against its plain version and K2's
+    # layer; its attention launch is K6's, timed in turns with K6's CUDA-core
+    # body there (its projection and out-projection launches are unchanged)
     mm = dict(**kw, tile_nodes=tn)
-    got7 = eav.edge_attention_layer_mm(x_rows, *w, invdeg, *slots, layout.tile_counts, **mm)
-    ref7 = eav.edge_attention_layer_mm_plain(x_rows, *w, invdeg, *slots, layout.tile_counts,
-                                             **mm, group=eav.MM_GROUP)
+    k7 = lambda body=None: eav.edge_attention_layer_mm(  # noqa: E731
+        x_rows, *w, invdeg, *slots, layout.tile_counts, **mm, body=body)
+    got7, ref7 = k7(), eav.edge_attention_layer_mm_plain(
+        x_rows, *w, invdeg, *slots, layout.tile_counts, **mm, group=eav.MM_GROUP)
     torch.cuda.synchronize()
-    b, by = bound_ms(nbytes - index_bytes + slot_bytes + 4 * layout.tile_counts.numel(), flops)
+    # K2's work (projection, attention, out-projection) at the tensor cores'
+    # rate, as K2 is priced: the card runs all of these f32 products there
+    k7_bytes = nbytes - index_bytes + slot_bytes + 4 * layout.tile_counts.numel()
+    b, by = bound_ms(k7_bytes, flops, True)
+    ms, prev_ms = in_turns(lambda: k7("simt"), k7)
     rows["edge_attention_layer_mm_s20"] = dict(
         name="edge_attention_layer_mm", route="cuda",
-        source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_groups.cu "
+        source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_groups_tc.cu "
                "+ ampnet_tpu_torch/ops/hopper/csrc/qkv_projection.cu",
         replaces="ampnet_tpu/ops/pallas/edge_attention_fused.py:865",
         max_abs_err=compare("edge_attention_layer_mm S=20", got7, ref7),
         k2_max_abs_err=compare("edge_attention_layer_mm S=20", got7, got, "K2's layer"),
-        ms=cuda_ms(lambda: eav.edge_attention_layer_mm(
-            x_rows, *w, invdeg, *slots, layout.tile_counts, **mm), 20),
+        prev_max_abs_err=compare("edge_attention_layer_mm (CUDA cores) S=20", k7("simt"), ref7),
+        ms=ms, prev_ms=prev_ms, speedup=prev_ms / ms,
+        changed="the attention launch only (K6's tensor-core body); the projection and "
+                "mean/out-projection launches (qkv_projection.cu) are unchanged",
         plain_ms=cuda_ms(lambda: eav.edge_attention_layer_mm_plain(
             x_rows, *w, invdeg, *slots, layout.tile_counts, **mm, group=eav.MM_GROUP), 3),
-        bound_ms=b, bound_by=by, library_ms=None)
+        bound_ms=b, bound_by=by, library_ms=None,
+        f32_bound_ms=bound_ms(k7_bytes, flops)[0])
     return rows, k8_launches
 
 
@@ -682,9 +719,7 @@ def route_phase(data, gen, dev):
     from ampnet_tpu_torch.models.layers import AMPConv
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper.format import compute_layout
-    from ampnet_tpu_torch.ops.hopper.launch import simt_work_blocks
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ei = data.edge_index
     small = ei[:, (ei < ROUTE_NODES).all(0)]
     graphs = {}
@@ -695,10 +730,10 @@ def route_phase(data, gen, dev):
         mask[torch.nonzero(mask)[::7, 0]] = False             # dropped at run time
         graphs[train] = (g, mask, compute_layout(g))
     report = []
-    for s, d, h, train, want, want_device_memory in ROUTES:
+    for s, d, h, train, want, want_device_memory, flag in ROUTES:
         graph, mask, layout = graphs[train]
         n = graph.num_nodes_padded
-        name = f"S={s} D={d} H={h} {'training' if train else 'eval'}"
+        name = f"S={s} D={d} H={h} {'training' if train else 'eval'}" + (f" {flag}" if flag else "")
         conv = AMPConv(d, h, use_pallas=True, generator=torch.Generator().manual_seed(s + d + h))
         conv = conv.to(dev)
         with torch.no_grad():
@@ -719,19 +754,20 @@ def route_phase(data, gen, dev):
 
         eaf.reset_launch_counts()
         t0 = time.perf_counter()
-        out, grads = run(conv, x, layout, (graph.senders, graph.receivers, mask))
+        with dispatch_flag(flag) if flag else contextlib.nullcontext():
+            out, grads = run(conv, x, layout, (graph.senders, graph.receivers, mask))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         counts, bodies = eaf.launch_counts(), eaf.body_launch_counts()
-        expected = launches(k1=1, k3=1, k4=1) if train else launches(k1=1)
+        forward = dict(k6=1) if flag == MM else dict(k9=1) if flag == V1 else dict(k1=1)
+        expected = launches(**forward, k3=1, k4=1) if train else launches(**forward)
         if counts != expected:
             fail(f"routes {name}: launched {counts}; expected {expected}")
         ran = {k: b for k, b in bodies.items() if counts[k]}
         if any(b[want] != counts[k] for k, b in ran.items()):
             fail(f"routes {name}: the kernels ran the bodies {ran}, expected {want}")
-        nodes = layout.recv_ptr.numel() - 1
-        device_memory = tuple(k for k in ran if want == "simt"
-                              and simt_work_blocks(k, s, d, h, nodes, sms))
+        in_device_memory = eaf.device_memory_launch_counts()
+        device_memory = tuple(k for k in ran if in_device_memory.get(k))
         if device_memory != want_device_memory:
             fail(f"routes {name}: working sets in device memory {device_memory}, "
                  f"expected {want_device_memory}")
@@ -781,12 +817,12 @@ def recipe_model(cfg, data, seed, dev):
                   generator=torch.Generator().manual_seed(seed), device=dev)
 
 
-def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None, profiled=False):
+def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None):
     """One 8-draw eval step through make_eval_step, counts read around it,
     then one fixed draw on the card against the same forward on the CPU (and
-    against ``same_as``, another route's logits of that draw). ``profiled``:
-    the warm step's kernel time from torch.profiler too. Returns the counts,
-    the report and the draw's logits."""
+    against ``same_as``, another route's logits of that draw); the warm
+    step's kernel time from torch.profiler too. Returns the counts, the
+    report and the draw's logits."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.tokenize import sample_present_features, tfidf_sample_features
     from ampnet_tpu_torch.train import make_eval_step
@@ -809,8 +845,8 @@ def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None, profiled
         step(graph, torch.Generator(device=dev).manual_seed(seed + 1 + i), layout)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3 / 5
-    profile_report = (device_profile(lambda: step(
-        graph, torch.Generator(device=dev).manual_seed(seed), layout)) if profiled else None)
+    profile_report = device_profile(lambda: step(
+        graph, torch.Generator(device=dev).manual_seed(seed), layout))
 
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     sampler = (tfidf_sample_features if cfg.token_sampling == "tfidf"
@@ -838,8 +874,7 @@ def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None, profiled
     report = dict(path=name, metrics=metrics, eval_step_first_ms=first_ms,
                   eval_step_warm_ms=warm_ms, cpu_f64_max_abs_err=err,
                   stage_max_abs_err=stage_err)
-    if profile_report:
-        report["profile"] = busy_share(profile_report, warm_ms)
+    report["profile"] = busy_share(profile_report, warm_ms)
     if same_as is not None:
         report["other_route_max_abs_err"] = float((card - same_as).abs().max())
         if not torch.allclose(card, same_as, rtol=MODEL_RTOL, atol=MODEL_ATOL):
@@ -1266,14 +1301,14 @@ def main() -> int:
                           scaler="precomputed", dropout_rate=0.3,
                           raw_residual="gcn2", use_pallas=True)
     counts_a, path_a, logits_a = drive_path("A S=40 recommended recipe", recipe, data,
-                                            graph, layout, args.seed, dev, profiled=True)
+                                            graph, layout, args.seed, dev)
     print(json.dumps(path_a), flush=True)
     if counts_a != launches(k1=16):
         fail(f"path A launched {counts_a}, expected 16 edge_attention_sums")
 
     reference = AMPGCNConfig(num_sampled_vectors=20, use_pallas=True)
     counts_b, path_b, logits_b = drive_path("B S=20 reference recipe", reference, data,
-                                            graph, layout, args.seed, dev, profiled=True)
+                                            graph, layout, args.seed, dev)
     print(json.dumps(path_b), flush=True)
     if counts_b != launches(k2=16):
         fail(f"path B launched {counts_b}, expected 16 edge_attention_layer")
@@ -1355,8 +1390,11 @@ def main() -> int:
     # K1's, K3's and K4's rows also carry their S=20 numbers (path D's shape)
     tc_keys = ("ms", "prev_ms", "speedup", "max_abs_err", "bound_ms", "plain_ms", "regs",
                "spills", "blocks_per_sm", "stages")
-    for name in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv"):
+    for name in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv",
+                 "edge_attention_sums_mm", "edge_attention_sums_v1"):
         rows[f"{name}_s40"]["s20"] = {k: rows[f"{name}_s20"][k] for k in tc_keys}
+    rows["edge_attention_sums_mm_s40"]["s20"]["by_group_ms"] = \
+        rows["edge_attention_sums_mm_s20"]["by_group_ms"]
     kernels = [
         dict(rows["edge_attention_sums_s40"], launches=counts_c["edge_attention_sums"]),
         dict(rows["edge_attention_layer_s20"], launches=counts_b["edge_attention_layer"]),
@@ -1375,8 +1413,9 @@ def main() -> int:
              f"{ {k['name']: k['launches'] for k in kernels} }")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "prev_ms", "speedup", "regs",
-            "spills", "blocks_per_sm", "stages", "precision", "projection_ms", "attention_ms",
-            "prev_projection_ms", "prev_attention_ms", "s20")
+            "spills", "blocks_per_sm", "stages", "smem_bytes", "precision", "projection_ms",
+            "attention_ms", "prev_projection_ms", "prev_attention_ms", "k1_max_abs_err",
+            "by_group_ms", "changed", "s20")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

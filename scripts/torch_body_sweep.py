@@ -1,5 +1,5 @@
-"""Time the PyTorch port's K1-K4 bodies against each other across the
-tensor-core range, on one NVIDIA GPU:  python3 scripts/torch_body_sweep.py [--seed N]
+"""Time the PyTorch port's K1-K4, K6 and K9 bodies against each other across
+the tensor-core range, on one NVIDIA GPU:  python3 scripts/torch_body_sweep.py [--seed N]
 
 The port's route (``ampnet_tpu_torch/ops/hopper/launch.py::body``) runs a
 kernel's tensor-core body wherever (S, D, H) lies in its instantiated range
@@ -55,6 +55,7 @@ def main() -> int:
     from ampnet_tpu_torch.data.planetoid import synthetic_cora
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
     from ampnet_tpu_torch.ops.hopper.format import (compute_layout, edge_slot_valid,
                                                     snd_slot_valid)
     from ampnet_tpu_torch.ops.hopper.launch import tensor_core_range_error
@@ -74,6 +75,7 @@ def main() -> int:
              layout.recv_slots)
     s_idx = (layout.snd_receivers, snd_slot_valid(layout, mask), layout.snd_ptr,
              layout.snd_slots)
+    slots = (layout.tile_senders, layout.tile_recv, r_idx[1])
     nt = layout.recv_ptr.numel() - 1
     deg = torch.bincount(graph.receivers[mask], minlength=nt).float()
     invdeg = torch.where(deg > 0, 1.0 / deg.clamp_min(1.0), torch.zeros_like(deg))
@@ -100,6 +102,10 @@ def main() -> int:
                 q, kv, dsum, *r_idx, **kw, body=b),
             "edge_attention_bwd_dkv": lambda b: bwd.edge_attention_bwd_dkv(
                 qdm, kv, *s_idx, **kw, body=b),
+            "edge_attention_sums_mm": lambda b: eav.edge_attention_sums_mm(
+                q, kv, *slots, layout.tile_counts, **kw, tile_nodes=layout.tile_nodes, body=b),
+            "edge_attention_sums_v1": lambda b: eav.edge_attention_sums_v1(
+                q, kv, *slots, **kw, tile_nodes=layout.tile_nodes, group=8, body=b),
         }
         row = dict(s=s, d=d, h=h)
         for name, run in runs.items():

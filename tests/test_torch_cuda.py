@@ -65,6 +65,9 @@ def params(seed, d):
 
 
 SHAPES = [(4, 16, 2), (20, 128, 4), (40, 128, 4), (7, 100, 4)]
+# the kernels with two bodies that walk nodes (K6, K7 and K9 walk slots)
+K1_TO_K4 = ("edge_attention_sums", "edge_attention_layer", "edge_attention_bwd_dq",
+            "edge_attention_bwd_dkv")
 
 
 def launched(**counts):
@@ -321,17 +324,19 @@ def test_cuda_core_bodies_beyond_shared_memory_match_plain(cuda, s, d, h, softma
             lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *r_idx, **kw)[0],
             lambda: sb.edge_attention_bwd_stream_plain(q, kv, dsum, *r_idx, **kw)[0]),
     }
-    in_device_memory = 0
+    in_device_memory = set()
     for name, (run, plain) in runs.items():
-        in_device_memory += launch.simt_work_blocks(name, s, d, h, nt, 132) > 0
+        if launch.simt_work_blocks(name, s, d, h, nt, 132) > 0:
+            in_device_memory.add(name)
         got, ref = run(), plain()
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL * max(1.0, float(ref.abs().max())),
                                    msg=lambda m: f"{name}: {m}")
         assert torch.equal(got, run())
-    assert in_device_memory >= 1
+    assert in_device_memory
+    assert set(eaf.device_memory_launch_counts()) == in_device_memory
     bodies = eaf.body_launch_counts()
-    assert all(b == dict(tc=0, simt=2) for b in bodies.values()), bodies
+    assert all(bodies[k] == dict(tc=0, simt=2) for k in K1_TO_K4), bodies
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -360,12 +365,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("s,d,h", SHAPES)
 def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
     """K6, K8 and K9 against their plain versions and against K1's sums, with
-    a runtime mask, a receiver of degree 0, SP > S and D=100. K6 at its
-    default group and at group 3 (receivers span groups; 128 slots leave a
-    ragged last group); K9 under both gather names; K8 at chunks of 3 edges
-    (partial and multi-chunk receivers: in-degrees reach 8), whole and in
-    pieces of 2. K8 repeats bit for bit; K6 and K9 sum through atomics and
-    are held to the tolerance only."""
+    a runtime mask, a receiver of degree 0, SP > S and D=100. K6 and K9 on
+    both bodies (tensor cores and CUDA cores); K6 at its default group and
+    at group 3 (receivers span groups; 128 slots leave a ragged last group);
+    K9 under both gather names; K8 at chunks of 3 edges (partial and
+    multi-chunk receivers: in-degrees reach 8), whole and in pieces of 2. K8
+    repeats bit for bit; K6 and K9 sum through atomics and are held to the
+    tolerance only."""
     g, mask = graph(0)
     lay = compute_layout(g, tile_nodes=16).to(cuda)
     valid = edge_slot_valid(lay, mask.to(cuda))
@@ -387,15 +393,20 @@ def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
         assert (got.reshape(nt, sp, d)[39] == 0).all()     # degree 0: exact zeros
         assert (got.reshape(nt, sp, d)[:, s:] == 0).all()  # pad token rows
 
-    for group in (None, 3):
-        check(eav.edge_attention_sums_mm(q, kv, *slots, lay.tile_counts, **kw,
-                                         tile_nodes=16, group=group),
-              eav.edge_attention_sums_mm_plain(q, kv, *slots, lay.tile_counts, **kw,
-                                               tile_nodes=16, group=group or eav.MM_GROUP))
-    for gather in ("dma", "vmem"):
-        check(eav.edge_attention_sums_v1(q, kv, *slots, **kw, tile_nodes=16, group=8,
-                                         gather=gather),
-              eav.edge_attention_sums_v1_plain(q, kv, *slots, **kw, tile_nodes=16, group=8))
+    bodies = eaf.body_launch_counts()
+    for body in ("tc", "simt"):
+        for group in (None, 3):
+            check(eav.edge_attention_sums_mm(q, kv, *slots, lay.tile_counts, **kw,
+                                             tile_nodes=16, group=group, body=body),
+                  eav.edge_attention_sums_mm_plain(q, kv, *slots, lay.tile_counts, **kw,
+                                                   tile_nodes=16, group=group or eav.MM_GROUP))
+        for gather in ("dma", "vmem"):
+            check(eav.edge_attention_sums_v1(q, kv, *slots, **kw, tile_nodes=16, group=8,
+                                             gather=gather, body=body),
+                  eav.edge_attention_sums_v1_plain(q, kv, *slots, **kw, tile_nodes=16, group=8))
+    for k in ("edge_attention_sums_mm", "edge_attention_sums_v1"):
+        assert eaf.body_launch_counts()[k] == dict(tc=bodies[k]["tc"] + 2,
+                                                   simt=bodies[k]["simt"] + 2)
     ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=3).to(cuda)
     assert int(ck.chunk_count.max()) >= 2
     chunks = (ck.senders, chunk_slot_valid(ck, mask.to(cuda)), ck.chunk_start,
@@ -407,7 +418,7 @@ def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
     assert torch.equal(whole, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=3))
     after = eaf.launch_counts()
     assert {k: after[k] - before[k] for k in after} == launched(
-        edge_attention_sums_mm=2, edge_attention_sums_v1=2,
+        edge_attention_sums_mm=4, edge_attention_sums_v1=4,
         edge_attention_sums_chunked=3)
 
 
@@ -488,8 +499,12 @@ def test_fused_op_variant_routes_on_card(cuda, monkeypatch, route, grad, want):
 
 
 def test_variant_kernels_refuse_what_does_not_fit(cuda):
-    """No silent fallback: a group or a piece beyond a block's shared memory,
-    and a packed group that does not divide EMAX, raise before any launch."""
+    """No silent fallback: a packed group that does not divide EMAX, K8's
+    piece beyond a block's shared memory, index arrays of another type, and
+    K6 or K9 named for their tensor-core body beyond its range raise before
+    any launch. (K6's group of 8 at S=40 runs: on the tensor cores the group
+    takes no shared memory, on the CUDA cores its buffer goes to device
+    memory.)"""
     g, _ = graph(0)
     lay = compute_layout(g, tile_nodes=16).to(cuda)
     nt = lay.recv_ptr.numel() - 1
@@ -497,9 +512,6 @@ def test_variant_kernels_refuse_what_does_not_fit(cuda):
     q, kv = qkv[:, :128], qkv[:, 128:]
     kw = dict(s=40, sp=40, num_heads=4, softmax=True)
     slots = (lay.tile_senders, lay.tile_recv, lay.tile_valid)
-    with pytest.raises(ValueError, match="shared memory"):
-        eav.edge_attention_sums_mm(q, kv, *slots, lay.tile_counts, **kw, tile_nodes=16,
-                                   group=8)
     with pytest.raises(ValueError, match="EMAX"):
         eav.edge_attention_sums_v1(q, kv, *slots, **kw, tile_nodes=16, group=5)
     ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=8).to(cuda)
@@ -509,6 +521,83 @@ def test_variant_kernels_refuse_what_does_not_fit(cuda):
     with pytest.raises(ValueError, match="int32"):
         eav.edge_attention_sums_mm(q, kv, lay.tile_senders.long(), lay.tile_recv,
                                    lay.tile_valid, lay.tile_counts, **kw, tile_nodes=16)
+    big = torch.zeros(nt * 56, 3 * 128, device=cuda)
+    kw49 = dict(s=49, sp=56, num_heads=4, softmax=True)
+    before = eaf.body_launch_counts()
+    with pytest.raises(ValueError, match="range"):
+        eav.edge_attention_sums_mm(big[:, :128], big[:, 128:], *slots, lay.tile_counts,
+                                   **kw49, tile_nodes=16, body="tc")
+    with pytest.raises(ValueError, match="range"):
+        eav.edge_attention_sums_v1(big[:, :128], big[:, 128:], *slots, **kw49,
+                                   tile_nodes=16, group=8, body="tc")
+    with pytest.raises(ValueError, match="at most 32"):
+        eav.edge_attention_sums_mm(q, kv, *slots, lay.tile_counts, **kw, tile_nodes=16,
+                                   group=33, body="simt")
+    assert eaf.body_launch_counts() == before
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", [(96, 128, 4), (49, 128, 4), (40, 128, 8), (40, 6, 2)])
+def test_edge_group_kernels_beyond_the_tensor_cores_match_plain(cuda, s, d, h, softmax):
+    """K6, K7 and K9 where the tensor cores do not take the call: their
+    CUDA-core bodies (S=96: K6 at its default group 1 and K9 with their
+    working set in device memory) against their plain versions and K1's
+    sums, each launch counted under the CUDA-core body, and under device
+    memory where the shared-memory mirror says it does not fit (K7's
+    attention launch under K6's name)."""
+    g, mask = graph(0)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    valid = edge_slot_valid(lay, mask.to(cuda))
+    nt = lay.recv_ptr.numel() - 1
+    sp = -(-s // 8) * 8
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=cuda)
+    q, kv = qkv[:, :d], qkv[:, d:]
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax, tile_nodes=16)
+    slots = (lay.tile_senders, lay.tile_recv, valid)
+    k1 = eaf.edge_attention_sums(q, kv, lay.tile_senders, valid, lay.recv_ptr,
+                                 lay.recv_slots, **{k: v for k, v in kw.items() if k != "tile_nodes"})
+    x_rows = torch.randn(nt * sp, d, generator=gen, device=cuda)
+    w, invdeg = layer_inputs(cuda, g, mask, nt, d)
+    eaf.reset_launch_counts()
+    for got, ref, other in (
+            (eav.edge_attention_sums_mm(q, kv, *slots, lay.tile_counts, **kw),
+             eav.edge_attention_sums_mm_plain(q, kv, *slots, lay.tile_counts, **kw,
+                                              group=eav.MM_GROUP), k1),
+            (eav.edge_attention_sums_v1(q, kv, *slots, **kw, group=8),
+             eav.edge_attention_sums_v1_plain(q, kv, *slots, **kw, group=8), k1),
+            (eav.edge_attention_layer_mm(x_rows, *w, invdeg, *slots, lay.tile_counts, **kw),
+             eav.edge_attention_layer_mm_plain(x_rows, *w, invdeg, *slots, lay.tile_counts,
+                                               **kw, group=eav.MM_GROUP), None)):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        if other is not None:
+            torch.testing.assert_close(got, other, rtol=RTOL, atol=ATOL)
+        assert (got.reshape(nt, sp, d)[:, s:] == 0).all()
+    bodies = eaf.body_launch_counts()
+    for k in ("edge_attention_sums_mm", "edge_attention_sums_v1", "edge_attention_layer_mm"):
+        assert bodies[k] == dict(tc=0, simt=1), bodies
+    expect = {k: n for k, group, n in (
+        ("edge_attention_sums_mm", eav._mm_group("simt", s, d, h, None), 2),
+        ("edge_attention_sums_v1", 8, 1))
+        if launch.simt_smem_bytes(k, s, d, h, group) > launch.MAX_SMEM}
+    assert eaf.device_memory_launch_counts() == expect
+    assert s != 96 or len(expect) == 2
+
+
+def test_group_shared_memory_mirror_matches_the_library(cuda):
+    """launch.simt_smem_bytes against the CUDA-core groups library's own
+    ampnet_edge_group_smem_bytes, K6's message buffer included."""
+    import ctypes
+
+    _, fn = launch.entry("edge_attention_groups", "ampnet_edge_group_smem_bytes",
+                         [launch.I] * 4, ctypes.c_size_t)
+    for s, d, h in [(40, 128, 4), (20, 128, 4), (40, 128, 8), (49, 128, 4), (96, 128, 4),
+                    (7, 100, 4), (40, 3, 1)]:
+        for group in (1, 4, 8, 32):
+            assert launch.simt_smem_bytes("edge_attention_sums_mm", s, d, h, group) == \
+                fn(s, d, h, group)
+        assert launch.simt_smem_bytes("edge_attention_sums_v1", s, d, h, 8) == fn(s, d, h, 0)
 
 
 @pytest.mark.parametrize("s", [20, 40])
@@ -568,7 +657,9 @@ def test_tc_kernels_on_nodes_of_degree_40(cuda, s, softmax):
     """Sums over 40 edges: with raw scores their terms grow with the degree
     and cancel, so, as the gradient tests do for f32 sums, atol scales with
     the largest entry (the tensor cores add each product's 8-term sum with
-    truncation: about twice the error of the CUDA-core kernels, PERF.md)."""
+    truncation: about twice the error of the CUDA-core kernels, PERF.md).
+    K6 and K9 too, K6 also with groups of 64 slots (long runs of one
+    receiver in a group)."""
     g, mask = hub_graph(0)
     d, h = 128, 4
     lay, nt, sp, qkv, qdm, r_idx, s_idx, kw = tc_inputs(cuda, g, mask, s, d, h, softmax)
@@ -577,6 +668,8 @@ def test_tc_kernels_on_nodes_of_degree_40(cuda, s, softmax):
     q, kv, dsum = qkv[:, :d], qkv[:, d:], qdm[:, d:]
     w, invdeg = layer_inputs(cuda, g, mask, nt, d)
     x_rows = q.contiguous()
+    slots = (lay.tile_senders, lay.tile_recv, r_idx[1])
+    gk = dict(**kw, tile_nodes=lay.tile_nodes)
     before = eaf.body_launch_counts()
     for got, ref in (
             (eaf.edge_attention_sums(q, kv, *r_idx, **kw),
@@ -586,12 +679,20 @@ def test_tc_kernels_on_nodes_of_degree_40(cuda, s, softmax):
             (bwd.edge_attention_bwd_dq(q, kv, dsum, *r_idx, **kw),
              bwd.edge_attention_bwd_dq_plain(q, kv, dsum, *r_idx, **kw)),
             (bwd.edge_attention_bwd_dkv(qdm, kv, *s_idx, **kw),
-             bwd.edge_attention_bwd_dkv_plain(qdm, kv, *s_idx, **kw))):
+             bwd.edge_attention_bwd_dkv_plain(qdm, kv, *s_idx, **kw)),
+            *((eav.edge_attention_sums_mm(q, kv, *slots, lay.tile_counts, **gk, group=group),
+               eav.edge_attention_sums_mm_plain(q, kv, *slots, lay.tile_counts, **gk,
+                                                group=group or eav.MM_GROUP))
+              for group in (None, 64)),
+            (eav.edge_attention_sums_v1(q, kv, *slots, **gk, group=8),
+             eav.edge_attention_sums_v1_plain(q, kv, *slots, **gk, group=8))):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=RTOL,
                                    atol=ATOL * max(1.0, float(ref.abs().max())))
     after = eaf.body_launch_counts()
-    assert all(after[k]["tc"] == before[k]["tc"] + 1 for k in after)
+    assert all(after[k]["tc"] == before[k]["tc"] + 1 for k in K1_TO_K4)
+    assert after["edge_attention_sums_mm"]["tc"] == before["edge_attention_sums_mm"]["tc"] + 2
+    assert after["edge_attention_sums_v1"]["tc"] == before["edge_attention_sums_v1"]["tc"] + 1
 
 
 def test_tc_kernels_write_zeros_where_every_edge_is_masked(cuda):
@@ -724,7 +825,8 @@ def test_simt_baselines_match_plain_on_card(cuda, s, d, h, softmax):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
     after = eaf.body_launch_counts()
-    assert all(after[k] == dict(tc=before[k]["tc"], simt=before[k]["simt"] + 1) for k in after)
+    assert all(after[k] == dict(tc=before[k]["tc"], simt=before[k]["simt"] + 1)
+               for k in K1_TO_K4)
 
 
 @pytest.mark.parametrize("softmax", [True, False])

@@ -1,9 +1,9 @@
 """Which body each kernel of the fused op runs at a shape, on the CPU.
 
-K1-K4 each have a tensor-core body (within the range it is instantiated
-for, on rows that take 16-byte copies) and a CUDA-core body (beyond it, at
-any shape: its working set sits in shared memory where it fits a block, in
-device memory beyond that). The rule (``launch.body``, ``launch.body_of``
+K1-K4 and the edge-group sums K6 and K9 each have a tensor-core body
+(within the range it is instantiated for, on rows that take 16-byte copies)
+and a CUDA-core body (beyond it, at any shape: its working set sits in
+shared memory where it fits a block, in device memory beyond that). The rule (``launch.body``, ``launch.body_of``
 on the rows a wrapper is given, ``launch.simt_work_blocks``) reads shapes,
 addresses and strides only, so this file sees the decision the card makes.
 AMPConv keeps the fused op at every shape: at shapes beyond shared memory
@@ -35,6 +35,7 @@ from ampnet_tpu_torch.train.losses import masked_mean_nll
 
 K1, K2, K3, K4, K5 = ("edge_attention_sums", "edge_attention_layer", "edge_attention_bwd_dq",
                       "edge_attention_bwd_dkv", "edge_attention_bwd_stream")
+K6, K9 = "edge_attention_sums_mm", "edge_attention_sums_v1"
 TC, SIMT = "tc", "simt"
 
 # (S, D, H) -> the body of K1, K2, K3, K4 in the fused op
@@ -75,6 +76,32 @@ def test_fused_op_bodies_over_the_fault_list_and_the_repo_shapes(shape, want):
     assert launch.body(K5, *shape, rows_aligned=True) == SIMT
 
 
+@pytest.mark.parametrize("shape,want", ROUTES)
+def test_edge_group_bodies_follow_k1(shape, want):
+    """K6 and K9 gather k|v rows as K1 does and are instantiated for K1's
+    range: the same body as K1 on the op's k|v view at every shape; K7's
+    attention launch takes K6's body on its own q|k|v buffer."""
+    s, d, _ = shape
+    kv = op_rows(s, d)[K1]
+    assert launch.body_of(K6, None, *shape, *kv) == want[0]
+    assert launch.body_of(K9, None, *shape, *kv) == want[0]
+    own = torch.zeros(8, 3 * d)[:, d:]
+    assert launch.body_of(K6, None, *shape, ("kv_rows", own)) == want[0]
+
+
+def test_edge_group_bodies_refuse_a_named_tensor_core_body_beyond_the_range():
+    kv = torch.zeros(64, 3 * 128)[:, 128:]
+    for kernel in (K6, K9):
+        assert launch.body_of(kernel, "tc", 40, 128, 4, ("kv_rows", kv)) == TC
+        assert launch.body_of(kernel, "simt", 40, 128, 4, ("kv_rows", kv)) == SIMT
+        with pytest.raises(ValueError, match="range"):
+            launch.body_of(kernel, "tc", 49, 128, 4, ("kv_rows", kv))
+        with pytest.raises(ValueError, match="warps"):
+            launch.body_of(kernel, "tc", 40, 128, 8, ("kv_rows", kv))
+        with pytest.raises(ValueError, match="16-byte"):
+            launch.body_of(kernel, "tc", 40, 128, 4, ("kv_rows", torch.zeros(64, 385)[:, 129:]))
+
+
 @pytest.mark.parametrize("kernel", [K1, K2, K3, K4, K5])
 def test_body_refuses_d_not_a_multiple_of_h(kernel):
     with pytest.raises(ValueError, match="multiple of num_heads"):
@@ -95,6 +122,42 @@ def test_simt_shared_memory_mirror_at_known_values(kernel, shape, nbytes):
     assert launch.MAX_SMEM == 232_448
 
 
+@pytest.mark.parametrize("kernel,shape,group,nbytes", [
+    (K6, (40, 128, 4), 4, 4 * (80 * 129 + 5 * 5120 + 6400)),   # 169,280: 4 messages
+    (K6, (40, 128, 4), 1, 107_840),
+    (K6, (40, 128, 4), 8, 251_200),                             # beyond shared memory
+    (K6, (96, 128, 4), 1, 344_832),
+    (K6, (49, 128, 4), 4, 218_840),
+    (K6, (40, 128, 8), 4, 194_880),
+    (K9, (40, 128, 4), 8, 87_360),                              # no buffer: group unused
+    (K9, (96, 128, 4), 8, 295_680),
+    (K6, (20, 128, 4), 4, 4 * (40 * 129 + 5 * 2560 + 1600)),
+])
+def test_edge_group_shared_memory_mirror_at_known_values(kernel, shape, group, nbytes):
+    """The CUDA-core groups body's smem_floats (csrc/edge_attention_groups.cu),
+    K6's buffer of ``group`` messages of S x D floats included."""
+    assert launch.simt_smem_bytes(kernel, *shape, group) == nbytes
+
+
+@pytest.mark.parametrize("shape,group", [((40, 128, 4), 4), ((20, 128, 4), 4),
+                                         ((49, 128, 4), 4), ((40, 128, 8), 4),
+                                         ((96, 128, 4), 1), ((200, 16, 8), 1)])
+def test_edge_group_default_group_on_the_cuda_cores(shape, group):
+    """K6's CUDA-core body takes the largest group up to MM_GROUP that keeps
+    its working set in shared memory, else 1 (then in device memory); the
+    tensor cores take MM_GROUP; a named group beyond the buffer's 32 slots
+    is refused on the CUDA cores only."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+
+    assert eav._mm_group(SIMT, *shape, None) == group
+    assert eav._mm_group(TC, *shape, None) == eav.MM_GROUP
+    assert eav._mm_group(TC, *shape, 64) == 64
+    with pytest.raises(ValueError, match="at most 32"):
+        eav._mm_group(SIMT, *shape, 33)
+    with pytest.raises(ValueError, match="at least 1"):
+        eav._mm_group(TC, *shape, 0)
+
+
 @pytest.mark.parametrize("kernel,shape,nodes,blocks", [
     (K4, (40, 128, 8), 2752, 0),        # 225,920 B: shared memory
     (K1, (49, 128, 4), 2752, 0),
@@ -104,11 +167,15 @@ def test_simt_shared_memory_mirror_at_known_values(kernel, shape, nbytes):
     (K5, (96, 128, 4), 2752, 264),
     (K2, (20, 1024, 1), 2752, 264),     # wide rows: 329,440 B
     (K4, (400, 128, 4), 2752, 42),      # 6.4 MB a block: the 256 MiB cap
+    (K9, (40, 128, 4), 1584, 0),        # items: 11 tiles x 144 groups of 8
+    (K9, (96, 128, 4), 1584, 264),
+    (K6, (96, 128, 4), 12672, 264),     # group 1
 ])
 def test_simt_working_set_moves_to_device_memory_beyond_shared_memory(
         kernel, shape, nodes, blocks):
-    assert launch.simt_work_blocks(kernel, *shape, nodes, sm_count=132) == blocks
-    per_block = launch.simt_smem_bytes(kernel, *shape)
+    group = 1 if kernel == K6 else 0
+    assert launch.simt_work_blocks(kernel, *shape, nodes, sm_count=132, group=group) == blocks
+    per_block = launch.simt_smem_bytes(kernel, *shape, group)
     assert (blocks == 0) == (per_block <= launch.MAX_SMEM)
     assert blocks * per_block <= launch.WORK_BYTES
 
@@ -118,8 +185,10 @@ def test_body_takes_the_tensor_cores_only_on_aligned_rows():
     assert launch.body(K1, 40, 128, 4, rows_aligned=False) == SIMT
     assert launch.body(K5, 40, 128, 4, rows_aligned=True) == SIMT
     assert launch.body(K4, 96, 128, 4, rows_aligned=True) == SIMT
+    assert launch.body(K6, 40, 128, 4, rows_aligned=True) == TC
+    assert launch.body(K9, 40, 128, 4, rows_aligned=False) == SIMT
     with pytest.raises(ValueError):
-        launch.body("edge_attention_sums_mm", 40, 128, 4, True)
+        launch.body("edge_attention_sums_chunked", 40, 128, 4, True)
 
 
 def test_body_of_checks_a_named_body():

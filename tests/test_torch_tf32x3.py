@@ -4,13 +4,16 @@ on the CPU.
 The tensor-core kernels (csrc/edge_attention_tc.cuh for K1 and K2's
 attention, csrc/edge_attention_layer_tc.cu for K2's projection,
 csrc/edge_attention_bwd_dq_tc.cu for K3, csrc/edge_attention_bwd_tc.cu for
-K4, helpers in csrc/mma_tf32.cuh) split each f32 operand x into TF32 parts
+K4, csrc/edge_attention_groups_tc.cu for K6 and K9, helpers in
+csrc/mma_tf32.cuh) split each f32 operand x into TF32 parts
 hi = rna(x), lo = rna(x - hi) and take a product as lo*hi + hi*lo + hi*hi.
 Here that arithmetic is emulated in torch: TF32 rounding is round to nearest
 (ties away from zero) at 10 mantissa bits, each TF32 product is exact (11 x
 11 significant bits) and is added in f32, as mma.sync accumulates. Applied
 to K1's per-receiver sums, K3's per-receiver dQ and K4's per-sender dK|dV
-over 17 edges at S=40, to K2's q|k|v projection of a receiver's and its
+over 17 edges at S=40, to K6's and K9's sums of the same 17 edges in the
+order their atomics take them (a register sum per run of the receiver's
+slots in a group, the runs then added to the output one after another), to K2's q|k|v projection of a receiver's and its
 senders' token rows and to its out-projection of a receiver's mean (D=128
 and D=100, H=4), the 3-product scheme stays within the tolerance at which
 chip_smoke.py holds a kernel against its plain version (rtol = atol = 1e-4)
@@ -80,6 +83,24 @@ def k1_sums(q, kv, mm):
     return acc
 
 
+# how K6 and K9 cut a receiver's 17 edges: its runs of consecutive live
+# slots within a group (slots are in the graph's edge order, so a receiver
+# recurs in several groups and several times in one)
+RUNS = (3, 1, 5, 2, 1, 4, 1)
+
+
+def edge_group_sums(q, kv, mm):
+    """K6 / K9 for one receiver: per run of its slots in a group, K1's sum
+    in the warp's registers; each run's sum then added to the (zeroed)
+    output in f32, as the atomics add them."""
+    assert sum(RUNS) == kv.shape[0]
+    out, first = torch.zeros(H, S, q.shape[-1] // H, dtype=q.dtype), 0
+    for run in RUNS:
+        out = out + k1_sums(q, kv[first:first + run], mm)
+        first += run
+    return out
+
+
 def k4_dkv(kv, qdm, mm):
     """K4 for one sender: sum over edges of dK = dS^T Q / sqrt(dh) and dV =
     W^T dMsg, the scores taken keys-major as the kernel does."""
@@ -146,6 +167,7 @@ def k2_out_projection(own, peers, mm):
 
 KERNELS = {
     "k1": lambda own, peers, mm: k1_sums(own[:, : own.shape[1] // 2], peers, mm),
+    "k6_k9": lambda own, peers, mm: edge_group_sums(own[:, : own.shape[1] // 2], peers, mm),
     "k4": lambda own, peers, mm: k4_dkv(own, peers, mm),
     "k3": k3_dq,
     "k2_projection": k2_projection,

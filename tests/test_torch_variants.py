@@ -10,6 +10,8 @@ Sizes as the JAX package's own kernel tests: S=4-5, SP=8, D=16, H=2-4, 16-96
 nodes, tile_nodes 8-32, JAX group 4 or 8 (the default group traces for a
 minute per case). Tolerance: rtol 2e-4 / atol 2e-5, as those tests (f32,
 sums taken in another order)."""
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from ampnet_tpu.core.config import AMPGCNConfig as JaxConfig
 from ampnet_tpu.core.graph import from_arrays as jax_from_arrays
 from ampnet_tpu.models import AMPGCN as JaxAMPGCN
 from ampnet_tpu.ops.edge_attention import MHAParams as JaxParams
+from ampnet_tpu.ops.edge_attention import amp_edge_attention as jax_amp_edge_attention
 from ampnet_tpu.ops.pallas import edge_attention_fused as jeaf
 from ampnet_tpu.ops.pallas import format as jfmt
 from ampnet_tpu.train.losses import masked_mean_nll as jax_masked_mean_nll
@@ -31,6 +34,7 @@ from ampnet_tpu_torch.ops.edge_attention import MHAParams, amp_edge_attention
 from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
 from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
 from ampnet_tpu_torch.ops.hopper import format as fmt
+from ampnet_tpu_torch.ops.hopper import launch
 from ampnet_tpu_torch.ops.tokenize import fit_scaler
 from ampnet_tpu_torch.train.losses import masked_mean_nll
 
@@ -237,6 +241,74 @@ def test_mm_scatter_default_is_read_at_call_time_and_needs_the_slot_arrays(rng, 
         eaf.amp_edge_attention_fused(*args, tile_nodes=TN)
     with pytest.raises(ValueError, match="tile_counts"):
         eaf.amp_edge_attention_fused(*args, tile_nodes=TN, tile_recv=lt.tile_recv)
+
+
+@pytest.mark.parametrize("route,gather,train,s,kernel", [
+    ("mm", "dma", False, 96, "edge_attention_sums_mm"),
+    ("mm", "auto", False, 96, "edge_attention_layer_mm"),
+    ("v1", "dma", False, 96, "edge_attention_sums_v1"),
+    ("mm", "dma", True, 64, "edge_attention_sums_mm"),
+    ("v1", "dma", True, 64, "edge_attention_sums_v1"),
+])
+def test_variant_routes_beyond_shared_memory_match_jax_xla(rng, monkeypatch, route, gather,
+                                                           train, s, kernel):
+    """mm_scatter, and DMA_V1_DEFAULT on a 'dma' gather, at D=16, H=8: an
+    eval at S=96, where the CUDA-core bodies of K6 (at group 1) and K9 need
+    more than a block's shared memory (on the card they work in device
+    memory; K7's attention launch is K6's), and a training step at S=64,
+    beyond the tensor cores, where K3 and K4 need more. The fused op runs
+    without a warning or a raise and matches the JAX package's XLA edge
+    attention on the same inputs, forward and (training) the five gradients
+    (rtol 2e-4, atol 1e-5 times the largest entry: f32 sums in another
+    order). The tensors lie on the CPU, so each wrapper runs its plain
+    version: this shows the dispatch and the plain arithmetic agree with
+    JAX, not the route on the card. The route itself is proven on the card
+    by test_torch_cuda.py::test_edge_group_kernels_beyond_the_tensor_cores_match_plain
+    and by chip_smoke.py's ``routes`` phase."""
+    d, h = 16, 8
+    monkeypatch.setattr(eaf, "DMA_V1_DEFAULT", route == "v1")
+    if train:
+        assert launch.tensor_core_range_error(s, d, h) is not None
+        assert all(launch.simt_smem_bytes(k, s, d, h) > launch.MAX_SMEM
+                   for k in ("edge_attention_bwd_dq", "edge_attention_bwd_dkv"))
+    else:
+        assert launch.simt_smem_bytes("edge_attention_sums_mm" if route == "mm"
+                                      else "edge_attention_sums_v1", s, d, h, 1) > launch.MAX_SMEM
+    gj, gt = make_graphs(rng)
+    lt = fmt.compute_layout(gt, tile_nodes=TN)
+    p = [rng.normal(size=shape).astype(np.float32) * sc
+         for shape, sc in (((d, 3 * d), 0.3), ((3 * d,), 0.1), ((d, d), 0.3), ((d,), 0.1))]
+    x = rng.normal(size=(16, s, d)).astype(np.float32)
+    mask = runtime_mask(gt, rng)
+    tmask = torch.from_numpy(mask)
+    calls = []
+    spy(monkeypatch, calls)
+    leaves = [torch.from_numpy(a).requires_grad_(train) for a in (x, *p)]
+    with warnings.catch_warnings(), torch.set_grad_enabled(train):
+        warnings.simplefilter("error")
+        got = eaf.amp_edge_attention_fused(
+            leaves[0], MHAParams(*leaves[1:]), gt.receivers, tmask, lt.tile_senders,
+            fmt.edge_slot_valid(lt, tmask), lt.recv_ptr, lt.recv_slots, h, tile_nodes=TN,
+            gather=gather, snd_receivers=lt.snd_receivers,
+            snd_valid=fmt.snd_slot_valid(lt, tmask), snd_ptr=lt.snd_ptr,
+            snd_slots=lt.snd_slots, mm_scatter=route == "mm", tile_recv=lt.tile_recv,
+            tile_counts=lt.tile_counts)
+    assert calls == [kernel]
+
+    def jax_loss(x, *params):
+        out, _ = jax_amp_edge_attention(x, gj.senders, gj.receivers, jnp.asarray(mask),
+                                        JaxParams(*params), h, return_weights=False)
+        return (out * jnp.cos(out)).sum(), out
+
+    (_, ref), grads = jax.value_and_grad(jax_loss, argnums=tuple(range(5)), has_aux=True)(
+        *map(jnp.asarray, (x, *p)))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+    if train:
+        (got * got.cos()).sum().backward()
+        for name, a, b in zip(("x", "w_qkv", "b_qkv", "w_out", "b_out"), leaves, grads):
+            b = np.asarray(b)
+            np.testing.assert_allclose(a.grad.numpy(), b, rtol=RTOL,
+                                       atol=1e-5 * max(1.0, np.abs(b).max()), err_msg=name)
 
 
 # ------------------------------------------------------------------ K8
