@@ -18,12 +18,15 @@
 //     at every shape (below);
 // and the four stream-backward bodies of ampnet_tpu/ops/pallas/
 // edge_attention_bwd.py (pass A):
-//   * K5 ampnet_edge_attention_bwd_stream <- _bwd_kernel_vmem_v2 (:178),
+//   * K5's CUDA-core body, ampnet_edge_attention_bwd_stream_simt <-
+//     _bwd_kernel_vmem_v2 (:178),
 //     _bwd_kernel_dma_compact (:694), _bwd_kernel_dma (:545) and
 //     _bwd_kernel_vmem (:32): K3's dQ per receiver AND, per edge, the rows
 //     dK = dS^T Q / sqrt(dh) | dV = W^T dMsg written to a stream in device
 //     memory, which a later pass sums by sender. For layouts that have no
-//     sender side to walk.
+//     sender side to walk. K5 runs on the tensor cores
+//     (edge_attention_bwd_stream_tc.cu) within K3's range; this body is the
+//     route beyond it.
 // With softmax=0 the weights are the raw scaled scores and dS = dW.
 //
 // Design. As in the forward (edge_attention.cu), a TPU tile's accumulator
@@ -67,8 +70,8 @@
 // on the CUDA cores in f32 from shared memory with the forward's register
 // tiles (2 x 4 for the two score-shaped products, 4 x 1 column for the
 // last); at these sizes one block fills an SM's shared memory, so 512
-// threads a block keep 16 warps on it. Tensor cores and cp.async are later
-// work.
+// threads a block keep 16 warps on it. Within their range K3, K4 and K5 run
+// on the tensor cores with cp.async rings instead.
 
 #include "common.cuh"
 
@@ -428,12 +431,13 @@ int ampnet_edge_attention_bwd_dkv_simt(const float* qdm, int ldqdm, const float*
                       (cudaStream_t)stream);
 }
 
-// K5. Inputs as K3, for the num_nodes receivers from node0 on (a range of
-// whole tiles); dq: [num_nodes*sp, d] contiguous, the range's rows;
+// K5's CUDA-core body (the route beyond edge_attention_bwd_stream_tc.cu's
+// range). Inputs as K3, for the num_nodes receivers from node0 on (a range
+// of whole tiles); dq: [num_nodes*sp, d] contiguous, the range's rows;
 // dkv_stream: rows of dk|dv (2d floats, contiguous), sp rows per slot, slot
 // (tile, j) of the layout at row (tile*EMAX + j - slot0)*sp: it must hold
 // every slot the range walks.
-int ampnet_edge_attention_bwd_stream(const float* q, int ldq, const float* dsum,
+int ampnet_edge_attention_bwd_stream_simt(const float* q, int ldq, const float* dsum,
                                      int lddsum, const float* kv, int ldkv,
                                      const int* tile_senders, const int* tile_valid,
                                      const int* recv_ptr, const int* recv_slots,

@@ -8,8 +8,11 @@
 // softmax, dW = dMsg V^T, the softmax backward dS = W (dW - rowsum(dW W)) (dS
 // = dW with softmax=0), then dQ = dS K / sqrt(dh), summed per RECEIVER.
 // Beyond the instantiated range the wrapper routes to K3's CUDA-core body,
-// ampnet_edge_attention_bwd_dq_simt in edge_attention_bwd.cu (which K5's
-// stream backward shares).
+// ampnet_edge_attention_bwd_dq_simt in edge_attention_bwd.cu. K5's
+// tensor-core body (edge_attention_bwd_stream_tc.cu) runs the same per-edge
+// steps: the softmax backward and the dQ store below are device functions
+// of edge_attention_bwd_dq_tc.cuh, which also repeats the two product loops
+// that stay inline here (see there why).
 //
 // Bound (H100 SXM): 6*S^2*D FLOP per live edge (12.7 GFLOP at the S=40 Cora
 // shapes, 0.19 ms at the 67 TFLOP/s f32 rate) against ~282 MB (0.08 ms at
@@ -55,7 +58,7 @@
 // and at most 12 warps (8 up to S=24).
 
 #include "common.cuh"
-#include "mma_tf32.cuh"
+#include "edge_attention_bwd_dq_tc.cuh"
 
 namespace {
 
@@ -169,59 +172,7 @@ dq_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ dm,
         cp_async_commit();
       }
 
-      const float w = (float)valid;
-      if (softmax) {  // rows g (C values 0, 1) and g + 8 (C values 2, 3)
-        float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          const int key = 8 * j + 2 * t;
-          if (key >= s) sc[j][0] = sc[j][2] = -INFINITY;
-          if (key + 1 >= s) sc[j][1] = sc[j][3] = -INFINITY;
-          mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-          mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-        }
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        float sum0 = 0.0f, sum1 = 0.0f, dot0 = 0.0f, dot1 = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            sc[j][e] = expf(sc[j][e] - mx0);
-            sc[j][2 + e] = expf(sc[j][2 + e] - mx1);
-            sum0 += sc[j][e];
-            sum1 += sc[j][2 + e];
-            dot0 = fmaf(dw[j][e], sc[j][e], dot0);
-            dot1 = fmaf(dw[j][2 + e], sc[j][2 + e], dot1);
-          }
-        }
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-        dot0 += __shfl_xor_sync(0xffffffffu, dot0, 1);
-        dot0 += __shfl_xor_sync(0xffffffffu, dot0, 2);
-        dot1 += __shfl_xor_sync(0xffffffffu, dot1, 1);
-        dot1 += __shfl_xor_sync(0xffffffffu, dot1, 2);
-        const float inv0 = 1.0f / sum0, inv1 = 1.0f / sum1;
-        dot0 *= inv0;  // rowsum(dW W) of the row
-        dot1 *= inv1;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            dw[j][e] = sc[j][e] * inv0 * (dw[j][e] - dot0) * w;
-            dw[j][2 + e] = sc[j][2 + e] * inv1 * (dw[j][2 + e] - dot1) * w;
-          }
-      } else {  // dS = dW; pad keys read V as 0, so their dW is 0
-#pragma unroll
-        for (int j = 0; j < NKT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dw[j][e] *= w;
-      }
-
+      softmax_backward<NKT, false>(sc, dw, s, (float)valid, softmax, t);
       // dQ += dS K: dS's A fragment is its C fragment
 #pragma unroll
       for (int j = 0; j < NKT; ++j) {
@@ -238,16 +189,7 @@ dq_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ dm,
       }
     }
 
-    float* orow = dq + own0 * d + hc;
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn) {
-      if (8 * nn >= dh) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? r0 : r1, c = 8 * nn + 2 * t + (e & 1);
-        if (r < s && c < dh) orow[(size_t)r * d + c] = acc[nn][e] * scale;
-      }
-    }
+    store_dq(dq + own0 * d + hc, acc, r0, r1, s, d, dh, scale, t);
     float* pad = dq + own0 * d;
     for (int e = s * d + threadIdx.x; e < sp * d; e += blockDim.x) pad[e] = 0.0f;
   }

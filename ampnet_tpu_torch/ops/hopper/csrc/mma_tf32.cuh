@@ -186,21 +186,26 @@ struct RingPlan {
 
 // The plan of `kernel` at (threads, s, d), with `fixed` bytes of shared
 // memory beside a ring of stages of S x (2D + 4) f32: 3 stages unless 2
-// keep more blocks on an SM. Made once per (threads, s, d) and kept in
-// `cache` (the occupancy queries cost more than a launch).
+// keep more blocks on an SM or 3 exceed a block's shared memory. Made once
+// per (threads, s, d) and kept in `cache` (the occupancy queries cost more
+// than a launch).
 template <typename Kernel>
 int ring_plan(Kernel kernel, int threads, int s, int d, size_t fixed, RingPlan& cache) {
   if (cache.threads == threads && cache.s == s && cache.d == d) return 0;
   RingPlan p;
   p.threads = threads; p.s = s; p.d = d;
-  int dev = 0;
+  int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&p.sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t stage_bytes = (size_t)s * (2 * d + 4) * sizeof(float);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(fixed + 3 * stage_bytes));
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t stage_bytes = (size_t)s * (2 * d + 4) * sizeof(float);
+  const size_t top = fixed + 3 * stage_bytes < (size_t)max_smem ? fixed + 3 * stage_bytes
+                                                                : (size_t)max_smem;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)top);
   for (int st = 3; st >= 2 && err == cudaSuccess; --st) {
+    if (fixed + st * stage_bytes > top) continue;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
                                                         fixed + st * stage_bytes);

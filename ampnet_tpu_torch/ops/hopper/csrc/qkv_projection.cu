@@ -1,8 +1,9 @@
 // Row projection C = A @ B + bias on Hopper (sm_90a), f32 on the CUDA
-// cores: the first and the last of the three launches of K7
-// (edge_attention_layer_mm), and the first launch of K2's CUDA-core route
-// (edge_attention_layer beyond the tensor-core range; within it K2 projects
-// in edge_attention_layer_tc.cu).
+// cores: the first launch of K2's CUDA-core route and the first and the
+// last of K7's (edge_attention_layer, edge_attention_layer_mm beyond the
+// tensor-core range, or on rows the 16-byte copies cannot take). Within it
+// both project on the tensor cores (projection_tc.cuh, launched from
+// edge_attention_layer_tc.cu).
 //
 // Replaces the in-kernel QKV projection of _fused_kernel_vmem_v6
 // (ampnet_tpu/ops/pallas/edge_attention_fused.py:822-840). There, grid
@@ -18,8 +19,8 @@
 // shared-memory tiled product on the CUDA cores: 64 x 64 output tiles,
 // 16-deep k steps, a 4 x 4 register block per thread.
 //
-// K7's last launch (ampnet_mean_out_projection) replaces the epilogue of
-// _fused_kernel_vmem_v6_mm (:932-939, with inv_col of :920 and
+// K7's last CUDA-core launch (ampnet_mean_out_projection) replaces the
+// epilogue of _fused_kernel_vmem_v6_mm (:932-939, with inv_col of :920 and
 // _mm_scatter_epilogue :1121-1122): the edge-group kernel leaves no block
 // that owns a finished receiver (its sums meet in device memory through
 // atomics), so the mean as a per-receiver row scale AFTER the reduce, the

@@ -3,8 +3,13 @@ of the JAX package's ``ops/pallas/edge_attention_bwd.py``, for layouts that
 have no sender side to walk (``compute_layout(sender_layout=False)``) and
 for ``scatterfree=False``.
 
-One hand-written kernel (``csrc/edge_attention_bwd.cu``, the third
-instantiation of the body K3 and K4 share), beside its plain torch version:
+One hand-written kernel beside its plain torch version, with two bodies
+(``launch.body``, K3's rule): on the tensor cores in 3xTF32
+(``csrc/edge_attention_bwd_stream_tc.cu``, K3's receiver design with the
+transposed products through a staging tile per head) within K3's range, and
+on the CUDA cores (``csrc/edge_attention_bwd.cu``, the third instantiation
+of the body K3 and K4 share there) beyond it, at any shape, its working set
+in device memory where it exceeds a block's shared memory:
 
 * ``edge_attention_bwd_stream`` (K5) — pass A: per edge, recompute the
   scores and the softmax, dW = dMsg V^T, the softmax backward; dQ = dS K /
@@ -31,7 +36,7 @@ default 1 GiB, the JAX package's rule).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. The wrapper counts its launches in
-``edge_attention_bwd_stream.launches``.
+``edge_attention_bwd_stream.launches``, by body in ``.body_launches``.
 """
 from __future__ import annotations
 
@@ -47,16 +52,24 @@ from ampnet_tpu_torch.ops.hopper.edge_attention_bwd_scatterfree import (
     _walk,
 )
 from ampnet_tpu_torch.ops.hopper.launch import (
+    BODIES,
     I,
     P,
+    body_of,
     check_f32_rows,
     check_walk,
+    count_launch,
     entry,
     launch_body,
 )
 
-_LIB = "edge_attention_bwd"
-_SIGNATURE = [P, I, P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P, I, P]
+# (library, entry point, signature) of each body; the CUDA-core one also
+# takes its device-memory working set (pointer, blocks) before the stream
+_SIGNATURE = [P, I, P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+_BODIES = {"tc": ("edge_attention_bwd_stream_tc", "ampnet_edge_attention_bwd_stream",
+                  _SIGNATURE),
+           "simt": ("edge_attention_bwd", "ampnet_edge_attention_bwd_stream_simt",
+                    _SIGNATURE[:-1] + [P, I, P])}
 
 # Cap on the LIVE part of the per-edge dK|dV stream (the JAX package's
 # constant and environment variable): tiles run in chunks sized to it.
@@ -126,7 +139,8 @@ def edge_attention_bwd_stream_plain(q_rows, kv_rows, dsum_rows, tile_senders,
 
 def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
                               recv_ptr, recv_slots, *, s, sp, num_heads, softmax,
-                              tiles: Optional[Tuple[int, int]] = None):
+                              tiles: Optional[Tuple[int, int]] = None,
+                              body: Optional[str] = None):
     """K5, pass A over the receivers of tiles [t0, t1) (default: all):
     (dQ rows [(t1-t0)*TN*sp, D], dK|dV stream [(t1-t0)*EMAX*sp, 2D]), f32.
 
@@ -135,7 +149,9 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
     per-receiver SUM of messages. The index arrays are int32 (format.py);
     tile_valid may carry a runtime mask. The stream holds sp rows per slot
     of the range, the first being slot t0*EMAX; rows of slots that are not
-    walked are not written. CPU tensors run the plain version."""
+    walked are not written. The body is K3's rule (``launch.body_of`` on
+    kv_rows, which the tensor-core body gathers in 16-byte copies; ``body``
+    names one). CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_bwd_stream_plain(
             q_rows, kv_rows, dsum_rows, tile_senders, tile_valid, recv_ptr,
@@ -152,21 +168,23 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
     check_walk(dev, tile_senders, tile_valid, recv_ptr, recv_slots,
                ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
     t0, t1, tn, emax = _tile_range(tile_senders, recv_ptr, tiles)
+    body = body_of("edge_attention_bwd_stream", body, s, d, num_heads, ("kv_rows", kv_rows))
     nodes = (t1 - t0) * tn
     dq = torch.empty(nodes * sp, d, dtype=torch.float32, device=dev)
     out = torch.empty((t1 - t0) * emax * sp, 2 * d, dtype=torch.float32, device=dev)
-    launch_body("edge_attention_bwd_stream", "simt",
-                entry(_LIB, "ampnet_edge_attention_bwd_stream", _SIGNATURE), (
-                    q_rows.data_ptr(), q_rows.stride(0), dsum_rows.data_ptr(),
-                    dsum_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
-                    tile_senders.data_ptr(), tile_valid.data_ptr(), recv_ptr.data_ptr(),
-                    recv_slots.data_ptr(), dq.data_ptr(), out.data_ptr(), t0 * tn, nodes,
-                    t0 * emax, s, sp, d, num_heads, int(softmax)), s, d, num_heads, nodes, dev)
-    edge_attention_bwd_stream.launches += 1
+    lib, fn, signature = _BODIES[body]
+    launch_body("edge_attention_bwd_stream", body, entry(lib, fn, signature), (
+        q_rows.data_ptr(), q_rows.stride(0), dsum_rows.data_ptr(), dsum_rows.stride(0),
+        kv_rows.data_ptr(), kv_rows.stride(0), tile_senders.data_ptr(),
+        tile_valid.data_ptr(), recv_ptr.data_ptr(), recv_slots.data_ptr(), dq.data_ptr(),
+        out.data_ptr(), t0 * tn, nodes, t0 * emax, s, sp, d, num_heads, int(softmax)),
+        s, d, num_heads, nodes, dev)
+    count_launch(edge_attention_bwd_stream, body)
     return dq, out
 
 
 edge_attention_bwd_stream.launches = 0
+edge_attention_bwd_stream.body_launches = dict.fromkeys(BODIES, 0)
 
 
 # ---------------------------------------------------------------- pass B

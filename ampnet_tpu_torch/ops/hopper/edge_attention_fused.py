@@ -53,7 +53,7 @@ sender side, or with ``scatterfree=False``, the stream backward of
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in
-``<wrapper>.launches``, K1-K4, K6, K7 and K9 also by body in
+``<wrapper>.launches``, K1-K7 and K9 also by body in
 ``<wrapper>.body_launches``; ``device_memory_launch_counts()`` counts the
 CUDA-core launches whose working set was in device memory.
 """
@@ -71,7 +71,6 @@ from ampnet_tpu_torch.ops.edge_attention import (
     amp_edge_attention,
     attention_core,
 )
-from ampnet_tpu_torch.ops.hopper import build
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as bwd_stream
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
 from ampnet_tpu_torch.ops.hopper import edge_attention_variants as variants
@@ -92,7 +91,6 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     device_memory_launches,
     entry,
     launch_body,
-    stream,
 )
 from ampnet_tpu_torch.ops.segment import segment_count
 
@@ -209,19 +207,15 @@ _SIGNATURES = {
                                    I, I, I, I, I, I, P],
     "ampnet_edge_attention_layer": [P, I, P, P, P, P, P, P, P, P,
                                     I, I, I, I, I, I, P],
-    "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
 }
 # the CUDA-core bodies also take their device-memory working set (pointer,
 # blocks; 0, 0 for shared memory) before the stream
 _SIGNATURES["ampnet_edge_attention_sums_simt"] = _SIGNATURES["ampnet_edge_attention_sums"][:-1] + [P, I, P]
 _SIGNATURES["ampnet_edge_attention_layer_simt"] = _SIGNATURES["ampnet_edge_attention_layer"][:-1] + [P, I, P]
-_SIGNATURES["ampnet_edge_attention_layer_projection"] = _SIGNATURES["ampnet_qkv_projection"]
-# (library, entry point) of each body: K1's sums, K2's projection and
-# attention launches
+# (library, entry point) of each body: K1's sums, K2's attention launch
+# (its projection launch is variants.layer_projection, K7's too)
 _SUMS = {"tc": ("edge_attention_tc", "ampnet_edge_attention_sums"),
          "simt": ("edge_attention", "ampnet_edge_attention_sums_simt")}
-_LAYER_PROJECTION = {"tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer_projection"),
-                     "simt": ("qkv_projection", "ampnet_qkv_projection")}
 _LAYER_ATTENTION = {"tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer"),
                     "simt": ("edge_attention", "ampnet_edge_attention_layer_simt")}
 
@@ -270,17 +264,6 @@ def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
     return out
 
 
-def _layer_projection(x_rows, w_qkv, b_qkv, body):
-    """K2's first launch: q|k|v rows [rows, 3D] = x_rows @ w_qkv + b_qkv."""
-    rows, d = x_rows.shape
-    qkv = torch.empty(rows, 3 * d, dtype=torch.float32, device=x_rows.device)
-    lib, proj = _entry(*_LAYER_PROJECTION[body])
-    build.check(lib, proj(x_rows.data_ptr(), x_rows.stride(0), w_qkv.data_ptr(),
-                          b_qkv.data_ptr(), qkv.data_ptr(), 3 * d, rows, 3 * d, d,
-                          stream()), f"edge_attention_layer projection ({body})")
-    return qkv
-
-
 def _layer_attention(qkv, w_out, b_out, invdeg, tile_senders, tile_valid, recv_ptr,
                      recv_slots, *, s, sp, num_heads, softmax, body):
     """K2's second launch: the mean over in-edges, the out-projection and
@@ -326,7 +309,7 @@ def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     _check_layout(dev, tile_senders, tile_valid, recv_ptr, recv_slots)
     body = body_of("edge_attention_layer", body, s, d, num_heads,
                    ("x_rows", x_rows), ("w_qkv", w_qkv))
-    qkv = _layer_projection(x_rows, w_qkv, b_qkv, body)
+    qkv = variants.layer_projection(x_rows, w_qkv, b_qkv, body)
     out = _layer_attention(qkv, w_out, b_out, invdeg, tile_senders, tile_valid, recv_ptr,
                            recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax,
                            body=body)
@@ -356,7 +339,7 @@ def launch_counts() -> dict:
 
 
 def body_launch_counts() -> dict:
-    """The launches by body of the kernels that have two (K1-K4, K6, K7,
+    """The launches by body of the kernels that have two (K1-K7,
     K9): {wrapper: {'tc': n, 'simt': m}}."""
     return {fn.__name__: dict(fn.body_launches) for fn in KERNEL_WRAPPERS
             if hasattr(fn, "body_launches")}

@@ -13,7 +13,8 @@ compute, by another cut of the work:
 * ``edge_attention_layer_mm`` (K7) — ``_fused_kernel_vmem_v6_mm``: the whole
   layer over K6's body: the projection launch, K6's attention launch, then
   a launch with the mean as a per-receiver row scale AFTER the reduce, the
-  out-projection and the bias on live rows.
+  out-projection and the bias on live rows. On the tensor cores the first
+  and the last are K2's tiled 3xTF32 product (``csrc/projection_tc.cuh``).
 * ``edge_attention_sums_chunked`` (K8) — ``_fused_kernel_chunked`` over
   ``format.build_chunked_csr``: chunks of up to C edges of one receiver, one
   Q read, the chunk's K|V side by side, per-edge softmax, one value product
@@ -34,7 +35,7 @@ instantiated range, on the CUDA cores (``csrc/edge_attention_groups.cu``,
 K6's group of messages buffered in shared memory) beyond it, at any shape:
 where that body's working set exceeds a block's shared memory it is kept in
 device memory (``launch.simt_work``). K7's attention launch is K6's, on
-K6's route.
+K6's route, and its projection launches follow it (``layer_mm_body``).
 
 K6, K7 and K9 reduce across warps and blocks with f32 atomics into a zeroed
 output: right to rounding, but not bit-reproducible from launch to launch
@@ -100,6 +101,10 @@ _SIGNATURES = {
     "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
     "ampnet_mean_out_projection": [P, I, P, P, P, P, I, I, I, I, I, I, P],
 }
+# the projections on the tensor cores take the CUDA-core launches' arguments
+_SIGNATURES["ampnet_edge_attention_layer_projection"] = _SIGNATURES["ampnet_qkv_projection"]
+_SIGNATURES["ampnet_edge_attention_layer_mm_out_projection"] = \
+    _SIGNATURES["ampnet_mean_out_projection"]
 # the CUDA-core bodies also take their device-memory working set (pointer,
 # blocks; 0, 0 for shared memory) before the stream
 for _name in ("ampnet_edge_attention_sums_mm", "ampnet_edge_attention_sums_v1"):
@@ -109,6 +114,16 @@ _SUMS_MM = {"tc": ("edge_attention_groups_tc", "ampnet_edge_attention_sums_mm"),
             "simt": ("edge_attention_groups", "ampnet_edge_attention_sums_mm_simt")}
 _SUMS_V1 = {"tc": ("edge_attention_groups_tc", "ampnet_edge_attention_sums_v1"),
             "simt": ("edge_attention_groups", "ampnet_edge_attention_sums_v1_simt")}
+# (library, entry point) on each body of the q|k|v projection (K2's first
+# launch and K7's) and of K7's last launch: the tensor cores' tiled 3xTF32
+# product (csrc/projection_tc.cuh, and its kMean epilogue), or the CUDA
+# cores' one
+_PROJECTION = {
+    "tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer_projection"),
+    "simt": ("qkv_projection", "ampnet_qkv_projection")}
+_LAYER_MM_OUT_PROJECTION = {
+    "tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer_mm_out_projection"),
+    "simt": ("qkv_projection", "ampnet_mean_out_projection")}
 
 
 def _entry(lib_name: str, fn_name: str):
@@ -310,6 +325,41 @@ def edge_attention_sums_mm(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
     return out
 
 
+def layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, kv_rows) -> str:
+    """K7's body, one for its three launches: K6's rule on the k|v view of
+    its projected rows, where x_rows, w_qkv and w_out take 16-byte copies
+    too (the tensor cores' tiled product copies its A and B operands in
+    16-byte pieces: addresses, row strides and widths multiples of 16 bytes);
+    ``body`` names one."""
+    return body_of("edge_attention_sums_mm", body, s, d, num_heads, ("kv_rows", kv_rows),
+                   ("x_rows", x_rows), ("w_qkv", w_qkv), ("w_out", w_out))
+
+
+def layer_projection(x_rows, w_qkv, b_qkv, body, qkv=None):
+    """K2's and K7's first launch on ``body``: q|k|v rows [rows, 3D] =
+    x_rows @ w_qkv + b_qkv (into ``qkv`` where given, contiguous)."""
+    rows, d = x_rows.shape
+    if qkv is None:
+        qkv = torch.empty(rows, 3 * d, dtype=torch.float32, device=x_rows.device)
+    lib, proj = _entry(*_PROJECTION[body])
+    build.check(lib, proj(x_rows.data_ptr(), x_rows.stride(0), w_qkv.data_ptr(),
+                          b_qkv.data_ptr(), qkv.data_ptr(), 3 * d, rows, 3 * d, d,
+                          stream()), f"q|k|v projection ({body})")
+    return qkv
+
+
+def _layer_mm_out_projection(sums, invdeg, w_out, b_out, *, s, sp, body):
+    """K7's last launch: the mean as a row scale of the sums, the
+    out-projection, b_out on live rows, pad token rows 0."""
+    rows, d = sums.shape
+    out = torch.empty(rows, d, dtype=torch.float32, device=sums.device)
+    lib, epi = _entry(*_LAYER_MM_OUT_PROJECTION[body])
+    build.check(lib, epi(sums.data_ptr(), d, invdeg.data_ptr(), w_out.data_ptr(),
+                         b_out.data_ptr(), out.data_ptr(), d, rows, d, d, sp, s, stream()),
+                f"edge_attention_layer_mm out-projection ({body})")
+    return out
+
+
 def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
                             tile_senders, tile_recv, tile_valid, tile_counts, *,
                             s, sp, num_heads, softmax, tile_nodes,
@@ -317,10 +367,11 @@ def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     """K7: the whole layer over raw token rows x_rows [NT*sp, D] -> output
     rows [NT*sp, D] f32 (pad token rows 0; a receiver of degree 0 exactly
     0). invdeg [NT] is 1/degree of the runtime mask (0 for degree 0). Three
-    launches: the q|k|v projection, K6's attention into zeroed sums (on
-    K6's body for the k|v view of the projected rows), then the mean row
-    scale, out-projection and live-row bias. The first and the last launch
-    take any shape (a tiled product in static shared memory)."""
+    launches on one body (``layer_mm_body``): the q|k|v projection, K6's
+    attention into zeroed sums, then the mean row scale, out-projection and
+    live-row bias; on the tensor cores the first and the last are the tiled
+    3xTF32 product of K2's projection launch, on the CUDA cores
+    ``csrc/qkv_projection.cu``."""
     if not x_rows.is_cuda:
         return edge_attention_layer_mm_plain(
             x_rows, w_qkv, b_qkv, w_out, b_out, invdeg, tile_senders, tile_recv,
@@ -342,22 +393,14 @@ def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
         raise ValueError("w_qkv and w_out must be contiguous")
     _check_tiled(dev, tile_senders, tile_recv, tile_valid, tile_counts)
     qkv = torch.empty(nt * sp, 3 * d, dtype=torch.float32, device=dev)
-    body = body_of("edge_attention_sums_mm", body, s, d, num_heads, ("kv_rows", qkv[:, d:]))
-    out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    cuda_stream = stream()
-    lib, proj = _entry("qkv_projection", "ampnet_qkv_projection")
-    build.check(lib, proj(x_rows.data_ptr(), x_rows.stride(0), w_qkv.data_ptr(),
-                          b_qkv.data_ptr(), qkv.data_ptr(), 3 * d, nt * sp, 3 * d,
-                          d, cuda_stream), "qkv_projection")
+    body = layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, qkv[:, d:])
+    layer_projection(x_rows, w_qkv, b_qkv, body, qkv)
     sums = _launch_groups(
         "edge_attention_sums_mm", body, (qkv.data_ptr(), 3 * d, qkv.data_ptr() + 4 * d, 3 * d),
         tile_senders, tile_recv, tile_valid, tile_counts, s=s, sp=sp, d=d,
         num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes,
         group=_mm_group(body, s, d, num_heads, group))
-    lib, epi = _entry("qkv_projection", "ampnet_mean_out_projection")
-    build.check(lib, epi(sums.data_ptr(), d, invdeg.data_ptr(), w_out.data_ptr(),
-                         b_out.data_ptr(), out.data_ptr(), d, nt * sp, d, d, sp, s,
-                         cuda_stream), "mean_out_projection")
+    out = _layer_mm_out_projection(sums, invdeg, w_out, b_out, s=s, sp=sp, body=body)
     count_launch(edge_attention_layer_mm, body)
     return out
 

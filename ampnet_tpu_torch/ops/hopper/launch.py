@@ -3,13 +3,13 @@ the libraries ``build.py`` makes, the current stream, the checks a wrapper
 runs before it hands pointers to a kernel (device, type, shape, contiguity,
 shared memory), and the rule that picks a kernel's body.
 
-K1-K4, K6 and K9 each have two hand-written bodies: one on the tensor
-cores (3xTF32) within the range they are instantiated for, and one on the
-CUDA cores beyond it, at any shape. ``body`` picks between them from (S,
-D, H) and whether the gathered rows take 16-byte copies, before any launch. The
-CUDA-core bodies (K5's too) keep their working set in shared memory where
-it fits a block and in device memory beyond that (``simt_work``). A check
-raises; nothing here falls back after a failed launch."""
+K1-K6 and K9 each have two hand-written bodies: one on the tensor cores
+(3xTF32) within the range they are instantiated for, and one on the CUDA
+cores beyond it, at any shape. ``body`` picks between them from (S, D, H)
+and whether the gathered rows take 16-byte copies, before any launch. The
+CUDA-core bodies keep their working set in shared memory where it fits a
+block and in device memory beyond that (``simt_work``). A check raises;
+nothing here falls back after a failed launch."""
 from __future__ import annotations
 
 import ctypes
@@ -71,13 +71,13 @@ def check_smem(need: int, what: str) -> None:
 
 # The range the tensor-core kernels (K1 csrc/edge_attention_tc.cu, K2
 # csrc/edge_attention_layer_tc.cu, K3 csrc/edge_attention_bwd_dq_tc.cu, K4
-# csrc/edge_attention_bwd_tc.cu, K6 and K9 csrc/edge_attention_groups_tc.cu)
-# are instantiated for: S in key tiles of 8 (at most 6), a head in k-steps
-# of 8 columns (at most 4), one warp per
-# (head, 16-row tile), at most 12 warps (8 up to S=24, where K3 and K4 cap
-# their registers for two blocks of 256 threads per SM). Within it a
+# csrc/edge_attention_bwd_tc.cu, K5 csrc/edge_attention_bwd_stream_tc.cu, K6
+# and K9 csrc/edge_attention_groups_tc.cu) are instantiated for: S in key
+# tiles of 8 (at most 6), a head in k-steps of 8 columns (at most 4), one
+# warp per (head, 16-row tile), at most 12 warps (8 up to S=24, where K3-K5
+# cap their registers for two blocks of 256 threads per SM). Within it a
 # block's shared memory stays under the 227 KB it may have (201 KB for K4
-# at S=48).
+# and 225 KB for K5 at S=48).
 TC_MAX_S, TC_MAX_DH = 48, 32
 
 
@@ -125,15 +125,15 @@ def check_tensor_core(what: str, s: int, d: int, num_heads: int,
         raise ValueError(f"{what}: {err}")
 
 
-# ---- the two bodies of K1-K4, K6 and K9, and the rule between them
+# ---- the two bodies of K1-K6 and K9, and the rule between them
 
-# the kernels with a tensor-core body; K5 (edge_attention_bwd_stream) has
-# its CUDA-core body only. K7 (edge_attention_layer_mm) runs K6's bodies in
-# its attention launch.
+# the kernels with a tensor-core and a CUDA-core body. K7
+# (edge_attention_layer_mm) runs K6's bodies in its attention launch, and
+# its projection launches on the same body.
 TENSOR_CORE_KERNELS = ("edge_attention_sums", "edge_attention_layer",
                        "edge_attention_bwd_dq", "edge_attention_bwd_dkv",
-                       "edge_attention_sums_mm", "edge_attention_sums_v1")
-CUDA_CORE_KERNELS = TENSOR_CORE_KERNELS + ("edge_attention_bwd_stream",)
+                       "edge_attention_bwd_stream", "edge_attention_sums_mm",
+                       "edge_attention_sums_v1")
 # the edge-group kernels: their blocks walk (tile, group) items, not nodes
 GROUP_KERNELS = ("edge_attention_sums_mm", "edge_attention_sums_v1")
 BODIES = ("tc", "simt")
@@ -151,7 +151,7 @@ def simt_smem_bytes(kernel: str, s: int, d: int, num_heads: int, group: int = 0)
     csrc/edge_attention_groups.cu (K6 with its buffer of ``group`` messages,
     K9), in bytes. The libraries' ``*_smem_bytes`` entry points give the
     same numbers (a card test holds the two together)."""
-    if kernel not in CUDA_CORE_KERNELS:
+    if kernel not in TENSOR_CORE_KERNELS:
         raise ValueError(f"{kernel} has no CUDA-core body of this family")
     s2, s4 = -(-s // 2) * 2, -(-s // 4) * 4
     if kernel in GROUP_KERNELS:
@@ -195,12 +195,11 @@ def body(kernel: str, s: int, d: int, num_heads: int, rows_aligned: bool) -> str
     """The body a kernel runs at (S, D, H): 'tc' (tensor cores) within the
     instantiated range where the gathered rows take 16-byte copies, else
     'simt' (CUDA cores)."""
-    if kernel not in CUDA_CORE_KERNELS:
+    if kernel not in TENSOR_CORE_KERNELS:
         raise ValueError(f"unknown kernel {kernel}")
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    if (kernel in TENSOR_CORE_KERNELS and rows_aligned
-            and tensor_core_range_error(s, d, num_heads) is None):
+    if rows_aligned and tensor_core_range_error(s, d, num_heads) is None:
         return "tc"
     return "simt"
 

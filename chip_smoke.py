@@ -6,15 +6,17 @@ against its plain torch version on the card at the main path's shapes
 K4 edge_attention_bwd_dkv and the edge-group sums K6 edge_attention_sums_mm
 and K9 edge_attention_sums_v1 on the tensor cores in 3xTF32, each also held
 against and timed in turns with its CUDA-core body, K2's two launches also
-apart; K5 edge_attention_bwd_stream with its pass B and the chunked fold;
-K7 edge_attention_layer_mm, whose attention launch is K6's, and K8
-edge_attention_sums_chunked; K6, K8 and K9 also against K1's sums, K7
-against K2's layer on the same inputs), drives AMPConv at the shapes beyond
-the tensor-core range (`routes`, with K1, K6 or K9 forward: the CUDA-core
-bodies, their working set in device memory where it exceeds a block's
-shared memory, each against float64 on the CPU), then drives the port at
-full width on the Cora-shaped surrogate, where every launch of K1-K4, K6,
-K7 and K9 must run the tensor-core body:
+apart; K5 edge_attention_bwd_stream on the tensor cores too, with its pass
+B and the chunked fold; K7 edge_attention_layer_mm, whose attention launch
+is K6's and whose projection launches are K2's tiled product, its three
+launches also apart; K8 edge_attention_sums_chunked; K6, K8 and K9 also
+against K1's sums, K7 against K2's layer on the same inputs), drives
+AMPConv at the shapes beyond the tensor-core range (`routes`, with K1, K6
+or K9 forward and K3 + K4 or K5 backward: the CUDA-core bodies, their
+working set in device memory where it exceeds a block's shared memory,
+each against float64 on the CPU), then drives the port at
+full width on the Cora-shaped surrogate, where every launch of K1-K7 and
+K9 must run the tensor-core body:
 
   A  inference, the recommended recipe (S=40, tfidf, gcn2 head), 8-draw
      make_eval_step: K1 twice per draw;
@@ -112,8 +114,10 @@ KERNELS = ("edge_attention_sums", "edge_attention_layer", "edge_attention_bwd_dq
 # K8's chunk: build_chunked_csr's default
 CHUNK_EDGES = 8
 # modules whose outputs are compared stage by stage when the logits disagree
-STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv1",
-          "raw_residual_conv2", "final_linear_out")
+# (a GCN layer's product alone as its ``.lin``)
+STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv1.lin",
+          "raw_residual_conv1", "raw_residual_conv2.lin", "raw_residual_conv2",
+          "final_linear_out")
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, TF32 on
 # the tensor cores, HBM3. The tensor-core kernels (K1-K4) compute each f32
 # product as three TF32 products (3xTF32): their operations are priced at
@@ -121,9 +125,11 @@ STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-# the libraries of the tensor-core bodies (K1, K2, K3, K4; K6 and K9)
+# the libraries of the tensor-core bodies (K1-K5; K6 and K9; K7's projection
+# launches are K2's library's)
 TENSOR_CORE_LIBS = ("edge_attention_tc", "edge_attention_layer_tc", "edge_attention_bwd_dq_tc",
-                    "edge_attention_bwd_tc", "edge_attention_groups_tc")
+                    "edge_attention_bwd_tc", "edge_attention_bwd_stream_tc",
+                    "edge_attention_groups_tc")
 # the `routes` phase: AMPConv at shapes beyond the tensor-core range (S, D,
 # H, training, the body K1-K4 (K6, K9) must run, the kernels whose working
 # set must be in device memory, the forward route: K1, or K6 under
@@ -133,6 +139,8 @@ TENSOR_CORE_LIBS = ("edge_attention_tc", "edge_attention_layer_tc", "edge_attent
 # on the edges among its first ROUTE_NODES nodes: the float64 reference on
 # the host is the phase's cost.
 MM, V1 = "MM_SCATTER_DEFAULT", "DMA_V1_DEFAULT"
+# a training case on a layout without a sender side: K5 for K3 + K4
+STREAM = "sender_layout=False"
 ROUTES = (
     (40, 128, 1, True, "simt", (), None),     # D/H = 128
     (40, 128, 2, True, "simt", (), None),     # D/H = 64
@@ -147,6 +155,7 @@ ROUTES = (
     (96, 128, 4, False, "simt", ("edge_attention_sums_v1",), V1),   # K9: 296 KB
     (49, 128, 4, True, "simt", ("edge_attention_bwd_dkv",), MM),    # K6 beyond the tensor cores
     (40, 128, 8, True, "simt", (), MM),       # K6 beyond the warp limit
+    (49, 128, 4, True, "simt", (), STREAM),   # K5 beyond the tensor cores: 216,880 B
 )
 ROUTE_NODES = 768
 
@@ -194,8 +203,11 @@ def pin_ieee_f32() -> None:
 def precision_state() -> dict:
     """The precision settings and environment this run computed under."""
     state = {"torch": torch.__version__, "cuda": torch.version.cuda,
-             "matmul_precision": torch.get_float32_matmul_precision(),
              "cpu_threads": torch.get_num_threads()}
+    try:
+        state["matmul_precision"] = torch.get_float32_matmul_precision()
+    except RuntimeError as e:     # the backends were set apart through the new API
+        state["matmul_precision"] = str(e)[:80]
     if hasattr(torch.backends, "fp32_precision"):
         state["fp32_precision"] = {
             "global": torch.backends.fp32_precision,
@@ -210,10 +222,11 @@ def precision_state() -> dict:
 def stage_outputs(model, graph, sidx, layout):
     """Log-probs of one fixed draw, and each stage's output, on the CPU."""
     outs = {}
-    hooks = [getattr(model, name).register_forward_hook(
+    modules = dict(model.named_modules())
+    hooks = [modules[name].register_forward_hook(
         lambda mod, i, o, name=name: outs.__setitem__(
             name, (o[0] if isinstance(o, tuple) else o).detach().cpu().double()))
-        for name in STAGES if hasattr(model, name)]
+        for name in STAGES if name in modules]
     try:
         with torch.no_grad():
             logp = model(graph, sampled_idx=sidx, edge_layout=layout)
@@ -232,6 +245,62 @@ def cpu_f64_reference(model, graph, sidx):
     g = graph.to("cpu")
     g.x = g.x.double()
     return stage_outputs(ref, g, sidx.cpu(), None)
+
+
+def raw_residual_product(model, graph, card_lin) -> dict:
+    """Where the raw residual's first product (raw_residual_conv1.lin's card
+    output ``card_lin``, on the CPU in float64) leaves float64: against the
+    CPU's float64 product, the card's float64 product, the same F.linear
+    taken again on the card (with the kernels it ran), the product with a
+    contiguous W^T (another cuBLAS layout), and ONE TF32 product of the same
+    f32 operands (rounded to 10 mantissa bits, the product exact). Near the
+    TF32 product and far from both float64 products: that product ran in
+    TF32; the card's products agreeing and the CPU's apart: the reference
+    is at fault."""
+    import torch.nn.functional as F
+    from ampnet_tpu_torch.ops.tokenize import standardize
+
+    def tf32(x):
+        return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    def err(a, b):
+        return float((a.cpu().double() - b.cpu().double()).abs().max())
+
+    with torch.no_grad():
+        x = standardize(graph.x, mean=model.scaler_mean, std=model.scaler_std,
+                        node_mask=graph.node_mask)
+        w = model.raw_residual_conv1.lin.weight.detach()
+        cpu_f64 = x.cpu().double() @ w.cpu().double().T
+        card_f64 = x.double() @ w.double().T
+        again = {}
+        kernels = device_kernels(lambda: again.update(y=F.linear(x, w))) if x.is_cuda else \
+            again.update(y=F.linear(x, w))
+        nn_layout = x @ w.T.contiguous()
+        one_tf32 = tf32(x.cpu()).double() @ tf32(w.cpu()).double().T
+    return dict(vs_cpu_f64=err(card_lin, cpu_f64), vs_card_f64=err(card_lin, card_f64),
+                card_f64_vs_cpu_f64=err(card_f64, cpu_f64),
+                again_vs_card_f64=err(again["y"], card_f64), again_kernels=kernels,
+                nn_layout_vs_card_f64=err(nn_layout, card_f64),
+                vs_one_tf32_product=err(card_lin, one_tf32),
+                cpu_f64_vs_one_tf32_product=err(cpu_f64, one_tf32))
+
+
+def device_kernels(fn) -> dict:
+    """The kernels one call of fn launches on the card, by name in launch
+    order, with their counts (torch.profiler; {} where it sees no device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start):
+        names[e.name] = names.get(e.name, 0) + 1
+    return names
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -299,11 +368,12 @@ def in_turns(old, new, iters: int = 10):
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
 
 
-def tensor_core_row(row, lib, info_fn, nt, s, d, h, old, new, ptxas):
+def tensor_core_row(row, lib, info_fn, nt, s, d, h, old, new, ptxas, also=None):
     """A tensor-core kernel's row: its time in turns with its CUDA-core body
     (``prev_ms``), and what its launch runs with (registers, spills from
     ptxas, blocks per SM, ring stages). ``spills`` counts every kernel of
-    the library that the launch runs (K2: the projection's too)."""
+    the library that the launch runs: the instantiation at S, and the
+    kernels whose names contain ``also`` (K2: its projection)."""
     from ampnet_tpu_torch.ops.hopper.launch import kernel_info
 
     ms, prev_ms = in_turns(old, new)
@@ -311,7 +381,7 @@ def tensor_core_row(row, lib, info_fn, nt, s, d, h, old, new, ptxas):
     report = ptxas[(lib, -(-s // 8))]
     spills = report["spill_stores"] + report["spill_loads"]
     spills += sum(r["spill_stores"] + r["spill_loads"] for (stem, key), r in ptxas.items()
-                  if stem == lib and isinstance(key, str))
+                  if stem == lib and also and isinstance(key, str) and also in key)
     row.update(ms=ms, prev_ms=prev_ms, speedup=prev_ms / ms, regs=info["regs"],
                spills=spills, blocks_per_sm=info["blocks_per_sm"], stages=info["stages"],
                smem_bytes=info["smem_bytes"], precision="3xtf32")
@@ -536,35 +606,55 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
             lambda: bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw), ptxas)
 
         # K5 on the same rows: dq as K3, and the per-edge dk|dv stream on the
-        # slots the walk visits (the others are never written)
-        dq, stream = sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw)
-        dq_ref, stream_ref = sb.edge_attention_bwd_stream_plain(q, kv, dsum, *idx, **kw)
-        torch.cuda.synchronize()
+        # slots the walk visits (the others are never written); its
+        # CUDA-core body against the plain version too, and timed in turns
         walked = layout.recv_slots.long()
         per_slot = (-1, sp, 2 * d)
+
+        def k5(body=None):
+            """K5's dQ rows and the stream rows of the walked slots."""
+            dq, stream = sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw, body=body)
+            return dq, stream.view(per_slot)[walked]
+
+        (dq, walked_rows), (dq_ref, stream_ref) = k5(), sb.edge_attention_bwd_stream_plain(
+            q, kv, dsum, *idx, **kw)
+        stream_ref = stream_ref.view(per_slot)[walked]
+        dq_old, walked_old = k5("simt")
+        torch.cuda.synchronize()
         err = max(compare(f"edge_attention_bwd_stream S={s} dq", dq, dq_ref),
-                  compare(f"edge_attention_bwd_stream S={s} stream",
-                          stream.view(per_slot)[walked], stream_ref.view(per_slot)[walked]))
-        del dq_ref, stream_ref
+                  compare(f"edge_attention_bwd_stream S={s} stream", walked_rows, stream_ref))
+        prev_err = max(
+            compare(f"edge_attention_bwd_stream (CUDA cores) S={s} dq", dq_old, dq_ref),
+            compare(f"edge_attention_bwd_stream (CUDA cores) S={s} stream", walked_old,
+                    stream_ref))
+        dq_again, walked_again = k5()
+        if not (torch.equal(dq, dq_again) and torch.equal(walked_rows, walked_again)):
+            fail(f"edge_attention_bwd_stream S={s}: a second launch differs from the first")
+        del dq_ref, stream_ref, dq_old, walked_old, dq_again, walked_again, walked_rows
         # K3's bytes plus the stream's S rows per walked slot, written once; 5
-        # products of 2*S*S*D per live edge
+        # products of 2*S*S*D per live edge, on the tensor cores in 3xTF32
         stream_bytes = walked.numel() * s * 2 * d * 4
-        b, by = bound_ms(5 * d * n * s * 4 + index_bytes + stream_bytes,
-                         10 * s * s * d * live_edges)
+        k5_bytes = 5 * d * n * s * 4 + index_bytes + stream_bytes
+        b, by = bound_ms(k5_bytes, 10 * s * s * d * live_edges, True)
+        _, stream = sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw)
         dkv = torch.zeros(nt, s, 2 * d, device=dev)
-        rows[f"edge_attention_bwd_stream_s{s}"] = dict(
+        rows[f"edge_attention_bwd_stream_s{s}"] = tensor_core_row(dict(
             name="edge_attention_bwd_stream", route="cuda",
-            source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd.cu",
+            source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd_stream_tc.cu "
+                   "+ ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd_dq_tc.cuh",
             replaces="ampnet_tpu/ops/pallas/edge_attention_bwd.py:"
                      + ("694" if s == 40 else "178"),
-            max_abs_err=err,
-            ms=cuda_ms(lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw), 10),
+            max_abs_err=err, prev_max_abs_err=prev_err,
             plain_ms=cuda_ms(lambda: sb.edge_attention_bwd_stream_plain(
                 q, kv, dsum, *idx, **kw), 3),
             bound_ms=b, bound_by=by, library_ms=None,
+            f32_bound_ms=bound_ms(k5_bytes, 10 * s * s * d * live_edges)[0],
             stream_bytes=stream.numel() * 4, walked_stream_bytes=stream_bytes,
             pass_b_ms=cuda_ms(lambda: sb.stream_to_senders(
-                stream, layout.tile_senders, walked, 0, dkv, s=s, sp=sp), 10))
+                stream, layout.tile_senders, walked, 0, dkv, s=s, sp=sp), 10)),
+            "edge_attention_bwd_stream_tc", "ampnet_edge_attention_bwd_stream_info", nt, s, d,
+            h, lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw, body="simt"),
+            lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw), ptxas)
         del stream, dkv
         # pass A + pass B, one launch against tile chunks under FOLD_BUDGET,
         # and both against K4's per-sender sums
@@ -614,20 +704,19 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
     nbytes = 4 * (2 * n * s * d + 4 * d * d + 4 * d + nt) + index_bytes
     b, by = bound_ms(nbytes, flops, True)
     # its two launches alone, each body in turns with the other's
-    qkv = eaf._layer_projection(x_rows, w[0], w[1], "tc")
+    qkv = eav.layer_projection(x_rows, w[0], w[1], "tc")
     compare("edge_attention_layer projection S=20", qkv, x_rows @ w[0] + w[1], "x @ w_qkv + b_qkv")
     projection_ms, prev_projection_ms = in_turns(
-        lambda: eaf._layer_projection(x_rows, w[0], w[1], "simt"),
-        lambda: eaf._layer_projection(x_rows, w[0], w[1], "tc"))
+        lambda: eav.layer_projection(x_rows, w[0], w[1], "simt"),
+        lambda: eav.layer_projection(x_rows, w[0], w[1], "tc"))
     # one library call computes the projection: f32 cuBLAS (TF32 off)
     projection_library_ms = in_turns(
-        lambda: eaf._layer_projection(x_rows, w[0], w[1], "tc"),
+        lambda: eav.layer_projection(x_rows, w[0], w[1], "tc"),
         lambda: torch.addmm(w[1], x_rows, w[0]))[0]
     attention_ms, prev_attention_ms = in_turns(
         lambda: eaf._layer_attention(qkv, *w[2:], invdeg, *idx, **kw, body="simt"),
         lambda: eaf._layer_attention(qkv, *w[2:], invdeg, *idx, **kw, body="tc"))
     staged_w = staged_w_attention(qkv, w, invdeg, idx, nt, kw)
-    del qkv
     rows["edge_attention_layer_s20"] = tensor_core_row(dict(
         name="edge_attention_layer", route="cuda",
         source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_layer_tc.cu "
@@ -643,33 +732,58 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
                                      2 * n * s * d * 3 * d, True)[0]),
         "edge_attention_layer_tc", "ampnet_edge_attention_layer_info", nt, s, d, h,
         lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw, body="simt"),
-        lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw), ptxas)
+        lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw), ptxas,
+        also="20projection_tc_kernel")
 
     # K7 on the same rows and weights: against its plain version and K2's
-    # layer; its attention launch is K6's, timed in turns with K6's CUDA-core
-    # body there (its projection and out-projection launches are unchanged)
+    # layer; all three launches in turns with the CUDA-core body's, and apart:
+    # the projection (K2's launch on the same rows: its times above), the
+    # attention launch (K6's) and the out-projection
     mm = dict(**kw, tile_nodes=tn)
     k7 = lambda body=None: eav.edge_attention_layer_mm(  # noqa: E731
         x_rows, *w, invdeg, *slots, layout.tile_counts, **mm, body=body)
     got7, ref7 = k7(), eav.edge_attention_layer_mm_plain(
         x_rows, *w, invdeg, *slots, layout.tile_counts, **mm, group=eav.MM_GROUP)
     torch.cuda.synchronize()
+    if not (got7.view(nt, sp, d)[:n][count == 0] == 0).all():
+        fail("edge_attention_layer_mm S=20: a receiver without a live edge is not exactly 0")
     # K2's work (projection, attention, out-projection) at the tensor cores'
     # rate, as K2 is priced: the card runs all of these f32 products there
     k7_bytes = nbytes - index_bytes + slot_bytes + 4 * layout.tile_counts.numel()
     b, by = bound_ms(k7_bytes, flops, True)
     ms, prev_ms = in_turns(lambda: k7("simt"), k7)
+    attention = {b_: (lambda b_=b_: eav._launch_groups(
+        "edge_attention_sums_mm", b_, (qkv.data_ptr(), 3 * d, qkv.data_ptr() + 4 * d, 3 * d),
+        *slots, layout.tile_counts, s=s, sp=sp, d=d, num_heads=h, softmax=True,
+        tile_nodes=tn, group=eav._mm_group(b_, s, d, h, None))) for b_ in ("tc", "simt")}
+    attention_ms, prev_attention_ms = in_turns(attention["simt"], attention["tc"])
+    sums = attention["tc"]()
+    out = {b_: (lambda b_=b_: eav._layer_mm_out_projection(sums, invdeg, *w[2:], s=s, sp=sp,
+                                                           body=b_)) for b_ in ("tc", "simt")}
+    compare("edge_attention_layer_mm out-projection S=20", out["tc"](), out["simt"](),
+            "its CUDA-core body")
+    out_projection_ms, prev_out_projection_ms = in_turns(out["simt"], out["tc"])
+    # registers and spills of the two tiled products (kernels that are no
+    # template: ptxas keys them by their mangled names)
+    gemms = {re.search(r"\d+([a-z_]+_kernel)E", key).group(1): r
+             for (stem, key), r in ptxas.items()
+             if stem == "edge_attention_layer_tc" and isinstance(key, str)}
+    del qkv, sums
     rows["edge_attention_layer_mm_s20"] = dict(
         name="edge_attention_layer_mm", route="cuda",
         source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_groups_tc.cu "
-               "+ ampnet_tpu_torch/ops/hopper/csrc/qkv_projection.cu",
+               "+ ampnet_tpu_torch/ops/hopper/csrc/edge_attention_layer_tc.cu "
+               "+ ampnet_tpu_torch/ops/hopper/csrc/projection_tc.cuh",
         replaces="ampnet_tpu/ops/pallas/edge_attention_fused.py:865",
         max_abs_err=compare("edge_attention_layer_mm S=20", got7, ref7),
         k2_max_abs_err=compare("edge_attention_layer_mm S=20", got7, got, "K2's layer"),
         prev_max_abs_err=compare("edge_attention_layer_mm (CUDA cores) S=20", k7("simt"), ref7),
         ms=ms, prev_ms=prev_ms, speedup=prev_ms / ms,
-        changed="the attention launch only (K6's tensor-core body); the projection and "
-                "mean/out-projection launches (qkv_projection.cu) are unchanged",
+        projection_ms=projection_ms, prev_projection_ms=prev_projection_ms,
+        projection_library_ms=projection_library_ms,
+        attention_ms=attention_ms, prev_attention_ms=prev_attention_ms,
+        out_projection_ms=out_projection_ms, prev_out_projection_ms=prev_out_projection_ms,
+        gemm_ptxas=gemms, precision="3xtf32",
         plain_ms=cuda_ms(lambda: eav.edge_attention_layer_mm_plain(
             x_rows, *w, invdeg, *slots, layout.tile_counts, **mm, group=eav.MM_GROUP), 3),
         bound_ms=b, bound_by=by, library_ms=None,
@@ -729,9 +843,12 @@ def route_phase(data, gen, dev):
         mask = g.edge_mask.clone()
         mask[torch.nonzero(mask)[::7, 0]] = False             # dropped at run time
         graphs[train] = (g, mask, compute_layout(g))
+    no_sender_side = compute_layout(graphs[True][0], sender_layout=False)
     report = []
     for s, d, h, train, want, want_device_memory, flag in ROUTES:
         graph, mask, layout = graphs[train]
+        if flag == STREAM:
+            layout = no_sender_side
         n = graph.num_nodes_padded
         name = f"S={s} D={d} H={h} {'training' if train else 'eval'}" + (f" {flag}" if flag else "")
         conv = AMPConv(d, h, use_pallas=True, generator=torch.Generator().manual_seed(s + d + h))
@@ -754,13 +871,14 @@ def route_phase(data, gen, dev):
 
         eaf.reset_launch_counts()
         t0 = time.perf_counter()
-        with dispatch_flag(flag) if flag else contextlib.nullcontext():
+        with dispatch_flag(flag) if flag in (MM, V1) else contextlib.nullcontext():
             out, grads = run(conv, x, layout, (graph.senders, graph.receivers, mask))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         counts, bodies = eaf.launch_counts(), eaf.body_launch_counts()
         forward = dict(k6=1) if flag == MM else dict(k9=1) if flag == V1 else dict(k1=1)
-        expected = launches(**forward, k3=1, k4=1) if train else launches(**forward)
+        backward = dict(k5=1) if flag == STREAM else dict(k3=1, k4=1)
+        expected = launches(**forward, **backward) if train else launches(**forward)
         if counts != expected:
             fail(f"routes {name}: launched {counts}; expected {expected}")
         ran = {k: b for k, b in bodies.items() if counts[k]}
@@ -861,13 +979,21 @@ def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None):
     stage_err = {k: float((card_stages[k] - ref_stages[k]).abs().max()) for k in ref_stages}
     if not torch.allclose(card.double(), ref, rtol=MODEL_RTOL, atol=MODEL_ATOL):
         # for whoever reads the failure: does a second card forward of the same
-        # draw repeat the first, and which stage leaves the reference first
-        again, again_stages = stage_outputs(model, graph, sidx, layout)
+        # draw repeat the first, which stage leaves the reference first, and
+        # which kernels (cuBLAS's choice among them) the second forward ran
+        again = {}
+        kernels = device_kernels(lambda: again.update(
+            zip(("logits", "stages"), stage_outputs(model, graph, sidx, layout))))
         print(json.dumps({
             "stage_max_abs_err": stage_err,
-            "second_card_forward_max_abs_err": float((again.double() - ref).abs().max()),
+            "second_card_forward_max_abs_err": float(
+                (again["logits"].double() - ref).abs().max()),
             "second_card_forward_stage_max_abs_err": {
-                k: float((again_stages[k] - ref_stages[k]).abs().max()) for k in ref_stages},
+                k: float((again["stages"][k] - ref_stages[k]).abs().max()) for k in ref_stages},
+            "second_card_forward_kernels": kernels,
+            "raw_residual_product": raw_residual_product(
+                model, graph, card_stages["raw_residual_conv1.lin"])
+            if "raw_residual_conv1.lin" in card_stages else None,
             "precision": precision_state()}), file=sys.stderr)
         fail(f"path {name}: card logits disagree with the CPU float64 forward "
              f"(max abs err {err:.3g})")
@@ -1110,6 +1236,17 @@ def warm_steps_ms(step, state, subs, layouts, passes=5):
     return times[len(times) // 2], [times[0], times[-1]]
 
 
+def pass_profile(step, state, subs, layouts, warm_ms):
+    """device_profile of one pass over the prepared subgraphs, per step, and
+    the busy share of the warm step."""
+    report = device_profile(lambda: [step(state, g, lay) for g, lay in zip(subs, layouts)])
+    if report["device_ms"] is not None:
+        report["device_ms"] /= len(subs)
+        report["kernels_per_call"] /= len(subs)
+        report["top_kernels_ms"] = [[k, ms / len(subs)] for k, ms in report["top_kernels_ms"]]
+    return busy_share(report, warm_ms)
+
+
 def drive_saint(cfg, data, graph, seed, dev):
     """Paths E and F: GraphSAINT subgraph training of the stabilized recipe
     through train_saint (layouts with the sender side: K1 + K3 + K4) and
@@ -1169,6 +1306,8 @@ def drive_saint(cfg, data, graph, seed, dev):
         fail(f"path {name_e}: one step launched {per_step}, expected 2 K1 + 2 K3 + 2 K4")
     report_e["train_step_warm_ms"], report_e["train_step_warm_ms_range"] = warm_steps_ms(
         step_e, state, subs, with_snd)
+    report_e["profile"] = pass_profile(step_e, state, subs, with_snd,
+                                       report_e["train_step_warm_ms"])
 
     model = recipe_model(cfg, data, seed, dev)
     log = StepLog()
@@ -1208,6 +1347,8 @@ def drive_saint(cfg, data, graph, seed, dev):
              f"no K3 / K4")
     report_f["train_step_warm_ms"], report_f["train_step_warm_ms_range"] = warm_steps_ms(
         step_f, state, subs, without)
+    report_f["profile"] = pass_profile(step_f, state, subs, without,
+                                       report_f["train_step_warm_ms"])
     # after the timing: the float64 reference keeps the host's cores busy
     report_f["gradient_check"] = gradient_check(
         name_f, recipe_model(cfg, data, seed, dev), subs[0], without[0], seed,
@@ -1391,7 +1532,8 @@ def main() -> int:
     tc_keys = ("ms", "prev_ms", "speedup", "max_abs_err", "bound_ms", "plain_ms", "regs",
                "spills", "blocks_per_sm", "stages")
     for name in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv",
-                 "edge_attention_sums_mm", "edge_attention_sums_v1"):
+                 "edge_attention_bwd_stream", "edge_attention_sums_mm",
+                 "edge_attention_sums_v1"):
         rows[f"{name}_s40"]["s20"] = {k: rows[f"{name}_s20"][k] for k in tc_keys}
     rows["edge_attention_sums_mm_s40"]["s20"]["by_group_ms"] = \
         rows["edge_attention_sums_mm_s20"]["by_group_ms"]
@@ -1414,8 +1556,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "prev_ms", "speedup", "regs",
             "spills", "blocks_per_sm", "stages", "smem_bytes", "precision", "projection_ms",
-            "attention_ms", "prev_projection_ms", "prev_attention_ms", "k1_max_abs_err",
-            "by_group_ms", "changed", "s20")
+            "attention_ms", "out_projection_ms", "prev_projection_ms", "prev_attention_ms",
+            "prev_out_projection_ms", "projection_library_ms", "k1_max_abs_err",
+            "k2_max_abs_err", "by_group_ms", "s20")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Time the PyTorch port's K1-K4, K6 and K9 bodies against each other across
+"""Time the PyTorch port's K1-K7 and K9 bodies against each other across
 the tensor-core range, on one NVIDIA GPU:  python3 scripts/torch_body_sweep.py [--seed N]
 
 The port's route (``ampnet_tpu_torch/ops/hopper/launch.py::body``) runs a
@@ -53,6 +53,7 @@ def main() -> int:
         return 1
     from ampnet_tpu_torch.core.graph import from_arrays
     from ampnet_tpu_torch.data.planetoid import synthetic_cora
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
@@ -76,6 +77,7 @@ def main() -> int:
     s_idx = (layout.snd_receivers, snd_slot_valid(layout, mask), layout.snd_ptr,
              layout.snd_slots)
     slots = (layout.tile_senders, layout.tile_recv, r_idx[1])
+    walked = layout.recv_slots.long()
     nt = layout.recv_ptr.numel() - 1
     deg = torch.bincount(graph.receivers[mask], minlength=nt).float()
     invdeg = torch.where(deg > 0, 1.0 / deg.clamp_min(1.0), torch.zeros_like(deg))
@@ -102,6 +104,13 @@ def main() -> int:
                 q, kv, dsum, *r_idx, **kw, body=b),
             "edge_attention_bwd_dkv": lambda b: bwd.edge_attention_bwd_dkv(
                 qdm, kv, *s_idx, **kw, body=b),
+            # K5: dQ and the stream rows of the walked slots (others are not written)
+            "edge_attention_bwd_stream": lambda b: (lambda dq, st: torch.cat([
+                dq.reshape(-1), st.view(-1, sp * 2 * d)[walked].reshape(-1)]))(
+                *sb.edge_attention_bwd_stream(q, kv, dsum, *r_idx, **kw, body=b)),
+            "edge_attention_layer_mm": lambda b: eav.edge_attention_layer_mm(
+                x_rows, *w, invdeg, *slots, layout.tile_counts, **kw,
+                tile_nodes=layout.tile_nodes, body=b),
             "edge_attention_sums_mm": lambda b: eav.edge_attention_sums_mm(
                 q, kv, *slots, layout.tile_counts, **kw, tile_nodes=layout.tile_nodes, body=b),
             "edge_attention_sums_v1": lambda b: eav.edge_attention_sums_v1(

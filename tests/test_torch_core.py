@@ -110,7 +110,7 @@ PORT_MODULES = {
               "rundir", "state"],
 }
 # the port's scripts outside the package
-PORT_SCRIPTS = ["chip_smoke.py", "scripts/torch_body_sweep.py"]
+PORT_SCRIPTS = ["chip_smoke.py", "scripts/torch_body_sweep.py", "scripts/torch_path_a_replay.py"]
 PORT_FILES = PORT_SCRIPTS + [
     "/".join(filter(None, ("ampnet_tpu_torch", sub, f"{mod}.py")))
     for sub, mods in PORT_MODULES.items() for mod in mods]

@@ -781,6 +781,12 @@ def test_tc_kernels_refuse_what_they_do_not_take(cuda):
         eaf.edge_attention_sums(big[:, :d], big[:, d:], *r_idx, **kw56, body="tc")
     with pytest.raises(ValueError, match="range"):
         bwd.edge_attention_bwd_dkv(big[:, : 2 * d], big[:, d:], *s_idx, **kw56, body="tc")
+    with pytest.raises(ValueError, match="16-byte"):
+        sb.edge_attention_bwd_stream(buf[:, :d], buf[:, d + 1: 3 * d + 1], qdm[:, d:], *r_idx,
+                                     **kw, body="tc")
+    with pytest.raises(ValueError, match="range"):
+        sb.edge_attention_bwd_stream(big[:, :d], big[:, d:], big[:, :d], *r_idx, **kw56,
+                                     body="tc")
     assert eaf.body_launch_counts() == before
 
     q, kv = buf[:, :d], buf[:, d + 1: 3 * d + 1]
@@ -796,10 +802,23 @@ def test_tc_kernels_refuse_what_they_do_not_take(cuda):
              bwd.edge_attention_bwd_dkv_plain(big[:, : 2 * d], big[:, d:], *s_idx, **kw56))):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    # K5 left to the rule on the same rows: its CUDA-core body, dQ and the walked stream
+    walked = lay.recv_slots.long()
+    for args, kw_ in (((q, kv, qdm[:, d:]), kw), ((big[:, :d], big[:, d:], big[:, :d]), kw56)):
+        (dq, st), (dq_ref, st_ref) = (f(*args, *r_idx, **kw_) for f in (
+            sb.edge_attention_bwd_stream, sb.edge_attention_bwd_stream_plain))
+        torch.cuda.synchronize()
+        rows = (-1, kw_["sp"], 2 * d)
+        torch.testing.assert_close(dq, dq_ref, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(st.view(rows)[walked], st_ref.view(rows)[walked],
+                                   rtol=RTOL, atol=ATOL)
     after = eaf.body_launch_counts()
     assert after["edge_attention_sums"]["simt"] == before["edge_attention_sums"]["simt"] + 2
     assert after["edge_attention_bwd_dq"]["simt"] == before["edge_attention_bwd_dq"]["simt"] + 1
     assert after["edge_attention_bwd_dkv"]["simt"] == before["edge_attention_bwd_dkv"]["simt"] + 1
+    assert after["edge_attention_bwd_stream"] == dict(
+        tc=before["edge_attention_bwd_stream"]["tc"],
+        simt=before["edge_attention_bwd_stream"]["simt"] + 2)
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -852,7 +871,7 @@ def test_k2_k3_tensor_core_bodies_match_plain_and_cuda_cores(cuda, s, d, h, soft
         assert (got.reshape(nt, sp, d)[39] == 0).all()       # receiver of degree 0
         assert (got.reshape(nt, sp, d)[:, s:] == 0).all()    # pad token rows
         assert torch.equal(got, run("tc"))
-    qkv_tc = eaf._layer_projection(x_rows, w[0], w[1], "tc")
+    qkv_tc = eav.layer_projection(x_rows, w[0], w[1], "tc")
     torch.testing.assert_close(qkv_tc, x_rows @ w[0] + w[1], rtol=RTOL, atol=ATOL)
 
 
@@ -907,3 +926,81 @@ def test_fused_op_routes_beyond_the_tensor_cores(cuda, s, d, h, want):
         scale = float(b.grad.abs().max())
         torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=RTOL, atol=1e-5 * max(scale, 1.0),
                                    msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s", [20, 40, 48])
+def test_stream_tensor_core_body_matches_plain_and_cuda_cores(cuda, s, softmax):
+    """K5 on the tensor cores (the hub graph: a receiver of in-degree 40,
+    every 7th other edge masked at run time) against its plain version and
+    its CUDA-core body: dQ, and the stream rows of the walked slots, masked
+    slots 0, rows S..SP-1 0; over a range of tiles the same rows as in the
+    whole launch; two launches bit-equal."""
+    g, mask = hub_graph(2)
+    d, h = 128, 4
+    lay, nt, sp, qkv, qdm, r_idx, _, kw = tc_inputs(cuda, g, mask, s, d, h, softmax)
+    t, emax = lay.tile_senders.shape
+    q, kv, dsum = qkv[:, :d], qkv[:, d:], qdm[:, d:]
+    slots = lay.recv_slots.long()
+    rows = (t * emax, sp, 2 * d)
+    before = eaf.body_launch_counts()["edge_attention_bwd_stream"]
+    dq, st = sb.edge_attention_bwd_stream(q, kv, dsum, *r_idx, **kw)
+    dq_simt, st_simt = sb.edge_attention_bwd_stream(q, kv, dsum, *r_idx, **kw, body="simt")
+    dq_ref, st_ref = sb.edge_attention_bwd_stream_plain(q, kv, dsum, *r_idx, **kw)
+    torch.cuda.synchronize()
+    assert eaf.body_launch_counts()["edge_attention_bwd_stream"] == dict(
+        tc=before["tc"] + 1, simt=before["simt"] + 1)
+    got = st.view(rows)[slots]
+    scale = max(1.0, float(dq_ref.abs().max()), float(st_ref.abs().max()))
+    for a, b in ((dq, dq_ref), (dq, dq_simt), (got, st_ref.view(rows)[slots]),
+                 (got, st_simt.view(rows)[slots])):
+        # sums over 40 edges with raw scores grow with the degree: atol by the largest entry
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL * scale)
+    assert (got[:, s:] == 0).all()
+    dropped = r_idx[1].reshape(-1)[slots] == 0
+    assert dropped.any() and (got[dropped] == 0).all()
+    dq2, st2 = sb.edge_attention_bwd_stream(q, kv, dsum, *r_idx, **kw)
+    assert torch.equal(dq, dq2) and torch.equal(got, st2.view(rows)[slots])
+    tn = lay.tile_nodes
+    dq_part, st_part = sb.edge_attention_bwd_stream(q, kv, dsum, *r_idx, **kw, tiles=(1, t))
+    in_range = slots >= emax
+    assert torch.equal(dq_part, dq[tn * sp:])
+    assert torch.equal(st_part.view(-1, sp, 2 * d)[slots[in_range] - emax], got[in_range])
+
+
+@pytest.mark.parametrize("s,d,h", [(20, 128, 4), (40, 128, 4), (20, 100, 4)])
+def test_layer_mm_tensor_core_launches_match_plain_and_k2(cuda, s, d, h):
+    """K7's three launches on the tensor cores (the projections on K2's
+    tiled 3xTF32 product) against its plain version, its CUDA-core body and
+    K2's layer; each projection launch against the CUDA cores' on the same
+    inputs; receivers of degree 0 exactly 0, pad rows 0."""
+    g, mask = hub_graph(3)
+    lay, nt, sp, qkv, _, r_idx, _, kw = tc_inputs(cuda, g, mask, s, d, h, True)
+    w, invdeg = layer_inputs(cuda, g, mask, nt, d)
+    x_rows = qkv[:, :d].contiguous()
+    slots = (lay.tile_senders, lay.tile_recv, r_idx[1], lay.tile_counts)
+    mm = dict(**kw, tile_nodes=lay.tile_nodes)
+    before = eaf.body_launch_counts()["edge_attention_layer_mm"]
+    got = eav.edge_attention_layer_mm(x_rows, *w, invdeg, *slots, **mm)
+    simt = eav.edge_attention_layer_mm(x_rows, *w, invdeg, *slots, **mm, body="simt")
+    ref = eav.edge_attention_layer_mm_plain(x_rows, *w, invdeg, *slots, **mm,
+                                            group=eav.MM_GROUP)
+    k2 = eaf.edge_attention_layer(x_rows, *w, invdeg, *r_idx, **kw)
+    torch.cuda.synchronize()
+    assert eaf.body_launch_counts()["edge_attention_layer_mm"] == dict(
+        tc=before["tc"] + 1, simt=before["simt"] + 1)
+    for other in (ref, simt, k2):
+        torch.testing.assert_close(got, other, rtol=RTOL, atol=ATOL)
+    live = torch.zeros(nt, dtype=torch.bool, device=cuda)
+    live[g.receivers[mask].to(cuda)] = True
+    assert (~live).any() and (got.view(nt, sp, d)[~live] == 0).all()
+    assert (got.view(nt, sp, d)[:, s:] == 0).all()
+    qkv_tc = eav.layer_projection(x_rows, w[0], w[1], "tc")
+    torch.testing.assert_close(qkv_tc, eav.layer_projection(x_rows, w[0], w[1], "simt"),
+                               rtol=RTOL, atol=ATOL)
+    sums = torch.randn(nt * sp, d, generator=torch.Generator(device=cuda).manual_seed(7),
+                       device=cuda)
+    out = {b: eav._layer_mm_out_projection(sums, invdeg, *w[2:], s=s, sp=sp, body=b)
+           for b in ("tc", "simt")}
+    torch.testing.assert_close(out["tc"], out["simt"], rtol=RTOL, atol=ATOL)
+    assert (out["tc"].view(nt, sp, d)[invdeg == 0] == 0).all()     # no b_out, zero scale

@@ -1,7 +1,8 @@
 """Which body each kernel of the fused op runs at a shape, on the CPU.
 
-K1-K4 and the edge-group sums K6 and K9 each have a tensor-core body
-(within the range it is instantiated for, on rows that take 16-byte copies)
+K1-K5 and the edge-group sums K6 and K9 (and K7, on K6's rule) each have a
+tensor-core body (within the range it is instantiated for, on rows that
+take 16-byte copies)
 and a CUDA-core body (beyond it, at any shape: its working set sits in
 shared memory where it fits a block, in device memory beyond that). The rule (``launch.body``, ``launch.body_of``
 on the rows a wrapper is given, ``launch.simt_work_blocks``) reads shapes,
@@ -72,8 +73,8 @@ def test_fused_op_bodies_over_the_fault_list_and_the_repo_shapes(shape, want):
     gathered = op_rows(shape[0], shape[1])
     got = tuple(launch.body_of(k, None, *shape, *gathered[k]) for k in (K1, K2, K3, K4))
     assert got == want
-    # K5 has its CUDA-core body only
-    assert launch.body(K5, *shape, rows_aligned=True) == SIMT
+    # K5 gathers the k|v rows K3 gathers, in K3's range: K3's body
+    assert launch.body_of(K5, None, *shape, *gathered[K3]) == want[2]
 
 
 @pytest.mark.parametrize("shape,want", ROUTES)
@@ -100,6 +101,69 @@ def test_edge_group_bodies_refuse_a_named_tensor_core_body_beyond_the_range():
             launch.body_of(kernel, "tc", 40, 128, 8, ("kv_rows", kv))
         with pytest.raises(ValueError, match="16-byte"):
             launch.body_of(kernel, "tc", 40, 128, 4, ("kv_rows", torch.zeros(64, 385)[:, 129:]))
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((40, 128, 4), TC), ((20, 128, 4), TC), ((48, 128, 4), TC), ((7, 100, 4), TC),
+    ((40, 100, 4), TC),
+    ((49, 128, 4), SIMT),     # a seventh key tile
+    ((40, 128, 8), SIMT),     # 24 warps
+    ((20, 128, 8), SIMT),     # 16 warps where S <= 24 takes 8
+    ((40, 128, 2), SIMT),     # D/H = 64
+    ((40, 3, 1), SIMT),       # odd D: no 16-byte copies
+])
+def test_stream_backward_takes_k3s_body(shape, want):
+    """K5 (pass A of the stream backward) on the tensor cores within K3's
+    range, on the k|v view of the op's q|k|v buffer; its CUDA-core body
+    beyond it; a named tensor-core body beyond it raises."""
+    s, d, h = shape
+    kv = op_rows(s, d)[K3]
+    assert launch.body_of(K5, None, *shape, *kv) == want
+    assert launch.body_of(K5, SIMT, *shape, *kv) == SIMT
+    if want == SIMT:
+        with pytest.raises(ValueError, match="range|16-byte"):
+            launch.body_of(K5, TC, *shape, *kv)
+    else:
+        assert launch.body_of(K5, TC, *shape, *kv) == TC
+        with pytest.raises(ValueError, match="16-byte"):
+            launch.body_of(K5, TC, *shape, ("kv_rows", torch.zeros(8, 3 * d + 4)[:, d + 1: 3 * d + 1]))
+
+
+def gemm_takes(a, lda, b, ldb, k, n) -> bool:
+    """The tensor cores' tiled product (csrc/projection_tc.cuh,
+    projection_tc_error): A and B 16-byte aligned, lda, ldb, K and N
+    multiples of 4 floats."""
+    return (a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+            and lda % 4 == 0 and ldb % 4 == 0 and k % 4 == 0 and n % 4 == 0)
+
+
+@pytest.mark.parametrize("shape,want", [(shape, want[0]) for shape, want in ROUTES])
+@pytest.mark.parametrize("x_view", ["own", "column_view", "offset_view"])
+def test_layer_mm_tensor_core_choice_meets_the_gemm_alignment(shape, want, x_view):
+    """K7 runs its three launches on one body; where that is the tensor
+    cores, its projection (x_rows @ w_qkv into a fresh q|k|v buffer) and
+    its out-projection (the fresh [rows, D] sums @ w_out) meet the tiled
+    product's alignment. Token rows that are a view the 16-byte copies
+    cannot take send K7 to the CUDA cores, where K6 alone would stay."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+
+    s, d, h = shape
+    rows = 8 * -(-s // 8) * 4
+    wide = torch.zeros(rows, 2 * d + 4)
+    x_rows = {"own": torch.zeros(rows, d), "column_view": wide[:, 4: d + 4],
+              "offset_view": wide[:, 1: d + 1]}[x_view]
+    w_qkv, w_out = torch.zeros(d, 3 * d), torch.zeros(d, d)
+    qkv = torch.zeros(rows, 3 * d)
+    body = eav.layer_mm_body(None, s, d, h, x_rows, w_qkv, w_out, qkv[:, d:])
+    if x_view == "offset_view":
+        assert body == SIMT
+    else:
+        assert body == want          # K6's body on the same k|v view
+    if body == TC:
+        sums = torch.zeros(rows, d)
+        assert gemm_takes(x_rows, x_rows.stride(0), w_qkv, 3 * d, d, 3 * d)
+        assert gemm_takes(sums, d, w_out, d, d, d)
+        assert qkv.stride(0) % 2 == 0 and sums.stride(0) % 2 == 0   # 8-byte stores
 
 
 @pytest.mark.parametrize("kernel", [K1, K2, K3, K4, K5])
@@ -183,7 +247,8 @@ def test_simt_working_set_moves_to_device_memory_beyond_shared_memory(
 def test_body_takes_the_tensor_cores_only_on_aligned_rows():
     assert launch.body(K1, 40, 128, 4, rows_aligned=True) == TC
     assert launch.body(K1, 40, 128, 4, rows_aligned=False) == SIMT
-    assert launch.body(K5, 40, 128, 4, rows_aligned=True) == SIMT
+    assert launch.body(K5, 40, 128, 4, rows_aligned=True) == TC
+    assert launch.body(K5, 40, 128, 4, rows_aligned=False) == SIMT
     assert launch.body(K4, 96, 128, 4, rows_aligned=True) == SIMT
     assert launch.body(K6, 40, 128, 4, rows_aligned=True) == TC
     assert launch.body(K9, 40, 128, 4, rows_aligned=False) == SIMT

@@ -2,9 +2,10 @@
 on the CPU.
 
 The tensor-core kernels (csrc/edge_attention_tc.cuh for K1 and K2's
-attention, csrc/edge_attention_layer_tc.cu for K2's projection,
-csrc/edge_attention_bwd_dq_tc.cu for K3, csrc/edge_attention_bwd_tc.cu for
-K4, csrc/edge_attention_groups_tc.cu for K6 and K9, helpers in
+attention, csrc/projection_tc.cuh for K2's projection and K7's two
+projections, csrc/edge_attention_bwd_dq_tc.cu for K3,
+csrc/edge_attention_bwd_tc.cu for K4, csrc/edge_attention_bwd_stream_tc.cu
+for K5, csrc/edge_attention_groups_tc.cu for K6 and K9, helpers in
 csrc/mma_tf32.cuh) split each f32 operand x into TF32 parts
 hi = rna(x), lo = rna(x - hi) and take a product as lo*hi + hi*lo + hi*hi.
 Here that arithmetic is emulated in torch: TF32 rounding is round to nearest
@@ -13,9 +14,13 @@ Here that arithmetic is emulated in torch: TF32 rounding is round to nearest
 to K1's per-receiver sums, K3's per-receiver dQ and K4's per-sender dK|dV
 over 17 edges at S=40, to K6's and K9's sums of the same 17 edges in the
 order their atomics take them (a register sum per run of the receiver's
-slots in a group, the runs then added to the output one after another), to K2's q|k|v projection of a receiver's and its
-senders' token rows and to its out-projection of a receiver's mean (D=128
-and D=100, H=4), the 3-product scheme stays within the tolerance at which
+slots in a group, the runs then added to the output one after another),
+to K5's per-edge rows dK_e | dV_e of the same 17 edges (the transposed
+products over the receiver's queries), to K2's q|k|v projection of a
+receiver's and its senders' token rows, to its out-projection of a
+receiver's mean and to K7's, whose mean is a row scale of the sums taken
+as the A fragment is built (D=128 and D=100, H=4), the 3-product scheme
+stays within the tolerance at which
 chip_smoke.py holds a kernel against its plain version (rtol = atol = 1e-4)
 and within the card tests' (rtol 2e-4, atol 2e-5) of float64, and one TF32
 product does not. Also: the shape and alignment rules the kernels' wrappers
@@ -165,6 +170,36 @@ def k2_out_projection(own, peers, mm):
     return mm(mean.transpose(0, 1).reshape(S, d), w_out) + b_out
 
 
+def k5_stream(qdm, kv, mm):
+    """K5's per-edge rows for one receiver's 17 edges, in the kernel's
+    order: S = (Q / sqrt(dh)) K^T and dW = dMsg V^T, the softmax over keys
+    and its backward, then the two transposed products over the receiver's
+    queries, dV_e = W^T dMsg and dK_e = dS^T (Q / sqrt(dh)): [17, H, S, 2 dh]."""
+    d = qdm.shape[-1] // 2
+    scale = 1.0 / (d // H) ** 0.5
+    qh, dmh = heads(qdm[:, :d]) * scale, heads(qdm[:, d:])
+    out = []
+    for e in range(kv.shape[0]):
+        kh, vh = heads(kv[e, :, :d]), heads(kv[e, :, d:])
+        w = torch.softmax(mm(qh, kh.transpose(-1, -2)), dim=-1)    # over keys
+        dw = mm(dmh, vh.transpose(-1, -2))
+        ds = w * (dw - (dw * w).sum(dim=-1, keepdim=True))
+        out.append(torch.cat([mm(ds.transpose(-1, -2), qh), mm(w.transpose(-1, -2), dmh)], -1))
+    return torch.stack(out)
+
+
+def k7_out_projection(own, peers, mm):
+    """K7's last launch for a receiver of in-degree 1: its sum of messages
+    (taken in float64, so that only this launch's arithmetic differs) is
+    scaled by 1/degree in the working type as the A fragment is built, then
+    @ w_out + b_out (a live row)."""
+    d = own.shape[-1] // 2
+    _, _, w_out, b_out = layer_weights(d, own.dtype)
+    sums = k1_sums(own[:, :d].double(), peers[:1].double(), torch.matmul).to(own.dtype)
+    invdeg = torch.tensor(1.0, dtype=own.dtype)
+    return mm(sums.transpose(0, 1).reshape(S, d) * invdeg, w_out) + b_out
+
+
 KERNELS = {
     "k1": lambda own, peers, mm: k1_sums(own[:, : own.shape[1] // 2], peers, mm),
     "k6_k9": lambda own, peers, mm: edge_group_sums(own[:, : own.shape[1] // 2], peers, mm),
@@ -172,6 +207,8 @@ KERNELS = {
     "k3": k3_dq,
     "k2_projection": k2_projection,
     "k2_out_projection": k2_out_projection,
+    "k5_stream": k5_stream,
+    "k7_out_projection": k7_out_projection,
 }
 
 
