@@ -1,19 +1,27 @@
-// Receiver-chunked forward kernel on Hopper (sm_90a), f32.
+// Receiver-chunked forward kernel on Hopper (sm_90a), f32, on the CUDA
+// cores.
 //
 // Replaces the TPU kernel _fused_kernel_chunked of ampnet_tpu/ops/pallas/
 // edge_attention_fused.py (:1225, launcher _fused_edge_sums_chunked :1364)
 // over the chunked layout of format.py::build_chunked_csr:
-//   * K8 ampnet_edge_attention_sums_chunked: the per-receiver SUM of per-edge
-//     attention messages, taken chunk by chunk: a chunk is up to C edges that
-//     share ONE receiver, their K|V rows laid side by side, so that one score
-//     product [H*S, C*S], one per-edge softmax over its segments and ONE
-//     value product over the C*S contracted rows give the chunk's summed
-//     message, accumulated once.
+//   * K8's CUDA-core body, ampnet_edge_attention_sums_chunked_simt: the
+//     per-receiver SUM of per-edge attention messages, taken chunk by chunk:
+//     a chunk is up to C edges that share ONE receiver, their K|V rows laid
+//     side by side, so that one score product [H*S, C*S], one per-edge
+//     softmax over its segments and ONE value product over the C*S
+//     contracted rows give the chunk's summed message, accumulated once.
+// K8 runs on the tensor cores (edge_attention_chunked_tc.cu) within their
+// instantiated range; this body is the route beyond it (S > 48, D/H > 32,
+// more than 12 warps, rows the 16-byte copies cannot take), at every shape:
+// where a block's working set (smem_floats, mirrored in launch.py) exceeds
+// the 227 KB of shared memory a block may have even at a piece of one edge,
+// the same body keeps it in device memory instead, one slice per resident
+// block, and the blocks walk the receivers in turn.
 //
 // Design. A receiver's chunks are consecutive in its tile, so ONE BLOCK PER
 // RECEIVER walks them (chunk_start / chunk_count): its Q rows are read once
-// for all of them and its S x D accumulator stays in shared memory, written
-// once; no atomics, the sums repeat bit for bit. Per chunk the block
+// for all of them and its S x D accumulator stays in its working set,
+// written once; no atomics, the sums repeat bit for bit. Per chunk the block
 // compacts the live slots (a slot of validity 0, the padding of a partial
 // chunk or an edge masked at run time, costs no gather and contributes
 // exactly 0). C edges side by side at S=40 would take 328 KB of K|V and
@@ -45,19 +53,15 @@ __host__ __device__ inline size_t smem_floats(int s, int d, int h, int piece) {
          (size_t)h * s4 * piece * s;
 }
 
-__global__ void __launch_bounds__(kThreads)
-edge_chunk_kernel(const float* __restrict__ q, int ldq,
-                  const float* __restrict__ kv, int ldkv,
-                  const int* __restrict__ chunk_senders,
-                  const int* __restrict__ chunk_valid,
-                  const int* __restrict__ chunk_start,
-                  const int* __restrict__ chunk_count,
-                  float* __restrict__ out, int chunk, int piece, int s, int sp,
-                  int d, int num_heads, int softmax) {
-  extern __shared__ float smem[];
-  __shared__ int live_snd[kMaxChunk];
-  __shared__ int n_live;
-  const int n = blockIdx.x;
+// One receiver n, its working set at smem (shared or device memory); every
+// element of it is zeroed first (pad rows of qs / ks / ps must read 0).
+__device__ __forceinline__ void
+receiver_chunks(int n, float* smem, int* live_snd, int& n_live, const float* __restrict__ q,
+                int ldq, const float* __restrict__ kv, int ldkv,
+                const int* __restrict__ chunk_senders, const int* __restrict__ chunk_valid,
+                const int* __restrict__ chunk_start, const int* __restrict__ chunk_count,
+                float* __restrict__ out, int chunk, int piece, int s, int sp, int d,
+                int num_heads, int softmax) {
   const int tid = threadIdx.x;
   const int dh = d / num_heads, ld = d + 1;
   const int s2 = (s + 1) / 2 * 2, s4 = (s + 3) / 4 * 4;
@@ -72,7 +76,8 @@ edge_chunk_kernel(const float* __restrict__ q, int ldq,
   const int nchunks = chunk_count[n];
   const size_t qrow0 = (size_t)n * sp;
 
-  // zero everything once (pad rows of qs / ks / ps must read 0), then Q
+  // the block's previous receiver is done with its working set; then Q
+  __syncthreads();
   const int total = (int)smem_floats(s, d, num_heads, piece);
   for (int e = tid; e < total; e += kThreads) smem[e] = 0.0f;
   __syncthreads();
@@ -117,38 +122,72 @@ edge_chunk_kernel(const float* __restrict__ q, int ldq,
   for (int e = s * d + tid; e < sp * d; e += kThreads) orow[e] = 0.0f;
 }
 
+// kDeviceMem = false: one block per receiver, its working set in dynamic
+// shared memory. kDeviceMem = true: block b works in work[b * smem_floats]
+// and takes receivers b, b + gridDim.x, ...
+template <bool kDeviceMem>
+__global__ void __launch_bounds__(kThreads)
+edge_chunk_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ kv, int ldkv,
+                  const int* __restrict__ chunk_senders, const int* __restrict__ chunk_valid,
+                  const int* __restrict__ chunk_start, const int* __restrict__ chunk_count,
+                  float* __restrict__ out, float* __restrict__ work, int num_nodes, int chunk,
+                  int piece, int s, int sp, int d, int num_heads, int softmax) {
+  extern __shared__ float shared[];
+  __shared__ int live_snd[kMaxChunk];
+  __shared__ int n_live;
+  if (!kDeviceMem) {  // no loop, as the other CUDA-core bodies
+    receiver_chunks(blockIdx.x, shared, live_snd, n_live, q, ldq, kv, ldkv, chunk_senders,
+                    chunk_valid, chunk_start, chunk_count, out, chunk, piece, s, sp, d,
+                    num_heads, softmax);
+    return;
+  }
+  float* smem = work + blockIdx.x * smem_floats(s, d, num_heads, piece);
+  for (int n = blockIdx.x; n < num_nodes; n += gridDim.x)
+    receiver_chunks(n, smem, live_snd, n_live, q, ldq, kv, ldkv, chunk_senders, chunk_valid,
+                    chunk_start, chunk_count, out, chunk, piece, s, sp, d, num_heads, softmax);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs at a piece of `piece` edges.
+// Bytes of working set one block needs at a piece of `piece` edges (the
+// wrapper puts it in shared memory where it fits, else in device memory).
 size_t ampnet_edge_chunk_smem_bytes(int s, int d, int num_heads, int piece) {
   return smem_floats(s, d, num_heads, piece) * sizeof(float);
 }
 
-// K8. q: [num_nodes*sp] rows of d floats (row stride ldq); kv: rows of k|v
-// (2d floats, stride ldkv); chunk_senders / chunk_valid: the chunked layout's
-// [T, NCMAX*chunk] slots, flat; chunk_start / chunk_count: [num_nodes], the
-// flat index (tile*NCMAX + chunk) of each receiver's first chunk and the
-// number of its chunks; out: [num_nodes*sp, d] contiguous.
-int ampnet_edge_attention_sums_chunked(const float* q, int ldq, const float* kv,
-                                       int ldkv, const int* chunk_senders,
-                                       const int* chunk_valid, const int* chunk_start,
-                                       const int* chunk_count, float* out,
-                                       int num_nodes, int chunk, int piece, int s,
-                                       int sp, int d, int num_heads, int softmax,
-                                       void* stream) {
+// K8's CUDA-core body (the route beyond edge_attention_chunked_tc.cu's
+// range). q: [num_nodes*sp] rows of d floats (row stride ldq); kv: rows of
+// k|v (2d floats, stride ldkv); chunk_senders / chunk_valid: the chunked
+// layout's [T, NCMAX*chunk] slots, flat; chunk_start / chunk_count:
+// [num_nodes], the flat index (tile*NCMAX + chunk) of each receiver's first
+// chunk and the number of its chunks; out: [num_nodes*sp, d] contiguous;
+// work: null (the working set at `piece` in shared memory; the caller
+// checked that it fits) or work_blocks * smem_bytes of device memory.
+int ampnet_edge_attention_sums_chunked_simt(const float* q, int ldq, const float* kv,
+                                            int ldkv, const int* chunk_senders,
+                                            const int* chunk_valid, const int* chunk_start,
+                                            const int* chunk_count, float* out,
+                                            int num_nodes, int chunk, int piece, int s,
+                                            int sp, int d, int num_heads, int softmax,
+                                            float* work, int work_blocks, void* stream) {
   if (chunk < 1 || chunk > kMaxChunk || piece < 1 || piece > chunk)
     return (int)cudaErrorInvalidValue;
+  if (num_nodes <= 0) return (int)cudaGetLastError();
+  if (work != nullptr) {
+    edge_chunk_kernel<true><<<work_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        q, ldq, kv, ldkv, chunk_senders, chunk_valid, chunk_start, chunk_count, out, work,
+        num_nodes, chunk, piece, s, sp, d, num_heads, softmax);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = smem_floats(s, d, num_heads, piece) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      edge_chunk_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (num_nodes > 0) {
-    edge_chunk_kernel<<<num_nodes, kThreads, smem, (cudaStream_t)stream>>>(
-        q, ldq, kv, ldkv, chunk_senders, chunk_valid, chunk_start, chunk_count, out,
-        chunk, piece, s, sp, d, num_heads, softmax);
-  }
+  edge_chunk_kernel<false><<<num_nodes, kThreads, smem, (cudaStream_t)stream>>>(
+      q, ldq, kv, ldkv, chunk_senders, chunk_valid, chunk_start, chunk_count, out, nullptr,
+      num_nodes, chunk, piece, s, sp, d, num_heads, softmax);
   return (int)cudaGetLastError();
 }
 

@@ -53,7 +53,7 @@ sender side, or with ``scatterfree=False``, the stream backward of
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its launches in
-``<wrapper>.launches``, K1-K7 and K9 also by body in
+``<wrapper>.launches``, and by body in
 ``<wrapper>.body_launches``; ``device_memory_launch_counts()`` counts the
 CUDA-core launches whose working set was in device memory.
 """
@@ -161,7 +161,8 @@ def edge_attention_sums_plain(q_rows, kv_rows, tile_senders, tile_valid,
     """Per-receiver sums over the receiver-major index, in plain torch:
     gather q / k|v per live slot, attend over the S real key rows, scale by
     validity (times invdeg when given), index_add into receiver rows.
-    Returns [NT*sp, D] f32 with pad token rows 0."""
+    Returns [NT*sp, D] in q_rows' type (f32 on the kernels' path) with pad
+    token rows 0."""
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
     recv = torch.repeat_interleave(
@@ -169,13 +170,13 @@ def edge_attention_sums_plain(q_rows, kv_rows, tile_senders, tile_valid,
         (recv_ptr[1:] - recv_ptr[:-1]).long())
     slots = recv_slots.long()
     snd = tile_senders.reshape(-1)[slots].long()
-    w = tile_valid.reshape(-1)[slots].to(torch.float32)
+    w = tile_valid.reshape(-1)[slots].to(q_rows.dtype)
     if invdeg is not None:
         w = w * invdeg[recv]
     q = q_rows.reshape(nt, sp, d)[:, :s][recv]
     kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]
     msg, _ = attention_core(q, kv[..., :d], kv[..., d:], num_heads, softmax=softmax)
-    acc = torch.zeros(nt, s, d, dtype=torch.float32, device=q_rows.device)
+    acc = torch.zeros(nt, s, d, dtype=q_rows.dtype, device=q_rows.device)
     acc.index_add_(0, recv, msg * w[:, None, None])
     return F.pad(acc, (0, 0, 0, sp - s)).reshape(nt * sp, d)
 
@@ -329,8 +330,7 @@ KERNEL_WRAPPERS = (edge_attention_sums, edge_attention_layer,
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
-        if hasattr(fn, "body_launches"):
-            fn.body_launches = dict.fromkeys(BODIES, 0)
+        fn.body_launches = dict.fromkeys(BODIES, 0)
     device_memory_launches.clear()
 
 
@@ -339,10 +339,9 @@ def launch_counts() -> dict:
 
 
 def body_launch_counts() -> dict:
-    """The launches by body of the kernels that have two (K1-K7,
-    K9): {wrapper: {'tc': n, 'simt': m}}."""
-    return {fn.__name__: dict(fn.body_launches) for fn in KERNEL_WRAPPERS
-            if hasattr(fn, "body_launches")}
+    """The launches of every kernel (K1-K9) by body: {wrapper: {'tc': n,
+    'simt': m}}."""
+    return {fn.__name__: dict(fn.body_launches) for fn in KERNEL_WRAPPERS}
 
 
 def device_memory_launch_counts() -> dict:

@@ -16,10 +16,14 @@ compute, by another cut of the work:
   out-projection and the bias on live rows. On the tensor cores the first
   and the last are K2's tiled 3xTF32 product (``csrc/projection_tc.cuh``).
 * ``edge_attention_sums_chunked`` (K8) — ``_fused_kernel_chunked`` over
-  ``format.build_chunked_csr``: chunks of up to C edges of one receiver, one
-  Q read, the chunk's K|V side by side, per-edge softmax, one value product
-  over the contracted rows, one accumulate. No caller on the model path, as
-  in the JAX package.
+  ``format.build_chunked_csr``: chunks of up to C edges of one receiver; per
+  receiver the sum over the live slots of its chunks. On the tensor cores
+  the chunk is only an index (K1's per-edge steps over the receiver's live
+  slots, ``csrc/edge_attention_chunked_tc.cu``); the CUDA-core body
+  (``csrc/edge_attention_chunked.cu``) takes one Q read, a piece of the
+  chunk's K|V side by side, per-edge softmax, one value product over the
+  contracted rows, one accumulate. No caller on the model path, as in the
+  JAX package.
 * ``edge_attention_sums_v1`` (K9) — ``_fused_kernel`` ('dma') and
   ``_fused_kernel_vmem`` ('vmem'): G packed edges per step (G | EMAX), every
   group walked, each message scaled by its validity and added on its own.
@@ -27,15 +31,18 @@ compute, by another cut of the work:
   slot is padding is a per-slot skip here, so a runtime mask on a group's
   first slot cannot drop the group.
 
-K6 and K9 have two bodies each (``launch.body``), as K1 has: on the
+K6, K8 and K9 have two bodies each (``launch.body``), as K1 has: on the
 tensor cores in 3xTF32 (``csrc/edge_attention_groups_tc.cu``: one warp per
 head and 16-row query tile, each receiver's run of slots in a group summed
-in registers and added to the output with f32 atomics) within their
-instantiated range, on the CUDA cores (``csrc/edge_attention_groups.cu``,
-K6's group of messages buffered in shared memory) beyond it, at any shape:
-where that body's working set exceeds a block's shared memory it is kept in
-device memory (``launch.simt_work``). K7's attention launch is K6's, on
-K6's route, and its projection launches follow it (``layer_mm_body``).
+in registers and added to the output with f32 atomics;
+``csrc/edge_attention_chunked_tc.cu``: K1's walk over the chunks' live
+slots) within their instantiated range, on the CUDA cores
+(``csrc/edge_attention_groups.cu``, K6's group of messages buffered in
+shared memory; ``csrc/edge_attention_chunked.cu``, K8's piece of a chunk)
+beyond it, at any shape: where that body's working set exceeds a block's
+shared memory it is kept in device memory (``launch.simt_work``). K7's
+attention launch is K6's, on K6's route, and its projection launches follow
+it (``layer_mm_body``).
 
 K6, K7 and K9 reduce across warps and blocks with f32 atomics into a zeroed
 output: right to rounding, but not bit-reproducible from launch to launch
@@ -46,12 +53,10 @@ A wrapper given CPU tensors runs its plain version, which repeats the
 kernel's arithmetic (groups and one-hot reduce, packed groups and per-edge
 adds, chunks and per-edge softmax segments); given CUDA tensors it launches
 its kernel or raises. Each wrapper counts its launches in
-``<wrapper>.launches``, K6, K7 and K9 also by body in
-``<wrapper>.body_launches``.
+``<wrapper>.launches``, and by body in ``<wrapper>.body_launches``.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -72,7 +77,6 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     body_of,
     check_f32_rows,
     check_index,
-    check_smem,
     count_launch,
     entry,
     launch_body,
@@ -97,7 +101,9 @@ _SIGNATURES = {
     "ampnet_edge_attention_sums_v1": [P, I, P, I, P, P, P, P,
                                       I, I, I, I, I, I, I, I, I, P],
     "ampnet_edge_attention_sums_chunked": [P, I, P, I, P, P, P, P, P,
-                                           I, I, I, I, I, I, I, I, P],
+                                           I, I, I, I, I, I, I, P],
+    "ampnet_edge_attention_sums_chunked_simt": [P, I, P, I, P, P, P, P, P,
+                                                I, I, I, I, I, I, I, I, P, I, P],
     "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
     "ampnet_mean_out_projection": [P, I, P, P, P, P, I, I, I, I, I, I, P],
 }
@@ -114,6 +120,9 @@ _SUMS_MM = {"tc": ("edge_attention_groups_tc", "ampnet_edge_attention_sums_mm"),
             "simt": ("edge_attention_groups", "ampnet_edge_attention_sums_mm_simt")}
 _SUMS_V1 = {"tc": ("edge_attention_groups_tc", "ampnet_edge_attention_sums_v1"),
             "simt": ("edge_attention_groups", "ampnet_edge_attention_sums_v1_simt")}
+_SUMS_CHUNKED = {
+    "tc": ("edge_attention_chunked_tc", "ampnet_edge_attention_sums_chunked"),
+    "simt": ("edge_attention_chunked", "ampnet_edge_attention_sums_chunked_simt")}
 # (library, entry point) on each body of the q|k|v projection (K2's first
 # launch and K7's) and of K7's last launch: the tensor cores' tiled 3xTF32
 # product (csrc/projection_tc.cuh, and its kMean epilogue), or the CUDA
@@ -439,30 +448,32 @@ def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
 
 
 def _chunk_piece(s, d, num_heads, chunk, piece):
-    """Edges of a chunk per step: the caller's, else the chunk in the fewest
-    equal pieces that fit a block's shared memory; checked against it."""
-    _, fn = entry("edge_attention_chunked", "ampnet_edge_chunk_smem_bytes",
-                  [I, I, I, I], ctypes.c_size_t)
+    """Edges of a chunk per step on the CUDA cores: the caller's (1..chunk),
+    else the chunk in the fewest equal pieces whose working set fits a
+    block's shared memory (1 where none fits: then in device memory)."""
     if piece is None:
-        fits = max((p for p in range(1, chunk + 1)
-                    if fn(s, d, num_heads, p) <= MAX_SMEM), default=1)
-        piece = -(-chunk // -(-chunk // fits))
-    elif not 1 <= piece <= chunk:
+        fits = max((p for p in range(1, chunk + 1) if simt_smem_bytes(
+            "edge_attention_sums_chunked", s, d, num_heads, p) <= MAX_SMEM), default=1)
+        return -(-chunk // -(-chunk // fits))
+    if not 1 <= piece <= chunk:
         raise ValueError(f"piece={piece} must be in 1..chunk={chunk}")
-    check_smem(fn(s, d, num_heads, piece),
-               f"chunked attention at S={s}, D={d}, H={num_heads}, piece={piece}")
     return piece
 
 
 def edge_attention_sums_chunked(q_rows, kv_rows, chunk_senders, chunk_valid,
                                 chunk_start, chunk_count, *, s, sp, num_heads,
-                                softmax, chunk, piece: Optional[int] = None):
+                                softmax, chunk, piece: Optional[int] = None,
+                                body: Optional[str] = None):
     """K8: per-receiver sums [NT*sp, D] f32 (pad token rows 0) over the
     chunked layout (``format.compute_chunked_layout``): [T, NCMAX*chunk]
     int32 senders and validity (which may carry a runtime mask), and each
     receiver's first flat chunk and number of chunks ([NT] int32 each).
-    ``piece``: edges of a chunk taken per step, None = as many as fit.
-    CPU tensors run the plain version."""
+    The body is K1's rule (``launch.body_of`` on kv_rows; ``body`` names
+    one). ``piece`` (1..chunk): on the CUDA cores, the edges of a chunk
+    taken per step, None = ``_chunk_piece``'s choice; the working set goes
+    to device memory where it does not fit shared memory. The tensor cores
+    take one edge a step whatever the piece. CPU tensors run the plain
+    version."""
     if not q_rows.is_cuda:
         return edge_attention_sums_chunked_plain(
             q_rows, kv_rows, chunk_senders, chunk_valid, chunk_start, chunk_count,
@@ -477,20 +488,21 @@ def edge_attention_sums_chunked(q_rows, kv_rows, chunk_senders, chunk_valid,
     if chunk_senders.numel() % chunk or not 1 <= chunk <= 32:
         raise ValueError(f"chunk={chunk} must be in 1..32 and divide the "
                          f"{chunk_senders.numel()} slots")
+    body = body_of("edge_attention_sums_chunked", body, s, d, num_heads, ("kv_rows", kv_rows))
     piece = _chunk_piece(s, d, num_heads, chunk, piece)
+    per_step = (piece,) if body == "simt" else ()     # the tensor cores take one edge a step
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    lib, fn = _entry("edge_attention_chunked", "ampnet_edge_attention_sums_chunked")
-    build.check(lib, fn(
+    launch_body("edge_attention_sums_chunked", body, _entry(*_SUMS_CHUNKED[body]), (
         q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
         chunk_senders.data_ptr(), chunk_valid.data_ptr(), chunk_start.data_ptr(),
-        chunk_count.data_ptr(), out.data_ptr(), nt, chunk, piece, s, sp, d,
-        num_heads, int(softmax), stream()), "edge_attention_sums_chunked")
-    edge_attention_sums_chunked.launches += 1
+        chunk_count.data_ptr(), out.data_ptr(), nt, chunk, *per_step,
+        s, sp, d, num_heads, int(softmax)), s, d, num_heads, nt, dev, piece)
+    count_launch(edge_attention_sums_chunked, body)
     return out
 
 
-edge_attention_sums_chunked.launches = 0
-for _wrapper in (edge_attention_sums_mm, edge_attention_layer_mm, edge_attention_sums_v1):
+for _wrapper in (edge_attention_sums_mm, edge_attention_layer_mm,
+                 edge_attention_sums_chunked, edge_attention_sums_v1):
     _wrapper.launches = 0
     _wrapper.body_launches = dict.fromkeys(BODIES, 0)
 

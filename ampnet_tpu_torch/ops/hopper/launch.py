@@ -1,9 +1,9 @@
 """What every kernel wrapper of the port shares: the ctypes entry points of
 the libraries ``build.py`` makes, the current stream, the checks a wrapper
 runs before it hands pointers to a kernel (device, type, shape, contiguity,
-shared memory), and the rule that picks a kernel's body.
+alignment), and the rule that picks a kernel's body.
 
-K1-K6 and K9 each have two hand-written bodies: one on the tensor cores
+K1-K9 each have two hand-written bodies: one on the tensor cores
 (3xTF32) within the range they are instantiated for, and one on the CUDA
 cores beyond it, at any shape. ``body`` picks between them from (S, D, H)
 and whether the gathered rows take 16-byte copies, before any launch. The
@@ -63,16 +63,11 @@ def check_walk(device, peer_ids, valid, ptr, slots, names) -> None:
     check_index(names[3], slots, device)
 
 
-def check_smem(need: int, what: str) -> None:
-    if need > MAX_SMEM:
-        raise ValueError(f"{what} needs {need} B of shared memory per block "
-                         f"(> {MAX_SMEM})")
-
-
 # The range the tensor-core kernels (K1 csrc/edge_attention_tc.cu, K2
 # csrc/edge_attention_layer_tc.cu, K3 csrc/edge_attention_bwd_dq_tc.cu, K4
 # csrc/edge_attention_bwd_tc.cu, K5 csrc/edge_attention_bwd_stream_tc.cu, K6
-# and K9 csrc/edge_attention_groups_tc.cu) are instantiated for: S in key
+# and K9 csrc/edge_attention_groups_tc.cu, K8
+# csrc/edge_attention_chunked_tc.cu) are instantiated for: S in key
 # tiles of 8 (at most 6), a head in k-steps of 8 columns (at most 4), one
 # warp per (head, 16-row tile), at most 12 warps (8 up to S=24, where K3-K5
 # cap their registers for two blocks of 256 threads per SM). Within it a
@@ -125,7 +120,7 @@ def check_tensor_core(what: str, s: int, d: int, num_heads: int,
         raise ValueError(f"{what}: {err}")
 
 
-# ---- the two bodies of K1-K6 and K9, and the rule between them
+# ---- the two bodies of K1-K6, K8 and K9, and the rule between them
 
 # the kernels with a tensor-core and a CUDA-core body. K7
 # (edge_attention_layer_mm) runs K6's bodies in its attention launch, and
@@ -133,7 +128,7 @@ def check_tensor_core(what: str, s: int, d: int, num_heads: int,
 TENSOR_CORE_KERNELS = ("edge_attention_sums", "edge_attention_layer",
                        "edge_attention_bwd_dq", "edge_attention_bwd_dkv",
                        "edge_attention_bwd_stream", "edge_attention_sums_mm",
-                       "edge_attention_sums_v1")
+                       "edge_attention_sums_chunked", "edge_attention_sums_v1")
 # the edge-group kernels: their blocks walk (tile, group) items, not nodes
 GROUP_KERNELS = ("edge_attention_sums_mm", "edge_attention_sums_v1")
 BODIES = ("tc", "simt")
@@ -147,14 +142,20 @@ WORK_BYTES = 256 * 1024 * 1024
 def simt_smem_bytes(kernel: str, s: int, d: int, num_heads: int, group: int = 0) -> int:
     """Working set per block of a kernel's CUDA-core body: the
     ``smem_floats`` of csrc/edge_attention.cu (K1, and K2's attention
-    launch), of csrc/edge_attention_bwd.cu (K3, K4, K5) and of
+    launch), of csrc/edge_attention_bwd.cu (K3, K4, K5), of
     csrc/edge_attention_groups.cu (K6 with its buffer of ``group`` messages,
-    K9), in bytes. The libraries' ``*_smem_bytes`` entry points give the
-    same numbers (a card test holds the two together)."""
+    K9) and of csrc/edge_attention_chunked.cu (K8 at a piece of ``group``
+    edges, at least 1), in bytes. The libraries' ``*_smem_bytes`` entry
+    points give the same numbers (a card test holds the two together)."""
     if kernel not in TENSOR_CORE_KERNELS:
         raise ValueError(f"{kernel} has no CUDA-core body of this family")
     s2, s4 = -(-s // 2) * 2, -(-s // 4) * 4
-    if kernel in GROUP_KERNELS:
+    if kernel == "edge_attention_sums_chunked":
+        if group < 1:
+            raise ValueError(f"K8's piece must be at least 1, got {group}")
+        floats = ((s2 + group * s4) * (d + 1) + (group + 1) * s * d
+                  + num_heads * s4 * group * s)
+    elif kernel in GROUP_KERNELS:
         buffered = group if kernel == "edge_attention_sums_mm" else 0
         floats = (s2 + s4) * (d + 1) + s * d * (1 + buffered) + num_heads * s4 * s
     elif kernel in ("edge_attention_sums", "edge_attention_layer"):
@@ -169,7 +170,8 @@ def simt_work_blocks(kernel: str, s: int, d: int, num_heads: int, num_nodes: int
                      sm_count: int, group: int = 0) -> int:
     """0 where the CUDA-core body's working set fits a block's shared
     memory; else the number of blocks that walk the ``num_nodes`` nodes (K6
-    and K9: (tile, group) items), each with its slice of device memory."""
+    and K9: (tile, group) items), each with its slice of device memory.
+    ``group``: K6's group, K8's piece (``simt_smem_bytes``)."""
     per_block = simt_smem_bytes(kernel, s, d, num_heads, group)
     if per_block <= MAX_SMEM:
         return 0

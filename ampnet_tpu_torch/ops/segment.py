@@ -28,8 +28,9 @@ def segment_count(
     segment_ids: torch.Tensor,
     num_segments: int,
     mask: Optional[torch.Tensor] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    ones = torch.ones(segment_ids.shape, dtype=torch.float32, device=segment_ids.device)
+    ones = torch.ones(segment_ids.shape, dtype=dtype, device=segment_ids.device)
     return segment_sum(ones, segment_ids, num_segments, mask)
 
 

@@ -3,20 +3,21 @@
 Builds the Hopper kernels from ampnet_tpu_torch/ops/hopper/csrc, holds each
 against its plain torch version on the card at the main path's shapes
 (K1 edge_attention_sums, K2 edge_attention_layer, K3 edge_attention_bwd_dq,
-K4 edge_attention_bwd_dkv and the edge-group sums K6 edge_attention_sums_mm
-and K9 edge_attention_sums_v1 on the tensor cores in 3xTF32, each also held
+K4 edge_attention_bwd_dkv, the edge-group sums K6 edge_attention_sums_mm
+and K9 edge_attention_sums_v1 and the receiver-chunked sums K8
+edge_attention_sums_chunked on the tensor cores in 3xTF32, each also held
 against and timed in turns with its CUDA-core body, K2's two launches also
-apart; K5 edge_attention_bwd_stream on the tensor cores too, with its pass
-B and the chunked fold; K7 edge_attention_layer_mm, whose attention launch
-is K6's and whose projection launches are K2's tiled product, its three
-launches also apart; K8 edge_attention_sums_chunked; K6, K8 and K9 also
-against K1's sums, K7 against K2's layer on the same inputs), drives
-AMPConv at the shapes beyond the tensor-core range (`routes`, with K1, K6
-or K9 forward and K3 + K4 or K5 backward: the CUDA-core bodies, their
-working set in device memory where it exceeds a block's shared memory,
-each against float64 on the CPU), then drives the port at
-full width on the Cora-shaped surrogate, where every launch of K1-K7 and
-K9 must run the tensor-core body:
+apart, K8's CUDA-core body also by its piece of a chunk; K5
+edge_attention_bwd_stream on the tensor cores too, with its pass B and the
+chunked fold; K7 edge_attention_layer_mm, whose attention launch is K6's
+and whose projection launches are K2's tiled product, its three launches
+also apart; K6, K8 and K9 also against K1's sums, K7 against K2's layer on
+the same inputs), drives AMPConv at the shapes beyond the tensor-core range
+(`routes`, with K1, K6 or K9 forward and K3 + K4 or K5 backward, and K8
+on the chunked layout: the CUDA-core bodies, their working set in device
+memory where it exceeds a block's shared memory, each against float64 on
+the CPU), then drives the port at full width on the Cora-shaped surrogate,
+where every launch of K1-K9 must run the tensor-core body:
 
   A  inference, the recommended recipe (S=40, tfidf, gcn2 head), 8-draw
      make_eval_step: K1 twice per draw;
@@ -51,14 +52,16 @@ K9 must run the tensor-core body:
      then the steps of D (S=20) with it: K6 where D runs K1;
   I  the eval of A with DMA_V1_DEFAULT set: K9 twice per draw and no K1.
 K8 has no caller on the model path (as in the JAX package): its phase calls
-the public wrapper on the chunked layout of the same graph.
+the public wrapper on the chunked layout of the same graph, its counts set
+to 0 just before and read just after.
 
 Each path's launch counts are set to 0 just before it runs and read right
 after; for A and B one draw with a fixed sampled_idx is checked against the
-same model and draw on the CPU in float64. Weights are random, made from
---seed. Prints the card's name and power limit, a `kernels` JSON line, and
-last {"ok": true, "device": ...}. Exits non-zero when any phase fails or
-there is no CUDA device.
+same model and draw on the CPU in float64; where that check fails, the
+raw residual's operands and stage outputs are kept in EVIDENCE_DIR. Weights
+are random, made from --seed. Prints the card's name and power limit, a
+`kernels` JSON line, and last {"ok": true, "device": ...}. Exits non-zero
+when any phase fails or there is no CUDA device.
 
 All float32 math runs at IEEE precision: TF32 on the card (cuBLAS, cuDNN)
 and reduced-precision float32 in oneDNN on the host are switched off, so
@@ -76,6 +79,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # read by cuBLAS/cuDNN when they load: TF32 off whatever the environment says
 os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
@@ -125,11 +129,11 @@ STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-# the libraries of the tensor-core bodies (K1-K5; K6 and K9; K7's projection
-# launches are K2's library's)
+# the libraries of the tensor-core bodies (K1-K5; K6 and K9; K8; K7's
+# projection launches are K2's library's)
 TENSOR_CORE_LIBS = ("edge_attention_tc", "edge_attention_layer_tc", "edge_attention_bwd_dq_tc",
                     "edge_attention_bwd_tc", "edge_attention_bwd_stream_tc",
-                    "edge_attention_groups_tc")
+                    "edge_attention_groups_tc", "edge_attention_chunked_tc")
 # the `routes` phase: AMPConv at shapes beyond the tensor-core range (S, D,
 # H, training, the body K1-K4 (K6, K9) must run, the kernels whose working
 # set must be in device memory, the forward route: K1, or K6 under
@@ -158,6 +162,15 @@ ROUTES = (
     (49, 128, 4, True, "simt", (), STREAM),   # K5 beyond the tensor cores: 216,880 B
 )
 ROUTE_NODES = 768
+# where a failed model check keeps its operands and stage outputs (in a
+# directory .gitignore lists), and at most how many such files
+EVIDENCE_DIR = Path(__file__).resolve().parent / "chiprun_out" / "path_a_evidence"
+EVIDENCE_KEEP = 3
+# K8 (no AMPConv route reaches it) beyond the tensor cores, on the eval
+# graph's chunked layout: (S, whether its working set must be in device
+# memory)
+CHUNKED_ROUTES = ((96, True),     # 345 KB a block even at a piece of one edge
+                  (49, False))    # a seventh key tile; 144 KB at a piece of one edge
 
 
 def fail(msg: str) -> None:
@@ -238,7 +251,10 @@ def stage_outputs(model, graph, sidx, layout):
 
 def cpu_f64_reference(model, graph, sidx):
     """The same model and draw on the CPU in float64, its convs on the plain
-    oracle (the fused op computes in float32 only)."""
+    oracle (the fused op computes in float32 only). Float64 throughout: the
+    raw residual's GCN layers normalize in the features' type
+    (ops/gcn.py), so no step of the reference runs through the host's
+    float32 kernels, whose 1/sqrt came out at ~12 bits in some processes."""
     ref = copy.deepcopy(model).to("cpu", torch.float64)
     for conv in (ref.conv1, ref.conv2):
         conv.use_pallas = False
@@ -283,6 +299,46 @@ def raw_residual_product(model, graph, card_lin) -> dict:
                 nn_layout_vs_card_f64=err(nn_layout, card_f64),
                 vs_one_tf32_product=err(card_lin, one_tf32),
                 cpu_f64_vs_one_tf32_product=err(cpu_f64, one_tf32))
+
+
+def save_evidence(model, graph, card_stages, ref_stages, second_stages, kernels) -> str:
+    """On a failed model check: the raw residual's operands and each GCN
+    stage's card output, kept for study after the process has exited, in
+    EVIDENCE_DIR (gitignored): the standardized x, W and b of both GCN
+    layers, each layer's .lin output and aggregate output on the card (the
+    first forward's and the second's), the aggregate's inputs (the edge
+    lists and mask), the float64 reference's stages, cuBLAS's own second
+    product of the same operands, and the kernels the second forward ran.
+    At most EVIDENCE_KEEP files (x alone is 15.8 MB); returns the path, or
+    why nothing was written."""
+    import torch.nn.functional as F
+    from ampnet_tpu_torch.ops.tokenize import standardize
+
+    if not hasattr(model, "raw_residual_conv2"):
+        return "not written: the model has no GCN raw residual"
+    EVIDENCE_DIR.mkdir(parents=True, exist_ok=True)
+    if len(list(EVIDENCE_DIR.glob("*.pt"))) >= EVIDENCE_KEEP:
+        return f"not written: {EVIDENCE_KEEP} files in {EVIDENCE_DIR} already"
+    gcn = [k for k in STAGES if k.startswith("raw_residual_conv") or k == "final_linear_out"]
+    with torch.no_grad():
+        x = standardize(graph.x, mean=model.scaler_mean, std=model.scaler_std,
+                        node_mask=graph.node_mask)
+        w1 = model.raw_residual_conv1.lin.weight
+        evidence = dict(
+            x=x.cpu(), w1=w1.cpu(), b1=model.raw_residual_conv1.bias.cpu(),
+            w2=model.raw_residual_conv2.lin.weight.cpu(),
+            b2=model.raw_residual_conv2.bias.cpu(),
+            lin_again=F.linear(x, w1).cpu(),
+            senders=graph.senders.cpu(), receivers=graph.receivers.cpu(),
+            edge_mask=graph.edge_mask.cpu(), num_nodes=graph.num_nodes_padded,
+            card={k: card_stages[k].float() for k in gcn if k in card_stages},
+            card_second={k: second_stages[k].float() for k in gcn if k in second_stages},
+            reference_f64={k: ref_stages[k] for k in gcn if k in ref_stages},
+            second_forward_kernels=kernels, precision=precision_state(),
+            device=torch.cuda.get_device_name(0))
+    path = EVIDENCE_DIR / f"path_a_{os.getpid()}_{time.time_ns()}.pt"
+    torch.save(evidence, path)
+    return str(path)
 
 
 def device_kernels(fn) -> dict:
@@ -409,9 +465,9 @@ def cora(seed: int, device):
 def kernel_phases(graph, layout, gen, dev, ptxas):
     """K1, K3, K4, K5, K6, K8 and K9 at S=40 and S=20, K2 and K7 at S=20, each
     against its plain version (K6, K8, K9 also against K1's sums, K7 against
-    K2's layer; K1's and K4's `_simt` predecessors too, timed in turns with
-    them); K5's pass B and chunked fold beside it. Returns the rows and K8's
-    launches in its driven phase."""
+    K2's layer; each kernel's CUDA-core body too, timed in turns with its
+    tensor-core body); K5's pass B and chunked fold beside it. Returns the
+    rows and K8's launches in its driven phase."""
     from ampnet_tpu_torch.models.layers import AMPConv
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
@@ -538,21 +594,36 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
                     eav.edge_attention_sums_v1(q, kv, *slots, **mm, group=8, gather=gather),
                     k1_sums, "K1's sums")
         ck = dict(**kw, chunk=CHUNK_EDGES)
+        k8 = lambda body=None, piece=None: eav.edge_attention_sums_chunked(  # noqa: E731
+            q, kv, *chunk_args, **ck, piece=piece, body=body)
         eaf.reset_launch_counts()          # K8's phase of its own
-        eav.edge_attention_sums_chunked(q, kv, *chunk_args, **ck)
+        got = k8()
         torch.cuda.synchronize()
-        k8_launches += eaf.launch_counts()["edge_attention_sums_chunked"]
-        rows[f"edge_attention_sums_chunked_s{s}"] = variant_row(
-            "edge_attention_sums_chunked", 1225, "edge_attention_chunked.cu",
-            lambda: eav.edge_attention_sums_chunked(q, kv, *chunk_args, **ck),
+        counts = eaf.launch_counts()
+        tensor_cores_only(f"K8 S={s}", counts)
+        k8_launches += counts["edge_attention_sums_chunked"]
+        if not torch.equal(got, k8()):
+            fail(f"edge_attention_sums_chunked S={s}: a second launch differs from the first")
+        del got
+        row = variant_row(
+            "edge_attention_sums_chunked", 1225, "edge_attention_chunked_tc.cu", k8,
             lambda: eav.edge_attention_sums_chunked_plain(q, kv, *chunk_args, **ck),
-            chunk_bytes)
+            chunk_bytes, tensor_cores=True)
+        old = k8("simt")
+        row["prev_max_abs_err"] = compare(f"edge_attention_sums_chunked (CUDA cores) S={s}",
+                                          old, eav.edge_attention_sums_chunked_plain(
+                                              q, kv, *chunk_args, **ck))
+        row["prev_k1_max_abs_err"] = compare(f"edge_attention_sums_chunked (CUDA cores) S={s}",
+                                             old, k1_sums, "K1's sums")
+        del old
+        rows[f"edge_attention_sums_chunked_s{s}"] = tensor_core_row(
+            row, "edge_attention_chunked_tc", "ampnet_edge_attention_sums_chunked_info",
+            nt, s, d, h, lambda: k8("simt"), k8, ptxas)
+        # the CUDA-core body's piece of a chunk (its default: as many as fit)
         rows[f"edge_attention_sums_chunked_s{s}"].update(
-            ms=cuda_ms(lambda: eav.edge_attention_sums_chunked(q, kv, *chunk_args, **ck), 20),
             chunk=CHUNK_EDGES, live_chunks=int(chunked.chunk_count.sum()),
-            by_piece_ms={p: cuda_ms(lambda: eav.edge_attention_sums_chunked(
-                q, kv, *chunk_args, **ck, piece=p), 10)
-                for p in ((1, 2) if s == 40 else (1, 2, 3, 4, 7))})
+            chunk_slots=chunked.senders.numel(), by_piece_ms={p: cuda_ms(
+                lambda: k8("simt", p), 10) for p in ((1, 2) if s == 40 else (1, 2, 3, 4, 7))})
         del k1_sums
 
         # K3 / K4 on the same rows, dsum random: [Q | dsum] packed per row
@@ -911,9 +982,66 @@ def route_phase(data, gen, dev):
                            working_set_in_device_memory=device_memory, out_max_abs_err=out_err,
                            grad_max_rel_err=max(rel.values()) if rel else None, card_ms=ms))
         del x, gout, out, grads, ref, ref_grads
+    report += chunked_routes(graphs[False], gen, dev)
     return dict(graphs={("training" if t else "eval"): dict(
         nodes=g.num_nodes_padded, edges=int(g.edge_mask.sum()), live_edges=int(m.sum()))
         for t, (g, m, _) in graphs.items()}, cases=report)
+
+
+def chunked_routes(eval_graph, gen, dev):
+    """K8 at the shapes of CHUNKED_ROUTES on the chunked layout of the eval
+    graph (its runtime mask too), D=128, H=4: its CUDA-core body, against
+    K1's plain sums over the tiled layout of the same rows and mask in
+    float64 on the CPU, at the model limits."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+    from ampnet_tpu_torch.ops.hopper.format import (chunk_slot_valid, compute_chunked_layout,
+                                                    edge_slot_valid)
+
+    graph, mask, layout = eval_graph
+    chunked = compute_chunked_layout(graph, chunk_edges=CHUNK_EDGES)
+    chunk_args = (chunked.senders, chunk_slot_valid(chunked, mask), chunked.chunk_start,
+                  chunked.chunk_count)
+    idx = [t.cpu() for t in (layout.tile_senders, edge_slot_valid(layout, mask),
+                             layout.recv_ptr, layout.recv_slots)]
+    nt, d, h = chunked.chunk_start.numel(), 128, 4
+    if nt != layout.recv_ptr.numel() - 1:
+        fail(f"routes K8: the chunked layout has {nt} receiver rows, the tiled one "
+             f"{layout.recv_ptr.numel() - 1}")
+    report = []
+    for s, want_device_memory in CHUNKED_ROUTES:
+        sp = -(-s // 8) * 8
+        name = f"K8 S={s} D={d} H={h} eval"
+        kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
+        qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=dev)
+        eaf.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eav.edge_attention_sums_chunked(qkv[:, :d], qkv[:, d:], *chunk_args, **kw,
+                                              chunk=CHUNK_EDGES)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts, bodies = eaf.launch_counts(), eaf.body_launch_counts()
+        if counts != launches(k8=1) or bodies["edge_attention_sums_chunked"]["simt"] != 1:
+            fail(f"routes {name}: launched {counts} on the bodies "
+                 f"{bodies['edge_attention_sums_chunked']}; expected one on the CUDA cores")
+        in_device_memory = bool(eaf.device_memory_launch_counts().get(
+            "edge_attention_sums_chunked"))
+        if in_device_memory != want_device_memory:
+            fail(f"routes {name}: working set in device memory {in_device_memory}, "
+                 f"expected {want_device_memory}")
+        ref = eaf.edge_attention_sums_plain(qkv[:, :d].cpu().double(),
+                                            qkv[:, d:].cpu().double(), *idx, **kw)
+        out_err = float((out.cpu().double() - ref).abs().max())
+        if not torch.isfinite(out).all() or not torch.allclose(
+                out.cpu().double(), ref, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+            fail(f"routes {name}: the sums disagree with float64 on the CPU "
+                 f"(max abs err {out_err:.3g})")
+        report.append(dict(case=name, body="simt", launches={k: v for k, v in counts.items() if v},
+                           working_set_in_device_memory=(
+                               ("edge_attention_sums_chunked",) if in_device_memory else ()),
+                           out_max_abs_err=out_err, grad_max_rel_err=None, card_ms=ms))
+        del qkv, out, ref
+    return report
 
 
 def tensor_cores_only(name, counts):
@@ -984,7 +1112,9 @@ def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None):
         again = {}
         kernels = device_kernels(lambda: again.update(
             zip(("logits", "stages"), stage_outputs(model, graph, sidx, layout))))
+        evidence = save_evidence(model, graph, card_stages, ref_stages, again["stages"], kernels)
         print(json.dumps({
+            "evidence": evidence,
             "stage_max_abs_err": stage_err,
             "second_card_forward_max_abs_err": float(
                 (again["logits"].double() - ref).abs().max()),
@@ -1533,10 +1663,12 @@ def main() -> int:
                "spills", "blocks_per_sm", "stages")
     for name in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv",
                  "edge_attention_bwd_stream", "edge_attention_sums_mm",
-                 "edge_attention_sums_v1"):
+                 "edge_attention_sums_chunked", "edge_attention_sums_v1"):
         rows[f"{name}_s40"]["s20"] = {k: rows[f"{name}_s20"][k] for k in tc_keys}
     rows["edge_attention_sums_mm_s40"]["s20"]["by_group_ms"] = \
         rows["edge_attention_sums_mm_s20"]["by_group_ms"]
+    rows["edge_attention_sums_chunked_s40"]["s20"]["by_piece_ms"] = \
+        rows["edge_attention_sums_chunked_s20"]["by_piece_ms"]
     kernels = [
         dict(rows["edge_attention_sums_s40"], launches=counts_c["edge_attention_sums"]),
         dict(rows["edge_attention_layer_s20"], launches=counts_b["edge_attention_layer"]),
@@ -1558,7 +1690,7 @@ def main() -> int:
             "spills", "blocks_per_sm", "stages", "smem_bytes", "precision", "projection_ms",
             "attention_ms", "out_projection_ms", "prev_projection_ms", "prev_attention_ms",
             "prev_out_projection_ms", "projection_library_ms", "k1_max_abs_err",
-            "k2_max_abs_err", "by_group_ms", "s20")
+            "k2_max_abs_err", "by_group_ms", "by_piece_ms", "s20")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Time the PyTorch port's K1-K7 and K9 bodies against each other across
+"""Time the PyTorch port's K1-K9 bodies against each other across
 the tensor-core range, on one NVIDIA GPU:  python3 scripts/torch_body_sweep.py [--seed N]
 
 The port's route (``ampnet_tpu_torch/ops/hopper/launch.py::body``) runs a
@@ -57,7 +57,8 @@ def main() -> int:
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
-    from ampnet_tpu_torch.ops.hopper.format import (compute_layout, edge_slot_valid,
+    from ampnet_tpu_torch.ops.hopper.format import (chunk_slot_valid, compute_chunked_layout,
+                                                    compute_layout, edge_slot_valid,
                                                     snd_slot_valid)
     from ampnet_tpu_torch.ops.hopper.launch import tensor_core_range_error
 
@@ -77,6 +78,9 @@ def main() -> int:
     s_idx = (layout.snd_receivers, snd_slot_valid(layout, mask), layout.snd_ptr,
              layout.snd_slots)
     slots = (layout.tile_senders, layout.tile_recv, r_idx[1])
+    chunked = compute_chunked_layout(graph)
+    chunks = (chunked.senders, chunk_slot_valid(chunked, mask), chunked.chunk_start,
+              chunked.chunk_count)
     walked = layout.recv_slots.long()
     nt = layout.recv_ptr.numel() - 1
     deg = torch.bincount(graph.receivers[mask], minlength=nt).float()
@@ -115,6 +119,8 @@ def main() -> int:
                 q, kv, *slots, layout.tile_counts, **kw, tile_nodes=layout.tile_nodes, body=b),
             "edge_attention_sums_v1": lambda b: eav.edge_attention_sums_v1(
                 q, kv, *slots, **kw, tile_nodes=layout.tile_nodes, group=8, body=b),
+            "edge_attention_sums_chunked": lambda b: eav.edge_attention_sums_chunked(
+                q, kv, *chunks, **kw, chunk=chunked.chunk_edges, body=b),
         }
         row = dict(s=s, d=d, h=h)
         for name, run in runs.items():

@@ -369,9 +369,9 @@ def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
     both bodies (tensor cores and CUDA cores); K6 at its default group and
     at group 3 (receivers span groups; 128 slots leave a ragged last group);
     K9 under both gather names; K8 at chunks of 3 edges (partial and
-    multi-chunk receivers: in-degrees reach 8), whole and in pieces of 2. K8
-    repeats bit for bit; K6 and K9 sum through atomics and are held to the
-    tolerance only."""
+    multi-chunk receivers: in-degrees reach 8) on both bodies, the CUDA
+    cores' also in pieces of 2. K8 repeats bit for bit; K6 and K9 sum
+    through atomics and are held to the tolerance only."""
     g, mask = graph(0)
     lay = compute_layout(g, tile_nodes=16).to(cuda)
     valid = edge_slot_valid(lay, mask.to(cuda))
@@ -412,14 +412,20 @@ def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
     chunks = (ck.senders, chunk_slot_valid(ck, mask.to(cuda)), ck.chunk_start,
               ck.chunk_count)
     ref = eav.edge_attention_sums_chunked_plain(q, kv, *chunks, **kw, chunk=3)
-    whole = eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=3)
-    check(whole, ref)
-    check(eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=3, piece=2), ref)
-    assert torch.equal(whole, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=3))
+    k8_bodies = eaf.body_launch_counts()["edge_attention_sums_chunked"]
+    for body in ("tc", "simt"):
+        whole = eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=3, body=body)
+        check(whole, ref)
+        assert torch.equal(whole, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw,
+                                                                  chunk=3, body=body))
+    check(eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=3, piece=2,
+                                          body="simt"), ref)
     after = eaf.launch_counts()
     assert {k: after[k] - before[k] for k in after} == launched(
         edge_attention_sums_mm=4, edge_attention_sums_v1=4,
-        edge_attention_sums_chunked=3)
+        edge_attention_sums_chunked=5)
+    assert eaf.body_launch_counts()["edge_attention_sums_chunked"] == dict(
+        tc=k8_bodies["tc"] + 2, simt=k8_bodies["simt"] + 3)
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -500,11 +506,11 @@ def test_fused_op_variant_routes_on_card(cuda, monkeypatch, route, grad, want):
 
 def test_variant_kernels_refuse_what_does_not_fit(cuda):
     """No silent fallback: a packed group that does not divide EMAX, K8's
-    piece beyond a block's shared memory, index arrays of another type, and
-    K6 or K9 named for their tensor-core body beyond its range raise before
-    any launch. (K6's group of 8 at S=40 runs: on the tensor cores the group
-    takes no shared memory, on the CUDA cores its buffer goes to device
-    memory.)"""
+    piece beyond its chunk, index arrays of another type, K6, K9 or K8
+    named for their tensor-core body beyond its range, and D not a multiple
+    of H raise before any launch. (K6's group of 8 and K8's piece of 8 at
+    S=40 run: on the tensor cores neither takes shared memory, on the CUDA
+    cores their working set goes to device memory.)"""
     g, _ = graph(0)
     lay = compute_layout(g, tile_nodes=16).to(cuda)
     nt = lay.recv_ptr.numel() - 1
@@ -515,9 +521,9 @@ def test_variant_kernels_refuse_what_does_not_fit(cuda):
     with pytest.raises(ValueError, match="EMAX"):
         eav.edge_attention_sums_v1(q, kv, *slots, **kw, tile_nodes=16, group=5)
     ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=8).to(cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        eav.edge_attention_sums_chunked(q, kv, ck.senders, ck.valid, ck.chunk_start,
-                                        ck.chunk_count, **kw, chunk=8, piece=8)
+    chunks = (ck.senders, ck.valid, ck.chunk_start, ck.chunk_count)
+    with pytest.raises(ValueError, match="piece"):
+        eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=8, piece=9)
     with pytest.raises(ValueError, match="int32"):
         eav.edge_attention_sums_mm(q, kv, lay.tile_senders.long(), lay.tile_recv,
                                    lay.tile_valid, lay.tile_counts, **kw, tile_nodes=16)
@@ -530,6 +536,11 @@ def test_variant_kernels_refuse_what_does_not_fit(cuda):
     with pytest.raises(ValueError, match="range"):
         eav.edge_attention_sums_v1(big[:, :128], big[:, 128:], *slots, **kw49,
                                    tile_nodes=16, group=8, body="tc")
+    with pytest.raises(ValueError, match="range"):
+        eav.edge_attention_sums_chunked(big[:, :128], big[:, 128:], *chunks, **kw49, chunk=8,
+                                        body="tc")
+    with pytest.raises(ValueError, match="multiple of num_heads"):
+        eav.edge_attention_sums_chunked(q, kv, *chunks, **dict(kw, num_heads=3), chunk=8)
     with pytest.raises(ValueError, match="at most 32"):
         eav.edge_attention_sums_mm(q, kv, *slots, lay.tile_counts, **kw, tile_nodes=16,
                                    group=33, body="simt")
@@ -598,6 +609,96 @@ def test_group_shared_memory_mirror_matches_the_library(cuda):
             assert launch.simt_smem_bytes("edge_attention_sums_mm", s, d, h, group) == \
                 fn(s, d, h, group)
         assert launch.simt_smem_bytes("edge_attention_sums_v1", s, d, h, 8) == fn(s, d, h, 0)
+
+
+def chunked_inputs(cuda, s, d, h, softmax, chunk=8):
+    """K8's inputs on graph(0) (every 7th live edge masked at run time;
+    partial chunks at C=8, receivers of several chunks at C=3) and K1's
+    sums of the same rows."""
+    g, mask = graph(0)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=chunk).to(cuda)
+    valid = chunk_slot_valid(ck, mask.to(cuda))
+    assert int((ck.valid.reshape(-1, chunk).sum(1) % chunk).count_nonzero()) > 0  # partial
+    assert int((valid != ck.valid).sum()) > 0                                      # masked
+    nt = ck.chunk_start.numel()
+    sp = -(-s // 8) * 8
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=cuda)
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax)
+    k1 = eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], lay.tile_senders,
+                                 edge_slot_valid(lay, mask.to(cuda)), lay.recv_ptr,
+                                 lay.recv_slots, **kw)
+    return qkv[:, :d], qkv[:, d:], (ck.senders, valid, ck.chunk_start, ck.chunk_count), kw, k1
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,chunk", [(40, 8), (20, 8), (40, 3), (48, 8)])
+def test_chunked_tensor_core_body_matches_plain_and_cuda_cores(cuda, s, chunk, softmax):
+    """K8's tensor-core body at S=40 and S=20 (and S=48, its widest key
+    tile), with a runtime mask and partial chunks: against the plain
+    version, its CUDA-core body and K1's sums; pad token rows and a
+    receiver of degree 0 exactly 0; a second launch repeats the first bit
+    for bit; the launches counted by body."""
+    d, h = 128, 4
+    q, kv, chunks, kw, k1 = chunked_inputs(cuda, s, d, h, softmax, chunk)
+    nt, sp = chunks[2].numel(), kw["sp"]
+    before = eaf.body_launch_counts()["edge_attention_sums_chunked"]
+    got = eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=chunk)
+    simt = eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=chunk, body="simt")
+    ref = eav.edge_attention_sums_chunked_plain(q, kv, *chunks, **kw, chunk=chunk)
+    torch.cuda.synchronize()
+    for other in (ref, simt, k1):
+        torch.testing.assert_close(got, other, rtol=RTOL, atol=ATOL)
+    assert (got.reshape(nt, sp, d)[39] == 0).all()
+    assert (got.reshape(nt, sp, d)[:, s:] == 0).all()
+    assert torch.equal(got, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=chunk))
+    after = eaf.body_launch_counts()["edge_attention_sums_chunked"]
+    assert after == dict(tc=before["tc"] + 2, simt=before["simt"] + 1)
+
+
+@pytest.mark.parametrize("s,d,h,piece,device_memory", [
+    (96, 128, 4, None, True),     # 345 KB a block even at a piece of 1
+    (49, 128, 4, None, False),    # beyond the tensor cores, shared memory at piece 1
+    (40, 128, 4, 8, True),        # a named piece beyond shared memory
+    (40, 128, 8, None, False),    # 24 warps
+    (40, 6, 2, None, False),      # k|v rows of 6 floats: no 16-byte copies
+])
+def test_chunked_cuda_core_body_beyond_the_tensor_cores_matches_plain(
+        cuda, s, d, h, piece, device_memory):
+    """K8 where the tensor cores do not take the call: its CUDA-core body,
+    its working set in device memory where the shared-memory mirror says it
+    does not fit, against the plain version and K1's sums. The route picks
+    that body by itself; the named piece at S=40 names it too (within the
+    tensor cores' range)."""
+    q, kv, chunks, kw, k1 = chunked_inputs(cuda, s, d, h, True)
+    body = "simt" if piece else None
+    eaf.reset_launch_counts()
+    got = eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=8, piece=piece, body=body)
+    ref = eav.edge_attention_sums_chunked_plain(q, kv, *chunks, **kw, chunk=8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got, k1, rtol=RTOL, atol=ATOL)
+    assert (got.reshape(chunks[2].numel(), kw["sp"], d)[:, s:] == 0).all()
+    assert torch.equal(got, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=8,
+                                                            piece=piece, body=body))
+    assert eaf.body_launch_counts()["edge_attention_sums_chunked"] == dict(tc=0, simt=2)
+    assert eaf.device_memory_launch_counts() == (
+        {"edge_attention_sums_chunked": 2} if device_memory else {})
+
+
+def test_chunked_shared_memory_mirror_matches_the_library(cuda):
+    """launch.simt_smem_bytes for K8 against the CUDA-core chunked
+    library's own ampnet_edge_chunk_smem_bytes, at every piece of C=8."""
+    import ctypes
+
+    _, fn = launch.entry("edge_attention_chunked", "ampnet_edge_chunk_smem_bytes",
+                         [launch.I] * 4, ctypes.c_size_t)
+    for s, d, h in [(40, 128, 4), (20, 128, 4), (40, 128, 8), (49, 128, 4), (73, 128, 4),
+                    (96, 128, 4), (7, 100, 4), (40, 3, 1)]:
+        for piece in range(1, 9):
+            assert launch.simt_smem_bytes("edge_attention_sums_chunked", s, d, h, piece) == \
+                fn(s, d, h, piece)
 
 
 @pytest.mark.parametrize("s", [20, 40])

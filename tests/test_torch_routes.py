@@ -1,8 +1,8 @@
 """Which body each kernel of the fused op runs at a shape, on the CPU.
 
-K1-K5 and the edge-group sums K6 and K9 (and K7, on K6's rule) each have a
-tensor-core body (within the range it is instantiated for, on rows that
-take 16-byte copies)
+K1-K5, the edge-group sums K6 and K9 (and K7, on K6's rule) and the
+receiver-chunked sums K8 each have a tensor-core body (within the range it
+is instantiated for, on rows that take 16-byte copies)
 and a CUDA-core body (beyond it, at any shape: its working set sits in
 shared memory where it fits a block, in device memory beyond that). The rule (``launch.body``, ``launch.body_of``
 on the rows a wrapper is given, ``launch.simt_work_blocks``) reads shapes,
@@ -36,7 +36,7 @@ from ampnet_tpu_torch.train.losses import masked_mean_nll
 
 K1, K2, K3, K4, K5 = ("edge_attention_sums", "edge_attention_layer", "edge_attention_bwd_dq",
                       "edge_attention_bwd_dkv", "edge_attention_bwd_stream")
-K6, K9 = "edge_attention_sums_mm", "edge_attention_sums_v1"
+K6, K8, K9 = "edge_attention_sums_mm", "edge_attention_sums_chunked", "edge_attention_sums_v1"
 TC, SIMT = "tc", "simt"
 
 # (S, D, H) -> the body of K1, K2, K3, K4 in the fused op
@@ -92,7 +92,7 @@ def test_edge_group_bodies_follow_k1(shape, want):
 
 def test_edge_group_bodies_refuse_a_named_tensor_core_body_beyond_the_range():
     kv = torch.zeros(64, 3 * 128)[:, 128:]
-    for kernel in (K6, K9):
+    for kernel in (K6, K9, K8):
         assert launch.body_of(kernel, "tc", 40, 128, 4, ("kv_rows", kv)) == TC
         assert launch.body_of(kernel, "simt", 40, 128, 4, ("kv_rows", kv)) == SIMT
         with pytest.raises(ValueError, match="range"):
@@ -101,6 +101,16 @@ def test_edge_group_bodies_refuse_a_named_tensor_core_body_beyond_the_range():
             launch.body_of(kernel, "tc", 40, 128, 8, ("kv_rows", kv))
         with pytest.raises(ValueError, match="16-byte"):
             launch.body_of(kernel, "tc", 40, 128, 4, ("kv_rows", torch.zeros(64, 385)[:, 129:]))
+
+
+@pytest.mark.parametrize("shape,want", ROUTES)
+def test_chunked_body_follows_k1(shape, want):
+    """K8 gathers k|v rows as K1 does and is instantiated for K1's range:
+    K1's body on the op's k|v view at every shape of the fault list, the
+    CUDA-core body on rows that do not take 16-byte copies."""
+    s, d, _ = shape
+    assert launch.body_of(K8, None, *shape, *op_rows(s, d)[K1]) == want[0]
+    assert launch.body_of(K8, None, *shape, ("kv_rows", torch.zeros(8, 3 * d + 1)[:, 1:])) == SIMT
 
 
 @pytest.mark.parametrize("shape,want", [
@@ -203,6 +213,51 @@ def test_edge_group_shared_memory_mirror_at_known_values(kernel, shape, group, n
     assert launch.simt_smem_bytes(kernel, *shape, group) == nbytes
 
 
+@pytest.mark.parametrize("shape,piece,nbytes", [
+    ((40, 128, 4), 2, 174_560),     # the default piece at S=40: 2 of C=8's edges
+    ((40, 128, 4), 3, 241_280),     # beyond shared memory
+    ((20, 128, 4), 4, 4 * ((20 + 80) * 129 + 5 * 2560 + 4 * 20 * 80)),
+    ((49, 128, 4), 1, 143_576),
+    ((49, 128, 4), 2, 236_264),     # beyond shared memory: piece 1 at S=49
+    ((73, 128, 4), 1, 240_920),     # beyond shared memory even at piece 1
+    ((96, 128, 4), 1, 344_832),
+])
+def test_chunked_shared_memory_mirror_at_known_values(shape, piece, nbytes):
+    """K8's CUDA-core smem_floats (csrc/edge_attention_chunked.cu), at a
+    piece of ``piece`` edges: Q, ``piece`` edges' K and V, their scores and
+    the accumulator."""
+    assert launch.simt_smem_bytes(K8, *shape, piece) == nbytes
+    with pytest.raises(ValueError, match="piece"):
+        launch.simt_smem_bytes(K8, *shape, 0)
+
+
+@pytest.mark.parametrize("shape,piece,blocks", [
+    ((40, 128, 4), 2, 0), ((49, 128, 4), 1, 0), ((40, 128, 4), 8, 264),
+    ((73, 128, 4), 1, 264), ((96, 128, 4), 1, 264), ((400, 128, 4), 1, 79),
+])
+def test_chunked_working_set_moves_to_device_memory(shape, piece, blocks):
+    """K8's CUDA-core body in device memory where even its piece does not
+    fit shared memory: two blocks per SM of 132, the 256 MiB cap."""
+    assert launch.simt_work_blocks(K8, *shape, 2752, sm_count=132, group=piece) == blocks
+    assert blocks * launch.simt_smem_bytes(K8, *shape, piece) <= launch.WORK_BYTES
+
+
+@pytest.mark.parametrize("shape,piece", [((20, 128, 4), 4), ((40, 128, 4), 2), ((49, 128, 4), 1),
+                                         ((73, 128, 4), 1), ((96, 128, 4), 1), ((40, 16, 2), 8)])
+def test_chunked_default_piece_on_the_cuda_cores(shape, piece):
+    """K8's piece where the caller names none: C=8 in the fewest equal
+    pieces that fit shared memory, 1 where none fits (then in device
+    memory); a named piece outside 1..C raises, one beyond shared memory
+    does not."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+
+    assert eav._chunk_piece(*shape, 8, None) == piece
+    assert eav._chunk_piece(*shape, 8, 8) == 8
+    for bad in (0, 9):
+        with pytest.raises(ValueError, match="piece"):
+            eav._chunk_piece(*shape, 8, bad)
+
+
 @pytest.mark.parametrize("shape,group", [((40, 128, 4), 4), ((20, 128, 4), 4),
                                          ((49, 128, 4), 4), ((40, 128, 8), 4),
                                          ((96, 128, 4), 1), ((200, 16, 8), 1)])
@@ -252,8 +307,8 @@ def test_body_takes_the_tensor_cores_only_on_aligned_rows():
     assert launch.body(K4, 96, 128, 4, rows_aligned=True) == SIMT
     assert launch.body(K6, 40, 128, 4, rows_aligned=True) == TC
     assert launch.body(K9, 40, 128, 4, rows_aligned=False) == SIMT
-    with pytest.raises(ValueError):
-        launch.body("edge_attention_sums_chunked", 40, 128, 4, True)
+    assert launch.body(K8, 40, 128, 4, rows_aligned=True) == TC
+    assert launch.body(K8, 40, 128, 4, rows_aligned=False) == SIMT
 
 
 def test_body_of_checks_a_named_body():

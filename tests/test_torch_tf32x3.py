@@ -5,7 +5,8 @@ The tensor-core kernels (csrc/edge_attention_tc.cuh for K1 and K2's
 attention, csrc/projection_tc.cuh for K2's projection and K7's two
 projections, csrc/edge_attention_bwd_dq_tc.cu for K3,
 csrc/edge_attention_bwd_tc.cu for K4, csrc/edge_attention_bwd_stream_tc.cu
-for K5, csrc/edge_attention_groups_tc.cu for K6 and K9, helpers in
+for K5, csrc/edge_attention_groups_tc.cu for K6 and K9,
+csrc/edge_attention_chunked_tc.cu for K8, helpers in
 csrc/mma_tf32.cuh) split each f32 operand x into TF32 parts
 hi = rna(x), lo = rna(x - hi) and take a product as lo*hi + hi*lo + hi*hi.
 Here that arithmetic is emulated in torch: TF32 rounding is round to nearest
@@ -15,6 +16,8 @@ to K1's per-receiver sums, K3's per-receiver dQ and K4's per-sender dK|dV
 over 17 edges at S=40, to K6's and K9's sums of the same 17 edges in the
 order their atomics take them (a register sum per run of the receiver's
 slots in a group, the runs then added to the output one after another),
+to K8's sum of the same edges in its slot order (three chunks of 8, the
+last partial, one slot masked at run time),
 to K5's per-edge rows dK_e | dV_e of the same 17 edges (the transposed
 products over the receiver's queries), to K2's q|k|v projection of a
 receiver's and its senders' token rows, to its out-projection of a
@@ -104,6 +107,32 @@ def edge_group_sums(q, kv, mm):
         out = out + k1_sums(q, kv[first:first + run], mm)
         first += run
     return out
+
+
+# K8's chunked layout of the receiver's 17 edges at C=8: three chunks, the
+# last partial (slots 17-23 are padding, validity 0), and slot 5 masked at
+# run time
+CHUNK, CHUNK_MASKED = 8, 5
+
+
+def k8_chunked(q, kv, mm):
+    """K8 on the tensor cores for one receiver: its slots walked in order,
+    chunk by chunk, the slots of validity 0 skipped, each live edge's
+    message added to ONE register sum that runs across the chunks (the
+    chunk is only an index, not a product)."""
+    d = q.shape[-1]
+    scale = 1.0 / (d // H) ** 0.5
+    qh = heads(q) * scale
+    acc = torch.zeros(H, S, d // H, dtype=q.dtype)
+    slots = -(-kv.shape[0] // CHUNK) * CHUNK
+    for chunk0 in range(0, slots, CHUNK):
+        for slot in range(chunk0, chunk0 + CHUNK):
+            if slot >= kv.shape[0] or slot == CHUNK_MASKED:
+                continue
+            kh, vh = heads(kv[slot, :, :d]), heads(kv[slot, :, d:])
+            w = torch.softmax(mm(qh, kh.transpose(-1, -2)), dim=-1)
+            acc = acc + mm(w, vh)
+    return acc
 
 
 def k4_dkv(kv, qdm, mm):
@@ -203,6 +232,7 @@ def k7_out_projection(own, peers, mm):
 KERNELS = {
     "k1": lambda own, peers, mm: k1_sums(own[:, : own.shape[1] // 2], peers, mm),
     "k6_k9": lambda own, peers, mm: edge_group_sums(own[:, : own.shape[1] // 2], peers, mm),
+    "k8_chunked": lambda own, peers, mm: k8_chunked(own[:, : own.shape[1] // 2], peers, mm),
     "k4": lambda own, peers, mm: k4_dkv(own, peers, mm),
     "k3": k3_dq,
     "k2_projection": k2_projection,
