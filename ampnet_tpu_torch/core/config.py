@@ -126,10 +126,12 @@ class TrainConfig:
     log_every_steps: int = 0
     # SAINT subgraph loss: 'sum' | 'mean' (node_norm-weighted).
     saint_loss: str = "sum"
-    # full-batch loop: run K epochs per chunk and read their metrics back
-    # from the device once per chunk; K is clipped (gcd) to divide
-    # select_best_every / checkpoint_every so those land on chunk
+    # full-batch loop: run K epochs per dispatch (one K-step CUDA graph on
+    # the card) and read their metrics back once; K is clipped (gcd) to
+    # divide select_best_every / checkpoint_every so those land on chunk
     # boundaries. Same math as K single steps.
     epochs_per_dispatch: int = 1
-    # profiler capture of this many steps (not ported yet: must stay 0).
+    # torch.profiler capture of this many steps after the first (the
+    # capture) into <run_dir>/profile/trace.json; needs run_dir; forces
+    # epochs_per_dispatch to 1.
     profile_steps: int = 0

@@ -27,7 +27,8 @@ slot masked at run time is walked and holds zeros; rows S..SP-1 of a walked
 slot are 0.
 
 Pass B (``stream_to_senders``) is plain torch, as it is XLA in the JAX
-package: gather the WALKED slots' rows and ``index_add_`` them by sender.
+package: take the WALKED slots' rows (chosen by a device mask, no host
+read) and ``index_add_`` them by sender.
 On the card ``index_add_`` sums with atomics, so dK|dV may differ in the
 last bits from run to run (K4, the scatter-free pass S, repeats bit for
 bit). ``stream_backward`` runs both passes over chunks of tiles so that the
@@ -90,16 +91,6 @@ def _tile_range(tile_senders, recv_ptr, tiles) -> Tuple[int, int, int, int]:
     return t0, t1, nt // t, emax
 
 
-def _walk_bounds(recv_ptr, recv_slots, nodes) -> list:
-    """recv_ptr at the given receivers, as Python ints: the slots a launch
-    over receivers [nodes[i], nodes[i+1]) walks are recv_slots[b[i]:b[i+1]].
-    The whole graph's bounds need no read of recv_ptr (a host sync on the
-    card); any other set is read in one transfer."""
-    if list(nodes) == [0, recv_ptr.numel() - 1]:
-        return [0, recv_slots.numel()]
-    return recv_ptr[list(nodes)].tolist()
-
-
 # ---------------------------------------------------------------- plain version
 
 
@@ -114,7 +105,7 @@ def edge_attention_bwd_stream_plain(q_rows, kv_rows, dsum_rows, tile_senders,
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
     n0, n1 = t0 * tn, t1 * tn
-    a, b = _walk_bounds(recv_ptr, recv_slots, (n0, n1))
+    a, b = recv_ptr[[n0, n1]].tolist()          # a host read: the CPU only
     slots = recv_slots[a:b]
     ptr = recv_ptr[n0: n1 + 1]
     recv, snd, w = _walk(tile_senders, tile_valid, ptr - ptr[0], slots)
@@ -190,15 +181,32 @@ edge_attention_bwd_stream.body_launches = dict.fromkeys(BODIES, 0)
 # ---------------------------------------------------------------- pass B
 
 
-def stream_to_senders(dkv_stream, tile_senders, slots, slot0: int, out, *, s, sp):
-    """Pass B: ``out`` [NT, S, 2D] += the stream rows of the walked ``slots``
-    (flat ids, the stream's first row being slot ``slot0``), summed by the
-    slot's sender. Only walked slots are read, so unwritten rows never
-    enter; masked slots add the zeros pass A wrote."""
-    rows = dkv_stream.view(-1, sp, dkv_stream.shape[1])
-    slots = slots.long()
-    senders = tile_senders.reshape(-1)[slots].long()
-    out.index_add_(0, senders, rows[slots - slot0, :s])
+def walked_slots(tile_senders, recv_ptr, tiles: Tuple[int, int]) -> torch.Tensor:
+    """[(t1-t0)*EMAX] bool: the slots of tiles [t0, t1) that pass A walks. A
+    tile walks its first ``count`` slots, ``count`` being its receivers'
+    edges (``recv_ptr`` at the tile's ends), so the mask is made on the
+    device from ``recv_ptr`` alone: no host read, and the padding of a
+    fixed-capacity ``recv_slots`` is never looked at."""
+    t0, t1, tn, emax = _tile_range(tile_senders, recv_ptr, tiles)
+    ends = recv_ptr[t0 * tn: t1 * tn + 1: tn]
+    count = (ends[1:] - ends[:-1])[:, None]
+    return (torch.arange(emax, device=recv_ptr.device) < count).reshape(-1)
+
+
+def stream_to_senders(dkv_stream, tile_senders, take, slot0: int, out, *, s, sp):
+    """Pass B: ``out`` [NT, S, 2D] += the stream rows (slot ``slot0`` and the
+    ones after it, one per stream slot) where ``take`` holds, summed by the
+    slot's sender. The other rows (never written: they may hold NaN) are
+    selected away, not multiplied away. Masked slots add the zeros pass A
+    wrote. Its work and memory are the stream's: one chunk's, never the
+    graph's."""
+    rows = dkv_stream.view(-1, sp, dkv_stream.shape[1])[:, :s]
+    n = rows.shape[0]
+    # the zeros of the slots not taken go to nodes by position, not all to
+    # one node, whose row the atomics would then add to one at a time
+    spread = torch.arange(n, device=rows.device) % out.shape[0]
+    senders = torch.where(take, tile_senders.reshape(-1)[slot0: slot0 + n].long(), spread)
+    out.index_add_(0, senders, torch.where(take[:, None, None], rows, 0.0))
     return out
 
 
@@ -210,7 +218,9 @@ def stream_backward(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
     With ``chunk_bytes`` the tiles run in chunks whose stream fits that many
     bytes, each folded into the per-node sums before the next is made (the
     JAX package's rule for its dma gather; same work, a smaller live
-    stream); None runs all tiles in one launch."""
+    stream); None runs all tiles in one launch. Pass B takes each chunk's
+    walked slots from a device mask (``walked_slots``), so nothing is read
+    back to the host and a fixed-capacity layout's shapes stay fixed."""
     t, emax = tile_senders.shape
     d = q_rows.shape[1]
     nt = recv_ptr.numel() - 1
@@ -219,17 +229,15 @@ def stream_backward(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
         n_chunks = max(1, -(-t * emax * sp * 2 * d * 4 // chunk_bytes))
     tc = -(-t // n_chunks)                      # tiles per chunk
     edges = list(range(0, t, tc)) + [t]         # chunk ci = tiles [edges[ci], edges[ci+1])
-    tn = nt // t
-    bounds = _walk_bounds(recv_ptr, recv_slots, [e * tn for e in edges])
     dkv = torch.zeros(nt, s, 2 * d, dtype=torch.float32, device=q_rows.device)
     dq_parts = []
-    for ci, (t0, t1) in enumerate(zip(edges, edges[1:])):
+    for t0, t1 in zip(edges, edges[1:]):
         dq_c, stream_c = edge_attention_bwd_stream(
             q_rows, kv_rows, dsum_rows, tile_senders, tile_valid, recv_ptr,
             recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax,
             tiles=(t0, t1))
         dq_parts.append(dq_c)
-        stream_to_senders(stream_c, tile_senders, recv_slots[bounds[ci]: bounds[ci + 1]],
+        stream_to_senders(stream_c, tile_senders, walked_slots(tile_senders, recv_ptr, (t0, t1)),
                           t0 * emax, dkv, s=s, sp=sp)
         del stream_c                            # one chunk's stream live at a time
     return (dq_parts[0] if len(dq_parts) == 1 else torch.cat(dq_parts)), dkv

@@ -97,11 +97,12 @@ def _recompute(q, k, v, dm, num_heads, softmax):
 
 
 def _walk(peer_ids, valid, ptr, slots):
-    """Per walked slot: its node (block), its peer and its validity."""
+    """Per walked slot: its node (block), its peer and its validity. Slots
+    past the walk (a fixed-capacity layout's padding) are not walked."""
     nodes = ptr.numel() - 1
     own = torch.repeat_interleave(torch.arange(nodes, device=ptr.device),
                                   (ptr[1:] - ptr[:-1]).long())
-    slots = slots.long()
+    slots = slots[: own.numel()].long()
     return own, peer_ids.reshape(-1)[slots].long(), \
         valid.reshape(-1)[slots].to(torch.float32)
 

@@ -168,7 +168,7 @@ def edge_attention_sums_plain(q_rows, kv_rows, tile_senders, tile_valid,
     recv = torch.repeat_interleave(
         torch.arange(nt, device=q_rows.device),
         (recv_ptr[1:] - recv_ptr[:-1]).long())
-    slots = recv_slots.long()
+    slots = recv_slots[: recv.numel()].long()      # the live slots; padding after
     snd = tile_senders.reshape(-1)[slots].long()
     w = tile_valid.reshape(-1)[slots].to(q_rows.dtype)
     if invdeg is not None:
@@ -348,6 +348,37 @@ def device_memory_launch_counts() -> dict:
     """The launches of a CUDA-core body whose working set was in device
     memory: {kernel: n}, K7's attention launch under K6's name."""
     return dict(device_memory_launches)
+
+
+def counter_state() -> dict:
+    """Every launch counter above, flat: {(wrapper, 'all' or body): n,
+    ('device_memory', kernel): n}. A captured graph launches its kernels
+    without calling a wrapper, so it records the counters' change over its
+    capture (``counts_since``) and adds it at each replay (``add_counts``)."""
+    state = {}
+    for fn in KERNEL_WRAPPERS:
+        state[(fn.__name__, "all")] = fn.launches
+        state.update({(fn.__name__, b): n for b, n in fn.body_launches.items()})
+    state.update({("device_memory", k): n for k, n in device_memory_launches.items()})
+    return state
+
+
+def counts_since(before: dict) -> dict:
+    """The change of every counter since ``before`` (``counter_state``)."""
+    return {k: n - before.get(k, 0) for k, n in counter_state().items()
+            if n != before.get(k, 0)}
+
+
+def add_counts(change: dict, times: int = 1) -> None:
+    """Add ``times`` x a change of the counters (negative: take it back)."""
+    wrappers = {fn.__name__: fn for fn in KERNEL_WRAPPERS}
+    for (name, key), n in change.items():
+        if name == "device_memory":
+            device_memory_launches[key] = device_memory_launches.get(key, 0) + times * n
+        elif key == "all":
+            wrappers[name].launches += times * n
+        else:
+            wrappers[name].body_launches[key] += times * n
 
 
 # ---------------------------------------------------------------- the op

@@ -272,7 +272,9 @@ class EdgeLayout:
     ``recv_ptr``/``recv_slots`` are the receiver-major index the Hopper
     kernels walk; ``snd_*`` is the same edges bucketed by SENDER tile, for
     the scatter-free backward, with ``snd_ptr``/``snd_slots`` the
-    sender-major index its pass S walks."""
+    sender-major index its pass S walks. The live slots are the first
+    ``recv_ptr[-1]`` (``snd_ptr[-1]``) of the flat slots; a layout of a
+    fixed budget pads the rest with slot 0, which nothing walks."""
 
     tile_senders: torch.Tensor          # [T, EMAX]
     tile_recv: torch.Tensor             # [T, EMAX]
@@ -280,18 +282,22 @@ class EdgeLayout:
     tile_counts: torch.Tensor           # [T] structural live-edge counts
     edge_slot: torch.Tensor             # [E] (-1 = masked out)
     recv_ptr: torch.Tensor              # [T*TN + 1]
-    recv_slots: torch.Tensor            # [sum(tile_counts)]
+    recv_slots: torch.Tensor            # [sum(tile_counts)], or [T*EMAX] at a budget
     snd_receivers: Optional[torch.Tensor] = None  # [T, EMAXS] global receiver ids
     snd_local: Optional[torch.Tensor] = None      # [T, EMAXS] local sender row
     snd_valid: Optional[torch.Tensor] = None
     snd_counts: Optional[torch.Tensor] = None
     snd_edge_slot: Optional[torch.Tensor] = None
     snd_ptr: Optional[torch.Tensor] = None        # [T*TN + 1]
-    snd_slots: Optional[torch.Tensor] = None      # [sum(snd_counts)]
+    snd_slots: Optional[torch.Tensor] = None      # [sum(snd_counts)], [T*EMAXS] at a budget
     tile_nodes: int = DEFAULT_TILE_NODES
 
     def to(self, device) -> "EdgeLayout":
         return _tensors_to(self, device)
+
+
+def _pad_slots(slots: np.ndarray, capacity: int) -> np.ndarray:
+    return np.concatenate([slots, np.zeros(capacity - slots.size, np.int32)])
 
 
 def compute_layout(graph, tile_nodes: int = DEFAULT_TILE_NODES,
@@ -299,7 +305,10 @@ def compute_layout(graph, tile_nodes: int = DEFAULT_TILE_NODES,
                    snd_edges_per_tile: int = 0) -> EdgeLayout:
     """Host-side layout build for a padded Graph; the tensors land on the
     graph's device. A fixed edges_per_tile budget fixes the sender-side
-    budget too unless snd_edges_per_tile is given."""
+    budget too unless snd_edges_per_tile is given. A side of a fixed budget
+    pads its slots to their capacity (T*EMAX, T*EMAXS), so that every graph
+    of one padded size and budget gets the same shapes (a captured step
+    replays on any of them)."""
     senders = graph.senders.cpu().numpy()
     receivers = graph.receivers.cpu().numpy()
     mask = graph.edge_mask.cpu().numpy()
@@ -307,6 +316,8 @@ def compute_layout(graph, tile_nodes: int = DEFAULT_TILE_NODES,
     tcsr = build_tiled_csr(senders, receivers, mask, n_pad,
                            tile_nodes=tile_nodes, edges_per_tile=edges_per_tile)
     recv_ptr, recv_slots = receiver_index(tcsr.recv_local, tcsr.counts, tile_nodes)
+    if edges_per_tile:
+        recv_slots = _pad_slots(recv_slots, tcsr.senders.size)
     snd = {}
     if sender_layout:
         if edges_per_tile and not snd_edges_per_tile:
@@ -316,6 +327,8 @@ def compute_layout(graph, tile_nodes: int = DEFAULT_TILE_NODES,
                                 tile_nodes=tile_nodes,
                                 edges_per_tile=snd_edges_per_tile)
         snd_ptr, snd_slots = receiver_index(stcsr.recv_local, stcsr.counts, tile_nodes)
+        if snd_edges_per_tile:
+            snd_slots = _pad_slots(snd_slots, stcsr.senders.size)
         snd = dict(snd_receivers=stcsr.senders, snd_local=stcsr.recv_local,
                    snd_valid=stcsr.valid, snd_counts=stcsr.counts,
                    snd_edge_slot=stcsr.edge_slot, snd_ptr=snd_ptr,

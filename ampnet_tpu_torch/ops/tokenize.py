@@ -103,7 +103,7 @@ def tfidf_sample_features(
     idf and flatten the weighting. Returns [N, num_samples] int64."""
     present = x != 0
     n_real = (node_mask.to(torch.float32).sum() if node_mask is not None
-              else torch.tensor(float(x.shape[0]), device=x.device))
+              else torch.full((), float(x.shape[0]), device=x.device))
     df = present.sum(dim=0).to(torch.float32)
     idf = torch.log(n_real / (1.0 + df))
     weights = x.abs() * idf.clamp_min(1e-3)[None, :]

@@ -11,7 +11,13 @@ GraphSAINT-subgraph.
   full-graph eval.
 
 The loops run where the model lives (the card unless the caller built the
-model on the CPU); graphs and layouts are moved there.
+model on the CPU); graphs and layouts are moved there. On the card every
+step is a CUDA-graph replay (``train/state.py``): ``epochs_per_dispatch``
+k-step graphs in ``train_full_batch``, one graph per GraphSAINT budget in
+``train_saint`` (its subgraphs' layouts padded to a fixed capacity), and
+one per eval graph holding all of its draws. ``profile_steps`` traces
+that many steps after the first (the capture) into
+``<run_dir>/profile/trace.json``.
 """
 from __future__ import annotations
 
@@ -38,11 +44,13 @@ from ampnet_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from ampnet_tpu_torch.train.optim import make_optimizer
+from ampnet_tpu_torch.train.profiling import StepTraceCapture
 from ampnet_tpu_torch.train.rundir import Logfile
 from ampnet_tpu_torch.train.state import (
     TrainState,
     create_train_state,
     make_eval_step,
+    make_scan_train_step,
     make_train_step,
 )
 
@@ -57,6 +65,15 @@ def _opt(cfg: TrainConfig, model: torch.nn.Module):
         eta_min=cfg.eta_min,
         grad_clip=cfg.grad_clip,
     )
+
+
+def _tracer(cfg: TrainConfig, log: Logfile) -> Optional[StepTraceCapture]:
+    """cfg.profile_steps > 0: a bounded torch.profiler capture under run_dir."""
+    if not (cfg.profile_steps and cfg.run_dir):
+        return None
+    pdir = os.path.join(cfg.run_dir, "profile")
+    log.log(f"profiling {cfg.profile_steps} steps (after the capture) -> {pdir}")
+    return StepTraceCapture(pdir, cfg.profile_steps)
 
 
 def _use_pallas(model: torch.nn.Module) -> bool:
@@ -139,8 +156,6 @@ def train_full_batch(
     a state_dict of the best-validation parameters when ``select_best_every``
     is on (what ``final_metrics`` was computed from), else of the last ones.
     """
-    if cfg.profile_steps:
-        raise NotImplementedError("profile_steps: the profiler capture is not ported yet")
     log = log or Logfile()
     device = next(model.parameters()).device
     graph = graph.to(device)
@@ -167,20 +182,29 @@ def train_full_batch(
 
     history: List[Dict[str, float]] = []
     best_val, best_params = _restore_banked_best(cfg, start_epoch, device, log)
+    tracer = _tracer(cfg, log)
 
-    # k eager steps per chunk, their metrics read back from the device once
-    # per chunk: the same math as k single steps. Chunks start k-aligned so
-    # that no cadence boundary falls inside one; single steps close the gap.
-    k = dispatch_chunk(cfg)
+    # k steps per dispatch (make_scan_train_step: one CUDA graph on the card),
+    # their metrics read back once: the same math as k single steps. Chunks
+    # start k-aligned so that no cadence boundary falls inside one; single
+    # steps close the gap. Per-step profiling keeps k = 1.
+    k = 1 if tracer is not None else dispatch_chunk(cfg)
+    scan_step = (make_scan_train_step(model, loss_mode="full", num_steps=k)
+                 if k > 1 else None)
     t0 = time.time()
     epoch = start_epoch
     while epoch < cfg.epochs:
-        steps = k if (epoch % k == 0 and epoch + k <= cfg.epochs) else 1
-        pending = []
-        for _ in range(steps):
+        if scan_step is not None and epoch % k == 0 and epoch + k <= cfg.epochs:
+            state, stacked = scan_step(state, graph, layout)
+            stacked = {kk: v.tolist() for kk, v in stacked.items()}
+            rows = [{kk: v[j] for kk, v in stacked.items()} for j in range(k)]
+        else:
+            if tracer:
+                tracer.before_step()
             state, metrics = train_step(state, graph, layout)
-            pending.append(metrics)
-        rows = [{kk: float(v) for kk, v in m.items()} for m in pending]
+            if tracer:
+                tracer.after_step(block_on=metrics)
+            rows = [{kk: float(v) for kk, v in metrics.items()}]
         for j, row in enumerate(rows):
             row["epoch"] = epoch + j
             history.append(row)
@@ -205,6 +229,8 @@ def train_full_batch(
             save_checkpoint(
                 os.path.join(cfg.run_dir, f"checkpoint_ep{epoch - 1}.pkl"),
                 state, epoch - 1, rows[-1]["loss"])
+    if tracer:
+        tracer.close()
 
     final, final_params = _final_eval(model, evaluate, cfg, best_val, best_params, log)
     headline = final.get("test_acc", final.get("train_acc", float("nan")))
@@ -232,8 +258,6 @@ def train_saint(
     accuracy use a full-graph forward. Returns {'state', 'history' (the last
     step's row of each epoch), 'final_metrics', 'final_params'} as
     ``train_full_batch`` does."""
-    if cfg.profile_steps:
-        raise NotImplementedError("profile_steps: the profiler capture is not ported yet")
     log = log or Logfile()
     device = next(model.parameters()).device
     full_graph = full_graph.to(device)
@@ -247,9 +271,10 @@ def train_saint(
         model, loss_mode="saint_mean" if cfg.saint_loss == "mean" else "saint")
     eval_step = make_eval_step(model, num_eval_samples=cfg.num_eval_samples)
 
-    # cfg.use_pallas: one fixed per-tile edge budget across subgraphs, so that
-    # all steps see the same layout shapes; a tail-large subgraph bumps the
-    # budget, mirroring the sampler's pad regrow
+    # cfg.use_pallas: one fixed per-tile edge budget across subgraphs, their
+    # slots padded to its capacity, so that all steps see the same layout
+    # shapes (one captured graph); a tail-large subgraph bumps the budget,
+    # mirroring the sampler's pad regrow (a new capture, as JAX retraces)
     use_pallas = _use_pallas(model)
     full_layout = compute_layout(full_graph) if use_pallas else None
     budget = _saint_layout_budget(sampler) if use_pallas else 0
@@ -271,6 +296,7 @@ def train_saint(
 
     history: List[Dict[str, float]] = []
     best_val, best_params = _restore_banked_best(cfg, start_epoch, device, log)
+    tracer = _tracer(cfg, log)
     t0 = time.time()
     for epoch in range(start_epoch, cfg.epochs):
         it = sampler.prefetch() if prefetch else iter(sampler)
@@ -279,8 +305,12 @@ def train_saint(
             # move to the model's device
             layout = sub_layout(sub)
             lr = state.optimizer.learning_rate       # the one this step applies
+            if tracer:
+                tracer.before_step()
             state, metrics = train_step(
                 state, sub.to(device), None if layout is None else layout.to(device))
+            if tracer:
+                tracer.after_step(block_on=metrics)
             last = i == len(sampler) - 1
             if last or (cfg.log_every_steps and i % cfg.log_every_steps == 0):
                 row = {k: float(v) for k, v in metrics.items()}
@@ -309,6 +339,8 @@ def train_saint(
             save_checkpoint(
                 os.path.join(cfg.run_dir, f"checkpoint_ep{epoch}.pkl"),
                 state, epoch, history[-1]["loss"] if history else None)
+    if tracer:
+        tracer.close()
 
     final, final_params = _final_eval(model, evaluate, cfg, best_val, best_params, log)
     log.log(f"Final Test Accuracy: {final.get('test_acc', float('nan')):.4f} "

@@ -53,13 +53,11 @@ def make_fused_fns(model: torch.nn.Module, graph: Graph, layout: EdgeLayout,
     return (fused, fused)
 
 
-def make_pallas_train_step(model: torch.nn.Module, loss_mode: str = "saint",
-                           tile_nodes: Optional[int] = None, gather: str = "auto",
-                           fused_bwd: bool = True):
-    """step(state, graph, layout) -> (state, metrics) with both convs fused
-    through closures over the layout (``make_fused_fns``); otherwise the
-    step of ``train/state.py::make_train_step``. The graph and the layout
-    must lie on the model's device."""
+def fused_forward(model: torch.nn.Module, tile_nodes: Optional[int] = None,
+                  gather: str = "auto", fused_bwd: bool = True) -> Callable:
+    """forward(graph, layout, generator) -> logits with both convs fused
+    through closures over the layout (``make_fused_fns``): the model call of
+    ``make_pallas_train_step``'s step body."""
 
     def forward(graph: Graph, layout: EdgeLayout, generator: torch.Generator):
         fns = make_fused_fns(model, graph, layout, tile_nodes, gather,
@@ -67,4 +65,17 @@ def make_pallas_train_step(model: torch.nn.Module, loss_mode: str = "saint",
         return model(graph, deterministic=False, generator=generator,
                      fused_fns=fns)
 
-    return make_train_step(model, loss_mode, forward=forward)
+    return forward
+
+
+def make_pallas_train_step(model: torch.nn.Module, loss_mode: str = "saint",
+                           tile_nodes: Optional[int] = None, gather: str = "auto",
+                           fused_bwd: bool = True):
+    """step(state, graph, layout) -> (state, metrics) with both convs fused
+    through closures over the layout (``fused_forward``); otherwise the
+    step of ``train/state.py::make_train_step``, so on the card one
+    CUDA-graph replay per step, captured once per layout shape (layouts of
+    a fixed budget share one graph: ``compute_layout`` pads them to its
+    capacity). The graph and the layout must lie on the model's device."""
+    return make_train_step(model, loss_mode,
+                           forward=fused_forward(model, tile_nodes, gather, fused_bwd))

@@ -17,7 +17,14 @@ the same inputs), drives AMPConv at the shapes beyond the tensor-core range
 on the chunked layout: the CUDA-core bodies, their working set in device
 memory where it exceeds a block's shared memory, each against float64 on
 the CPU), then drives the port at full width on the Cora-shaped surrogate,
-where every launch of K1-K9 must run the tensor-core body:
+where every launch of K1-K9 must run the tensor-core body. Every step runs
+as the entry points run it on the card: a captured CUDA graph
+(train/graphs.py), one per training step, one per 10 steps of path C, one
+per 8-draw eval; launch counts are the replays' (each replay adds what its
+capture recorded). Each path also runs its eager body from the same state
+beside it: warm host ms, device ms and busy share, peak memory of both, the
+capture's one-off ms, and the two results held together (losses at the
+model limits):
 
   A  inference, the recommended recipe (S=40, tfidf, gcn2 head), 8-draw
      make_eval_step: K1 twice per draw;
@@ -53,7 +60,11 @@ where every launch of K1-K9 must run the tensor-core body:
   I  the eval of A with DMA_V1_DEFAULT set: K9 twice per draw and no K1.
 K8 has no caller on the model path (as in the JAX package): its phase calls
 the public wrapper on the chunked layout of the same graph, its counts set
-to 0 just before and read just after.
+to 0 just before and read just after. The `captured` phase holds captured
+against eager bit for bit on A's 8-draw eval, 10 steps of C (one 10-step
+graph) and 3 subgraphs of E, and F's 3 steps at the model limits (pass B
+sums with atomics); `profile_steps` trains path C with profile_steps=3 and
+requires K1, K3 and K4 in the trace it writes.
 
 Each path's launch counts are set to 0 just before it runs and read right
 after; for A and B one draw with a fixed sampled_idx is checked against the
@@ -76,6 +87,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -171,6 +183,14 @@ EVIDENCE_KEEP = 3
 # memory)
 CHUNKED_ROUTES = ((96, True),     # 345 KB a block even at a piece of one edge
                   (49, False))    # a seventh key tile; 144 KB at a piece of one edge
+
+
+START = time.perf_counter()
+
+
+def emit(report: dict) -> None:
+    """Print one phase's JSON line, with the seconds since the start."""
+    print(json.dumps({**report, "t_s": time.perf_counter() - START}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -371,6 +391,23 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the device functions of the port's kernels, as a profiler names them
+PORT_KERNEL_FUNCTIONS = (
+    "sums_tc_kernel", "mean_out_tc_kernel", "projection_tc_kernel", "dq_tc_kernel",
+    "dkv_tc_kernel", "stream_tc_kernel", "groups_tc_kernel", "chunked_tc_kernel",
+    "edge_attention_kernel", "edge_attention_bwd_kernel", "edge_group_kernel",
+    "edge_chunk_kernel", "projection_kernel")
+_PORT_KERNEL_WORDS = {fn: re.compile(rf"(?<![A-Za-z0-9_]){fn}(?![A-Za-z0-9_])")
+                      for fn in PORT_KERNEL_FUNCTIONS}
+
+
+def port_kernels(names) -> dict:
+    """How many of ``names`` (kernels a profiler recorded) are each of the
+    port's device functions; the ones never named are left out."""
+    counts = {fn: sum(bool(w.search(n)) for n in names) for fn, w in _PORT_KERNEL_WORDS.items()}
+    return {fn: c for fn, c in counts.items() if c}
+
+
 def device_profile(fn, reps: int = 3) -> dict:
     """torch.profiler over ``reps`` calls of fn (after one to warm up): the
     card's kernel time per call and the kernels that take most of it. With
@@ -397,6 +434,8 @@ def device_profile(fn, reps: int = 3) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return dict(device_ms=sum(by_kernel.values()) if by_kernel else None,
                 kernels_per_call=len(on_card) / reps,
+                port_kernels_per_call={k: c / reps for k, c in port_kernels(
+                    [e.name for e in on_card]).items()},
                 top_kernels_ms=[[name[:80], ms] for name, ms in top])
 
 
@@ -709,6 +748,8 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
         b, by = bound_ms(k5_bytes, 10 * s * s * d * live_edges, True)
         _, stream = sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw)
         dkv = torch.zeros(nt, s, 2 * d, device=dev)
+        take = sb.walked_slots(layout.tile_senders, layout.recv_ptr,
+                               (0, layout.tile_senders.shape[0]))
         rows[f"edge_attention_bwd_stream_s{s}"] = tensor_core_row(dict(
             name="edge_attention_bwd_stream", route="cuda",
             source="ampnet_tpu_torch/ops/hopper/csrc/edge_attention_bwd_stream_tc.cu "
@@ -722,7 +763,7 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
             f32_bound_ms=bound_ms(k5_bytes, 10 * s * s * d * live_edges)[0],
             stream_bytes=stream.numel() * 4, walked_stream_bytes=stream_bytes,
             pass_b_ms=cuda_ms(lambda: sb.stream_to_senders(
-                stream, layout.tile_senders, walked, 0, dkv, s=s, sp=sp), 10)),
+                stream, layout.tile_senders, take, 0, dkv, s=s, sp=sp), 10)),
             "edge_attention_bwd_stream_tc", "ampnet_edge_attention_bwd_stream_info", nt, s, d,
             h, lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw, body="simt"),
             lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw), ptxas)
@@ -1063,36 +1104,119 @@ def recipe_model(cfg, data, seed, dev):
                   generator=torch.Generator().manual_seed(seed), device=dev)
 
 
+def first_call(fn):
+    """(fn's result, host ms, peak allocated bytes) of one call ending in a
+    synchronise: for a captured step's first call, its capture and replay."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+
+
+def sync_ms(fn, reps: int) -> float:
+    """Host ms of one call of fn: the mean of ``reps`` calls ending in a
+    synchronise, after one call to warm up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def step_costs(fn, reps: int) -> dict:
+    """One way of running a step: its warm host ms, its device time from
+    CUDA events around ``reps`` calls and from torch.profiler (kernels by
+    name, the busy share of the warm step), and the peak of allocated
+    device memory while it runs (beside what the allocator holds)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = sync_ms(fn, reps)
+    report = dict(warm_ms=ms, event_ms=cuda_ms(fn, reps),
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  memory_reserved=torch.cuda.memory_reserved())
+    report["profile"] = busy_share(device_profile(fn), ms)
+    return report
+
+
+def same_kernels(name, eager: dict, captured: dict, again) -> None:
+    """Where the profiler saw the card, fail unless a replay launched each of
+    the port's kernels as often as the eager body: the launch counters only
+    add what the capture recorded, the profiler sees what ran. Every replay
+    of a graph runs the same kernels, but the profiler has been seen to
+    drop a replay's records (once in ~30 profiles: a third of C's K1
+    launches); ``again()`` profiles both once more (the eager body first,
+    as many calls each), and only a difference that repeats three times
+    fails. ``captured["kernel_census_profiles"]`` says how many it took."""
+    for attempt in range(1, 4):
+        seen = [c["profile"].get("port_kernels_per_call") for c in (eager, captured)]
+        if None in seen or seen[0] == seen[1]:
+            captured["kernel_census_profiles"] = attempt
+            return
+        print(json.dumps({"kernel_census_differs": name, "eager": seen[0],
+                          "captured": seen[1]}), flush=True)
+        if attempt < 3:
+            eager["profile"], captured["profile"] = again()
+    fail(f"path {name}: a replay launches {seen[1]} of the port's kernels, "
+         f"the eager body {seen[0]} (three profiles each)")
+
+
+def eager_and_captured(name, eager, captured, reps: int, first_ms: float) -> dict:
+    """Both ways of running one step, each as many times (so that training
+    states stay in step): step_costs of the eager body, then of the
+    captured step, and the capture's one-off ms (its first call, capture
+    and replay, less a warm replay); ``same_kernels`` holds them."""
+    out = {"eager": step_costs(eager, reps), "captured": step_costs(captured, reps)}
+    same_kernels(name, out["eager"], out["captured"], lambda: tuple(
+        busy_share(device_profile(fn), out[k]["warm_ms"])
+        for k, fn in (("eager", eager), ("captured", captured))))
+    out["capture_ms"] = first_ms - out["captured"]["warm_ms"]
+    return out
+
+
+def near(name, what, got, want):
+    """Max abs difference of two lists of floats; fail beyond the model limits."""
+    got, want = torch.tensor(got, dtype=torch.float64), torch.tensor(want, dtype=torch.float64)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+        fail(f"path {name}: captured {what} disagree with the eager body's "
+             f"(max abs err {err:.3g})")
+    return err
+
+
 def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None):
-    """One 8-draw eval step through make_eval_step, counts read around it,
-    then one fixed draw on the card against the same forward on the CPU (and
-    against ``same_as``, another route's logits of that draw); the warm
-    step's kernel time from torch.profiler too. Returns the counts, the
-    report and the draw's logits."""
+    """One 8-draw eval step through make_eval_step (a captured graph),
+    counts read around its first call (the capture and one replay); its
+    losses against the eager body's from the same seed (model limits: K6,
+    K7 and K9 sum with atomics), both timed; then one fixed draw on the
+    card against the same forward on the CPU (and against ``same_as``,
+    another route's logits of that draw). Returns the counts, the report and
+    the draw's logits."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.tokenize import sample_present_features, tfidf_sample_features
     from ampnet_tpu_torch.train import make_eval_step
+    from ampnet_tpu_torch.train.state import _eval_step_body
 
     model = recipe_model(cfg, data, seed, dev)
-    step = make_eval_step(model, num_eval_samples=8)
+    step, eager = make_eval_step(model, num_eval_samples=8), _eval_step_body(model, 8)
     eaf.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    metrics = step(graph, torch.Generator(device=dev).manual_seed(seed), layout)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
+    metrics, first_ms, first_peak = first_call(
+        lambda: step(graph, torch.Generator(device=dev).manual_seed(seed), layout))
     counts = eaf.launch_counts()
     tensor_cores_only(name, counts)
     metrics = {k: float(v) for k, v in metrics.items()}
     if not finite(metrics.values()):
         fail(f"path {name}: non-finite metrics {metrics}")
-    t0 = time.perf_counter()
-    for i in range(5):
-        step(graph, torch.Generator(device=dev).manual_seed(seed + 1 + i), layout)
-    torch.cuda.synchronize()
-    warm_ms = (time.perf_counter() - t0) * 1e3 / 5
-    profile_report = device_profile(lambda: step(
-        graph, torch.Generator(device=dev).manual_seed(seed), layout))
+    want = {k: float(v) for k, v in eager(
+        graph, torch.Generator(device=dev).manual_seed(seed), layout).items()}
+    losses = sorted(k for k in want if k.endswith("_loss"))
+    vs_eager = near(name, "eval losses", [metrics[k] for k in losses], [want[k] for k in losses])
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    costs = eager_and_captured(name, lambda: eager(graph, gen, layout),
+                               lambda: step(graph, gen, layout), 5, first_ms)
 
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     sampler = (tfidf_sample_features if cfg.token_sampling == "tfidf"
@@ -1128,9 +1252,14 @@ def drive_path(name, cfg, data, graph, layout, seed, dev, same_as=None):
         fail(f"path {name}: card logits disagree with the CPU float64 forward "
              f"(max abs err {err:.3g})")
     report = dict(path=name, metrics=metrics, eval_step_first_ms=first_ms,
-                  eval_step_warm_ms=warm_ms, cpu_f64_max_abs_err=err,
-                  stage_max_abs_err=stage_err)
-    report["profile"] = busy_share(profile_report, warm_ms)
+                  first_call_max_memory_allocated=first_peak,
+                  eval_step_warm_ms=costs["captured"]["warm_ms"],
+                  eager_eval_step_warm_ms=costs["eager"]["warm_ms"],
+                  capture_ms=costs["capture_ms"], capture_parts=step.graphs.timings()[0],
+                  eager_vs_captured_loss_max_abs_err=vs_eager,
+                  cpu_f64_max_abs_err=err, stage_max_abs_err=stage_err)
+    report["profile"] = costs["captured"]["profile"]
+    report["eager"], report["captured"] = costs["eager"], costs["captured"]
     if same_as is not None:
         report["other_route_max_abs_err"] = float((card - same_as).abs().max())
         if not torch.allclose(card, same_as, rtol=MODEL_RTOL, atol=MODEL_ATOL):
@@ -1252,16 +1381,45 @@ def gradient_check(name, model, graph, layout, seed, want=None, loss_mode="full"
     return report
 
 
+def state_gap(name, step, eager, st, st_e, graph, layout) -> dict:
+    """Two training states that took the same steps, one captured and one
+    eager: the largest parameter difference (relative to the parameter's
+    largest entry), reported, not held: where a kernel sums with atomics
+    (F, H) the two runs drift apart step by step, Adam moving an entry
+    whose gradient is rounding noise by ~lr either way. Then the eager
+    state takes the captured one's values (parameters, Adam's tensors,
+    generator, counts), and one more step of each from that same state
+    gives losses held at the model limits: what one step's atomics leave."""
+    with torch.no_grad():
+        gap = max(float((p - q).abs().max() / q.abs().max().clamp_min(1e-30))
+                  for p, q in zip(st.model.parameters(), st_e.model.parameters()))
+        st_e.model.load_state_dict(st.model.state_dict())
+        for p, q in zip(st.optimizer.params, st_e.optimizer.params):
+            for k, t in st.optimizer.adam.state[p].items():
+                st_e.optimizer.adam.state[q][k].copy_(t)
+    st_e.generator.set_state(st.generator.get_state())
+    st_e.step, st_e.optimizer.count = st.step, st.optimizer.count
+    loss = float(step(st, graph, layout)[1]["loss"])
+    loss_e = float(eager(st_e, graph, layout)[1]["loss"])
+    return dict(param_max_rel_diff=gap,
+                next_loss_abs_diff=near(name, "training losses", [loss], [loss_e]))
+
+
 def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
                    want_step=None):
-    """create_train_state + train_full_batch, counts read around it; before
-    that, on a model of its own, the gradient check, one step's launch
-    counts (``want_step``, default 2 K1 + 2 K3 + 2 K4) and the warm step
-    time."""
+    """create_train_state + train_full_batch (captured steps), counts read
+    around it; before that, on models of their own, the gradient check, one
+    captured step's launch counts (``want_step``, default 2 K1 + 2 K3 + 2
+    K4), and the captured step against the eager body from the same
+    initial state (step_costs of both, and where their states stand after
+    the same steps)."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper.format import compute_layout
     from ampnet_tpu_torch.train import (Logfile, create_train_state, make_optimizer,
-                                        make_train_step, train_full_batch)
+                                        make_scan_train_step, make_train_step,
+                                        train_full_batch)
+    from ampnet_tpu_torch.train.loop import dispatch_chunk
+    from ampnet_tpu_torch.train.state import _train_step_body
 
     layout = compute_layout(graph)
     probe = recipe_model(cfg, data, seed, dev)
@@ -1270,27 +1428,32 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
     if check_gradients:
         report["gradient_check"] = gradient_check(name, probe, graph, layout, seed,
                                                   want=want_step)
-    state = create_train_state(
-        probe, make_optimizer(probe.parameters(), tcfg.learning_rate,
-                              weight_decay=tcfg.weight_decay, cosine_t0=tcfg.cosine_t0,
-                              grad_clip=tcfg.grad_clip), seed=seed)
-    step = make_train_step(probe)
+
+    def state_of(model):
+        return create_train_state(model, make_optimizer(
+            model.parameters(), tcfg.learning_rate, weight_decay=tcfg.weight_decay,
+            cosine_t0=tcfg.cosine_t0, grad_clip=tcfg.grad_clip), seed=seed)
+
+    twin = recipe_model(cfg, data, seed, dev)
+    state, state_e = state_of(probe), state_of(twin)
+    step, eager = make_train_step(probe), _train_step_body(twin)
     eaf.reset_launch_counts()
-    step(state, graph, layout)
-    torch.cuda.synchronize()
+    _, first_ms, report["first_call_max_memory_allocated"] = first_call(
+        lambda: step(state, graph, layout))
     per_step = eaf.launch_counts()
     if per_step != want_step:
         fail(f"path {name}: one training step launched {per_step}, expected {want_step}")
     tensor_cores_only(name, per_step)
-    step(state, graph, layout)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        step(state, graph, layout)
-    torch.cuda.synchronize()
-    report["train_step_warm_ms"] = (time.perf_counter() - t0) * 1e2
-    report["profile"] = busy_share(device_profile(lambda: step(state, graph, layout)),
-                                   report["train_step_warm_ms"])
+    eager(state_e, graph, layout)
+    costs = eager_and_captured(name, lambda: eager(state_e, graph, layout),
+                               lambda: step(state, graph, layout), 10, first_ms)
+    report.update(train_step_first_ms=first_ms,
+                  train_step_warm_ms=costs["captured"]["warm_ms"],
+                  eager_train_step_warm_ms=costs["eager"]["warm_ms"],
+                  capture_ms=costs["capture_ms"], capture_parts=step.graphs.timings()[0],
+                  profile=costs["captured"]["profile"],
+                  eager=costs["eager"], captured=costs["captured"],
+                  vs_eager=state_gap(name, step, eager, state, state_e, graph, layout))
 
     model = recipe_model(cfg, data, seed, dev)
     eaf.reset_launch_counts()
@@ -1313,6 +1476,14 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
                   loss_last_mean=sum(tail) / len(tail),
                   final_test_acc=final.get("test_acc"), final_val_acc=final.get("val_acc"),
                   per_step_launches=per_step, launches=counts)
+    k = dispatch_chunk(tcfg)
+    if k > 1:
+        # the loop's k-step graph, captured alone from a fresh state: where
+        # its one-off cost goes
+        st = state_of(recipe_model(cfg, data, seed, dev))
+        scan = make_scan_train_step(st.model, "full", k)
+        _, ms, _ = first_call(lambda: scan(st, graph, layout))
+        report["scan_capture"] = dict(steps=k, first_call_ms=ms, **scan.graphs.timings()[0])
     return counts, report
 
 
@@ -1373,33 +1544,110 @@ def pass_profile(step, state, subs, layouts, warm_ms):
     if report["device_ms"] is not None:
         report["device_ms"] /= len(subs)
         report["kernels_per_call"] /= len(subs)
+        report["port_kernels_per_call"] = {
+            k: c / len(subs) for k, c in report["port_kernels_per_call"].items()}
         report["top_kernels_ms"] = [[k, ms / len(subs)] for k, ms in report["top_kernels_ms"]]
     return busy_share(report, warm_ms)
+
+
+def saint_costs(step, state, subs, layouts) -> dict:
+    """step_costs for a GraphSAINT step, per step of passes over the
+    prepared subgraphs: warm ms (median pass, with the range), device time
+    and busy share, peak allocated memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, spread = warm_steps_ms(step, state, subs, layouts)
+    return dict(warm_ms=ms, warm_ms_range=spread,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                memory_reserved=torch.cuda.memory_reserved(),
+                profile=pass_profile(step, state, subs, layouts, ms))
+
+
+def saint_subgraphs(data, budget, dev, count=10) -> dict:
+    """``count`` subgraphs of a sampler of their own, prepared once: both
+    fixed-capacity layouts on the host (timed, ms a layout), everything
+    moved to the card."""
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+
+    host = list(saint_sampler(data, count))
+    t0 = time.perf_counter()
+    with_snd = [compute_layout(g, edges_per_tile=budget) for g in host]
+    t1 = time.perf_counter()
+    without = [compute_layout(g, edges_per_tile=budget, sender_layout=False)
+               for g in host]
+    t2 = time.perf_counter()
+    return dict(subs=[g.to(dev) for g in host], with_snd=[lay.to(dev) for lay in with_snd],
+                without=[lay.to(dev) for lay in without],
+                host_layout_ms=(t1 - t0) * 1e3 / count,
+                host_layout_ms_f=(t2 - t1) * 1e3 / count,
+                nodes_edges=[[g.num_nodes, g.num_edges] for g in host])
+
+
+def saint_config(seed):
+    from ampnet_tpu_torch.core.config import TrainConfig
+
+    total = SAINT_EPOCHS * SAINT_STEPS
+    return TrainConfig(learning_rate=3e-3, weight_decay=5e-4, epochs=SAINT_EPOCHS,
+                       seed=seed, cosine_t0=total, cosine_t_mult=1, grad_clip=1.0,
+                       checkpoint_every=0, select_best_every=1, num_eval_samples=8,
+                       log_every_steps=1, saint_loss="mean")
+
+
+def saint_state(model, tcfg, seed):
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer
+
+    return create_train_state(model, make_optimizer(
+        model.parameters(), tcfg.learning_rate, weight_decay=tcfg.weight_decay,
+        cosine_t0=tcfg.cosine_t0, cosine_t_mult=1, grad_clip=tcfg.grad_clip), seed=seed)
+
+
+def captured_against_eager(name, make_step, make_eager, cfg, data, seed, dev, tcfg,
+                           subs, layouts, want) -> dict:
+    """A captured GraphSAINT step against its eager body, on models and
+    states of their own from one initial state: the first call's launch
+    counts (``want``), saint_costs of both, where the states stand after."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    probe, twin = recipe_model(cfg, data, seed, dev), recipe_model(cfg, data, seed, dev)
+    state, state_e = saint_state(probe, tcfg, seed), saint_state(twin, tcfg, seed)
+    step, eager = make_step(probe), make_eager(twin)
+    eaf.reset_launch_counts()
+    _, first_ms, peak = first_call(lambda: step(state, subs[0], layouts[0]))
+    per_step = eaf.launch_counts()
+    if per_step != want:
+        fail(f"path {name}: one step launched {per_step}, expected {want}")
+    tensor_cores_only(name, per_step)
+    eager(state_e, subs[0], layouts[0])
+    eager_costs = saint_costs(eager, state_e, subs, layouts)
+    captured = saint_costs(step, state, subs, layouts)
+    same_kernels(name, eager_costs, captured, lambda: (
+        pass_profile(eager, state_e, subs, layouts, eager_costs["warm_ms"]),
+        pass_profile(step, state, subs, layouts, captured["warm_ms"])))
+    return dict(train_step_first_ms=first_ms, first_call_max_memory_allocated=peak,
+                train_step_warm_ms=captured["warm_ms"],
+                train_step_warm_ms_range=captured["warm_ms_range"],
+                eager_train_step_warm_ms=eager_costs["warm_ms"],
+                capture_ms=first_ms - captured["warm_ms"],
+                capture_parts=step.graphs.timings()[0], profile=captured["profile"],
+                eager=eager_costs, captured=captured, per_step_launches=per_step,
+                vs_eager=state_gap(name, step, eager, state, state_e, subs[0], layouts[0]))
 
 
 def drive_saint(cfg, data, graph, seed, dev):
     """Paths E and F: GraphSAINT subgraph training of the stabilized recipe
     through train_saint (layouts with the sender side: K1 + K3 + K4) and
-    through make_pallas_train_step on layouts without one (K1 + K5)."""
-    from ampnet_tpu_torch.core.config import TrainConfig
+    through make_pallas_train_step on layouts without one (K1 + K5), every
+    step a CUDA-graph replay on fixed-capacity layouts. Returns the counts
+    and reports of both, and the prepared subgraphs."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper.format import compute_layout
-    from ampnet_tpu_torch.train import (create_train_state, make_optimizer,
-                                        make_train_step, train_saint)
+    from ampnet_tpu_torch.train import make_train_step, train_saint
     from ampnet_tpu_torch.train.loop import _saint_layout_budget
-    from ampnet_tpu_torch.train.pallas_step import make_pallas_train_step
+    from ampnet_tpu_torch.train.pallas_step import fused_forward, make_pallas_train_step
+    from ampnet_tpu_torch.train.state import _train_step_body
 
     total = SAINT_EPOCHS * SAINT_STEPS
-    tcfg = TrainConfig(learning_rate=3e-3, weight_decay=5e-4, epochs=SAINT_EPOCHS,
-                       seed=seed, cosine_t0=total, cosine_t_mult=1, grad_clip=1.0,
-                       checkpoint_every=0, select_best_every=1, num_eval_samples=8,
-                       log_every_steps=1, saint_loss="mean")
-
-    def optimizer(model):
-        return make_optimizer(model.parameters(), tcfg.learning_rate,
-                              weight_decay=tcfg.weight_decay, cosine_t0=tcfg.cosine_t0,
-                              cosine_t_mult=1, grad_clip=tcfg.grad_clip)
-
+    tcfg = saint_config(seed)
     t0 = time.perf_counter()
     sampler = saint_sampler(data, SAINT_STEPS)
     budget = _saint_layout_budget(sampler)
@@ -1409,35 +1657,14 @@ def drive_saint(cfg, data, graph, seed, dev):
                     sampler_build_s=time.perf_counter() - t0,
                     pad_nodes_to=sampler.pad_nodes_to, pad_edges_to=sampler.pad_edges_to,
                     edge_budget=budget)
-
-    # ten subgraphs of a sampler of their own, prepared once: both layouts on
-    # the host (timed), everything moved to the card
-    probe_sampler = saint_sampler(data, 10)
-    host = list(probe_sampler)
-    t0 = time.perf_counter()
-    with_snd = [compute_layout(g, edges_per_tile=budget) for g in host]
-    report_e["host_layout_ms"] = (time.perf_counter() - t0) * 1e2
-    t0 = time.perf_counter()
-    without = [compute_layout(g, edges_per_tile=budget, sender_layout=False) for g in host]
-    host_layout_ms_f = (time.perf_counter() - t0) * 1e2
-    subs = [g.to(dev) for g in host]
-    with_snd = [lay.to(dev) for lay in with_snd]
-    without = [lay.to(dev) for lay in without]
-    report_e["subgraph_nodes_edges"] = [[g.num_nodes, g.num_edges] for g in host]
-
-    probe = recipe_model(cfg, data, seed, dev)
-    state = create_train_state(probe, optimizer(probe), seed=seed)
-    step_e = make_train_step(probe, loss_mode="saint_mean")
-    eaf.reset_launch_counts()
-    step_e(state, subs[0], with_snd[0])
-    torch.cuda.synchronize()
-    per_step = eaf.launch_counts()
-    if per_step != launches(k1=2, k3=2, k4=2):
-        fail(f"path {name_e}: one step launched {per_step}, expected 2 K1 + 2 K3 + 2 K4")
-    report_e["train_step_warm_ms"], report_e["train_step_warm_ms_range"] = warm_steps_ms(
-        step_e, state, subs, with_snd)
-    report_e["profile"] = pass_profile(step_e, state, subs, with_snd,
-                                       report_e["train_step_warm_ms"])
+    prep = saint_subgraphs(data, budget, dev)
+    subs, with_snd, without = prep["subs"], prep["with_snd"], prep["without"]
+    report_e.update(host_layout_ms=prep["host_layout_ms"],
+                    subgraph_nodes_edges=prep["nodes_edges"])
+    report_e.update(captured_against_eager(
+        name_e, lambda m: make_train_step(m, loss_mode="saint_mean"),
+        lambda m: _train_step_body(m, "saint_mean"), cfg, data, seed, dev, tcfg, subs,
+        with_snd, launches(k1=2, k3=2, k4=2)))
 
     model = recipe_model(cfg, data, seed, dev)
     log = StepLog()
@@ -1455,8 +1682,7 @@ def drive_saint(cfg, data, graph, seed, dev):
              f"rows, final metrics {final}")
     report_e.update(loss_fell(name_e, log.losses), budget_regrown=log.budget_lines,
                     final_test_acc=final.get("test_acc"),
-                    final_val_acc=final.get("val_acc"),
-                    per_step_launches=per_step, launches=counts_e)
+                    final_val_acc=final.get("val_acc"), launches=counts_e)
     evals = SAINT_EPOCHS + 1                               # selection + final, 8 draws
     want_e = launches(k1=2 * total + 2 * 8 * evals, k3=2 * total, k4=2 * total)
     if counts_e != want_e:
@@ -1464,21 +1690,12 @@ def drive_saint(cfg, data, graph, seed, dev):
 
     # ---- path F
     name_f = "F S=40 GraphSAINT, make_pallas_train_step without a sender side"
-    report_f = dict(path=name_f, cut=f"{total} subgraphs", host_layout_ms=host_layout_ms_f)
-    probe = recipe_model(cfg, data, seed, dev)
-    state = create_train_state(probe, optimizer(probe), seed=seed)
-    step_f = make_pallas_train_step(probe, loss_mode="saint_mean")
-    eaf.reset_launch_counts()
-    step_f(state, subs[0], without[0])
-    torch.cuda.synchronize()
-    per_step = eaf.launch_counts()
-    if per_step != launches(k1=2, k5=2):
-        fail(f"path {name_f}: one step launched {per_step}, expected 2 K1 + 2 K5 and "
-             f"no K3 / K4")
-    report_f["train_step_warm_ms"], report_f["train_step_warm_ms_range"] = warm_steps_ms(
-        step_f, state, subs, without)
-    report_f["profile"] = pass_profile(step_f, state, subs, without,
-                                       report_f["train_step_warm_ms"])
+    report_f = dict(path=name_f, cut=f"{total} subgraphs",
+                    host_layout_ms=prep["host_layout_ms_f"])
+    report_f.update(captured_against_eager(
+        name_f, lambda m: make_pallas_train_step(m, loss_mode="saint_mean"),
+        lambda m: _train_step_body(m, "saint_mean", forward=fused_forward(m)), cfg, data,
+        seed, dev, tcfg, subs, without, launches(k1=2, k5=2)))
     # after the timing: the float64 reference keeps the host's cores busy
     report_f["gradient_check"] = gradient_check(
         name_f, recipe_model(cfg, data, seed, dev), subs[0], without[0], seed,
@@ -1486,7 +1703,7 @@ def drive_saint(cfg, data, graph, seed, dev):
         also=(with_snd[0], launches(k1=2, k3=2, k4=2)))
 
     model = recipe_model(cfg, data, seed, dev)
-    state = create_train_state(model, optimizer(model), seed=seed)
+    state = saint_state(model, tcfg, seed)
     step_f = make_pallas_train_step(model, loss_mode="saint_mean")
     sampler = saint_sampler(data, total)
     losses = []
@@ -1507,11 +1724,165 @@ def drive_saint(cfg, data, graph, seed, dev):
     if not finite([float(metrics["loss"])]):
         fail(f"path {name_f}: the full-graph step's loss is {float(metrics['loss'])}")
     report_f.update(loss_fell(name_f, losses), full_graph_step_loss=float(metrics["loss"]),
-                    per_step_launches=per_step, launches=counts_f)
+                    launches=counts_f)
     want_f = launches(k1=2 * (total + 1), k5=2 * (total + 1))
     if counts_f != want_f:
         fail(f"path {name_f} launched {counts_f}, expected {want_f}")
-    return counts_e, report_e, counts_f, report_f
+    return counts_e, report_e, counts_f, report_f, prep
+
+
+def bit_for_bit(name, pairs) -> dict:
+    """(captured, eager) tensor pairs by name: the largest difference of
+    each; fail unless every pair is equal bit for bit."""
+    diffs = {k: float((a.double() - b.double()).abs().max()) for k, (a, b) in pairs.items()}
+    if not all(torch.equal(a, b) for a, b in pairs.values()):
+        fail(f"captured phase, path {name}: captured and eager differ "
+             f"({ {k: v for k, v in diffs.items() if v} })")
+    return max(diffs.values())
+
+
+def captured_phase(recipe, saint_cfg, data, graph, layout, prep, seed, dev) -> dict:
+    """The captured steps against the eager bodies on the card, one process:
+    path A's 8-draw eval at a fixed seed (metrics and mean logits), 10
+    steps of path C from one initial state as one 10-step graph against 10
+    eager steps, 3 subgraphs of path E: each bit for bit (the metrics,
+    every parameter, the logits of one fixed draw after the steps; K1-K4
+    and the GCN head's segment sums repeat bit for bit, and the draws come
+    from the same generator state). Path F's 3 steps (pass B sums with
+    atomics) at the model limits."""
+    from ampnet_tpu_torch.core.config import TrainConfig
+    from ampnet_tpu_torch.ops.tokenize import tfidf_sample_features
+    from ampnet_tpu_torch.train import (create_train_state, graphs, make_eval_step,
+                                        make_optimizer, make_scan_train_step,
+                                        make_train_step)
+    from ampnet_tpu_torch.train.pallas_step import fused_forward, make_pallas_train_step
+    from ampnet_tpu_torch.train.state import _eval_step_body, _train_step_body, eval_logits
+
+    def gen(s):
+        return torch.Generator(device=dev).manual_seed(s)
+
+    report = {}
+    # A: metrics through make_eval_step, mean logits through the same capture
+    model = recipe_model(recipe, data, seed, dev)
+    got = make_eval_step(model, 8)(graph, gen(seed), layout)
+    want = _eval_step_body(model, 8)(graph, gen(seed), layout)
+    own = gen(seed)
+
+    @torch.no_grad()
+    def mean_logits(g, lay, generator):
+        return eval_logits(model, g, generator, lay, 8)
+
+    cap = graphs.Captured(lambda g, lay: mean_logits(g, lay, own), (graph, layout),
+                          generator=own, what="path A's mean logits")
+    own.set_state(gen(seed).get_state())
+    logits = cap.replay((graph, layout)).clone()
+    pairs = {k: (got[k], want[k]) for k in want}
+    pairs["logits"] = (logits, mean_logits(graph, layout, gen(seed)))
+    report["A"] = dict(max_abs_diff=bit_for_bit("A", pairs), compared=sorted(pairs))
+    del cap
+
+    sidx = tfidf_sample_features(graph.x, recipe.num_sampled_vectors,
+                                 node_mask=graph.node_mask, generator=gen(seed + 5))
+
+    def final_logits(m, g, lay, idx):
+        with torch.no_grad():
+            return m(g, sampled_idx=idx, edge_layout=lay)
+
+    # C: one 10-step graph against 10 eager steps
+    tcfg = TrainConfig(learning_rate=3e-3, weight_decay=1e-3, grad_clip=1.0, cosine_t0=None)
+    pair = [recipe_model(recipe, data, seed, dev) for _ in range(2)]
+    states = [create_train_state(m, make_optimizer(
+        m.parameters(), tcfg.learning_rate, weight_decay=tcfg.weight_decay,
+        grad_clip=tcfg.grad_clip), seed=seed) for m in pair]
+    _, stacked = make_scan_train_step(pair[0], "full", 10)(states[0], graph, layout)
+    body = _train_step_body(pair[1])
+    rows = [body(states[1], graph, layout)[1] for _ in range(10)]
+    pairs = {k: (stacked[k], torch.stack([r[k] for r in rows])) for k in stacked}
+    pairs.update({k: (p, q) for (k, p), q in zip(pair[0].named_parameters(),
+                                                 pair[1].parameters())})
+    pairs["logits"] = tuple(final_logits(m, graph, layout, sidx) for m in pair)
+    pairs["generator"] = (states[0].generator.get_state(), states[1].generator.get_state())
+    report["C"] = dict(steps=10, max_abs_diff=bit_for_bit("C", pairs), compared=len(pairs))
+
+    # E and F: 3 subgraphs, the captured step against the eager body
+    subs = prep["subs"][:3]
+    for name, layouts, make, make_eager in (
+            ("E", prep["with_snd"], lambda m: make_train_step(m, "saint_mean"),
+             lambda m: _train_step_body(m, "saint_mean")),
+            ("F", prep["without"], lambda m: make_pallas_train_step(m, "saint_mean"),
+             lambda m: _train_step_body(m, "saint_mean", forward=fused_forward(m)))):
+        pair = [recipe_model(saint_cfg, data, seed, dev) for _ in range(2)]
+        states = [saint_state(m, saint_config(seed), seed) for m in pair]
+        step, body = make(pair[0]), make_eager(pair[1])
+        got = [step(states[0], g, lay)[1] for g, lay in zip(subs, layouts)]
+        want = [body(states[1], g, lay)[1] for g, lay in zip(subs, layouts)]
+        logits = [final_logits(m, graph, layout, sidx) for m in pair]
+        if name == "E":
+            pairs = {f"{k}_{i}": (a[k], b[k]) for i, (a, b) in enumerate(zip(got, want))
+                     for k in a}
+            pairs.update({k: (p, q) for (k, p), q in zip(pair[0].named_parameters(),
+                                                         pair[1].parameters())})
+            pairs["logits"] = tuple(logits)
+            report[name] = dict(steps=3, max_abs_diff=bit_for_bit(name, pairs),
+                                compared=len(pairs))
+        else:
+            report[name] = dict(steps=3, loss_max_abs_diff=near(
+                name, "losses", [float(m["loss"]) for m in got],
+                [float(m["loss"]) for m in want]),
+                logits_max_abs_diff=float((logits[0] - logits[1]).abs().max()))
+            if not torch.allclose(logits[0], logits[1], rtol=MODEL_RTOL, atol=MODEL_ATOL):
+                fail(f"captured phase, path F: logits after 3 steps differ "
+                     f"({report[name]['logits_max_abs_diff']:.3g})")
+    return report
+
+
+# kernel-name fragments of K1, K3 and K4 in a profiler trace (the
+# __global__ functions of edge_attention_tc.cuh, edge_attention_bwd_dq_tc.cu
+# and edge_attention_bwd_tc.cu)
+# each of path C's steps launches K1, K3 and K4 once a layer, and no other
+# kernel of the port
+TRACE_KERNELS = {"K1": "sums_tc_kernel", "K3": "dq_tc_kernel", "K4": "dkv_tc_kernel"}
+PROFILE_DIR = Path(__file__).resolve().parent / "chiprun_out" / "profile_steps"
+
+
+def profile_steps_phase(cfg, tcfg, data, graph, seed, dev, steps: int = 3) -> dict:
+    """train_full_batch with profile_steps=3 into a run_dir of its own: the
+    trace must exist and hold exactly the kernels of 3 replayed steps: K1,
+    K3 and K4 twice a step (once a layer), no other kernel of the port.
+    The profiler may drop records (``same_kernels``), never add them: a
+    trace with fewer launches runs again, twice at most; more, or another
+    kernel, fails at once."""
+    from ampnet_tpu_torch.train import Logfile, train_full_batch
+
+    run = dataclasses.replace(tcfg, epochs=5, profile_steps=steps, run_dir=str(PROFILE_DIR),
+                              select_best_every=0, checkpoint_every=0)
+    want = dict.fromkeys(TRACE_KERNELS, 2 * steps)
+    t0 = time.perf_counter()
+    for attempt in range(1, 4):
+        shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+        train_full_batch(recipe_model(cfg, data, seed, dev), graph, run, log=Logfile())
+        path = PROFILE_DIR / "profile" / "trace.json"
+        if not path.is_file():
+            fail(f"profile_steps: no trace at {path}")
+        events = json.loads(path.read_text())["traceEvents"]
+        names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        counted = port_kernels(names)
+        found = {k: counted.pop(fn, 0) for k, fn in TRACE_KERNELS.items()}
+        wrong = (f"profile_steps: the trace of {steps} steps holds {found} and {counted} "
+                 f"of the port's kernels, not {want} and nothing else ({len(names)} "
+                 f"kernels in it)")
+        if counted or any(found[k] > n for k, n in want.items()):
+            fail(wrong)
+        if found == want:
+            break
+        print(json.dumps({"profile_steps_trace_short": found}), flush=True)
+    else:
+        fail(wrong + " (three runs)")
+    return dict(trace=str(path.relative_to(PROFILE_DIR.parent.parent)),
+                trace_bytes=path.stat().st_size, kernels_in_trace=len(names),
+                launches_by_name=found, runs=attempt, graph_launches=sum(
+                    "cudaGraphLaunch" in e.get("name", "") for e in events),
+                seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -1560,27 +1931,27 @@ def main() -> int:
         "nodes_without_out_edge": int((outdeg == 0).sum())}}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows, k8_launches = kernel_phases(graph, layout, gen, dev, ptxas)
-    print(json.dumps({"kernel_phases": rows}), flush=True)
+    emit({"kernel_phases": rows})
     if k8_launches != 2:
         fail(f"K8's phase launched it {k8_launches} times, expected 2 (S=40 and S=20)")
     t0 = time.perf_counter()
     routes = route_phase(data, gen, dev)
     routes["phase_s"] = time.perf_counter() - t0
-    print(json.dumps({"routes": routes}), flush=True)
+    emit({"routes": routes})
 
     recipe = AMPGCNConfig(num_sampled_vectors=40, token_sampling="tfidf",
                           scaler="precomputed", dropout_rate=0.3,
                           raw_residual="gcn2", use_pallas=True)
     counts_a, path_a, logits_a = drive_path("A S=40 recommended recipe", recipe, data,
                                             graph, layout, args.seed, dev)
-    print(json.dumps(path_a), flush=True)
+    emit(path_a)
     if counts_a != launches(k1=16):
         fail(f"path A launched {counts_a}, expected 16 edge_attention_sums")
 
     reference = AMPGCNConfig(num_sampled_vectors=20, use_pallas=True)
     counts_b, path_b, logits_b = drive_path("B S=20 reference recipe", reference, data,
                                             graph, layout, args.seed, dev)
-    print(json.dumps(path_b), flush=True)
+    emit(path_b)
     if counts_b != launches(k2=16):
         fail(f"path B launched {counts_b}, expected 16 edge_attention_layer")
 
@@ -1591,7 +1962,7 @@ def main() -> int:
                        epochs_per_dispatch=10, log_every=10)
     counts_c, path_c = drive_training("C S=40 recommended recipe, training", recipe,
                                       tcfg, data, graph, args.seed, dev, True)
-    print(json.dumps(path_c), flush=True)
+    emit(path_c)
     evals = TRAIN_EPOCHS // tcfg.select_best_every + 1      # selection + final
     want_c = launches(k1=2 * TRAIN_EPOCHS + 2 * 8 * evals, k3=2 * TRAIN_EPOCHS,
                       k4=2 * TRAIN_EPOCHS)
@@ -1604,16 +1975,24 @@ def main() -> int:
                         seed=args.seed, cosine_t0=None, log_every=1)
     counts_d, path_d = drive_training("D S=20 reference recipe, training", reference,
                                       short, data, graph, args.seed, dev, False)
-    print(json.dumps(path_d), flush=True)
+    emit(path_d)
     want_d = launches(k1=2 * SHORT_EPOCHS, k2=2, k3=2 * SHORT_EPOCHS, k4=2 * SHORT_EPOCHS)
     if counts_d != want_d:
         fail(f"path D launched {counts_d}, expected {want_d}")
 
     # paths E and F: GraphSAINT subgraph training, through both backwards
     saint = dataclasses.replace(recipe, dropout_adj_rate=0.0)
-    counts_e, path_e, counts_f, path_f = drive_saint(saint, data, graph, args.seed, dev)
-    print(json.dumps(path_e), flush=True)
-    print(json.dumps(path_f), flush=True)
+    counts_e, path_e, counts_f, path_f, prep = drive_saint(saint, data, graph, args.seed, dev)
+    emit(path_e)
+    emit(path_f)
+
+    # the captured steps against the eager bodies, and profile_steps' trace
+    t0 = time.perf_counter()
+    captured = captured_phase(recipe, saint, data, graph, layout, prep, args.seed, dev)
+    captured["phase_s"] = time.perf_counter() - t0
+    emit({"captured": captured})
+    del prep
+    emit({"profile_steps": profile_steps_phase(recipe, tcfg, data, graph, args.seed, dev)})
 
     # paths G, H, I: the non-default forward routes behind the same entry points
     with dispatch_flag("MM_SCATTER_DEFAULT"):
@@ -1623,8 +2002,8 @@ def main() -> int:
         counts_g20, path_g20, _ = drive_path(
             "G S=20 reference recipe, mm_scatter", reference, data, graph, layout,
             args.seed, dev, same_as=logits_b)
-        print(json.dumps(path_g40), flush=True)
-        print(json.dumps(path_g20), flush=True)
+        emit(path_g40)
+        emit(path_g20)
         if counts_g40 != launches(k6=16) or counts_g20 != launches(k7=16):
             fail(f"path G launched {counts_g40} at S=40 and {counts_g20} at S=20, expected "
                  f"16 edge_attention_sums_mm and 16 edge_attention_layer_mm")
@@ -1632,7 +2011,7 @@ def main() -> int:
         counts_h, path_h = drive_training(
             "H S=40 recommended recipe, training with mm_scatter", recipe, short40, data,
             graph, args.seed, dev, True, want_step=launches(k6=2, k3=2, k4=2))
-        print(json.dumps(path_h), flush=True)
+        emit(path_h)
         # the final eval's one draw runs K6 twice more
         want_h = launches(k6=2 * SHORT_EPOCHS + 2, k3=2 * SHORT_EPOCHS, k4=2 * SHORT_EPOCHS)
         if counts_h != want_h:
@@ -1641,7 +2020,7 @@ def main() -> int:
         counts_h20, path_h20 = drive_training(
             "H S=20 reference recipe, training with mm_scatter", reference, short, data,
             graph, args.seed, dev, False, want_step=launches(k6=2, k3=2, k4=2))
-        print(json.dumps(path_h20), flush=True)
+        emit(path_h20)
         want_h20 = launches(k6=2 * SHORT_EPOCHS, k7=2, k3=2 * SHORT_EPOCHS,
                             k4=2 * SHORT_EPOCHS)
         if counts_h20 != want_h20:
@@ -1650,7 +2029,7 @@ def main() -> int:
         counts_i, path_i, _ = drive_path(
             "I S=40 recommended recipe, DMA_V1_DEFAULT", recipe, data, graph, layout,
             args.seed, dev, same_as=logits_a)
-        print(json.dumps(path_i), flush=True)
+        emit(path_i)
         if counts_i != launches(k9=16):
             fail(f"path I launched {counts_i}, expected 16 edge_attention_sums_v1")
 

@@ -106,8 +106,8 @@ PORT_MODULES = {
     "ops/hopper": ["__init__", "build", "edge_attention_bwd",
                    "edge_attention_bwd_scatterfree", "edge_attention_fused",
                    "edge_attention_variants", "format", "launch"],
-    "train": ["__init__", "checkpoint", "loop", "losses", "optim", "pallas_step",
-              "rundir", "state"],
+    "train": ["__init__", "checkpoint", "graphs", "loop", "losses", "optim", "pallas_step",
+              "profiling", "rundir", "state"],
 }
 # the port's scripts outside the package
 PORT_SCRIPTS = ["chip_smoke.py", "scripts/torch_body_sweep.py", "scripts/torch_path_a_replay.py"]

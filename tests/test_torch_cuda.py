@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card against their plain versions, and
-the fused path (forward and gradients, through the scatter-free and the
-stream backward) on the card against the plain torch path on the CPU.
+"""The port's CUDA kernels on the card against their plain versions, the
+fused path (forward and gradients, through the scatter-free and the
+stream backward) on the card against the plain torch path on the CPU, and
+the steps captured as CUDA graphs against their eager bodies.
 
 Needs an NVIDIA GPU: every test is marked `cuda` and skips where
 torch.cuda.is_available() is false. Imports no JAX, so that it runs on a
@@ -197,6 +198,42 @@ def test_stream_kernel_matches_plain_on_card(cuda, s, d, h, softmax):
         torch.cuda.synchronize()
         assert torch.equal(dq_f, dq)
         torch.testing.assert_close(dkv, want, rtol=RTOL, atol=ATOL)
+
+
+def test_stream_backward_holds_one_chunk_live(cuda):
+    """24 chunks of one tile each, on a layout of a fixed budget: the peak
+    memory beyond the inputs stays the outputs plus a few chunks' streams
+    (pass B takes one chunk's slots, never the graph's), and the folded
+    sums equal the one-launch ones."""
+    rng = np.random.default_rng(3)
+    n, e, f = 16 * 24, 6000, 12
+    x = (rng.random((n, f)) < 0.4).astype(np.float32)
+    x[x.sum(1) == 0, 0] = 1.0
+    g = from_arrays(x, rng.integers(0, n, (2, e)), y=rng.integers(0, 3, n),
+                    train_mask=np.ones(n, bool), val_mask=np.ones(n, bool),
+                    pad_nodes_to=n, pad_edges_to=e)
+    lay = compute_layout(g, tile_nodes=16, edges_per_tile=512, sender_layout=False).to(cuda)
+    t, emax = lay.tile_senders.shape
+    s, d, h, sp = 20, 128, 4, 24
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, dsum = (torch.randn(n * sp, d, generator=gen, device=cuda) for _ in range(2))
+    kv = torch.randn(n * sp, 2 * d, generator=gen, device=cuda)
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
+    idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
+    chunk = emax * sp * 2 * d * 4
+    dq_1, dkv_1 = sb.stream_backward(q, kv, dsum, *idx, **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = sb.edge_attention_bwd_stream.launches
+    dq, dkv = sb.stream_backward(q, kv, dsum, *idx, **kw, chunk_bytes=chunk)
+    torch.cuda.synchronize()
+    assert t == 24 and sb.edge_attention_bwd_stream.launches - before == t
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = 2 * dq.numel() * 4 + dkv.numel() * 4 + 3 * chunk + (1 << 20)
+    assert peak <= limit < t * chunk // 2, (peak, limit, t * chunk)
+    assert torch.equal(dq, dq_1)
+    torch.testing.assert_close(dkv, dkv_1, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("s,d,h,gather", [(20, 128, 4, "vmem"), (40, 128, 4, "dma"),
@@ -1105,3 +1142,207 @@ def test_layer_mm_tensor_core_launches_match_plain_and_k2(cuda, s, d, h):
            for b in ("tc", "simt")}
     torch.testing.assert_close(out["tc"], out["simt"], rtol=RTOL, atol=ATOL)
     assert (out["tc"].view(nt, sp, d)[invdeg == 0] == 0).all()     # no b_out, zero scale
+
+
+# ---- the steps as captured CUDA graphs (train/graphs.py) against the eager
+# bodies on the card: bit for bit, the GCN head's segment sums being
+# repeatable (ops/segment.py) and K1-K4 free of atomics
+
+
+CAPTURE_CFG = dict(embedding_dim=16, num_heads=2, num_node_features=12,
+                   num_sampled_vectors=5, output_dim=3, feat_emb_dim=15, val_emb_dim=1,
+                   token_sampling="tfidf", raw_residual="gcn2", dropout_rate=0.3,
+                   dropout_adj_rate=0.1, use_pallas=True)
+
+
+def step_problem(cuda):
+    """A graph, its layout and a maker of equal training states (model,
+    capturable Adam with clip and a cosine schedule, generator)."""
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer
+
+    g, _ = graph(11)
+    g = g.to(cuda)
+    cfg = AMPGCNConfig(**CAPTURE_CFG)
+
+    def make():
+        model = AMPGCN(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+        opt = make_optimizer(model.parameters(), 3e-3, weight_decay=1e-3, grad_clip=1.0,
+                             cosine_t0=3, cosine_t_mult=1)
+        return create_train_state(model, opt, seed=4)
+    return g, compute_layout(g, tile_nodes=16), make
+
+
+def assert_same_state(a, b):
+    for (k, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), k
+    for p, q in zip(a.optimizer.params, b.optimizer.params):
+        for name, t in a.optimizer.adam.state[p].items():
+            assert torch.equal(t, b.optimizer.adam.state[q][name]), name
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    assert a.step == b.step and a.optimizer.count == b.optimizer.count
+
+
+def test_captured_steps_match_eager_bit_for_bit(cuda):
+    """Four captured single steps and one captured 4-step graph against four
+    eager bodies from one initial state: every metric, parameter, Adam
+    tensor and the generator bit for bit; a 2-draw captured eval against
+    the eager eval at two seeds, and the caller's generator advanced alike."""
+    from ampnet_tpu_torch.train import make_eval_step, make_scan_train_step, make_train_step
+    from ampnet_tpu_torch.train.state import _eval_step_body, _train_step_body
+
+    g, lay, make = step_problem(cuda)
+    eager, one, scan = make(), make(), make()
+    body = _train_step_body(eager.model)
+    rows = [body(eager, g, lay)[1] for _ in range(4)]
+    step = make_train_step(one.model)
+    ones = [step(one, g, lay)[1] for _ in range(4)]
+    _, stacked = make_scan_train_step(scan.model, num_steps=4)(scan, g, lay)
+    for k in rows[0]:
+        want = torch.stack([r[k] for r in rows])
+        assert torch.equal(torch.stack([r[k] for r in ones]), want), k
+        assert torch.equal(stacked[k], want), k
+    assert len(set(stacked["loss"].tolist())) == 4
+    assert_same_state(one, eager)
+    assert_same_state(scan, eager)
+
+    ev, ev_body = make_eval_step(eager.model, 2), _eval_step_body(eager.model, 2)
+    for seed in (0, 1):
+        ga, gb = (torch.Generator(device=cuda).manual_seed(seed) for _ in range(2))
+        got, want = ev(g, ga, lay), ev_body(g, gb, lay)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert torch.equal(ga.get_state(), gb.get_state())
+
+
+def test_captured_steps_count_their_launches_per_replay(cuda):
+    """Each replay adds the launches its capture recorded, by kernel and by
+    body: a captured step counts as the eager body does; the warm-up and
+    the capture count nothing."""
+    from ampnet_tpu_torch.train import make_eval_step, make_scan_train_step, make_train_step
+    from ampnet_tpu_torch.train.state import _eval_step_body, _train_step_body
+
+    g, lay, make = step_problem(cuda)
+    st = make()
+
+    def counted(fn):
+        eaf.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return eaf.launch_counts(), eaf.body_launch_counts()
+
+    probe = make()
+    want, want_bodies = counted(lambda: _train_step_body(probe.model)(probe, g, lay))
+    assert want == launched(edge_attention_sums=2, edge_attention_bwd_dq=2,
+                            edge_attention_bwd_dkv=2)
+    step = make_train_step(st.model)
+    assert counted(lambda: step(st, g, lay)) == (want, want_bodies)    # capture + replay
+    assert counted(lambda: step(st, g, lay)) == (want, want_bodies)    # replay
+    got, _ = counted(lambda: make_scan_train_step(st.model, num_steps=3)(st, g, lay))
+    assert got == {k: 3 * n for k, n in want.items()}
+    ev_want, _ = counted(lambda: _eval_step_body(st.model, 2)(
+        g, torch.Generator(device=cuda).manual_seed(0), lay))
+    ev = make_eval_step(st.model, 2)
+    for _ in range(2):
+        got, _ = counted(lambda: ev(g, torch.Generator(device=cuda).manual_seed(0), lay))
+        assert got == ev_want and sum(got.values()) == 4
+
+
+def test_replay_after_load_state_dict(cuda, monkeypatch):
+    """model.load_state_dict copies in place: the graph replays on the new
+    values. Optimizer.load_state_dict replaces Adam's tensors: the next
+    call captures again. Both against the eager body on a twin state."""
+    import io
+
+    from ampnet_tpu_torch.train import graphs, make_train_step
+    from ampnet_tpu_torch.train.state import _train_step_body
+
+    captures = []
+
+    class Counting(graphs.Captured):
+        def __init__(self, *a, **k):
+            captures.append(1)
+            super().__init__(*a, **k)
+
+    monkeypatch.setattr(graphs, "Captured", Counting)
+    g, lay, make = step_problem(cuda)
+    st, ref = make(), make()
+    step, body = make_train_step(st.model), _train_step_body(ref.model)
+    for _ in range(2):
+        step(st, g, lay)
+        body(ref, g, lay)
+    params = {k: v.clone() for k, v in st.model.state_dict().items()}
+    step(st, g, lay)
+    body(ref, g, lay)
+    for s in (st, ref):
+        s.model.load_state_dict(params)
+    step(st, g, lay)
+    body(ref, g, lay)
+    assert len(captures) == 1
+    assert_same_state(st, ref)
+
+    buf = io.BytesIO()
+    torch.save(st.optimizer.state_dict(), buf)
+    for s in (st, ref):
+        buf.seek(0)
+        s.optimizer.load_state_dict(torch.load(buf, map_location="cpu", weights_only=True))
+    step(st, g, lay)
+    body(ref, g, lay)
+    assert len(captures) == 2
+    assert_same_state(st, ref)
+
+
+def test_a_capture_that_breaks_raises_and_runs_nothing(cuda):
+    """A host read in the body (.item()) breaks the capture: the step
+    raises CaptureError naming that line, and leaves the state, the
+    generator and the launch counts as they were; a sound step then
+    captures and runs."""
+    from ampnet_tpu_torch.train import make_train_step
+    from ampnet_tpu_torch.train.graphs import CaptureError
+
+    g, lay, make = step_problem(cuda)
+    st = make()
+
+    def forward(graph, layout, generator):
+        logits = st.model(graph, deterministic=False, generator=generator, edge_layout=layout)
+        assert logits.sum().item() == logits.sum().item()    # a host read
+        return logits
+
+    before = {k: v.clone() for k, v in st.model.state_dict().items()}
+    gen = st.generator.get_state()
+    eaf.reset_launch_counts()
+    with pytest.raises(CaptureError, match=r"\.item\(\)"):
+        make_train_step(st.model, forward=forward)(st, g, lay)
+    assert st.step == 0 and st.optimizer.count == 0
+    assert torch.equal(st.generator.get_state(), gen)
+    assert sum(eaf.launch_counts().values()) == 0
+    for k, v in st.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    _, metrics = make_train_step(st.model)(st, g, lay)
+    assert torch.isfinite(metrics["loss"]) and st.step == 1
+
+
+def test_segment_sum_on_card_repeats_and_matches_cpu(cuda):
+    """The card's segment sum (sorted, in input order per segment, masked
+    rows spread over the segments) repeats bit for bit, matches the CPU's
+    index_add_, and passes each row's gradient back."""
+    from ampnet_tpu_torch.ops.segment import segment_count, segment_sum
+
+    rng = np.random.default_rng(0)
+    e, n = 3000, 50
+    ids = torch.from_numpy(rng.integers(0, n, e))
+    ids[:1000] = 0                                  # a padding's long run at node 0
+    mask = torch.from_numpy(rng.random(e) < 0.7)
+    mask[:1000] = False
+    data = torch.from_numpy(rng.normal(size=(e, 16)).astype(np.float32))
+    ref = segment_sum(data, ids, n, mask)
+    x = data.to(cuda).requires_grad_()
+    got = segment_sum(x, ids.to(cuda), n, mask.to(cuda))
+    assert torch.equal(got, segment_sum(x, ids.to(cuda), n, mask.to(cuda)))
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=1e-5)
+    w = torch.randn(n, 16, device=cuda)
+    (got * w).sum().backward()
+    want = torch.where(mask.to(cuda)[:, None], w[ids.to(cuda)], torch.zeros_like(x))
+    assert torch.equal(x.grad, want)
+    assert torch.equal(segment_count(ids.to(cuda), n, mask.to(cuda)).cpu(),
+                       segment_count(ids, n, mask))

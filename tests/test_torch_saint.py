@@ -395,7 +395,8 @@ def test_train_saint_regrows_selects_checkpoints_and_resumes(tmp_path, monkeypat
 
 def test_train_saint_plain_path_and_unported_option(tmp_path):
     """use_pallas off builds no layout; the sum loss is the default;
-    profile_steps still raises."""
+    profile_steps (the one option that raised before it was ported) trains
+    and writes its trace."""
     full, make = saint_problem()
     model, sampler = make()
     for conv in (model.conv1, model.conv2):
@@ -407,5 +408,7 @@ def test_train_saint_plain_path_and_unported_option(tmp_path):
     result = train_saint(model, sampler, full, cfg, log=log, prefetch=False)
     assert len(result["history"]) == 1 and np.isfinite(result["history"][0]["loss"])
     assert not any("budget" in l for l in lines)
-    with pytest.raises(NotImplementedError, match="profile_steps"):
-        train_saint(model, sampler, full, dataclasses.replace(cfg, profile_steps=1))
+    result = train_saint(model, sampler, full, dataclasses.replace(
+        cfg, profile_steps=1, run_dir=str(tmp_path)), log=log, prefetch=False)
+    assert len(result["history"]) == 1
+    assert (tmp_path / "profile" / "trace.json").is_file()

@@ -364,9 +364,15 @@ def test_resume_continues_exactly(tmp_path):
         assert torch.equal(v, resumed["state"].model.state_dict()[k]), k
 
 
-def test_unported_training_options_raise():
+def test_unported_training_options_raise(tmp_path):
+    """An unknown loss and the model's transformer block (not ported yet)
+    raise; profile_steps, ported now, trains and writes its trace."""
     g, make = tiny_problem()
     with pytest.raises(ValueError, match="loss_mode"):
         make_train_step(make(), loss_mode="sum")
-    with pytest.raises(NotImplementedError, match="profile_steps"):
-        train_full_batch(make(), g, TrainConfig(**LOOP, epochs=1, profile_steps=2))
+    with pytest.raises(NotImplementedError, match="transformer block"):
+        AMPGCN(AMPGCNConfig(**{**CFG, "transformer_block": True}), device="cpu")
+    result = train_full_batch(make(), g, TrainConfig(**LOOP, epochs=2, profile_steps=1,
+                                                     run_dir=str(tmp_path)))
+    assert len(result["history"]) == 2
+    assert (tmp_path / "profile" / "trace.json").is_file()
