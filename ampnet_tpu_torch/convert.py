@@ -6,8 +6,9 @@ under the names of ``model.named_parameters()`` (to compare with ``.grad``
 or to feed the port's optimizer), and so does the param tree after an optax
 step.
 
-AMPConv parameters keep their layout; flax Dense kernels are [in, out]
-and torch Linear weights [out, in], hence the transposes.
+AMPConv parameters and the CLS token keep their layout; flax Dense kernels
+are [in, out] and torch Linear weights [out, in], hence the transposes. The
+transformer block's LayerNorms have no parameters (no scale, no bias).
 """
 from __future__ import annotations
 
@@ -33,7 +34,10 @@ def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if gcn in params:
             sd[f"{gcn}.lin.weight"] = _t(params[gcn]["Dense_0"]["kernel"]).T.contiguous()
             sd[f"{gcn}.bias"] = _t(params[gcn]["bias"])
-    for dense in ("raw_residual_proj", "final_linear_out"):
+    if "cls_token" in params:
+        sd["cls_token"] = _t(params["cls_token"])
+    for dense in ("raw_residual_proj", "post_conv_linear1", "post_conv_linear2",
+                  "final_linear_out"):
         if dense in params:
             sd[f"{dense}.weight"] = _t(params[dense]["kernel"]).T.contiguous()
             sd[f"{dense}.bias"] = _t(params[dense]["bias"])

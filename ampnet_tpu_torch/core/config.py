@@ -1,7 +1,7 @@
 """Config dataclasses for the PyTorch port.
 
-Field-for-field copies of the attention, tokenizer, model and training
-configs of the JAX package (``ampnet_tpu/core/config.py``), kept here so the port
+Field-for-field copies of the attention, tokenizer, model, GraphSAINT
+sampler and training configs of the JAX package (``ampnet_tpu/core/config.py``), kept here so the port
 imports nothing of that package. Defaults and validation are identical,
 so one config value means the same model in both packages.
 """
@@ -98,6 +98,18 @@ class AMPGCNConfig:
             softmax=self.attn_softmax,
             use_pallas=self.use_pallas,
         )
+
+
+@dataclass(frozen=True)
+class SaintConfig:
+    """GraphSAINT random-walk sampler settings."""
+
+    batch_size: int = 8         # number of walk roots
+    walk_length: int = 150
+    num_steps: int = 200        # iterations per epoch
+    sample_coverage: int = 100  # normalization pre-pass coverage
+    pad_nodes_to: Optional[int] = None
+    pad_edges_to: Optional[int] = None
 
 
 @dataclass(frozen=True)

@@ -187,3 +187,21 @@ def pad_graph(g: Graph, n_pad: int, e_pad: int) -> Graph:
         node_norm=pad(g.node_norm, n_pad, 0.0),
         edge_norm=pad(g.edge_norm, e_pad, 0.0),
     )
+
+
+def sort_edges_by_receiver(g: Graph) -> Tuple[Graph, torch.Tensor]:
+    """Sort edges so receivers are contiguous (sorted-CSR order). Returns
+    the sorted graph and the permutation (for unsorting aux data). Padded
+    edges (mask False) sort to the end, in their order."""
+    key = torch.where(g.edge_mask, g.receivers, torch.full_like(g.receivers, 2**30))
+    perm = torch.sort(key, stable=True).indices
+    return dataclasses.replace(
+        g, senders=g.senders[perm], receivers=g.receivers[perm],
+        edge_mask=g.edge_mask[perm],
+        edge_norm=None if g.edge_norm is None else g.edge_norm[perm]), perm
+
+
+def add_self_loops(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Append (i, i) for every node."""
+    loops = np.arange(num_nodes, dtype=edge_index.dtype)
+    return np.concatenate([edge_index, np.stack([loops, loops])], axis=1)

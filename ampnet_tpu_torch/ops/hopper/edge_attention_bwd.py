@@ -28,10 +28,9 @@ slot are 0.
 
 Pass B (``stream_to_senders``) is plain torch, as it is XLA in the JAX
 package: take the WALKED slots' rows (chosen by a device mask, no host
-read) and ``index_add_`` them by sender.
-On the card ``index_add_`` sums with atomics, so dK|dV may differ in the
-last bits from run to run (K4, the scatter-free pass S, repeats bit for
-bit). ``stream_backward`` runs both passes over chunks of tiles so that the
+read) and sum them by sender in a fixed order (``ops/segment.py``'s
+``segment_sum_into``, the sorted sum on the card), so dK|dV repeat bit for
+bit from run to run, as K4's (the scatter-free pass S) do. ``stream_backward`` runs both passes over chunks of tiles so that the
 live stream stays under a byte budget (``AMPNET_STREAM_CHUNK_BYTES``,
 default 1 GiB, the JAX package's rule).
 
@@ -63,6 +62,7 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     entry,
     launch_body,
 )
+from ampnet_tpu_torch.ops.segment import segment_sum_into
 
 # (library, entry point, signature) of each body; the CUDA-core one also
 # takes its device-memory working set (pointer, blocks) before the stream
@@ -196,18 +196,15 @@ def walked_slots(tile_senders, recv_ptr, tiles: Tuple[int, int]) -> torch.Tensor
 def stream_to_senders(dkv_stream, tile_senders, take, slot0: int, out, *, s, sp):
     """Pass B: ``out`` [NT, S, 2D] += the stream rows (slot ``slot0`` and the
     ones after it, one per stream slot) where ``take`` holds, summed by the
-    slot's sender. The other rows (never written: they may hold NaN) are
-    selected away, not multiplied away. Masked slots add the zeros pass A
-    wrote. Its work and memory are the stream's: one chunk's, never the
+    slot's sender in a fixed order (``segment_sum_into``: on the card the
+    sorted sum, so a step repeats bit for bit, as the reference's XLA
+    segment sum does). The other rows (never written: they may hold NaN)
+    are selected away, not multiplied away. Masked slots add the zeros pass
+    A wrote. Its work and memory are the stream's: one chunk's, never the
     graph's."""
     rows = dkv_stream.view(-1, sp, dkv_stream.shape[1])[:, :s]
-    n = rows.shape[0]
-    # the zeros of the slots not taken go to nodes by position, not all to
-    # one node, whose row the atomics would then add to one at a time
-    spread = torch.arange(n, device=rows.device) % out.shape[0]
-    senders = torch.where(take, tile_senders.reshape(-1)[slot0: slot0 + n].long(), spread)
-    out.index_add_(0, senders, torch.where(take[:, None, None], rows, 0.0))
-    return out
+    senders = tile_senders.reshape(-1)[slot0: slot0 + rows.shape[0]]
+    return segment_sum_into(out, rows, senders, take)
 
 
 def stream_backward(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,

@@ -255,6 +255,21 @@ def default_edge_budget(num_edges_padded: int, num_tiles: int,
     return ((budget + step - 1) // step) * step
 
 
+def required_edge_budget(graph, tile_nodes: int = DEFAULT_TILE_NODES) -> int:
+    """The largest per-tile edge count of this graph, rounded to 128: the
+    budget to grow a fixed one to when the graph's tile skew (hub nodes)
+    exceeds it. It serves both sides: receiver-tiled (forward and pass R,
+    in-degree skew) and sender-tiled (pass S, out-degree skew)."""
+    em = graph.edge_mask.cpu().numpy()
+    r = graph.receivers.cpu().numpy()[em]
+    s = graph.senders.cpu().numpy()[em]
+    if r.size == 0:
+        return 128
+    need = max(int(np.bincount(r // tile_nodes).max()),
+               int(np.bincount(s // tile_nodes).max()))
+    return ((need + 127) // 128) * 128
+
+
 def _tensors_to(layout, device):
     """A copy of a layout dataclass with its tensors on ``device``."""
     return dataclasses.replace(layout, **{

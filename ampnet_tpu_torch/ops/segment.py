@@ -20,6 +20,32 @@ from typing import Optional
 import torch
 
 
+def segment_sum_into(
+    out: torch.Tensor,
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``out[segment_ids[i]] += data[i]`` for every row i where ``mask``
+    holds, in place; rows where it does not are selected away (they may
+    hold NaN) and add nothing. On the card each segment's rows are summed
+    in their input order through the sorted ``index_put_`` kernel, so two
+    runs give the same bits; the masked rows' zeros then go to segments by
+    position, not all to the one their id names (padding: node 0), since
+    the sorted sum walks one segment's rows in one warp. The CPU's
+    ``index_add_`` adds the rows one at a time in input order already."""
+    if mask is not None:
+        data = torch.where(mask.reshape((-1,) + (1,) * (data.ndim - 1)), data,
+                           torch.zeros((), dtype=data.dtype, device=data.device))
+    ids = segment_ids.long()
+    if not data.is_cuda:
+        return out.index_add_(0, ids, data)
+    if mask is not None:
+        spread = torch.arange(ids.numel(), device=ids.device) % out.shape[0]
+        ids = torch.where(mask.reshape(-1), ids, spread)
+    return torch.ops.aten._index_put_impl_(out, (ids,), data, True, True)
+
+
 def segment_sum(
     data: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -27,21 +53,9 @@ def segment_sum(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Masked segment sum. data: [E, ...], segment_ids: [E] -> [N, ...]."""
-    if mask is not None:
-        data = torch.where(mask.reshape((-1,) + (1,) * (data.ndim - 1)), data,
-                           torch.zeros((), dtype=data.dtype, device=data.device))
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
-    if data.is_cuda:
-        ids = segment_ids.long()
-        if mask is not None:
-            # a masked row adds its 0 to a segment of its own position, not to
-            # the padding's node 0: the sorted sum walks one segment's rows in
-            # one warp, and padding is most of a GraphSAINT subgraph's edges
-            spread = torch.arange(ids.numel(), device=ids.device) % num_segments
-            ids = torch.where(mask.reshape(-1), ids, spread)
-        return torch.ops.aten._index_put_impl_(out, (ids,), data, True, True)
-    return out.index_add_(0, segment_ids.long(), data)
+    return segment_sum_into(out, data, segment_ids, mask)
 
 
 def segment_count(

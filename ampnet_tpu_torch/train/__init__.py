@@ -1,9 +1,11 @@
 from ampnet_tpu_torch.train.checkpoint import (
     load_checkpoint,
     load_checkpoint_params,
+    load_params,
     restore_best,
     resume_or_create,
     save_checkpoint,
+    save_params,
 )
 from ampnet_tpu_torch.train.loop import train_full_batch, train_saint
 from ampnet_tpu_torch.train.losses import (
@@ -20,6 +22,7 @@ from ampnet_tpu_torch.train.state import (
     TrainState,
     create_train_state,
     make_eval_step,
+    make_predict_step,
     make_scan_train_step,
     make_train_step,
 )
@@ -27,8 +30,9 @@ from ampnet_tpu_torch.train.state import (
 __all__ = [
     "cosine_warm_restarts", "make_optimizer", "nll_loss",
     "masked_mean_nll", "masked_accuracy", "TrainState", "create_train_state",
-    "make_train_step", "make_scan_train_step", "make_eval_step", "save_checkpoint", "load_checkpoint",
-    "load_checkpoint_params", "restore_best", "resume_or_create",
+    "make_train_step", "make_scan_train_step", "make_eval_step",
+    "make_predict_step", "save_checkpoint", "load_checkpoint",
+    "load_checkpoint_params", "save_params", "load_params", "restore_best", "resume_or_create",
     "train_full_batch", "train_saint", "saint_weighted_nll",
     "saint_weighted_mean_nll", "create_run_dir", "Logfile", "trace",
     "StepTraceCapture", "StepTimer",

@@ -4,6 +4,7 @@ A checkpoint carries the model's parameters, the optimizer's moments and
 schedule, the training generator's state and the step count, so a resumed
 run continues exactly. The names and the cadence are the JAX package's
 (``checkpoint_ep<N>.pkl``, ``checkpoint_best.pkl``, ``checkpoint_final.pkl``);
+``save_params``/``load_params`` write and read a params-only file;
 the file format is the port's own: ``torch.save`` of plain tensors,
 numbers and containers, read back with ``weights_only=True``, so loading a
 checkpoint cannot execute code.
@@ -72,6 +73,28 @@ def load_checkpoint(path: str, state: TrainState) -> Dict[str, Any]:
 def load_checkpoint_params(path: str) -> Dict[str, torch.Tensor]:
     """Only the params of a checkpoint (for eval-time reload)."""
     return _read_payload(path)["params"]
+
+
+def save_params(path: str, params) -> str:
+    """A params-only file: ``params`` (a module's state_dict, or the module)
+    in the port's format, ``torch.save`` of plain tensors."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({k: v.detach() for k, v in params.items()}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Read a ``save_params`` file (``weights_only=True``) INTO ``model``:
+    every parameter is copied into the model's existing tensor in place
+    (``load_state_dict`` without ``assign``: ``copy_`` under no_grad; the
+    names and shapes must match), so a CUDA graph captured over the model
+    replays on the new values."""
+    model.load_state_dict(_read_payload(path), strict=True)
+    return model
 
 
 def find_latest_checkpoint(run_dir: str) -> Optional[str]:

@@ -26,7 +26,6 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
 
 from ampnet_tpu_torch.core.config import TrainConfig
@@ -36,6 +35,7 @@ from ampnet_tpu_torch.ops.hopper.format import (
     DEFAULT_TILE_NODES,
     compute_layout,
     default_edge_budget,
+    required_edge_budget,
 )
 from ampnet_tpu_torch.train.checkpoint import (
     clone_params,
@@ -86,22 +86,6 @@ def _saint_layout_budget(sampler: GraphSaintRandomWalkSampler,
     average edges per tile at its pad sizes, plus 128."""
     num_tiles = -(-sampler.pad_nodes_to // tile_nodes)
     return default_edge_budget(sampler.pad_edges_to, num_tiles)
-
-
-def _required_budget(sub: Graph, tile_nodes: int = DEFAULT_TILE_NODES) -> int:
-    """The largest per-tile edge count of THIS subgraph, rounded to 128. The
-    sampler-derived budget can be exceeded by hub-node tile skew without any
-    pad regrow, so growing from the sampler alone would overflow again. The
-    shared budget serves BOTH sides: receiver-tiled (forward and pass R,
-    in-degree skew) and sender-tiled (pass S, out-degree skew)."""
-    em = sub.edge_mask.cpu().numpy()
-    r = sub.receivers.cpu().numpy()[em]
-    s = sub.senders.cpu().numpy()[em]
-    if r.size == 0:
-        return 128
-    need = max(int(np.bincount(r // tile_nodes).max()),
-               int(np.bincount(s // tile_nodes).max()))
-    return ((need + 127) // 128) * 128
 
 
 def _restore_banked_best(cfg: TrainConfig, start_epoch: int, device, log: Logfile):
@@ -286,7 +270,7 @@ def train_saint(
         try:
             return compute_layout(sub, edges_per_tile=budget)
         except ValueError:
-            budget = max(budget, _saint_layout_budget(sampler), _required_budget(sub))
+            budget = max(budget, _saint_layout_budget(sampler), required_edge_budget(sub))
             log.log(f"edge-layout budget regrown to {budget}")
             return compute_layout(sub, edges_per_tile=budget)
 

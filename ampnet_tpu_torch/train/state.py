@@ -12,11 +12,11 @@ many draws.
 package's un-jitted bodies). On the card the builders capture them as CUDA
 graphs (``train/graphs.py``): ``make_train_step`` one graph per step,
 ``make_scan_train_step`` one per k steps, ``make_eval_step`` one holding all
-of its draws, each replayed with one host call, as ``jax.jit`` and
-``lax.scan`` make one dispatch of them in the JAX package. A step's
-``graphs`` (a ``graphs.GraphCache``) holds its graphs and what each
-capture cost (``timings()``). On the CPU the
-builders return the eager bodies. The card's eager bodies serve the tests
+of its draws, ``make_predict_step`` (the serving forward) one per shape,
+each replayed with one host call, as ``jax.jit`` and ``lax.scan`` make one
+dispatch of them in the JAX package. A step's ``graphs`` (a
+``graphs.GraphCache``) holds its graphs and what each capture cost
+(``timings()``). On the CPU the builders return the eager bodies. The card's eager bodies serve the tests
 and the comparison of captured against eager steps only.
 """
 from __future__ import annotations
@@ -248,6 +248,36 @@ def _eval_step_body(
     return step
 
 
+def _captured_draws(model: torch.nn.Module, body: Callable, warmup: Callable, what: str):
+    """step(graph, generator, layout=None) -> body's outputs, as one CUDA
+    graph per (graph and layout shapes, dispatch flags, config), each
+    replayed with one host call. The body draws from a generator of the
+    graph's own, given the caller's state before a replay and handing it
+    back after, so the draws are the eager body's from the same state and
+    the caller's generator advances as far. The outputs are the graph's
+    static tensors, overwritten by the next replay."""
+    cache = graphs.GraphCache()
+
+    def capture(graph, generator, layout):
+        own = torch.Generator(device=generator.device)
+        own.set_state(generator.get_state())
+        return graphs.Captured(
+            lambda g, lay: body(g, own, lay), (graph, layout), generator=own,
+            warmup=lambda g, lay: warmup(g, own, lay), what=what)
+
+    def step(graph: Graph, generator: torch.Generator,
+             layout: Optional[EdgeLayout] = None):
+        key = (graphs.signature((graph, layout)), graphs.dispatch_flags(), model.config)
+        entry = cache.get(key, lambda: capture(graph, generator, layout))
+        entry.generator.set_state(generator.get_state())
+        out = entry.replay((graph, layout))
+        generator.set_state(entry.generator.get_state())
+        return out
+
+    step.graphs = cache
+    return step
+
+
 def make_eval_step(
     model: torch.nn.Module,
     num_eval_samples: int = 1,
@@ -259,25 +289,37 @@ def make_eval_step(
     body = _eval_step_body(model, num_eval_samples)
     if not _on_card(model):
         return body
-    cache = graphs.GraphCache()
-    one_draw = _eval_step_body(model, 1)
-
-    def capture(graph, generator, layout):
-        own = torch.Generator(device=generator.device)
-        own.set_state(generator.get_state())
-        return graphs.Captured(
-            lambda g, lay: body(g, own, lay), (graph, layout), generator=own,
-            warmup=lambda g, lay: one_draw(g, own, lay),
-            what=f"the {num_eval_samples}-draw eval step of {type(model).__name__}")
+    captured = _captured_draws(
+        model, body, _eval_step_body(model, 1),
+        f"the {num_eval_samples}-draw eval step of {type(model).__name__}")
 
     def step(graph: Graph, generator: torch.Generator,
              layout: Optional[EdgeLayout] = None) -> Dict[str, torch.Tensor]:
-        key = (graphs.signature((graph, layout)), graphs.dispatch_flags(), model.config)
-        entry = cache.get(key, lambda: capture(graph, generator, layout))
-        entry.generator.set_state(generator.get_state())
-        out = entry.replay((graph, layout))
-        generator.set_state(entry.generator.get_state())
-        return {k: v.clone() for k, v in out.items()}
+        return {k: v.clone() for k, v in captured(graph, generator, layout).items()}
 
-    step.graphs = cache
+    step.graphs = captured.graphs
+    return step
+
+
+def make_predict_step(model: torch.nn.Module) -> Callable[..., torch.Tensor]:
+    """step(graph, generator, layout=None) -> log-probs [N, C] of one
+    deterministic forward, its tokens drawn from ``generator`` (the
+    serving forward, ``serving.py::Predictor``); on the card one CUDA-graph
+    replay per shape, as ``make_eval_step``'s."""
+
+    @torch.no_grad()
+    def body(graph: Graph, generator: torch.Generator,
+             layout: Optional[EdgeLayout] = None) -> torch.Tensor:
+        return model(graph, generator=generator, edge_layout=layout)
+
+    if not _on_card(model):
+        return body
+    captured = _captured_draws(model, body, body,
+                               f"the predict step of {type(model).__name__}")
+
+    def step(graph: Graph, generator: torch.Generator,
+             layout: Optional[EdgeLayout] = None) -> torch.Tensor:
+        return captured(graph, generator, layout).clone()
+
+    step.graphs = captured.graphs
     return step

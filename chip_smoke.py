@@ -58,12 +58,22 @@ model limits):
      set: 2 K6 + 2 K3 + 2 K4 per step and no K1, gradients checked as in C;
      then the steps of D (S=20) with it: K6 where D runs K1;
   I  the eval of A with DMA_V1_DEFAULT set: K9 twice per draw and no K1.
+  serving  the recommended recipe's model, trained a few steps and saved
+     with save_params, served by a Predictor (default buckets of 512 nodes
+     and 4096 edges): 6 requests in 3 buckets (the whole surrogate and
+     induced subgraphs), one captured graph per bucket, each answer equal to
+     the eager forward bit for bit, K1 twice per request on the whole
+     surrogate's bucket and K2 twice on the subgraphs' (the JAX predicate's
+     route at each padded size), one answer against float64; a hot swap (Predictor.load_params) that changes the answers
+     without a new capture; a Predictor at S=20 (K1 at the whole graph's
+     bucket, where the JAX predicate finds v6 too large, K2 at a 1,024-node
+     bucket) and a transformer-block + CLS model at S=40 (41 tokens, K1).
 K8 has no caller on the model path (as in the JAX package): its phase calls
 the public wrapper on the chunked layout of the same graph, its counts set
 to 0 just before and read just after. The `captured` phase holds captured
 against eager bit for bit on A's 8-draw eval, 10 steps of C (one 10-step
-graph) and 3 subgraphs of E, and F's 3 steps at the model limits (pass B
-sums with atomics); `profile_steps` trains path C with profile_steps=3 and
+graph), 3 subgraphs of E and F's 3 steps (pass B sums in a fixed order);
+`profile_steps` trains path C with profile_steps=3 and
 requires K1, K3 and K4 in the trace it writes.
 
 Each path's launch counts are set to 0 just before it runs and read right
@@ -501,6 +511,34 @@ def cora(seed: int, device):
     return d, g.to(device)
 
 
+def pass_b_index_add(stream, tile_senders, take, out, s, sp):
+    """Pass B as it was summed before its fixed order: ``index_add_`` (float
+    atomics in no fixed order), the rows not taken spread over the nodes."""
+    rows = stream.view(-1, sp, stream.shape[1])[:, :s]
+    spread = torch.arange(rows.shape[0], device=rows.device) % out.shape[0]
+    senders = torch.where(take, tile_senders.reshape(-1)[: rows.shape[0]].long(), spread)
+    return out.index_add_(0, senders, torch.where(take[:, None, None], rows, 0.0))
+
+
+def pass_b_report(stream, tile_senders, take, out, s, sp) -> dict:
+    """Pass B (``stream_to_senders``, the sorted fixed-order sum) over the
+    whole stream: two runs bit for bit, against the ``index_add_`` sum at
+    the kernel limits, and timed in turns with it."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
+
+    def fixed():
+        return sb.stream_to_senders(stream, tile_senders, take, 0, out.zero_(), s=s, sp=sp)
+
+    first, second = fixed().clone(), fixed().clone()
+    if not torch.equal(first, second):
+        fail(f"pass B S={s}: a second run differs from the first")
+    err = compare(f"pass B S={s}", first, pass_b_index_add(
+        stream, tile_senders, take, torch.zeros_like(out), s, sp), "the index_add_ sum")
+    ms, atomic_ms = in_turns(
+        lambda: pass_b_index_add(stream, tile_senders, take, out.zero_(), s, sp), fixed)
+    return dict(pass_b_ms=ms, pass_b_index_add_ms=atomic_ms, pass_b_vs_index_add_max_abs_err=err)
+
+
 def kernel_phases(graph, layout, gen, dev, ptxas):
     """K1, K3, K4, K5, K6, K8 and K9 at S=40 and S=20, K2 and K7 at S=20, each
     against its plain version (K6, K8, K9 also against K1's sums, K7 against
@@ -762,8 +800,7 @@ def kernel_phases(graph, layout, gen, dev, ptxas):
             bound_ms=b, bound_by=by, library_ms=None,
             f32_bound_ms=bound_ms(k5_bytes, 10 * s * s * d * live_edges)[0],
             stream_bytes=stream.numel() * 4, walked_stream_bytes=stream_bytes,
-            pass_b_ms=cuda_ms(lambda: sb.stream_to_senders(
-                stream, layout.tile_senders, take, 0, dkv, s=s, sp=sp), 10)),
+            **pass_b_report(stream, layout.tile_senders, take, dkv, s, sp)),
             "edge_attention_bwd_stream_tc", "ampnet_edge_attention_bwd_stream_info", nt, s, d,
             h, lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw, body="simt"),
             lambda: sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw), ptxas)
@@ -1746,10 +1783,9 @@ def captured_phase(recipe, saint_cfg, data, graph, layout, prep, seed, dev) -> d
     path A's 8-draw eval at a fixed seed (metrics and mean logits), 10
     steps of path C from one initial state as one 10-step graph against 10
     eager steps, 3 subgraphs of path E: each bit for bit (the metrics,
-    every parameter, the logits of one fixed draw after the steps; K1-K4
-    and the GCN head's segment sums repeat bit for bit, and the draws come
-    from the same generator state). Path F's 3 steps (pass B sums with
-    atomics) at the model limits."""
+    every parameter, the logits of one fixed draw after the steps; K1-K5,
+    pass B and the GCN head's segment sums repeat bit for bit, and the draws
+    come from the same generator state), and path F's 3 steps the same way."""
     from ampnet_tpu_torch.core.config import TrainConfig
     from ampnet_tpu_torch.ops.tokenize import tfidf_sample_features
     from ampnet_tpu_torch.train import (create_train_state, graphs, make_eval_step,
@@ -1816,23 +1852,13 @@ def captured_phase(recipe, saint_cfg, data, graph, layout, prep, seed, dev) -> d
         step, body = make(pair[0]), make_eager(pair[1])
         got = [step(states[0], g, lay)[1] for g, lay in zip(subs, layouts)]
         want = [body(states[1], g, lay)[1] for g, lay in zip(subs, layouts)]
-        logits = [final_logits(m, graph, layout, sidx) for m in pair]
-        if name == "E":
-            pairs = {f"{k}_{i}": (a[k], b[k]) for i, (a, b) in enumerate(zip(got, want))
-                     for k in a}
-            pairs.update({k: (p, q) for (k, p), q in zip(pair[0].named_parameters(),
-                                                         pair[1].parameters())})
-            pairs["logits"] = tuple(logits)
-            report[name] = dict(steps=3, max_abs_diff=bit_for_bit(name, pairs),
-                                compared=len(pairs))
-        else:
-            report[name] = dict(steps=3, loss_max_abs_diff=near(
-                name, "losses", [float(m["loss"]) for m in got],
-                [float(m["loss"]) for m in want]),
-                logits_max_abs_diff=float((logits[0] - logits[1]).abs().max()))
-            if not torch.allclose(logits[0], logits[1], rtol=MODEL_RTOL, atol=MODEL_ATOL):
-                fail(f"captured phase, path F: logits after 3 steps differ "
-                     f"({report[name]['logits_max_abs_diff']:.3g})")
+        pairs = {f"{k}_{i}": (a[k], b[k]) for i, (a, b) in enumerate(zip(got, want))
+                 for k in a}
+        pairs.update({k: (p, q) for (k, p), q in zip(pair[0].named_parameters(),
+                                                     pair[1].parameters())})
+        pairs["logits"] = tuple(final_logits(m, graph, layout, sidx) for m in pair)
+        report[name] = dict(steps=3, max_abs_diff=bit_for_bit(name, pairs),
+                            compared=len(pairs))
     return report
 
 
@@ -1883,6 +1909,235 @@ def profile_steps_phase(cfg, tcfg, data, graph, seed, dev, steps: int = 3) -> di
                 launches_by_name=found, runs=attempt, graph_launches=sum(
                     "cudaGraphLaunch" in e.get("name", "") for e in events),
                 seconds=time.perf_counter() - t0)
+
+
+SERVING_DIR = Path(__file__).resolve().parent / "chiprun_out" / "serving"
+# induced subgraphs of the surrogate served beside the whole graph: (nodes,
+# requests of that size); with the whole graph twice, 6 requests, 3 buckets
+SERVING_SUBGRAPHS = ((400, 2), (900, 2))
+
+
+def induced_subgraph(data, nodes: int, rng):
+    """(x, edge_index, real node ids) of the subgraph on ``nodes`` nodes
+    drawn from ``rng``, with every edge of the surrogate between them."""
+    import numpy as np
+
+    keep = np.sort(rng.choice(data.x.shape[0], nodes, replace=False))
+    local = np.full(data.x.shape[0], -1)
+    local[keep] = np.arange(nodes)
+    src, dst = local[data.edge_index[0]], local[data.edge_index[1]]
+    inside = (src >= 0) & (dst >= 0)
+    return data.x[keep], np.stack([src[inside], dst[inside]]), keep
+
+
+def serving_route(pred, x, edge_index) -> dict:
+    """The route the fused op takes for a request's bucket, by the JAX
+    package's predicate (mirrored in edge_attention_fused), at the tile
+    rows of the layout the Predictor builds for it: the whole layer (K2)
+    where v6 is usable at the bucket's padded node count, else K1;
+    ``want``: the launches of one request (two convs)."""
+    from ampnet_tpu_torch.core.graph import from_arrays
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    cfg = pred.model.config
+    n_pad, e_pad = pred._bucket(x.shape[0], edge_index.shape[1])
+    tn = pred.layout(from_arrays(x, edge_index, pad_nodes_to=n_pad,
+                                 pad_edges_to=e_pad)).tile_nodes
+    itemsize = next(pred.model.parameters()).element_size()
+    tokens = cfg.num_sampled_vectors + (0 if cfg.average_pooling else 1)
+    sp, d = -(-tokens // 8) * 8, cfg.embedding_dim
+    gather = eaf._resolve_gather("auto", n_pad * sp, d, itemsize, tile_rows=tn * sp)
+    v6 = eaf._v6_usable(n_pad, n_pad, sp, d, itemsize, tn, eaf._auto_group(sp), gather)
+    return dict(gather=gather, v6_usable=v6,
+                want=launches(k2=2) if v6 else launches(k1=2))
+
+
+def serve(pred, name, x, edge_index, dev, want, check_f64=False, profile=False) -> dict:
+    """One request through ``Predictor.predict`` (counts set to 0 just
+    before it, read just after): its answer against the eager forward from
+    the same generator state on the same graph and layout, bit for bit;
+    its launches exact (``want``) and on the tensor cores; host wall ms,
+    the layout's host ms (built from the host graph, as ``predict`` builds
+    it), the device ms of a replay (CUDA events), and the capture's
+    timings where the request captured its bucket's graph. With
+    ``check_f64`` the padded answer of that draw (its sampled_idx taken
+    from return_aux=True) against the CPU float64 forward; with
+    ``profile`` the profiler's kernel census of a replay against the eager
+    forward's (``same_kernels``)."""
+    from ampnet_tpu_torch.core.graph import from_arrays
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    model = pred.model
+    state = pred.generator.get_state()
+    held = {id(t) for t in pred.step.graphs.timings()}
+    eaf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answer = pred.predict(x, edge_index)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = eaf.launch_counts()
+    tensor_cores_only(f"serving {name}", counts)
+    if counts != want:
+        fail(f"serving {name}: a request launched {counts}, expected {want}")
+    captured = [t for t in pred.step.graphs.timings() if id(t) not in held]
+    n = x.shape[0]
+    bucket = pred._bucket(n, edge_index.shape[1])
+    host = from_arrays(x, edge_index, pad_nodes_to=bucket[0], pad_edges_to=bucket[1])
+    t0 = time.perf_counter()
+    layout = pred.layout(host)
+    layout_ms = (time.perf_counter() - t0) * 1e3
+    g = host.to(dev)
+
+    def at(gen_state):
+        gen = torch.Generator(device=dev)
+        gen.set_state(gen_state)
+        return gen
+
+    gen = at(state)
+    with torch.no_grad():
+        eager = model(g, generator=gen, edge_layout=layout)
+    if not (answer.shape == (n, model.config.output_dim) and
+            torch.equal(torch.from_numpy(answer), eager[:n].cpu())):
+        err = float((torch.from_numpy(answer) - eager[:n].cpu()).abs().max())
+        fail(f"serving {name}: the answer differs from the eager forward (max abs err {err:.3g})")
+    if not torch.equal(pred.generator.get_state(), gen.get_state()):
+        fail(f"serving {name}: the Predictor's generator advanced otherwise than the eager draw")
+    step = pred.step
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    step(g, at(state), layout)
+    end.record()
+    end.synchronize()
+    report = dict(request=name, nodes=n, edges=int(edge_index.shape[1]), bucket=list(bucket),
+                  launches={k: v for k, v in counts.items() if v}, wall_ms=wall_ms,
+                  layout_ms=layout_ms, device_ms=start.elapsed_time(end),
+                  edges_per_tile=int(layout.tile_senders.shape[1]),
+                  capture=captured[0] if captured else None,
+                  equals_eager=True, finite=bool(torch.isfinite(eager[:n]).all()))
+    if not report["finite"]:
+        fail(f"serving {name}: non-finite log-probs")
+    if check_f64:
+        with torch.no_grad():
+            out = model(g, generator=at(state), edge_layout=layout, return_aux=True)
+        padded = step(g, at(state), layout).cpu()
+        ref, _ = cpu_f64_reference(model, g, out.aux["sampled_idx"])
+        err = float((padded.double() - ref).abs().max())
+        if not torch.allclose(padded.double(), ref, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+            fail(f"serving {name}: the answer disagrees with the CPU float64 forward "
+                 f"(max abs err {err:.3g})")
+        report["cpu_f64_max_abs_err"] = err
+    if profile:
+        def replay():
+            step(g, at(state), layout)
+
+        def eager_call():
+            with torch.no_grad():
+                model(g, generator=at(state), edge_layout=layout)
+
+        costs = {"eager": {"profile": device_profile(eager_call, 1)},
+                 "captured": {"profile": device_profile(replay, 1)}}
+        same_kernels(f"serving {name}", costs["eager"], costs["captured"], lambda: (
+            device_profile(eager_call, 1), device_profile(replay, 1)))
+        report["profile"] = costs["captured"]["profile"]
+    return report
+
+
+def serving_phase(recipe, reference, data, graph, seed, dev) -> dict:
+    """The serving path: the recommended recipe's model trained a few steps
+    (make_train_step) and saved with save_params, read back with
+    load_params into the model a Predictor (default buckets, use_pallas)
+    serves; 6 requests in 3 buckets (the whole surrogate twice, induced
+    subgraphs of SERVING_SUBGRAPHS' sizes drawn from ``seed``), each through
+    ``serve``, one against float64; each bucket on the JAX predicate's route
+    (``serving_route``); exactly one capture per bucket, made by the
+    bucket's first request; a hot swap to a later checkpoint
+    (save_checkpoint after more steps) that changes the answers, captures
+    nothing and equals the eager forward with the new weights. Then a
+    Predictor at S=20 on its buckets' routes, and a transformer-block + CLS
+    model at S=40 (41 tokens) on K1 against float64."""
+    import numpy as np
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.serving import Predictor
+    from ampnet_tpu_torch.train import (create_train_state, load_params, make_optimizer,
+                                        make_train_step, save_checkpoint, save_params)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    trained = recipe_model(recipe, data, seed, dev)
+    state = create_train_state(trained, make_optimizer(
+        trained.parameters(), 3e-3, weight_decay=1e-3, grad_clip=1.0), seed=seed)
+    train_step, layout = make_train_step(trained), compute_layout(graph)
+    for _ in range(3):
+        train_step(state, graph, layout)
+    params_path = save_params(str(SERVING_DIR / "params_step3.pt"), trained)
+    for _ in range(3):
+        train_step(state, graph, layout)
+    swap_path = save_checkpoint(str(SERVING_DIR / "checkpoint_step6.pkl"), state, epoch=5)
+    del train_step, state
+
+    model = load_params(params_path, recipe_model(recipe, data, seed + 1, dev))
+    pred = Predictor(model, seed=seed)
+    x_full, ei_full = data.x, data.edge_index
+    rng = np.random.default_rng(seed)
+    subs = [(f"induced {n} nodes #{i}", *induced_subgraph(data, n, rng)[:2])
+            for n, k in SERVING_SUBGRAPHS for i in range(k)]
+    requests = [("whole surrogate", x_full, ei_full), *subs, ("whole surrogate again",
+                                                               x_full, ei_full)]
+    routes = [serving_route(pred, x, ei) for _, x, ei in requests]
+    served = [dict(serve(pred, name, x, ei, dev, r["want"], check_f64=(i == 0),
+                         profile=(i in (0, 1))), gather=r["gather"], v6_usable=r["v6_usable"])
+              for i, ((name, x, ei), r) in enumerate(zip(requests, routes))]
+    buckets = sorted({tuple(r["bucket"]) for r in served})
+    captures = pred.step.graphs.timings()
+    capturing = [tuple(r["bucket"]) for r in served if r["capture"]]
+    if len(captures) != len(buckets) or sorted(capturing) != buckets:
+        fail(f"serving: {len(captures)} captures for buckets {buckets} "
+             f"(captured by requests of {capturing})")
+
+    # hot swap: the same draw before and after, no new capture
+    state = pred.generator.get_state()
+    before = pred.predict(x_full, ei_full)
+    pred.load_params(swap_path)
+    pred.generator.set_state(state)
+    swapped = serve(pred, "whole surrogate after the hot swap", x_full, ei_full, dev,
+                    routes[0]["want"])
+    pred.generator.set_state(state)
+    after = pred.predict(x_full, ei_full)
+    if np.array_equal(before, after):
+        fail("serving: the hot swap left the answers as they were")
+    if {id(t) for t in pred.step.graphs.timings()} != {id(t) for t in captures}:
+        fail("serving: the hot swap captured again")
+    swap = dict(answers_max_abs_change=float(np.abs(after - before).max()),
+                new_captures=len(pred.step.graphs.timings()) - len(captures),
+                equals_eager=True, request=swapped)
+
+    # S=20: the route of each bucket is the JAX predicate's (K2 where v6 fits)
+    pred20 = Predictor(recipe_model(reference, data, seed, dev), seed=seed)
+    sub20 = induced_subgraph(data, 900, np.random.default_rng(seed + 20))
+    routes20 = []
+    for name, x, ei in (("whole surrogate", x_full, ei_full), ("induced 900 nodes",) + sub20[:2]):
+        route = serving_route(pred20, x, ei)
+        routes20.append(dict(serve(pred20, name, x, ei, dev, route["want"], profile=True),
+                             gather=route["gather"], v6_usable=route["v6_usable"]))
+
+    # the transformer block and CLS pooling at S=40: 41 tokens, on K1
+    block = dataclasses.replace(recipe, transformer_block=True, average_pooling=False)
+    pred_block = Predictor(recipe_model(block, data, seed, dev), seed=seed)
+    route = serving_route(pred_block, x_full, ei_full)
+    block_report = serve(pred_block, "whole surrogate, transformer block + CLS", x_full,
+                         ei_full, dev, route["want"], check_f64=True, profile=True)
+    if block_report["launches"] != {KERNELS[0]: 2}:
+        fail(f"serving: the transformer block + CLS at 41 tokens launched "
+             f"{block_report['launches']}, expected K1 twice")
+    return dict(
+        requests=served, buckets=[list(b) for b in buckets],
+        captures={f"{r['bucket'][0]}x{r['bucket'][1]}": r["capture"]
+                  for r in served if r["capture"]},
+        hot_swap=swap, s20=routes20, transformer_block_cls=block_report,
+        captures_total=sum(len(p.step.graphs.timings()) for p in (pred, pred20, pred_block)),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        phase_s=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -2032,6 +2287,9 @@ def main() -> int:
         emit(path_i)
         if counts_i != launches(k9=16):
             fail(f"path I launched {counts_i}, expected 16 edge_attention_sums_v1")
+
+    # the serving path: Predictor, one captured graph per bucket, hot swap
+    emit({"serving": serving_phase(recipe, reference, data, graph, args.seed, dev)})
 
     # launches: K2 from the inference path that runs it (B); K1, K3, K4 from
     # the training path C (K1's count includes that path's eval forwards); K5

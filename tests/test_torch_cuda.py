@@ -1214,6 +1214,33 @@ def test_captured_steps_match_eager_bit_for_bit(cuda):
             assert torch.equal(got[k], want[k]), k
         assert torch.equal(ga.get_state(), gb.get_state())
 
+    # F: the fused-closure step on a layout without a sender side (K1, K5 and
+    # pass B in its fixed order), three captured steps against three eager
+    # bodies: bit for bit too
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer
+    from ampnet_tpu_torch.train.pallas_step import fused_forward, make_pallas_train_step
+
+    cfg_f = AMPGCNConfig(**{**CAPTURE_CFG, "dropout_adj_rate": 0.0})
+
+    def make_f():
+        model = AMPGCN(cfg_f, generator=torch.Generator().manual_seed(1), device=cuda)
+        return create_train_state(model, make_optimizer(
+            model.parameters(), 3e-3, weight_decay=1e-3, grad_clip=1.0, cosine_t0=3,
+            cosine_t_mult=1), seed=4)
+
+    lay_f = compute_layout(g, tile_nodes=16, edges_per_tile=256, sender_layout=False)
+    f_eager, f_one = make_f(), make_f()
+    body_f = _train_step_body(f_eager.model, forward=fused_forward(f_eager.model))
+    step_f = make_pallas_train_step(f_one.model, "full")
+    eaf.reset_launch_counts()
+    for _ in range(3):
+        want, got = body_f(f_eager, g, lay_f)[1], step_f(f_one, g, lay_f)[1]
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert eaf.launch_counts() == launched(edge_attention_sums=12,
+                                           edge_attention_bwd_stream=12)
+    assert_same_state(f_one, f_eager)
+
 
 def test_captured_steps_count_their_launches_per_replay(cuda):
     """Each replay adds the launches its capture recorded, by kernel and by
@@ -1346,3 +1373,106 @@ def test_segment_sum_on_card_repeats_and_matches_cpu(cuda):
     assert torch.equal(x.grad, want)
     assert torch.equal(segment_count(ids.to(cuda), n, mask.to(cuda)).cpu(),
                        segment_count(ids, n, mask))
+
+
+def test_pass_b_on_card_repeats_bit_for_bit(cuda):
+    """Pass B (the sorted fixed-order sum by sender) run twice gives the
+    same bits, and the CPU's index_add_ sums within 1e-6 relative."""
+    g, mask = graph(5, n=40, e=200)
+    lay = compute_layout(g, tile_nodes=16, edges_per_tile=256, sender_layout=False)
+    s, sp, d, h = 20, 24, 128, 4
+    nt = lay.recv_ptr.numel() - 1
+    rng = torch.Generator().manual_seed(0)
+    q, kv, dsum = (torch.randn(nt * sp, c, generator=rng) for c in (d, 2 * d, d))
+    idx = [t.to(cuda) for t in (lay.tile_senders, edge_slot_valid(lay, mask), lay.recv_ptr,
+                                lay.recv_slots)]
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
+    _, stream = sb.edge_attention_bwd_stream(q.to(cuda), kv.to(cuda), dsum.to(cuda), *idx, **kw)
+    take = sb.walked_slots(idx[0], idx[2], (0, idx[0].shape[0]))
+    runs = [sb.stream_to_senders(stream, idx[0], take, 0,
+                                 torch.zeros(nt, s, 2 * d, device=cuda), s=s, sp=sp)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    rows = stream.view(-1, sp, 2 * d)[:, :s].cpu()
+    want = torch.zeros(nt, s, 2 * d).index_add_(
+        0, lay.tile_senders.reshape(-1)[take.cpu()].long(), rows[take.cpu()])
+    scale = float(want.abs().max())
+    torch.testing.assert_close(runs[0].cpu(), want, rtol=1e-6, atol=1e-6 * scale)
+
+
+PREDICT_CFG = dict(embedding_dim=16, num_heads=2, num_node_features=12,
+                   num_sampled_vectors=5, output_dim=3, feat_emb_dim=15, val_emb_dim=1,
+                   token_sampling="tfidf", raw_residual="gcn2", use_pallas=True)
+
+
+def requests(seed, sizes):
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, e in sizes:
+        x = (rng.random((n, 12)) < 0.4).astype(np.float32)
+        x[x.sum(1) == 0, 0] = 1.0
+        out.append((x, np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])))
+    return out
+
+
+@pytest.mark.parametrize("over", [dict(), dict(transformer_block=True, average_pooling=False)])
+def test_predictor_replay_equals_its_eager_body(cuda, over):
+    """Each answer of the Predictor (one captured graph per bucket) equals
+    the eager forward from the same generator state on the same graph and
+    layout, bit for bit; two buckets, two captures; at these sizes the
+    whole layer fits (the JAX predicate's v6): K2 twice a request."""
+    from ampnet_tpu_torch.serving import Predictor
+
+    model = AMPGCN(AMPGCNConfig(**{**PREDICT_CFG, **over}), device=cuda)
+    pred = Predictor(model, seed=3, bucket_nodes=32, bucket_edges=128)
+    for x, ei in requests(0, ((20, 60), (25, 90), (50, 200))):
+        state = pred.generator.get_state()
+        eaf.reset_launch_counts()
+        got = pred.predict(x, ei)
+        assert eaf.launch_counts() == launched(edge_attention_layer=2)
+        pn, pe = pred._bucket(x.shape[0], ei.shape[1])
+        g = from_arrays(x, ei, pad_nodes_to=pn, pad_edges_to=pe).to(cuda)
+        gen = torch.Generator(device=cuda)
+        gen.set_state(state)
+        with torch.no_grad():
+            want = model(g, generator=gen, edge_layout=pred.layout(g))[: x.shape[0]]
+        assert torch.equal(torch.from_numpy(got), want.cpu())
+        assert torch.equal(pred.generator.get_state(), gen.get_state())
+    assert len(pred.step.graphs.timings()) == 2
+
+
+def test_predictor_hot_swap_needs_no_new_capture(cuda, tmp_path, monkeypatch):
+    """load_params copies a checkpoint's params into the tensors the captured
+    graph reads: the next answer uses them (equal to the eager forward with
+    the new weights, unlike the one before) with no new capture."""
+    from ampnet_tpu_torch.serving import Predictor
+    from ampnet_tpu_torch.train import create_train_state, graphs, make_optimizer
+    from ampnet_tpu_torch.train import save_checkpoint
+
+    captures = []
+
+    class Counting(graphs.Captured):
+        def __init__(self, *a, **k):
+            captures.append(1)
+            super().__init__(*a, **k)
+
+    monkeypatch.setattr(graphs, "Captured", Counting)
+    cfg = AMPGCNConfig(**PREDICT_CFG)
+    other = AMPGCN(cfg, generator=torch.Generator().manual_seed(8), device=cuda)
+    path = save_checkpoint(str(tmp_path / "ck.pkl"), create_train_state(
+        other, make_optimizer(other.parameters(), 1e-3)), epoch=0)
+    model = AMPGCN(cfg, device=cuda)
+    pred = Predictor(model, seed=1, bucket_nodes=32, bucket_edges=128)
+    (x, ei), = requests(2, ((20, 60),))
+    state = pred.generator.get_state()
+    before = pred.predict(x, ei)
+    pred.load_params(path)
+    pred.generator.set_state(state)
+    after = pred.predict(x, ei)
+    assert len(captures) == 1 and not np.array_equal(before, after)
+    g = from_arrays(x, ei, pad_nodes_to=32, pad_edges_to=128).to(cuda)
+    gen = torch.Generator(device=cuda)
+    gen.set_state(state)
+    with torch.no_grad():
+        want = other(g, generator=gen, edge_layout=pred.layout(g))[:20]
+    assert torch.equal(torch.from_numpy(after), want.cpu())

@@ -16,6 +16,7 @@ import torch
 from ampnet_tpu.core.config import AMPGCNConfig as JaxConfig
 from ampnet_tpu.core.graph import from_arrays as jax_from_arrays
 from ampnet_tpu.models import AMPGCN as JaxAMPGCN
+from ampnet_tpu.ops.pallas import edge_attention_fused as jeaf
 from ampnet_tpu.ops.pallas.format import compute_layout as jax_compute_layout
 from ampnet_tpu.train.losses import masked_accuracy, masked_mean_nll
 from ampnet_tpu.train.state import make_eval_step as jax_make_eval_step
@@ -23,9 +24,11 @@ from ampnet_tpu_torch.convert import flax_to_state_dict
 from ampnet_tpu_torch.core.config import AMPGCNConfig
 from ampnet_tpu_torch.core.graph import from_arrays
 from ampnet_tpu_torch.models import AMPGCN
+from ampnet_tpu_torch.models.amp_gcn import ModelOutput
 from ampnet_tpu_torch.ops.hopper.format import compute_layout
 from ampnet_tpu_torch.ops.tokenize import fit_scaler, tfidf_sample_features
 from ampnet_tpu_torch.train import make_eval_step
+from ampnet_tpu_torch.train.losses import masked_mean_nll as torch_masked_mean_nll
 
 RTOL, ATOL = 1e-4, 1e-5
 F, S, TN = 24, 4, 8
@@ -118,8 +121,111 @@ def test_single_draw_eval_step_matches_jax_step_shape(rng):
 
 
 def test_unported_model_options_raise():
-    for over in (dict(transformer_block=True), dict(average_pooling=False),
-                 dict(frontend="pca"), dict(compute_dtype="bfloat16"),
+    for over in (dict(frontend="pca"), dict(compute_dtype="bfloat16"),
                  dict(downsample_feature_vectors=False)):
         with pytest.raises(NotImplementedError):
             AMPGCN(dataclasses.replace(AMPGCNConfig(**CFG), **over), device="cpu")
+
+
+# ---- the model's full outputs: ModelOutput.aux, the transformer block, CLS
+# pooling (against the JAX model with the same params and sampled_idx)
+
+BLOCKS = [dict(), dict(transformer_block=True), dict(average_pooling=False),
+          dict(transformer_block=True, average_pooling=False)]
+
+
+def _apply_both(jm, params, tm, gj, gt, idx, use_pallas, **kw):
+    jl = jax_compute_layout(gj, tile_nodes=TN) if use_pallas else None
+    tl = compute_layout(gt, tile_nodes=TN) if use_pallas else None
+    ref = jm.apply({"params": params}, gj, deterministic=True,
+                   sampled_idx=jnp.asarray(idx), edge_layout=jl, **kw)
+    return ref, tl
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("over", BLOCKS)
+def test_aux_outputs_match_jax(rng, monkeypatch, over, use_pallas):
+    """return_aux=True gives the JAX model's aux key by key: the injected
+    sampled_idx, both convs' head-averaged attention weights (on the fused
+    path from the plain weights-only pass on the side, as in JAX) and
+    outputs, the pooled tokens (the mean, or the CLS token's row) and the
+    raw residual; the default returns the log-prob tensor alone."""
+    monkeypatch.setattr(jeaf, "_auto_group", lambda sp, emax, gather: 8)
+    jm, params, tm, gj, gt = both_models(rng, use_pallas=use_pallas, **over)
+    idx = rng.integers(0, F, (16, S))
+    ref, tl = _apply_both(jm, params, tm, gj, gt, idx, use_pallas, return_aux=True)
+    with torch.no_grad():
+        got = tm(gt, sampled_idx=torch.from_numpy(idx), edge_layout=tl, return_aux=True)
+        plain = tm(gt, sampled_idx=torch.from_numpy(idx), edge_layout=tl)
+    assert isinstance(got, ModelOutput) and isinstance(plain, torch.Tensor)
+    assert torch.equal(plain, got.logits)
+    np.testing.assert_allclose(got.logits.numpy(), np.asarray(ref.logits), rtol=RTOL, atol=ATOL)
+    assert set(got.aux) == set(ref.aux) == {
+        "sampled_idx", "attn_weights_1", "attn_weights_2", "conv1_embedding",
+        "conv2_embedding", "pooled", "raw_residual"}
+    tokens = S + (0 if over.get("average_pooling", True) else 1)
+    assert got.aux["attn_weights_1"].shape == (gt.num_edges_padded, tokens, tokens)
+    for k, want in ref.aux.items():
+        np.testing.assert_allclose(got.aux[k].numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+    _, _, no_raw, _, _ = both_models(rng, raw_residual=False, scaler="batch", **over)
+    with torch.no_grad():
+        assert "raw_residual" not in no_raw(gt, sampled_idx=torch.from_numpy(idx),
+                                            return_aux=True).aux
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("over", BLOCKS[1:])
+def test_transformer_block_and_cls_match_jax_with_gradients(rng, over, use_pallas):
+    """The pre-LN blocks (parameter-free LayerNorms at flax's epsilon,
+    post_conv_linear{1,2}, ELU) and the CLS token: log-probs and every
+    parameter's gradient of the masked mean NLL, deterministic=True, against
+    jax.grad of the JAX model's XLA path; the port's fused path through the
+    plain versions of K2 (forward without gradients) and K1 + K3/K4."""
+    jm, params, tm, gj, gt = both_models(rng, use_pallas=use_pallas, **over)
+    names = dict(tm.named_parameters())
+    assert ("cls_token" in names) == (not over.get("average_pooling", True))
+    assert ("post_conv_linear1.weight" in names) == over.get("transformer_block", False)
+    idx = rng.integers(0, F, (16, S))
+    train = gj.train_mask & gj.node_mask
+
+    def loss_fn(p):
+        out = jm.apply({"params": p}, gj, deterministic=True, sampled_idx=jnp.asarray(idx),
+                       return_aux=False)
+        return masked_mean_nll(out.logits, gj.y, train), out.logits
+
+    (loss_j, logits_j), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    tl = compute_layout(gt, tile_nodes=TN) if use_pallas else None
+    with torch.no_grad():
+        eval_logits = tm(gt, sampled_idx=torch.from_numpy(idx), edge_layout=tl)
+    logits = tm(gt, sampled_idx=torch.from_numpy(idx), edge_layout=tl)
+    loss = torch_masked_mean_nll(logits, gt.y, gt.train_mask & gt.node_mask)
+    loss.backward()
+    for got in (eval_logits, logits.detach()):
+        np.testing.assert_allclose(got.numpy(), np.asarray(logits_j), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(loss.detach()), float(loss_j), rtol=1e-5)
+    ref = flax_to_state_dict(jax.device_get(grads_j))
+    assert set(ref) == set(names)
+    for name, p in names.items():
+        r = ref[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), r, rtol=2e-4,
+                                   atol=2e-6 * max(1.0, np.abs(r).max()), err_msg=name)
+        assert np.abs(r).max() > 0, name
+
+
+def test_transformer_block_parameters_and_initialization():
+    """The block's Dense layers take flax's default init (lecun-normal,
+    zero bias), the CLS token normal(0.02); both are drawn after every
+    other parameter, so a model without them keeps its weights."""
+    cfg = AMPGCNConfig(**CFG)
+    base = AMPGCN(cfg, device="cpu")
+    full = AMPGCN(dataclasses.replace(cfg, transformer_block=True, average_pooling=False),
+                  device="cpu")
+    for k, p in base.named_parameters():
+        assert torch.equal(p, dict(full.named_parameters())[k]), k
+    d = CFG["embedding_dim"]
+    assert full.cls_token.shape == (1, 1, d) and 0.005 < float(full.cls_token.detach().std()) < 0.05
+    w = full.post_conv_linear1.weight
+    assert w.shape == (d, d) and float(full.post_conv_linear1.bias.abs().max()) == 0.0
+    assert float(w.abs().max()) <= 2 * d ** -0.5 / 0.87962566103423978 + 1e-6
+    assert not any(p.numel() == 0 for p in full.parameters())

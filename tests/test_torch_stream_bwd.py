@@ -27,6 +27,7 @@ from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
 from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
 from ampnet_tpu_torch.ops.hopper import format as fmt
+from ampnet_tpu_torch.ops.segment import segment_sum_into
 
 S, SP, H = 5, 8, 2
 # the JAX kernels' edge-group size: a TPU tiling knob (their default, 96 at
@@ -165,6 +166,50 @@ def test_stream_over_a_tile_range_and_pass_b(rng):
         torch.testing.assert_close(dq, dq_all, rtol=0, atol=0)
         torch.testing.assert_close(dkv, want, rtol=1e-5, atol=1e-5)
     assert float(dkv[0].abs().max()) == 0.0                # node 0 never sends
+
+
+@pytest.mark.parametrize("chunk_tiles", [None, 1])          # one chunk; one per tile
+def test_pass_b_fixed_order_sum_matches_index_add(rng, monkeypatch, chunk_tiles):
+    """Pass B through ``segment_sum_into``, the one fixed-order sum (the
+    sorted ``index_put_`` on the card, held bit for bit there by the card
+    tests; ``index_add_`` on the CPU), equals ``index_add_`` of the walked
+    slots' rows by sender within 1e-6 relative, one call per chunk, on one
+    chunk and on several; the rows of slots never walked hold NaN and add
+    nothing."""
+    d = 16
+    _, gt = make_graphs(rng, n=29, e=90, n_pad=32, e_pad=128)
+    lt = fmt.compute_layout(gt, tile_nodes=8, edges_per_tile=128, sender_layout=False)
+    t, emax = lt.tile_senders.shape
+    nt = t * 8
+    q, kv, dsum = (torch.from_numpy(a) for a in
+                   (rows(rng, nt, d), rows(rng, nt, 2 * d), rows(rng, nt, d, True)))
+    idx = (lt.tile_senders, lt.tile_valid, lt.recv_ptr, lt.recv_slots)
+    kw = dict(s=S, sp=SP, num_heads=H, softmax=True)
+    _, stream = sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw)
+    walked = sb.walked_slots(lt.tile_senders, lt.recv_ptr, (0, t))
+    per_slot = stream.view(-1, SP, 2 * d)[:, :S]
+    want = torch.zeros(nt, S, 2 * d).index_add_(
+        0, lt.tile_senders.reshape(-1)[walked].long(), per_slot[walked])
+
+    calls = []
+
+    def counted(out, data, ids, mask=None):
+        calls.append(data.shape[0])
+        return segment_sum_into(out, data, ids, mask)
+
+    monkeypatch.setattr(sb, "segment_sum_into", counted)
+    budget = chunk_tiles and chunk_tiles * emax * SP * 2 * d * 4
+    _, dkv = sb.stream_backward(q, kv, dsum, *idx, **kw, chunk_bytes=budget)
+    assert calls == ([t * emax] if chunk_tiles is None else [emax] * t)
+    torch.testing.assert_close(dkv, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    assert float(want.abs().max()) > 0.1
+
+    nan_stream = stream.view(-1, SP, 2 * d).clone()
+    nan_stream[~walked] = float("nan")
+    got = sb.stream_to_senders(nan_stream.view_as(stream), lt.tile_senders, walked, 0,
+                               torch.zeros(nt, S, 2 * d), s=S, sp=SP)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
 
 
 # ------------------------------------------------------------------ the op's gradients

@@ -365,13 +365,13 @@ def test_resume_continues_exactly(tmp_path):
 
 
 def test_unported_training_options_raise(tmp_path):
-    """An unknown loss and the model's transformer block (not ported yet)
+    """An unknown loss and the model's bfloat16 compute (not ported yet)
     raise; profile_steps, ported now, trains and writes its trace."""
     g, make = tiny_problem()
     with pytest.raises(ValueError, match="loss_mode"):
         make_train_step(make(), loss_mode="sum")
-    with pytest.raises(NotImplementedError, match="transformer block"):
-        AMPGCN(AMPGCNConfig(**{**CFG, "transformer_block": True}), device="cpu")
+    with pytest.raises(NotImplementedError, match="float32"):
+        AMPGCN(AMPGCNConfig(**{**CFG, "compute_dtype": "bfloat16"}), device="cpu")
     result = train_full_batch(make(), g, TrainConfig(**LOOP, epochs=2, profile_steps=1,
                                                      run_dir=str(tmp_path)))
     assert len(result["history"]) == 2
