@@ -43,6 +43,11 @@ class TokenizerConfig:
         return self.feat_emb_dim + self.val_emb_dim
 
 
+# the convs' compute types: 'bfloat16' casts x and the conv parameters to
+# bf16 inside each AMPConv (the parameters stay f32)
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 @dataclass(frozen=True)
 class AMPGCNConfig:
     """Flagship model config (reference: src/ampnet/module/amp_gcn.py:21-35).
@@ -77,6 +82,9 @@ class AMPGCNConfig:
             raise ValueError(
                 "Feature and value dimensions do not add up to total embedding dimension"
             )
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                             f"got {self.compute_dtype!r}")
 
     def tokenizer(self) -> TokenizerConfig:
         return TokenizerConfig(

@@ -15,6 +15,13 @@ is given.
 ``ModelOutput(logits, aux)`` with the JAX package's aux keys. (The JAX
 model's default is ``return_aux=True``; the port's steps and captured
 graphs read the tensor, so its default is False.)
+
+``compute_dtype='bfloat16'`` runs the two convs in bf16 (their parameters
+stay f32); the other layers meet their outputs as JAX promotes them: a bf16
+tensor against an f32 one gives f32. torch promotes the elementwise ops
+and ``torch.cat`` the same way, but its products with f32 weights refuse a
+bf16 input, so the head casts a bf16 pooled input to f32 explicitly. The
+log-probs are f32.
 """
 from __future__ import annotations
 
@@ -72,15 +79,16 @@ class AMPGCN(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        if config.compute_dtype != "float32":
-            raise NotImplementedError("only float32 compute is ported yet")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.config = cfg = config
         d = cfg.embedding_dim
+        dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
         self.tokenizer = FeatureTokenizer(cfg.tokenizer(), generator=generator)
-        self.conv1 = AMPConv(d, cfg.num_heads, cfg.attn_softmax, cfg.use_pallas, generator)
-        self.conv2 = AMPConv(d, cfg.num_heads, cfg.attn_softmax, cfg.use_pallas, generator)
+        self.conv1 = AMPConv(d, cfg.num_heads, cfg.attn_softmax, cfg.use_pallas, generator,
+                             dtype)
+        self.conv2 = AMPConv(d, cfg.num_heads, cfg.attn_softmax, cfg.use_pallas, generator,
+                             dtype)
         self.raw_mode = _raw_residual_mode(cfg)
         f = cfg.num_node_features
         if self.raw_mode == "mlp":
@@ -208,7 +216,9 @@ class AMPGCN(nn.Module):
             xr = dropout(xr, rate, generator)                    # draw
             head_in = torch.cat([pooled, xr], dim=-1)
 
-        logits = self.final_linear_out(head_in)
+        # JAX's Dense promotes a bf16 input against its f32 kernel: f32
+        logits = self.final_linear_out(head_in.to(torch.promote_types(
+            head_in.dtype, self.final_linear_out.weight.dtype)))
         out = torch.log_softmax(logits, dim=-1) if cfg.softmax_out else torch.sigmoid(logits)
         if not return_aux:
             return out

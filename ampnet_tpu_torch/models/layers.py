@@ -59,15 +59,22 @@ class AMPConv(nn.Module):
     lane constraint): the scatter-free backward when the layout has its
     sender side, the stream backward when it has none. ``fused_fn(x,
     params)`` replaces the call the layer would build itself
-    (``train/pallas_step.py::make_fused_fns``)."""
+    (``train/pallas_step.py::make_fused_fns``).
+
+    ``dtype`` (None: f32) is the compute type: with ``torch.bfloat16`` the
+    forward casts x and the four parameters to bf16 (as the JAX AMPConv's
+    ``dtype``), so the parameters stay f32 in the state dict and their
+    gradients come back to f32 through the casts."""
 
     def __init__(self, embed_dim: int, num_heads: int, softmax: bool = True,
                  use_pallas: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = embed_dim
         self.embed_dim, self.num_heads = d, num_heads
         self.softmax, self.use_pallas = softmax, use_pallas
+        self.dtype = dtype
         self.w_qkv = nn.Parameter(torch.empty(d, 3 * d))
         self.b_qkv = nn.Parameter(torch.zeros(3 * d))
         self.w_out = nn.Parameter(torch.empty(d, d))
@@ -93,6 +100,9 @@ class AMPConv(nn.Module):
         if x.shape[-1] != self.embed_dim:
             raise ValueError(f"expected last dim {self.embed_dim}, got {tuple(x.shape)}")
         params = self.params()
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+            params = MHAParams(*(p.to(self.dtype) for p in params))
         if fused_fn is None and self.use_pallas and layout is not None:
             # the runtime edge mask reaches the kernels through validity, on
             # the receiver side and (for the backward) the sender side alike;

@@ -50,13 +50,15 @@ from ampnet_tpu_torch.ops.hopper.edge_attention_bwd_scatterfree import (
     _merge,
     _recompute,
     _walk,
+    dot_in,
 )
 from ampnet_tpu_torch.ops.hopper.launch import (
     BODIES,
     I,
     P,
     body_of,
-    check_f32_rows,
+    check_f32_only,
+    check_rows,
     check_walk,
     count_launch,
     entry,
@@ -100,7 +102,8 @@ def edge_attention_bwd_stream_plain(q_rows, kv_rows, dsum_rows, tile_senders,
     """Pass A in plain torch over tiles [t0, t1) (default: all): (dQ rows
     [(t1-t0)*TN*sp, D], stream [(t1-t0)*EMAX*sp, 2D]), f32, pad token rows
     0; stream rows of slots that are not walked are 0 here (unwritten on
-    the card)."""
+    the card). bf16 rows round the products' operands as K3's and K4's
+    plain versions do."""
     t0, t1, tn, emax = _tile_range(tile_senders, recv_ptr, tiles)
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
@@ -114,10 +117,11 @@ def edge_attention_bwd_stream_plain(q_rows, kv_rows, dsum_rows, tile_senders,
     kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]
     qh, kh, dmh, wts, ds, scale = _recompute(q, kv[..., :d], kv[..., d:], dm,
                                              num_heads, softmax)
+    dt = q_rows.dtype
     acc = torch.zeros(n1 - n0, s, d, dtype=torch.float32, device=q_rows.device)
-    acc.index_add_(0, recv, _merge(ds @ kh) * scale)
-    dk = _merge(ds.transpose(-1, -2) @ qh)      # qh carries the 1/sqrt(dh)
-    dv = _merge(wts.transpose(-1, -2) @ dmh)
+    acc.index_add_(0, recv, _merge(dot_in(ds, kh, dt)) * scale)
+    dk = _merge(dot_in(ds.transpose(-1, -2), qh, dt)) * scale
+    dv = _merge(dot_in(wts.transpose(-1, -2), dmh, dt))
     out = torch.zeros((t1 - t0) * emax, sp, 2 * d, dtype=torch.float32,
                       device=q_rows.device)
     out[slots.long() - t0 * emax, :s] = torch.cat([dk, dv], dim=-1)
@@ -148,14 +152,15 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
             q_rows, kv_rows, dsum_rows, tile_senders, tile_valid, recv_ptr,
             recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax,
             tiles=tiles)
+    check_f32_only("edge_attention_bwd_stream", q_rows, kv_rows, dsum_rows)
     dev = q_rows.device
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_f32_rows("q_rows", q_rows, dev, nt * sp, d)
-    check_f32_rows("dsum_rows", dsum_rows, dev, nt * sp, d)
-    check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
+    check_rows("q_rows", q_rows, dev, nt * sp, d)
+    check_rows("dsum_rows", dsum_rows, dev, nt * sp, d)
+    check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
     check_walk(dev, tile_senders, tile_valid, recv_ptr, recv_slots,
                ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
     t0, t1, tn, emax = _tile_range(tile_senders, recv_ptr, tiles)

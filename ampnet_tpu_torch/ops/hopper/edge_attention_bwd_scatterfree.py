@@ -13,10 +13,13 @@ Two hand-written kernels, each beside its plain torch version:
   sender over the sender-major index (``format.py``: ``snd_ptr``,
   ``snd_slots``). Counterpart of ``_dkv_kernel_vmem`` and ``_dkv_kernel_dma``.
 
-Each has two bodies (``launch.body``): on the tensor cores in 3xTF32
+Each has three bodies (``launch.body``): on the tensor cores in 3xTF32
 (``csrc/edge_attention_bwd_dq_tc.cu``, ``csrc/edge_attention_bwd_tc.cu``)
 within their instantiated range, on the CUDA cores (``csrc/edge_attention_bwd.cu``)
-beyond it, at any shape.
+beyond it, at any shape, and for bf16 rows (the JAX package's bf16 model
+and ``stream_bf16``) on the tensor cores in bf16 products with f32 sums
+(``csrc/edge_attention_bwd_dq_tc_bf16.cu``, ``csrc/edge_attention_bwd_tc_bf16.cu``),
+within the range only. Their outputs are f32 whatever the rows' type.
 
 One kernel per pass serves both gathers: Hopper reads the gathered rows
 from device memory either way. Neither uses atomics, so the sums are taken
@@ -24,7 +27,10 @@ in slot order and repeat bit for bit.
 
 The plain versions spell the same arithmetic out in tensor math over the
 same index (gather, recompute, softmax backward, ``index_add_``); they are
-not autograd of the forward. A wrapper given CPU tensors runs its plain
+not autograd of the forward. They round where the JAX bodies round: the
+products' operands in the rows' type (q times 1/sqrt(dh) in that type, the
+f32 W and dS rounded to it), the sums f32, dQ and dK scaled by 1/sqrt(dh)
+in f32 after their products. A wrapper given CPU tensors runs its plain
 version; given CUDA tensors it launches its kernel or raises. Each wrapper
 counts its launches in ``<wrapper>.launches``, and by body in
 ``<wrapper>.body_launches``.
@@ -35,15 +41,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ampnet_tpu_torch.ops.edge_attention import head_scale, widened
 from ampnet_tpu_torch.ops.hopper.launch import (
     BODIES,
     I,
     P,
     body_of,
-    check_f32_rows,
+    check_rows,
+    check_same_dtype,
     check_walk,
     count_launch,
     entry,
+    entry_of,
     launch_body,
 )
 
@@ -58,11 +67,16 @@ _SIGNATURES = {
 # blocks; 0, 0 for shared memory) before the stream
 _SIGNATURES["ampnet_edge_attention_bwd_dq_simt"] = _SIGNATURES["ampnet_edge_attention_bwd_dq"][:-1] + [P, I, P]
 _SIGNATURES["ampnet_edge_attention_bwd_dkv_simt"] = _SIGNATURES["ampnet_edge_attention_bwd_dkv"][:-1] + [P, I, P]
-# (library, entry point) of each body
-_DQ = {"tc": ("edge_attention_bwd_dq_tc", "ampnet_edge_attention_bwd_dq"),
-       "simt": (_LIB, "ampnet_edge_attention_bwd_dq_simt")}
-_DKV = {"tc": ("edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv"),
-        "simt": (_LIB, "ampnet_edge_attention_bwd_dkv_simt")}
+for _name in ("ampnet_edge_attention_bwd_dq", "ampnet_edge_attention_bwd_dkv"):
+    _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
+# (library, entry point) of each body on each row type (launch.entry_of)
+F32, BF16 = torch.float32, torch.bfloat16
+_DQ = {("tc", F32): ("edge_attention_bwd_dq_tc", "ampnet_edge_attention_bwd_dq"),
+       ("simt", F32): (_LIB, "ampnet_edge_attention_bwd_dq_simt"),
+       ("tc_bf16", BF16): ("edge_attention_bwd_dq_tc_bf16", "ampnet_edge_attention_bwd_dq_bf16")}
+_DKV = {("tc", F32): ("edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv"),
+        ("simt", F32): (_LIB, "ampnet_edge_attention_bwd_dkv_simt"),
+        ("tc_bf16", BF16): ("edge_attention_bwd_tc_bf16", "ampnet_edge_attention_bwd_dkv_bf16")}
 
 
 # ---------------------------------------------------------------- plain versions
@@ -80,14 +94,22 @@ def _merge(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(e, s, h * dh)
 
 
+def dot_in(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """a @ b with both operands rounded to ``dtype``, summed in f32 (the JAX
+    bodies' dots with ``preferred_element_type=float32``; f64 in f64)."""
+    return widened(a.to(dtype)) @ widened(b.to(dtype))
+
+
 def _recompute(q, k, v, dm, num_heads, softmax):
-    """Per edge and head: the scaled queries, keys, dMsg, the weights W
-    [E, H, Sq, Sk] and dS, the gradient of the scaled scores."""
-    scale = 1.0 / (q.shape[-1] // num_heads) ** 0.5
-    qh = _heads(q, num_heads) * scale
-    kh, vh, dmh = (_heads(t, num_heads) for t in (k, v, dm))
-    scores = qh @ kh.transpose(-1, -2)
-    dw = dmh @ vh.transpose(-1, -2)
+    """Per edge and head: the queries (unscaled), keys, dMsg, the f32
+    weights W [E, H, Sq, Sk] and dS, the gradient of the scaled scores, and
+    the f32 1/sqrt(dh). The scores take q times 1/sqrt(dh) in q's type."""
+    head_dim = q.shape[-1] // num_heads
+    scale = 1.0 / head_dim ** 0.5
+    dt = q.dtype
+    qh, kh, vh, dmh = (_heads(t, num_heads) for t in (q, k, v, dm))
+    scores = dot_in(qh * head_scale(head_dim, dt), kh.transpose(-1, -2), dt)
+    dw = dot_in(dmh, vh.transpose(-1, -2), dt)
     if softmax:
         w = torch.softmax(scores, dim=-1)
         ds = w * (dw - (dw * w).sum(dim=-1, keepdim=True))
@@ -110,7 +132,8 @@ def _walk(peer_ids, valid, ptr, slots):
 def edge_attention_bwd_dq_plain(q_rows, kv_rows, dsum_rows, tile_senders,
                                 tile_valid, recv_ptr, recv_slots, *, s, sp,
                                 num_heads, softmax):
-    """Pass R in plain torch: dQ rows [NT*sp, D] f32 (pad token rows 0)."""
+    """Pass R in plain torch: dQ rows [NT*sp, D] f32 (pad token rows 0)
+    from f32 or bf16 rows."""
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
     recv, snd, w = _walk(tile_senders, tile_valid, recv_ptr, recv_slots)
@@ -119,7 +142,7 @@ def edge_attention_bwd_dq_plain(q_rows, kv_rows, dsum_rows, tile_senders,
     kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]
     _, kh, _, _, ds, scale = _recompute(q, kv[..., :d], kv[..., d:], dm,
                                         num_heads, softmax)
-    dq = _merge(ds @ kh) * scale
+    dq = _merge(dot_in(ds, kh, q.dtype)) * scale
     acc = torch.zeros(nt, s, d, dtype=torch.float32, device=q_rows.device)
     acc.index_add_(0, recv, dq * w[:, None, None])
     return F.pad(acc, (0, 0, 0, sp - s)).reshape(nt * sp, d)
@@ -128,16 +151,18 @@ def edge_attention_bwd_dq_plain(q_rows, kv_rows, dsum_rows, tile_senders,
 def edge_attention_bwd_dkv_plain(qdm_rows, kv_rows, snd_receivers, snd_valid,
                                  snd_ptr, snd_slots, *, s, sp, num_heads,
                                  softmax):
-    """Pass S in plain torch: dK|dV rows [NT*sp, 2D] f32 (pad token rows 0)."""
+    """Pass S in plain torch: dK|dV rows [NT*sp, 2D] f32 (pad token rows 0)
+    from f32 or bf16 rows."""
     nt = snd_ptr.numel() - 1
     d = kv_rows.shape[1] // 2
     snd, recv, w = _walk(snd_receivers, snd_valid, snd_ptr, snd_slots)
     qdm = qdm_rows.reshape(nt, sp, 2 * d)[:, :s][recv]
     kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]
-    qh, _, dmh, wts, ds, _ = _recompute(qdm[..., :d], kv[..., :d], kv[..., d:],
-                                        qdm[..., d:], num_heads, softmax)
-    dk = _merge(ds.transpose(-1, -2) @ qh)      # qh carries the 1/sqrt(dh)
-    dv = _merge(wts.transpose(-1, -2) @ dmh)
+    qh, _, dmh, wts, ds, scale = _recompute(qdm[..., :d], kv[..., :d], kv[..., d:],
+                                            qdm[..., d:], num_heads, softmax)
+    dt = kv_rows.dtype
+    dk = _merge(dot_in(ds.transpose(-1, -2), qh, dt)) * scale
+    dv = _merge(dot_in(wts.transpose(-1, -2), dmh, dt))
     acc = torch.zeros(nt, s, 2 * d, dtype=torch.float32, device=kv_rows.device)
     acc.index_add_(0, snd, torch.cat([dk, dv], dim=-1) * w[:, None, None])
     return F.pad(acc, (0, 0, 0, sp - s)).reshape(nt * sp, 2 * d)
@@ -150,11 +175,12 @@ def edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
                           recv_ptr, recv_slots, *, s, sp, num_heads, softmax, body=None):
     """K3, pass R: dQ rows [NT*sp, D] f32 (pad token rows 0).
 
-    q_rows, dsum_rows [NT*sp, D] and kv_rows [NT*sp, 2D] may be row-strided
-    views; dsum is the gradient of the per-receiver SUM of messages. The
-    tensor-core body gathers kv_rows in 16-byte copies within K1's range;
-    beyond it, or on rows it cannot copy, the CUDA-core body runs
-    (``launch.body``; ``body`` names one, else the rule picks). The index
+    q_rows, dsum_rows [NT*sp, D] and kv_rows [NT*sp, 2D], all f32 or all
+    bf16, may be row-strided views; dsum is the gradient of the
+    per-receiver SUM of messages. The tensor-core bodies gather kv_rows in
+    16-byte copies within K1's range; beyond it, or on rows they cannot
+    copy, f32 rows run the CUDA-core body and bf16 rows raise
+    (``launch.body_of``; ``body`` names one, else the rule picks). The index
     arrays are int32 (format.py). CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_bwd_dq_plain(
@@ -165,14 +191,15 @@ def edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
     d = q_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_f32_rows("q_rows", q_rows, dev, nt * sp, d)
-    check_f32_rows("dsum_rows", dsum_rows, dev, nt * sp, d)
-    check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
+    dt = check_same_dtype(("q_rows", q_rows), ("dsum_rows", dsum_rows), ("kv_rows", kv_rows))
+    check_rows("q_rows", q_rows, dev, nt * sp, d, dt)
+    check_rows("dsum_rows", dsum_rows, dev, nt * sp, d, dt)
+    check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d, dt)
     check_walk(dev, tile_senders, tile_valid, recv_ptr, recv_slots,
                ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
     body = body_of("edge_attention_bwd_dq", body, s, d, num_heads, ("kv_rows", kv_rows))
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    lib_name, name = _DQ[body]
+    lib_name, name = entry_of("edge_attention_bwd_dq", _DQ, body, dt)
     launch_body("edge_attention_bwd_dq", body, entry(lib_name, name, _SIGNATURES[name]), (
         q_rows.data_ptr(), q_rows.stride(0), dsum_rows.data_ptr(),
         dsum_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
@@ -188,11 +215,12 @@ def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
     """K4, pass S: dK|dV rows [NT*sp, 2D] f32 (pad token rows 0).
 
     qdm_rows [NT*sp, 2D] packs [Q | dsum] per row; kv_rows [NT*sp, 2D]; both
-    may be row-strided views. The tensor-core body gathers qdm_rows in
-    16-byte copies and takes S <= 48, D/H <= 32 and H * ceil(S/16) <= 12
-    warps (8 up to S=24; ``launch.tensor_core_range_error``); beyond that,
-    or on rows it cannot copy, the CUDA-core body runs (``launch.body``;
-    ``body`` names one, else the rule picks). snd_receivers holds GLOBAL
+    f32 or both bf16, and may be row-strided views. The tensor-core bodies
+    gather qdm_rows in 16-byte copies and take S <= 48, D/H <= 32 and H *
+    ceil(S/16) <= 12 warps (8 up to S=24; ``launch.tensor_core_range_error``);
+    beyond that, or on rows they cannot copy, f32 rows run the CUDA-core
+    body and bf16 rows raise (``launch.body_of``; ``body`` names one, else
+    the rule picks). snd_receivers holds GLOBAL
     receiver ids over the sender-tiled slots, snd_valid may carry a runtime
     mask, snd_ptr / snd_slots are the sender-major index. CPU tensors run
     the plain version."""
@@ -205,13 +233,14 @@ def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
     d = kv_rows.shape[1] // 2
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_f32_rows("qdm_rows", qdm_rows, dev, nt * sp, 2 * d)
-    check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
+    dt = check_same_dtype(("qdm_rows", qdm_rows), ("kv_rows", kv_rows))
+    check_rows("qdm_rows", qdm_rows, dev, nt * sp, 2 * d, dt)
+    check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d, dt)
     check_walk(dev, snd_receivers, snd_valid, snd_ptr, snd_slots,
                ("snd_receivers", "snd_valid", "snd_ptr", "snd_slots"))
     body = body_of("edge_attention_bwd_dkv", body, s, d, num_heads, ("qdm_rows", qdm_rows))
     out = torch.empty(nt * sp, 2 * d, dtype=torch.float32, device=dev)
-    lib_name, name = _DKV[body]
+    lib_name, name = entry_of("edge_attention_bwd_dkv", _DKV, body, dt)
     launch_body("edge_attention_bwd_dkv", body, entry(lib_name, name, _SIGNATURES[name]), (
         qdm_rows.data_ptr(), qdm_rows.stride(0), kv_rows.data_ptr(),
         kv_rows.stride(0), snd_receivers.data_ptr(), snd_valid.data_ptr(),

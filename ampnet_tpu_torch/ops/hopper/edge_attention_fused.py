@@ -17,11 +17,25 @@ version:
   then the K1 walk with the 1/degree fold and the out-projection and
   live-row bias in its epilogue.
 
-Each has two bodies (``launch.body``): on the tensor cores in 3xTF32
+Each has three bodies (``launch.body``): on the tensor cores in 3xTF32
 (``csrc/edge_attention_tc.cu``, ``csrc/edge_attention_layer_tc.cu``, one
 kernel template in ``csrc/edge_attention_tc.cuh``) within their
 instantiated range, on the CUDA cores (``csrc/edge_attention.cu``, and
-``csrc/qkv_projection.cu`` for K2's projection) beyond it, at any shape.
+``csrc/qkv_projection.cu`` for K2's projection) beyond it, at any shape,
+and on the tensor cores in bf16 products with f32 sums
+(``csrc/edge_attention_tc_bf16.cu``, ``csrc/edge_attention_layer_tc_bf16.cu``,
+template ``csrc/edge_attention_tc_bf16.cuh``) for bf16 rows and for f32 rows
+under ``mxu_bf16``, within the tensor cores' range only.
+
+bf16, as the JAX package: ``x`` in bf16 (the model's
+``compute_dtype='bfloat16'``) projects to bf16 q|k|v rows and a bf16
+output; ``stream_bf16`` rounds the projected f32 rows to bf16 before the
+kernels (and the backward's dsum rows after them), with a token-row stride
+aligned to 16; ``mxu_bf16`` keeps f32 rows and rounds only the attention
+products' operands, where the JAX body honours it (the 'vmem' gather's
+bodies and the whole layer; its 'dma' body does not). Scores, softmax and
+every sum stay f32. Each flag is resolved once per call, so forward and
+backward agree.
 
 The JAX package's non-default forward routes have their kernels in
 ``edge_attention_variants.py``: scatter-as-matmul (K6 sums, K7 whole
@@ -69,7 +83,9 @@ import torch.nn.functional as F
 from ampnet_tpu_torch.ops.edge_attention import (
     MHAParams,
     amp_edge_attention,
-    attention_core,
+    attend,
+    promoted,
+    widened,
 )
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as bwd_stream
 from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
@@ -85,11 +101,13 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     I,
     P,
     body_of,
-    check_f32_rows,
+    check_rows,
+    check_same_dtype,
     check_walk,
     count_launch,
     device_memory_launches,
     entry,
+    entry_of,
     launch_body,
 )
 from ampnet_tpu_torch.ops.segment import segment_count
@@ -104,6 +122,11 @@ SCATTERFREE_BWD_DEFAULT = os.environ.get("AMPNET_SCATTERFREE_BWD", "1") == "1"
 # time.
 MM_SCATTER_DEFAULT = os.environ.get("AMPNET_MM_SCATTER", "0") == "1"
 DMA_V1_DEFAULT = os.environ.get("AMPNET_DMA_V1", "0") == "1"
+# bf16 operands for the attention products of f32 rows (sums in f32), and
+# bf16 projected row streams: the JAX package's environment variables, both
+# off by default; the op's mxu_bf16 / stream_bf16 arguments override them.
+MXU_BF16_DEFAULT = os.environ.get("AMPNET_MXU_BF16", "0") == "1"
+STREAM_BF16_DEFAULT = os.environ.get("AMPNET_STREAM_BF16", "0") == "1"
 
 # The JAX package's dispatch constants (its env-var defaults), mirrored so
 # the choice between K1 and K2 is the one the JAX package makes.
@@ -143,6 +166,12 @@ def _auto_group(sp: int) -> int:
     return max(1, 768 // sp)
 
 
+def _stream_align(dtype: torch.dtype, stream_bf16: bool) -> int:
+    """The token-row stride's alignment: 16 for bf16 rows, else 8 (the JAX
+    package's (16, 128) and (8, 128) tilings)."""
+    return 16 if (stream_bf16 or dtype == torch.bfloat16) else 8
+
+
 def _v6_usable(n: int, n_tiles_nodes: int, sp: int, d: int, itemsize: int,
                tile_nodes: int, group: int, gather: str) -> bool:
     """The JAX predicate for its whole-layer kernel: vmem gather, a tile
@@ -157,12 +186,13 @@ def _v6_usable(n: int, n_tiles_nodes: int, sp: int, d: int, itemsize: int,
 
 def edge_attention_sums_plain(q_rows, kv_rows, tile_senders, tile_valid,
                               recv_ptr, recv_slots, *, s, sp, num_heads,
-                              softmax, invdeg=None):
+                              softmax, invdeg=None, mxu_bf16=False):
     """Per-receiver sums over the receiver-major index, in plain torch:
     gather q / k|v per live slot, attend over the S real key rows, scale by
     validity (times invdeg when given), index_add into receiver rows.
-    Returns [NT*sp, D] in q_rows' type (f32 on the kernels' path) with pad
-    token rows 0."""
+    The products' operands are in the rows' type (bf16 under ``mxu_bf16``),
+    the messages and their sums f32, as the JAX bodies take them. Returns
+    [NT*sp, D] f32 (f64 for f64 rows) with pad token rows 0."""
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
     recv = torch.repeat_interleave(
@@ -170,34 +200,44 @@ def edge_attention_sums_plain(q_rows, kv_rows, tile_senders, tile_valid,
         (recv_ptr[1:] - recv_ptr[:-1]).long())
     slots = recv_slots[: recv.numel()].long()      # the live slots; padding after
     snd = tile_senders.reshape(-1)[slots].long()
-    w = tile_valid.reshape(-1)[slots].to(q_rows.dtype)
+    acc_dtype = torch.promote_types(q_rows.dtype, torch.float32)
+    w = tile_valid.reshape(-1)[slots].to(acc_dtype)
     if invdeg is not None:
         w = w * invdeg[recv]
     q = q_rows.reshape(nt, sp, d)[:, :s][recv]
     kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]
-    msg, _ = attention_core(q, kv[..., :d], kv[..., d:], num_heads, softmax=softmax)
-    acc = torch.zeros(nt, s, d, dtype=q_rows.dtype, device=q_rows.device)
+    msg, _ = attend(q, kv[..., :d], kv[..., d:], num_heads, softmax,
+                    torch.bfloat16 if mxu_bf16 else None)
+    acc = torch.zeros(nt, s, d, dtype=acc_dtype, device=q_rows.device)
     acc.index_add_(0, recv, msg * w[:, None, None])
     return F.pad(acc, (0, 0, 0, sp - s)).reshape(nt * sp, d)
 
 
 def qkv_projection_plain(x_rows, w_qkv, b_qkv):
-    return x_rows @ w_qkv + b_qkv
+    """x_rows @ w_qkv + b_qkv summed in f32 and rounded once to x_rows'
+    type (the JAX whole-layer kernel's f32 dot plus bias, then its bf16
+    scratch)."""
+    return (widened(x_rows) @ widened(w_qkv) + widened(b_qkv)).to(x_rows.dtype)
 
 
 def edge_attention_layer_plain(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
                                tile_senders, tile_valid, recv_ptr, recv_slots,
-                               *, s, sp, num_heads, softmax):
+                               *, s, sp, num_heads, softmax, mxu_bf16=False):
     """Whole layer in plain torch: project, mean over in-edges (1/degree
-    folded into each edge), out-projection, b_out on live rows only."""
+    folded into each edge), out-projection, b_out on live rows only. In
+    x_rows' type as the JAX kernel: with bf16 rows the f32 mean rounds to
+    bf16 before the out-projection, whose f32 sum rounds to bf16 before the
+    bias is added in bf16."""
     d = x_rows.shape[1]
+    dt = x_rows.dtype
     nt = recv_ptr.numel() - 1
     qkv = qkv_projection_plain(x_rows, w_qkv, b_qkv)
     mean = edge_attention_sums_plain(
         qkv[:, :d], qkv[:, d:], tile_senders, tile_valid, recv_ptr, recv_slots,
-        s=s, sp=sp, num_heads=num_heads, softmax=softmax, invdeg=invdeg)
-    out = mean.reshape(nt, sp, d)[:, :s] @ w_out
-    out = out + b_out * (invdeg > 0).to(out.dtype)[:, None, None]
+        s=s, sp=sp, num_heads=num_heads, softmax=softmax, invdeg=invdeg,
+        mxu_bf16=mxu_bf16)
+    out = (widened(mean.reshape(nt, sp, d)[:, :s].to(dt)) @ widened(w_out)).to(dt)
+    out = out + b_out * (invdeg > 0).to(dt)[:, None, None]
     return F.pad(out, (0, 0, 0, sp - s)).reshape(nt * sp, d)
 
 
@@ -213,12 +253,22 @@ _SIGNATURES = {
 # blocks; 0, 0 for shared memory) before the stream
 _SIGNATURES["ampnet_edge_attention_sums_simt"] = _SIGNATURES["ampnet_edge_attention_sums"][:-1] + [P, I, P]
 _SIGNATURES["ampnet_edge_attention_layer_simt"] = _SIGNATURES["ampnet_edge_attention_layer"][:-1] + [P, I, P]
-# (library, entry point) of each body: K1's sums, K2's attention launch
-# (its projection launch is variants.layer_projection, K7's too)
-_SUMS = {"tc": ("edge_attention_tc", "ampnet_edge_attention_sums"),
-         "simt": ("edge_attention", "ampnet_edge_attention_sums_simt")}
-_LAYER_ATTENTION = {"tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer"),
-                    "simt": ("edge_attention", "ampnet_edge_attention_layer_simt")}
+for _name in ("ampnet_edge_attention_sums", "ampnet_edge_attention_layer"):
+    _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name + "_mxu"] = _SIGNATURES[_name]
+# (library, entry point) of each body on each row type (launch.entry_of):
+# K1's sums, K2's attention launch (its projection launch is
+# variants.layer_projection, K7's too); the bf16 body on f32 rows is
+# mxu_bf16's (bf16 products of f32 rows)
+F32, BF16 = torch.float32, torch.bfloat16
+_SUMS = {("tc", F32): ("edge_attention_tc", "ampnet_edge_attention_sums"),
+         ("simt", F32): ("edge_attention", "ampnet_edge_attention_sums_simt"),
+         ("tc_bf16", BF16): ("edge_attention_tc_bf16", "ampnet_edge_attention_sums_bf16"),
+         ("tc_bf16", F32): ("edge_attention_tc_bf16", "ampnet_edge_attention_sums_mxu")}
+_LAYER_ATTENTION = {
+    ("tc", F32): ("edge_attention_layer_tc", "ampnet_edge_attention_layer"),
+    ("simt", F32): ("edge_attention", "ampnet_edge_attention_layer_simt"),
+    ("tc_bf16", BF16): ("edge_attention_layer_tc_bf16", "ampnet_edge_attention_layer_bf16"),
+    ("tc_bf16", F32): ("edge_attention_layer_tc_bf16", "ampnet_edge_attention_layer_mxu")}
 
 
 def _entry(lib_name: str, fn_name: str):
@@ -231,32 +281,38 @@ def _check_layout(device, tile_senders, tile_valid, recv_ptr, recv_slots):
 
 
 def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
-                        recv_slots, *, s, sp, num_heads, softmax, body=None):
+                        recv_slots, *, s, sp, num_heads, softmax, body=None,
+                        mxu_bf16=False):
     """K1: per-receiver sums [NT*sp, D] f32 (pad token rows 0).
 
-    q_rows [NT*sp, D] and kv_rows [NT*sp, 2D] may be row-strided views
-    (e.g. column slices of one packed q|k|v buffer). The tensor-core body
-    gathers kv_rows in 16-byte copies and takes S <= 48, D/H <= 32 and H *
-    ceil(S/16) <= 12 warps (8 up to S=24; ``launch.tensor_core_range_error``);
-    beyond that, or where kv_rows' address, row stride or width is not a
-    multiple of 16 bytes, the CUDA-core body runs (``launch.body``; ``body``
-    names one, else the rule picks). The layout arrays are int32
+    q_rows [NT*sp, D] and kv_rows [NT*sp, 2D], both f32 or both bf16, may
+    be row-strided views (e.g. column slices of one packed q|k|v buffer).
+    The tensor-core bodies gather kv_rows in 16-byte copies and take S <=
+    48, D/H <= 32 and H * ceil(S/16) <= 12 warps (8 up to S=24;
+    ``launch.tensor_core_range_error``); beyond that, or where kv_rows'
+    address, row stride or width is not a multiple of 16 bytes, f32 rows
+    run the CUDA-core body and bf16 rows raise (``launch.body_of``; ``body``
+    names one, else the rule picks). bf16 rows, and f32 rows under
+    ``mxu_bf16``, run the bf16 body. The layout arrays are int32
     (format.py). CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_sums_plain(
             q_rows, kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
-            s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+            s=s, sp=sp, num_heads=num_heads, softmax=softmax, mxu_bf16=mxu_bf16)
     dev = q_rows.device
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_f32_rows("q_rows", q_rows, dev, nt * sp, d)
-    check_f32_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
+    dt = check_same_dtype(("q_rows", q_rows), ("kv_rows", kv_rows))
+    check_rows("q_rows", q_rows, dev, nt * sp, d, dt)
+    check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d, dt)
     _check_layout(dev, tile_senders, tile_valid, recv_ptr, recv_slots)
-    body = body_of("edge_attention_sums", body, s, d, num_heads, ("kv_rows", kv_rows))
+    body = body_of("edge_attention_sums", body, s, d, num_heads, ("kv_rows", kv_rows),
+                   mxu_bf16=mxu_bf16)
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    launch_body("edge_attention_sums", body, _entry(*_SUMS[body]), (
+    lib_fn = _entry(*entry_of("edge_attention_sums", _SUMS, body, dt))
+    launch_body("edge_attention_sums", body, lib_fn, (
         q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
         tile_senders.data_ptr(), tile_valid.data_ptr(), recv_ptr.data_ptr(),
         recv_slots.data_ptr(), out.data_ptr(), nt, s, sp, d, num_heads,
@@ -268,11 +324,13 @@ def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
 def _layer_attention(qkv, w_out, b_out, invdeg, tile_senders, tile_valid, recv_ptr,
                      recv_slots, *, s, sp, num_heads, softmax, body):
     """K2's second launch: the mean over in-edges, the out-projection and
-    the live-row bias, over q|k|v rows."""
+    the live-row bias, over q|k|v rows; out in their type."""
     nt = recv_ptr.numel() - 1
     d = w_out.shape[0]
-    out = torch.empty(nt * sp, d, dtype=torch.float32, device=qkv.device)
-    launch_body("edge_attention_layer", body, _entry(*_LAYER_ATTENTION[body]), (
+    out = torch.empty(nt * sp, d, dtype=qkv.dtype, device=qkv.device)
+    launch_body("edge_attention_layer", body,
+                _entry(*entry_of("edge_attention_layer", _LAYER_ATTENTION,
+                                  body, qkv.dtype)), (
         qkv.data_ptr(), qkv.stride(0), tile_senders.data_ptr(), tile_valid.data_ptr(),
         recv_ptr.data_ptr(), recv_slots.data_ptr(), invdeg.data_ptr(), w_out.data_ptr(),
         b_out.data_ptr(), out.data_ptr(), nt, s, sp, d, num_heads, int(softmax)),
@@ -282,35 +340,42 @@ def _layer_attention(qkv, w_out, b_out, invdeg, tile_senders, tile_valid, recv_p
 
 def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
                          tile_senders, tile_valid, recv_ptr, recv_slots, *,
-                         s, sp, num_heads, softmax, body=None):
+                         s, sp, num_heads, softmax, body=None, mxu_bf16=False):
     """K2: the whole layer over raw token rows x_rows [NT*sp, D] -> output
-    rows [NT*sp, D] f32 (pad token rows 0). invdeg [NT] is 1/degree of the
-    runtime mask (0 for degree 0). Two launches: the q|k|v projection, then
-    attention with the mean, out-projection and live-row bias fused. The
-    bodies and the rule between them are K1's (the tensor-core projection
-    also copies x_rows and w_qkv in 16-byte pieces)."""
+    rows [NT*sp, D] in x_rows' type (pad token rows 0). invdeg [NT] (f32)
+    is 1/degree of the runtime mask (0 for degree 0); the four weights are
+    in x_rows' type. Two launches: the q|k|v projection, then attention
+    with the mean, out-projection and live-row bias fused. The bodies and
+    the rule between them are K1's (the tensor-core projection also copies
+    x_rows and w_qkv in 16-byte pieces): bf16 rows run both launches in
+    bf16 products; f32 rows under ``mxu_bf16`` only the attention's, the
+    projection and out-projection staying 3xTF32, as the JAX kernel."""
     if not x_rows.is_cuda:
         return edge_attention_layer_plain(
             x_rows, w_qkv, b_qkv, w_out, b_out, invdeg, tile_senders,
             tile_valid, recv_ptr, recv_slots, s=s, sp=sp,
-            num_heads=num_heads, softmax=softmax)
+            num_heads=num_heads, softmax=softmax, mxu_bf16=mxu_bf16)
     dev = x_rows.device
     nt = recv_ptr.numel() - 1
     d = x_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_f32_rows("x_rows", x_rows, dev, nt * sp, d)
-    check_f32_rows("w_qkv", w_qkv, dev, d, 3 * d)
-    check_f32_rows("w_out", w_out, dev, d, d)
-    for name, t, numel in (("b_qkv", b_qkv, 3 * d), ("b_out", b_out, d), ("invdeg", invdeg, nt)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() != numel:
-            raise ValueError(f"{name}: expected {numel} contiguous float32 on {dev}")
+    dt = check_same_dtype(("x_rows", x_rows), ("w_qkv", w_qkv), ("w_out", w_out))
+    check_rows("x_rows", x_rows, dev, nt * sp, d, dt)
+    check_rows("w_qkv", w_qkv, dev, d, 3 * d, dt)
+    check_rows("w_out", w_out, dev, d, d, dt)
+    for name, t, numel, tdt in (("b_qkv", b_qkv, 3 * d, dt), ("b_out", b_out, d, dt),
+                                ("invdeg", invdeg, nt, torch.float32)):
+        if t.device != dev or t.dtype != tdt or not t.is_contiguous() or t.numel() != numel:
+            raise ValueError(f"{name}: expected {numel} contiguous {tdt} on {dev}")
     if not w_qkv.is_contiguous() or not w_out.is_contiguous():
         raise ValueError("w_qkv and w_out must be contiguous")
     _check_layout(dev, tile_senders, tile_valid, recv_ptr, recv_slots)
     body = body_of("edge_attention_layer", body, s, d, num_heads,
-                   ("x_rows", x_rows), ("w_qkv", w_qkv))
-    qkv = variants.layer_projection(x_rows, w_qkv, b_qkv, body)
+                   ("x_rows", x_rows), ("w_qkv", w_qkv), mxu_bf16=mxu_bf16)
+    # under mxu_bf16 the f32 projection stays on the 3xTF32 product
+    qkv = variants.layer_projection(
+        x_rows, w_qkv, b_qkv, "tc" if body == "tc_bf16" and dt == torch.float32 else body)
     out = _layer_attention(qkv, w_out, b_out, invdeg, tile_senders, tile_valid, recv_ptr,
                            recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax,
                            body=body)
@@ -340,7 +405,7 @@ def launch_counts() -> dict:
 
 def body_launch_counts() -> dict:
     """The launches of every kernel (K1-K9) by body: {wrapper: {'tc': n,
-    'simt': m}}."""
+    'simt': m, 'tc_bf16': k}}."""
     return {fn.__name__: dict(fn.body_launches) for fn in KERNEL_WRAPPERS}
 
 
@@ -384,13 +449,16 @@ def add_counts(change: dict, times: int = 1) -> None:
 # ---------------------------------------------------------------- the op
 
 
-def _grid(x, tile_senders, recv_ptr, tile_nodes, gather):
+def _grid(x, w_qkv, tile_senders, recv_ptr, tile_nodes, gather, stream_bf16):
     """Checks x against the layout; returns (nt, sp, gather) with the row
-    stride and the gather resolved ONCE, so forward and backward agree."""
+    stride and the gather resolved ONCE, so forward and backward agree. The
+    stride aligns to 16 for bf16 rows; the gather is sized on the projected
+    rows' item size (2 under stream_bf16, else x's type promoted against
+    w_qkv's, as the JAX package sizes it)."""
     num_tiles = tile_senders.shape[0]
     n, s, d = x.shape
-    if x.dtype != torch.float32:
-        raise ValueError(f"the fused op computes in float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the fused op computes in float32 or bfloat16, got {x.dtype}")
     # tile_nodes must MATCH the value the layout was built with (recv_local
     # = receiver % tile_nodes); a mismatch reads wrong rows silently. The
     # tile grid must cover x's rows exactly.
@@ -402,8 +470,10 @@ def _grid(x, tile_senders, recv_ptr, tile_nodes, gather):
     nt = num_tiles * tile_nodes
     if recv_ptr.numel() != nt + 1:
         raise ValueError(f"recv_ptr has {recv_ptr.numel()} entries, expected {nt + 1}")
-    sp = -(-s // 8) * 8          # the JAX package's f32 token-row stride
-    gather = _resolve_gather(gather, max(n, nt) * sp, d, 4,
+    align = _stream_align(x.dtype, stream_bf16)
+    sp = -(-s // align) * align          # the JAX package's token-row stride
+    itemsize = 2 if stream_bf16 else torch.promote_types(x.dtype, w_qkv.dtype).itemsize
+    gather = _resolve_gather(gather, max(n, nt) * sp, d, itemsize,
                              tile_rows=tile_nodes * sp)
     return nt, sp, gather
 
@@ -418,13 +488,16 @@ def _token_rows(x, nt, sp):
 
 def _finish_bwd(x, w_qkv, dq_nodes, dkv_nodes):
     """In-projection gradients without the [N, S, 3D] concat: dq and dkv go
-    through separate products against the split w_qkv columns."""
+    through separate products against the split w_qkv columns, in f32 (the
+    kernels' gradients) against bf16 x and weights promoted, then rounded to
+    x's and w_qkv's types as the JAX package's ``_finish_bwd``."""
     d = dq_nodes.shape[-1]
-    dx = dq_nodes @ w_qkv[:, :d].T + dkv_nodes @ w_qkv[:, d:].T
-    d_wqkv = torch.cat([torch.einsum("nsd,nse->de", x, dq_nodes),
-                        torch.einsum("nsd,nse->de", x, dkv_nodes)], dim=1)
+    xf, wf = widened(x), widened(w_qkv)
+    dx = (dq_nodes @ wf[:, :d].T + dkv_nodes @ wf[:, d:].T).to(x.dtype)
+    d_wqkv = torch.cat([torch.einsum("nsd,nse->de", xf, dq_nodes),
+                        torch.einsum("nsd,nse->de", xf, dkv_nodes)], dim=1)
     d_bqkv = torch.cat([dq_nodes.sum(dim=(0, 1)), dkv_nodes.sum(dim=(0, 1))])
-    return dx, d_wqkv, d_bqkv
+    return dx, d_wqkv.to(w_qkv.dtype), d_bqkv.to(w_qkv.dtype)
 
 
 class _Route(NamedTuple):
@@ -444,6 +517,8 @@ class _Route(NamedTuple):
     mm_scatter: bool
     dma_v1: bool
     group: int                            # the JAX group, read by _v6_usable only
+    mxu_bf16: bool = False                # bf16 operands of f32 rows' products
+    stream_bf16: bool = False             # projected rows rounded to bf16
 
 
 def _forward(x, w_qkv, b_qkv, w_out, b_out, r: _Route, keep_parts: bool):
@@ -452,7 +527,8 @@ def _forward(x, w_qkv, b_qkv, w_out, b_out, r: _Route, keep_parts: bool):
     whole-layer route, which ``keep_parts`` rules out (it never
     materializes the sums a fused backward needs)."""
     n, s, d = x.shape
-    nt, sp, gather = _grid(x, r.tile_senders, r.recv_ptr, r.tile_nodes, r.gather)
+    nt, sp, gather = _grid(x, w_qkv, r.tile_senders, r.recv_ptr, r.tile_nodes, r.gather,
+                           r.stream_bf16)
     x_rows = _token_rows(x, nt, sp)
     count = segment_count(r.receivers, n, r.edge_mask)
     kw = dict(s=s, sp=sp, num_heads=r.num_heads, softmax=r.softmax)
@@ -465,21 +541,25 @@ def _forward(x, w_qkv, b_qkv, w_out, b_out, r: _Route, keep_parts: bool):
         raise ValueError("mm_scatter needs the layout's structural tile_counts")
     slots = (r.tile_senders, r.tile_recv, r.tile_valid)
 
-    if not keep_parts and _v6_usable(n, nt, sp, d, 4, r.tile_nodes,
+    if not keep_parts and _v6_usable(n, nt, sp, d, x.element_size(), r.tile_nodes,
                                      r.group or _auto_group(sp), gather):
         invdeg = torch.where(count > 0, 1.0 / count.clamp_min(1.0),
                              torch.zeros_like(count))
-        weights = (w_qkv.contiguous(), b_qkv.contiguous(), w_out.contiguous(),
-                   b_out.contiguous(), F.pad(invdeg, (0, nt - n)))
+        # the weights in x's type, as the JAX package's v6 call casts them
+        weights = (*(t.to(x.dtype).contiguous() for t in (w_qkv, b_qkv, w_out, b_out)),
+                   F.pad(invdeg, (0, nt - n)))
         if r.mm_scatter:
             rows = variants.edge_attention_layer_mm(
-                x_rows, *weights, *slots, r.tile_counts, **kw, tile_nodes=r.tile_nodes)
+                x_rows, *weights, *slots, r.tile_counts, **kw, tile_nodes=r.tile_nodes,
+                mxu_bf16=r.mxu_bf16)
         else:
-            rows = edge_attention_layer(x_rows, *weights, *walk, **kw)
+            rows = edge_attention_layer(x_rows, *weights, *walk, **kw, mxu_bf16=r.mxu_bf16)
         return rows[: n * sp].reshape(n, sp, d)[:, :s], None, None, sp, gather
 
-    qkv = x_rows @ w_qkv + b_qkv
-    q_rows, kv_rows = qkv[:, :d], qkv[:, d:]
+    q_rows, kv_rows = _projected_rows(x_rows, w_qkv, b_qkv, r.stream_bf16)
+    # the JAX package's 'dma' body (v4) does not round to mxu_bf16; its
+    # 'vmem' bodies do
+    mxu = r.mxu_bf16 and gather == "vmem"
     if v1:       # mm_scatter is ignored on this route, as in the JAX package
         emax = r.tile_senders.shape[1]
         sums = variants.edge_attention_sums_v1(
@@ -487,14 +567,29 @@ def _forward(x, w_qkv, b_qkv, w_out, b_out, r: _Route, keep_parts: bool):
             group=8 if emax % 8 == 0 else 1, gather=gather)
     elif r.mm_scatter:
         sums = variants.edge_attention_sums_mm(
-            q_rows, kv_rows, *slots, r.tile_counts, **kw, tile_nodes=r.tile_nodes)
+            q_rows, kv_rows, *slots, r.tile_counts, **kw, tile_nodes=r.tile_nodes,
+            mxu_bf16=mxu)
     else:
-        sums = edge_attention_sums(q_rows, kv_rows, *walk, **kw)
+        sums = edge_attention_sums(q_rows, kv_rows, *walk, **kw, mxu_bf16=mxu)
     sums = sums[: n * sp].reshape(n, sp, d)[:, :s]
     mean = sums / count.clamp_min(1.0)[:, None, None]
+    mean, w_out, b_out = promoted(mean.to(x.dtype), w_out, b_out)
     out = mean @ w_out + b_out
     out = torch.where((count > 0)[:, None, None], out, torch.zeros_like(out))
     return out, sums, count, sp, gather
+
+
+def _projected_rows(x_rows, w_qkv, b_qkv, stream_bf16):
+    """q and k|v rows: x_rows @ w_qkv + b_qkv in the promoted type (bf16 x
+    and weights: bf16, as XLA's projection), rounded to bf16 under
+    stream_bf16."""
+    x_rows, w_qkv, b_qkv = promoted(x_rows, w_qkv, b_qkv)
+    qkv = x_rows @ w_qkv + b_qkv
+    d = x_rows.shape[1]
+    q_rows, kv_rows = qkv[:, :d], qkv[:, d:]
+    if stream_bf16:
+        q_rows, kv_rows = q_rows.to(torch.bfloat16), kv_rows.to(torch.bfloat16)
+    return q_rows, kv_rows
 
 
 class _FusedOp(torch.autograd.Function):
@@ -518,6 +613,7 @@ class _FusedOp(torch.autograd.Function):
                                   route.recv_slots, *(snd or ()))
             ctx.kernel_args = dict(s=x.shape[1], sp=sp, num_heads=route.num_heads,
                                    softmax=route.softmax)
+            ctx.stream_bf16 = route.stream_bf16
             # the JAX rule: only the dma gather folds its stream in chunks
             ctx.chunked = gather != "vmem"
         return out
@@ -531,33 +627,37 @@ class _FusedOp(torch.autograd.Function):
         kw = ctx.kernel_args
         n, s, d = x.shape
         nt, sp = recv_ptr.numel() - 1, kw["sp"]
-        qkv = _token_rows(x, nt, sp) @ w_qkv + b_qkv
+        q_rows, kv_rows = _projected_rows(_token_rows(x, nt, sp), w_qkv, b_qkv,
+                                          ctx.stream_bf16)
 
         # out-projection and mean, in torch as the JAX package leaves them to XLA
         gm = torch.where((count > 0)[:, None, None], gout, torch.zeros_like(gout))
         denom = count.clamp_min(1.0)[:, None, None]
-        d_wout = torch.einsum("nsd,nse->de", sums / denom, gm)
+        d_wout = torch.einsum("nsd,nse->de", sums / denom, widened(gm))
         d_bout = gm.sum(dim=(0, 1))
         # dsum = gradient of the per-receiver SUM of messages, 0 on pad token
-        # rows and pad node rows
-        dsum_rows = _token_rows((gm @ w_out.T) / denom, nt, sp)
+        # rows and pad node rows; f32 (bf16 products promote against the f32
+        # count), rounded to the rows' type for the kernels
+        gm, w_out_t = promoted(gm, w_out.T)
+        dsum_rows = _token_rows((gm @ w_out_t) / denom, nt, sp).to(q_rows.dtype)
 
         if ctx.backward_route == "scatterfree":
-            qdm = torch.cat([qkv[:, :d], dsum_rows], dim=1)     # packed [Q | dsum]
+            qdm = torch.cat([q_rows, dsum_rows], dim=1)     # packed [Q | dsum]
             dq_rows = bwd.edge_attention_bwd_dq(
-                qkv[:, :d], qkv[:, d:], dsum_rows, tile_senders, tile_valid,
+                q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
                 recv_ptr, recv_slots, **kw)
-            dkv_rows = bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *snd, **kw)
+            dkv_rows = bwd.edge_attention_bwd_dkv(qdm, kv_rows, *snd, **kw)
             dkv_nodes = dkv_rows.reshape(nt, sp, 2 * d)[:n, :s]
         else:
             dq_rows, dkv_nodes = bwd_stream.stream_backward(
-                qkv[:, :d], qkv[:, d:], dsum_rows, tile_senders, tile_valid,
+                q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
                 recv_ptr, recv_slots, **kw,
                 chunk_bytes=bwd_stream._STREAM_CHUNK_BYTES if ctx.chunked else None)
             dkv_nodes = dkv_nodes[:n]
         dq_nodes = dq_rows.reshape(nt, sp, d)[:n, :s]
         dx, d_wqkv, d_bqkv = _finish_bwd(x, w_qkv, dq_nodes, dkv_nodes)
-        return dx, d_wqkv, d_bqkv, d_wout, d_bout, None
+        return (dx, d_wqkv, d_bqkv, d_wout.to(w_out.dtype), d_bout.to(w_out.dtype),
+                None)
 
 
 def _plain_bwd(saved, gout, *, num_heads, softmax):
@@ -596,6 +696,8 @@ def amp_edge_attention_fused(
     tile_recv: Optional[torch.Tensor] = None,      # [T, EMAX] receiver rows and
     tile_counts: Optional[torch.Tensor] = None,    # [T] STRUCTURAL counts: the
     #                                    mm_scatter and v1 routes walk slots
+    mxu_bf16: Optional[bool] = None,     # None = AMPNET_MXU_BF16
+    stream_bf16: Optional[bool] = None,  # None = AMPNET_STREAM_BF16
 ) -> torch.Tensor:
     """AMPConv through the Hopper kernels; same result and gradients as
     ``ops.edge_attention.amp_edge_attention`` ([N, S, D]).
@@ -616,9 +718,17 @@ def amp_edge_attention_fused(
     gather runs the packed v1 groups (K9) whatever ``mm_scatter`` says.
     These routes need ``tile_recv`` (and ``tile_counts`` for mm_scatter).
 
-    K1-K4 each run the body ``launch.body`` picks at x's (S, D) and
-    ``num_heads``: the tensor cores within their range, else the CUDA
-    cores."""
+    ``mxu_bf16`` rounds the attention products' operands of f32 rows to
+    bf16 where the JAX body does (K2, K7; K1 and K6 on the 'vmem' gather);
+    ``stream_bf16`` rounds the projected q and k|v rows (and the backward's
+    dsum rows) to bf16 and aligns the row stride to 16; bf16 x runs the
+    whole op in bf16 rows with a bf16 output. Both flags are resolved here,
+    once, for the forward and the backward.
+
+    K1-K4 each run the body ``launch.body`` picks at x's (S, D),
+    ``num_heads`` and the rows' type: on f32 rows the tensor cores within
+    their range, else the CUDA cores; on bf16 rows, or under ``mxu_bf16``,
+    the bf16 tensor-core body (within its range only)."""
     snd = (snd_receivers, snd_valid, snd_ptr, snd_slots)
     if any(t is None for t in snd):
         if any(t is not None for t in snd):
@@ -636,6 +746,10 @@ def amp_edge_attention_fused(
         snd = None
     if mm_scatter is None:
         mm_scatter = MM_SCATTER_DEFAULT
+    if mxu_bf16 is None:
+        mxu_bf16 = MXU_BF16_DEFAULT
+    if stream_bf16 is None:
+        stream_bf16 = STREAM_BF16_DEFAULT
     if not fused_bwd and senders is None:
         raise ValueError("fused_bwd=False differentiates the plain op and needs "
                          "the edge list's senders")
@@ -648,15 +762,19 @@ def amp_edge_attention_fused(
                     else "scatterfree" if snd is not None else "stream")
     route = _Route(receivers, edge_mask, tile_senders, tile_valid, recv_ptr,
                    recv_slots, tile_recv, tile_counts, num_heads, softmax, tile_nodes,
-                   gather, mm_scatter, DMA_V1_DEFAULT, 0)
+                   gather, mm_scatter, DMA_V1_DEFAULT, 0, mxu_bf16, stream_bf16)
     return _FusedOp.apply(x, *params, (route, senders, snd, backward))
 
 
 # ---------------------------------------------------------------- fixed graphs
 
 
+def _flag(value: Optional[bool], default: bool) -> bool:
+    return default if value is None else value
+
+
 def _route_of(tcsr: TiledCSR, device, receivers, edge_mask, num_heads, softmax,
-              gather, group) -> _Route:
+              gather, group, mxu_bf16=None, stream_bf16=None) -> _Route:
     """A host-side TiledCSR as the dispatch reads it, its arrays on device."""
     counts = (tcsr.counts if tcsr.counts is not None
               else (np.asarray(tcsr.valid) != 0).sum(-1))
@@ -666,7 +784,8 @@ def _route_of(tcsr: TiledCSR, device, receivers, edge_mask, num_heads, softmax,
                           counts=counts, ptr=ptr, slots=slots).items()}
     return _Route(receivers, edge_mask, t["senders"], t["valid"], t["ptr"], t["slots"],
                   t["recv"], t["counts"], num_heads, softmax, tcsr.tile_nodes, gather,
-                  MM_SCATTER_DEFAULT, DMA_V1_DEFAULT, group)
+                  MM_SCATTER_DEFAULT, DMA_V1_DEFAULT, group,
+                  _flag(mxu_bf16, MXU_BF16_DEFAULT), _flag(stream_bf16, STREAM_BF16_DEFAULT))
 
 
 def amp_edge_attention_fused_core(
@@ -679,6 +798,8 @@ def amp_edge_attention_fused_core(
     softmax: bool = True,
     gather: str = "auto",
     group: int = 0,
+    mxu_bf16: Optional[bool] = None,     # None = AMPNET_MXU_BF16
+    stream_bf16: Optional[bool] = None,  # None = AMPNET_STREAM_BF16
 ) -> torch.Tensor:
     """Forward only, over a host-side layout (the JAX package's
     ``amp_edge_attention_pallas_core``): the dispatch of
@@ -687,7 +808,7 @@ def amp_edge_attention_fused_core(
     edge group (0 = its automatic choice); here it only enters the
     ``_v6_usable`` accounting. No autograd graph is recorded."""
     route = _route_of(tcsr, x.device, receivers, edge_mask, num_heads, softmax,
-                      gather, group)
+                      gather, group, mxu_bf16, stream_bf16)
     with torch.no_grad():
         return _forward(x, *params, route, keep_parts=False)[0]
 
@@ -719,13 +840,17 @@ def make_fused_edge_attention(
     tile_nodes: int = DEFAULT_TILE_NODES,
     group: int = 0,
     gather: str = "auto",
+    mxu_bf16: Optional[bool] = None,     # None = AMPNET_MXU_BF16
+    stream_bf16: Optional[bool] = None,  # None = AMPNET_STREAM_BF16
 ):
     """A fused edge-attention closure for a FIXED graph structure (the JAX
     package's ``make_pallas_edge_attention``): the layout is built once on
     the host and moved to the device of the first x it sees. Returns
     fn(x [N, S, D], params) -> out [N, S, D]; its backward recomputes the
-    gradients through the plain op. ``MM_SCATTER_DEFAULT`` and
-    ``DMA_V1_DEFAULT`` are read at each call."""
+    gradients through the plain op. ``MM_SCATTER_DEFAULT``,
+    ``DMA_V1_DEFAULT`` and, where their arguments are None,
+    ``MXU_BF16_DEFAULT`` and ``STREAM_BF16_DEFAULT`` are read at each
+    call."""
     tcsr = build_tiled_csr(senders, receivers, edge_mask, num_nodes_padded,
                            tile_nodes, max(group, 1))
     on_device = {}
@@ -738,7 +863,9 @@ def make_fused_edge_attention(
                           softmax, gather, group),
                 torch.as_tensor(senders, device=x.device))
         route, snd = on_device[x.device]
-        route = route._replace(mm_scatter=MM_SCATTER_DEFAULT, dma_v1=DMA_V1_DEFAULT)
+        route = route._replace(mm_scatter=MM_SCATTER_DEFAULT, dma_v1=DMA_V1_DEFAULT,
+                               mxu_bf16=_flag(mxu_bf16, MXU_BF16_DEFAULT),
+                               stream_bf16=_flag(stream_bf16, STREAM_BF16_DEFAULT))
         return _FixedGraphOp.apply(x, *params, (route, snd))
 
     return fused

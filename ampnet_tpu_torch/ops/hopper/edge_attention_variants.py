@@ -66,7 +66,8 @@ from ampnet_tpu_torch.ops.edge_attention import (
     _merge_heads,
     _scores,
     _split_heads,
-    attention_core,
+    attend,
+    widened,
 )
 from ampnet_tpu_torch.ops.hopper import build
 from ampnet_tpu_torch.ops.hopper.launch import (
@@ -75,10 +76,12 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     MAX_SMEM,
     P,
     body_of,
-    check_f32_rows,
+    check_f32_only,
     check_index,
+    check_rows,
     count_launch,
     entry,
+    entry_of,
     launch_body,
     simt_smem_bytes,
     stream,
@@ -109,6 +112,7 @@ _SIGNATURES = {
 }
 # the projections on the tensor cores take the CUDA-core launches' arguments
 _SIGNATURES["ampnet_edge_attention_layer_projection"] = _SIGNATURES["ampnet_qkv_projection"]
+_SIGNATURES["ampnet_edge_attention_layer_projection_bf16"] = _SIGNATURES["ampnet_qkv_projection"]
 _SIGNATURES["ampnet_edge_attention_layer_mm_out_projection"] = \
     _SIGNATURES["ampnet_mean_out_projection"]
 # the CUDA-core bodies also take their device-memory working set (pointer,
@@ -126,10 +130,14 @@ _SUMS_CHUNKED = {
 # (library, entry point) on each body of the q|k|v projection (K2's first
 # launch and K7's) and of K7's last launch: the tensor cores' tiled 3xTF32
 # product (csrc/projection_tc.cuh, and its kMean epilogue), or the CUDA
-# cores' one
+# cores' one; K2's bf16 projection on the tensor cores in bf16 products
+# (csrc/edge_attention_layer_tc_bf16.cu); by (body, row type), as
+# launch.entry_of reads it
 _PROJECTION = {
-    "tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer_projection"),
-    "simt": ("qkv_projection", "ampnet_qkv_projection")}
+    ("tc", torch.float32): ("edge_attention_layer_tc", "ampnet_edge_attention_layer_projection"),
+    ("simt", torch.float32): ("qkv_projection", "ampnet_qkv_projection"),
+    ("tc_bf16", torch.bfloat16): ("edge_attention_layer_tc_bf16",
+                                  "ampnet_edge_attention_layer_projection_bf16")}
 _LAYER_MM_OUT_PROJECTION = {
     "tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer_mm_out_projection"),
     "simt": ("qkv_projection", "ampnet_mean_out_projection")}
@@ -142,12 +150,14 @@ def _entry(lib_name: str, fn_name: str):
 # ---------------------------------------------------------------- plain versions
 
 
-def _messages(q_rows, kv_rows, recv, snd, *, s, sp, num_heads, softmax):
-    """[L, s, D] attention messages of L (receiver node, sender node) pairs."""
+def _messages(q_rows, kv_rows, recv, snd, *, s, sp, num_heads, softmax, mxu_bf16=False):
+    """[L, s, D] f32 attention messages of L (receiver node, sender node)
+    pairs, the products' operands in the rows' type (bf16 under mxu_bf16)."""
     d = q_rows.shape[1]
     q = q_rows.reshape(-1, sp, d)[:, :s][recv]
     kv = kv_rows.reshape(-1, sp, 2 * d)[:, :s][snd]
-    return attention_core(q, kv[..., :d], kv[..., d:], num_heads, softmax=softmax)[0]
+    return attend(q, kv[..., :d], kv[..., d:], num_heads, softmax,
+                  torch.bfloat16 if mxu_bf16 else None)[0]
 
 
 def _pad_rows(acc, sp):
@@ -158,12 +168,13 @@ def _pad_rows(acc, sp):
 
 def edge_attention_sums_mm_plain(q_rows, kv_rows, tile_senders, tile_recv,
                                  tile_valid, tile_counts, *, s, sp, num_heads,
-                                 softmax, tile_nodes, group):
+                                 softmax, tile_nodes, group, mxu_bf16=False):
     """K6 in plain torch: the messages of each tile's live groups in a
     buffer [T, EG, s, D] (EG = the slots padded to whole groups; a slot
     that is masked, or beyond the tile's structural trip count, stays 0),
     then per tile the one-hot product sel [TN, EG] . msg [EG, s*D] with
-    sel = (receiver row == n) & valid."""
+    sel = (receiver row == n) & valid. bf16 rows (or ``mxu_bf16``) give
+    bf16 products' operands and f32 messages, as the JAX bodies."""
     t, emax = tile_senders.shape
     d = q_rows.shape[1]
     dev = q_rows.device
@@ -177,7 +188,8 @@ def edge_attention_sums_mm_plain(q_rows, kv_rows, tile_senders, tile_recv,
     msg = torch.zeros(t, eg, s, d, dtype=torch.float32, device=dev)
     msg[tile_idx, pos] = _messages(
         q_rows, kv_rows, tile_idx * tile_nodes + recv[tile_idx, pos].long(),
-        snd[tile_idx, pos].long(), s=s, sp=sp, num_heads=num_heads, softmax=softmax)
+        snd[tile_idx, pos].long(), s=s, sp=sp, num_heads=num_heads, softmax=softmax,
+        mxu_bf16=mxu_bf16)
     sel = ((torch.arange(tile_nodes, device=dev)[None, :, None] == recv[:, None, :])
            & selected[:, None, :]).to(torch.float32)                      # [T, TN, EG]
     acc = torch.einsum("tne,tesd->tnsd", sel, msg)
@@ -186,17 +198,22 @@ def edge_attention_sums_mm_plain(q_rows, kv_rows, tile_senders, tile_recv,
 
 def edge_attention_layer_mm_plain(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
                                   tile_senders, tile_recv, tile_valid, tile_counts,
-                                  *, s, sp, num_heads, softmax, tile_nodes, group):
+                                  *, s, sp, num_heads, softmax, tile_nodes, group,
+                                  mxu_bf16=False):
     """K7 in plain torch: project, K6's sums, then the mean as a row scale
-    after the reduce, the out-projection, b_out on live rows only."""
+    after the reduce, the out-projection, b_out on live rows only. In
+    x_rows' type as K2's plain version: q|k|v and the mean rounded to it,
+    the out-projection summed in f32 and rounded, then the bias."""
     d = x_rows.shape[1]
-    qkv = x_rows @ w_qkv + b_qkv
+    dt = x_rows.dtype
+    qkv = (widened(x_rows) @ widened(w_qkv) + widened(b_qkv)).to(dt)
     sums = edge_attention_sums_mm_plain(
         qkv[:, :d], qkv[:, d:], tile_senders, tile_recv, tile_valid, tile_counts,
         s=s, sp=sp, num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes,
-        group=group)
+        group=group, mxu_bf16=mxu_bf16)
     mean = sums.reshape(-1, sp, d)[:, :s] * invdeg[:, None, None]
-    out = mean @ w_out + b_out * (invdeg > 0).to(mean.dtype)[:, None, None]
+    out = (widened(mean.to(dt)) @ widened(w_out)).to(dt)
+    out = out + b_out * (invdeg > 0).to(dt)[:, None, None]
     return _pad_rows(out, sp)
 
 
@@ -246,7 +263,8 @@ def edge_attention_sums_chunked_plain(q_rows, kv_rows, chunk_senders, chunk_vali
     if softmax:
         w = torch.softmax(w, dim=-1)
     w = torch.where(ok[:, None, None, :, None], w, torch.zeros_like(w))
-    out = _merge_heads(w.reshape(nc, num_heads, s, chunk * s) @ _split_heads(v2, num_heads))
+    out = _merge_heads(widened(w.reshape(nc, num_heads, s, chunk * s).to(q.dtype))
+                       @ widened(_split_heads(v2, num_heads)))
     acc = torch.zeros(nt, s, d, dtype=torch.float32, device=dev)
     acc.index_add_(0, recv, out)
     return _pad_rows(acc, sp)
@@ -259,8 +277,8 @@ def _check_rows(q_rows, kv_rows, nt, sp, num_heads):
     d = q_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_f32_rows("q_rows", q_rows, q_rows.device, nt * sp, d)
-    check_f32_rows("kv_rows", kv_rows, q_rows.device, nt * sp, 2 * d)
+    check_rows("q_rows", q_rows, q_rows.device, nt * sp, d)
+    check_rows("kv_rows", kv_rows, q_rows.device, nt * sp, 2 * d)
     return d
 
 
@@ -308,18 +326,22 @@ def _launch_groups(kernel, body, ptrs, tile_senders, tile_recv, tile_valid, tile
 
 def edge_attention_sums_mm(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
                            tile_counts, *, s, sp, num_heads, softmax, tile_nodes,
-                           group: Optional[int] = None, body: Optional[str] = None):
+                           group: Optional[int] = None, body: Optional[str] = None,
+                           mxu_bf16: bool = False):
     """K6: per-receiver sums [NT*sp, D] f32 (pad token rows 0) by edge
     groups. The layout arrays are the tiled layout's own ([T, EMAX] int32
     senders, receiver rows and validity, which may carry a runtime mask, and
     the [T] STRUCTURAL counts). The body is K1's rule (``launch.body_of`` on
     kv_rows; ``body`` names one); ``group`` None = its default
-    (``_mm_group``). CPU tensors run the plain version."""
+    (``_mm_group``). CPU tensors run the plain version; on the card bf16
+    rows and ``mxu_bf16`` raise (no bf16 body yet)."""
     if not q_rows.is_cuda:
         return edge_attention_sums_mm_plain(
             q_rows, kv_rows, tile_senders, tile_recv, tile_valid, tile_counts,
             s=s, sp=sp, num_heads=num_heads, softmax=softmax,
-            tile_nodes=tile_nodes, group=MM_GROUP if group is None else group)
+            tile_nodes=tile_nodes, group=MM_GROUP if group is None else group,
+            mxu_bf16=mxu_bf16)
+    check_f32_only("edge_attention_sums_mm", q_rows, kv_rows, mxu_bf16=mxu_bf16)
     nt = tile_senders.shape[0] * tile_nodes
     d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
     _check_tiled(q_rows.device, tile_senders, tile_recv, tile_valid, tile_counts)
@@ -346,11 +368,13 @@ def layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, kv_rows) -> str:
 
 def layer_projection(x_rows, w_qkv, b_qkv, body, qkv=None):
     """K2's and K7's first launch on ``body``: q|k|v rows [rows, 3D] =
-    x_rows @ w_qkv + b_qkv (into ``qkv`` where given, contiguous)."""
+    x_rows @ w_qkv + b_qkv in x_rows' type (into ``qkv`` where given,
+    contiguous); 'tc_bf16' takes bf16 rows and weights, sums in f32 and
+    rounds once."""
     rows, d = x_rows.shape
     if qkv is None:
-        qkv = torch.empty(rows, 3 * d, dtype=torch.float32, device=x_rows.device)
-    lib, proj = _entry(*_PROJECTION[body])
+        qkv = torch.empty(rows, 3 * d, dtype=x_rows.dtype, device=x_rows.device)
+    lib, proj = _entry(*entry_of("q|k|v projection", _PROJECTION, body, x_rows.dtype))
     build.check(lib, proj(x_rows.data_ptr(), x_rows.stride(0), w_qkv.data_ptr(),
                           b_qkv.data_ptr(), qkv.data_ptr(), 3 * d, rows, 3 * d, d,
                           stream()), f"q|k|v projection ({body})")
@@ -372,7 +396,8 @@ def _layer_mm_out_projection(sums, invdeg, w_out, b_out, *, s, sp, body):
 def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
                             tile_senders, tile_recv, tile_valid, tile_counts, *,
                             s, sp, num_heads, softmax, tile_nodes,
-                            group: Optional[int] = None, body: Optional[str] = None):
+                            group: Optional[int] = None, body: Optional[str] = None,
+                            mxu_bf16: bool = False):
     """K7: the whole layer over raw token rows x_rows [NT*sp, D] -> output
     rows [NT*sp, D] f32 (pad token rows 0; a receiver of degree 0 exactly
     0). invdeg [NT] is 1/degree of the runtime mask (0 for degree 0). Three
@@ -380,21 +405,23 @@ def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     attention into zeroed sums, then the mean row scale, out-projection and
     live-row bias; on the tensor cores the first and the last are the tiled
     3xTF32 product of K2's projection launch, on the CUDA cores
-    ``csrc/qkv_projection.cu``."""
+    ``csrc/qkv_projection.cu``. CPU tensors run the plain version; on the
+    card bf16 rows and ``mxu_bf16`` raise (no bf16 body yet)."""
     if not x_rows.is_cuda:
         return edge_attention_layer_mm_plain(
             x_rows, w_qkv, b_qkv, w_out, b_out, invdeg, tile_senders, tile_recv,
             tile_valid, tile_counts, s=s, sp=sp, num_heads=num_heads,
             softmax=softmax, tile_nodes=tile_nodes,
-            group=MM_GROUP if group is None else group)
+            group=MM_GROUP if group is None else group, mxu_bf16=mxu_bf16)
+    check_f32_only("edge_attention_layer_mm", x_rows, mxu_bf16=mxu_bf16)
     dev = x_rows.device
     nt = tile_senders.shape[0] * tile_nodes
     d = x_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_f32_rows("x_rows", x_rows, dev, nt * sp, d)
-    check_f32_rows("w_qkv", w_qkv, dev, d, 3 * d)
-    check_f32_rows("w_out", w_out, dev, d, d)
+    check_rows("x_rows", x_rows, dev, nt * sp, d)
+    check_rows("w_qkv", w_qkv, dev, d, 3 * d)
+    check_rows("w_out", w_out, dev, d, d)
     for name, t, numel in (("b_qkv", b_qkv, 3 * d), ("b_out", b_out, d), ("invdeg", invdeg, nt)):
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() != numel:
             raise ValueError(f"{name}: expected {numel} contiguous float32 on {dev}")
@@ -430,6 +457,7 @@ def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
         return edge_attention_sums_v1_plain(
             q_rows, kv_rows, tile_senders, tile_recv, tile_valid, s=s, sp=sp,
             num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes, group=group)
+    check_f32_only("edge_attention_sums_v1", q_rows, kv_rows)
     if emax % group:
         raise ValueError(f"the packed groups need group | EMAX, got {group} and {emax}")
     nt = t * tile_nodes
@@ -478,6 +506,7 @@ def edge_attention_sums_chunked(q_rows, kv_rows, chunk_senders, chunk_valid,
         return edge_attention_sums_chunked_plain(
             q_rows, kv_rows, chunk_senders, chunk_valid, chunk_start, chunk_count,
             s=s, sp=sp, num_heads=num_heads, softmax=softmax, chunk=chunk)
+    check_f32_only("edge_attention_sums_chunked", q_rows, kv_rows)
     dev = q_rows.device
     nt = chunk_start.numel()
     d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)

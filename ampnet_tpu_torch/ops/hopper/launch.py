@@ -3,13 +3,18 @@ the libraries ``build.py`` makes, the current stream, the checks a wrapper
 runs before it hands pointers to a kernel (device, type, shape, contiguity,
 alignment), and the rule that picks a kernel's body.
 
-K1-K9 each have two hand-written bodies: one on the tensor cores
-(3xTF32) within the range they are instantiated for, and one on the CUDA
-cores beyond it, at any shape. ``body`` picks between them from (S, D, H)
-and whether the gathered rows take 16-byte copies, before any launch. The
-CUDA-core bodies keep their working set in shared memory where it fits a
-block and in device memory beyond that (``simt_work``). A check raises;
-nothing here falls back after a failed launch."""
+K1-K9 each have two hand-written bodies on f32 rows: one on the tensor
+cores (3xTF32) within the range they are instantiated for, and one on the
+CUDA cores beyond it, at any shape. K1-K4 have a third, ``tc_bf16``: the
+tensor cores in bf16 products with f32 sums (``mma.sync`` m16n8k16), for
+bf16 rows, and for K1 and K2's attention also for f32 rows whose products
+the caller asks to round to bf16 (``mxu_bf16``). ``body`` picks from (S,
+D, H), the rows' type and whether the gathered rows take 16-byte copies,
+before any launch; bf16 beyond the tensor cores' range raises (the
+CUDA-core bodies take f32 only). The CUDA-core bodies keep their working
+set in shared memory where it fits a block and in device memory beyond
+that (``simt_work``). A check raises; nothing here falls back after a
+failed launch."""
 from __future__ import annotations
 
 import ctypes
@@ -38,12 +43,23 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def check_f32_rows(name: str, t: torch.Tensor, device, rows: int, cols: int) -> None:
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32 on {device}, got {t.dtype} on {t.device}")
+def check_rows(name: str, t: torch.Tensor, device, rows: int, cols: int,
+               dtype: torch.dtype = torch.float32) -> None:
+    """Rows of ``dtype`` on ``device``, [rows, cols], unit column stride."""
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
     if t.dim() != 2 or tuple(t.shape) != (rows, cols) or t.stride(1) != 1:
         raise ValueError(f"{name}: expected [{rows}, {cols}] rows with unit column "
                          f"stride, got {tuple(t.shape)} strides {t.stride()}")
+
+
+def check_same_dtype(*named: Tuple[str, torch.Tensor]) -> torch.dtype:
+    """The one row type (f32 or bf16) of a kernel's row arguments."""
+    dt = named[0][1].dtype
+    if dt not in (torch.float32, torch.bfloat16) or any(t.dtype != dt for _, t in named):
+        raise ValueError("expected float32 or bfloat16 rows of one type, got "
+                         + ", ".join(f"{n} {t.dtype}" for n, t in named))
+    return dt
 
 
 def check_index(name: str, t: torch.Tensor, device, numel: Optional[int] = None) -> None:
@@ -92,20 +108,24 @@ def tensor_core_range_error(s: int, d: int, num_heads: int) -> Optional[str]:
     return None
 
 
-def gathered_rows_error(name: str, data_ptr: int, row_stride: int, width: int) -> Optional[str]:
-    """Why rows that a tensor-core kernel gathers with 16-byte cp.async (f32,
-    ``width`` floats a row, ``row_stride`` floats apart from ``data_ptr``)
-    cannot be taken, or None."""
-    if data_ptr % 16 or row_stride % 4 or width % 4:
+def gathered_rows_error(name: str, data_ptr: int, row_stride: int, width: int,
+                        itemsize: int = 4) -> Optional[str]:
+    """Why rows that a tensor-core kernel gathers with 16-byte cp.async
+    (``width`` values of ``itemsize`` bytes a row, ``row_stride`` values
+    apart from ``data_ptr``: one copy takes 4 f32 or 8 bf16 values) cannot
+    be taken, or None."""
+    per_copy = 16 // itemsize
+    if data_ptr % 16 or row_stride % per_copy or width % per_copy:
         return (f"{name}: the gathered rows must be 16-byte aligned (address "
-                f"{data_ptr:#x}, row stride {row_stride} and width {width} floats "
-                f"must be multiples of 16 bytes)")
+                f"{data_ptr:#x}, row stride {row_stride} and width {width} values "
+                f"of {itemsize} bytes must be multiples of 16 bytes)")
     return None
 
 
 def _rows_error(gathered: Sequence[Tuple[str, torch.Tensor]]) -> Optional[str]:
     for name, rows in gathered:
-        err = gathered_rows_error(name, rows.data_ptr(), rows.stride(0), rows.shape[1])
+        err = gathered_rows_error(name, rows.data_ptr(), rows.stride(0), rows.shape[1],
+                                  rows.element_size())
         if err:
             return err
     return None
@@ -131,7 +151,14 @@ TENSOR_CORE_KERNELS = ("edge_attention_sums", "edge_attention_layer",
                        "edge_attention_sums_chunked", "edge_attention_sums_v1")
 # the edge-group kernels: their blocks walk (tile, group) items, not nodes
 GROUP_KERNELS = ("edge_attention_sums_mm", "edge_attention_sums_v1")
-BODIES = ("tc", "simt")
+BODIES = ("tc", "simt", "tc_bf16")
+# the kernels with a bf16 tensor-core body (``tc_bf16``); the others take
+# f32 rows only on the card (``check_f32_only``)
+BF16_KERNELS = ("edge_attention_sums", "edge_attention_layer",
+                "edge_attention_bwd_dq", "edge_attention_bwd_dkv")
+# the kernels whose bf16 body also takes f32 rows and rounds their
+# products' operands (``mxu_bf16``): K1, and K2's attention launch
+MXU_KERNELS = ("edge_attention_sums", "edge_attention_layer")
 # a CUDA-core body whose working set exceeds MAX_SMEM keeps it in device
 # memory: one slice per resident block, at most this many blocks per SM and
 # this many bytes in all
@@ -193,31 +220,74 @@ def simt_work(kernel: str, s: int, d: int, num_heads: int, num_nodes: int, devic
     return torch.empty(blocks * floats, dtype=torch.float32, device=device), blocks
 
 
-def body(kernel: str, s: int, d: int, num_heads: int, rows_aligned: bool) -> str:
-    """The body a kernel runs at (S, D, H): 'tc' (tensor cores) within the
-    instantiated range where the gathered rows take 16-byte copies, else
-    'simt' (CUDA cores)."""
+def body(kernel: str, s: int, d: int, num_heads: int, rows_aligned: bool,
+         bf16: bool = False) -> str:
+    """The body a kernel runs at (S, D, H): with ``bf16`` (bf16 rows, or
+    products rounded to bf16) 'tc_bf16', whose range ``body_of`` holds;
+    otherwise 'tc' (tensor cores, 3xTF32) within the instantiated range
+    where the gathered rows take 16-byte copies, else 'simt' (CUDA cores)."""
     if kernel not in TENSOR_CORE_KERNELS:
         raise ValueError(f"unknown kernel {kernel}")
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
+    if bf16:
+        return "tc_bf16"
     if rows_aligned and tensor_core_range_error(s, d, num_heads) is None:
         return "tc"
     return "simt"
 
 
 def body_of(kernel: str, body_name: Optional[str], s: int, d: int, num_heads: int,
-            *gathered: Tuple[str, torch.Tensor]) -> str:
+            *gathered: Tuple[str, torch.Tensor], mxu_bf16: bool = False) -> str:
     """The body a wrapper runs on the rows it was given: ``body_name`` where
-    the caller names one (raises where the tensor-core body does not take
-    the call), else ``body``'s choice."""
+    the caller names one (raises where that body does not take the call),
+    else ``body``'s choice. bf16 products run on 'tc_bf16' and only there:
+    bf16 rows, and f32 rows under ``mxu_bf16`` (K1 and K2's attention only,
+    ``MXU_KERNELS``); ``mxu_bf16`` is the one switch for f32 rows, so a
+    named 'tc_bf16' without it raises, as does a named 'tc' or 'simt' with
+    it. Beyond the tensor cores' range, or on rows the 16-byte copies cannot
+    take, 'tc_bf16' raises: the CUDA-core bodies take f32 only."""
+    rows_bf16 = any(rows.dtype == torch.bfloat16 for _, rows in gathered)
+    if mxu_bf16 and not rows_bf16 and kernel not in MXU_KERNELS:
+        raise ValueError(f"{kernel}: mxu_bf16 reaches {MXU_KERNELS} only")
+    bf16 = rows_bf16 or mxu_bf16
     if body_name is None:
-        return body(kernel, s, d, num_heads, _rows_error(gathered) is None)
-    if body_name == "tc":
-        check_tensor_core(kernel, s, d, num_heads, *gathered)
-    elif body_name != "simt":
+        body_name = body(kernel, s, d, num_heads, _rows_error(gathered) is None, bf16)
+    elif body_name not in BODIES:
         raise ValueError(f"{kernel}: body {body_name!r} is not one of {BODIES}")
+    elif (body_name == "tc_bf16") != bf16:
+        raise ValueError(f"{kernel}: bf16 rows and mxu_bf16 run on the 'tc_bf16' body, "
+                         f"f32 rows without mxu_bf16 on 'tc' or 'simt', not {body_name!r}")
+    if body_name == "tc_bf16":
+        if kernel not in BF16_KERNELS:
+            raise ValueError(f"{kernel}: no bf16 body yet (bf16 bodies: {BF16_KERNELS})")
+        err = tensor_core_range_error(s, d, num_heads) or _rows_error(gathered)
+        if err:
+            raise ValueError(f"{kernel}: {err}; bf16 runs on the tensor cores only "
+                             f"(the CUDA-core bodies take f32 only)")
+    elif body_name == "tc":
+        check_tensor_core(kernel, s, d, num_heads, *gathered)
     return body_name
+
+
+def entry_of(kernel: str, table: dict, body_name: str, dtype: torch.dtype):
+    """(library, entry point) of ``kernel``'s body on rows of ``dtype``,
+    from its ``table`` keyed by (body, row type); raises where the body has
+    no entry for that type. K1-K4's wrappers take their entry points here,
+    after ``body_of``."""
+    try:
+        return table[(body_name, dtype)]
+    except KeyError:
+        raise ValueError(f"{kernel}: the {body_name!r} body has no entry point "
+                         f"for {dtype} rows") from None
+
+
+def check_f32_only(kernel: str, *rows: torch.Tensor, mxu_bf16: bool = False) -> None:
+    """On the card, the kernels without a bf16 body (K5-K9) refuse bf16 rows
+    and a request for bf16 products."""
+    if mxu_bf16 or any(t.dtype == torch.bfloat16 for t in rows):
+        raise ValueError(f"{kernel}: no bf16 body on the card yet (bf16 rows and "
+                         f"mxu_bf16 run on K1-K4 only; {kernel} takes f32 rows)")
 
 
 # launches of a CUDA-core body whose working set was in device memory, by

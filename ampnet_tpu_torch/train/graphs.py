@@ -60,10 +60,12 @@ def signature(obj) -> Any:
 
 def dispatch_flags() -> tuple:
     """The fused op's module constants that its dispatch reads at call time
-    (the forward route, the backward, the stream's chunk budget): a graph
-    captured under one setting replays that setting's kernels."""
+    (the forward route, the backward, the stream's chunk budget, the bf16
+    operands and streams): a graph captured under one setting replays that
+    setting's kernels. The model's compute type is in the key already, as
+    part of its config."""
     return (eaf.MM_SCATTER_DEFAULT, eaf.DMA_V1_DEFAULT, eaf.SCATTERFREE_BWD_DEFAULT,
-            bwd_stream._STREAM_CHUNK_BYTES)
+            bwd_stream._STREAM_CHUNK_BYTES, eaf.MXU_BF16_DEFAULT, eaf.STREAM_BF16_DEFAULT)
 
 
 def _clone(obj):

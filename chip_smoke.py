@@ -150,7 +150,39 @@ STAGES = ("tokenizer", "conv1", "conv2", "raw_residual_proj", "raw_residual_conv
 # three times the FLOP over the TF32 peak.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the bf16 phase. A bf16 body against its plain version on the card,
+# relative to the largest entry of the output: one bf16 step (2**-8). The
+# products are exact in f32 and both round their operands at the same
+# points, so they differ in the order of f32 sums, and where that moves a
+# softmax weight or dS (K2: its mean) across a bf16 rounding boundary, one
+# term moves by a bf16 step of its own size (measured 1.5e-3 for K1 at
+# S=40); K2's bf16 output is rounded itself: two steps.
+BF16_KERNEL_LIMIT, BF16_OUTPUT_LIMIT = 2.0 ** -8, 2 * 2.0 ** -8
+# one bf16 training step's gradients against float64 autograd on the CPU,
+# per parameter, of its largest entry: every product's operands, the
+# projected rows, the layer's output and the dsum rows round to bf16
+# (measured 6.6e-3, conv2.w_out)
+BF16_GRAD_RTOL = 2e-2
+# stream_bf16 against the f32 step on the same weights and draw, as the JAX
+# package's own test holds them (tests/test_stream_bf16.py): the loss to
+# 2e-2 relative, every gradient entry to rtol 5e-2 / atol 5e-2. That atol
+# passes a zero gradient where the largest entry is below it (conv2.b_out's
+# is ~1.6e-2), so each stream_bf16 gradient is also held against float64
+# autograd at BF16_GRAD_RTOL of its own largest entry (measured 1.9e-3,
+# conv2.w_qkv, on an H100), where a zero or wrong gradient reads ~1
+STREAM_LOSS_RTOL, STREAM_GRAD_RTOL, STREAM_GRAD_ATOL = 2e-2, 5e-2, 5e-2
+# mxu_bf16's eval (the attention's operands rounded) against float64 on the
+# CPU, log-probs, absolute (measured 4.8e-4 at S=20)
+MXU_LOGITS_ATOL = 5e-3
+# a bf16 model's served log-probs (K2 at S=40, the 1,024-node bucket)
+# against the CPU float64 forward, of the reference's largest entry: one
+# bf16 step (measured 1.7e-4 on an H100)
+BF16_LOGITS_RTOL = 2.0 ** -8
+# the bf16 libraries (K1; K2 with its bf16 projection; K3; K4)
+BF16_LIBS = ("edge_attention_tc_bf16", "edge_attention_layer_tc_bf16",
+             "edge_attention_bwd_dq_tc_bf16", "edge_attention_bwd_tc_bf16")
 # the libraries of the tensor-core bodies (K1-K5; K6 and K9; K8; K7's
 # projection launches are K2's library's)
 TENSOR_CORE_LIBS = ("edge_attention_tc", "edge_attention_layer_tc", "edge_attention_bwd_dq_tc",
@@ -287,7 +319,7 @@ def cpu_f64_reference(model, graph, sidx):
     float32 kernels, whose 1/sqrt came out at ~12 bits in some processes."""
     ref = copy.deepcopy(model).to("cpu", torch.float64)
     for conv in (ref.conv1, ref.conv2):
-        conv.use_pallas = False
+        conv.use_pallas, conv.dtype = False, None
     g = graph.to("cpu")
     g.x = g.x.double()
     return stage_outputs(ref, g, sidx.cpu(), None)
@@ -406,7 +438,8 @@ PORT_KERNEL_FUNCTIONS = (
     "sums_tc_kernel", "mean_out_tc_kernel", "projection_tc_kernel", "dq_tc_kernel",
     "dkv_tc_kernel", "stream_tc_kernel", "groups_tc_kernel", "chunked_tc_kernel",
     "edge_attention_kernel", "edge_attention_bwd_kernel", "edge_group_kernel",
-    "edge_chunk_kernel", "projection_kernel")
+    "edge_chunk_kernel", "projection_kernel", "sums_bf16_kernel", "dq_bf16_kernel",
+    "dkv_bf16_kernel", "projection_bf16_kernel")
 _PORT_KERNEL_WORDS = {fn: re.compile(rf"(?<![A-Za-z0-9_]){fn}(?![A-Za-z0-9_])")
                       for fn in PORT_KERNEL_FUNCTIONS}
 
@@ -464,6 +497,28 @@ def bound_ms(nbytes: float, flops: float, tensor_cores: bool = False):
     t_bytes = nbytes / PEAK_BYTES
     t_ops = 3 * flops / PEAK_TF32_FLOPS if tensor_cores else flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bf16_bound_ms(nbytes: float, flops: float):
+    """(ms, what bounds it): bytes over the memory rate, or bf16 products
+    over the tensor cores' bf16 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_of(stem: str, *words: str) -> dict:
+    """Registers and spill bytes of the kernel in csrc/<stem>.cu's ptxas log
+    whose mangled name holds every word (the bf16 libraries instantiate one
+    template for bf16 and for f32 rows, which build.parse_ptxas keys alike)."""
+    from ampnet_tpu_torch.ops.hopper import build
+
+    log = build.build_all()[stem].with_suffix(".log").read_text()
+    found = [dict(regs=int(r), spills=int(st) + int(ld))
+             for name, st, ld, r in build._PTXAS_ENTRY.findall(log)
+             if all(w in name for w in words)]
+    if len(found) != 1:
+        fail(f"ptxas of {stem}: {len(found)} kernels named with {words}")
+    return found[0]
 
 
 def in_turns(old, new, iters: int = 10):
@@ -1326,10 +1381,11 @@ def relu_branch_hooks(model, branches, flips=None):
 
 
 def gradient_check(name, model, graph, layout, seed, want=None, loss_mode="full",
-                   fused=False, also=None):
+                   fused=False, also=None, grad_rtol=GRAD_RTOL):
     """One training forward + backward with dropout rates 0 and a fixed
     sampled_idx: the card's gradients against float64 autograd on the CPU
-    through the plain oracle, every parameter. ``want``: the launches of
+    through the plain oracle (a bf16 model's convs in float64 too), every
+    parameter, within ``grad_rtol`` of each one's largest entry. ``want``: the launches of
     that one forward + backward (default 2 K1 + 2 K3 + 2 K4). ``fused``:
     the convs run through make_fused_fns closures over ``layout`` (the
     make_pallas_train_step route) instead of edge_layout. ``also`` = (layout,
@@ -1378,7 +1434,7 @@ def gradient_check(name, model, graph, layout, seed, want=None, loss_mode="full"
     loss_card, card = card_grads(layout, want or launches(k1=2, k3=2, k4=2), fused)
     ref_model = copy.deepcopy(model).to("cpu", torch.float64)
     for conv in (ref_model.conv1, ref_model.conv2):
-        conv.use_pallas = False
+        conv.use_pallas, conv.dtype = False, None
     g = graph.to("cpu")
     g.x = g.x.double()
     loss_ref, ref = grads(ref_model, g, sidx.cpu(), None, False)
@@ -1392,7 +1448,7 @@ def gradient_check(name, model, graph, layout, seed, want=None, loss_mode="full"
                      f"card finite={bool(torch.isfinite(got[k]).all())}")
             rel[k] = float((got[k] - ref[k]).abs().max()) / scale
         worst = max(rel, key=rel.get)
-        if rel[worst] > GRAD_RTOL:
+        if rel[worst] > grad_rtol:
             print(json.dumps({"grad_rel_err": rel, "relu_branches_moved": flips,
                               "precision": precision_state()}),
                   file=sys.stderr)
@@ -1443,7 +1499,7 @@ def state_gap(name, step, eager, st, st_e, graph, layout) -> dict:
 
 
 def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
-                   want_step=None):
+                   want_step=None, grad_rtol=GRAD_RTOL):
     """create_train_state + train_full_batch (captured steps), counts read
     around it; before that, on models of their own, the gradient check, one
     captured step's launch counts (``want_step``, default 2 K1 + 2 K3 + 2
@@ -1464,7 +1520,7 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
     want_step = want_step or launches(k1=2, k3=2, k4=2)
     if check_gradients:
         report["gradient_check"] = gradient_check(name, probe, graph, layout, seed,
-                                                  want=want_step)
+                                                  want=want_step, grad_rtol=grad_rtol)
 
     def state_of(model):
         return create_train_state(model, make_optimizer(
@@ -1943,16 +1999,21 @@ def serving_route(pred, x, edge_index) -> dict:
     n_pad, e_pad = pred._bucket(x.shape[0], edge_index.shape[1])
     tn = pred.layout(from_arrays(x, edge_index, pad_nodes_to=n_pad,
                                  pad_edges_to=e_pad)).tile_nodes
-    itemsize = next(pred.model.parameters()).element_size()
+    # the convs' compute type: their x and weights (bf16 rows align to 16)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    itemsize = dtype.itemsize
     tokens = cfg.num_sampled_vectors + (0 if cfg.average_pooling else 1)
-    sp, d = -(-tokens // 8) * 8, cfg.embedding_dim
-    gather = eaf._resolve_gather("auto", n_pad * sp, d, itemsize, tile_rows=tn * sp)
+    align = eaf._stream_align(dtype, eaf.STREAM_BF16_DEFAULT)
+    sp, d = -(-tokens // align) * align, cfg.embedding_dim
+    gather = eaf._resolve_gather("auto", n_pad * sp, d,
+                                 2 if eaf.STREAM_BF16_DEFAULT else itemsize, tile_rows=tn * sp)
     v6 = eaf._v6_usable(n_pad, n_pad, sp, d, itemsize, tn, eaf._auto_group(sp), gather)
     return dict(gather=gather, v6_usable=v6,
                 want=launches(k2=2) if v6 else launches(k1=2))
 
 
-def serve(pred, name, x, edge_index, dev, want, check_f64=False, profile=False) -> dict:
+def serve(pred, name, x, edge_index, dev, want, check_f64=False, profile=False,
+          f64_rtol=None) -> dict:
     """One request through ``Predictor.predict`` (counts set to 0 just
     before it, read just after): its answer against the eager forward from
     the same generator state on the same graph and layout, bit for bit;
@@ -1961,7 +2022,9 @@ def serve(pred, name, x, edge_index, dev, want, check_f64=False, profile=False) 
     it), the device ms of a replay (CUDA events), and the capture's
     timings where the request captured its bucket's graph. With
     ``check_f64`` the padded answer of that draw (its sampled_idx taken
-    from return_aux=True) against the CPU float64 forward; with
+    from return_aux=True) against the CPU float64 forward (within
+    MODEL_RTOL / MODEL_ATOL; with ``f64_rtol``, within that share of the
+    reference's largest entry: a bf16 model); with
     ``profile`` the profiler's kernel census of a replay against the eager
     forward's (``same_kernels``)."""
     from ampnet_tpu_torch.core.graph import from_arrays
@@ -1976,7 +2039,8 @@ def serve(pred, name, x, edge_index, dev, want, check_f64=False, profile=False) 
     answer = pred.predict(x, edge_index)
     wall_ms = (time.perf_counter() - t0) * 1e3
     counts = eaf.launch_counts()
-    tensor_cores_only(f"serving {name}", counts)
+    bodies = {k: {b: c for b, c in v.items() if c}
+              for k, v in tensor_cores_only(f"serving {name}", counts).items() if counts[k]}
     if counts != want:
         fail(f"serving {name}: a request launched {counts}, expected {want}")
     captured = [t for t in pred.step.graphs.timings() if id(t) not in held]
@@ -2009,7 +2073,8 @@ def serve(pred, name, x, edge_index, dev, want, check_f64=False, profile=False) 
     end.record()
     end.synchronize()
     report = dict(request=name, nodes=n, edges=int(edge_index.shape[1]), bucket=list(bucket),
-                  launches={k: v for k, v in counts.items() if v}, wall_ms=wall_ms,
+                  launches={k: v for k, v in counts.items() if v}, bodies=bodies,
+                  wall_ms=wall_ms,
                   layout_ms=layout_ms, device_ms=start.elapsed_time(end),
                   edges_per_tile=int(layout.tile_senders.shape[1]),
                   capture=captured[0] if captured else None,
@@ -2022,7 +2087,13 @@ def serve(pred, name, x, edge_index, dev, want, check_f64=False, profile=False) 
         padded = step(g, at(state), layout).cpu()
         ref, _ = cpu_f64_reference(model, g, out.aux["sampled_idx"])
         err = float((padded.double() - ref).abs().max())
-        if not torch.allclose(padded.double(), ref, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+        if f64_rtol is None:
+            ok = torch.allclose(padded.double(), ref, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+        else:
+            report["cpu_f64_rel_err"] = err / float(ref.abs().max())
+            report["cpu_f64_limit"] = f64_rtol
+            ok = report["cpu_f64_rel_err"] <= f64_rtol
+        if not ok:
             fail(f"serving {name}: the answer disagrees with the CPU float64 forward "
                  f"(max abs err {err:.3g})")
         report["cpu_f64_max_abs_err"] = err
@@ -2138,6 +2209,532 @@ def serving_phase(recipe, reference, data, graph, seed, dev) -> dict:
         captures_total=sum(len(p.step.graphs.timings()) for p in (pred, pred20, pred_block)),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         phase_s=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------- the bf16 phase
+
+
+def bf16_only(name, kernels=("edge_attention_sums", "edge_attention_bwd_dq",
+                             "edge_attention_bwd_dkv")):
+    """Fail unless every launch of ``kernels`` since the counts were set to 0
+    ran the bf16 tensor-core body; returns the body counts."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    bodies = eaf.body_launch_counts()
+    wrong = {k: b for k, b in bodies.items()
+             if (b["tc"] or b["simt"]) and (k in kernels or b["tc_bf16"])}
+    if wrong or not all(bodies[k]["tc_bf16"] for k in kernels):
+        fail(f"{name}: launches off the bf16 body ({bodies})")
+    return {k: b["tc_bf16"] for k, b in bodies.items() if b["tc_bf16"]}
+
+
+def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
+    """Each bf16 body at the shapes the main path gives it (K1, K3, K4 at
+    S=40, the bf16 training step; K2 at S=40 and S=20, the bf16 Predictor's;
+    K1 and K2 also on f32 rows under mxu_bf16 at S=20, the S=20 training
+    step's K1 and eval B's K2) against its plain version on the card,
+    launched twice and equal bit for bit, timed in turns with the 3xTF32
+    body at the same S (its own f32 rows and stride), with its bound at
+    bf16 widths and the bf16 rate, registers, spills, blocks per SM and
+    stages. K2's projection also beside one bf16 cuBLAS addmm."""
+    from ampnet_tpu_torch.models.layers import AMPConv
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+    from ampnet_tpu_torch.ops.hopper.format import edge_slot_valid, snd_slot_valid
+    from ampnet_tpu_torch.ops.hopper.launch import kernel_info
+    from ampnet_tpu_torch.ops.segment import segment_count
+
+    bf = torch.bfloat16
+    d, h = 128, 4
+    n = graph.num_nodes_padded
+    nt = layout.recv_ptr.numel() - 1
+    mask = graph.edge_mask.clone()
+    mask[torch.nonzero(mask)[::50, 0]] = False
+    idx = (layout.tile_senders, edge_slot_valid(layout, mask), layout.recv_ptr,
+           layout.recv_slots)
+    snd_idx = (layout.snd_receivers, snd_slot_valid(layout, mask), layout.snd_ptr,
+               layout.snd_slots)
+    live_edges = int(idx[1].sum())
+    index_bytes = 4 * (2 * layout.tile_senders.numel() + layout.recv_ptr.numel()
+                       + layout.recv_slots.numel())
+    snd_index_bytes = 4 * (2 * layout.snd_receivers.numel() + layout.snd_ptr.numel()
+                           + layout.snd_slots.numel())
+
+    def row(name, source, replaces, run, plain, tf32, limit, nbytes, flops, lib, info_fn, s,
+            words, precision, **extra):
+        got, again, ref = run(), run(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if not err <= limit * scale:
+            fail(f"{name} ({precision}) S={s}: the bf16 body disagrees with its plain "
+                 f"version (max abs err {err:.3g}, {err / scale:.3g} of the largest entry)")
+        if not torch.equal(got, again):
+            fail(f"{name} ({precision}) S={s}: a second launch differs from the first")
+        ms, tf32_ms = in_turns(tf32, run)
+        info = kernel_info(lib, info_fn, nt, s, d, h)
+        b, by = bf16_bound_ms(nbytes, flops)
+        return dict(name=name, route="cuda", source=f"ampnet_tpu_torch/ops/hopper/csrc/{source}",
+                    replaces=replaces, max_abs_err=err, rel_err=err / scale, limit=limit,
+                    ms=ms, tf32_ms=tf32_ms, speedup_vs_tf32=tf32_ms / ms,
+                    plain_ms=cuda_ms(plain, 3), bound_ms=b, bound_by=by, library_ms=None,
+                    regs=info["regs"], spills=ptxas_of(lib, *words)["spills"],
+                    blocks_per_sm=info["blocks_per_sm"], stages=info["stages"],
+                    smem_bytes=info["smem_bytes"], precision=precision, s=s, **extra)
+
+    rows = {}
+    s, sp, sp32 = 40, 48, 40
+    q16 = torch.randn(nt * sp, 3 * d, generator=gen, device=dev).to(bf)
+    q32 = torch.randn(nt * sp32, 3 * d, generator=gen, device=dev)
+    dsum16 = torch.randn(nt, sp, d, generator=gen, device=dev)
+    dsum16[:, s:] = 0.0                    # pad token rows, as the op makes them
+    dsum16 = dsum16.reshape(nt * sp, d).to(bf)
+    qdm16 = torch.cat([q16[:, :d], dsum16], 1)
+    qdm32 = torch.cat([q32[:, :d], torch.randn(nt * sp32, d, generator=gen, device=dev)], 1)
+    kw, kw32 = dict(s=s, sp=sp, num_heads=h, softmax=True), dict(s=s, sp=sp32, num_heads=h,
+                                                                   softmax=True)
+    nkt = f"ILi{-(-s // 8)}E"
+    rows["k1_bf16"] = row(
+        "edge_attention_sums", "edge_attention_tc_bf16.cu + edge_attention_tc_bf16.cuh",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:942",
+        lambda: eaf.edge_attention_sums(q16[:, :d], q16[:, d:], *idx, **kw),
+        lambda: eaf.edge_attention_sums_plain(q16[:, :d], q16[:, d:], *idx, **kw),
+        lambda: eaf.edge_attention_sums(q32[:, :d], q32[:, d:], *idx, **kw32),
+        BF16_KERNEL_LIMIT, 3 * d * n * s * 2 + d * n * s * 4 + index_bytes,
+        4 * s * s * d * live_edges, "edge_attention_tc_bf16",
+        "ampnet_edge_attention_sums_bf16_info", s,
+        ("sums_bf16_kernel", nkt + "Lb0E13__nv_bfloat16"), "bf16")
+    rows["k3_bf16"] = row(
+        "edge_attention_bwd_dq", "edge_attention_bwd_dq_tc_bf16.cu",
+        "ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:211",
+        lambda: bwd.edge_attention_bwd_dq(q16[:, :d], q16[:, d:], dsum16, *idx, **kw),
+        lambda: bwd.edge_attention_bwd_dq_plain(q16[:, :d], q16[:, d:], dsum16, *idx, **kw),
+        lambda: bwd.edge_attention_bwd_dq(q32[:, :d], q32[:, d:], qdm32[:, d:], *idx, **kw32),
+        BF16_KERNEL_LIMIT, 4 * d * n * s * 2 + d * n * s * 4 + index_bytes,
+        6 * s * s * d * live_edges, "edge_attention_bwd_dq_tc_bf16",
+        "ampnet_edge_attention_bwd_dq_bf16_info", s, ("dq_bf16_kernel", nkt), "bf16")
+    rows["k4_bf16"] = row(
+        "edge_attention_bwd_dkv", "edge_attention_bwd_tc_bf16.cu",
+        "ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:319",
+        lambda: bwd.edge_attention_bwd_dkv(qdm16, q16[:, d:], *snd_idx, **kw),
+        lambda: bwd.edge_attention_bwd_dkv_plain(qdm16, q16[:, d:], *snd_idx, **kw),
+        lambda: bwd.edge_attention_bwd_dkv(qdm32, q32[:, d:], *snd_idx, **kw32),
+        BF16_KERNEL_LIMIT, 4 * d * n * s * 2 + 2 * d * n * s * 4 + snd_index_bytes,
+        8 * s * s * d * live_edges, "edge_attention_bwd_tc_bf16",
+        "ampnet_edge_attention_bwd_dkv_bf16_info", s, ("dkv_bf16_kernel", nkt), "bf16")
+    del q16, q32, dsum16, qdm16, qdm32
+
+    # K1 under mxu_bf16 where the main path runs it: the S=20 training
+    # step's f32 'vmem' rows (SP=24; at S=40 the JAX 'dma' body ignores the
+    # flag, so K1 keeps its 3xTF32 body there)
+    s, sp32 = 20, 24
+    nkt = f"ILi{-(-s // 8)}E"
+    q32 = torch.randn(nt * sp32, 3 * d, generator=gen, device=dev)
+    kw32 = dict(s=s, sp=sp32, num_heads=h, softmax=True)
+    rows["k1_mxu"] = row(
+        "edge_attention_sums", "edge_attention_tc_bf16.cu + edge_attention_tc_bf16.cuh",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:691",
+        lambda: eaf.edge_attention_sums(q32[:, :d], q32[:, d:], *idx, **kw32, mxu_bf16=True),
+        lambda: eaf.edge_attention_sums_plain(q32[:, :d], q32[:, d:], *idx, **kw32,
+                                              mxu_bf16=True),
+        lambda: eaf.edge_attention_sums(q32[:, :d], q32[:, d:], *idx, **kw32),
+        BF16_KERNEL_LIMIT, 4 * d * n * s * 4 + index_bytes, 4 * s * s * d * live_edges,
+        "edge_attention_tc_bf16", "ampnet_edge_attention_sums_mxu_info", s,
+        ("sums_bf16_kernel", nkt + "Lb0EfE"), "bf16 products of f32 rows (mxu_bf16)")
+    del q32
+
+    # K2 where the bf16 Predictor runs it (S=40 at the 512- and 1,024-node
+    # buckets, S=20 at every bucket) and under mxu_bf16 (eval B, S=20)
+    conv = AMPConv(d, h, generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.no_grad():
+        conv.b_qkv.normal_(0.0, 0.1, generator=gen)
+        conv.b_out.normal_(0.0, 0.1, generator=gen)
+    w = [t.detach().contiguous() for t in conv.params()]
+    w16 = [t.to(bf).contiguous() for t in w]
+    count = segment_count(graph.receivers, n, mask)
+    invdeg = torch.where(count > 0, 1.0 / count.clamp_min(1.0), torch.zeros_like(count))
+    invdeg = torch.nn.functional.pad(invdeg, (0, nt - n))
+    live_recv = int((count > 0).sum())
+    for key, s, sp, sp32 in (("k2_bf16_s40", 40, 48, 40), ("k2_bf16", 20, 32, 24)):
+        nkt = f"ILi{-(-s // 8)}E"
+        x16 = torch.randn(nt * sp, d, generator=gen, device=dev).to(bf)
+        x32 = torch.randn(nt * sp32, d, generator=gen, device=dev)
+        kw, kw32 = dict(s=s, sp=sp, num_heads=h, softmax=True), dict(s=s, sp=sp32, num_heads=h,
+                                                                       softmax=True)
+        tf32_k2 = lambda: eaf.edge_attention_layer(x32, *w, invdeg, *idx, **kw32)  # noqa: E731
+        flops2 = 2 * n * s * d * 3 * d + 4 * s * s * d * live_edges + 2 * s * d * d * live_recv
+        k2 = lambda: eaf.edge_attention_layer(x16, *w16, invdeg, *idx, **kw)  # noqa: E731
+        got = k2()
+        if not (got.view(nt, sp, d)[:n][count == 0] == 0).all():
+            fail(f"edge_attention_layer (bf16) S={s}: a receiver without a live edge is not "
+                 f"exactly 0")
+        qkv16 = eav.layer_projection(x16, w16[0], w16[1], "tc_bf16")
+        err_p = float((qkv16.float() - eaf.qkv_projection_plain(x16, w16[0], w16[1]).float())
+                      .abs().max())
+        projection_ms, projection_library_ms = in_turns(
+            lambda: torch.addmm(w16[1], x16, w16[0]),
+            lambda: eav.layer_projection(x16, w16[0], w16[1], "tc_bf16"))
+        qkv32 = eav.layer_projection(x32, w[0], w[1], "tc")
+        attention_ms, tf32_attention_ms = in_turns(
+            lambda: eaf._layer_attention(qkv32, *w[2:], invdeg, *idx, **kw32, body="tc"),
+            lambda: eaf._layer_attention(qkv16, *w16[2:], invdeg, *idx, **kw, body="tc_bf16"))
+        del qkv32, qkv16
+        rows[key] = row(
+            "edge_attention_layer",
+            "edge_attention_layer_tc_bf16.cu + edge_attention_tc_bf16.cuh",
+            "ampnet_tpu/ops/pallas/edge_attention_fused.py:763", k2,
+            lambda: eaf.edge_attention_layer_plain(x16, *w16, invdeg, *idx, **kw), tf32_k2,
+            BF16_OUTPUT_LIMIT, 2 * (2 * n * s * d + 4 * d * d + 4 * d) + 4 * nt + index_bytes,
+            flops2, "edge_attention_layer_tc_bf16", "ampnet_edge_attention_layer_bf16_info", s,
+            ("sums_bf16_kernel", nkt + "Lb1E13__nv_bfloat16"), "bf16",
+            projection_ms=projection_ms, projection_library_ms=projection_library_ms,
+            projection_max_abs_err=err_p,
+            projection_spills=ptxas_of("edge_attention_layer_tc_bf16",
+                                       "projection_bf16_kernel")["spills"],
+            attention_ms=attention_ms, tf32_attention_ms=tf32_attention_ms)
+    # the loop's last shape: S=20, f32 rows at SP=24
+    rows["k2_mxu"] = row(
+        "edge_attention_layer", "edge_attention_layer_tc_bf16.cu + edge_attention_tc_bf16.cuh",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:763",
+        lambda: eaf.edge_attention_layer(x32, *w, invdeg, *idx, **kw32, mxu_bf16=True),
+        lambda: eaf.edge_attention_layer_plain(x32, *w, invdeg, *idx, **kw32, mxu_bf16=True),
+        tf32_k2, BF16_KERNEL_LIMIT, 4 * (2 * n * s * d + 4 * d * d + 4 * d + nt) + index_bytes,
+        flops2, "edge_attention_layer_tc_bf16", "ampnet_edge_attention_layer_mxu_info", s,
+        ("sums_bf16_kernel", nkt + "Lb1EfE"), "bf16 products of f32 rows (mxu_bf16)")
+    return rows
+
+
+def bf16_refusals(dev) -> dict:
+    """On the card bf16 runs on K1-K4's tensor cores only: bf16 rows raise on
+    K5 (no bf16 body yet) and beyond the tensor cores' range (S=49). The
+    phase fails if either call does not raise, or launches anything."""
+    import numpy as np
+    from ampnet_tpu_torch.core.graph import from_arrays
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+
+    rng = np.random.default_rng(0)
+    g = from_arrays((rng.random((64, 8)) < 0.5).astype(np.float32),
+                    np.stack([rng.integers(0, 64, 256), rng.integers(0, 64, 256)]))
+    lay = compute_layout(g).to(dev)
+    nt, d = lay.recv_ptr.numel() - 1, 128
+    idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
+    out = {}
+    eaf.reset_launch_counts()
+    for what, s, sp, call in (
+            ("K5 bf16 rows", 40, 48, lambda q, s, sp: sb.edge_attention_bwd_stream(
+                q[:, :d], q[:, d:], q[:, :d], *idx, s=s, sp=sp, num_heads=4, softmax=True)),
+            ("K1 bf16 rows at S=49", 49, 64, lambda q, s, sp: eaf.edge_attention_sums(
+                q[:, :d], q[:, d:], *idx, s=s, sp=sp, num_heads=4, softmax=True))):
+        q = torch.zeros(nt * sp, 3 * d, dtype=torch.bfloat16, device=dev)
+        try:
+            call(q, s, sp)
+        except ValueError as e:
+            out[what] = str(e)[:160]
+        else:
+            fail(f"bf16 refusals: {what} did not raise")
+    torch.cuda.synchronize()
+    if any(eaf.launch_counts().values()):
+        fail(f"bf16 refusals: a refused call launched {eaf.launch_counts()}")
+    return out
+
+
+def card_gradients(model, graph, layout, sidx):
+    """One training forward + backward with dropout rates 0 and the given
+    draw, on the card: (loss, {parameter: gradient})."""
+    from ampnet_tpu_torch.train.state import training_loss
+
+    cfg = model.config
+    model.config = dataclasses.replace(cfg, dropout_rate=0.0, dropout_adj_rate=0.0)
+    try:
+        model.zero_grad(set_to_none=True)
+        loss = training_loss("full", model(graph, deterministic=False, sampled_idx=sidx,
+                                           edge_layout=layout), graph)
+        loss.backward()
+    finally:
+        model.config = cfg
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def captured_equals_eager(name, cfg, data, graph, layout, seed, dev, steps=3,
+                          want_step=None) -> dict:
+    """``steps`` captured training steps against as many eager bodies from
+    one initial state: every metric, parameter and Adam tensor bit for
+    bit; each captured step's launches exact (``want_step``)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+    from ampnet_tpu_torch.train.state import _train_step_body
+
+    def state():
+        model = recipe_model(cfg, data, seed, dev)
+        return create_train_state(model, make_optimizer(
+            model.parameters(), 3e-3, weight_decay=1e-3, grad_clip=1.0), seed=seed)
+
+    one, eager = state(), state()
+    step, body = make_train_step(one.model), _train_step_body(eager.model)
+    losses = []
+    for _ in range(steps):
+        eaf.reset_launch_counts()
+        got = step(one, graph, layout)[1]
+        torch.cuda.synchronize()
+        counts = eaf.launch_counts()
+        if want_step is not None and counts != want_step:
+            fail(f"{name}: a captured step launched {counts}, expected {want_step}")
+        bodies = bf16_only(name)
+        want = body(eager, graph, layout)[1]
+        for k in want:
+            if not torch.equal(got[k], want[k]):
+                fail(f"{name}: captured {k} differs from the eager body's")
+        losses.append(float(got["loss"]))
+    tensors = 0
+    for (k, p), q in zip(one.model.named_parameters(), eager.model.parameters()):
+        if p.dtype != torch.float32 or not torch.equal(p, q):
+            fail(f"{name}: parameter {k} ({p.dtype}) differs from the eager body's")
+        tensors += 1
+    for p, q in zip(one.optimizer.params, eager.optimizer.params):
+        for k, t in one.optimizer.adam.state[p].items():
+            if not torch.equal(t, eager.optimizer.adam.state[q][k]):
+                fail(f"{name}: Adam's {k} differs from the eager body's")
+            tensors += 1
+    return dict(steps=steps, bit_for_bit=True, tensors=tensors, losses=losses,
+                per_step_bodies=bodies)
+
+
+def bf16_serving(cfg, cfg20, data, seed, dev) -> dict:
+    """A Predictor on a bf16 model trained 3 steps (save_params, load_params):
+    the whole surrogate and two induced subgraphs, each on the JAX
+    predicate's route for bf16 rows (K1 at the 3,072-node bucket, K2 at 512
+    and 1,024), every launch on tc_bf16, answers = the eager forward bit
+    for bit, the 900-node request also against the CPU float64 forward
+    (BF16_LOGITS_RTOL), one capture per bucket; a hot swap to a checkpoint
+    3 steps later changes the answers without a capture; a bf16 S=20 model
+    on the whole surrogate runs K2 (the bucket where f32 runs K1: v6 fits
+    bf16 rows)."""
+    import numpy as np
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.serving import Predictor
+    from ampnet_tpu_torch.train import (create_train_state, load_params, make_optimizer,
+                                        make_train_step, save_checkpoint, save_params)
+
+    path = SERVING_DIR / "bf16"
+    shutil.rmtree(path, ignore_errors=True)
+    trained = recipe_model(cfg, data, seed, dev)
+    state = create_train_state(trained, make_optimizer(
+        trained.parameters(), 3e-3, weight_decay=1e-3, grad_clip=1.0), seed=seed)
+    graph = cora(seed, dev)[1]
+    train_step, layout = make_train_step(trained), compute_layout(graph)
+    for _ in range(3):
+        train_step(state, graph, layout)
+    params_path = save_params(str(path / "params_step3.pt"), trained)
+    for _ in range(3):
+        train_step(state, graph, layout)
+    swap_path = save_checkpoint(str(path / "checkpoint_step6.pkl"), state, epoch=5)
+    del train_step, state, graph, layout
+
+    pred = Predictor(load_params(params_path, recipe_model(cfg, data, seed + 1, dev)), seed=seed)
+    rng = np.random.default_rng(seed + 12)
+    requests = [("whole surrogate", data.x, data.edge_index)] + [
+        (f"induced {k} nodes", *induced_subgraph(data, k, rng)[:2]) for k in (400, 900)]
+    served = []
+    for name, x, ei in requests:
+        route = serving_route(pred, x, ei)
+        served.append(dict(serve(pred, f"bf16 {name}", x, ei, dev, route["want"],
+                                 check_f64=name == "induced 900 nodes",
+                                 f64_rtol=BF16_LOGITS_RTOL),
+                           gather=route["gather"], v6_usable=route["v6_usable"]))
+    if [r["v6_usable"] for r in served] != [False, True, True]:
+        fail(f"bf16 serving: routes {[r['v6_usable'] for r in served]}, expected K1 at the "
+             f"whole surrogate's bucket and K2 at the subgraphs'")
+    if any(set(b) != {"tc_bf16"} for r in served for b in r["bodies"].values()):
+        fail(f"bf16 serving: launches off the bf16 body ({[r['bodies'] for r in served]})")
+    buckets = sorted({tuple(r["bucket"]) for r in served})
+    captures = pred.step.graphs.timings()
+    if len(captures) != len(buckets) or sum(bool(r["capture"]) for r in served) != len(buckets):
+        fail(f"bf16 serving: {len(captures)} captures for buckets {buckets}")
+    gen_state = pred.generator.get_state()
+    before = pred.predict(data.x, data.edge_index)
+    pred.load_params(swap_path)
+    pred.generator.set_state(gen_state)
+    after = serve(pred, "bf16 whole surrogate after the hot swap", data.x, data.edge_index,
+                  dev, serving_route(pred, data.x, data.edge_index)["want"])
+    pred.generator.set_state(gen_state)
+    if np.array_equal(before, pred.predict(data.x, data.edge_index)):
+        fail("bf16 serving: the hot swap left the answers as they were")
+    if len(pred.step.graphs.timings()) != len(captures):
+        fail("bf16 serving: the hot swap captured again")
+    pred20 = Predictor(recipe_model(cfg20, data, seed, dev), seed=seed)
+    route = serving_route(pred20, data.x, data.edge_index)
+    if not route["v6_usable"]:
+        fail("bf16 serving: the S=20 bf16 model's whole-surrogate bucket is not on K2")
+    s20 = serve(pred20, "bf16 S=20 whole surrogate", data.x, data.edge_index, dev,
+                route["want"])
+    if s20["bodies"] != {"edge_attention_layer": {"tc_bf16": 2}}:
+        fail(f"bf16 serving: the S=20 request ran {s20['bodies']}, expected K2 twice on tc_bf16")
+    # K2's bf16 launches of the requests, by S (the kernel rows' launches)
+    k2_s40 = sum(r["bodies"].get("edge_attention_layer", {}).get("tc_bf16", 0) for r in served)
+    return dict(requests=served, buckets=[list(b) for b in buckets], captures=len(captures),
+                hot_swap=dict(new_captures=0, request=after), s20_whole_surrogate=s20,
+                k2_launches={"40": k2_s40, "20": s20["bodies"]["edge_attention_layer"]["tc_bf16"]})
+
+
+def bf16_phase(recipe, reference, tcfg, data, graph, layout, seed, dev, path_c) -> tuple:
+    """The bf16 phase: the bodies (``bf16_kernel_rows``); the recommended
+    recipe in compute_dtype='bfloat16' through train_full_batch (path C's
+    depth; K1, K3 and K4 on tc_bf16, gradients against float64 at
+    BF16_GRAD_RTOL, captured = eager bit for bit over 3 steps, the step
+    timed in turns with path C's f32 step); 3 steps of the f32 recipe under
+    stream_bf16 (the module constant the environment variable sets), bit
+    for bit against eager, close to the f32 step and each gradient within
+    BF16_GRAD_RTOL of float64's; the f32 evals A and B
+    under mxu_bf16, and one S=20 training step under it; the Predictor on
+    bf16 models; the refusals. Returns (report, kernel rows with their
+    launches)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.tokenize import sample_present_features, tfidf_sample_features
+    from ampnet_tpu_torch.train import (create_train_state, make_eval_step, make_optimizer,
+                                        make_train_step)
+
+    t_phase = time.perf_counter()
+    report = {}
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    rows = bf16_kernel_rows(graph, layout, gen, dev)
+    report["kernels"] = rows
+
+    # the recipe in bf16, through the entry points
+    bf16 = dataclasses.replace(recipe, compute_dtype="bfloat16")
+    counts, training = drive_training("C bf16 recommended recipe, training", bf16, tcfg, data,
+                                      graph, seed, dev, True, grad_rtol=BF16_GRAD_RTOL)
+    bodies = bf16_only("C bf16")
+    evals = tcfg.epochs // tcfg.select_best_every + 1
+    want = launches(k1=2 * tcfg.epochs + 2 * 8 * evals, k3=2 * tcfg.epochs, k4=2 * tcfg.epochs)
+    if counts != want:
+        fail(f"path C bf16 launched {counts}, expected {want}")
+    training["bodies"] = bodies
+    training["captured_equals_eager"] = captured_equals_eager(
+        "C bf16", bf16, data, graph, layout, seed, dev, want_step=launches(k1=2, k3=2, k4=2))
+    # one captured step of each in turns, from states of their own
+    steps = {}
+    for name, cfg in (("f32", recipe), ("bf16", bf16)):
+        model = recipe_model(cfg, data, seed, dev)
+        st = create_train_state(model, make_optimizer(model.parameters(), 3e-3,
+                                                      weight_decay=1e-3, grad_clip=1.0),
+                                seed=seed)
+        step = make_train_step(model)
+        step(st, graph, layout)
+        steps[name] = (lambda step=step, st=st: step(st, graph, layout))
+    t = [sync_ms(steps[k], 10) for k in ("f32", "bf16", "bf16", "f32")]
+    e = [cuda_ms(steps[k], 10) for k in ("f32", "bf16", "bf16", "f32")]
+    training["in_turns_with_path_c"] = dict(
+        f32_warm_ms=(t[0] + t[3]) / 2, bf16_warm_ms=(t[1] + t[2]) / 2,
+        f32_event_ms=(e[0] + e[3]) / 2, bf16_event_ms=(e[1] + e[2]) / 2,
+        bf16_profile=busy_share(device_profile(steps["bf16"]), (t[1] + t[2]) / 2),
+        path_c_final_test_acc=path_c["final_test_acc"],
+        path_c_train_full_batch_s=path_c["train_full_batch_s"])
+    del steps
+    report["training"] = training
+    k1_k3_k4 = counts
+
+    # stream_bf16 on the f32 recipe: K1, K3 and K4 on bf16 rows
+    with dispatch_flag("STREAM_BF16_DEFAULT"):
+        stream = captured_equals_eager("stream_bf16", recipe, data, graph, layout, seed, dev,
+                                       want_step=launches(k1=2, k3=2, k4=2))
+        model = recipe_model(recipe, data, seed, dev)
+        sidx = tfidf_sample_features(graph.x, recipe.num_sampled_vectors,
+                                     node_mask=graph.node_mask,
+                                     generator=torch.Generator(device=dev).manual_seed(seed + 3))
+        loss16, g16 = card_gradients(model, graph, layout, sidx)
+        # each gradient against float64 autograd (the ReLU branches the
+        # card took), of its own largest entry: the JAX test's atol below
+        # would pass a zero gradient of a parameter whose gradient is small
+        stream["gradient_check"] = gradient_check("stream_bf16", model, graph, layout, seed,
+                                                  grad_rtol=BF16_GRAD_RTOL)
+    loss32, g32 = card_gradients(model, graph, layout, sidx)
+    rel = {k: float((g16[k] - g32[k]).abs().max() / g32[k].abs().max().clamp_min(1e-30))
+           for k in g32}
+    worst = max(rel, key=rel.get)
+    apart = [k for k in g32 if not torch.allclose(g16[k], g32[k], rtol=STREAM_GRAD_RTOL,
+                                                  atol=STREAM_GRAD_ATOL)]
+    if abs(loss16 - loss32) > STREAM_LOSS_RTOL * abs(loss32) or apart:
+        fail(f"stream_bf16: loss {loss16} vs f32 {loss32}; gradients beyond the JAX test's "
+             f"tolerances: {apart}")
+    stream.update(loss=loss16, f32_loss=loss32, grad_max_rel_diff=rel[worst],
+                  grad_worst_parameter=worst,
+                  grad_max_abs_diff=max(float((g16[k] - g32[k]).abs().max()) for k in g32))
+    report["stream_bf16"] = stream
+
+    # mxu_bf16 on the f32 evals: A (S=40, 'dma': the JAX body keeps f32
+    # products) and B (S=20: K2 on tc_bf16); one S=20 training step (K1 on
+    # the 'vmem' gather: tc_bf16; K3, K4 f32)
+    mxu = {}
+    with dispatch_flag("MXU_BF16_DEFAULT"):
+        for name, cfg, want, body in (("A S=40", recipe, launches(k1=16), "tc"),
+                                      ("B S=20", reference, launches(k2=16), "tc_bf16")):
+            model = recipe_model(cfg, data, seed, dev)
+            step = make_eval_step(model, num_eval_samples=8)
+            eaf.reset_launch_counts()
+            metrics = step(graph, torch.Generator(device=dev).manual_seed(seed), layout)
+            torch.cuda.synchronize()
+            counts = eaf.launch_counts()
+            bodies = eaf.body_launch_counts()
+            kernel = next(k for k, v in want.items() if v)
+            if counts != want or bodies[kernel][body] != want[kernel]:
+                fail(f"mxu_bf16 eval {name}: launched {counts} ({bodies[kernel]}), "
+                     f"expected {want} on {body}")
+            draw = torch.Generator(device=dev).manual_seed(seed + 2)
+            sidx = (tfidf_sample_features(graph.x, cfg.num_sampled_vectors,
+                                          node_mask=graph.node_mask, generator=draw)
+                    if cfg.token_sampling == "tfidf" else
+                    sample_present_features(graph.x, cfg.num_sampled_vectors, generator=draw))
+            card, _ = stage_outputs(model, graph, sidx, layout)
+            ref, _ = cpu_f64_reference(model, graph, sidx)
+            err = float((card.double() - ref).abs().max())
+            if not err <= MXU_LOGITS_ATOL:
+                fail(f"mxu_bf16 eval {name}: log-probs {err:.3g} from float64 on the CPU")
+            mxu[name] = dict(launches={k: v for k, v in counts.items() if v}, body=body,
+                             bodies=bodies[kernel], cpu_f64_max_abs_err=err,
+                             limit=MXU_LOGITS_ATOL,
+                             metrics={k: float(v) for k, v in metrics.items()})
+        model = recipe_model(reference, data, seed, dev)
+        st = create_train_state(model, make_optimizer(model.parameters(), 3e-3), seed=seed)
+        eaf.reset_launch_counts()
+        metrics = make_train_step(model)(st, graph, layout)[1]
+        torch.cuda.synchronize()
+        counts, bodies = eaf.launch_counts(), eaf.body_launch_counts()
+        if (counts != launches(k1=2, k3=2, k4=2) or bodies["edge_attention_sums"]["tc_bf16"] != 2
+                or bodies["edge_attention_bwd_dq"]["tc"] != 2):
+            fail(f"mxu_bf16 S=20 training step: launched {counts} ({bodies})")
+        mxu["D S=20 training step"] = dict(
+            launches={k: v for k, v in counts.items() if v},
+            k1_bodies=bodies["edge_attention_sums"], loss=float(metrics["loss"]))
+    report["mxu_bf16"] = mxu
+    k1_mxu = mxu["D S=20 training step"]["k1_bodies"]["tc_bf16"]
+    k2_mxu = mxu["B S=20"]["bodies"]["tc_bf16"]
+
+    # serving bf16 models
+    bf16_20 = dataclasses.replace(reference, compute_dtype="bfloat16")
+    eaf.reset_launch_counts()
+    report["serving"] = bf16_serving(bf16, bf16_20, data, seed, dev)
+    report["refusals"] = bf16_refusals(dev)
+    report["phase_s"] = time.perf_counter() - t_phase
+
+    # each row's launches ran at the row's own S
+    k2_bf16 = report["serving"]["k2_launches"]
+    kernel_rows = [
+        dict(rows["k1_bf16"], launches=k1_k3_k4["edge_attention_sums"]),
+        dict(rows["k1_mxu"], launches=k1_mxu),
+        dict(rows["k2_bf16_s40"], launches=k2_bf16["40"]),
+        dict(rows["k2_bf16"], launches=k2_bf16["20"]),
+        dict(rows["k2_mxu"], launches=k2_mxu),
+        dict(rows["k3_bf16"], launches=k1_k3_k4["edge_attention_bwd_dq"]),
+        dict(rows["k4_bf16"], launches=k1_k3_k4["edge_attention_bwd_dkv"])]
+    if any(r["launches"] < 1 for r in kernel_rows):
+        fail(f"bf16: a body was never launched on its path "
+             f"({[r['launches'] for r in kernel_rows]})")
+    return report, kernel_rows
 
 
 def main() -> int:
@@ -2291,6 +2888,12 @@ def main() -> int:
     # the serving path: Predictor, one captured graph per bucket, hot swap
     emit({"serving": serving_phase(recipe, reference, data, graph, args.seed, dev)})
 
+    # bf16: the bodies, the recipe in compute_dtype='bfloat16', stream_bf16,
+    # mxu_bf16, serving bf16 models, the refusals
+    bf16_report, bf16_rows = bf16_phase(recipe, reference, tcfg, data, graph, layout,
+                                        args.seed, dev, path_c)
+    emit({"bf16": dict(bf16_report, card=smi)})
+
     # launches: K2 from the inference path that runs it (B); K1, K3, K4 from
     # the training path C (K1's count includes that path's eval forwards); K5
     # from path F; K6 from the training path H, K7 from path G at S=20, K9
@@ -2322,12 +2925,16 @@ def main() -> int:
     if len(kernels) != len(KERNELS) or any(k["launches"] < 1 for k in kernels):
         fail(f"a kernel of the paths was never launched: "
              f"{ {k['name']: k['launches'] for k in kernels} }")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    # and a row for each bf16 body (launches from the bf16 phase's paths)
+    kernels += bf16_rows
+    # a row's `s` (the bf16 rows') beside its launches: the shape they ran at
+    keys = ("name", "route", "source", "replaces", "launches", "s", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "prev_ms", "speedup", "regs",
             "spills", "blocks_per_sm", "stages", "smem_bytes", "precision", "projection_ms",
             "attention_ms", "out_projection_ms", "prev_projection_ms", "prev_attention_ms",
             "prev_out_projection_ms", "projection_library_ms", "k1_max_abs_err",
-            "k2_max_abs_err", "by_group_ms", "by_piece_ms", "s20")
+            "k2_max_abs_err", "by_group_ms", "by_piece_ms", "s20", "tf32_ms",
+            "speedup_vs_tf32", "rel_err", "limit", "tf32_attention_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

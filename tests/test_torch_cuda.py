@@ -373,7 +373,7 @@ def test_cuda_core_bodies_beyond_shared_memory_match_plain(cuda, s, d, h, softma
     assert in_device_memory
     assert set(eaf.device_memory_launch_counts()) == in_device_memory
     bodies = eaf.body_launch_counts()
-    assert all(bodies[k] == dict(tc=0, simt=2) for k in K1_TO_K4), bodies
+    assert all(bodies[k] == dict(tc=0, simt=2, tc_bf16=0) for k in K1_TO_K4), bodies
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -443,7 +443,7 @@ def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
                   eav.edge_attention_sums_v1_plain(q, kv, *slots, **kw, tile_nodes=16, group=8))
     for k in ("edge_attention_sums_mm", "edge_attention_sums_v1"):
         assert eaf.body_launch_counts()[k] == dict(tc=bodies[k]["tc"] + 2,
-                                                   simt=bodies[k]["simt"] + 2)
+                                                   simt=bodies[k]["simt"] + 2, tc_bf16=0)
     ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=3).to(cuda)
     assert int(ck.chunk_count.max()) >= 2
     chunks = (ck.senders, chunk_slot_valid(ck, mask.to(cuda)), ck.chunk_start,
@@ -462,7 +462,7 @@ def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
         edge_attention_sums_mm=4, edge_attention_sums_v1=4,
         edge_attention_sums_chunked=5)
     assert eaf.body_launch_counts()["edge_attention_sums_chunked"] == dict(
-        tc=k8_bodies["tc"] + 2, simt=k8_bodies["simt"] + 3)
+        tc=k8_bodies["tc"] + 2, simt=k8_bodies["simt"] + 3, tc_bf16=0)
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -624,7 +624,7 @@ def test_edge_group_kernels_beyond_the_tensor_cores_match_plain(cuda, s, d, h, s
         assert (got.reshape(nt, sp, d)[:, s:] == 0).all()
     bodies = eaf.body_launch_counts()
     for k in ("edge_attention_sums_mm", "edge_attention_sums_v1", "edge_attention_layer_mm"):
-        assert bodies[k] == dict(tc=0, simt=1), bodies
+        assert bodies[k] == dict(tc=0, simt=1, tc_bf16=0), bodies
     expect = {k: n for k, group, n in (
         ("edge_attention_sums_mm", eav._mm_group("simt", s, d, h, None), 2),
         ("edge_attention_sums_v1", 8, 1))
@@ -691,7 +691,7 @@ def test_chunked_tensor_core_body_matches_plain_and_cuda_cores(cuda, s, chunk, s
     assert (got.reshape(nt, sp, d)[:, s:] == 0).all()
     assert torch.equal(got, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=chunk))
     after = eaf.body_launch_counts()["edge_attention_sums_chunked"]
-    assert after == dict(tc=before["tc"] + 2, simt=before["simt"] + 1)
+    assert after == dict(tc=before["tc"] + 2, simt=before["simt"] + 1, tc_bf16=0)
 
 
 @pytest.mark.parametrize("s,d,h,piece,device_memory", [
@@ -719,7 +719,8 @@ def test_chunked_cuda_core_body_beyond_the_tensor_cores_matches_plain(
     assert (got.reshape(chunks[2].numel(), kw["sp"], d)[:, s:] == 0).all()
     assert torch.equal(got, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=8,
                                                             piece=piece, body=body))
-    assert eaf.body_launch_counts()["edge_attention_sums_chunked"] == dict(tc=0, simt=2)
+    assert eaf.body_launch_counts()["edge_attention_sums_chunked"] == dict(tc=0, simt=2,
+                                                                           tc_bf16=0)
     assert eaf.device_memory_launch_counts() == (
         {"edge_attention_sums_chunked": 2} if device_memory else {})
 
@@ -956,7 +957,7 @@ def test_tc_kernels_refuse_what_they_do_not_take(cuda):
     assert after["edge_attention_bwd_dkv"]["simt"] == before["edge_attention_bwd_dkv"]["simt"] + 1
     assert after["edge_attention_bwd_stream"] == dict(
         tc=before["edge_attention_bwd_stream"]["tc"],
-        simt=before["edge_attention_bwd_stream"]["simt"] + 2)
+        simt=before["edge_attention_bwd_stream"]["simt"] + 2, tc_bf16=0)
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -982,8 +983,8 @@ def test_simt_baselines_match_plain_on_card(cuda, s, d, h, softmax):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
     after = eaf.body_launch_counts()
-    assert all(after[k] == dict(tc=before[k]["tc"], simt=before[k]["simt"] + 1)
-               for k in K1_TO_K4)
+    assert all(after[k] == dict(tc=before[k]["tc"], simt=before[k]["simt"] + 1,
+                                tc_bf16=before[k]["tc_bf16"]) for k in K1_TO_K4)
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -1087,7 +1088,7 @@ def test_stream_tensor_core_body_matches_plain_and_cuda_cores(cuda, s, softmax):
     dq_ref, st_ref = sb.edge_attention_bwd_stream_plain(q, kv, dsum, *r_idx, **kw)
     torch.cuda.synchronize()
     assert eaf.body_launch_counts()["edge_attention_bwd_stream"] == dict(
-        tc=before["tc"] + 1, simt=before["simt"] + 1)
+        tc=before["tc"] + 1, simt=before["simt"] + 1, tc_bf16=0)
     got = st.view(rows)[slots]
     scale = max(1.0, float(dq_ref.abs().max()), float(st_ref.abs().max()))
     for a, b in ((dq, dq_ref), (dq, dq_simt), (got, st_ref.view(rows)[slots]),
@@ -1126,7 +1127,7 @@ def test_layer_mm_tensor_core_launches_match_plain_and_k2(cuda, s, d, h):
     k2 = eaf.edge_attention_layer(x_rows, *w, invdeg, *r_idx, **kw)
     torch.cuda.synchronize()
     assert eaf.body_launch_counts()["edge_attention_layer_mm"] == dict(
-        tc=before["tc"] + 1, simt=before["simt"] + 1)
+        tc=before["tc"] + 1, simt=before["simt"] + 1, tc_bf16=0)
     for other in (ref, simt, k2):
         torch.testing.assert_close(got, other, rtol=RTOL, atol=ATOL)
     live = torch.zeros(nt, dtype=torch.bool, device=cuda)
@@ -1476,3 +1477,170 @@ def test_predictor_hot_swap_needs_no_new_capture(cuda, tmp_path, monkeypatch):
     with torch.no_grad():
         want = other(g, generator=gen, edge_layout=pred.layout(g))[:20]
     assert torch.equal(torch.from_numpy(after), want.cpu())
+
+
+# ---- bf16: the tensor-core bodies in bf16 products (K1-K4), the refusals,
+# and a bf16 model's captured step
+
+# bf16 body vs its plain version on the card, relative to the output's
+# largest entry: one bf16 step (2**-8). The products are exact in f32 and
+# the operands round at the same points, so they differ in the order of f32
+# sums, and where that moves a softmax weight or dS (K2: its mean) across a
+# bf16 rounding boundary, one term moves by a bf16 step of its own size;
+# K2's bf16 output is itself rounded: two steps
+BF16_LIMIT, BF16_OUT_LIMIT = 2.0 ** -8, 2 * 2.0 ** -8
+
+
+def close_to_largest(got, ref, limit):
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    assert err <= limit * float(ref.abs().max()), (err, float(ref.abs().max()))
+    return err
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", [(40, 128, 4), (20, 128, 4), (4, 16, 2)])
+def test_bf16_bodies_match_plain_on_card(cuda, s, d, h, softmax):
+    """K1 (bf16 rows; f32 rows under mxu_bf16), K2 (bf16 rows; f32 rows
+    under mxu_bf16), K3 and K4 (bf16 rows) on their bf16 body against their
+    plain versions, each launched twice and equal bit for bit, on tc_bf16."""
+    g, mask = graph(0, first_sender=1)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    nt = lay.recv_ptr.numel() - 1
+    sp = -(-s // 16) * 16
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=cuda)
+    dsum = torch.randn(nt, sp, d, generator=gen, device=cuda)
+    dsum[:, s:] = 0.0                                  # pad token rows, as the op makes them
+    dsum = dsum.reshape(nt * sp, d)
+    r_idx = (lay.tile_senders, edge_slot_valid(lay, mask.to(cuda)), lay.recv_ptr, lay.recv_slots)
+    s_idx = (lay.snd_receivers, snd_slot_valid(lay, mask.to(cuda)), lay.snd_ptr, lay.snd_slots)
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax)
+    w = [t.to(cuda) for t in params(2, d)]
+    deg = torch.bincount(g.receivers[mask], minlength=nt).to(cuda, torch.float32)
+    invdeg = torch.where(deg > 0, 1.0 / deg.clamp_min(1.0), torch.zeros_like(deg))
+    b16 = qkv.to(torch.bfloat16)
+    x16 = b16[:, :d].contiguous()
+    w16 = [t.to(torch.bfloat16).contiguous() for t in w]
+    qdm16 = torch.cat([b16[:, :d], dsum.to(torch.bfloat16)], 1)
+    x32 = qkv[:, :d].contiguous()
+    cases = {
+        "k1 bf16": (lambda: eaf.edge_attention_sums(b16[:, :d], b16[:, d:], *r_idx, **kw),
+                    lambda: eaf.edge_attention_sums_plain(b16[:, :d], b16[:, d:], *r_idx, **kw),
+                    BF16_LIMIT),
+        "k1 mxu": (lambda: eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *r_idx, **kw,
+                                                   mxu_bf16=True),
+                   lambda: eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *r_idx, **kw,
+                                                         mxu_bf16=True), BF16_LIMIT),
+        "k2 bf16": (lambda: eaf.edge_attention_layer(x16, *w16, invdeg, *r_idx, **kw),
+                    lambda: eaf.edge_attention_layer_plain(x16, *w16, invdeg, *r_idx, **kw),
+                    BF16_OUT_LIMIT),
+        "k2 mxu": (lambda: eaf.edge_attention_layer(x32, *w, invdeg, *r_idx, **kw,
+                                                    mxu_bf16=True),
+                   lambda: eaf.edge_attention_layer_plain(x32, *w, invdeg, *r_idx, **kw,
+                                                          mxu_bf16=True), BF16_LIMIT),
+        "k3 bf16": (lambda: bwd.edge_attention_bwd_dq(b16[:, :d], b16[:, d:], qdm16[:, d:],
+                                                      *r_idx, **kw),
+                    lambda: bwd.edge_attention_bwd_dq_plain(b16[:, :d], b16[:, d:],
+                                                            qdm16[:, d:], *r_idx, **kw),
+                    BF16_LIMIT),
+        "k4 bf16": (lambda: bwd.edge_attention_bwd_dkv(qdm16, b16[:, d:], *s_idx, **kw),
+                    lambda: bwd.edge_attention_bwd_dkv_plain(qdm16, b16[:, d:], *s_idx, **kw),
+                    BF16_LIMIT),
+    }
+    before = eaf.body_launch_counts()
+    for name, (run, plain, limit) in cases.items():
+        got, again, ref = run(), run(), plain()
+        torch.cuda.synchronize()
+        close_to_largest(got, ref, limit)
+        assert torch.equal(got, again), name
+        assert got.dtype == (torch.bfloat16 if name == "k2 bf16" else torch.float32), name
+        assert (got.view(nt, sp, -1)[:, s:] == 0).all(), name
+    after = eaf.body_launch_counts()
+    for k, n in (("edge_attention_sums", 4), ("edge_attention_layer", 4),
+                 ("edge_attention_bwd_dq", 2), ("edge_attention_bwd_dkv", 2)):
+        assert after[k] == dict(before[k], tc_bf16=before[k]["tc_bf16"] + n), k
+
+
+def test_bf16_refusals_on_card(cuda):
+    """On the card bf16 runs on K1-K4's tensor cores only: beyond their
+    range bf16 rows raise (the CUDA-core bodies take f32 only), as do bf16
+    rows and mxu_bf16 on K5-K9, mixed row types, the f32 bodies named for
+    bf16 rows or under mxu_bf16, and 'tc_bf16' named on f32 rows (K3 and
+    K4 have no bf16 body for f32 rows; K1 takes them under mxu_bf16 only);
+    nothing is launched."""
+    g, mask = graph(0, first_sender=1)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    nt = lay.recv_ptr.numel() - 1
+    d = 128
+    r_idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
+    s_idx = (lay.snd_receivers, lay.snd_valid, lay.snd_ptr, lay.snd_slots)
+    q49 = torch.zeros(nt * 64, 3 * d, dtype=torch.bfloat16, device=cuda)
+    q40 = torch.zeros(nt * 48, 3 * d, dtype=torch.bfloat16, device=cuda)
+    kw49 = dict(s=49, sp=64, num_heads=4, softmax=True)
+    kw40 = dict(s=40, sp=48, num_heads=4, softmax=True)
+    before = eaf.body_launch_counts()
+    with pytest.raises(ValueError, match="CUDA-core bodies take f32 only"):
+        eaf.edge_attention_sums(q49[:, :d], q49[:, d:], *r_idx, **kw49)
+    with pytest.raises(ValueError, match="CUDA-core bodies take f32 only"):
+        bwd.edge_attention_bwd_dkv(q49[:, : 2 * d], q49[:, d:], *s_idx, **kw49)
+    with pytest.raises(ValueError, match="no bf16 body"):
+        sb.edge_attention_bwd_stream(q40[:, :d], q40[:, d:], q40[:, :d], *r_idx, **kw40)
+    slots = (lay.tile_senders, lay.tile_recv, lay.tile_valid)
+    with pytest.raises(ValueError, match="no bf16 body"):
+        eav.edge_attention_sums_mm(q40[:, :d], q40[:, d:], *slots, lay.tile_counts, **kw40,
+                                   tile_nodes=16)
+    f40 = q40.float()
+    with pytest.raises(ValueError, match="no bf16 body"):
+        eav.edge_attention_sums_mm(f40[:, :d], f40[:, d:], *slots, lay.tile_counts, **kw40,
+                                   tile_nodes=16, mxu_bf16=True)
+    with pytest.raises(ValueError, match="float32 or bfloat16 rows of one type"):
+        bwd.edge_attention_bwd_dq(q40[:, :d], f40[:, d:], q40[:, :d], *r_idx, **kw40)
+    with pytest.raises(ValueError, match="tc_bf16"):
+        eaf.edge_attention_sums(q40[:, :d], q40[:, d:], *r_idx, **kw40, body="tc")
+    # bf16 products of f32 rows take mxu_bf16 only, and reach K1 and K2 only:
+    # 'tc_bf16' named on f32 rows raises on every kernel
+    f_qdm = torch.cat([f40[:, :d], f40[:, :d]], 1)
+    with pytest.raises(ValueError, match="'tc_bf16' body"):
+        bwd.edge_attention_bwd_dq(f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40,
+                                  body="tc_bf16")
+    with pytest.raises(ValueError, match="'tc_bf16' body"):
+        bwd.edge_attention_bwd_dkv(f_qdm, f40[:, d:], *s_idx, **kw40, body="tc_bf16")
+    with pytest.raises(ValueError, match="'tc_bf16' body"):
+        eaf.edge_attention_sums(f40[:, :d], f40[:, d:], *r_idx, **kw40, body="tc_bf16")
+    with pytest.raises(ValueError, match="'tc_bf16' body"):
+        eaf.edge_attention_sums(f40[:, :d], f40[:, d:], *r_idx, **kw40, body="tc",
+                                mxu_bf16=True)
+    assert eaf.body_launch_counts() == before
+
+
+def test_bf16_model_captured_step_equals_eager(cuda):
+    """A bf16 model (compute_dtype='bfloat16', f32 parameters): three
+    captured training steps against three eager bodies from one state, bit
+    for bit (K1, K3 and K4 use no atomics), every launch on tc_bf16; the
+    parameters and Adam's state stay f32."""
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+    from ampnet_tpu_torch.train.state import _train_step_body
+
+    g, _ = graph(11)
+    g = g.to(cuda)
+    cfg = AMPGCNConfig(**{**CAPTURE_CFG, "compute_dtype": "bfloat16"})
+    lay = compute_layout(g, tile_nodes=16)
+
+    def make():
+        model = AMPGCN(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+        return create_train_state(model, make_optimizer(
+            model.parameters(), 3e-3, weight_decay=1e-3, grad_clip=1.0), seed=4)
+
+    eager, one = make(), make()
+    body, step = _train_step_body(eager.model), make_train_step(one.model)
+    eaf.reset_launch_counts()
+    for _ in range(3):
+        want, got = body(eager, g, lay)[1], step(one, g, lay)[1]
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert_same_state(one, eager)
+    bodies = eaf.body_launch_counts()
+    for k in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv"):
+        assert bodies[k] == dict(tc=0, simt=0, tc_bf16=12), bodies
+    assert all(p.dtype == torch.float32 for p in one.model.parameters())

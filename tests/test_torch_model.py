@@ -120,11 +120,21 @@ def test_single_draw_eval_step_matches_jax_step_shape(rng):
     assert all(v.ndim == 0 and torch.isfinite(v) for v in ours.values())
 
 
-def test_unported_model_options_raise():
-    for over in (dict(frontend="pca"), dict(compute_dtype="bfloat16"),
-                 dict(downsample_feature_vectors=False)):
+def test_unported_model_options_raise(rng):
+    """The options still to port raise; bfloat16 compute, ported now, builds
+    and runs (finite f32 log-probs of the padded graph's shape), and an
+    unknown compute type raises."""
+    for over in (dict(frontend="pca"), dict(downsample_feature_vectors=False)):
         with pytest.raises(NotImplementedError):
             AMPGCN(dataclasses.replace(AMPGCNConfig(**CFG), **over), device="cpu")
+    x, _, gt = graphs(rng)
+    model = AMPGCN(dataclasses.replace(AMPGCNConfig(**CFG), compute_dtype="bfloat16"),
+                   scaler_stats=fit_scaler(x), device="cpu")
+    out = model(gt, generator=torch.Generator().manual_seed(0))
+    assert out.dtype == torch.float32 and out.shape == (gt.x.shape[0], CFG["output_dim"])
+    assert torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="compute_dtype"):
+        AMPGCNConfig(**{**CFG, "compute_dtype": "float16"})
 
 
 # ---- the model's full outputs: ModelOutput.aux, the transformer block, CLS

@@ -322,13 +322,64 @@ def test_body_of_checks_a_named_body():
         launch.body_of(K1, "wgmma", 40, 128, 4, ("kv_rows", qkv[:, 128:]))
 
 
+@pytest.mark.parametrize("kernel", [K1, K2, K3, K4])
+def test_bf16_products_take_one_switch(kernel):
+    """bf16 products run on 'tc_bf16' and only there: on bf16 rows, and on
+    f32 rows under mxu_bf16, which reaches K1 and K2's attention only. A
+    named 'tc_bf16' on f32 rows without mxu_bf16 raises, as does a named
+    f32 body on bf16 rows or under mxu_bf16."""
+    f32 = ("kv_rows", torch.zeros(64, 3 * 128)[:, 128:])
+    bf16 = ("kv_rows", torch.zeros(64, 3 * 128, dtype=torch.bfloat16)[:, 128:])
+    shape = (40, 128, 4)
+    assert launch.body_of(kernel, None, *shape, bf16) == "tc_bf16"
+    assert launch.body_of(kernel, "tc_bf16", *shape, bf16) == "tc_bf16"
+    assert launch.body_of(kernel, None, *shape, f32) == TC
+    for named, rows in (("tc_bf16", f32), (TC, bf16), (SIMT, bf16)):
+        with pytest.raises(ValueError, match="'tc_bf16' body"):
+            launch.body_of(kernel, named, *shape, rows)
+    if kernel in launch.MXU_KERNELS:
+        assert launch.body_of(kernel, None, *shape, f32, mxu_bf16=True) == "tc_bf16"
+        assert launch.body_of(kernel, "tc_bf16", *shape, f32, mxu_bf16=True) == "tc_bf16"
+        with pytest.raises(ValueError, match="'tc_bf16' body"):
+            launch.body_of(kernel, TC, *shape, f32, mxu_bf16=True)
+    else:
+        with pytest.raises(ValueError, match="mxu_bf16 reaches"):
+            launch.body_of(kernel, None, *shape, f32, mxu_bf16=True)
+
+
+@pytest.mark.parametrize("kernel", [K1, K2, K3, K4, "q|k|v projection"])
+def test_entry_point_by_body_and_row_type(kernel):
+    """K1-K4's wrappers (and K2's projection launch) take their entry point
+    from (body, row type): the f32 bodies on f32 rows, 'tc_bf16' on bf16
+    rows, and on f32 rows only where mxu_bf16 reaches (K1, K2's attention);
+    anything else raises before a pointer is handed over."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+
+    table = {K1: eaf._SUMS, K2: eaf._LAYER_ATTENTION, K3: bwd._DQ, K4: bwd._DKV,
+             "q|k|v projection": eav._PROJECTION}[kernel]
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert {launch.entry_of(kernel, table, b, f32) for b in (TC, SIMT)} == {
+        table[(TC, f32)], table[(SIMT, f32)]}
+    assert launch.entry_of(kernel, table, "tc_bf16", bf16)[1].endswith("_bf16")
+    for b in (TC, SIMT):
+        with pytest.raises(ValueError, match="no entry point"):
+            launch.entry_of(kernel, table, b, bf16)
+    if kernel in launch.MXU_KERNELS:
+        assert launch.entry_of(kernel, table, "tc_bf16", f32)[1].endswith("_mxu")
+    else:
+        with pytest.raises(ValueError, match="no entry point"):
+            launch.entry_of(kernel, table, "tc_bf16", f32)
+
+
 def test_count_launch_splits_by_body():
     def wrapper():
         pass
     wrapper.launches, wrapper.body_launches = 0, dict.fromkeys(launch.BODIES, 0)
-    for b in (TC, SIMT, TC):
+    for b in (TC, SIMT, TC, "tc_bf16"):
         launch.count_launch(wrapper, b)
-    assert wrapper.launches == 3 and wrapper.body_launches == {TC: 2, SIMT: 1}
+    assert wrapper.launches == 4 and wrapper.body_launches == {TC: 2, SIMT: 1, "tc_bf16": 1}
 
 
 # ---- AMPConv beyond shared memory: the fused op against the JAX XLA path

@@ -365,13 +365,22 @@ def test_resume_continues_exactly(tmp_path):
 
 
 def test_unported_training_options_raise(tmp_path):
-    """An unknown loss and the model's bfloat16 compute (not ported yet)
-    raise; profile_steps, ported now, trains and writes its trace."""
+    """An unknown loss raises; the model's bfloat16 compute, ported now,
+    takes a training step with f32 parameters and gradients; profile_steps,
+    ported now, trains and writes its trace."""
     g, make = tiny_problem()
     with pytest.raises(ValueError, match="loss_mode"):
         make_train_step(make(), loss_mode="sum")
-    with pytest.raises(NotImplementedError, match="float32"):
-        AMPGCN(AMPGCNConfig(**{**CFG, "compute_dtype": "bfloat16"}), device="cpu")
+    model = make()
+    model = AMPGCN(dataclasses.replace(model.config, compute_dtype="bfloat16"),
+                   scaler_stats=(model.scaler_mean, model.scaler_std), device="cpu")
+    state = create_train_state(model, make_optimizer(model.parameters(), **RECIPE))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    state, metrics = make_train_step(model)(state, g)
+    assert torch.isfinite(metrics["loss"])
+    assert all(v.dtype == torch.float32 for v in model.state_dict().values()
+               if v.is_floating_point())
+    assert any(not torch.equal(v, before[k]) for k, v in model.state_dict().items())
     result = train_full_batch(make(), g, TrainConfig(**LOOP, epochs=2, profile_steps=1,
                                                      run_dir=str(tmp_path)))
     assert len(result["history"]) == 2
