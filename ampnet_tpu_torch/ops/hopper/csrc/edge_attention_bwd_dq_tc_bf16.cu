@@ -22,18 +22,19 @@
 // ring holds bf16 k|v rows (row stride 2D + 8); a persistent grid walks
 // receivers; no atomics: bit-reproducible. Within the tensor cores' range
 // only (S <= 48, dh <= 32, at most 12 warps, 8 up to S=24); the wrapper
-// raises beyond it. Trouble spots as in the 3xTF32 body.
+// raises beyond it. Trouble spots as in the 3xTF32 body. The softmax
+// backward and the store of dQ are device functions in
+// edge_attention_bwd_dq_tc_bf16.cuh, which K5's bf16 body
+// (edge_attention_bwd_stream_tc_bf16.cu) runs with the rest of these steps.
 
 #include "common.cuh"
-#include "mma_bf16.cuh"
+#include "edge_attention_bwd_dq_tc_bf16.cuh"
 
 namespace {
 
 constexpr int kMaxWarps = 12;
 constexpr int kMaxThreads = 32 * kMaxWarps;
 constexpr int kPad = 8;  // the ring's row pad, one 16-byte piece of bf16
-
-using bf16 = __nv_bfloat16;
 
 template <int NKT>
 __global__ void __launch_bounds__(NKT <= 3 ? 256 : kMaxThreads, NKT <= 3 ? 2 : 1)
@@ -143,59 +144,7 @@ dq_bf16_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ dm,
         cp_async_commit();
       }
 
-      if (softmax) {  // rows g (values 0, 1) and g + 8 (values 2, 3), over the keys
-        float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          const int key = 8 * j + 2 * t;
-          if (key >= s) sc[j][0] = sc[j][2] = -INFINITY;
-          if (key + 1 >= s) sc[j][1] = sc[j][3] = -INFINITY;
-          mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-          mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-        }
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            sc[j][e] = expf(sc[j][e] - mx0);
-            sc[j][2 + e] = expf(sc[j][2 + e] - mx1);
-            sum0 += sc[j][e];
-            sum1 += sc[j][2 + e];
-          }
-        }
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-        float dot0 = 0.0f, dot1 = 0.0f;  // sum(dW W) of the row
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            sc[j][e] = sc[j][e] / sum0;  // W = e / sum(e), as the JAX body divides
-            sc[j][2 + e] = sc[j][2 + e] / sum1;
-            dot0 = fmaf(dw[j][e], sc[j][e], dot0);
-            dot1 = fmaf(dw[j][2 + e], sc[j][2 + e], dot1);
-          }
-        }
-        dot0 += __shfl_xor_sync(0xffffffffu, dot0, 1);
-        dot0 += __shfl_xor_sync(0xffffffffu, dot0, 2);
-        dot1 += __shfl_xor_sync(0xffffffffu, dot1, 1);
-        dot1 += __shfl_xor_sync(0xffffffffu, dot1, 2);
-#pragma unroll
-        for (int j = 0; j < NKT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            dw[j][e] = sc[j][e] * (dw[j][e] - dot0);
-            dw[j][2 + e] = sc[j][2 + e] * (dw[j][2 + e] - dot1);
-          }
-      }  // else dS = dW; pad keys read V as 0, so their dW is 0
-
+      if (softmax) softmax_backward_bf16<NKT>(sc, dw, s, t);  // else dS = dW
       // dS in bf16, the A operand of dS K over 16 keys a k-step
       constexpr int kPSteps = (NKT + 1) / 2;
       uint32_t pa[kPSteps][4];
@@ -225,16 +174,7 @@ dq_bf16_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ dm,
       }
     }
 
-    float* orow = dq + own0 * d + hc;
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn) {
-      if (8 * nn >= dh) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? r0 : r1, c = 8 * nn + 2 * t + (e & 1);
-        if (r < s && c < dh) orow[(size_t)r * d + c] = acc[nn][e];
-      }
-    }
+    store_dq_bf16(dq + own0 * d + hc, acc, r0, r1, s, d, dh, t);
     float* pad = dq + own0 * d;
     for (int e = s * d + threadIdx.x; e < sp * d; e += blockDim.x) pad[e] = 0.0f;
   }

@@ -26,6 +26,14 @@
 //     of edge_attention_layer_tc.cu) and the out-projection stay 3xTF32, as
 //     the TPU kernel's mxu_bf16 reaches its attention body only.
 //
+// (c) ampnet_edge_attention_layer_mm_out_projection_bf16: K7's last launch
+//     in bf16 (_fused_kernel_vmem_v6_mm, :865, epilogue :920-939), the
+//     tiled product of (a) with the f32 sums as A: the mean as a row scale
+//     in f32, rounded to bf16 as A's fragment is built, mean @ w_out in bf16
+//     products, b_out added in f32 on live rows and the sum rounded once to
+//     bf16, pad rows 0. K7's first launch on bf16 rows is (a), its attention
+//     K6's bf16 body (edge_attention_groups_tc_bf16.cu).
+//
 // Within the tensor cores' range only; the wrapper raises beyond it.
 
 #include "edge_attention_tc_bf16.cuh"
@@ -37,22 +45,38 @@ constexpr int kBThreads = 128;               // 4 warps, 2 x 2, each 32 x 32
 constexpr int kBLdA = kBK + 8, kBLdB = kBN + 8;
 
 // cudaErrorInvalidValue where the tile's 16-byte copies and 4-byte stores
-// cannot take the operands, else 0
-inline int projection_bf16_error(const __nv_bfloat16* a, int lda, const __nv_bfloat16* b,
-                                 int ldb, const __nv_bfloat16* c, int ldc, int n, int k) {
-  const bool ok = (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 && lda % 8 == 0 &&
-                  ldb % 8 == 0 && k % 8 == 0 && n % 8 == 0 && (uintptr_t)c % 4 == 0 &&
-                  ldc % 2 == 0;
+// cannot take the operands, else 0 (A of bf16 or, for K7's epilogue, of f32
+// values: lda in whole 16-byte pieces either way)
+template <typename TA>
+inline int projection_bf16_error(const TA* a, int lda, const __nv_bfloat16* b, int ldb,
+                                 const __nv_bfloat16* c, int ldc, int n, int k) {
+  const bool ok = (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
+                  lda % (16 / (int)sizeof(TA)) == 0 && ldb % 8 == 0 && k % 8 == 0 &&
+                  n % 8 == 0 && (uintptr_t)c % 4 == 0 && ldc % 2 == 0;
   return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// c[m, n] = bf16(a[m, k] @ b[k, n] + bias[n]), the sum in f32
-__global__ void __launch_bounds__(kBThreads)
-projection_bf16_kernel(const __nv_bfloat16* __restrict__ a, int lda,
-                       const __nv_bfloat16* __restrict__ b, int ldb,
-                       const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ c,
-                       int ldc, int m, int n, int k) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][kBM * kBLdA];
+// kMean: K7's epilogue reads the f32 per-receiver sums as A; else A is bf16
+template <bool kMean>
+using ProjA = std::conditional_t<kMean, float, __nv_bfloat16>;
+
+// One block's 64 x 64 tile of c[m, n] = bf16(a[m, k] @ b[k, n] + bias[n]),
+// the sum in f32. kMean, K7's epilogue (_fused_kernel_vmem_v6_mm :920-939):
+// A is the f32 sums, row r scaled by row_scale[r / sp] (the receiver's
+// 1/degree) in f32 and rounded to bf16 as its fragment is built (the mean in
+// x's type, then mean @ w_out); the bias is added in f32 only where
+// row_scale > 0, and the f32 sum rounds once to bf16 (v6_mm's out + b_out *
+// live, then its astype); rows with r % sp >= s (pad token rows) are written
+// as 0. The f32 A tile (row stride 40 floats) is read as float2 pairs free of
+// bank conflicts within each half-warp.
+template <bool kMean>
+__device__ __forceinline__ void projection_bf16_tile(
+    const ProjA<kMean>* __restrict__ a, int lda, const __nv_bfloat16* __restrict__ b, int ldb,
+    const __nv_bfloat16* __restrict__ bias, const float* __restrict__ row_scale, int sp, int s,
+    __nv_bfloat16* __restrict__ c, int ldc, int m, int n, int k) {
+  using TA = ProjA<kMean>;
+  constexpr int kPer = 16 / sizeof(TA);  // values of A per 16-byte copy
+  __shared__ __align__(16) TA as[2][kBM * kBLdA];
   __shared__ __align__(16) __nv_bfloat16 bs[2][kBK * kBLdB];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -61,8 +85,8 @@ projection_bf16_kernel(const __nv_bfloat16* __restrict__ a, int lda,
   const int ktiles = (k + kBK - 1) / kBK;
 
   auto load = [&](int buf, int k0) {
-    for (int e = threadIdx.x; e < kBM * kBK / 8; e += kBThreads) {
-      const int r = e / (kBK / 8), cc = 8 * (e % (kBK / 8));
+    for (int e = threadIdx.x; e < kBM * kBK / kPer; e += kBThreads) {
+      const int r = e / (kBK / kPer), cc = kPer * (e % (kBK / kPer));
       const bool in = k0 + cc < k;
       const int gr = min(row0 + r, m - 1);
       cp_async16_zfill(&as[buf][r * kBLdA + cc], a + (size_t)gr * lda + (in ? k0 + cc : 0), in);
@@ -75,6 +99,16 @@ projection_bf16_kernel(const __nv_bfloat16* __restrict__ a, int lda,
     }
     cp_async_commit();
   };
+
+  // kMean: the scale of the lane's four A rows (wm + 16i + g + 8h)
+  float rs[2][2];
+  if constexpr (kMean) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        rs[i][h] = row_scale[min(row0 + wm + 16 * i + g + 8 * h, m - 1) / sp];
+  }
 
   float acc[2][4][4];
 #pragma unroll
@@ -93,18 +127,29 @@ projection_bf16_kernel(const __nv_bfloat16* __restrict__ a, int lda,
       cp_async_wait(0);
     }
     __syncthreads();  // tile kt has landed for every thread
-    const __nv_bfloat16* A = as[kt & 1];
+    const TA* A = as[kt & 1];
     const __nv_bfloat16* B = bs[kt & 1];
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t fa[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const __nv_bfloat16* a0 = A + (wm + 16 * i + g) * kBLdA + kk + 2 * t;
-        fa[i][0] = *reinterpret_cast<const uint32_t*>(a0);
-        fa[i][1] = *reinterpret_cast<const uint32_t*>(a0 + 8 * kBLdA);
-        fa[i][2] = *reinterpret_cast<const uint32_t*>(a0 + 8);
-        fa[i][3] = *reinterpret_cast<const uint32_t*>(a0 + 8 * kBLdA + 8);
+        const TA* a0 = A + (wm + 16 * i + g) * kBLdA + kk + 2 * t;
+        if constexpr (kMean) {  // the mean, rounded to bf16
+          const float2 p0 = *reinterpret_cast<const float2*>(a0);
+          const float2 p1 = *reinterpret_cast<const float2*>(a0 + 8 * kBLdA);
+          const float2 p2 = *reinterpret_cast<const float2*>(a0 + 8);
+          const float2 p3 = *reinterpret_cast<const float2*>(a0 + 8 * kBLdA + 8);
+          fa[i][0] = pack_f32(p0.x * rs[i][0], p0.y * rs[i][0]);
+          fa[i][1] = pack_f32(p1.x * rs[i][1], p1.y * rs[i][1]);
+          fa[i][2] = pack_f32(p2.x * rs[i][0], p2.y * rs[i][0]);
+          fa[i][3] = pack_f32(p3.x * rs[i][1], p3.y * rs[i][1]);
+        } else {
+          fa[i][0] = *reinterpret_cast<const uint32_t*>(a0);
+          fa[i][1] = *reinterpret_cast<const uint32_t*>(a0 + 8 * kBLdA);
+          fa[i][2] = *reinterpret_cast<const uint32_t*>(a0 + 8);
+          fa[i][3] = *reinterpret_cast<const uint32_t*>(a0 + 8 * kBLdA + 8);
+        }
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -128,11 +173,35 @@ projection_bf16_kernel(const __nv_bfloat16* __restrict__ a, int lda,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + wm + 16 * i + g + 8 * h;
-        if (row < m)
-          *reinterpret_cast<uint32_t*>(c + (size_t)row * ldc + col) =
-              pack_f32(acc[i][j][2 * h] + b0, acc[i][j][2 * h + 1] + b1);
+        if (row < m) {
+          uint32_t v = pack_f32(acc[i][j][2 * h] + b0, acc[i][j][2 * h + 1] + b1);
+          if constexpr (kMean) {
+            if (row % sp >= s) v = 0u;
+            else if (!(rs[i][h] > 0.0f)) v = pack_f32(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          }
+          *reinterpret_cast<uint32_t*>(c + (size_t)row * ldc + col) = v;
+        }
       }
     }
+}
+
+// c[m, n] = bf16(a[m, k] @ b[k, n] + bias[n]), the sum in f32
+__global__ void __launch_bounds__(kBThreads)
+projection_bf16_kernel(const __nv_bfloat16* __restrict__ a, int lda,
+                       const __nv_bfloat16* __restrict__ b, int ldb,
+                       const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ c,
+                       int ldc, int m, int n, int k) {
+  projection_bf16_tile<false>(a, lda, b, ldb, bias, nullptr, 1, 1, c, ldc, m, n, k);
+}
+
+// K7's last launch in bf16: c = bf16((row_scale[r / sp] * a rounded to
+// bf16) @ b + bias on live rows), pad token rows 0
+__global__ void __launch_bounds__(kBThreads)
+mean_out_bf16_kernel(const float* __restrict__ a, int lda, const float* __restrict__ row_scale,
+                     const __nv_bfloat16* __restrict__ b, const __nv_bfloat16* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ c, int ldc, int m, int n, int k, int sp,
+                     int s) {
+  projection_bf16_tile<true>(a, lda, b, n, bias, row_scale, sp, s, c, ldc, m, n, k);
 }
 
 }  // namespace
@@ -151,6 +220,27 @@ int ampnet_edge_attention_layer_projection_bf16(const __nv_bfloat16* x, int ldx,
     const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
     projection_bf16_kernel<<<grid, kBThreads, 0, (cudaStream_t)stream>>>(
         x, ldx, w_qkv, n, b_qkv, qkv, ldqkv, m, n, k);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7's last launch on bf16 rows: c = bf16((invdeg[row / sp] * sums rounded
+// to bf16) @ w_out + b_out on rows of a live receiver); rows with row % sp
+// >= s are written as 0. sums: [m, k] f32 (row stride lda, a multiple of
+// 4), invdeg: [m / sp] f32, w_out: [k, n] bf16 contiguous, b_out: [n] bf16,
+// c: [m, n] bf16 (row stride ldc, even); sums and w_out 16-byte aligned, k
+// and n multiples of 8.
+int ampnet_edge_attention_layer_mm_out_projection_bf16(const float* sums, int lda,
+                                                       const float* invdeg,
+                                                       const __nv_bfloat16* w_out,
+                                                       const __nv_bfloat16* b_out,
+                                                       __nv_bfloat16* c, int ldc, int m, int n,
+                                                       int k, int sp, int s, void* stream) {
+  if (const int err = projection_bf16_error(sums, lda, w_out, n, c, ldc, n, k)) return err;
+  if (m > 0 && n > 0) {
+    const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
+    mean_out_bf16_kernel<<<grid, kBThreads, 0, (cudaStream_t)stream>>>(
+        sums, lda, invdeg, w_out, b_out, c, ldc, m, n, k, sp, s);
   }
   return (int)cudaGetLastError();
 }

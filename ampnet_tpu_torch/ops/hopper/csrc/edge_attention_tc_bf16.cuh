@@ -2,7 +2,10 @@
 // attention launch (the whole layer, edge_attention_layer_tc_bf16.cu) on
 // Hopper's tensor cores in bf16 products with f32 sums (mma.sync m16n8k16,
 // mma_bf16.cuh): the bf16 body beside the 3xTF32 one of edge_attention_tc.cuh,
-// whose walk, ring and warp layout it keeps.
+// whose walk, ring and warp layout it keeps. Its per-edge steps (Q's
+// fragments, the score tile, the softmax, P V and the message's add) are
+// device functions that the bf16 edge-group kernel
+// (edge_attention_groups_tc_bf16.cu, K6 and K9) calls too.
 //
 // Replaces, for bf16 rows and for f32 rows under mxu_bf16, the bodies of
 // ampnet_tpu/ops/pallas/edge_attention_fused.py _fused_kernel_vmem_v2 (:691,
@@ -63,6 +66,139 @@ constexpr int kBf16MaxThreads = 32 * kBf16MaxWarps;
 template <typename T>
 __host__ __device__ constexpr int ring_pad() { return 16 / (int)sizeof(T); }
 
+// ---- the per-edge steps of one warp (head hc.., query rows r0 = m0 + g and
+// r1 = r0 + 8 of its 16-row tile), shared with the bf16 edge-group kernel
+// (edge_attention_groups_tc_bf16.cu)
+
+// A fragments of (Q * scale) rounded to bf16 of node row block qrow0, two
+// k-steps of 16 head columns, into the lane's own slots of qfrag (rows past
+// s and columns past dh read as 0: the next node's rows are never read)
+template <typename T>
+__device__ __forceinline__ void load_q_frags_bf16(uint4* qfrag, const T* __restrict__ q,
+                                                  size_t qrow0, int ldq, int hc, int r0, int r1,
+                                                  int s, int dh, int t, float scale) {
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const T* q0 = q + (qrow0 + r0) * ldq + hc;
+    const T* q1 = q + (qrow0 + r1) * ldq + hc;
+    uint32_t qa[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // columns 16kk + 2t (+1), then + 8
+      const int c = 16 * kk + 8 * h + 2 * t;
+      qa[2 * h] = pack_bf16(r0 < s && c < dh ? scaled_bf16(q0[c], scale) : zero,
+                            r0 < s && c + 1 < dh ? scaled_bf16(q0[c + 1], scale) : zero);
+      qa[2 * h + 1] = pack_bf16(r1 < s && c < dh ? scaled_bf16(q1[c], scale) : zero,
+                                r1 < s && c + 1 < dh ? scaled_bf16(q1[c + 1], scale) : zero);
+    }
+    qfrag[kk * blockDim.x] = make_uint4(qa[0], qa[1], qa[2], qa[3]);
+  }
+}
+
+// sc = the 16 queries x 8*NKT keys score tile, f32, against the keys kr (a
+// ring stage at the warp's head column, row stride ldr)
+template <int NKT, typename T>
+__device__ __forceinline__ void score_tile_bf16(float (&sc)[NKT][4], const uint4* qfrag,
+                                                const T* kr, int ldr, int s, int dh, int g,
+                                                int t) {
+#pragma unroll
+  for (int j = 0; j < NKT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    if (16 * kk >= dh) break;
+    const uint4 a4 = qfrag[kk * blockDim.x];
+    const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+      const int key = 8 * j + g;
+      const T* kp = kr + key * ldr;
+      const int lim = key < s ? dh : 0;
+      const uint32_t b[2] = {pair_bf16(kp, 16 * kk + 2 * t, lim),
+                             pair_bf16(kp, 16 * kk + 8 + 2 * t, lim)};
+      mma_bf16(sc[j], a, b);
+    }
+  }
+}
+
+// The row softmax of sc in place, W = e / sum(e) as the JAX body divides:
+// rows g (sc[j][0..1]) and g + 8 (sc[j][2..3]), over the keys
+template <int NKT>
+__device__ __forceinline__ void softmax_rows_bf16(float (&sc)[NKT][4], int s, int t) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    const int key = 8 * j + 2 * t;
+    if (key >= s) sc[j][0] = sc[j][2] = -INFINITY;
+    if (key + 1 >= s) sc[j][1] = sc[j][3] = -INFINITY;
+    mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    sc[j][0] = expf(sc[j][0] - mx0);
+    sc[j][1] = expf(sc[j][1] - mx0);
+    sc[j][2] = expf(sc[j][2] - mx1);
+    sc[j][3] = expf(sc[j][3] - mx1);
+    sum0 += sc[j][0] + sc[j][1];
+    sum1 += sc[j][2] + sc[j][3];
+  }
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+#pragma unroll
+  for (int j = 0; j < NKT; ++j) {
+    sc[j][0] = sc[j][0] / sum0;
+    sc[j][1] = sc[j][1] / sum0;
+    sc[j][2] = sc[j][2] / sum1;
+    sc[j][3] = sc[j][3] / sum1;
+  }
+}
+
+// o += wgt * (W V): W (the softmax's weights, or the raw scaled scores) in
+// bf16 as the A operand of P V over 16 keys a k-step, the values vr (the
+// ring stage's V half) as they are (f32 rows: rounded); the edge's message
+// is summed in a fresh f32 tile, then scaled by wgt and added to o in IEEE
+// f32 (JAX's msg * v, then acc + block)
+template <int NKT, typename T>
+__device__ __forceinline__ void pv_accumulate_bf16(const float (&sc)[NKT][4], float (&o)[4][4],
+                                                   const T* vr, int ldr, int s, int dh, int g,
+                                                   int t, float wgt) {
+  constexpr int kPSteps = (NKT + 1) / 2;
+  uint32_t pa[kPSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kPSteps; ++kk) {
+    pa[kk][0] = pack_f32(sc[2 * kk][0], sc[2 * kk][1]);
+    pa[kk][1] = pack_f32(sc[2 * kk][2], sc[2 * kk][3]);
+    pa[kk][2] = 2 * kk + 1 < NKT ? pack_f32(sc[2 * kk + 1][0], sc[2 * kk + 1][1]) : 0u;
+    pa[kk][3] = 2 * kk + 1 < NKT ? pack_f32(sc[2 * kk + 1][2], sc[2 * kk + 1][3]) : 0u;
+  }
+#pragma unroll
+  for (int nn = 0; nn < 4; ++nn) {
+    if (8 * nn >= dh) break;
+    const int c = 8 * nn + g;
+    float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // this edge's message tile
+#pragma unroll
+    for (int kk = 0; kk < kPSteps; ++kk) {
+      const int key = 16 * kk + 2 * t;
+      const T* v0 = vr + key * ldr;
+      const uint32_t b[2] = {
+          column_pair_bf16(v0, ldr, c, dh, key < s, key + 1 < s),
+          column_pair_bf16(v0 + 8 * ldr, ldr, c, dh, key + 8 < s, key + 9 < s)};
+      mma_bf16(m, pa[kk], b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nn][e] = __fadd_rn(o[nn][e], __fmul_rn(m[e], wgt));
+  }
+}
+
 // K2's output type: the rows' type (bf16, or f32 under mxu_bf16); K1's: f32
 template <bool kLayer, typename T>
 using SumsOut = std::conditional_t<kLayer, T, float>;
@@ -105,29 +241,12 @@ sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int
     cp_async_commit();
   }
   int stage = 0;  // the stage of the next live edge
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
 
   for (int n = blockIdx.x; n < num_nodes; n += gridDim.x) {
     const size_t qrow0 = (size_t)n * sp;
     const int r0 = m0 + g, r1 = r0 + 8;
     const float inv_n = kLayer ? invdeg[n] : 1.0f;
-    // A fragments of (Q * scale) rounded to bf16, two k-steps of 16
-    // columns, kept in shared memory by the lane that owns them
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const T* q0 = q + (qrow0 + r0) * ldq + hc;
-      const T* q1 = q + (qrow0 + r1) * ldq + hc;
-      uint32_t qa[4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // columns 16kk + 2t (+1), then + 8
-        const int c = 16 * kk + 8 * h + 2 * t;
-        qa[2 * h] = pack_bf16(r0 < s && c < dh ? scaled_bf16(q0[c], scale) : zero,
-                              r0 < s && c + 1 < dh ? scaled_bf16(q0[c + 1], scale) : zero);
-        qa[2 * h + 1] = pack_bf16(r1 < s && c < dh ? scaled_bf16(q1[c], scale) : zero,
-                                  r1 < s && c + 1 < dh ? scaled_bf16(q1[c + 1], scale) : zero);
-      }
-      qfrag[kk * blockDim.x] = make_uint4(qa[0], qa[1], qa[2], qa[3]);
-    }
+    load_q_frags_bf16(qfrag, q, qrow0, ldq, hc, r0, r1, s, dh, t, scale);
     float o[4][4];
 #pragma unroll
     for (int nn = 0; nn < 4; ++nn)
@@ -146,25 +265,7 @@ sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int
       stage = stage + 1 == stages ? 0 : stage + 1;
 
       float sc[NKT][4];  // scores: 16 queries x 8*NKT keys, f32
-#pragma unroll
-      for (int j = 0; j < NKT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        if (16 * kk >= dh) break;
-        const uint4 a4 = qfrag[kk * blockDim.x];
-        const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          const int key = 8 * j + g;
-          const T* kp = kr + key * ldr;
-          const int lim = key < s ? dh : 0;
-          const uint32_t b[2] = {pair_bf16(kp, 16 * kk + 2 * t, lim),
-                                 pair_bf16(kp, 16 * kk + 8 + 2 * t, lim)};
-          mma_bf16(sc[j], a, b);
-        }
-      }
+      score_tile_bf16<NKT>(sc, qfrag, kr, ldr, s, dh, g, t);
 
       {  // the gather of the edge stages - 1 ahead, while the products run
         const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
@@ -174,71 +275,9 @@ sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int
         cp_async_commit();
       }
 
-      if (softmax) {  // rows g (sc[j][0..1]) and g + 8 (sc[j][2..3]), over the keys
-        float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          const int key = 8 * j + 2 * t;
-          if (key >= s) sc[j][0] = sc[j][2] = -INFINITY;
-          if (key + 1 >= s) sc[j][1] = sc[j][3] = -INFINITY;
-          mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
-          mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
-        }
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-        float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {
-          sc[j][0] = expf(sc[j][0] - mx0);
-          sc[j][1] = expf(sc[j][1] - mx0);
-          sc[j][2] = expf(sc[j][2] - mx1);
-          sc[j][3] = expf(sc[j][3] - mx1);
-          sum0 += sc[j][0] + sc[j][1];
-          sum1 += sc[j][2] + sc[j][3];
-        }
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-#pragma unroll
-        for (int j = 0; j < NKT; ++j) {  // W = e / sum(e), as the JAX body divides
-          sc[j][0] = sc[j][0] / sum0;
-          sc[j][1] = sc[j][1] / sum0;
-          sc[j][2] = sc[j][2] / sum1;
-          sc[j][3] = sc[j][3] / sum1;
-        }
-      }  // else the raw scaled scores; pad keys score 0 (their k read as 0)
-
-      // W in bf16, as the A operand of P V over 16 keys a k-step
-      constexpr int kPSteps = (NKT + 1) / 2;
-      uint32_t pa[kPSteps][4];
-#pragma unroll
-      for (int kk = 0; kk < kPSteps; ++kk) {
-        pa[kk][0] = pack_f32(sc[2 * kk][0], sc[2 * kk][1]);
-        pa[kk][1] = pack_f32(sc[2 * kk][2], sc[2 * kk][3]);
-        pa[kk][2] = 2 * kk + 1 < NKT ? pack_f32(sc[2 * kk + 1][0], sc[2 * kk + 1][1]) : 0u;
-        pa[kk][3] = 2 * kk + 1 < NKT ? pack_f32(sc[2 * kk + 1][2], sc[2 * kk + 1][3]) : 0u;
-      }
-      const float wgt = (float)valid * inv_n;
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        if (8 * nn >= dh) break;
-        const int c = 8 * nn + g;
-        float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // this edge's message tile
-#pragma unroll
-        for (int kk = 0; kk < kPSteps; ++kk) {
-          const int key = 16 * kk + 2 * t;
-          const T* v0 = vr + key * ldr;
-          const uint32_t b[2] = {
-              column_pair_bf16(v0, ldr, c, dh, key < s, key + 1 < s),
-              column_pair_bf16(v0 + 8 * ldr, ldr, c, dh, key + 8 < s, key + 9 < s)};
-          mma_bf16(m, pa[kk], b);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[nn][e] = __fadd_rn(o[nn][e], __fmul_rn(m[e], wgt));
-      }
+      // else the raw scaled scores; pad keys score 0 (their k read as 0)
+      if (softmax) softmax_rows_bf16<NKT>(sc, s, t);
+      pv_accumulate_bf16<NKT>(sc, o, vr, ldr, s, dh, g, t, (float)valid * inv_n);
     }
 
     using O = SumsOut<kLayer, T>;

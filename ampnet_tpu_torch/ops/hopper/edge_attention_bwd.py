@@ -3,13 +3,17 @@ of the JAX package's ``ops/pallas/edge_attention_bwd.py``, for layouts that
 have no sender side to walk (``compute_layout(sender_layout=False)``) and
 for ``scatterfree=False``.
 
-One hand-written kernel beside its plain torch version, with two bodies
+One hand-written kernel beside its plain torch version, with three bodies
 (``launch.body``, K3's rule): on the tensor cores in 3xTF32
 (``csrc/edge_attention_bwd_stream_tc.cu``, K3's receiver design with the
-transposed products through a staging tile per head) within K3's range, and
-on the CUDA cores (``csrc/edge_attention_bwd.cu``, the third instantiation
-of the body K3 and K4 share there) beyond it, at any shape, its working set
-in device memory where it exceeds a block's shared memory:
+transposed products through a staging tile per head) within K3's range, on
+the CUDA cores (``csrc/edge_attention_bwd.cu``, the third instantiation of
+the body K3 and K4 share there) beyond it, at any shape, its working set in
+device memory where it exceeds a block's shared memory, and for bf16 rows
+(the JAX package's bf16 model and ``stream_bf16``) on the tensor cores in
+bf16 products with f32 sums (``csrc/edge_attention_bwd_stream_tc_bf16.cu``,
+K3's bf16 per-edge steps), within the range only. dQ and the stream are f32
+whatever the rows' type:
 
 * ``edge_attention_bwd_stream`` (K5) — pass A: per edge, recompute the
   scores and the softmax, dW = dMsg V^T, the softmax backward; dQ = dS K /
@@ -57,22 +61,28 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     I,
     P,
     body_of,
-    check_f32_only,
     check_rows,
+    check_same_dtype,
     check_walk,
     count_launch,
     entry,
+    entry_of,
     launch_body,
 )
 from ampnet_tpu_torch.ops.segment import segment_sum_into
 
-# (library, entry point, signature) of each body; the CUDA-core one also
-# takes its device-memory working set (pointer, blocks) before the stream
+# the entry points' signatures; the CUDA-core one also takes its
+# device-memory working set (pointer, blocks) before the stream
 _SIGNATURE = [P, I, P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
-_BODIES = {"tc": ("edge_attention_bwd_stream_tc", "ampnet_edge_attention_bwd_stream",
-                  _SIGNATURE),
-           "simt": ("edge_attention_bwd", "ampnet_edge_attention_bwd_stream_simt",
-                    _SIGNATURE[:-1] + [P, I, P])}
+_SIGNATURES = {"ampnet_edge_attention_bwd_stream": _SIGNATURE,
+               "ampnet_edge_attention_bwd_stream_bf16": _SIGNATURE,
+               "ampnet_edge_attention_bwd_stream_simt": _SIGNATURE[:-1] + [P, I, P]}
+# (library, entry point) of each body on each row type (launch.entry_of)
+_BODIES = {
+    ("tc", torch.float32): ("edge_attention_bwd_stream_tc", "ampnet_edge_attention_bwd_stream"),
+    ("simt", torch.float32): ("edge_attention_bwd", "ampnet_edge_attention_bwd_stream_simt"),
+    ("tc_bf16", torch.bfloat16): ("edge_attention_bwd_stream_tc_bf16",
+                                  "ampnet_edge_attention_bwd_stream_bf16")}
 
 # Cap on the LIVE part of the per-edge dK|dV stream (the JAX package's
 # constant and environment variable): tiles run in chunks sized to it.
@@ -102,8 +112,10 @@ def edge_attention_bwd_stream_plain(q_rows, kv_rows, dsum_rows, tile_senders,
     """Pass A in plain torch over tiles [t0, t1) (default: all): (dQ rows
     [(t1-t0)*TN*sp, D], stream [(t1-t0)*EMAX*sp, 2D]), f32, pad token rows
     0; stream rows of slots that are not walked are 0 here (unwritten on
-    the card). bf16 rows round the products' operands as K3's and K4's
-    plain versions do."""
+    the card). bf16 rows round where the JAX bodies round, as K3's and K4's
+    plain versions do: the scores' q times the bf16 1/sqrt(dh), W and dS to
+    bf16 before their products; dK takes the unscaled q and is scaled in
+    f32 after its product, as dQ is."""
     t0, t1, tn, emax = _tile_range(tile_senders, recv_ptr, tiles)
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
@@ -140,27 +152,28 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
     (dQ rows [(t1-t0)*TN*sp, D], dK|dV stream [(t1-t0)*EMAX*sp, 2D]), f32.
 
     q_rows, dsum_rows [NT*sp, D] and kv_rows [NT*sp, 2D] are the WHOLE
-    graph's rows and may be row-strided views; dsum is the gradient of the
-    per-receiver SUM of messages. The index arrays are int32 (format.py);
-    tile_valid may carry a runtime mask. The stream holds sp rows per slot
-    of the range, the first being slot t0*EMAX; rows of slots that are not
-    walked are not written. The body is K3's rule (``launch.body_of`` on
-    kv_rows, which the tensor-core body gathers in 16-byte copies; ``body``
-    names one). CPU tensors run the plain version."""
+    graph's rows, all f32 or all bf16, and may be row-strided views; dsum
+    is the gradient of the per-receiver SUM of messages. The index arrays
+    are int32 (format.py); tile_valid may carry a runtime mask. The stream
+    holds sp rows per slot of the range, the first being slot t0*EMAX; rows
+    of slots that are not walked are not written. The body is K3's rule
+    (``launch.body_of`` on kv_rows, which the tensor-core bodies gather in
+    16-byte copies; bf16 rows beyond the range raise; ``body`` names one).
+    CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_bwd_stream_plain(
             q_rows, kv_rows, dsum_rows, tile_senders, tile_valid, recv_ptr,
             recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax,
             tiles=tiles)
-    check_f32_only("edge_attention_bwd_stream", q_rows, kv_rows, dsum_rows)
     dev = q_rows.device
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_rows("q_rows", q_rows, dev, nt * sp, d)
-    check_rows("dsum_rows", dsum_rows, dev, nt * sp, d)
-    check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d)
+    dt = check_same_dtype(("q_rows", q_rows), ("dsum_rows", dsum_rows), ("kv_rows", kv_rows))
+    check_rows("q_rows", q_rows, dev, nt * sp, d, dt)
+    check_rows("dsum_rows", dsum_rows, dev, nt * sp, d, dt)
+    check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d, dt)
     check_walk(dev, tile_senders, tile_valid, recv_ptr, recv_slots,
                ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
     t0, t1, tn, emax = _tile_range(tile_senders, recv_ptr, tiles)
@@ -168,8 +181,8 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
     nodes = (t1 - t0) * tn
     dq = torch.empty(nodes * sp, d, dtype=torch.float32, device=dev)
     out = torch.empty((t1 - t0) * emax * sp, 2 * d, dtype=torch.float32, device=dev)
-    lib, fn, signature = _BODIES[body]
-    launch_body("edge_attention_bwd_stream", body, entry(lib, fn, signature), (
+    lib, fn = entry_of("edge_attention_bwd_stream", _BODIES, body, dt)
+    launch_body("edge_attention_bwd_stream", body, entry(lib, fn, _SIGNATURES[fn]), (
         q_rows.data_ptr(), q_rows.stride(0), dsum_rows.data_ptr(), dsum_rows.stride(0),
         kv_rows.data_ptr(), kv_rows.stride(0), tile_senders.data_ptr(),
         tile_valid.data_ptr(), recv_ptr.data_ptr(), recv_slots.data_ptr(), dq.data_ptr(),

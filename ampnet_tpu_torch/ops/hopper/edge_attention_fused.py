@@ -40,7 +40,9 @@ backward agree.
 The JAX package's non-default forward routes have their kernels in
 ``edge_attention_variants.py``: scatter-as-matmul (K6 sums, K7 whole
 layer), the packed v1 groups (K9) and the receiver chunks (K8, no caller on
-the model path).
+the model path). K6, K7 and K9 take bf16 rows as K1 and K2 do, and K6 and
+K7 ``mxu_bf16`` where the JAX bodies honour it; the backward's kernels (K3,
+K4, and K5 of the stream backward) take the bf16 rows of either route.
 
 ``amp_edge_attention_fused`` chooses between them with the JAX package's
 own predicates and constants (``_resolve_gather``, ``_v6_usable``,
@@ -725,10 +727,11 @@ def amp_edge_attention_fused(
     whole op in bf16 rows with a bf16 output. Both flags are resolved here,
     once, for the forward and the backward.
 
-    K1-K4 each run the body ``launch.body`` picks at x's (S, D),
+    K1-K7 and K9 each run the body ``launch.body`` picks at x's (S, D),
     ``num_heads`` and the rows' type: on f32 rows the tensor cores within
-    their range, else the CUDA cores; on bf16 rows, or under ``mxu_bf16``,
-    the bf16 tensor-core body (within its range only)."""
+    their range, else the CUDA cores; on bf16 rows, or under ``mxu_bf16``
+    where it reaches, the bf16 tensor-core body (within its range only; K8,
+    which no route reaches, has none)."""
     snd = (snd_receivers, snd_valid, snd_ptr, snd_slots)
     if any(t is None for t in snd):
         if any(t is not None for t in snd):

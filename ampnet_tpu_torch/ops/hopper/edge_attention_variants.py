@@ -44,6 +44,17 @@ shared memory it is kept in device memory (``launch.simt_work``). K7's
 attention launch is K6's, on K6's route, and its projection launches follow
 it (``layer_mm_body``).
 
+K6, K7 and K9 have a third body, ``tc_bf16``, for bf16 rows (the JAX
+package's bf16 model and ``stream_bf16``): the tensor cores in bf16
+products with f32 sums (``csrc/edge_attention_groups_tc_bf16.cu``, K1's
+bf16 per-edge steps in K6's walk), within the range only; K6 and K7's
+attention also take f32 rows there under ``mxu_bf16`` (the JAX 'vmem'
+bodies v2_mm and v6_mm round their products' operands; v8 and the v1
+bodies do not). The messages and their reduction stay f32, as the JAX
+package's one-hot product and adds are; K7 on bf16 rows projects with K2's
+bf16 product and rounds its mean and its output to bf16 where v6_mm does.
+K8 takes f32 rows only on the card.
+
 K6, K7 and K9 reduce across warps and blocks with f32 atomics into a zeroed
 output: right to rounding, but not bit-reproducible from launch to launch
 (K1, K2 and K8 are). The group of K6 is the port's own launch parameter
@@ -79,6 +90,7 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     check_f32_only,
     check_index,
     check_rows,
+    check_same_dtype,
     count_launch,
     entry,
     entry_of,
@@ -110,37 +122,53 @@ _SIGNATURES = {
     "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
     "ampnet_mean_out_projection": [P, I, P, P, P, P, I, I, I, I, I, I, P],
 }
+for _name in ("ampnet_edge_attention_sums_mm", "ampnet_edge_attention_sums_v1"):
+    _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
+_SIGNATURES["ampnet_edge_attention_sums_mm_mxu"] = _SIGNATURES["ampnet_edge_attention_sums_mm"]
 # the projections on the tensor cores take the CUDA-core launches' arguments
 _SIGNATURES["ampnet_edge_attention_layer_projection"] = _SIGNATURES["ampnet_qkv_projection"]
 _SIGNATURES["ampnet_edge_attention_layer_projection_bf16"] = _SIGNATURES["ampnet_qkv_projection"]
-_SIGNATURES["ampnet_edge_attention_layer_mm_out_projection"] = \
-    _SIGNATURES["ampnet_mean_out_projection"]
+for _name in ("ampnet_edge_attention_layer_mm_out_projection",
+              "ampnet_edge_attention_layer_mm_out_projection_bf16"):
+    _SIGNATURES[_name] = _SIGNATURES["ampnet_mean_out_projection"]
 # the CUDA-core bodies also take their device-memory working set (pointer,
 # blocks; 0, 0 for shared memory) before the stream
 for _name in ("ampnet_edge_attention_sums_mm", "ampnet_edge_attention_sums_v1"):
     _SIGNATURES[_name + "_simt"] = _SIGNATURES[_name][:-1] + [P, I, P]
-# (library, entry point) of each body of K6 and K9
-_SUMS_MM = {"tc": ("edge_attention_groups_tc", "ampnet_edge_attention_sums_mm"),
-            "simt": ("edge_attention_groups", "ampnet_edge_attention_sums_mm_simt")}
-_SUMS_V1 = {"tc": ("edge_attention_groups_tc", "ampnet_edge_attention_sums_v1"),
-            "simt": ("edge_attention_groups", "ampnet_edge_attention_sums_v1_simt")}
+# (library, entry point) of each body of K6 and K9 on each row type
+# (launch.entry_of); K6's bf16 body on f32 rows is mxu_bf16's
+F32, BF16 = torch.float32, torch.bfloat16
+_SUMS_MM = {("tc", F32): ("edge_attention_groups_tc", "ampnet_edge_attention_sums_mm"),
+            ("simt", F32): ("edge_attention_groups", "ampnet_edge_attention_sums_mm_simt"),
+            ("tc_bf16", BF16): ("edge_attention_groups_tc_bf16",
+                                "ampnet_edge_attention_sums_mm_bf16"),
+            ("tc_bf16", F32): ("edge_attention_groups_tc_bf16",
+                               "ampnet_edge_attention_sums_mm_mxu")}
+_SUMS_V1 = {("tc", F32): ("edge_attention_groups_tc", "ampnet_edge_attention_sums_v1"),
+            ("simt", F32): ("edge_attention_groups", "ampnet_edge_attention_sums_v1_simt"),
+            ("tc_bf16", BF16): ("edge_attention_groups_tc_bf16",
+                                "ampnet_edge_attention_sums_v1_bf16")}
 _SUMS_CHUNKED = {
     "tc": ("edge_attention_chunked_tc", "ampnet_edge_attention_sums_chunked"),
     "simt": ("edge_attention_chunked", "ampnet_edge_attention_sums_chunked_simt")}
 # (library, entry point) on each body of the q|k|v projection (K2's first
 # launch and K7's) and of K7's last launch: the tensor cores' tiled 3xTF32
 # product (csrc/projection_tc.cuh, and its kMean epilogue), or the CUDA
-# cores' one; K2's bf16 projection on the tensor cores in bf16 products
-# (csrc/edge_attention_layer_tc_bf16.cu); by (body, row type), as
-# launch.entry_of reads it
+# cores' one; on bf16 rows the tensor cores' tiled bf16 product
+# (csrc/edge_attention_layer_tc_bf16.cu, and its kMean epilogue); by
+# (body, row type), as launch.entry_of reads it. Under mxu_bf16 (f32 rows)
+# both stay on the 3xTF32 product, as the JAX kernels round only their
+# attention's operands.
 _PROJECTION = {
-    ("tc", torch.float32): ("edge_attention_layer_tc", "ampnet_edge_attention_layer_projection"),
-    ("simt", torch.float32): ("qkv_projection", "ampnet_qkv_projection"),
-    ("tc_bf16", torch.bfloat16): ("edge_attention_layer_tc_bf16",
-                                  "ampnet_edge_attention_layer_projection_bf16")}
+    ("tc", F32): ("edge_attention_layer_tc", "ampnet_edge_attention_layer_projection"),
+    ("simt", F32): ("qkv_projection", "ampnet_qkv_projection"),
+    ("tc_bf16", BF16): ("edge_attention_layer_tc_bf16",
+                        "ampnet_edge_attention_layer_projection_bf16")}
 _LAYER_MM_OUT_PROJECTION = {
-    "tc": ("edge_attention_layer_tc", "ampnet_edge_attention_layer_mm_out_projection"),
-    "simt": ("qkv_projection", "ampnet_mean_out_projection")}
+    ("tc", F32): ("edge_attention_layer_tc", "ampnet_edge_attention_layer_mm_out_projection"),
+    ("simt", F32): ("qkv_projection", "ampnet_mean_out_projection"),
+    ("tc_bf16", BF16): ("edge_attention_layer_tc_bf16",
+                        "ampnet_edge_attention_layer_mm_out_projection_bf16")}
 
 
 def _entry(lib_name: str, fn_name: str):
@@ -202,8 +230,9 @@ def edge_attention_layer_mm_plain(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
                                   mxu_bf16=False):
     """K7 in plain torch: project, K6's sums, then the mean as a row scale
     after the reduce, the out-projection, b_out on live rows only. In
-    x_rows' type as K2's plain version: q|k|v and the mean rounded to it,
-    the out-projection summed in f32 and rounded, then the bias."""
+    x_rows' type as the JAX kernel (v6_mm): q|k|v and the mean rounded to
+    it, the out-projection summed in f32, the bias added in f32 on live
+    rows, and the sum rounded once (v6, K2's, rounds before the bias)."""
     d = x_rows.shape[1]
     dt = x_rows.dtype
     qkv = (widened(x_rows) @ widened(w_qkv) + widened(b_qkv)).to(dt)
@@ -212,8 +241,8 @@ def edge_attention_layer_mm_plain(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
         s=s, sp=sp, num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes,
         group=group, mxu_bf16=mxu_bf16)
     mean = sums.reshape(-1, sp, d)[:, :s] * invdeg[:, None, None]
-    out = (widened(mean.to(dt)) @ widened(w_out)).to(dt)
-    out = out + b_out * (invdeg > 0).to(dt)[:, None, None]
+    live = (invdeg > 0).to(torch.float32)[:, None, None]
+    out = (widened(mean.to(dt)) @ widened(w_out) + widened(b_out) * live).to(dt)
     return _pad_rows(out, sp)
 
 
@@ -221,8 +250,9 @@ def edge_attention_sums_v1_plain(q_rows, kv_rows, tile_senders, tile_recv,
                                  tile_valid, *, s, sp, num_heads, softmax,
                                  tile_nodes, group):
     """K9 in plain torch: every slot of every packed group, padding
-    included, gets its message; each is scaled by its validity and added to
-    its receiver's rows on its own."""
+    included, gets its message (bf16 rows: the products' operands in bf16,
+    the messages f32); each is scaled by its validity and added to its
+    receiver's rows on its own, in f32."""
     t, emax = tile_senders.shape
     if emax % group:
         raise ValueError(f"the packed groups need group | EMAX, got {group} and {emax}")
@@ -274,12 +304,14 @@ def edge_attention_sums_chunked_plain(q_rows, kv_rows, chunk_senders, chunk_vali
 
 
 def _check_rows(q_rows, kv_rows, nt, sp, num_heads):
+    """(D, the rows' one type: f32 or bf16)."""
     d = q_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_rows("q_rows", q_rows, q_rows.device, nt * sp, d)
-    check_rows("kv_rows", kv_rows, q_rows.device, nt * sp, 2 * d)
-    return d
+    dt = check_same_dtype(("q_rows", q_rows), ("kv_rows", kv_rows))
+    check_rows("q_rows", q_rows, q_rows.device, nt * sp, d, dt)
+    check_rows("kv_rows", kv_rows, q_rows.device, nt * sp, 2 * d, dt)
+    return d, dt
 
 
 def _check_tiled(device, tile_senders, tile_recv, tile_valid, tile_counts=None):
@@ -292,11 +324,11 @@ def _check_tiled(device, tile_senders, tile_recv, tile_valid, tile_counts=None):
 
 def _mm_group(body, s, d, num_heads, group):
     """K6's group on ``body``: the caller's (1..SIMT_MAX_GROUP on the CUDA
-    cores), else MM_GROUP on the tensor cores and on the CUDA cores the
-    largest up to MM_GROUP that keeps the working set in shared memory
-    (else 1: in device memory)."""
+    cores), else MM_GROUP on the tensor cores (3xTF32 and bf16) and on the
+    CUDA cores the largest up to MM_GROUP that keeps the working set in
+    shared memory (else 1: in device memory)."""
     if group is None:
-        if body == "tc":
+        if body != "simt":
             return MM_GROUP
         return max([g for g in range(1, MM_GROUP + 1) if simt_smem_bytes(
             "edge_attention_sums_mm", s, d, num_heads, g) <= MAX_SMEM], default=1)
@@ -308,15 +340,17 @@ def _mm_group(body, s, d, num_heads, group):
 
 
 def _launch_groups(kernel, body, ptrs, tile_senders, tile_recv, tile_valid, tile_counts,
-                   *, s, sp, d, num_heads, softmax, tile_nodes, group):
+                   *, s, sp, d, num_heads, softmax, tile_nodes, group,
+                   dtype: torch.dtype = torch.float32):
     """One launch of K6 (``tile_counts`` given) or K9 on ``body`` over q and
-    k|v rows at ``ptrs`` = (q, ldq, kv, ldkv), into a zeroed [NT*sp, D]
-    buffer (no checks, no count)."""
+    k|v rows of ``dtype`` at ``ptrs`` = (q, ldq, kv, ldkv), into a zeroed
+    [NT*sp, D] f32 buffer (no checks, no count)."""
     t, emax = tile_senders.shape
     dev = tile_senders.device
     out = torch.zeros(t * tile_nodes * sp, d, dtype=torch.float32, device=dev)
     counts = () if tile_counts is None else (tile_counts.data_ptr(),)
-    lib_fn = _entry(*(_SUMS_MM if tile_counts is not None else _SUMS_V1)[body])
+    lib_fn = _entry(*entry_of(kernel, _SUMS_MM if tile_counts is not None else _SUMS_V1,
+                              body, dtype))
     launch_body(kernel, body, lib_fn, (
         *ptrs, tile_senders.data_ptr(), tile_recv.data_ptr(), tile_valid.data_ptr(), *counts,
         out.data_ptr(), t, emax, group, tile_nodes, s, sp, d, num_heads, int(softmax)),
@@ -332,38 +366,40 @@ def edge_attention_sums_mm(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
     groups. The layout arrays are the tiled layout's own ([T, EMAX] int32
     senders, receiver rows and validity, which may carry a runtime mask, and
     the [T] STRUCTURAL counts). The body is K1's rule (``launch.body_of`` on
-    kv_rows; ``body`` names one); ``group`` None = its default
-    (``_mm_group``). CPU tensors run the plain version; on the card bf16
-    rows and ``mxu_bf16`` raise (no bf16 body yet)."""
+    kv_rows; ``body`` names one): bf16 rows, and f32 rows under
+    ``mxu_bf16``, run the bf16 body, within the tensor cores' range only;
+    ``group`` None = its default (``_mm_group``). CPU tensors run the plain
+    version."""
     if not q_rows.is_cuda:
         return edge_attention_sums_mm_plain(
             q_rows, kv_rows, tile_senders, tile_recv, tile_valid, tile_counts,
             s=s, sp=sp, num_heads=num_heads, softmax=softmax,
             tile_nodes=tile_nodes, group=MM_GROUP if group is None else group,
             mxu_bf16=mxu_bf16)
-    check_f32_only("edge_attention_sums_mm", q_rows, kv_rows, mxu_bf16=mxu_bf16)
     nt = tile_senders.shape[0] * tile_nodes
-    d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
+    d, dt = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
     _check_tiled(q_rows.device, tile_senders, tile_recv, tile_valid, tile_counts)
-    body = body_of("edge_attention_sums_mm", body, s, d, num_heads, ("kv_rows", kv_rows))
+    body = body_of("edge_attention_sums_mm", body, s, d, num_heads, ("kv_rows", kv_rows),
+                   mxu_bf16=mxu_bf16)
     out = _launch_groups(
         "edge_attention_sums_mm", body,
         (q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0)),
         tile_senders, tile_recv, tile_valid, tile_counts, s=s, sp=sp, d=d,
         num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes,
-        group=_mm_group(body, s, d, num_heads, group))
+        group=_mm_group(body, s, d, num_heads, group), dtype=dt)
     count_launch(edge_attention_sums_mm, body)
     return out
 
 
-def layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, kv_rows) -> str:
+def layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, kv_rows,
+                  mxu_bf16: bool = False) -> str:
     """K7's body, one for its three launches: K6's rule on the k|v view of
     its projected rows, where x_rows, w_qkv and w_out take 16-byte copies
     too (the tensor cores' tiled product copies its A and B operands in
     16-byte pieces: addresses, row strides and widths multiples of 16 bytes);
-    ``body`` names one."""
+    'tc_bf16' on bf16 rows and under ``mxu_bf16``; ``body`` names one."""
     return body_of("edge_attention_sums_mm", body, s, d, num_heads, ("kv_rows", kv_rows),
-                   ("x_rows", x_rows), ("w_qkv", w_qkv), ("w_out", w_out))
+                   ("x_rows", x_rows), ("w_qkv", w_qkv), ("w_out", w_out), mxu_bf16=mxu_bf16)
 
 
 def layer_projection(x_rows, w_qkv, b_qkv, body, qkv=None):
@@ -382,11 +418,14 @@ def layer_projection(x_rows, w_qkv, b_qkv, body, qkv=None):
 
 
 def _layer_mm_out_projection(sums, invdeg, w_out, b_out, *, s, sp, body):
-    """K7's last launch: the mean as a row scale of the sums, the
-    out-projection, b_out on live rows, pad token rows 0."""
+    """K7's last launch on ``body``: the mean as a row scale of the f32 sums,
+    the out-projection, b_out on live rows, pad token rows 0; out in
+    w_out's type ('tc_bf16': bf16 rows, the mean and the output rounded to
+    bf16)."""
     rows, d = sums.shape
-    out = torch.empty(rows, d, dtype=torch.float32, device=sums.device)
-    lib, epi = _entry(*_LAYER_MM_OUT_PROJECTION[body])
+    out = torch.empty(rows, d, dtype=w_out.dtype, device=sums.device)
+    lib, epi = _entry(*entry_of("edge_attention_layer_mm out-projection",
+                                _LAYER_MM_OUT_PROJECTION, body, w_out.dtype))
     build.check(lib, epi(sums.data_ptr(), d, invdeg.data_ptr(), w_out.data_ptr(),
                          b_out.data_ptr(), out.data_ptr(), d, rows, d, d, sp, s, stream()),
                 f"edge_attention_layer_mm out-projection ({body})")
@@ -399,44 +438,51 @@ def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
                             group: Optional[int] = None, body: Optional[str] = None,
                             mxu_bf16: bool = False):
     """K7: the whole layer over raw token rows x_rows [NT*sp, D] -> output
-    rows [NT*sp, D] f32 (pad token rows 0; a receiver of degree 0 exactly
-    0). invdeg [NT] is 1/degree of the runtime mask (0 for degree 0). Three
-    launches on one body (``layer_mm_body``): the q|k|v projection, K6's
-    attention into zeroed sums, then the mean row scale, out-projection and
-    live-row bias; on the tensor cores the first and the last are the tiled
-    3xTF32 product of K2's projection launch, on the CUDA cores
-    ``csrc/qkv_projection.cu``. CPU tensors run the plain version; on the
-    card bf16 rows and ``mxu_bf16`` raise (no bf16 body yet)."""
+    rows [NT*sp, D] in x_rows' type (pad token rows 0; a receiver of degree
+    0 exactly 0). invdeg [NT] (f32) is 1/degree of the runtime mask (0 for
+    degree 0); the four weights are in x_rows' type, as the fused op casts
+    them (K2's contract). Three launches on one body (``layer_mm_body``):
+    the q|k|v projection, K6's attention into zeroed f32 sums, then the mean
+    row scale, out-projection and live-row bias; on the tensor cores the
+    first and the last are the tiled 3xTF32 product of K2's projection
+    launch, on the CUDA cores ``csrc/qkv_projection.cu``. bf16 rows run all
+    three in bf16 products (K2's bf16 projection, K6's bf16 body, the bf16
+    epilogue); f32 rows under ``mxu_bf16`` only the attention's, as the JAX
+    kernel. CPU tensors run the plain version."""
     if not x_rows.is_cuda:
         return edge_attention_layer_mm_plain(
             x_rows, w_qkv, b_qkv, w_out, b_out, invdeg, tile_senders, tile_recv,
             tile_valid, tile_counts, s=s, sp=sp, num_heads=num_heads,
             softmax=softmax, tile_nodes=tile_nodes,
             group=MM_GROUP if group is None else group, mxu_bf16=mxu_bf16)
-    check_f32_only("edge_attention_layer_mm", x_rows, mxu_bf16=mxu_bf16)
     dev = x_rows.device
     nt = tile_senders.shape[0] * tile_nodes
     d = x_rows.shape[1]
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    check_rows("x_rows", x_rows, dev, nt * sp, d)
-    check_rows("w_qkv", w_qkv, dev, d, 3 * d)
-    check_rows("w_out", w_out, dev, d, d)
-    for name, t, numel in (("b_qkv", b_qkv, 3 * d), ("b_out", b_out, d), ("invdeg", invdeg, nt)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous() or t.numel() != numel:
-            raise ValueError(f"{name}: expected {numel} contiguous float32 on {dev}")
+    dt = check_same_dtype(("x_rows", x_rows), ("w_qkv", w_qkv), ("w_out", w_out))
+    check_rows("x_rows", x_rows, dev, nt * sp, d, dt)
+    check_rows("w_qkv", w_qkv, dev, d, 3 * d, dt)
+    check_rows("w_out", w_out, dev, d, d, dt)
+    for name, t, numel, tdt in (("b_qkv", b_qkv, 3 * d, dt), ("b_out", b_out, d, dt),
+                                ("invdeg", invdeg, nt, torch.float32)):
+        if t.device != dev or t.dtype != tdt or not t.is_contiguous() or t.numel() != numel:
+            raise ValueError(f"{name}: expected {numel} contiguous {tdt} on {dev}")
     if not w_qkv.is_contiguous() or not w_out.is_contiguous():
         raise ValueError("w_qkv and w_out must be contiguous")
     _check_tiled(dev, tile_senders, tile_recv, tile_valid, tile_counts)
-    qkv = torch.empty(nt * sp, 3 * d, dtype=torch.float32, device=dev)
-    body = layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, qkv[:, d:])
-    layer_projection(x_rows, w_qkv, b_qkv, body, qkv)
+    qkv = torch.empty(nt * sp, 3 * d, dtype=dt, device=dev)
+    body = layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, qkv[:, d:], mxu_bf16)
+    # under mxu_bf16 the f32 projections stay on the 3xTF32 product
+    products = "tc" if body == "tc_bf16" and dt == torch.float32 else body
+    layer_projection(x_rows, w_qkv, b_qkv, products, qkv)
     sums = _launch_groups(
-        "edge_attention_sums_mm", body, (qkv.data_ptr(), 3 * d, qkv.data_ptr() + 4 * d, 3 * d),
+        "edge_attention_sums_mm", body,
+        (qkv.data_ptr(), 3 * d, qkv.data_ptr() + d * qkv.element_size(), 3 * d),
         tile_senders, tile_recv, tile_valid, tile_counts, s=s, sp=sp, d=d,
         num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes,
-        group=_mm_group(body, s, d, num_heads, group))
-    out = _layer_mm_out_projection(sums, invdeg, w_out, b_out, s=s, sp=sp, body=body)
+        group=_mm_group(body, s, d, num_heads, group), dtype=dt)
+    out = _layer_mm_out_projection(sums, invdeg, w_out, b_out, s=s, sp=sp, body=products)
     count_launch(edge_attention_layer_mm, body)
     return out
 
@@ -449,7 +495,9 @@ def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
     walked, each slot scaled by its validity. ``gather`` names the JAX body
     ('dma': ``_fused_kernel``, 'vmem': ``_fused_kernel_vmem``); one kernel
     serves both. The body is K6's rule (``body`` names one; at most
-    SIMT_MAX_GROUP on the CUDA cores). CPU tensors run the plain version."""
+    SIMT_MAX_GROUP on the CUDA cores): bf16 rows run the bf16 body, within
+    the tensor cores' range only (the JAX v1 bodies have no mxu_bf16). CPU
+    tensors run the plain version."""
     if gather not in ("dma", "vmem"):
         raise ValueError(f"gather must be 'dma' or 'vmem', got {gather!r}")
     t, emax = tile_senders.shape
@@ -457,11 +505,10 @@ def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
         return edge_attention_sums_v1_plain(
             q_rows, kv_rows, tile_senders, tile_recv, tile_valid, s=s, sp=sp,
             num_heads=num_heads, softmax=softmax, tile_nodes=tile_nodes, group=group)
-    check_f32_only("edge_attention_sums_v1", q_rows, kv_rows)
     if emax % group:
         raise ValueError(f"the packed groups need group | EMAX, got {group} and {emax}")
     nt = t * tile_nodes
-    d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
+    d, dt = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
     _check_tiled(q_rows.device, tile_senders, tile_recv, tile_valid)
     body = body_of("edge_attention_sums_v1", body, s, d, num_heads, ("kv_rows", kv_rows))
     if body == "simt" and group > SIMT_MAX_GROUP:
@@ -470,7 +517,7 @@ def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
         "edge_attention_sums_v1", body,
         (q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0)),
         tile_senders, tile_recv, tile_valid, None, s=s, sp=sp, d=d, num_heads=num_heads,
-        softmax=softmax, tile_nodes=tile_nodes, group=group)
+        softmax=softmax, tile_nodes=tile_nodes, group=group, dtype=dt)
     count_launch(edge_attention_sums_v1, body)
     return out
 
@@ -500,8 +547,8 @@ def edge_attention_sums_chunked(q_rows, kv_rows, chunk_senders, chunk_valid,
     one). ``piece`` (1..chunk): on the CUDA cores, the edges of a chunk
     taken per step, None = ``_chunk_piece``'s choice; the working set goes
     to device memory where it does not fit shared memory. The tensor cores
-    take one edge a step whatever the piece. CPU tensors run the plain
-    version."""
+    take one edge a step whatever the piece. K8 has no bf16 body: bf16
+    rows raise on the card. CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_sums_chunked_plain(
             q_rows, kv_rows, chunk_senders, chunk_valid, chunk_start, chunk_count,
@@ -509,7 +556,7 @@ def edge_attention_sums_chunked(q_rows, kv_rows, chunk_senders, chunk_valid,
     check_f32_only("edge_attention_sums_chunked", q_rows, kv_rows)
     dev = q_rows.device
     nt = chunk_start.numel()
-    d = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
+    d, _ = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
     check_index("chunk_senders", chunk_senders, dev)
     check_index("chunk_valid", chunk_valid, dev, chunk_senders.numel())
     check_index("chunk_start", chunk_start, dev)

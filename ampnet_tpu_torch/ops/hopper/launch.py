@@ -5,10 +5,11 @@ alignment), and the rule that picks a kernel's body.
 
 K1-K9 each have two hand-written bodies on f32 rows: one on the tensor
 cores (3xTF32) within the range they are instantiated for, and one on the
-CUDA cores beyond it, at any shape. K1-K4 have a third, ``tc_bf16``: the
-tensor cores in bf16 products with f32 sums (``mma.sync`` m16n8k16), for
-bf16 rows, and for K1 and K2's attention also for f32 rows whose products
-the caller asks to round to bf16 (``mxu_bf16``). ``body`` picks from (S,
+CUDA cores beyond it, at any shape. K1-K7 and K9 have a third, ``tc_bf16``:
+the tensor cores in bf16 products with f32 sums (``mma.sync`` m16n8k16),
+for bf16 rows, and for K1, K2's attention and K6 (and K7's attention, K6's
+body) also for f32 rows whose products the caller asks to round to bf16
+(``mxu_bf16``). ``body`` picks from (S,
 D, H), the rows' type and whether the gathered rows take 16-byte copies,
 before any launch; bf16 beyond the tensor cores' range raises (the
 CUDA-core bodies take f32 only). The CUDA-core bodies keep their working
@@ -152,13 +153,19 @@ TENSOR_CORE_KERNELS = ("edge_attention_sums", "edge_attention_layer",
 # the edge-group kernels: their blocks walk (tile, group) items, not nodes
 GROUP_KERNELS = ("edge_attention_sums_mm", "edge_attention_sums_v1")
 BODIES = ("tc", "simt", "tc_bf16")
-# the kernels with a bf16 tensor-core body (``tc_bf16``); the others take
-# f32 rows only on the card (``check_f32_only``)
+# the kernels with a bf16 tensor-core body (``tc_bf16``; K7 runs K6's, with
+# K2's bf16 projection); K8 takes f32 rows only on the card
+# (``check_f32_only``)
 BF16_KERNELS = ("edge_attention_sums", "edge_attention_layer",
-                "edge_attention_bwd_dq", "edge_attention_bwd_dkv")
+                "edge_attention_bwd_dq", "edge_attention_bwd_dkv",
+                "edge_attention_bwd_stream", "edge_attention_sums_mm",
+                "edge_attention_sums_v1")
 # the kernels whose bf16 body also takes f32 rows and rounds their
-# products' operands (``mxu_bf16``): K1, and K2's attention launch
-MXU_KERNELS = ("edge_attention_sums", "edge_attention_layer")
+# products' operands (``mxu_bf16``), where the JAX body honours the flag:
+# K1, K2's attention launch, K6 (v2_mm) and with it K7's attention launch
+# (v6_mm). K3-K5 and K9 (the v1 bodies) never take it; the wrappers do not
+# ask for it on the 'dma' gather, whose JAX bodies (v4, v8) ignore it.
+MXU_KERNELS = ("edge_attention_sums", "edge_attention_layer", "edge_attention_sums_mm")
 # a CUDA-core body whose working set exceeds MAX_SMEM keeps it in device
 # memory: one slice per resident block, at most this many blocks per SM and
 # this many bytes in all
@@ -242,8 +249,7 @@ def body_of(kernel: str, body_name: Optional[str], s: int, d: int, num_heads: in
     """The body a wrapper runs on the rows it was given: ``body_name`` where
     the caller names one (raises where that body does not take the call),
     else ``body``'s choice. bf16 products run on 'tc_bf16' and only there:
-    bf16 rows, and f32 rows under ``mxu_bf16`` (K1 and K2's attention only,
-    ``MXU_KERNELS``); ``mxu_bf16`` is the one switch for f32 rows, so a
+    bf16 rows, and f32 rows under ``mxu_bf16`` (``MXU_KERNELS`` only); ``mxu_bf16`` is the one switch for f32 rows, so a
     named 'tc_bf16' without it raises, as does a named 'tc' or 'simt' with
     it. Beyond the tensor cores' range, or on rows the 16-byte copies cannot
     take, 'tc_bf16' raises: the CUDA-core bodies take f32 only."""
@@ -273,8 +279,8 @@ def body_of(kernel: str, body_name: Optional[str], s: int, d: int, num_heads: in
 def entry_of(kernel: str, table: dict, body_name: str, dtype: torch.dtype):
     """(library, entry point) of ``kernel``'s body on rows of ``dtype``,
     from its ``table`` keyed by (body, row type); raises where the body has
-    no entry for that type. K1-K4's wrappers take their entry points here,
-    after ``body_of``."""
+    no entry for that type. Every wrapper with a bf16 body takes its entry
+    points here, after ``body_of``."""
     try:
         return table[(body_name, dtype)]
     except KeyError:
@@ -282,12 +288,11 @@ def entry_of(kernel: str, table: dict, body_name: str, dtype: torch.dtype):
                          f"for {dtype} rows") from None
 
 
-def check_f32_only(kernel: str, *rows: torch.Tensor, mxu_bf16: bool = False) -> None:
-    """On the card, the kernels without a bf16 body (K5-K9) refuse bf16 rows
-    and a request for bf16 products."""
-    if mxu_bf16 or any(t.dtype == torch.bfloat16 for t in rows):
-        raise ValueError(f"{kernel}: no bf16 body on the card yet (bf16 rows and "
-                         f"mxu_bf16 run on K1-K4 only; {kernel} takes f32 rows)")
+def check_f32_only(kernel: str, *rows: torch.Tensor) -> None:
+    """On the card, the kernel without a bf16 body (K8) refuses bf16 rows."""
+    if any(t.dtype == torch.bfloat16 for t in rows):
+        raise ValueError(f"{kernel}: no bf16 body on the card yet (bf16 rows run on "
+                         f"{BF16_KERNELS}; {kernel} takes f32 rows)")
 
 
 # launches of a CUDA-core body whose working set was in device memory, by

@@ -68,6 +68,15 @@ model limits):
      without a new capture; a Predictor at S=20 (K1 at the whole graph's
      bucket, where the JAX predicate finds v6 too large, K2 at a 1,024-node
      bucket) and a transformer-block + CLS model at S=40 (41 tokens, K1).
+  bf16  the bf16 bodies (K1-K7 and K9 on bf16 rows; K1, K2, K6 and K7 also
+     on f32 rows under mxu_bf16), each at the shape its path gives it,
+     against its plain version and timed in turns with its 3xTF32 body;
+     path C in compute_dtype='bfloat16'; stream_bf16 and mxu_bf16 on the f32
+     recipes; bf16 Predictors; path F on a bf16 model and under stream_bf16
+     (2 K1 + 2 K5 a step on tc_bf16, captured = eager bit for bit, the
+     gradients against float64, the final accuracy beside the f32 model's
+     after the same steps); G, H and I on bf16 models, and G and H under
+     mxu_bf16 at S=20; the refusals (K8's bf16 rows, bf16 rows at S=49).
 K8 has no caller on the model path (as in the JAX package): its phase calls
 the public wrapper on the chunked layout of the same graph, its counts set
 to 0 just before and read just after. The `captured` phase holds captured
@@ -2228,21 +2237,62 @@ def bf16_only(name, kernels=("edge_attention_sums", "edge_attention_bwd_dq",
     return {k: b["tc_bf16"] for k, b in bodies.items() if b["tc_bf16"]}
 
 
+def bf16_body_row(name, source, replaces, run, plain, tf32, limit, nbytes, flops, lib,
+                  info_fn, s, words, precision, *, nt, d=128, h=4, items=None,
+                  repeats=True, timed=None, **extra):
+    """A bf16 body's row at the shapes the main path gives it: its output
+    against its plain version on the card within ``limit`` of the largest
+    entry (``run`` and ``plain`` may return a tuple of parts, each held
+    against its own largest entry), launched twice and equal bit for bit
+    where the body uses no atomics (``repeats``), timed in turns with the
+    3xTF32 body ``tf32`` (``timed``: the launch alone, where ``run`` also
+    gathers what it compares), its bound at bf16 widths and the bf16 rate,
+    registers, spills, blocks per SM and stages (``kernel_info`` over
+    ``items`` blocks of work: nodes, or K6's and K9's (tile, group) items)."""
+    from ampnet_tpu_torch.ops.hopper.launch import kernel_info
+
+    def parts(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    got, again, ref = parts(run()), parts(run()), parts(plain())
+    torch.cuda.synchronize()
+    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)]
+    rel = [e / float(b.float().abs().max()) for e, b in zip(errs, ref)]
+    if not max(rel) <= limit:
+        fail(f"{name} ({precision}) S={s}: the bf16 body disagrees with its plain "
+             f"version (max abs err {max(errs):.3g}, {max(rel):.3g} of the largest entry)")
+    if repeats and not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{name} ({precision}) S={s}: a second launch differs from the first")
+    del got, again, ref
+    ms, tf32_ms = in_turns(tf32, timed or run)
+    info = kernel_info(lib, info_fn, nt if items is None else items, s, d, h)
+    b, by = bf16_bound_ms(nbytes, flops)
+    return dict(name=name, route="cuda", source=f"ampnet_tpu_torch/ops/hopper/csrc/{source}",
+                replaces=replaces, max_abs_err=max(errs), rel_err=max(rel), limit=limit,
+                ms=ms, tf32_ms=tf32_ms, speedup_vs_tf32=tf32_ms / ms,
+                plain_ms=cuda_ms(plain, 3), bound_ms=b, bound_by=by, library_ms=None,
+                regs=info["regs"], spills=ptxas_of(lib, *words)["spills"],
+                blocks_per_sm=info["blocks_per_sm"], stages=info["stages"],
+                smem_bytes=info["smem_bytes"], precision=precision, s=s, **extra)
+
+
 def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
     """Each bf16 body at the shapes the main path gives it (K1, K3, K4 at
-    S=40, the bf16 training step; K2 at S=40 and S=20, the bf16 Predictor's;
-    K1 and K2 also on f32 rows under mxu_bf16 at S=20, the S=20 training
-    step's K1 and eval B's K2) against its plain version on the card,
-    launched twice and equal bit for bit, timed in turns with the 3xTF32
+    S=40, the bf16 training step; K3 and K4 at S=20, H's S=20 steps; K5 at
+    S=40, path F; K6 and K9 at S=40, G, H and I; K7 at S=20, G; K2 at S=40
+    and S=20, the bf16 Predictor's; K1, K2, K6 and K7 also on f32 rows
+    under mxu_bf16 at S=20, where the S=20 training steps and evals run
+    them) against its plain version on the card, launched twice and equal
+    bit for bit where it uses no atomics, timed in turns with the 3xTF32
     body at the same S (its own f32 rows and stride), with its bound at
     bf16 widths and the bf16 rate, registers, spills, blocks per SM and
     stages. K2's projection also beside one bf16 cuBLAS addmm."""
     from ampnet_tpu_torch.models.layers import AMPConv
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
     from ampnet_tpu_torch.ops.hopper.format import edge_slot_valid, snd_slot_valid
-    from ampnet_tpu_torch.ops.hopper.launch import kernel_info
     from ampnet_tpu_torch.ops.segment import segment_count
 
     bf = torch.bfloat16
@@ -2261,39 +2311,49 @@ def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
     snd_index_bytes = 4 * (2 * layout.snd_receivers.numel() + layout.snd_ptr.numel()
                            + layout.snd_slots.numel())
 
-    def row(name, source, replaces, run, plain, tf32, limit, nbytes, flops, lib, info_fn, s,
-            words, precision, **extra):
-        got, again, ref = run(), run(), plain()
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        scale = float(ref.float().abs().max())
-        if not err <= limit * scale:
-            fail(f"{name} ({precision}) S={s}: the bf16 body disagrees with its plain "
-                 f"version (max abs err {err:.3g}, {err / scale:.3g} of the largest entry)")
-        if not torch.equal(got, again):
-            fail(f"{name} ({precision}) S={s}: a second launch differs from the first")
-        ms, tf32_ms = in_turns(tf32, run)
-        info = kernel_info(lib, info_fn, nt, s, d, h)
-        b, by = bf16_bound_ms(nbytes, flops)
-        return dict(name=name, route="cuda", source=f"ampnet_tpu_torch/ops/hopper/csrc/{source}",
-                    replaces=replaces, max_abs_err=err, rel_err=err / scale, limit=limit,
-                    ms=ms, tf32_ms=tf32_ms, speedup_vs_tf32=tf32_ms / ms,
-                    plain_ms=cuda_ms(plain, 3), bound_ms=b, bound_by=by, library_ms=None,
-                    regs=info["regs"], spills=ptxas_of(lib, *words)["spills"],
-                    blocks_per_sm=info["blocks_per_sm"], stages=info["stages"],
-                    smem_bytes=info["smem_bytes"], precision=precision, s=s, **extra)
+    def row(*args, **extra):
+        return bf16_body_row(*args, nt=nt, **extra)
+
+    def inputs(s, sp, sp32):
+        """bf16 q|k|v and dsum rows at SP=sp (pad token rows of dsum 0, as
+        the op makes them), f32 ones at sp32 for the 3xTF32 body."""
+        q16 = torch.randn(nt * sp, 3 * d, generator=gen, device=dev).to(bf)
+        q32 = torch.randn(nt * sp32, 3 * d, generator=gen, device=dev)
+        dsum16 = torch.randn(nt, sp, d, generator=gen, device=dev)
+        dsum16[:, s:] = 0.0
+        dsum16 = dsum16.reshape(nt * sp, d).to(bf)
+        qdm16 = torch.cat([q16[:, :d], dsum16], 1)
+        qdm32 = torch.cat([q32[:, :d], torch.randn(nt * sp32, d, generator=gen, device=dev)],
+                          1)
+        return (q16, dsum16, qdm16, q32, qdm32, dict(s=s, sp=sp, num_heads=h, softmax=True),
+                dict(s=s, sp=sp32, num_heads=h, softmax=True))
+
+    def k3_k4(key, s, q16, dsum16, qdm16, q32, qdm32, kw, kw32):
+        nkt = f"ILi{-(-s // 8)}E"
+        rows["k3_" + key] = row(
+            "edge_attention_bwd_dq", "edge_attention_bwd_dq_tc_bf16.cu",
+            "ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:211",
+            lambda: bwd.edge_attention_bwd_dq(q16[:, :d], q16[:, d:], dsum16, *idx, **kw),
+            lambda: bwd.edge_attention_bwd_dq_plain(q16[:, :d], q16[:, d:], dsum16, *idx,
+                                                    **kw),
+            lambda: bwd.edge_attention_bwd_dq(q32[:, :d], q32[:, d:], qdm32[:, d:], *idx,
+                                              **kw32),
+            BF16_KERNEL_LIMIT, 4 * d * n * s * 2 + d * n * s * 4 + index_bytes,
+            6 * s * s * d * live_edges, "edge_attention_bwd_dq_tc_bf16",
+            "ampnet_edge_attention_bwd_dq_bf16_info", s, ("dq_bf16_kernel", nkt), "bf16")
+        rows["k4_" + key] = row(
+            "edge_attention_bwd_dkv", "edge_attention_bwd_tc_bf16.cu",
+            "ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:319",
+            lambda: bwd.edge_attention_bwd_dkv(qdm16, q16[:, d:], *snd_idx, **kw),
+            lambda: bwd.edge_attention_bwd_dkv_plain(qdm16, q16[:, d:], *snd_idx, **kw),
+            lambda: bwd.edge_attention_bwd_dkv(qdm32, q32[:, d:], *snd_idx, **kw32),
+            BF16_KERNEL_LIMIT, 4 * d * n * s * 2 + 2 * d * n * s * 4 + snd_index_bytes,
+            8 * s * s * d * live_edges, "edge_attention_bwd_tc_bf16",
+            "ampnet_edge_attention_bwd_dkv_bf16_info", s, ("dkv_bf16_kernel", nkt), "bf16")
 
     rows = {}
     s, sp, sp32 = 40, 48, 40
-    q16 = torch.randn(nt * sp, 3 * d, generator=gen, device=dev).to(bf)
-    q32 = torch.randn(nt * sp32, 3 * d, generator=gen, device=dev)
-    dsum16 = torch.randn(nt, sp, d, generator=gen, device=dev)
-    dsum16[:, s:] = 0.0                    # pad token rows, as the op makes them
-    dsum16 = dsum16.reshape(nt * sp, d).to(bf)
-    qdm16 = torch.cat([q16[:, :d], dsum16], 1)
-    qdm32 = torch.cat([q32[:, :d], torch.randn(nt * sp32, d, generator=gen, device=dev)], 1)
-    kw, kw32 = dict(s=s, sp=sp, num_heads=h, softmax=True), dict(s=s, sp=sp32, num_heads=h,
-                                                                   softmax=True)
+    q16, dsum16, qdm16, q32, qdm32, kw, kw32 = inputs(s, sp, sp32)
     nkt = f"ILi{-(-s // 8)}E"
     rows["k1_bf16"] = row(
         "edge_attention_sums", "edge_attention_tc_bf16.cu + edge_attention_tc_bf16.cuh",
@@ -2305,25 +2365,85 @@ def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
         4 * s * s * d * live_edges, "edge_attention_tc_bf16",
         "ampnet_edge_attention_sums_bf16_info", s,
         ("sums_bf16_kernel", nkt + "Lb0E13__nv_bfloat16"), "bf16")
-    rows["k3_bf16"] = row(
-        "edge_attention_bwd_dq", "edge_attention_bwd_dq_tc_bf16.cu",
-        "ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:211",
-        lambda: bwd.edge_attention_bwd_dq(q16[:, :d], q16[:, d:], dsum16, *idx, **kw),
-        lambda: bwd.edge_attention_bwd_dq_plain(q16[:, :d], q16[:, d:], dsum16, *idx, **kw),
-        lambda: bwd.edge_attention_bwd_dq(q32[:, :d], q32[:, d:], qdm32[:, d:], *idx, **kw32),
-        BF16_KERNEL_LIMIT, 4 * d * n * s * 2 + d * n * s * 4 + index_bytes,
-        6 * s * s * d * live_edges, "edge_attention_bwd_dq_tc_bf16",
-        "ampnet_edge_attention_bwd_dq_bf16_info", s, ("dq_bf16_kernel", nkt), "bf16")
-    rows["k4_bf16"] = row(
-        "edge_attention_bwd_dkv", "edge_attention_bwd_tc_bf16.cu",
-        "ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:319",
-        lambda: bwd.edge_attention_bwd_dkv(qdm16, q16[:, d:], *snd_idx, **kw),
-        lambda: bwd.edge_attention_bwd_dkv_plain(qdm16, q16[:, d:], *snd_idx, **kw),
-        lambda: bwd.edge_attention_bwd_dkv(qdm32, q32[:, d:], *snd_idx, **kw32),
-        BF16_KERNEL_LIMIT, 4 * d * n * s * 2 + 2 * d * n * s * 4 + snd_index_bytes,
-        8 * s * s * d * live_edges, "edge_attention_bwd_tc_bf16",
-        "ampnet_edge_attention_bwd_dkv_bf16_info", s, ("dkv_bf16_kernel", nkt), "bf16")
+    k3_k4("bf16", s, q16, dsum16, qdm16, q32, qdm32, kw, kw32)
+
+    # K5 (path F's pass A) at S=40: dQ, and the stream's dK and dV on the
+    # walked slots, each against its own largest entry; pass B on the f32
+    # stream it writes
+    walked = layout.recv_slots.long()
+
+    def k5(q, kv, dsum, kw_):
+        dq, stream = sb.edge_attention_bwd_stream(q, kv, dsum, *idx, **kw_)
+        per_slot = stream.view(-1, kw_["sp"], 2 * d)[walked]
+        return dq, per_slot[..., :d], per_slot[..., d:]
+
+    def k5_plain():
+        dq, stream = sb.edge_attention_bwd_stream_plain(q16[:, :d], q16[:, d:], dsum16, *idx,
+                                                        **kw)
+        per_slot = stream.view(-1, sp, 2 * d)[walked]
+        return dq, per_slot[..., :d], per_slot[..., d:]
+
+    _, stream = sb.edge_attention_bwd_stream(q16[:, :d], q16[:, d:], dsum16, *idx, **kw)
+    dkv = torch.zeros(nt, s, 2 * d, device=dev)
+    take = sb.walked_slots(layout.tile_senders, layout.recv_ptr,
+                           (0, layout.tile_senders.shape[0]))
+    pass_b = pass_b_report(stream, layout.tile_senders, take, dkv, s, sp)
+    del stream, dkv
+    rows["k5_bf16"] = row(
+        "edge_attention_bwd_stream",
+        "edge_attention_bwd_stream_tc_bf16.cu + edge_attention_bwd_dq_tc_bf16.cuh",
+        "ampnet_tpu/ops/pallas/edge_attention_bwd.py:694",
+        lambda: k5(q16[:, :d], q16[:, d:], dsum16, kw), k5_plain,
+        lambda: sb.edge_attention_bwd_stream(q32[:, :d], q32[:, d:], qdm32[:, d:], *idx,
+                                             **kw32),
+        BF16_KERNEL_LIMIT,
+        4 * d * n * s * 2 + d * n * s * 4 + walked.numel() * s * 2 * d * 4 + index_bytes,
+        10 * s * s * d * live_edges, "edge_attention_bwd_stream_tc_bf16",
+        "ampnet_edge_attention_bwd_stream_bf16_info", s, ("stream_bf16_kernel", nkt), "bf16",
+        timed=lambda: sb.edge_attention_bwd_stream(q16[:, :d], q16[:, d:], dsum16, *idx, **kw),
+        **pass_b)
+
+    # K6 (G and H at S=40: JAX's 'dma' body v8, which ignores mxu_bf16) and
+    # K9 (I) on bf16 rows; f32 atomics across warps: no bit-for-bit repeat
+    slots = (layout.tile_senders, layout.tile_recv, idx[1])
+    tiles, emax = layout.tile_senders.shape
+    slot_bytes = 4 * 3 * layout.tile_senders.numel()
+    v1_group = 8 if emax % 8 == 0 else 1
+    mm16, mm32 = dict(kw, tile_nodes=layout.tile_nodes), dict(kw32, tile_nodes=layout.tile_nodes)
+    rows["k6_bf16"] = row(
+        "edge_attention_sums_mm", "edge_attention_groups_tc_bf16.cu + edge_attention_tc_bf16.cuh",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:1126",
+        lambda: eav.edge_attention_sums_mm(q16[:, :d], q16[:, d:], *slots, layout.tile_counts,
+                                           **mm16),
+        lambda: eav.edge_attention_sums_mm_plain(q16[:, :d], q16[:, d:], *slots,
+                                                 layout.tile_counts, **mm16,
+                                                 group=eav.MM_GROUP),
+        lambda: eav.edge_attention_sums_mm(q32[:, :d], q32[:, d:], *slots, layout.tile_counts,
+                                           **mm32),
+        BF16_KERNEL_LIMIT,
+        3 * d * n * s * 2 + d * n * s * 4 + slot_bytes + 4 * tiles,
+        4 * s * s * d * live_edges, "edge_attention_groups_tc_bf16",
+        "ampnet_edge_attention_groups_bf16_info", s,
+        ("groups_bf16_kernel", nkt + "13__nv_bfloat16"), "bf16",
+        items=tiles * -(-emax // eav.MM_GROUP), repeats=False)
+    rows["k9_bf16"] = row(
+        "edge_attention_sums_v1", "edge_attention_groups_tc_bf16.cu + edge_attention_tc_bf16.cuh",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:186",
+        lambda: eav.edge_attention_sums_v1(q16[:, :d], q16[:, d:], *slots, **mm16,
+                                           group=v1_group),
+        lambda: eav.edge_attention_sums_v1_plain(q16[:, :d], q16[:, d:], *slots, **mm16,
+                                                 group=v1_group),
+        lambda: eav.edge_attention_sums_v1(q32[:, :d], q32[:, d:], *slots, **mm32,
+                                           group=v1_group),
+        BF16_KERNEL_LIMIT, 3 * d * n * s * 2 + d * n * s * 4 + slot_bytes,
+        4 * s * s * d * live_edges, "edge_attention_groups_tc_bf16",
+        "ampnet_edge_attention_groups_bf16_info", s,
+        ("groups_bf16_kernel", nkt + "13__nv_bfloat16"), "bf16",
+        items=tiles * (emax // v1_group), repeats=False)
     del q16, q32, dsum16, qdm16, qdm32
+    # K3 and K4 where H's S=20 steps run them on a bf16 model (SP=32; the
+    # 3xTF32 body on f32 rows at SP=24)
+    k3_k4("bf16_s20", 20, *inputs(20, 32, 24))
 
     # K1 under mxu_bf16 where the main path runs it: the S=20 training
     # step's f32 'vmem' rows (SP=24; at S=40 the JAX 'dma' body ignores the
@@ -2342,6 +2462,24 @@ def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
         BF16_KERNEL_LIMIT, 4 * d * n * s * 4 + index_bytes, 4 * s * s * d * live_edges,
         "edge_attention_tc_bf16", "ampnet_edge_attention_sums_mxu_info", s,
         ("sums_bf16_kernel", nkt + "Lb0EfE"), "bf16 products of f32 rows (mxu_bf16)")
+    # K6 under mxu_bf16 where the main path runs it: H's S=20 training step
+    # (the 'vmem' gather's v2_mm honours the flag)
+    mm32 = dict(kw32, tile_nodes=layout.tile_nodes)
+    rows["k6_mxu"] = row(
+        "edge_attention_sums_mm", "edge_attention_groups_tc_bf16.cu + edge_attention_tc_bf16.cuh",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:731",
+        lambda: eav.edge_attention_sums_mm(q32[:, :d], q32[:, d:], *slots, layout.tile_counts,
+                                           **mm32, mxu_bf16=True),
+        lambda: eav.edge_attention_sums_mm_plain(q32[:, :d], q32[:, d:], *slots,
+                                                 layout.tile_counts, **mm32,
+                                                 group=eav.MM_GROUP, mxu_bf16=True),
+        lambda: eav.edge_attention_sums_mm(q32[:, :d], q32[:, d:], *slots, layout.tile_counts,
+                                           **mm32),
+        BF16_KERNEL_LIMIT, 4 * d * n * s * 4 + slot_bytes + 4 * tiles,
+        4 * s * s * d * live_edges, "edge_attention_groups_tc_bf16",
+        "ampnet_edge_attention_groups_mxu_info", s, ("groups_bf16_kernel", nkt + "fE"),
+        "bf16 products of f32 rows (mxu_bf16)", items=tiles * -(-emax // eav.MM_GROUP),
+        repeats=False)
     del q32
 
     # K2 where the bf16 Predictor runs it (S=40 at the 512- and 1,024-node
@@ -2402,30 +2540,96 @@ def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
         tf32_k2, BF16_KERNEL_LIMIT, 4 * (2 * n * s * d + 4 * d * d + 4 * d + nt) + index_bytes,
         flops2, "edge_attention_layer_tc_bf16", "ampnet_edge_attention_layer_mxu_info", s,
         ("sums_bf16_kernel", nkt + "Lb1EfE"), "bf16 products of f32 rows (mxu_bf16)")
+
+    # K7 where G runs it at S=20 (a bf16 model's rows at SP=32; f32 rows at
+    # SP=24 under mxu_bf16), by launch: the projection (K2's), the
+    # attention (K6's body) and the out-projection, each in turns with its
+    # 3xTF32 launch
+    x16 = torch.randn(nt * sp, d, generator=gen, device=dev).to(bf)
+    mm16, mm32 = dict(kw, tile_nodes=layout.tile_nodes), dict(kw32, tile_nodes=layout.tile_nodes)
+    k7_bytes = 2 * (2 * n * s * d + 4 * d * d + 4 * d) + 4 * nt + slot_bytes + 4 * tiles
+    items = tiles * -(-emax // eav.MM_GROUP)
+    k7 = lambda: eav.edge_attention_layer_mm(  # noqa: E731
+        x16, *w16, invdeg, *slots, layout.tile_counts, **mm16)
+    tf32_k7 = lambda: eav.edge_attention_layer_mm(  # noqa: E731
+        x32, *w, invdeg, *slots, layout.tile_counts, **mm32)
+    got = k7()
+    if got.dtype != bf or not (got.view(nt, sp, d)[:n][count == 0] == 0).all():
+        fail(f"edge_attention_layer_mm (bf16) S={s}: {got.dtype} out, or a receiver without "
+             f"a live edge is not exactly 0")
+    qkv16 = eav.layer_projection(x16, w16[0], w16[1], "tc_bf16")
+    qkv32 = eav.layer_projection(x32, w[0], w[1], "tc")
+    projection_ms, tf32_projection_ms = in_turns(
+        lambda: eav.layer_projection(x32, w[0], w[1], "tc"),
+        lambda: eav.layer_projection(x16, w16[0], w16[1], "tc_bf16"))
+    attention = {
+        b_: (lambda b_=b_, qkv=qkv, sp_=sp_: eav._launch_groups(
+            "edge_attention_sums_mm", b_,
+            (qkv.data_ptr(), 3 * d, qkv.data_ptr() + d * qkv.element_size(), 3 * d), *slots,
+            layout.tile_counts, s=s, sp=sp_, d=d, num_heads=h, softmax=True,
+            tile_nodes=layout.tile_nodes, group=eav.MM_GROUP, dtype=qkv.dtype))
+        for b_, qkv, sp_ in (("tc", qkv32, sp32), ("tc_bf16", qkv16, sp))}
+    attention_ms, tf32_attention_ms = in_turns(attention["tc"], attention["tc_bf16"])
+    sums16, sums32 = attention["tc_bf16"](), attention["tc"]()
+    out_projection_ms, tf32_out_projection_ms = in_turns(
+        lambda: eav._layer_mm_out_projection(sums32, invdeg, *w[2:], s=s, sp=sp32, body="tc"),
+        lambda: eav._layer_mm_out_projection(sums16, invdeg, *w16[2:], s=s, sp=sp,
+                                             body="tc_bf16"))
+    del qkv16, qkv32, sums16, sums32, got
+    rows["k7_bf16"] = row(
+        "edge_attention_layer_mm",
+        "edge_attention_groups_tc_bf16.cu + edge_attention_layer_tc_bf16.cu",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:865", k7,
+        lambda: eav.edge_attention_layer_mm_plain(x16, *w16, invdeg, *slots, layout.tile_counts,
+                                                  **mm16, group=eav.MM_GROUP),
+        tf32_k7, BF16_OUTPUT_LIMIT, k7_bytes, flops2, "edge_attention_groups_tc_bf16",
+        "ampnet_edge_attention_groups_bf16_info", s,
+        ("groups_bf16_kernel", nkt + "13__nv_bfloat16"), "bf16", items=items, repeats=False,
+        projection_ms=projection_ms, tf32_projection_ms=tf32_projection_ms,
+        attention_ms=attention_ms, tf32_attention_ms=tf32_attention_ms,
+        out_projection_ms=out_projection_ms, tf32_out_projection_ms=tf32_out_projection_ms,
+        out_projection_spills=ptxas_of("edge_attention_layer_tc_bf16",
+                                       "mean_out_bf16_kernel")["spills"])
+    rows["k7_mxu"] = row(
+        "edge_attention_layer_mm",
+        "edge_attention_groups_tc_bf16.cu + edge_attention_layer_tc.cu",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:865",
+        lambda: eav.edge_attention_layer_mm(x32, *w, invdeg, *slots, layout.tile_counts, **mm32,
+                                            mxu_bf16=True),
+        lambda: eav.edge_attention_layer_mm_plain(x32, *w, invdeg, *slots, layout.tile_counts,
+                                                  **mm32, group=eav.MM_GROUP, mxu_bf16=True),
+        tf32_k7, BF16_KERNEL_LIMIT,
+        4 * (2 * n * s * d + 4 * d * d + 4 * d + nt) + slot_bytes + 4 * tiles, flops2,
+        "edge_attention_groups_tc_bf16", "ampnet_edge_attention_groups_mxu_info", s,
+        ("groups_bf16_kernel", nkt + "fE"), "bf16 products of f32 rows (mxu_bf16)",
+        items=items, repeats=False)
     return rows
 
 
 def bf16_refusals(dev) -> dict:
-    """On the card bf16 runs on K1-K4's tensor cores only: bf16 rows raise on
-    K5 (no bf16 body yet) and beyond the tensor cores' range (S=49). The
-    phase fails if either call does not raise, or launches anything."""
+    """On the card bf16 runs on the tensor cores only, and K8 (no model
+    path reaches it) has no bf16 body: bf16 rows raise on K8 and beyond the
+    tensor cores' range (S=49). The phase fails if either call does not
+    raise, or launches anything."""
     import numpy as np
     from ampnet_tpu_torch.core.graph import from_arrays
-    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
-    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+    from ampnet_tpu_torch.ops.hopper.format import compute_chunked_layout, compute_layout
 
     rng = np.random.default_rng(0)
     g = from_arrays((rng.random((64, 8)) < 0.5).astype(np.float32),
                     np.stack([rng.integers(0, 64, 256), rng.integers(0, 64, 256)]))
     lay = compute_layout(g).to(dev)
+    ck = compute_chunked_layout(g, chunk_edges=CHUNK_EDGES).to(dev)
     nt, d = lay.recv_ptr.numel() - 1, 128
     idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
     out = {}
     eaf.reset_launch_counts()
     for what, s, sp, call in (
-            ("K5 bf16 rows", 40, 48, lambda q, s, sp: sb.edge_attention_bwd_stream(
-                q[:, :d], q[:, d:], q[:, :d], *idx, s=s, sp=sp, num_heads=4, softmax=True)),
+            ("K8 bf16 rows", 40, 48, lambda q, s, sp: eav.edge_attention_sums_chunked(
+                q[:, :d], q[:, d:], ck.senders, ck.valid, ck.chunk_start, ck.chunk_count,
+                s=s, sp=sp, num_heads=4, softmax=True, chunk=CHUNK_EDGES)),
             ("K1 bf16 rows at S=49", 49, 64, lambda q, s, sp: eaf.edge_attention_sums(
                 q[:, :d], q[:, d:], *idx, s=s, sp=sp, num_heads=4, softmax=True))):
         q = torch.zeros(nt * sp, 3 * d, dtype=torch.bfloat16, device=dev)
@@ -2581,7 +2785,280 @@ def bf16_serving(cfg, cfg20, data, seed, dev) -> dict:
                 k2_launches={"40": k2_s40, "20": s20["bodies"]["edge_attention_layer"]["tc_bf16"]})
 
 
-def bf16_phase(recipe, reference, tcfg, data, graph, layout, seed, dev, path_c) -> tuple:
+def forward_route(cfg, graph, layout) -> str:
+    """The forward kernel an eval of ``cfg``'s model takes on ``graph`` by
+    the port's copy of the JAX package's predicates (edge_attention_fused),
+    for the dispatch constants as they stand: K2 / K7 where the whole layer
+    fits (v6), K9 on the 'dma' gather under DMA_V1_DEFAULT, else K1 / K6."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    n, d, tn = graph.num_nodes_padded, cfg.embedding_dim, layout.tile_nodes
+    nt = layout.tile_senders.shape[0] * tn
+    align = eaf._stream_align(dtype, eaf.STREAM_BF16_DEFAULT)
+    sp = -(-cfg.num_sampled_vectors // align) * align
+    gather = eaf._resolve_gather("auto", max(n, nt) * sp, d,
+                                 2 if eaf.STREAM_BF16_DEFAULT else dtype.itemsize,
+                                 tile_rows=tn * sp)
+    if eaf._v6_usable(n, nt, sp, d, dtype.itemsize, tn, eaf._auto_group(sp), gather):
+        return "edge_attention_layer_mm" if eaf.MM_SCATTER_DEFAULT else "edge_attention_layer"
+    if gather != "vmem" and eaf.DMA_V1_DEFAULT:
+        return "edge_attention_sums_v1"
+    return "edge_attention_sums_mm" if eaf.MM_SCATTER_DEFAULT else "edge_attention_sums"
+
+
+# The forward kernel of each eval of bf16_routes as the JAX package's
+# predicates give it on the whole surrogate (2,752 nodes, D=128, H=4):
+# S=40 bf16 rows take the 'dma' gather and no whole-layer body, S=20 rows
+# (bf16, or f32 under mxu_bf16) the 'vmem' gather and the whole layer
+# (tests/test_torch_bf16.py::test_route_is_the_jax_predicates holds both
+# packages' predicates to these on the CPU).
+BF16_EVAL_ROUTES = {"G S=40": "edge_attention_sums_mm", "G S=20": "edge_attention_layer_mm",
+                    "I S=40": "edge_attention_sums_v1",
+                    "G S=20 mxu_bf16": "edge_attention_layer_mm"}
+
+
+def bf16_eval(name, cfg, data, graph, layout, seed, dev, rtol=None, atol=None) -> tuple:
+    """One 8-draw captured eval (counts set to 0 just before it, read just
+    after): 16 launches of the kernel the port's predicates give
+    (``forward_route``), which must be the JAX predicates' kernel
+    (``BF16_EVAL_ROUTES[name]``), all on tc_bf16; one fixed draw against the CPU
+    float64 forward within ``rtol`` of the reference's largest entry (a
+    bf16 model), or within ``atol`` (f32 rows under mxu_bf16). Returns
+    (kernel, launches on tc_bf16, report)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.tokenize import sample_present_features, tfidf_sample_features
+    from ampnet_tpu_torch.train import make_eval_step
+
+    kernel = forward_route(cfg, graph, layout)
+    if kernel != BF16_EVAL_ROUTES[name]:
+        fail(f"{name}: the port's predicates route the eval to {kernel}, the JAX package's "
+             f"to {BF16_EVAL_ROUTES[name]}")
+    model = recipe_model(cfg, data, seed, dev)
+    step = make_eval_step(model, num_eval_samples=8)
+    eaf.reset_launch_counts()
+    metrics = step(graph, torch.Generator(device=dev).manual_seed(seed), layout)
+    torch.cuda.synchronize()
+    counts = eaf.launch_counts()
+    bodies = bf16_only(name, (kernel,))
+    if counts != {**launches(), kernel: 16} or bodies[kernel] != 16:
+        fail(f"{name}: launched {counts} ({bodies} on tc_bf16), expected 16 {kernel}")
+    draw = torch.Generator(device=dev).manual_seed(seed + 2)
+    sidx = (tfidf_sample_features(graph.x, cfg.num_sampled_vectors, node_mask=graph.node_mask,
+                                  generator=draw)
+            if cfg.token_sampling == "tfidf" else
+            sample_present_features(graph.x, cfg.num_sampled_vectors, generator=draw))
+    card, _ = stage_outputs(model, graph, sidx, layout)
+    ref, _ = cpu_f64_reference(model, graph, sidx)
+    if not torch.isfinite(card).all():
+        fail(f"{name}: non-finite log-probs")
+    err = float((card.double() - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not (rel <= rtol if atol is None else err <= atol):
+        fail(f"{name}: log-probs {err:.3g} from float64 on the CPU ({rel:.3g} of the "
+             f"largest entry; limit rtol {rtol}, atol {atol})")
+    return kernel, bodies[kernel], dict(
+        kernel=kernel, launches={k: v for k, v in counts.items() if v}, bodies=bodies,
+        cpu_f64_max_abs_err=err, cpu_f64_rel_err=rel, rtol=rtol, atol=atol,
+        metrics={k: float(v) for k, v in metrics.items()})
+
+
+def bf16_steps(name, cfg, data, graph, layout, seed, dev, want, kernels, steps=3) -> dict:
+    """``steps`` captured training steps of ``cfg``'s model, each one's
+    launches exact (``want``) with ``kernels`` on tc_bf16 alone; finite
+    losses."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    model = recipe_model(cfg, data, seed, dev)
+    state = create_train_state(model, make_optimizer(
+        model.parameters(), 3e-3, weight_decay=1e-3, grad_clip=1.0), seed=seed)
+    step = make_train_step(model)
+    losses, bodies = [], {}
+    for _ in range(steps):
+        eaf.reset_launch_counts()
+        metrics = step(state, graph, layout)[1]
+        torch.cuda.synchronize()
+        counts = eaf.launch_counts()
+        if counts != want:
+            fail(f"{name}: a step launched {counts}, expected {want}")
+        bodies = {k: dict(v) for k, v in eaf.body_launch_counts().items() if sum(v.values())}
+        bf16_only(name, kernels)
+        losses.append(float(metrics["loss"]))
+    if not finite(losses):
+        fail(f"{name}: losses {losses}")
+    return dict(steps=steps, losses=losses, per_step_launches={k: v for k, v in want.items()
+                                                                if v},
+                per_step_bodies=bodies)
+
+
+def saint_bit_for_bit(name, cfg, data, seed, dev, subs, layouts) -> dict:
+    """Path F's captured step (make_pallas_train_step, no sender side)
+    against its eager body from one initial state over ``subs``: each
+    captured step 2 K1 + 2 K5, both on tc_bf16; the metrics and every
+    parameter bit for bit (K1, K5 and pass B's sorted sum use no atomics)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.train.pallas_step import fused_forward, make_pallas_train_step
+    from ampnet_tpu_torch.train.state import _train_step_body
+
+    pair = [recipe_model(cfg, data, seed, dev) for _ in range(2)]
+    states = [saint_state(m, saint_config(seed), seed) for m in pair]
+    step = make_pallas_train_step(pair[0], "saint_mean")
+    body = _train_step_body(pair[1], "saint_mean", forward=fused_forward(pair[1]))
+    got, bodies = [], {}
+    for g, lay in zip(subs, layouts):
+        eaf.reset_launch_counts()
+        got.append(step(states[0], g, lay)[1])
+        torch.cuda.synchronize()
+        if eaf.launch_counts() != launches(k1=2, k5=2):
+            fail(f"{name}: a captured step launched {eaf.launch_counts()}, expected 2 K1 + 2 K5")
+        bodies = bf16_only(name, ("edge_attention_sums", "edge_attention_bwd_stream"))
+    want = [body(states[1], g, lay)[1] for g, lay in zip(subs, layouts)]
+    pairs = {f"{k}_{i}": (a[k], b[k]) for i, (a, b) in enumerate(zip(got, want)) for k in a}
+    pairs.update({k: (p, q) for (k, p), q in zip(pair[0].named_parameters(),
+                                                 pair[1].parameters())})
+    if any(p.dtype != torch.float32 for p in pair[0].parameters()):
+        fail(f"{name}: a parameter is not f32")
+    return dict(steps=len(subs), max_abs_diff=bit_for_bit(name, pairs), compared=len(pairs),
+                per_step_bodies=bodies, losses=[float(m["loss"]) for m in got])
+
+
+def bf16_saint(saint_cfg, data, graph, seed, dev) -> tuple:
+    """Path F in bf16: make_pallas_train_step on GraphSAINT subgraphs with
+    layouts without a sender side (K1 + K5 + pass B), on a bf16 model and on
+    the f32 model under stream_bf16: captured = eager bit for bit over 3
+    subgraphs at exactly 2 K1 + 2 K5 on tc_bf16 a step; the bf16 model's
+    gradients against float64 autograd on the CPU (BF16_GRAD_RTOL); then
+    SAINT_EPOCHS x 10 subgraph steps of the bf16 model and of the f32 one
+    from the same initial state (counts set to 0 just before, read just
+    after), the loss falling, and each model's final test accuracy on the
+    whole surrogate. Returns (report, K5's tc_bf16 launches at S=40)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.train import make_eval_step
+    from ampnet_tpu_torch.train.loop import _saint_layout_budget
+    from ampnet_tpu_torch.train.pallas_step import make_pallas_train_step
+
+    bf16 = dataclasses.replace(saint_cfg, compute_dtype="bfloat16")
+    prep = saint_subgraphs(data, _saint_layout_budget(saint_sampler(data, SAINT_STEPS)), dev)
+    subs, without = prep["subs"], prep["without"]
+    report = {"F bf16": saint_bit_for_bit("F bf16", bf16, data, seed, dev, subs[:3],
+                                          without[:3])}
+    with dispatch_flag("STREAM_BF16_DEFAULT"):
+        report["F stream_bf16"] = saint_bit_for_bit("F stream_bf16", saint_cfg, data, seed,
+                                                    dev, subs[:3], without[:3])
+    report["F bf16"]["gradient_check"] = gradient_check(
+        "F bf16", recipe_model(bf16, data, seed, dev), subs[0], without[0], seed,
+        want=launches(k1=2, k5=2), loss_mode="saint_mean", fused=True,
+        grad_rtol=BF16_GRAD_RTOL)
+    tcfg = saint_config(seed)
+    full_layout = compute_layout(graph)
+    k5 = 0
+    trained, steps = {}, {}
+    for name, cfg in (("f32", saint_cfg), ("bf16", bf16)):
+        model = recipe_model(cfg, data, seed, dev)
+        state = saint_state(model, tcfg, seed)
+        step = make_pallas_train_step(model, loss_mode="saint_mean")
+        steps[name] = (step, state)
+        losses = []
+        eaf.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(SAINT_EPOCHS):
+            for g, lay in zip(subs, without):
+                state, metrics = step(state, g, lay)
+                losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        counts = eaf.launch_counts()
+        total = SAINT_EPOCHS * len(subs)
+        if counts != launches(k1=2 * total, k5=2 * total):
+            fail(f"F {name}: {total} steps launched {counts}")
+        if name == "bf16":
+            k5 = bf16_only("F bf16", ("edge_attention_sums",
+                                      "edge_attention_bwd_stream"))["edge_attention_bwd_stream"]
+        final = make_eval_step(model, num_eval_samples=8)(
+            graph, torch.Generator(device=dev).manual_seed(seed), full_layout)
+        trained[name] = dict(loss_fell(f"F {name}", [float(v) for v in losses]),
+                             steps_s=steps_s, launches={k: v for k, v in counts.items() if v},
+                             final_test_acc=float(final["test_acc"]),
+                             final_val_acc=float(final["val_acc"]))
+    report["training"] = dict(cut=f"{SAINT_EPOCHS} passes over {len(subs)} subgraphs",
+                              **trained)
+    # the two captured steps in turns (f32, bf16, bf16, f32), each the median
+    # pass's mean step over the prepared subgraphs; the bf16 step's device
+    # time and busy share by the profiler
+    t = [warm_steps_ms(*steps[k], subs, without, passes=3)[0]
+         for k in ("f32", "bf16", "bf16", "f32")]
+    report["in_turns_with_f32"] = dict(
+        f32_warm_ms=(t[0] + t[3]) / 2, bf16_warm_ms=(t[1] + t[2]) / 2,
+        bf16_profile=pass_profile(*steps["bf16"], subs, without, (t[1] + t[2]) / 2),
+        f32_profile=pass_profile(*steps["f32"], subs, without, (t[0] + t[3]) / 2))
+    return report, k5
+
+
+def bf16_routes(recipe, reference, data, graph, layout, seed, dev) -> tuple:
+    """G, H and I on bf16 models: A's and B's evals under MM_SCATTER_DEFAULT
+    (K6 or K7, as the JAX predicates route bf16 rows), 3 training steps at
+    S=40 and at S=20 under it (2 K6 + 2 K3 + 2 K4 a step), A's eval under
+    DMA_V1_DEFAULT (16 K9), every launch on tc_bf16 and each eval within
+    BF16_LOGITS_RTOL of float64's largest log-prob; then the f32 models
+    under mxu_bf16 with MM_SCATTER_DEFAULT at S=20: B's eval (K7 by the
+    predicates, its attention on tc_bf16; within MXU_LOGITS_ATOL of
+    float64) and one training step (K6 on tc_bf16, K3 and K4 on their
+    3xTF32 bodies). Returns (report, the launches of each bf16 kernel row,
+    counted where they ran at the row's S)."""
+    bf40 = dataclasses.replace(recipe, compute_dtype="bfloat16")
+    bf20 = dataclasses.replace(reference, compute_dtype="bfloat16")
+    mm_k = launches(k6=2, k3=2, k4=2)
+    # (kernel, S, rows' type) -> the kernel row it counts for
+    row_of = {("edge_attention_sums_mm", 40, "bf16"): "k6_bf16",
+              ("edge_attention_layer_mm", 20, "bf16"): "k7_bf16",
+              ("edge_attention_sums_v1", 40, "bf16"): "k9_bf16",
+              ("edge_attention_bwd_dq", 20, "bf16"): "k3_bf16_s20",
+              ("edge_attention_bwd_dkv", 20, "bf16"): "k4_bf16_s20",
+              ("edge_attention_sums_mm", 20, "mxu"): "k6_mxu",
+              ("edge_attention_layer_mm", 20, "mxu"): "k7_mxu"}
+    counts = dict.fromkeys(row_of.values(), 0)
+
+    def count(kernel, cfg, rows, n):
+        key = row_of.get((kernel, cfg.num_sampled_vectors, rows))
+        if key:
+            counts[key] += n
+
+    report = {}
+    with dispatch_flag("MM_SCATTER_DEFAULT"):
+        for key, cfg in (("G S=40", bf40), ("G S=20", bf20)):
+            kernel, n, report[key] = bf16_eval(key, cfg, data, graph, layout, seed, dev,
+                                               rtol=BF16_LOGITS_RTOL)
+            count(kernel, cfg, "bf16", n)
+        for key, cfg in (("H S=40", bf40), ("H S=20", bf20)):
+            report[key] = bf16_steps(f"{key} bf16", cfg, data, graph, layout, seed, dev, mm_k,
+                                     ("edge_attention_sums_mm", "edge_attention_bwd_dq",
+                                      "edge_attention_bwd_dkv"))
+            for kernel in ("edge_attention_sums_mm", "edge_attention_bwd_dq",
+                           "edge_attention_bwd_dkv"):
+                count(kernel, cfg, "bf16", 2 * report[key]["steps"])
+    with dispatch_flag("DMA_V1_DEFAULT"):
+        kernel, n, report["I S=40"] = bf16_eval("I S=40", bf40, data, graph, layout, seed, dev,
+                                                rtol=BF16_LOGITS_RTOL)
+        count(kernel, bf40, "bf16", n)
+    with dispatch_flag("MM_SCATTER_DEFAULT"), dispatch_flag("MXU_BF16_DEFAULT"):
+        kernel, n, report["G S=20 mxu_bf16"] = bf16_eval(
+            "G S=20 mxu_bf16", reference, data, graph, layout, seed, dev,
+            atol=MXU_LOGITS_ATOL)
+        count(kernel, reference, "mxu", n)
+        report["H S=20 mxu_bf16"] = bf16_steps(
+            "H S=20 mxu_bf16", reference, data, graph, layout, seed, dev, mm_k,
+            ("edge_attention_sums_mm",), steps=1)
+        bodies = report["H S=20 mxu_bf16"]["per_step_bodies"]
+        if any(bodies[k]["tc"] != 2 for k in ("edge_attention_bwd_dq", "edge_attention_bwd_dkv")):
+            fail(f"H S=20 mxu_bf16: K3 and K4 left their 3xTF32 bodies ({bodies})")
+        count("edge_attention_sums_mm", reference, "mxu", 2)
+    return report, counts
+
+
+def bf16_phase(recipe, reference, saint_cfg, tcfg, data, graph, layout, seed, dev,
+               path_c) -> tuple:
     """The bf16 phase: the bodies (``bf16_kernel_rows``); the recommended
     recipe in compute_dtype='bfloat16' through train_full_batch (path C's
     depth; K1, K3 and K4 on tc_bf16, gradients against float64 at
@@ -2591,8 +3068,9 @@ def bf16_phase(recipe, reference, tcfg, data, graph, layout, seed, dev, path_c) 
     for bit against eager, close to the f32 step and each gradient within
     BF16_GRAD_RTOL of float64's; the f32 evals A and B
     under mxu_bf16, and one S=20 training step under it; the Predictor on
-    bf16 models; the refusals. Returns (report, kernel rows with their
-    launches)."""
+    bf16 models; path F in bf16 (``bf16_saint``); G, H and I on bf16 models
+    and under mxu_bf16 (``bf16_routes``); the refusals. Returns (report,
+    kernel rows with their launches)."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.tokenize import sample_present_features, tfidf_sample_features
     from ampnet_tpu_torch.train import (create_train_state, make_eval_step, make_optimizer,
@@ -2718,6 +3196,9 @@ def bf16_phase(recipe, reference, tcfg, data, graph, layout, seed, dev, path_c) 
     bf16_20 = dataclasses.replace(reference, compute_dtype="bfloat16")
     eaf.reset_launch_counts()
     report["serving"] = bf16_serving(bf16, bf16_20, data, seed, dev)
+    report["saint"], k5_bf16 = bf16_saint(saint_cfg, data, graph, seed, dev)
+    report["routes"], route_launches = bf16_routes(recipe, reference, data, graph, layout,
+                                                   seed, dev)
     report["refusals"] = bf16_refusals(dev)
     report["phase_s"] = time.perf_counter() - t_phase
 
@@ -2730,7 +3211,11 @@ def bf16_phase(recipe, reference, tcfg, data, graph, layout, seed, dev, path_c) 
         dict(rows["k2_bf16"], launches=k2_bf16["20"]),
         dict(rows["k2_mxu"], launches=k2_mxu),
         dict(rows["k3_bf16"], launches=k1_k3_k4["edge_attention_bwd_dq"]),
-        dict(rows["k4_bf16"], launches=k1_k3_k4["edge_attention_bwd_dkv"])]
+        dict(rows["k4_bf16"], launches=k1_k3_k4["edge_attention_bwd_dkv"]),
+        dict(rows["k5_bf16"], launches=k5_bf16),
+        *(dict(rows[key], launches=route_launches[key])
+          for key in ("k3_bf16_s20", "k4_bf16_s20", "k6_bf16", "k6_mxu", "k7_bf16",
+                      "k7_mxu", "k9_bf16"))]
     if any(r["launches"] < 1 for r in kernel_rows):
         fail(f"bf16: a body was never launched on its path "
              f"({[r['launches'] for r in kernel_rows]})")
@@ -2890,7 +3375,7 @@ def main() -> int:
 
     # bf16: the bodies, the recipe in compute_dtype='bfloat16', stream_bf16,
     # mxu_bf16, serving bf16 models, the refusals
-    bf16_report, bf16_rows = bf16_phase(recipe, reference, tcfg, data, graph, layout,
+    bf16_report, bf16_rows = bf16_phase(recipe, reference, saint, tcfg, data, graph, layout,
                                         args.seed, dev, path_c)
     emit({"bf16": dict(bf16_report, card=smi)})
 
@@ -2934,7 +3419,8 @@ def main() -> int:
             "attention_ms", "out_projection_ms", "prev_projection_ms", "prev_attention_ms",
             "prev_out_projection_ms", "projection_library_ms", "k1_max_abs_err",
             "k2_max_abs_err", "by_group_ms", "by_piece_ms", "s20", "tf32_ms",
-            "speedup_vs_tf32", "rel_err", "limit", "tf32_attention_ms")
+            "speedup_vs_tf32", "rel_err", "limit", "tf32_attention_ms", "tf32_projection_ms",
+            "tf32_out_projection_ms", "pass_b_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

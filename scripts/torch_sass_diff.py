@@ -37,7 +37,9 @@ ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
 
 
 def sass(lib: str) -> dict:
-    """{kernel function: its SASS}, addresses and the source's path left out."""
+    """{kernel function: its SASS}, addresses, the source's path and the
+    column padding left out (cuobjdump pads every line to the widest address
+    of the library, so a library that grows would differ everywhere)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
@@ -47,8 +49,8 @@ def sass(lib: str) -> dict:
         if m:
             name = m.group(1)
             funcs[name] = []
-        elif name is not None and re.search(r"/\*[0-9a-f]{4}\*/", line):
-            funcs[name].append(re.sub(r"/\*[0-9a-f]{4}\*/", "", line).strip())
+        elif name is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            funcs[name].append(" ".join(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).split()))
     return {k: "\n".join(v) for k, v in funcs.items()}
 
 

@@ -1479,8 +1479,8 @@ def test_predictor_hot_swap_needs_no_new_capture(cuda, tmp_path, monkeypatch):
     assert torch.equal(torch.from_numpy(after), want.cpu())
 
 
-# ---- bf16: the tensor-core bodies in bf16 products (K1-K4), the refusals,
-# and a bf16 model's captured step
+# ---- bf16: the tensor-core bodies in bf16 products (K1-K7, K9), the
+# refusals, and a bf16 model's captured steps
 
 # bf16 body vs its plain version on the card, relative to the output's
 # largest entry: one bf16 step (2**-8). The products are exact in f32 and
@@ -1562,12 +1562,102 @@ def test_bf16_bodies_match_plain_on_card(cuda, s, d, h, softmax):
         assert after[k] == dict(before[k], tc_bf16=before[k]["tc_bf16"] + n), k
 
 
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", [(40, 128, 4), (20, 128, 4), (4, 16, 2)])
+def test_bf16_route_bodies_match_plain_on_card(cuda, s, d, h, softmax):
+    """K5 (bf16 rows), K6 (bf16 rows; f32 rows under mxu_bf16), K7 (bf16 x
+    and weights; f32 under mxu_bf16) and K9 (bf16 rows) on their bf16 body
+    against their plain versions, every launch on tc_bf16. K5 (no atomics)
+    also launched twice and equal bit for bit, its stream held row by row on
+    the walked slots (rows of dropped slots written as 0); K6, K7 and K9 sum
+    with f32 atomics, so only within the bf16 limit."""
+    g, mask = graph(0, first_sender=1)
+    lay = compute_layout(g, tile_nodes=16, sender_layout=False).to(cuda)
+    nt = lay.recv_ptr.numel() - 1
+    t, emax = lay.tile_senders.shape
+    sp = -(-s // 16) * 16
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=cuda)
+    dsum = torch.randn(nt, sp, d, generator=gen, device=cuda)
+    dsum[:, s:] = 0.0                                  # pad token rows, as the op makes them
+    b16 = qkv.to(torch.bfloat16)
+    d16 = dsum.reshape(nt * sp, d).to(torch.bfloat16)
+    valid = edge_slot_valid(lay, mask.to(cuda))
+    r_idx = (lay.tile_senders, valid, lay.recv_ptr, lay.recv_slots)
+    slots = (lay.tile_senders, lay.tile_recv, valid)
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax)
+    mm = dict(kw, tile_nodes=16)
+    w = [t_.to(cuda) for t_ in params(2, d)]
+    w16 = [t_.to(torch.bfloat16).contiguous() for t_ in w]
+    deg = torch.bincount(g.receivers[mask], minlength=nt).to(cuda, torch.float32)
+    invdeg = torch.where(deg > 0, 1.0 / deg.clamp_min(1.0), torch.zeros_like(deg))
+    x16, x32 = b16[:, :d].contiguous(), qkv[:, :d].contiguous()
+    group = 8 if emax % 8 == 0 else 1
+    before = eaf.body_launch_counts()
+
+    dq, stream = sb.edge_attention_bwd_stream(b16[:, :d], b16[:, d:], d16, *r_idx, **kw)
+    dq2, stream2 = sb.edge_attention_bwd_stream(b16[:, :d], b16[:, d:], d16, *r_idx, **kw)
+    dq_ref, stream_ref = sb.edge_attention_bwd_stream_plain(b16[:, :d], b16[:, d:], d16,
+                                                            *r_idx, **kw)
+    torch.cuda.synchronize()
+    assert dq.dtype == stream.dtype == torch.float32
+    assert torch.equal(dq, dq2)
+    close_to_largest(dq, dq_ref, BF16_LIMIT)
+    walked = lay.recv_slots.long()
+    rows = stream.view(t * emax, sp, 2 * d)[walked]
+    assert torch.equal(rows, stream2.view(t * emax, sp, 2 * d)[walked])
+    ref_rows = stream_ref.view(t * emax, sp, 2 * d)[walked]
+    for half in (slice(0, d), slice(d, 2 * d)):
+        close_to_largest(rows[..., half], ref_rows[..., half], BF16_LIMIT)
+    assert (rows[:, s:] == 0).all()
+    assert (rows[valid.view(-1)[walked] == 0] == 0).all()
+
+    cases = {
+        "k6 bf16": (lambda: eav.edge_attention_sums_mm(b16[:, :d], b16[:, d:], *slots,
+                                                       lay.tile_counts, **mm),
+                    lambda: eav.edge_attention_sums_mm_plain(
+                        b16[:, :d], b16[:, d:], *slots, lay.tile_counts, **mm,
+                        group=eav.MM_GROUP), BF16_LIMIT, torch.float32),
+        "k6 mxu": (lambda: eav.edge_attention_sums_mm(qkv[:, :d], qkv[:, d:], *slots,
+                                                      lay.tile_counts, **mm, mxu_bf16=True),
+                   lambda: eav.edge_attention_sums_mm_plain(
+                       qkv[:, :d], qkv[:, d:], *slots, lay.tile_counts, **mm,
+                       group=eav.MM_GROUP, mxu_bf16=True), BF16_LIMIT, torch.float32),
+        "k7 bf16": (lambda: eav.edge_attention_layer_mm(x16, *w16, invdeg, *slots,
+                                                        lay.tile_counts, **mm),
+                    lambda: eav.edge_attention_layer_mm_plain(
+                        x16, *w16, invdeg, *slots, lay.tile_counts, **mm,
+                        group=eav.MM_GROUP), BF16_OUT_LIMIT, torch.bfloat16),
+        "k7 mxu": (lambda: eav.edge_attention_layer_mm(x32, *w, invdeg, *slots,
+                                                       lay.tile_counts, **mm, mxu_bf16=True),
+                   lambda: eav.edge_attention_layer_mm_plain(
+                       x32, *w, invdeg, *slots, lay.tile_counts, **mm, group=eav.MM_GROUP,
+                       mxu_bf16=True), BF16_LIMIT, torch.float32),
+        "k9 bf16": (lambda: eav.edge_attention_sums_v1(b16[:, :d], b16[:, d:], *slots, **mm,
+                                                       group=group),
+                    lambda: eav.edge_attention_sums_v1_plain(b16[:, :d], b16[:, d:], *slots,
+                                                             **mm, group=group),
+                    BF16_LIMIT, torch.float32),
+    }
+    for name, (run, plain, limit, dtype) in cases.items():
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        assert got.dtype == ref.dtype == dtype, name
+        close_to_largest(got, ref, limit)
+        assert (got.view(nt, sp, -1)[:, s:] == 0).all(), name
+        assert (got.view(nt, sp, -1)[39] == 0).all(), name      # degree 0
+    after = eaf.body_launch_counts()
+    for k, n in (("edge_attention_bwd_stream", 2), ("edge_attention_sums_mm", 2),
+                 ("edge_attention_layer_mm", 2), ("edge_attention_sums_v1", 1)):
+        assert after[k] == dict(before[k], tc_bf16=before[k]["tc_bf16"] + n), k
+
+
 def test_bf16_refusals_on_card(cuda):
-    """On the card bf16 runs on K1-K4's tensor cores only: beyond their
-    range bf16 rows raise (the CUDA-core bodies take f32 only), as do bf16
-    rows and mxu_bf16 on K5-K9, mixed row types, the f32 bodies named for
-    bf16 rows or under mxu_bf16, and 'tc_bf16' named on f32 rows (K3 and
-    K4 have no bf16 body for f32 rows; K1 takes them under mxu_bf16 only);
+    """On the card bf16 runs on the tensor cores only: beyond their range
+    bf16 rows raise (the CUDA-core bodies take f32 only), as do bf16 rows on
+    K8 (no bf16 body), mixed row types, the f32 bodies named for bf16 rows
+    or under mxu_bf16, and 'tc_bf16' named on f32 rows (K3-K5 and K9 have no
+    bf16 body for f32 rows; K1, K2 and K6 take them under mxu_bf16 only);
     nothing is launched."""
     g, mask = graph(0, first_sender=1)
     lay = compute_layout(g, tile_nodes=16).to(cuda)
@@ -1584,28 +1674,40 @@ def test_bf16_refusals_on_card(cuda):
         eaf.edge_attention_sums(q49[:, :d], q49[:, d:], *r_idx, **kw49)
     with pytest.raises(ValueError, match="CUDA-core bodies take f32 only"):
         bwd.edge_attention_bwd_dkv(q49[:, : 2 * d], q49[:, d:], *s_idx, **kw49)
-    with pytest.raises(ValueError, match="no bf16 body"):
-        sb.edge_attention_bwd_stream(q40[:, :d], q40[:, d:], q40[:, :d], *r_idx, **kw40)
+    with pytest.raises(ValueError, match="CUDA-core bodies take f32 only"):
+        sb.edge_attention_bwd_stream(q49[:, :d], q49[:, d:], q49[:, :d], *r_idx, **kw49)
     slots = (lay.tile_senders, lay.tile_recv, lay.tile_valid)
-    with pytest.raises(ValueError, match="no bf16 body"):
-        eav.edge_attention_sums_mm(q40[:, :d], q40[:, d:], *slots, lay.tile_counts, **kw40,
+    with pytest.raises(ValueError, match="CUDA-core bodies take f32 only"):
+        eav.edge_attention_sums_mm(q49[:, :d], q49[:, d:], *slots, lay.tile_counts, **kw49,
                                    tile_nodes=16)
-    f40 = q40.float()
+    ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=8).to(cuda)
     with pytest.raises(ValueError, match="no bf16 body"):
-        eav.edge_attention_sums_mm(f40[:, :d], f40[:, d:], *slots, lay.tile_counts, **kw40,
-                                   tile_nodes=16, mxu_bf16=True)
+        eav.edge_attention_sums_chunked(q40[:, :d], q40[:, d:], ck.senders, ck.valid,
+                                        ck.chunk_start, ck.chunk_count, **kw40, chunk=8)
+    f40 = q40.float()
     with pytest.raises(ValueError, match="float32 or bfloat16 rows of one type"):
         bwd.edge_attention_bwd_dq(q40[:, :d], f40[:, d:], q40[:, :d], *r_idx, **kw40)
+    with pytest.raises(ValueError, match="float32 or bfloat16 rows of one type"):
+        sb.edge_attention_bwd_stream(q40[:, :d], f40[:, d:], q40[:, :d], *r_idx, **kw40)
     with pytest.raises(ValueError, match="tc_bf16"):
         eaf.edge_attention_sums(q40[:, :d], q40[:, d:], *r_idx, **kw40, body="tc")
-    # bf16 products of f32 rows take mxu_bf16 only, and reach K1 and K2 only:
-    # 'tc_bf16' named on f32 rows raises on every kernel
+    with pytest.raises(ValueError, match="tc_bf16"):
+        eav.edge_attention_sums_v1(q40[:, :d], q40[:, d:], *slots, **kw40, tile_nodes=16,
+                                   group=1, body="tc")
+    # bf16 products of f32 rows take mxu_bf16 only, and reach K1, K2 and K6
+    # only: 'tc_bf16' named on f32 rows raises on every kernel
     f_qdm = torch.cat([f40[:, :d], f40[:, :d]], 1)
     with pytest.raises(ValueError, match="'tc_bf16' body"):
         bwd.edge_attention_bwd_dq(f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40,
                                   body="tc_bf16")
     with pytest.raises(ValueError, match="'tc_bf16' body"):
         bwd.edge_attention_bwd_dkv(f_qdm, f40[:, d:], *s_idx, **kw40, body="tc_bf16")
+    with pytest.raises(ValueError, match="'tc_bf16' body"):
+        sb.edge_attention_bwd_stream(f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40,
+                                     body="tc_bf16")
+    with pytest.raises(ValueError, match="'tc_bf16' body"):
+        eav.edge_attention_sums_v1(f40[:, :d], f40[:, d:], *slots, **kw40, tile_nodes=16,
+                                   group=1, body="tc_bf16")
     with pytest.raises(ValueError, match="'tc_bf16' body"):
         eaf.edge_attention_sums(f40[:, :d], f40[:, d:], *r_idx, **kw40, body="tc_bf16")
     with pytest.raises(ValueError, match="'tc_bf16' body"):
@@ -1643,4 +1745,45 @@ def test_bf16_model_captured_step_equals_eager(cuda):
     bodies = eaf.body_launch_counts()
     for k in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv"):
         assert bodies[k] == dict(tc=0, simt=0, tc_bf16=12), bodies
+    assert all(p.dtype == torch.float32 for p in one.model.parameters())
+
+
+@pytest.mark.parametrize("mode", ["bf16 model", "stream_bf16"])
+def test_bf16_stream_backward_captured_step_equals_eager(cuda, monkeypatch, mode):
+    """Path F in bf16: make_pallas_train_step on a layout without a sender
+    side, a bf16 model or the f32 model under stream_bf16, three captured
+    steps against three eager bodies from one state, bit for bit (K1, K5
+    and pass B's sorted sum use no atomics); each step 2 K1 + 2 K5, all on
+    tc_bf16; the parameters and Adam's state stay f32."""
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer
+    from ampnet_tpu_torch.train.pallas_step import fused_forward, make_pallas_train_step
+    from ampnet_tpu_torch.train.state import _train_step_body
+
+    if mode == "stream_bf16":
+        monkeypatch.setattr(eaf, "STREAM_BF16_DEFAULT", True)
+    g, _ = graph(11)
+    g = g.to(cuda)
+    dtype = "bfloat16" if mode == "bf16 model" else "float32"
+    cfg = AMPGCNConfig(**{**CAPTURE_CFG, "compute_dtype": dtype, "dropout_adj_rate": 0.0})
+    lay = compute_layout(g, tile_nodes=16, sender_layout=False)
+
+    def make():
+        model = AMPGCN(cfg, generator=torch.Generator().manual_seed(1), device=cuda)
+        return create_train_state(model, make_optimizer(
+            model.parameters(), 3e-3, weight_decay=1e-3, grad_clip=1.0), seed=4)
+
+    eager, one = make(), make()
+    body = _train_step_body(eager.model, "full", forward=fused_forward(eager.model))
+    step = make_pallas_train_step(one.model, loss_mode="full")
+    eaf.reset_launch_counts()
+    for _ in range(3):
+        want, got = body(eager, g, lay)[1], step(one, g, lay)[1]
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert_same_state(one, eager)
+    bodies = eaf.body_launch_counts()
+    for k in ("edge_attention_sums", "edge_attention_bwd_stream"):
+        assert bodies[k] == dict(tc=0, simt=0, tc_bf16=12), bodies
+    assert not any(sum(bodies[k].values()) for k in bodies
+                   if k not in ("edge_attention_sums", "edge_attention_bwd_stream")), bodies
     assert all(p.dtype == torch.float32 for p in one.model.parameters())

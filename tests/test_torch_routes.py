@@ -322,12 +322,13 @@ def test_body_of_checks_a_named_body():
         launch.body_of(K1, "wgmma", 40, 128, 4, ("kv_rows", qkv[:, 128:]))
 
 
-@pytest.mark.parametrize("kernel", [K1, K2, K3, K4])
+@pytest.mark.parametrize("kernel", [K1, K2, K3, K4, K5, K6, K9])
 def test_bf16_products_take_one_switch(kernel):
     """bf16 products run on 'tc_bf16' and only there: on bf16 rows, and on
-    f32 rows under mxu_bf16, which reaches K1 and K2's attention only. A
-    named 'tc_bf16' on f32 rows without mxu_bf16 raises, as does a named
-    f32 body on bf16 rows or under mxu_bf16."""
+    f32 rows under mxu_bf16, which reaches K1, K2's attention and K6 (K7's
+    attention) only: on K3-K5 and K9 it raises. A named 'tc_bf16' on f32
+    rows without mxu_bf16 raises, as does a named f32 body on bf16 rows or
+    under mxu_bf16."""
     f32 = ("kv_rows", torch.zeros(64, 3 * 128)[:, 128:])
     bf16 = ("kv_rows", torch.zeros(64, 3 * 128, dtype=torch.bfloat16)[:, 128:])
     shape = (40, 128, 4)
@@ -347,18 +348,23 @@ def test_bf16_products_take_one_switch(kernel):
             launch.body_of(kernel, None, *shape, f32, mxu_bf16=True)
 
 
-@pytest.mark.parametrize("kernel", [K1, K2, K3, K4, "q|k|v projection"])
+@pytest.mark.parametrize("kernel", [K1, K2, K3, K4, K5, K6, K9, "q|k|v projection",
+                                    "K7 out-projection"])
 def test_entry_point_by_body_and_row_type(kernel):
-    """K1-K4's wrappers (and K2's projection launch) take their entry point
-    from (body, row type): the f32 bodies on f32 rows, 'tc_bf16' on bf16
-    rows, and on f32 rows only where mxu_bf16 reaches (K1, K2's attention);
-    anything else raises before a pointer is handed over."""
+    """The wrappers with a bf16 body (K1-K6, K9; K2's and K7's projection
+    launches, K7's out-projection) take their entry point from (body, row
+    type): the f32 bodies on f32 rows, 'tc_bf16' on bf16 rows, and on f32
+    rows only where mxu_bf16 reaches (K1, K2's attention, K6); anything else
+    raises before a pointer is handed over."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
 
     table = {K1: eaf._SUMS, K2: eaf._LAYER_ATTENTION, K3: bwd._DQ, K4: bwd._DKV,
-             "q|k|v projection": eav._PROJECTION}[kernel]
+             K5: sb._BODIES, K6: eav._SUMS_MM, K9: eav._SUMS_V1,
+             "q|k|v projection": eav._PROJECTION,
+             "K7 out-projection": eav._LAYER_MM_OUT_PROJECTION}[kernel]
     f32, bf16 = torch.float32, torch.bfloat16
     assert {launch.entry_of(kernel, table, b, f32) for b in (TC, SIMT)} == {
         table[(TC, f32)], table[(SIMT, f32)]}
@@ -371,6 +377,28 @@ def test_entry_point_by_body_and_row_type(kernel):
     else:
         with pytest.raises(ValueError, match="no entry point"):
             launch.entry_of(kernel, table, "tc_bf16", f32)
+
+
+def test_chunked_sums_stay_f32_only():
+    """K8 (no model path reaches it) has no bf16 body: bf16 rows and a named
+    'tc_bf16' raise at the rule, the wrapper's guard raises on bf16 rows,
+    and mxu_bf16 does not reach it; f32 rows keep their two bodies."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+
+    f32 = ("kv_rows", torch.zeros(64, 3 * 128)[:, 128:])
+    bf16 = ("kv_rows", torch.zeros(64, 3 * 128, dtype=torch.bfloat16)[:, 128:])
+    assert K8 not in launch.BF16_KERNELS and K8 not in launch.MXU_KERNELS
+    assert launch.body_of(K8, None, 40, 128, 4, f32) == TC
+    for named, rows in ((None, bf16), ("tc_bf16", bf16)):
+        with pytest.raises(ValueError, match="no bf16 body"):
+            launch.body_of(K8, named, 40, 128, 4, rows)
+    with pytest.raises(ValueError, match="mxu_bf16 reaches"):
+        launch.body_of(K8, None, 40, 128, 4, f32, mxu_bf16=True)
+    with pytest.raises(ValueError, match="no bf16 body"):
+        launch.check_f32_only(K8, bf16[1])
+    launch.check_f32_only(K8, f32[1])
+    # every other kernel of the family has its bf16 body
+    assert set(launch.BF16_KERNELS) == set(launch.TENSOR_CORE_KERNELS) - {K8}
 
 
 def test_count_launch_splits_by_body():
