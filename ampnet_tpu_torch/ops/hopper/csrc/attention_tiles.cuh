@@ -4,7 +4,11 @@
 // value product, f32 on the CUDA cores with the register tiles of
 // edge_attention.cu (2 queries x 4 keys for the scores, 4 query rows x 1
 // column for the messages). Any block size; every function is called by
-// all threads of the block and none synchronises.
+// all threads of the block and none synchronises. kBf16 (the 'simt_bf16'
+// bodies): the rows' values are converted to f32 as they are loaded, the
+// loads round q times the scale, k and v to bf16, and the weights (or the
+// raw scaled scores) round to bf16 before the value product: the JAX bodies'
+// rounding points, with each product's sum in f32.
 //
 // Shared-memory shapes (s2 = s rounded up to 2, s4 to 4, ld = d + 1; pad
 // rows are zeroed once by the caller and never written, so the tiles read
@@ -17,12 +21,15 @@
 #pragma once
 
 #include "common.cuh"
+#include "rows_bf16.cuh"
 
 constexpr int kLoadsInFlight = 8;  // global loads each thread issues before a store
 
 // dst[i * ld_dst + c] = mul * src[(row0 + i) * ld_src + col0 + c] for i < s,
-// c < ncols. Neighbouring threads take neighbouring columns of one row.
-__device__ __forceinline__ void load_tile(const float* __restrict__ src, size_t row0,
+// c < ncols (kBf16: rounded to bf16). Neighbouring threads take
+// neighbouring columns of one row.
+template <bool kBf16 = false, typename T = float>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, size_t row0,
                                           int ld_src, int col0, int ncols, int s,
                                           float* dst, int ld_dst, float mul) {
   const int total = s * ncols;
@@ -32,22 +39,25 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src, size_t 
 #pragma unroll
     for (int u = 0; u < kLoadsInFlight; ++u) {
       const int e = e0 + u * nth;
-      if (e < total) r[u] = src[(row0 + e / ncols) * (size_t)ld_src + col0 + e % ncols];
+      if (e < total) r[u] = to_f32(src[(row0 + e / ncols) * (size_t)ld_src + col0 + e % ncols]);
     }
 #pragma unroll
     for (int u = 0; u < kLoadsInFlight; ++u) {
       const int e = e0 + u * nth;
-      if (e < total) dst[(e / ncols) * ld_dst + e % ncols] = r[u] * mul;
+      if (e < total)
+        dst[(e / ncols) * ld_dst + e % ncols] = kBf16 ? round_bf16(r[u] * mul) : r[u] * mul;
     }
   }
 }
 
 // ps[(h * s4 + i) * ldp + j] = sum_c qs[i][h * dh + c] * ks[j][h * dh + c] for
 // i, j < s, for `edges` key blocks side by side: block e reads
-// ks + e * s4 * ld and writes columns e * s .. e * s + s - 1.
+// ks + e * s4 * ld and writes columns e * s .. e * s + s - 1. kBf16 without
+// the softmax: the raw scores are the value product's operand, rounded.
+template <bool kBf16 = false>
 __device__ __forceinline__ void score_tiles(const float* qs, const float* ks, float* ps,
                                             int ldp, int edges, int s, int d,
-                                            int num_heads) {
+                                            int num_heads, int softmax = 1) {
   const int dh = d / num_heads, ld = d + 1;
   const int s2 = (s + 1) / 2 * 2, s4 = (s + 3) / 4 * 4;
   const int n_ip = s2 / 2, n_jq = s4 / 4;
@@ -77,7 +87,8 @@ __device__ __forceinline__ void score_tiles(const float* qs, const float* ks, fl
 #pragma unroll
       for (int v = 0; v < 4; ++v) {
         const int j = 4 * jq + v;
-        if (j < s) ps[(h * s4 + i) * ldp + e * s + j] = a[u][v];
+        if (j < s)
+          ps[(h * s4 + i) * ldp + e * s + j] = kBf16 && !softmax ? round_bf16(a[u][v]) : a[u][v];
       }
     }
   }
@@ -85,7 +96,8 @@ __device__ __forceinline__ void score_tiles(const float* qs, const float* ks, fl
 
 // Softmax over each edge's own s key columns, in place: one warp per (head,
 // query row, edge) segment, so every edge keeps its own maximum and its own
-// denominator whatever shares its row.
+// denominator whatever shares its row (kBf16: the weights rounded to bf16).
+template <bool kBf16 = false>
 __device__ __forceinline__ void softmax_segments(float* ps, int ldp, int edges, int s,
                                                  int num_heads) {
   const int s4 = (s + 3) / 4 * 4;
@@ -104,7 +116,7 @@ __device__ __forceinline__ void softmax_segments(float* ps, int ldp, int edges, 
       sum += ex;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < s; j += 32) p[j] = p[j] / sum;
+    for (int j = lane; j < s; j += 32) p[j] = kBf16 ? round_bf16(p[j] / sum) : p[j] / sum;
   }
 }
 

@@ -20,6 +20,21 @@
 // memory a block may have, the same body keeps it in device memory instead,
 // one slice per resident block, and the blocks walk the receivers in turn.
 //
+// bf16 (the *_simt_bf16 and *_simt_mxu entry points, launch.py's body
+// 'simt_bf16'): the same walk over bf16 rows, or over f32 rows whose
+// products' operands are rounded to bf16 (mxu_bf16), beyond the bf16
+// tensor-core bodies' range (edge_attention_tc_bf16.cuh). The working set
+// stays f32 (the same smem_floats); each value is converted as it is loaded
+// and rounded where the JAX bodies round: q times 1/sqrt(dh) in the rows'
+// type, rounded to bf16 (k and v rounded too on f32 rows); the softmax in
+// f32, then W (or the raw scaled scores) rounded to bf16; each edge's
+// message summed in f32 and added to the f32 sums. A bf16 times a bf16 is
+// exact in f32, so an f32 FMA on these values is the tensor cores' bf16
+// product up to the order of the f32 sums. K2 on bf16 rows rounds its mean
+// to bf16, the out-projection's f32 sum to bf16, and adds b_out in bf16 on
+// live rows, as _fused_kernel_vmem_v6 (:851-860) does; under mxu_bf16 its
+// epilogue is the f32 one.
+//
 // Design. A TPU tile of TN receivers carries a TN*SP*D f32 accumulator
 // (5.2 MB at S=40) through a sequential grid; that cannot be one thread
 // block here (227 KB of shared memory). So ONE BLOCK PER RECEIVER: it
@@ -41,7 +56,10 @@
 // thread for the scores, 4 query rows x 1 column for the messages); the
 // tensor cores (TF32/bf16 wgmma) are later work.
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "rows_bf16.cuh"
 
 namespace {
 
@@ -62,20 +80,27 @@ __host__ __device__ inline size_t smem_floats(int s, int d, int h) {
   return (size_t)(s2 + s4) * (d + 1) + (size_t)s * d * 2 + (size_t)h * s4 * s;
 }
 
-// One receiver n, its working set at smem (shared or device memory).
-template <bool kLayer>
+// K2's output type: the rows' type; K1's: f32
+template <bool kLayer, typename T>
+using SumsOut = std::conditional_t<kLayer, T, float>;
+
+// One receiver n, its working set at smem (shared or device memory). T: the
+// rows' type (and K2's weights'); kBf16: the products' operands rounded to
+// bf16 (bf16 rows, or f32 rows under mxu_bf16).
+template <bool kLayer, typename T, bool kBf16>
 __device__ __forceinline__ void
-receiver_sums(int n, float* smem, const float* __restrict__ q, int ldq,
-              const float* __restrict__ kv, int ldkv,
+receiver_sums(int n, float* smem, const T* __restrict__ q, int ldq,
+              const T* __restrict__ kv, int ldkv,
               const int* __restrict__ tile_senders,
               const int* __restrict__ tile_valid,
               const int* __restrict__ recv_ptr,
               const int* __restrict__ recv_slots,
               const float* __restrict__ invdeg,
-              const float* __restrict__ w_out,
-              const float* __restrict__ b_out,
-              float* __restrict__ out,
+              const T* __restrict__ w_out,
+              const T* __restrict__ b_out,
+              SumsOut<kLayer, T>* __restrict__ out,
               int s, int sp, int d, int num_heads, int softmax) {
+  using O = SumsOut<kLayer, T>;
   const int tid = threadIdx.x;
   const int dh = d / num_heads;
   const int ld = d + 1;
@@ -89,7 +114,7 @@ receiver_sums(int n, float* smem, const float* __restrict__ q, int ldq,
   const int beg = recv_ptr[n];
   const int end = recv_ptr[n + 1];
   const float inv_n = kLayer ? invdeg[n] : 1.0f;
-  const float scale = 1.0f / sqrtf((float)dh);
+  const float scale = kBf16 ? head_scale<T>(dh) : 1.0f / sqrtf((float)dh);
   const size_t qrow0 = (size_t)n * sp;
 
   // zero everything once (pad rows of qs/ks/ps must read 0), then Q; the
@@ -104,10 +129,11 @@ receiver_sums(int n, float* smem, const float* __restrict__ q, int ldq,
         float r[kRowBatch];
 #pragma unroll
         for (int u = 0; u < kRowBatch; ++u)
-          if (i0 + u < s) r[u] = q[(qrow0 + i0 + u) * ldq + c];
+          if (i0 + u < s) r[u] = to_f32(q[(qrow0 + i0 + u) * ldq + c]);
 #pragma unroll
         for (int u = 0; u < kRowBatch; ++u)
-          if (i0 + u < s) qs[(i0 + u) * ld + c] = r[u] * scale;
+          if (i0 + u < s)
+            qs[(i0 + u) * ld + c] = kBf16 ? round_bf16(r[u] * scale) : r[u] * scale;
       }
   }
 
@@ -130,10 +156,10 @@ receiver_sums(int n, float* smem, const float* __restrict__ q, int ldq,
         float r[kRowBatch];
 #pragma unroll
         for (int u = 0; u < kRowBatch; ++u)
-          if (i0 + u < s) r[u] = kv[(krow0 + i0 + u) * ldkv + c];
+          if (i0 + u < s) r[u] = to_f32(kv[(krow0 + i0 + u) * ldkv + c]);
 #pragma unroll
         for (int u = 0; u < kRowBatch; ++u)
-          if (i0 + u < s) dst[(i0 + u) * ldd] = r[u];
+          if (i0 + u < s) dst[(i0 + u) * ldd] = kBf16 ? round_bf16(r[u]) : r[u];
       }
     }
     __syncthreads();
@@ -159,7 +185,9 @@ receiver_sums(int n, float* smem, const float* __restrict__ q, int ldq,
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
           const int j = 4 * jq + v;
-          if (j < s) ps[(h * s4 + i) * s + j] = a[u][v];
+          // (bf16: the raw scaled scores are the value product's operand)
+          if (j < s)
+            ps[(h * s4 + i) * s + j] = kBf16 && !softmax ? round_bf16(a[u][v]) : a[u][v];
         }
       }
     }
@@ -179,7 +207,7 @@ receiver_sums(int n, float* smem, const float* __restrict__ q, int ldq,
           sum += ex;
         }
         sum = warp_sum(sum);
-        for (int j = lane; j < s; j += 32) p[j] = p[j] / sum;
+        for (int j = lane; j < s; j += 32) p[j] = kBf16 ? round_bf16(p[j] / sum) : p[j] / sum;
       }
       __syncthreads();
     }
@@ -206,8 +234,23 @@ receiver_sums(int n, float* smem, const float* __restrict__ q, int ldq,
   }
   __syncthreads();
 
-  float* orow = out + qrow0 * d;
-  if (kLayer) {
+  O* orow = out + qrow0 * d;
+  if constexpr (kLayer && std::is_same_v<T, __nv_bfloat16>) {
+    // bf16 rows: the mean rounds to bf16, mean @ w_out sums in f32 and rounds
+    // to bf16, b_out is added in bf16 on live rows; degree 0 comes out 0
+    for (int e = tid; e < s * d; e += kThreads) acc[e] = round_bf16(acc[e]);
+    __syncthreads();
+    const bool live = inv_n > 0.0f;
+    for (int i = 0; i < s; ++i) {
+      const float* ai = acc + i * d;
+      for (int c = tid; c < d; c += kThreads) {
+        float a = 0.0f;
+        for (int k2 = 0; k2 < d; ++k2) a = fmaf(ai[k2], to_f32(w_out[(size_t)k2 * d + c]), a);
+        const float y = round_bf16(a);
+        orow[i * d + c] = __float2bfloat16_rn(live ? y + to_f32(b_out[c]) : y);
+      }
+    }
+  } else if constexpr (kLayer) {
     // out = mean @ w_out (+ b_out where the receiver has a live in-edge):
     // a receiver of degree 0 has acc == 0 and comes out exactly 0
     const bool live = inv_n > 0.0f;
@@ -223,62 +266,62 @@ receiver_sums(int n, float* smem, const float* __restrict__ q, int ldq,
     for (int i = 0; i < s; ++i)
       for (int c = tid; c < d; c += kThreads) orow[i * d + c] = acc[i * d + c];
   }
-  for (int e = s * d + tid; e < sp * d; e += kThreads) orow[e] = 0.0f;
+  for (int e = s * d + tid; e < sp * d; e += kThreads) orow[e] = from_f32<O>(0.0f);
 }
 
 // kDeviceMem = false: one block per receiver, its working set in dynamic
 // shared memory. kDeviceMem = true: block b works in work[b * smem_floats]
 // and takes receivers b, b + gridDim.x, ...
-template <bool kLayer, bool kDeviceMem>
+template <bool kLayer, bool kDeviceMem, typename T, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-edge_attention_kernel(const float* __restrict__ q, int ldq,
-                      const float* __restrict__ kv, int ldkv,
+edge_attention_kernel(const T* __restrict__ q, int ldq,
+                      const T* __restrict__ kv, int ldkv,
                       const int* __restrict__ tile_senders,
                       const int* __restrict__ tile_valid,
                       const int* __restrict__ recv_ptr,
                       const int* __restrict__ recv_slots,
                       const float* __restrict__ invdeg,
-                      const float* __restrict__ w_out,
-                      const float* __restrict__ b_out,
-                      float* __restrict__ out, float* __restrict__ work,
+                      const T* __restrict__ w_out,
+                      const T* __restrict__ b_out,
+                      SumsOut<kLayer, T>* __restrict__ out, float* __restrict__ work,
                       int num_nodes, int s, int sp, int d, int num_heads,
                       int softmax) {
   extern __shared__ float shared[];
   if (!kDeviceMem) {  // no loop: the loop costs this body registers
-    receiver_sums<kLayer>(blockIdx.x, shared, q, ldq, kv, ldkv, tile_senders, tile_valid,
-                          recv_ptr, recv_slots, invdeg, w_out, b_out, out, s, sp, d,
-                          num_heads, softmax);
+    receiver_sums<kLayer, T, kBf16>(blockIdx.x, shared, q, ldq, kv, ldkv, tile_senders,
+                                    tile_valid, recv_ptr, recv_slots, invdeg, w_out, b_out,
+                                    out, s, sp, d, num_heads, softmax);
     return;
   }
   float* smem = work + blockIdx.x * smem_floats(s, d, num_heads);
   for (int n = blockIdx.x; n < num_nodes; n += gridDim.x)
-    receiver_sums<kLayer>(n, smem, q, ldq, kv, ldkv, tile_senders, tile_valid,
-                          recv_ptr, recv_slots, invdeg, w_out, b_out, out, s,
-                          sp, d, num_heads, softmax);
+    receiver_sums<kLayer, T, kBf16>(n, smem, q, ldq, kv, ldkv, tile_senders, tile_valid,
+                                    recv_ptr, recv_slots, invdeg, w_out, b_out, out, s, sp,
+                                    d, num_heads, softmax);
 }
 
 // work == nullptr: the working set in shared memory (the caller checked
 // that it fits); else work_blocks slices of smem_floats in device memory.
-template <bool kLayer>
-int launch(const float* q, int ldq, const float* kv, int ldkv,
+template <bool kLayer, typename T, bool kBf16>
+int launch(const T* q, int ldq, const T* kv, int ldkv,
            const int* tile_senders, const int* tile_valid,
            const int* recv_ptr, const int* recv_slots,
-           const float* invdeg, const float* w_out, const float* b_out,
-           float* out, float* work, int work_blocks, int num_nodes, int s,
+           const float* invdeg, const T* w_out, const T* b_out,
+           SumsOut<kLayer, T>* out, float* work, int work_blocks, int num_nodes, int s,
            int sp, int d, int num_heads, int softmax, cudaStream_t stream) {
   if (num_nodes <= 0) return (int)cudaGetLastError();
   if (work != nullptr) {
-    edge_attention_kernel<kLayer, true><<<work_blocks, kThreads, 0, stream>>>(
+    edge_attention_kernel<kLayer, true, T, kBf16><<<work_blocks, kThreads, 0, stream>>>(
         q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots,
         invdeg, w_out, b_out, out, work, num_nodes, s, sp, d, num_heads, softmax);
     return (int)cudaGetLastError();
   }
   const size_t smem = smem_floats(s, d, num_heads) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_attention_kernel<kLayer, false>,
+      edge_attention_kernel<kLayer, false, T, kBf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  edge_attention_kernel<kLayer, false><<<num_nodes, kThreads, smem, stream>>>(
+  edge_attention_kernel<kLayer, false, T, kBf16><<<num_nodes, kThreads, smem, stream>>>(
       q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots,
       invdeg, w_out, b_out, out, nullptr, num_nodes, s, sp, d, num_heads, softmax);
   return (int)cudaGetLastError();
@@ -305,10 +348,39 @@ int ampnet_edge_attention_sums_simt(const float* q, int ldq, const float* kv,
                                     int num_nodes, int s, int sp, int d,
                                     int num_heads, int softmax, float* work,
                                     int work_blocks, void* stream) {
-  return launch<false>(q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr,
-                       recv_slots, nullptr, nullptr, nullptr, out, work,
-                       work_blocks, num_nodes, s, sp, d, num_heads, softmax,
-                       (cudaStream_t)stream);
+  return launch<false, float, false>(q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr,
+                                     recv_slots, nullptr, nullptr, nullptr, out, work,
+                                     work_blocks, num_nodes, s, sp, d, num_heads, softmax,
+                                     (cudaStream_t)stream);
+}
+
+// K1's CUDA-core body in bf16 (launch.py's 'simt_bf16'): bf16 q and k|v
+// rows, the arguments of ampnet_edge_attention_sums_simt; out f32.
+int ampnet_edge_attention_sums_simt_bf16(const __nv_bfloat16* q, int ldq,
+                                         const __nv_bfloat16* kv, int ldkv,
+                                         const int* tile_senders, const int* tile_valid,
+                                         const int* recv_ptr, const int* recv_slots,
+                                         float* out, int num_nodes, int s, int sp, int d,
+                                         int num_heads, int softmax, float* work,
+                                         int work_blocks, void* stream) {
+  return launch<false, __nv_bfloat16, true>(
+      q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots, nullptr, nullptr,
+      nullptr, out, work, work_blocks, num_nodes, s, sp, d, num_heads, softmax,
+      (cudaStream_t)stream);
+}
+
+// K1's CUDA-core body on f32 rows with the products' operands rounded to
+// bf16 (mxu_bf16); the arguments of ampnet_edge_attention_sums_simt.
+int ampnet_edge_attention_sums_simt_mxu(const float* q, int ldq, const float* kv, int ldkv,
+                                        const int* tile_senders, const int* tile_valid,
+                                        const int* recv_ptr, const int* recv_slots,
+                                        float* out, int num_nodes, int s, int sp, int d,
+                                        int num_heads, int softmax, float* work,
+                                        int work_blocks, void* stream) {
+  return launch<false, float, true>(q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr,
+                                    recv_slots, nullptr, nullptr, nullptr, out, work,
+                                    work_blocks, num_nodes, s, sp, d, num_heads, softmax,
+                                    (cudaStream_t)stream);
 }
 
 // K2's CUDA-core attention launch over projected rows (q|k|v packed per
@@ -322,10 +394,42 @@ int ampnet_edge_attention_layer_simt(const float* qkv, int ldqkv,
                                 int s, int sp, int d, int num_heads,
                                 int softmax, float* work, int work_blocks,
                                 void* stream) {
-  return launch<true>(qkv, ldqkv, qkv + d, ldqkv, tile_senders, tile_valid,
-                      recv_ptr, recv_slots, invdeg, w_out, b_out, out, work,
-                      work_blocks, num_nodes, s, sp, d, num_heads, softmax,
-                      (cudaStream_t)stream);
+  return launch<true, float, false>(qkv, ldqkv, qkv + d, ldqkv, tile_senders, tile_valid,
+                                    recv_ptr, recv_slots, invdeg, w_out, b_out, out, work,
+                                    work_blocks, num_nodes, s, sp, d, num_heads, softmax,
+                                    (cudaStream_t)stream);
+}
+
+// K2's CUDA-core attention launch in bf16: bf16 q|k|v rows, w_out and b_out,
+// bf16 out; invdeg f32.
+int ampnet_edge_attention_layer_simt_bf16(const __nv_bfloat16* qkv, int ldqkv,
+                                          const int* tile_senders, const int* tile_valid,
+                                          const int* recv_ptr, const int* recv_slots,
+                                          const float* invdeg, const __nv_bfloat16* w_out,
+                                          const __nv_bfloat16* b_out, __nv_bfloat16* out,
+                                          int num_nodes, int s, int sp, int d, int num_heads,
+                                          int softmax, float* work, int work_blocks,
+                                          void* stream) {
+  return launch<true, __nv_bfloat16, true>(
+      qkv, ldqkv, qkv + d, ldqkv, tile_senders, tile_valid, recv_ptr, recv_slots, invdeg,
+      w_out, b_out, out, work, work_blocks, num_nodes, s, sp, d, num_heads, softmax,
+      (cudaStream_t)stream);
+}
+
+// K2's CUDA-core attention launch on f32 rows under mxu_bf16 (the
+// attention's operands rounded to bf16, the epilogue f32); the arguments of
+// ampnet_edge_attention_layer_simt.
+int ampnet_edge_attention_layer_simt_mxu(const float* qkv, int ldqkv,
+                                         const int* tile_senders, const int* tile_valid,
+                                         const int* recv_ptr, const int* recv_slots,
+                                         const float* invdeg, const float* w_out,
+                                         const float* b_out, float* out, int num_nodes, int s,
+                                         int sp, int d, int num_heads, int softmax,
+                                         float* work, int work_blocks, void* stream) {
+  return launch<true, float, true>(qkv, ldqkv, qkv + d, ldqkv, tile_senders, tile_valid,
+                                   recv_ptr, recv_slots, invdeg, w_out, b_out, out, work,
+                                   work_blocks, num_nodes, s, sp, d, num_heads, softmax,
+                                   (cudaStream_t)stream);
 }
 
 }  // extern "C"

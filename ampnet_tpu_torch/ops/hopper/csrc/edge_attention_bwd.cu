@@ -72,8 +72,24 @@
 // last); at these sizes one block fills an SM's shared memory, so 512
 // threads a block keep 16 warps on it. Within their range K3, K4 and K5 run
 // on the tensor cores with cp.async rings instead.
+//
+// bf16 (the *_simt_bf16 entry points, launch.py's body 'simt_bf16'): the
+// same three bodies over bf16 rows beyond the bf16 tensor-core bodies'
+// range. The working set stays f32 (the same smem_floats), each value
+// converted as it is loaded, and the rounding is the JAX bodies' (as
+// edge_attention_bwd_dq_tc_bf16.cu and edge_attention_bwd_tc_bf16.cu take
+// it): the scores' q times the bf16 1/sqrt(dh), rounded to bf16 (K3 keeps Q
+// so in shared memory; K4 and K5 keep Q unscaled for dK and round q times
+// the scale as the score tile reads it); dW from the bf16 rows as they are;
+// the softmax and its backward in f32; W and dS rounded to bf16 before
+// their products (without the softmax: the raw scores and dW); each edge's
+// dQ and dK summed in f32 and scaled by the f32 1/sqrt(dh) after the
+// product. dQ, dK|dV and the stream are f32.
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "rows_bf16.cuh"
 
 namespace {
 
@@ -99,26 +115,27 @@ __host__ __device__ inline size_t smem_floats(int s, int d, int h, int mode) {
 }
 
 // Rows [row0, row0 + s) of src (row stride ld_src), columns [0, ncols):
-// column c < d goes to dst_a[row][c] * mul_a, column c >= d to
-// dst_b[row][c - d]. One warp per row, lanes across columns (coalesced),
-// kLoadBatch loads in flight per lane before any store.
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, size_t row0,
+// column c < d goes to dst_a[row][c] * mul_a (kRound: rounded to bf16),
+// column c >= d to dst_b[row][c - d]. One warp per row, lanes across
+// columns (coalesced), kLoadBatch loads in flight per lane before any store.
+template <typename T, bool kRound>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, size_t row0,
                                           int ld_src, int ncols, int s, int d,
                                           float* dst_a, float mul_a, float* dst_b,
                                           int ld_dst) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int row = warp; row < s; row += kWarps) {
-    const float* r = src + (row0 + row) * (size_t)ld_src;
+    const T* r = src + (row0 + row) * (size_t)ld_src;
     for (int c0 = lane; c0 < ncols; c0 += 32 * kLoadBatch) {
       float x[kLoadBatch];
 #pragma unroll
       for (int u = 0; u < kLoadBatch; ++u)
-        if (c0 + 32 * u < ncols) x[u] = r[c0 + 32 * u];
+        if (c0 + 32 * u < ncols) x[u] = to_f32(r[c0 + 32 * u]);
 #pragma unroll
       for (int u = 0; u < kLoadBatch; ++u) {
         const int c = c0 + 32 * u;
         if (c < ncols) {
-          if (c < d) dst_a[row * ld_dst + c] = x[u] * mul_a;
+          if (c < d) dst_a[row * ld_dst + c] = kRound ? round_bf16(x[u] * mul_a) : x[u] * mul_a;
           else dst_b[row * ld_dst + c - d] = x[u];
         }
       }
@@ -126,16 +143,19 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src, size_t 
   }
 }
 
-// out[u][v] = sum_c a0[u * ld + c] * b0[v * ld + c], u < 2, v < 4, c < dh
+// out[u][v] = sum_c a0[u * ld + c] * b0[v * ld + c], u < 2, v < 4, c < dh;
+// kScaleA: a0's values times a_scale, rounded to bf16, as they are read
+template <bool kScaleA = false>
 __device__ __forceinline__ void tile_2x4(const float* a0, const float* b0, int ld,
-                                         int dh, float out[2][4]) {
+                                         int dh, float out[2][4], float a_scale = 1.0f) {
 #pragma unroll
   for (int u = 0; u < 2; ++u)
 #pragma unroll
     for (int v = 0; v < 4; ++v) out[u][v] = 0.0f;
 #pragma unroll 4
   for (int c = 0; c < dh; ++c) {
-    const float x0 = a0[c], x1 = a0[ld + c];
+    const float x0 = kScaleA ? round_bf16(a0[c] * a_scale) : a0[c];
+    const float x1 = kScaleA ? round_bf16(a0[ld + c] * a_scale) : a0[ld + c];
     const float y0 = b0[c], y1 = b0[ld + c], y2 = b0[2 * ld + c], y3 = b0[3 * ld + c];
     out[0][0] = fmaf(x0, y0, out[0][0]); out[0][1] = fmaf(x0, y1, out[0][1]);
     out[0][2] = fmaf(x0, y2, out[0][2]); out[0][3] = fmaf(x0, y3, out[0][3]);
@@ -144,14 +164,17 @@ __device__ __forceinline__ void tile_2x4(const float* a0, const float* b0, int l
   }
 }
 
+// kBf16 without the softmax: the tile is a product's operand, rounded to bf16
+template <bool kBf16 = false>
 __device__ __forceinline__ void store_2x4(float* dst, int s4, int s, int i0, int j0,
-                                          const float a[2][4]) {
+                                          const float a[2][4], int softmax = 1) {
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     if (i0 + u >= s) break;
 #pragma unroll
     for (int v = 0; v < 4; ++v)
-      if (j0 + v < s) dst[(i0 + u) * s4 + j0 + v] = a[u][v];
+      if (j0 + v < s)
+        dst[(i0 + u) * s4 + j0 + v] = kBf16 && !softmax ? round_bf16(a[u][v]) : a[u][v];
   }
 }
 
@@ -163,11 +186,12 @@ __device__ __forceinline__ void store_2x4(float* dst, int s4, int s, int i0, int
 // kMode = kStream: K5, K3's work for receiver n; out takes the dQ rows of
 //                  the launched range, stream the dK | dV rows of each
 //                  walked slot, counted from slot0.
-template <int kMode>
+// T: the rows' type (bf16: the products' operands are bf16).
+template <int kMode, typename T>
 __device__ __forceinline__ void
-node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
-              const float* __restrict__ dm, int lddm,
-              const float* __restrict__ kv, int ldkv,
+node_backward(int local, float* smem, const T* __restrict__ q, int ldq,
+              const T* __restrict__ dm, int lddm,
+              const T* __restrict__ kv, int ldkv,
               const int* __restrict__ peer_ids,
               const int* __restrict__ valid,
               const int* __restrict__ ptr,
@@ -191,7 +215,14 @@ node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
 
   const int beg = ptr[n];
   const int end = ptr[n + 1];
-  const float scale = 1.0f / sqrtf((float)dh);
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  // bf16: K3 keeps Q times the bf16 scale, rounded; K4 and K5 keep Q as it
+  // is (dK's operand) and the score tile scales and rounds it
+  constexpr bool kScaledQ = kBf16 && kMode != kDq;
+  // dQ's and dK's scale (f32: also Q's in shared memory); the scores' q scale
+  const float scale = kBf16 ? (float)(1.0 / sqrt((double)dh)) : 1.0f / sqrtf((float)dh);
+  const float qscale = kBf16 ? head_scale<T>(dh) : scale;
+  const float own_q_mul = kScaledQ ? 1.0f : qscale;
   const size_t own0 = (size_t)n * sp;
 
   // zero everything once (pad rows and columns must read 0), then own rows;
@@ -202,10 +233,10 @@ node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
   __syncthreads();
   if (beg < end) {
     if (kMode == kDkv) {
-      load_rows(kv, own0, ldkv, 2 * d, s, d, ks, 1.0f, vs, ld);
+      load_rows<T, false>(kv, own0, ldkv, 2 * d, s, d, ks, 1.0f, vs, ld);
     } else {
-      load_rows(q, own0, ldq, d, s, d, qs, scale, nullptr, ld);
-      load_rows(dm, own0, lddm, d, s, d, dms, 1.0f, nullptr, ld);
+      load_rows<T, kBf16 && !kScaledQ>(q, own0, ldq, d, s, d, qs, own_q_mul, nullptr, ld);
+      load_rows<T, false>(dm, own0, lddm, d, s, d, dms, 1.0f, nullptr, ld);
     }
   }
 
@@ -227,8 +258,8 @@ node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
     const size_t peer0 = (size_t)peer_ids[slot] * sp;
     __syncthreads();  // the previous edge is done with the peer rows, ps and gs
 
-    if (kMode == kDkv) load_rows(q, peer0, ldq, 2 * d, s, d, qs, scale, dms, ld);
-    else load_rows(kv, peer0, ldkv, 2 * d, s, d, ks, 1.0f, vs, ld);
+    if (kMode == kDkv) load_rows<T, false>(q, peer0, ldq, 2 * d, s, d, qs, own_q_mul, dms, ld);
+    else load_rows<T, false>(kv, peer0, ldkv, 2 * d, s, d, ks, 1.0f, vs, ld);
     __syncthreads();
 
     // scores = (Q / sqrt(dh)) K^T and dW = dMsg V^T, [query, key] per head
@@ -237,11 +268,11 @@ node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
       const int ro = (2 * ip) * ld + h * dh, co = (4 * jq) * ld + h * dh;
       float a[2][4];
       if (need_scores) {
-        tile_2x4(qs + ro, ks + co, ld, dh, a);
-        store_2x4(ps + h * s4 * s4, s4, s, 2 * ip, 4 * jq, a);
+        tile_2x4<kScaledQ>(qs + ro, ks + co, ld, dh, a, qscale);
+        store_2x4<kBf16>(ps + h * s4 * s4, s4, s, 2 * ip, 4 * jq, a, softmax);
       }
       tile_2x4(dms + ro, vs + co, ld, dh, a);
-      store_2x4(gs + h * s4 * s4, s4, s, 2 * ip, 4 * jq, a);
+      store_2x4<kBf16>(gs + h * s4 * s4, s4, s, 2 * ip, 4 * jq, a, softmax);
     }
     __syncthreads();
 
@@ -268,7 +299,15 @@ node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
           dot = fmaf(g[j], w, dot);
         }
         dot = warp_sum(dot);
-        for (int j = lane; j < s; j += 32) g[j] = p[j] * (g[j] - dot);
+        if (kBf16) {  // W and dS round to bf16 as their products' operands
+          for (int j = lane; j < s; j += 32) {
+            const float w = p[j];
+            g[j] = round_bf16(w * (g[j] - dot));
+            p[j] = round_bf16(w);
+          }
+        } else {
+          for (int j = lane; j < s; j += 32) g[j] = p[j] * (g[j] - dot);
+        }
       }
       __syncthreads();
     }
@@ -292,7 +331,7 @@ node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
       }
       if (kMode != kDq) {
         // dV[j][c] = sum_i W[i][j] dMsg[i][c]; dK[j][c] = sum_i dS[i][j] Qs[i][c]
-        // (Qs carries the 1/sqrt(dh)); j = r0 .. r0 + 3
+        // (f32: Qs carries the 1/sqrt(dh); bf16: Q, scaled after); j = r0 .. r0 + 3
         const float* p = ps + h * s4 * s4 + r0;
         const float* g = gs + h * s4 * s4 + r0;
         float dv[4] = {}, dk[4] = {};
@@ -304,6 +343,10 @@ node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
             dv[v] = fmaf(p[i * s4 + v], m, dv[v]);
             dk[v] = fmaf(g[i * s4 + v], x, dk[v]);
           }
+        }
+        if (kBf16) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) dk[v] *= scale;
         }
 #pragma unroll
         for (int v = 0; v < 4; ++v)
@@ -331,11 +374,11 @@ node_backward(int local, float* smem, const float* __restrict__ q, int ldq,
 // kDeviceMem = false: one block per node, its working set in dynamic shared
 // memory. kDeviceMem = true: block b works in work[b * smem_floats] and
 // takes the nodes b, b + gridDim.x, ... of the launched range.
-template <int kMode, bool kDeviceMem>
+template <int kMode, bool kDeviceMem, typename T>
 __global__ void __launch_bounds__(kThreads)
-edge_attention_bwd_kernel(const float* __restrict__ q, int ldq,
-                          const float* __restrict__ dm, int lddm,
-                          const float* __restrict__ kv, int ldkv,
+edge_attention_bwd_kernel(const T* __restrict__ q, int ldq,
+                          const T* __restrict__ dm, int lddm,
+                          const T* __restrict__ kv, int ldkv,
                           const int* __restrict__ peer_ids,
                           const int* __restrict__ valid,
                           const int* __restrict__ ptr,
@@ -346,39 +389,39 @@ edge_attention_bwd_kernel(const float* __restrict__ q, int ldq,
                           int d, int num_heads, int softmax) {
   extern __shared__ float shared[];
   if (!kDeviceMem) {  // no loop: the loop costs this body registers
-    node_backward<kMode>(blockIdx.x, shared, q, ldq, dm, lddm, kv, ldkv, peer_ids, valid,
+    node_backward<kMode, T>(blockIdx.x, shared, q, ldq, dm, lddm, kv, ldkv, peer_ids, valid,
                          ptr, slots, out, stream, node0, slot0, s, sp, d, num_heads,
                          softmax);
     return;
   }
   float* smem = work + blockIdx.x * smem_floats(s, d, num_heads, kMode);
   for (int local = blockIdx.x; local < num_nodes; local += gridDim.x)
-    node_backward<kMode>(local, smem, q, ldq, dm, lddm, kv, ldkv, peer_ids, valid,
+    node_backward<kMode, T>(local, smem, q, ldq, dm, lddm, kv, ldkv, peer_ids, valid,
                          ptr, slots, out, stream, node0, slot0, s, sp, d,
                          num_heads, softmax);
 }
 
 // work == nullptr: the working set in shared memory (the caller checked
 // that it fits); else work_blocks slices of smem_floats in device memory.
-template <int kMode>
-int launch(const float* q, int ldq, const float* dm, int lddm, const float* kv,
+template <int kMode, typename T>
+int launch(const T* q, int ldq, const T* dm, int lddm, const T* kv,
            int ldkv, const int* peer_ids, const int* valid, const int* ptr,
            const int* slots, float* out, float* stream_out, float* work,
            int work_blocks, int node0, int num_nodes, int slot0, int s, int sp,
            int d, int num_heads, int softmax, cudaStream_t stream) {
   if (num_nodes <= 0) return (int)cudaGetLastError();
   if (work != nullptr) {
-    edge_attention_bwd_kernel<kMode, true><<<work_blocks, kThreads, 0, stream>>>(
+    edge_attention_bwd_kernel<kMode, true, T><<<work_blocks, kThreads, 0, stream>>>(
         q, ldq, dm, lddm, kv, ldkv, peer_ids, valid, ptr, slots, out, stream_out,
         work, node0, num_nodes, slot0, s, sp, d, num_heads, softmax);
     return (int)cudaGetLastError();
   }
   const size_t smem = smem_floats(s, d, num_heads, kMode) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_attention_bwd_kernel<kMode, false>,
+      edge_attention_bwd_kernel<kMode, false, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  edge_attention_bwd_kernel<kMode, false><<<num_nodes, kThreads, smem, stream>>>(
+  edge_attention_bwd_kernel<kMode, false, T><<<num_nodes, kThreads, smem, stream>>>(
       q, ldq, dm, lddm, kv, ldkv, peer_ids, valid, ptr, slots, out, stream_out,
       nullptr, node0, num_nodes, slot0, s, sp, d, num_heads, softmax);
   return (int)cudaGetLastError();
@@ -408,7 +451,7 @@ int ampnet_edge_attention_bwd_dq_simt(const float* q, int ldq, const float* dsum
                                  float* dq, int num_nodes, int s, int sp, int d,
                                  int num_heads, int softmax, float* work,
                                  int work_blocks, void* stream) {
-  return launch<kDq>(q, ldq, dsum, lddsum, kv, ldkv, tile_senders, tile_valid,
+  return launch<kDq, float>(q, ldq, dsum, lddsum, kv, ldkv, tile_senders, tile_valid,
                      recv_ptr, recv_slots, dq, nullptr, work, work_blocks, 0,
                      num_nodes, 0, s, sp, d, num_heads, softmax,
                      (cudaStream_t)stream);
@@ -425,7 +468,7 @@ int ampnet_edge_attention_bwd_dkv_simt(const float* qdm, int ldqdm, const float*
                                        int s, int sp, int d, int num_heads,
                                        int softmax, float* work, int work_blocks,
                                        void* stream) {
-  return launch<kDkv>(qdm, ldqdm, qdm + d, ldqdm, kv, ldkv, snd_receivers,
+  return launch<kDkv, float>(qdm, ldqdm, qdm + d, ldqdm, kv, ldkv, snd_receivers,
                       snd_valid, snd_ptr, snd_slots, dkv, nullptr, work,
                       work_blocks, 0, num_nodes, 0, s, sp, d, num_heads, softmax,
                       (cudaStream_t)stream);
@@ -445,10 +488,53 @@ int ampnet_edge_attention_bwd_stream_simt(const float* q, int ldq, const float* 
                                      int num_nodes, int slot0, int s, int sp, int d,
                                      int num_heads, int softmax, float* work,
                                      int work_blocks, void* stream) {
-  return launch<kStream>(q, ldq, dsum, lddsum, kv, ldkv, tile_senders, tile_valid,
+  return launch<kStream, float>(q, ldq, dsum, lddsum, kv, ldkv, tile_senders, tile_valid,
                          recv_ptr, recv_slots, dq, dkv_stream, work, work_blocks,
                          node0, num_nodes, slot0, s, sp, d, num_heads, softmax,
                          (cudaStream_t)stream);
+}
+
+// The three CUDA-core bodies in bf16 (launch.py's 'simt_bf16'): bf16 rows,
+// the arguments of the f32 entry points above; dq, dkv and the stream f32.
+using bf16 = __nv_bfloat16;
+
+int ampnet_edge_attention_bwd_dq_simt_bf16(const bf16* q, int ldq, const bf16* dsum,
+                                           int lddsum, const bf16* kv, int ldkv,
+                                           const int* tile_senders, const int* tile_valid,
+                                           const int* recv_ptr, const int* recv_slots,
+                                           float* dq, int num_nodes, int s, int sp, int d,
+                                           int num_heads, int softmax, float* work,
+                                           int work_blocks, void* stream) {
+  return launch<kDq, bf16>(q, ldq, dsum, lddsum, kv, ldkv, tile_senders, tile_valid,
+                           recv_ptr, recv_slots, dq, nullptr, work, work_blocks, 0,
+                           num_nodes, 0, s, sp, d, num_heads, softmax, (cudaStream_t)stream);
+}
+
+int ampnet_edge_attention_bwd_dkv_simt_bf16(const bf16* qdm, int ldqdm, const bf16* kv,
+                                            int ldkv, const int* snd_receivers,
+                                            const int* snd_valid, const int* snd_ptr,
+                                            const int* snd_slots, float* dkv, int num_nodes,
+                                            int s, int sp, int d, int num_heads, int softmax,
+                                            float* work, int work_blocks, void* stream) {
+  return launch<kDkv, bf16>(qdm, ldqdm, qdm + d, ldqdm, kv, ldkv, snd_receivers, snd_valid,
+                            snd_ptr, snd_slots, dkv, nullptr, work, work_blocks, 0,
+                            num_nodes, 0, s, sp, d, num_heads, softmax,
+                            (cudaStream_t)stream);
+}
+
+int ampnet_edge_attention_bwd_stream_simt_bf16(const bf16* q, int ldq, const bf16* dsum,
+                                               int lddsum, const bf16* kv, int ldkv,
+                                               const int* tile_senders,
+                                               const int* tile_valid, const int* recv_ptr,
+                                               const int* recv_slots, float* dq,
+                                               float* dkv_stream, int node0, int num_nodes,
+                                               int slot0, int s, int sp, int d, int num_heads,
+                                               int softmax, float* work, int work_blocks,
+                                               void* stream) {
+  return launch<kStream, bf16>(q, ldq, dsum, lddsum, kv, ldkv, tile_senders, tile_valid,
+                               recv_ptr, recv_slots, dq, dkv_stream, work, work_blocks,
+                               node0, num_nodes, slot0, s, sp, d, num_heads, softmax,
+                               (cudaStream_t)stream);
 }
 
 }  // extern "C"

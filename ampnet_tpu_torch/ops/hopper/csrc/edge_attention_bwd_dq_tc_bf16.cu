@@ -21,8 +21,9 @@
 // 16-row query tile); the warp's Q and dMsg fragments stay in registers; the
 // ring holds bf16 k|v rows (row stride 2D + 8); a persistent grid walks
 // receivers; no atomics: bit-reproducible. Within the tensor cores' range
-// only (S <= 48, dh <= 32, at most 12 warps, 8 up to S=24); the wrapper
-// raises beyond it. Trouble spots as in the 3xTF32 body. The softmax
+// only (S <= 48, dh <= 32, at most 12 warps, 8 up to S=24); beyond it the
+// wrapper runs the CUDA-core bf16 body (edge_attention_bwd.cu). Trouble
+// spots as in the 3xTF32 body. The softmax
 // backward and the store of dQ are device functions in
 // edge_attention_bwd_dq_tc_bf16.cuh, which K5's bf16 body
 // (edge_attention_bwd_stream_tc_bf16.cu) runs with the rest of these steps.

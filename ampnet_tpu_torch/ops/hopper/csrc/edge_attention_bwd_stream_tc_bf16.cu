@@ -57,8 +57,8 @@
 // is walked and its SP rows are written as 0; rows S..SP-1 of a walked slot
 // are written as 0; slots that are not walked are not written; a receiver
 // without a live edge writes exact zeros for dQ. Within the tensor cores'
-// range only (S <= 48, dh <= 32, at most 12 warps, 8 up to S=24): the
-// wrapper raises beyond it.
+// range only (S <= 48, dh <= 32, at most 12 warps, 8 up to S=24): beyond it
+// the wrapper runs the CUDA-core bf16 body (edge_attention_bwd.cu).
 
 #include "common.cuh"
 #include "edge_attention_bwd_dq_tc_bf16.cuh"

@@ -25,8 +25,8 @@
 // head, partials added in warp order); the ring holds bf16 [Q | dMsg] rows
 // (row stride 2D + 8); a persistent grid walks senders; no atomics:
 // bit-reproducible. Within the tensor cores' range only (S <= 48, dh <= 32,
-// at most 12 warps, 8 up to S=24); the wrapper raises beyond it. Trouble
-// spots as in the 3xTF32 body.
+// at most 12 warps, 8 up to S=24); beyond it the wrapper runs the CUDA-core
+// bf16 body (edge_attention_bwd.cu). Trouble spots as in the 3xTF32 body.
 
 #include "common.cuh"
 #include "mma_bf16.cuh"

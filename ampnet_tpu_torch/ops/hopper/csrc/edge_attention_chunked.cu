@@ -37,6 +37,15 @@
 // Bound (H100 SXM), as K1's: 4*S^2*D FLOP per live edge (0.13 ms at the S=40
 // Cora shapes) against q, k|v and the output rows once: by operations at
 // S=40, by bytes at S=20.
+//
+// bf16 (ampnet_edge_attention_sums_chunked_simt_bf16, launch.py's body
+// 'simt_bf16'): the same body over bf16 rows beyond the bf16 tensor-core
+// body's range (edge_attention_chunked_tc_bf16.cu), the working set f32,
+// rounding where _fused_kernel_chunked rounds on bf16 rows (q times the
+// bf16 1/sqrt(dh), then the weights before the value product;
+// attention_tiles.cuh); the sums f32, as its out_shape is.
+
+#include <type_traits>
 
 #include "attention_tiles.cuh"
 
@@ -54,14 +63,17 @@ __host__ __device__ inline size_t smem_floats(int s, int d, int h, int piece) {
 }
 
 // One receiver n, its working set at smem (shared or device memory); every
-// element of it is zeroed first (pad rows of qs / ks / ps must read 0).
+// element of it is zeroed first (pad rows of qs / ks / ps must read 0). T:
+// the rows' type (bf16: the products' operands are bf16).
+template <typename T>
 __device__ __forceinline__ void
-receiver_chunks(int n, float* smem, int* live_snd, int& n_live, const float* __restrict__ q,
-                int ldq, const float* __restrict__ kv, int ldkv,
+receiver_chunks(int n, float* smem, int* live_snd, int& n_live, const T* __restrict__ q,
+                int ldq, const T* __restrict__ kv, int ldkv,
                 const int* __restrict__ chunk_senders, const int* __restrict__ chunk_valid,
                 const int* __restrict__ chunk_start, const int* __restrict__ chunk_count,
                 float* __restrict__ out, int chunk, int piece, int s, int sp, int d,
                 int num_heads, int softmax) {
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   const int tid = threadIdx.x;
   const int dh = d / num_heads, ld = d + 1;
   const int s2 = (s + 1) / 2 * 2, s4 = (s + 3) / 4 * 4;
@@ -82,7 +94,8 @@ receiver_chunks(int n, float* smem, int* live_snd, int& n_live, const float* __r
   for (int e = tid; e < total; e += kThreads) smem[e] = 0.0f;
   __syncthreads();
   if (nchunks > 0)
-    load_tile(q, qrow0, ldq, 0, d, s, qs, ld, 1.0f / sqrtf((float)dh));
+    load_tile<kBf16>(q, qrow0, ldq, 0, d, s, qs, ld,
+                     kBf16 ? head_scale<T>(dh) : 1.0f / sqrtf((float)dh));
 
   for (int ci = 0; ci < nchunks; ++ci) {
     const size_t base = (size_t)(c0 + ci) * chunk;
@@ -100,14 +113,14 @@ receiver_chunks(int n, float* smem, int* live_snd, int& n_live, const float* __r
       if (p0 > 0) __syncthreads();  // the previous piece is done with ks, vs, ps
       for (int e = 0; e < np; ++e) {
         const size_t krow0 = (size_t)live_snd[p0 + e] * sp;
-        load_tile(kv, krow0, ldkv, 0, d, s, ks + e * s4 * ld, ld, 1.0f);
-        load_tile(kv, krow0, ldkv, d, d, s, vs + e * s * d, d, 1.0f);
+        load_tile<kBf16>(kv, krow0, ldkv, 0, d, s, ks + e * s4 * ld, ld, 1.0f);
+        load_tile<kBf16>(kv, krow0, ldkv, d, d, s, vs + e * s * d, d, 1.0f);
       }
       __syncthreads();
-      score_tiles(qs, ks, ps, ldp, np, s, d, num_heads);
+      score_tiles<kBf16>(qs, ks, ps, ldp, np, s, d, num_heads, softmax);
       __syncthreads();
       if (softmax) {
-        softmax_segments(ps, ldp, np, s, num_heads);
+        softmax_segments<kBf16>(ps, ldp, np, s, num_heads);
         __syncthreads();
       }
       // columns beyond np * s hold an earlier piece's weights: not contracted
@@ -125,9 +138,9 @@ receiver_chunks(int n, float* smem, int* live_snd, int& n_live, const float* __r
 // kDeviceMem = false: one block per receiver, its working set in dynamic
 // shared memory. kDeviceMem = true: block b works in work[b * smem_floats]
 // and takes receivers b, b + gridDim.x, ...
-template <bool kDeviceMem>
+template <bool kDeviceMem, typename T>
 __global__ void __launch_bounds__(kThreads)
-edge_chunk_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ kv, int ldkv,
+edge_chunk_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int ldkv,
                   const int* __restrict__ chunk_senders, const int* __restrict__ chunk_valid,
                   const int* __restrict__ chunk_start, const int* __restrict__ chunk_count,
                   float* __restrict__ out, float* __restrict__ work, int num_nodes, int chunk,
@@ -145,6 +158,32 @@ edge_chunk_kernel(const float* __restrict__ q, int ldq, const float* __restrict_
   for (int n = blockIdx.x; n < num_nodes; n += gridDim.x)
     receiver_chunks(n, smem, live_snd, n_live, q, ldq, kv, ldkv, chunk_senders, chunk_valid,
                     chunk_start, chunk_count, out, chunk, piece, s, sp, d, num_heads, softmax);
+}
+
+// work == nullptr: the working set at `piece` in shared memory (the caller
+// checked that it fits); else work_blocks slices of smem_floats.
+template <typename T>
+int launch(const T* q, int ldq, const T* kv, int ldkv, const int* chunk_senders,
+           const int* chunk_valid, const int* chunk_start, const int* chunk_count, float* out,
+           int num_nodes, int chunk, int piece, int s, int sp, int d, int num_heads,
+           int softmax, float* work, int work_blocks, cudaStream_t stream) {
+  if (chunk < 1 || chunk > kMaxChunk || piece < 1 || piece > chunk)
+    return (int)cudaErrorInvalidValue;
+  if (num_nodes <= 0) return (int)cudaGetLastError();
+  if (work != nullptr) {
+    edge_chunk_kernel<true, T><<<work_blocks, kThreads, 0, stream>>>(
+        q, ldq, kv, ldkv, chunk_senders, chunk_valid, chunk_start, chunk_count, out, work,
+        num_nodes, chunk, piece, s, sp, d, num_heads, softmax);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = smem_floats(s, d, num_heads, piece) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_chunk_kernel<false, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  edge_chunk_kernel<false, T><<<num_nodes, kThreads, smem, stream>>>(
+      q, ldq, kv, ldkv, chunk_senders, chunk_valid, chunk_start, chunk_count, out, nullptr,
+      num_nodes, chunk, piece, s, sp, d, num_heads, softmax);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -172,23 +211,21 @@ int ampnet_edge_attention_sums_chunked_simt(const float* q, int ldq, const float
                                             int num_nodes, int chunk, int piece, int s,
                                             int sp, int d, int num_heads, int softmax,
                                             float* work, int work_blocks, void* stream) {
-  if (chunk < 1 || chunk > kMaxChunk || piece < 1 || piece > chunk)
-    return (int)cudaErrorInvalidValue;
-  if (num_nodes <= 0) return (int)cudaGetLastError();
-  if (work != nullptr) {
-    edge_chunk_kernel<true><<<work_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        q, ldq, kv, ldkv, chunk_senders, chunk_valid, chunk_start, chunk_count, out, work,
-        num_nodes, chunk, piece, s, sp, d, num_heads, softmax);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = smem_floats(s, d, num_heads, piece) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      edge_chunk_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  edge_chunk_kernel<false><<<num_nodes, kThreads, smem, (cudaStream_t)stream>>>(
-      q, ldq, kv, ldkv, chunk_senders, chunk_valid, chunk_start, chunk_count, out, nullptr,
-      num_nodes, chunk, piece, s, sp, d, num_heads, softmax);
-  return (int)cudaGetLastError();
+  return launch(q, ldq, kv, ldkv, chunk_senders, chunk_valid, chunk_start, chunk_count, out,
+                num_nodes, chunk, piece, s, sp, d, num_heads, softmax, work, work_blocks,
+                (cudaStream_t)stream);
+}
+
+// K8's CUDA-core body in bf16: bf16 q and k|v rows, the arguments of
+// ampnet_edge_attention_sums_chunked_simt; out f32.
+int ampnet_edge_attention_sums_chunked_simt_bf16(
+    const __nv_bfloat16* q, int ldq, const __nv_bfloat16* kv, int ldkv,
+    const int* chunk_senders, const int* chunk_valid, const int* chunk_start,
+    const int* chunk_count, float* out, int num_nodes, int chunk, int piece, int s, int sp,
+    int d, int num_heads, int softmax, float* work, int work_blocks, void* stream) {
+  return launch(q, ldq, kv, ldkv, chunk_senders, chunk_valid, chunk_start, chunk_count, out,
+                num_nodes, chunk, piece, s, sp, d, num_heads, softmax, work, work_blocks,
+                (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -41,38 +41,9 @@
 // <= 32, at most 12 warps, 8 up to S=24).
 
 #include "edge_attention_tc.cuh"
+#include "edge_chunks.cuh"
 
 namespace {
-
-// The live slots of the receivers first, first + gridDim.x, ... in order:
-// receiver n's slots are chunk_start[n] * chunk .. (chunk_start[n] +
-// chunk_count[n]) * chunk - 1, a slot with validity 0 skipped. Every thread
-// of a block keeps the same cursor.
-struct ChunkWalk {
-  int node, k, end;
-
-  __device__ void start(const int* cstart, const int* ccount, int chunk, int first,
-                        int num_nodes) {
-    node = first;
-    k = first < num_nodes ? cstart[first] * chunk : 0;
-    end = first < num_nodes ? k + ccount[first] * chunk : 0;
-  }
-
-  // the next live slot, or -1 past the last receiver
-  __device__ int next(const int* cstart, const int* ccount, const int* valid, int chunk,
-                      int num_nodes) {
-    for (;;) {
-      while (k >= end) {
-        node += gridDim.x;
-        if (node >= num_nodes) return -1;
-        k = cstart[node] * chunk;
-        end = k + ccount[node] * chunk;
-      }
-      const int slot = k++;
-      if (valid[slot] != 0) return slot;
-    }
-  }
-};
 
 // Two blocks per SM as K1 (edge_attention_tc.cuh): one for NKT = 4 and 6.
 template <int NKT>

@@ -51,6 +51,14 @@
 // keeps the working set in shared memory (the group moves the order of
 // summation only).
 //
+// bf16 (the *_simt_bf16 entry points, and K6's *_simt_mxu for f32 rows
+// under mxu_bf16; launch.py's body 'simt_bf16'): the same bodies beyond the
+// bf16 tensor-core body's range (edge_attention_groups_tc_bf16.cu), the
+// working set f32, the rows converted and rounded as they are loaded and
+// the weights rounded before the value product (attention_tiles.cuh); the
+// messages, their buffer and their reduction stay f32, as JAX's f32
+// one-hot product (_mm_scatter_epilogue) and adds are.
+//
 // Bound (H100 SXM), as K1's: 4*S^2*D FLOP per live edge against the q, k|v
 // and output rows once (~230 MB at the S=40 Cora shapes): bound by
 // operations at S=40 (0.13 ms), by bytes at S=20.
@@ -72,11 +80,12 @@ __host__ __device__ inline size_t smem_floats(int s, int d, int h, int buffered)
 // One item (tile, group) = blockIdx.x or the items of a persistent block,
 // its working set at smem (shared or device memory), its slot tables at
 // tables ([3][kMaxGroup]). kBuffered: K6 (messages buffered, one-hot
-// reduce). Else K9 (per-edge add).
-template <bool kBuffered>
+// reduce). Else K9 (per-edge add). T: the rows' type; kBf16: the products'
+// operands rounded to bf16.
+template <bool kBuffered, typename T, bool kBf16>
 __device__ __forceinline__ void
-group_sums(int item, float* smem, int* tables, const float* __restrict__ q, int ldq,
-           const float* __restrict__ kv, int ldkv,
+group_sums(int item, float* smem, int* tables, const T* __restrict__ q, int ldq,
+           const T* __restrict__ kv, int ldkv,
            const int* __restrict__ tile_senders,
            const int* __restrict__ tile_recv,
            const int* __restrict__ tile_valid,
@@ -121,22 +130,22 @@ group_sums(int item, float* smem, int* tables, const float* __restrict__ q, int 
   const int zeroed = (s2 + s4) * ld + s * d + num_heads * s4 * s;
   for (int e = tid; e < zeroed; e += kThreads) smem[e] = 0.0f;
 
-  const float scale = 1.0f / sqrtf((float)dh);
+  const float scale = kBf16 ? head_scale<T>(dh) : 1.0f / sqrtf((float)dh);
   int cur = -1;  // the receiver whose Q rows are in qs
   for (int j = 0; j < nslots; ++j) {
     if (!live_s[j]) continue;
     const int r = recv_s[j];
     const size_t krow0 = (size_t)tile_senders[base + j] * sp;
     __syncthreads();  // the previous slot is done with qs, ks, vs and ps
-    if (r != cur) load_tile(q, (size_t)r * sp, ldq, 0, d, s, qs, ld, scale);
+    if (r != cur) load_tile<kBf16>(q, (size_t)r * sp, ldq, 0, d, s, qs, ld, scale);
     cur = r;
-    load_tile(kv, krow0, ldkv, 0, d, s, ks, ld, 1.0f);
-    load_tile(kv, krow0, ldkv, d, d, s, vs, d, 1.0f);
+    load_tile<kBf16>(kv, krow0, ldkv, 0, d, s, ks, ld, 1.0f);
+    load_tile<kBf16>(kv, krow0, ldkv, d, d, s, vs, d, 1.0f);
     __syncthreads();
-    score_tiles(qs, ks, ps, s, 1, s, d, num_heads);
+    score_tiles<kBf16>(qs, ks, ps, s, 1, s, d, num_heads, softmax);
     __syncthreads();
     if (softmax) {
-      softmax_segments(ps, s, 1, s, num_heads);
+      softmax_segments<kBf16>(ps, s, 1, s, num_heads);
       __syncthreads();
     }
     if (kBuffered) {
@@ -171,10 +180,10 @@ group_sums(int item, float* smem, int* tables, const float* __restrict__ q, int 
 // kDeviceMem = false: one block per item, its working set in dynamic shared
 // memory. kDeviceMem = true: block b works in work[b * smem_floats] and
 // takes items b, b + gridDim.x, ...
-template <bool kBuffered, bool kDeviceMem>
+template <bool kBuffered, bool kDeviceMem, typename T, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-edge_group_kernel(const float* __restrict__ q, int ldq,
-                  const float* __restrict__ kv, int ldkv,
+edge_group_kernel(const T* __restrict__ q, int ldq,
+                  const T* __restrict__ kv, int ldkv,
                   const int* __restrict__ tile_senders,
                   const int* __restrict__ tile_recv,
                   const int* __restrict__ tile_valid,
@@ -185,22 +194,22 @@ edge_group_kernel(const float* __restrict__ q, int ldq,
   extern __shared__ float shared[];
   __shared__ int tables[3 * kMaxGroup];
   if (!kDeviceMem) {  // no loop: the loop costs this body registers
-    group_sums<kBuffered>(blockIdx.x, shared, tables, q, ldq, kv, ldkv, tile_senders,
+    group_sums<kBuffered, T, kBf16>(blockIdx.x, shared, tables, q, ldq, kv, ldkv, tile_senders,
                           tile_recv, tile_valid, tile_counts, out, emax, groups_per_tile,
                           group, tile_nodes, s, sp, d, num_heads, softmax);
     return;
   }
   float* smem = work + blockIdx.x * smem_floats(s, d, num_heads, kBuffered ? group : 0);
   for (int item = blockIdx.x; item < items; item += gridDim.x)
-    group_sums<kBuffered>(item, smem, tables, q, ldq, kv, ldkv, tile_senders, tile_recv,
+    group_sums<kBuffered, T, kBf16>(item, smem, tables, q, ldq, kv, ldkv, tile_senders, tile_recv,
                           tile_valid, tile_counts, out, emax, groups_per_tile, group,
                           tile_nodes, s, sp, d, num_heads, softmax);
 }
 
 // work == nullptr: the working set in shared memory (the caller checked
 // that it fits); else work_blocks slices of smem_floats in device memory.
-template <bool kBuffered>
-int launch(const float* q, int ldq, const float* kv, int ldkv,
+template <bool kBuffered, typename T, bool kBf16>
+int launch(const T* q, int ldq, const T* kv, int ldkv,
            const int* tile_senders, const int* tile_recv, const int* tile_valid,
            const int* tile_counts, float* out, float* work, int work_blocks,
            int num_tiles, int emax, int group, int tile_nodes, int s, int sp, int d,
@@ -210,7 +219,7 @@ int launch(const float* q, int ldq, const float* kv, int ldkv,
   const int items = num_tiles * groups_per_tile;
   if (items <= 0) return (int)cudaGetLastError();
   if (work != nullptr) {
-    edge_group_kernel<kBuffered, true><<<work_blocks, kThreads, 0, stream>>>(
+    edge_group_kernel<kBuffered, true, T, kBf16><<<work_blocks, kThreads, 0, stream>>>(
         q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, tile_counts, out, work,
         items, emax, groups_per_tile, group, tile_nodes, s, sp, d, num_heads, softmax);
     return (int)cudaGetLastError();
@@ -218,10 +227,11 @@ int launch(const float* q, int ldq, const float* kv, int ldkv,
   const size_t smem =
       smem_floats(s, d, num_heads, kBuffered ? group : 0) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      edge_group_kernel<kBuffered, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge_group_kernel<kBuffered, false, T, kBf16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  edge_group_kernel<kBuffered, false><<<items, kThreads, smem, stream>>>(
+  edge_group_kernel<kBuffered, false, T, kBf16><<<items, kThreads, smem, stream>>>(
       q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, tile_counts, out, nullptr,
       items, emax, groups_per_tile, group, tile_nodes, s, sp, d, num_heads, softmax);
   return (int)cudaGetLastError();
@@ -252,9 +262,41 @@ int ampnet_edge_attention_sums_mm_simt(const float* q, int ldq, const float* kv,
                                        int tile_nodes, int s, int sp, int d, int num_heads,
                                        int softmax, float* work, int work_blocks,
                                        void* stream) {
-  return launch<true>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, tile_counts,
-                      out, work, work_blocks, num_tiles, emax, group, tile_nodes, s, sp, d,
-                      num_heads, softmax, (cudaStream_t)stream);
+  return launch<true, float, false>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid,
+                                    tile_counts, out, work, work_blocks, num_tiles, emax, group,
+                                    tile_nodes, s, sp, d, num_heads, softmax,
+                                    (cudaStream_t)stream);
+}
+
+// K6's CUDA-core body in bf16: bf16 q and k|v rows, the arguments of
+// ampnet_edge_attention_sums_mm_simt; out f32.
+int ampnet_edge_attention_sums_mm_simt_bf16(const __nv_bfloat16* q, int ldq,
+                                            const __nv_bfloat16* kv, int ldkv,
+                                            const int* tile_senders, const int* tile_recv,
+                                            const int* tile_valid, const int* tile_counts,
+                                            float* out, int num_tiles, int emax, int group,
+                                            int tile_nodes, int s, int sp, int d,
+                                            int num_heads, int softmax, float* work,
+                                            int work_blocks, void* stream) {
+  return launch<true, __nv_bfloat16, true>(
+      q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, tile_counts, out, work,
+      work_blocks, num_tiles, emax, group, tile_nodes, s, sp, d, num_heads, softmax,
+      (cudaStream_t)stream);
+}
+
+// K6's CUDA-core body on f32 rows with the products' operands rounded to
+// bf16 (mxu_bf16); the arguments of ampnet_edge_attention_sums_mm_simt.
+int ampnet_edge_attention_sums_mm_simt_mxu(const float* q, int ldq, const float* kv, int ldkv,
+                                           const int* tile_senders, const int* tile_recv,
+                                           const int* tile_valid, const int* tile_counts,
+                                           float* out, int num_tiles, int emax, int group,
+                                           int tile_nodes, int s, int sp, int d, int num_heads,
+                                           int softmax, float* work, int work_blocks,
+                                           void* stream) {
+  return launch<true, float, true>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid,
+                                   tile_counts, out, work, work_blocks, num_tiles, emax, group,
+                                   tile_nodes, s, sp, d, num_heads, softmax,
+                                   (cudaStream_t)stream);
 }
 
 // K9's CUDA-core body. As K6's without tile_counts: every group of every
@@ -265,9 +307,24 @@ int ampnet_edge_attention_sums_v1_simt(const float* q, int ldq, const float* kv,
                                        int emax, int group, int tile_nodes, int s, int sp,
                                        int d, int num_heads, int softmax, float* work,
                                        int work_blocks, void* stream) {
-  return launch<false>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, nullptr, out,
-                       work, work_blocks, num_tiles, emax, group, tile_nodes, s, sp, d,
-                       num_heads, softmax, (cudaStream_t)stream);
+  return launch<false, float, false>(q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid,
+                                     nullptr, out, work, work_blocks, num_tiles, emax, group,
+                                     tile_nodes, s, sp, d, num_heads, softmax,
+                                     (cudaStream_t)stream);
+}
+
+// K9's CUDA-core body in bf16: bf16 q and k|v rows, the arguments of
+// ampnet_edge_attention_sums_v1_simt; out f32.
+int ampnet_edge_attention_sums_v1_simt_bf16(const __nv_bfloat16* q, int ldq,
+                                            const __nv_bfloat16* kv, int ldkv,
+                                            const int* tile_senders, const int* tile_recv,
+                                            const int* tile_valid, float* out, int num_tiles,
+                                            int emax, int group, int tile_nodes, int s, int sp,
+                                            int d, int num_heads, int softmax, float* work,
+                                            int work_blocks, void* stream) {
+  return launch<false, __nv_bfloat16, true>(
+      q, ldq, kv, ldkv, tile_senders, tile_recv, tile_valid, nullptr, out, work, work_blocks,
+      num_tiles, emax, group, tile_nodes, s, sp, d, num_heads, softmax, (cudaStream_t)stream);
 }
 
 }  // extern "C"

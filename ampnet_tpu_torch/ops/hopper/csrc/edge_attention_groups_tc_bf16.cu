@@ -30,7 +30,8 @@
 // Shared memory holds each lane's Q fragments (2 x 16 bytes) and a ring of
 // 2-3 stages of gathered k|v rows in the rows' type (row stride 2D + one
 // 16-byte piece). Within the tensor cores' range only (S <= 48, dh <= 32, at
-// most 12 warps, 8 up to S=24): the wrappers raise beyond it.
+// most 12 warps, 8 up to S=24): beyond it the wrappers run the CUDA-core
+// bf16 body (edge_attention_groups.cu).
 
 #include "edge_attention_tc_bf16.cuh"
 #include "edge_groups.cuh"

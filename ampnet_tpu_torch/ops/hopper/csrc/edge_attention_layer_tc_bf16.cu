@@ -34,7 +34,9 @@
 //     bf16, pad rows 0. K7's first launch on bf16 rows is (a), its attention
 //     K6's bf16 body (edge_attention_groups_tc_bf16.cu).
 //
-// Within the tensor cores' range only; the wrapper raises beyond it.
+// Within the tensor cores' range only; beyond it the wrappers run the
+// CUDA-core bf16 launches (qkv_projection.cu, edge_attention.cu,
+// edge_attention_groups.cu).
 
 #include "edge_attention_tc_bf16.cuh"
 

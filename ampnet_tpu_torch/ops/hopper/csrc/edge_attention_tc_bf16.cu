@@ -8,7 +8,8 @@
 // edge_attention_fused.py _fused_kernel_vmem_v2 (:691, body
 // _tile_attention_accumulate :379) and _fused_kernel_vmem_v4 (:942). Its
 // 3xTF32 body for f32 rows is edge_attention_tc.cu. Within the tensor cores'
-// range only; the wrapper raises beyond it.
+// range only; beyond it the wrapper runs the CUDA-core bf16 body
+// (edge_attention.cu).
 
 #include "edge_attention_tc_bf16.cuh"
 

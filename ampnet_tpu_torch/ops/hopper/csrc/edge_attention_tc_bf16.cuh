@@ -49,7 +49,7 @@
 // 0 (their ring rows hold an earlier edge's values); dh not a multiple of 16
 // is zero-padded; rows S..SP-1 of the output are written as 0. Within the
 // tensor cores' range only (S <= 48, dh <= 32, at most 12 warps, 8 up to
-// S=24): the wrappers raise beyond it (the CUDA-core bodies take f32 only).
+// S=24): beyond it the wrappers run the CUDA-core bf16 bodies.
 #pragma once
 
 #include <type_traits>

@@ -16,35 +16,18 @@
 // c[2kk][3]), pack(c[2kk+1][0], c[2kk+1][1]), pack(c[2kk+1][2], c[2kk+1][3])}
 // (FlashAttention-2's reuse of the score tile as P's operand; the 3xTF32
 // bodies' c_as_a has another map). Conversions are the cuda_bf16.h
-// intrinsics: round to nearest even, as XLA's astype(bfloat16).
+// intrinsics: round to nearest even, as XLA's astype(bfloat16). The
+// conversions of the rows' type and 1/sqrt(dh) are rows_bf16.cuh's.
 #pragma once
 
-#include <cuda_bf16.h>
-
 #include "mma_tf32.cuh"
+#include "rows_bf16.cuh"
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// a value of the rows' type as a bf16 operand: bf16 as it is, f32 rounded
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) { return __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// an f32 value stored in type T (bf16: rounded)
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -71,19 +54,6 @@ __device__ __forceinline__ uint32_t column_pair_bf16(const T* p, int ld, int c, 
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
   return pack_bf16(live0 && c < lim ? to_bf16(p[c]) : zero,
                    live1 && c < lim ? to_bf16(p[ld + c]) : zero);
-}
-
-// 1/sqrt(dh) in the rows' type (JAX's asarray(scale, dtype)): bf16 rows take
-// the bf16 scale (1/sqrt(32) is 0.1767578125), f32 rows the f32 one
-template <typename T>
-__device__ __forceinline__ float head_scale(int dh);
-template <>
-__device__ __forceinline__ float head_scale<__nv_bfloat16>(int dh) {
-  return __bfloat162float(__double2bfloat16(1.0 / sqrt((double)dh)));
-}
-template <>
-__device__ __forceinline__ float head_scale<float>(int dh) {
-  return (float)(1.0 / sqrt((double)dh));
 }
 
 // q times the scale in the rows' type, rounded to bf16: JAX's (q *

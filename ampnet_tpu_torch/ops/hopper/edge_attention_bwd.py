@@ -3,17 +3,17 @@ of the JAX package's ``ops/pallas/edge_attention_bwd.py``, for layouts that
 have no sender side to walk (``compute_layout(sender_layout=False)``) and
 for ``scatterfree=False``.
 
-One hand-written kernel beside its plain torch version, with three bodies
+One hand-written kernel beside its plain torch version, with four bodies
 (``launch.body``, K3's rule): on the tensor cores in 3xTF32
 (``csrc/edge_attention_bwd_stream_tc.cu``, K3's receiver design with the
 transposed products through a staging tile per head) within K3's range, on
 the CUDA cores (``csrc/edge_attention_bwd.cu``, the third instantiation of
 the body K3 and K4 share there) beyond it, at any shape, its working set in
 device memory where it exceeds a block's shared memory, and for bf16 rows
-(the JAX package's bf16 model and ``stream_bf16``) on the tensor cores in
-bf16 products with f32 sums (``csrc/edge_attention_bwd_stream_tc_bf16.cu``,
-K3's bf16 per-edge steps), within the range only. dQ and the stream are f32
-whatever the rows' type:
+(the JAX package's bf16 model and ``stream_bf16``) the same two in bf16
+products with f32 sums (``csrc/edge_attention_bwd_stream_tc_bf16.cu``, K3's
+bf16 per-edge steps, within the range; ``csrc/edge_attention_bwd.cu`` on
+bf16 rows beyond it). dQ and the stream are f32 whatever the rows' type:
 
 * ``edge_attention_bwd_stream`` (K5) — pass A: per edge, recompute the
   scores and the softmax, dW = dMsg V^T, the softmax backward; dQ = dS K /
@@ -76,13 +76,16 @@ from ampnet_tpu_torch.ops.segment import segment_sum_into
 _SIGNATURE = [P, I, P, I, P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
 _SIGNATURES = {"ampnet_edge_attention_bwd_stream": _SIGNATURE,
                "ampnet_edge_attention_bwd_stream_bf16": _SIGNATURE,
-               "ampnet_edge_attention_bwd_stream_simt": _SIGNATURE[:-1] + [P, I, P]}
+               "ampnet_edge_attention_bwd_stream_simt": _SIGNATURE[:-1] + [P, I, P],
+               "ampnet_edge_attention_bwd_stream_simt_bf16": _SIGNATURE[:-1] + [P, I, P]}
 # (library, entry point) of each body on each row type (launch.entry_of)
 _BODIES = {
     ("tc", torch.float32): ("edge_attention_bwd_stream_tc", "ampnet_edge_attention_bwd_stream"),
     ("simt", torch.float32): ("edge_attention_bwd", "ampnet_edge_attention_bwd_stream_simt"),
     ("tc_bf16", torch.bfloat16): ("edge_attention_bwd_stream_tc_bf16",
-                                  "ampnet_edge_attention_bwd_stream_bf16")}
+                                  "ampnet_edge_attention_bwd_stream_bf16"),
+    ("simt_bf16", torch.bfloat16): ("edge_attention_bwd",
+                                    "ampnet_edge_attention_bwd_stream_simt_bf16")}
 
 # Cap on the LIVE part of the per-edge dK|dV stream (the JAX package's
 # constant and environment variable): tiles run in chunks sized to it.
@@ -158,7 +161,7 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
     holds sp rows per slot of the range, the first being slot t0*EMAX; rows
     of slots that are not walked are not written. The body is K3's rule
     (``launch.body_of`` on kv_rows, which the tensor-core bodies gather in
-    16-byte copies; bf16 rows beyond the range raise; ``body`` names one).
+    16-byte copies; ``body`` names one).
     CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_bwd_stream_plain(

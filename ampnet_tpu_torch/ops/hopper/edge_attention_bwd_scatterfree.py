@@ -13,13 +13,15 @@ Two hand-written kernels, each beside its plain torch version:
   sender over the sender-major index (``format.py``: ``snd_ptr``,
   ``snd_slots``). Counterpart of ``_dkv_kernel_vmem`` and ``_dkv_kernel_dma``.
 
-Each has three bodies (``launch.body``): on the tensor cores in 3xTF32
+Each has four bodies (``launch.body``): on the tensor cores in 3xTF32
 (``csrc/edge_attention_bwd_dq_tc.cu``, ``csrc/edge_attention_bwd_tc.cu``)
 within their instantiated range, on the CUDA cores (``csrc/edge_attention_bwd.cu``)
 beyond it, at any shape, and for bf16 rows (the JAX package's bf16 model
-and ``stream_bf16``) on the tensor cores in bf16 products with f32 sums
-(``csrc/edge_attention_bwd_dq_tc_bf16.cu``, ``csrc/edge_attention_bwd_tc_bf16.cu``),
-within the range only. Their outputs are f32 whatever the rows' type.
+and ``stream_bf16``) the same two in bf16 products with f32 sums: on the
+tensor cores (``csrc/edge_attention_bwd_dq_tc_bf16.cu``,
+``csrc/edge_attention_bwd_tc_bf16.cu``) within the range, on the CUDA
+cores (``csrc/edge_attention_bwd.cu`` templated on the rows' type) beyond
+it. Their outputs are f32 whatever the rows' type.
 
 One kernel per pass serves both gathers: Hopper reads the gathered rows
 from device memory either way. Neither uses atomics, so the sums are taken
@@ -65,18 +67,20 @@ _SIGNATURES = {
 }
 # the CUDA-core bodies also take their device-memory working set (pointer,
 # blocks; 0, 0 for shared memory) before the stream
-_SIGNATURES["ampnet_edge_attention_bwd_dq_simt"] = _SIGNATURES["ampnet_edge_attention_bwd_dq"][:-1] + [P, I, P]
-_SIGNATURES["ampnet_edge_attention_bwd_dkv_simt"] = _SIGNATURES["ampnet_edge_attention_bwd_dkv"][:-1] + [P, I, P]
 for _name in ("ampnet_edge_attention_bwd_dq", "ampnet_edge_attention_bwd_dkv"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
+    _SIGNATURES[_name + "_simt"] = _SIGNATURES[_name + "_simt_bf16"] = \
+        _SIGNATURES[_name][:-1] + [P, I, P]
 # (library, entry point) of each body on each row type (launch.entry_of)
 F32, BF16 = torch.float32, torch.bfloat16
 _DQ = {("tc", F32): ("edge_attention_bwd_dq_tc", "ampnet_edge_attention_bwd_dq"),
        ("simt", F32): (_LIB, "ampnet_edge_attention_bwd_dq_simt"),
-       ("tc_bf16", BF16): ("edge_attention_bwd_dq_tc_bf16", "ampnet_edge_attention_bwd_dq_bf16")}
+       ("tc_bf16", BF16): ("edge_attention_bwd_dq_tc_bf16", "ampnet_edge_attention_bwd_dq_bf16"),
+       ("simt_bf16", BF16): (_LIB, "ampnet_edge_attention_bwd_dq_simt_bf16")}
 _DKV = {("tc", F32): ("edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv"),
         ("simt", F32): (_LIB, "ampnet_edge_attention_bwd_dkv_simt"),
-        ("tc_bf16", BF16): ("edge_attention_bwd_tc_bf16", "ampnet_edge_attention_bwd_dkv_bf16")}
+        ("tc_bf16", BF16): ("edge_attention_bwd_tc_bf16", "ampnet_edge_attention_bwd_dkv_bf16"),
+        ("simt_bf16", BF16): (_LIB, "ampnet_edge_attention_bwd_dkv_simt_bf16")}
 
 
 # ---------------------------------------------------------------- plain versions
@@ -179,8 +183,8 @@ def edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
     bf16, may be row-strided views; dsum is the gradient of the
     per-receiver SUM of messages. The tensor-core bodies gather kv_rows in
     16-byte copies within K1's range; beyond it, or on rows they cannot
-    copy, f32 rows run the CUDA-core body and bf16 rows raise
-    (``launch.body_of``; ``body`` names one, else the rule picks). The index
+    copy, the CUDA-core body of the rows' type runs (``launch.body_of``;
+    ``body`` names one, else the rule picks). The index
     arrays are int32 (format.py). CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_bwd_dq_plain(
@@ -218,9 +222,9 @@ def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
     f32 or both bf16, and may be row-strided views. The tensor-core bodies
     gather qdm_rows in 16-byte copies and take S <= 48, D/H <= 32 and H *
     ceil(S/16) <= 12 warps (8 up to S=24; ``launch.tensor_core_range_error``);
-    beyond that, or on rows they cannot copy, f32 rows run the CUDA-core
-    body and bf16 rows raise (``launch.body_of``; ``body`` names one, else
-    the rule picks). snd_receivers holds GLOBAL
+    beyond that, or on rows they cannot copy, the CUDA-core body of the
+    rows' type runs (``launch.body_of``; ``body`` names one, else the rule
+    picks). snd_receivers holds GLOBAL
     receiver ids over the sender-tiled slots, snd_valid may carry a runtime
     mask, snd_ptr / snd_slots are the sender-major index. CPU tensors run
     the plain version."""

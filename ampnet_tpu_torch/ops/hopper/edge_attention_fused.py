@@ -17,15 +17,16 @@ version:
   then the K1 walk with the 1/degree fold and the out-projection and
   live-row bias in its epilogue.
 
-Each has three bodies (``launch.body``): on the tensor cores in 3xTF32
+Each has four bodies (``launch.body``): on the tensor cores in 3xTF32
 (``csrc/edge_attention_tc.cu``, ``csrc/edge_attention_layer_tc.cu``, one
 kernel template in ``csrc/edge_attention_tc.cuh``) within their
 instantiated range, on the CUDA cores (``csrc/edge_attention.cu``, and
-``csrc/qkv_projection.cu`` for K2's projection) beyond it, at any shape,
-and on the tensor cores in bf16 products with f32 sums
-(``csrc/edge_attention_tc_bf16.cu``, ``csrc/edge_attention_layer_tc_bf16.cu``,
-template ``csrc/edge_attention_tc_bf16.cuh``) for bf16 rows and for f32 rows
-under ``mxu_bf16``, within the tensor cores' range only.
+``csrc/qkv_projection.cu`` for K2's projection) beyond it, at any shape;
+and for bf16 rows and for f32 rows under ``mxu_bf16`` the same two in bf16
+products with f32 sums: on the tensor cores (``csrc/edge_attention_tc_bf16.cu``,
+``csrc/edge_attention_layer_tc_bf16.cu``, template
+``csrc/edge_attention_tc_bf16.cuh``) within the range, on the CUDA cores
+(the same CUDA-core sources, templated on the rows' type) beyond it.
 
 bf16, as the JAX package: ``x`` in bf16 (the model's
 ``compute_dtype='bfloat16'``) projects to bf16 q|k|v rows and a bf16
@@ -40,8 +41,8 @@ backward agree.
 The JAX package's non-default forward routes have their kernels in
 ``edge_attention_variants.py``: scatter-as-matmul (K6 sums, K7 whole
 layer), the packed v1 groups (K9) and the receiver chunks (K8, no caller on
-the model path). K6, K7 and K9 take bf16 rows as K1 and K2 do, and K6 and
-K7 ``mxu_bf16`` where the JAX bodies honour it; the backward's kernels (K3,
+the model path). K6-K9 take bf16 rows as K1 and K2 do, and K6 and K7
+``mxu_bf16`` where the JAX bodies honour it; the backward's kernels (K3,
 K4, and K5 of the stream backward) take the bf16 rows of either route.
 
 ``amp_edge_attention_fused`` chooses between them with the JAX package's
@@ -110,6 +111,7 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     device_memory_launches,
     entry,
     entry_of,
+    f32_body,
     launch_body,
 )
 from ampnet_tpu_torch.ops.segment import segment_count
@@ -253,24 +255,28 @@ _SIGNATURES = {
 }
 # the CUDA-core bodies also take their device-memory working set (pointer,
 # blocks; 0, 0 for shared memory) before the stream
-_SIGNATURES["ampnet_edge_attention_sums_simt"] = _SIGNATURES["ampnet_edge_attention_sums"][:-1] + [P, I, P]
-_SIGNATURES["ampnet_edge_attention_layer_simt"] = _SIGNATURES["ampnet_edge_attention_layer"][:-1] + [P, I, P]
 for _name in ("ampnet_edge_attention_sums", "ampnet_edge_attention_layer"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name + "_mxu"] = _SIGNATURES[_name]
+    for _suffix in ("_simt", "_simt_bf16", "_simt_mxu"):
+        _SIGNATURES[_name + _suffix] = _SIGNATURES[_name][:-1] + [P, I, P]
 # (library, entry point) of each body on each row type (launch.entry_of):
 # K1's sums, K2's attention launch (its projection launch is
-# variants.layer_projection, K7's too); the bf16 body on f32 rows is
+# variants.layer_projection, K7's too); a bf16 body on f32 rows is
 # mxu_bf16's (bf16 products of f32 rows)
 F32, BF16 = torch.float32, torch.bfloat16
 _SUMS = {("tc", F32): ("edge_attention_tc", "ampnet_edge_attention_sums"),
          ("simt", F32): ("edge_attention", "ampnet_edge_attention_sums_simt"),
          ("tc_bf16", BF16): ("edge_attention_tc_bf16", "ampnet_edge_attention_sums_bf16"),
-         ("tc_bf16", F32): ("edge_attention_tc_bf16", "ampnet_edge_attention_sums_mxu")}
+         ("tc_bf16", F32): ("edge_attention_tc_bf16", "ampnet_edge_attention_sums_mxu"),
+         ("simt_bf16", BF16): ("edge_attention", "ampnet_edge_attention_sums_simt_bf16"),
+         ("simt_bf16", F32): ("edge_attention", "ampnet_edge_attention_sums_simt_mxu")}
 _LAYER_ATTENTION = {
     ("tc", F32): ("edge_attention_layer_tc", "ampnet_edge_attention_layer"),
     ("simt", F32): ("edge_attention", "ampnet_edge_attention_layer_simt"),
     ("tc_bf16", BF16): ("edge_attention_layer_tc_bf16", "ampnet_edge_attention_layer_bf16"),
-    ("tc_bf16", F32): ("edge_attention_layer_tc_bf16", "ampnet_edge_attention_layer_mxu")}
+    ("tc_bf16", F32): ("edge_attention_layer_tc_bf16", "ampnet_edge_attention_layer_mxu"),
+    ("simt_bf16", BF16): ("edge_attention", "ampnet_edge_attention_layer_simt_bf16"),
+    ("simt_bf16", F32): ("edge_attention", "ampnet_edge_attention_layer_simt_mxu")}
 
 
 def _entry(lib_name: str, fn_name: str):
@@ -292,11 +298,11 @@ def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
     The tensor-core bodies gather kv_rows in 16-byte copies and take S <=
     48, D/H <= 32 and H * ceil(S/16) <= 12 warps (8 up to S=24;
     ``launch.tensor_core_range_error``); beyond that, or where kv_rows'
-    address, row stride or width is not a multiple of 16 bytes, f32 rows
-    run the CUDA-core body and bf16 rows raise (``launch.body_of``; ``body``
-    names one, else the rule picks). bf16 rows, and f32 rows under
-    ``mxu_bf16``, run the bf16 body. The layout arrays are int32
-    (format.py). CPU tensors run the plain version."""
+    address, row stride or width is not a multiple of 16 bytes, the
+    CUDA-core body runs (``launch.body_of``; ``body`` names one, else the
+    rule picks). bf16 rows, and f32 rows under ``mxu_bf16``, run a bf16
+    body. The layout arrays are int32 (format.py). CPU tensors run the
+    plain version."""
     if not q_rows.is_cuda:
         return edge_attention_sums_plain(
             q_rows, kv_rows, tile_senders, tile_valid, recv_ptr, recv_slots,
@@ -351,7 +357,8 @@ def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     the rule between them are K1's (the tensor-core projection also copies
     x_rows and w_qkv in 16-byte pieces): bf16 rows run both launches in
     bf16 products; f32 rows under ``mxu_bf16`` only the attention's, the
-    projection and out-projection staying 3xTF32, as the JAX kernel."""
+    projection and out-projection staying f32 on the same cores (3xTF32 or
+    the CUDA cores), as the JAX kernel."""
     if not x_rows.is_cuda:
         return edge_attention_layer_plain(
             x_rows, w_qkv, b_qkv, w_out, b_out, invdeg, tile_senders,
@@ -375,9 +382,9 @@ def edge_attention_layer(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     _check_layout(dev, tile_senders, tile_valid, recv_ptr, recv_slots)
     body = body_of("edge_attention_layer", body, s, d, num_heads,
                    ("x_rows", x_rows), ("w_qkv", w_qkv), mxu_bf16=mxu_bf16)
-    # under mxu_bf16 the f32 projection stays on the 3xTF32 product
-    qkv = variants.layer_projection(
-        x_rows, w_qkv, b_qkv, "tc" if body == "tc_bf16" and dt == torch.float32 else body)
+    # under mxu_bf16 the f32 projection stays f32, on the same cores
+    qkv = variants.layer_projection(x_rows, w_qkv, b_qkv,
+                                    f32_body(body) if dt == torch.float32 else body)
     out = _layer_attention(qkv, w_out, b_out, invdeg, tile_senders, tile_valid, recv_ptr,
                            recv_slots, s=s, sp=sp, num_heads=num_heads, softmax=softmax,
                            body=body)
@@ -407,7 +414,7 @@ def launch_counts() -> dict:
 
 def body_launch_counts() -> dict:
     """The launches of every kernel (K1-K9) by body: {wrapper: {'tc': n,
-    'simt': m, 'tc_bf16': k}}."""
+    'simt': m, 'tc_bf16': k, 'simt_bf16': l}}."""
     return {fn.__name__: dict(fn.body_launches) for fn in KERNEL_WRAPPERS}
 
 
@@ -728,10 +735,9 @@ def amp_edge_attention_fused(
     once, for the forward and the backward.
 
     K1-K7 and K9 each run the body ``launch.body`` picks at x's (S, D),
-    ``num_heads`` and the rows' type: on f32 rows the tensor cores within
-    their range, else the CUDA cores; on bf16 rows, or under ``mxu_bf16``
-    where it reaches, the bf16 tensor-core body (within its range only; K8,
-    which no route reaches, has none)."""
+    ``num_heads`` and the rows' type: the tensor cores within their range,
+    else the CUDA cores; in bf16 products on bf16 rows, or under
+    ``mxu_bf16`` where it reaches, else in f32."""
     snd = (snd_receivers, snd_valid, snd_ptr, snd_slots)
     if any(t is None for t in snd):
         if any(t is not None for t in snd):

@@ -44,16 +44,19 @@ shared memory it is kept in device memory (``launch.simt_work``). K7's
 attention launch is K6's, on K6's route, and its projection launches follow
 it (``layer_mm_body``).
 
-K6, K7 and K9 have a third body, ``tc_bf16``, for bf16 rows (the JAX
-package's bf16 model and ``stream_bf16``): the tensor cores in bf16
-products with f32 sums (``csrc/edge_attention_groups_tc_bf16.cu``, K1's
-bf16 per-edge steps in K6's walk), within the range only; K6 and K7's
-attention also take f32 rows there under ``mxu_bf16`` (the JAX 'vmem'
-bodies v2_mm and v6_mm round their products' operands; v8 and the v1
-bodies do not). The messages and their reduction stay f32, as the JAX
-package's one-hot product and adds are; K7 on bf16 rows projects with K2's
-bf16 product and rounds its mean and its output to bf16 where v6_mm does.
-K8 takes f32 rows only on the card.
+Each has the same two bodies in bf16 products for bf16 rows (the JAX
+package's bf16 model and ``stream_bf16``): ``tc_bf16`` on the tensor cores
+with f32 sums (``csrc/edge_attention_groups_tc_bf16.cu``, K1's bf16
+per-edge steps in K6's walk; ``csrc/edge_attention_chunked_tc_bf16.cu``,
+the same steps in K8's walk) within the range, and ``simt_bf16`` on the
+CUDA cores (the CUDA-core sources above, templated on the rows' type)
+beyond it. K6 and K7's attention also take f32 rows on them under
+``mxu_bf16`` (the JAX 'vmem' bodies v2_mm and v6_mm round their products'
+operands; v8, the v1 bodies and the chunked body do not). The messages and
+their reduction stay f32, as the JAX package's one-hot product and adds
+are, and K8's sums are f32 as ``_fused_edge_sums_chunked`` returns them; K7
+on bf16 rows projects with K2's bf16 product and rounds its mean and its
+output to bf16 where v6_mm does.
 
 K6, K7 and K9 reduce across warps and blocks with f32 atomics into a zeroed
 output: right to rounding, but not bit-reproducible from launch to launch
@@ -86,14 +89,15 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     I,
     MAX_SMEM,
     P,
+    SIMT_BODIES,
     body_of,
-    check_f32_only,
     check_index,
     check_rows,
     check_same_dtype,
     count_launch,
     entry,
     entry_of,
+    f32_body,
     launch_body,
     simt_smem_bytes,
     stream,
@@ -122,19 +126,28 @@ _SIGNATURES = {
     "ampnet_qkv_projection": [P, I, P, P, P, I, I, I, I, P],
     "ampnet_mean_out_projection": [P, I, P, P, P, P, I, I, I, I, I, I, P],
 }
-for _name in ("ampnet_edge_attention_sums_mm", "ampnet_edge_attention_sums_v1"):
+for _name in ("ampnet_edge_attention_sums_mm", "ampnet_edge_attention_sums_v1",
+              "ampnet_edge_attention_sums_chunked"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
+_SIGNATURES["ampnet_edge_attention_sums_chunked_simt_bf16"] = \
+    _SIGNATURES["ampnet_edge_attention_sums_chunked_simt"]
 _SIGNATURES["ampnet_edge_attention_sums_mm_mxu"] = _SIGNATURES["ampnet_edge_attention_sums_mm"]
-# the projections on the tensor cores take the CUDA-core launches' arguments
-_SIGNATURES["ampnet_edge_attention_layer_projection"] = _SIGNATURES["ampnet_qkv_projection"]
-_SIGNATURES["ampnet_edge_attention_layer_projection_bf16"] = _SIGNATURES["ampnet_qkv_projection"]
+# the projections on the tensor cores, and the CUDA cores' bf16 ones, take
+# the CUDA-core f32 launches' arguments
+for _name in ("ampnet_edge_attention_layer_projection",
+              "ampnet_edge_attention_layer_projection_bf16", "ampnet_qkv_projection_bf16"):
+    _SIGNATURES[_name] = _SIGNATURES["ampnet_qkv_projection"]
 for _name in ("ampnet_edge_attention_layer_mm_out_projection",
-              "ampnet_edge_attention_layer_mm_out_projection_bf16"):
+              "ampnet_edge_attention_layer_mm_out_projection_bf16",
+              "ampnet_mean_out_projection_bf16"):
     _SIGNATURES[_name] = _SIGNATURES["ampnet_mean_out_projection"]
 # the CUDA-core bodies also take their device-memory working set (pointer,
 # blocks; 0, 0 for shared memory) before the stream
 for _name in ("ampnet_edge_attention_sums_mm", "ampnet_edge_attention_sums_v1"):
-    _SIGNATURES[_name + "_simt"] = _SIGNATURES[_name][:-1] + [P, I, P]
+    for _suffix in ("_simt", "_simt_bf16"):
+        _SIGNATURES[_name + _suffix] = _SIGNATURES[_name][:-1] + [P, I, P]
+_SIGNATURES["ampnet_edge_attention_sums_mm_simt_mxu"] = \
+    _SIGNATURES["ampnet_edge_attention_sums_mm_simt"]
 # (library, entry point) of each body of K6 and K9 on each row type
 # (launch.entry_of); K6's bf16 body on f32 rows is mxu_bf16's
 F32, BF16 = torch.float32, torch.bfloat16
@@ -143,32 +156,45 @@ _SUMS_MM = {("tc", F32): ("edge_attention_groups_tc", "ampnet_edge_attention_sum
             ("tc_bf16", BF16): ("edge_attention_groups_tc_bf16",
                                 "ampnet_edge_attention_sums_mm_bf16"),
             ("tc_bf16", F32): ("edge_attention_groups_tc_bf16",
-                               "ampnet_edge_attention_sums_mm_mxu")}
+                               "ampnet_edge_attention_sums_mm_mxu"),
+            ("simt_bf16", BF16): ("edge_attention_groups",
+                                  "ampnet_edge_attention_sums_mm_simt_bf16"),
+            ("simt_bf16", F32): ("edge_attention_groups",
+                                 "ampnet_edge_attention_sums_mm_simt_mxu")}
 _SUMS_V1 = {("tc", F32): ("edge_attention_groups_tc", "ampnet_edge_attention_sums_v1"),
             ("simt", F32): ("edge_attention_groups", "ampnet_edge_attention_sums_v1_simt"),
             ("tc_bf16", BF16): ("edge_attention_groups_tc_bf16",
-                                "ampnet_edge_attention_sums_v1_bf16")}
+                                "ampnet_edge_attention_sums_v1_bf16"),
+            ("simt_bf16", BF16): ("edge_attention_groups",
+                                  "ampnet_edge_attention_sums_v1_simt_bf16")}
 _SUMS_CHUNKED = {
-    "tc": ("edge_attention_chunked_tc", "ampnet_edge_attention_sums_chunked"),
-    "simt": ("edge_attention_chunked", "ampnet_edge_attention_sums_chunked_simt")}
+    ("tc", F32): ("edge_attention_chunked_tc", "ampnet_edge_attention_sums_chunked"),
+    ("simt", F32): ("edge_attention_chunked", "ampnet_edge_attention_sums_chunked_simt"),
+    ("tc_bf16", BF16): ("edge_attention_chunked_tc_bf16",
+                        "ampnet_edge_attention_sums_chunked_bf16"),
+    ("simt_bf16", BF16): ("edge_attention_chunked",
+                          "ampnet_edge_attention_sums_chunked_simt_bf16")}
 # (library, entry point) on each body of the q|k|v projection (K2's first
 # launch and K7's) and of K7's last launch: the tensor cores' tiled 3xTF32
 # product (csrc/projection_tc.cuh, and its kMean epilogue), or the CUDA
 # cores' one; on bf16 rows the tensor cores' tiled bf16 product
-# (csrc/edge_attention_layer_tc_bf16.cu, and its kMean epilogue); by
-# (body, row type), as launch.entry_of reads it. Under mxu_bf16 (f32 rows)
-# both stay on the 3xTF32 product, as the JAX kernels round only their
-# attention's operands.
+# (csrc/edge_attention_layer_tc_bf16.cu, and its kMean epilogue) or the
+# CUDA cores' in bf16; by (body, row type), as launch.entry_of reads it.
+# Under mxu_bf16 (f32 rows) both stay on the f32 product of the same cores
+# (launch.f32_body), as the JAX kernels round only their attention's
+# operands.
 _PROJECTION = {
     ("tc", F32): ("edge_attention_layer_tc", "ampnet_edge_attention_layer_projection"),
     ("simt", F32): ("qkv_projection", "ampnet_qkv_projection"),
     ("tc_bf16", BF16): ("edge_attention_layer_tc_bf16",
-                        "ampnet_edge_attention_layer_projection_bf16")}
+                        "ampnet_edge_attention_layer_projection_bf16"),
+    ("simt_bf16", BF16): ("qkv_projection", "ampnet_qkv_projection_bf16")}
 _LAYER_MM_OUT_PROJECTION = {
     ("tc", F32): ("edge_attention_layer_tc", "ampnet_edge_attention_layer_mm_out_projection"),
     ("simt", F32): ("qkv_projection", "ampnet_mean_out_projection"),
     ("tc_bf16", BF16): ("edge_attention_layer_tc_bf16",
-                        "ampnet_edge_attention_layer_mm_out_projection_bf16")}
+                        "ampnet_edge_attention_layer_mm_out_projection_bf16"),
+    ("simt_bf16", BF16): ("qkv_projection", "ampnet_mean_out_projection_bf16")}
 
 
 def _entry(lib_name: str, fn_name: str):
@@ -325,14 +351,14 @@ def _check_tiled(device, tile_senders, tile_recv, tile_valid, tile_counts=None):
 def _mm_group(body, s, d, num_heads, group):
     """K6's group on ``body``: the caller's (1..SIMT_MAX_GROUP on the CUDA
     cores), else MM_GROUP on the tensor cores (3xTF32 and bf16) and on the
-    CUDA cores the largest up to MM_GROUP that keeps the working set in
-    shared memory (else 1: in device memory)."""
+    CUDA cores (f32 and bf16) the largest up to MM_GROUP that keeps the
+    working set in shared memory (else 1: in device memory)."""
     if group is None:
-        if body != "simt":
+        if body not in SIMT_BODIES:
             return MM_GROUP
         return max([g for g in range(1, MM_GROUP + 1) if simt_smem_bytes(
             "edge_attention_sums_mm", s, d, num_heads, g) <= MAX_SMEM], default=1)
-    top = SIMT_MAX_GROUP if body == "simt" else None
+    top = SIMT_MAX_GROUP if body in SIMT_BODIES else None
     if group < 1 or (top is not None and group > top):
         raise ValueError(f"group={group} must be at least 1"
                          + (f" and at most {top} on the CUDA cores" if top else ""))
@@ -367,9 +393,8 @@ def edge_attention_sums_mm(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
     senders, receiver rows and validity, which may carry a runtime mask, and
     the [T] STRUCTURAL counts). The body is K1's rule (``launch.body_of`` on
     kv_rows; ``body`` names one): bf16 rows, and f32 rows under
-    ``mxu_bf16``, run the bf16 body, within the tensor cores' range only;
-    ``group`` None = its default (``_mm_group``). CPU tensors run the plain
-    version."""
+    ``mxu_bf16``, run a bf16 body; ``group`` None = its default
+    (``_mm_group``). CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_sums_mm_plain(
             q_rows, kv_rows, tile_senders, tile_recv, tile_valid, tile_counts,
@@ -397,7 +422,7 @@ def layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, kv_rows,
     its projected rows, where x_rows, w_qkv and w_out take 16-byte copies
     too (the tensor cores' tiled product copies its A and B operands in
     16-byte pieces: addresses, row strides and widths multiples of 16 bytes);
-    'tc_bf16' on bf16 rows and under ``mxu_bf16``; ``body`` names one."""
+    a bf16 body on bf16 rows and under ``mxu_bf16``; ``body`` names one."""
     return body_of("edge_attention_sums_mm", body, s, d, num_heads, ("kv_rows", kv_rows),
                    ("x_rows", x_rows), ("w_qkv", w_qkv), ("w_out", w_out), mxu_bf16=mxu_bf16)
 
@@ -405,8 +430,8 @@ def layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, kv_rows,
 def layer_projection(x_rows, w_qkv, b_qkv, body, qkv=None):
     """K2's and K7's first launch on ``body``: q|k|v rows [rows, 3D] =
     x_rows @ w_qkv + b_qkv in x_rows' type (into ``qkv`` where given,
-    contiguous); 'tc_bf16' takes bf16 rows and weights, sums in f32 and
-    rounds once."""
+    contiguous); the bf16 bodies take bf16 rows and weights, sum in f32 and
+    round once."""
     rows, d = x_rows.shape
     if qkv is None:
         qkv = torch.empty(rows, 3 * d, dtype=x_rows.dtype, device=x_rows.device)
@@ -420,8 +445,8 @@ def layer_projection(x_rows, w_qkv, b_qkv, body, qkv=None):
 def _layer_mm_out_projection(sums, invdeg, w_out, b_out, *, s, sp, body):
     """K7's last launch on ``body``: the mean as a row scale of the f32 sums,
     the out-projection, b_out on live rows, pad token rows 0; out in
-    w_out's type ('tc_bf16': bf16 rows, the mean and the output rounded to
-    bf16)."""
+    w_out's type (the bf16 bodies: bf16 rows, the mean and the output
+    rounded to bf16)."""
     rows, d = sums.shape
     out = torch.empty(rows, d, dtype=w_out.dtype, device=sums.device)
     lib, epi = _entry(*entry_of("edge_attention_layer_mm out-projection",
@@ -447,8 +472,9 @@ def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     first and the last are the tiled 3xTF32 product of K2's projection
     launch, on the CUDA cores ``csrc/qkv_projection.cu``. bf16 rows run all
     three in bf16 products (K2's bf16 projection, K6's bf16 body, the bf16
-    epilogue); f32 rows under ``mxu_bf16`` only the attention's, as the JAX
-    kernel. CPU tensors run the plain version."""
+    epilogue, on the tensor cores or on the CUDA cores); f32 rows under
+    ``mxu_bf16`` only the attention's, as the JAX kernel. CPU tensors run
+    the plain version."""
     if not x_rows.is_cuda:
         return edge_attention_layer_mm_plain(
             x_rows, w_qkv, b_qkv, w_out, b_out, invdeg, tile_senders, tile_recv,
@@ -473,8 +499,8 @@ def edge_attention_layer_mm(x_rows, w_qkv, b_qkv, w_out, b_out, invdeg,
     _check_tiled(dev, tile_senders, tile_recv, tile_valid, tile_counts)
     qkv = torch.empty(nt * sp, 3 * d, dtype=dt, device=dev)
     body = layer_mm_body(body, s, d, num_heads, x_rows, w_qkv, w_out, qkv[:, d:], mxu_bf16)
-    # under mxu_bf16 the f32 projections stay on the 3xTF32 product
-    products = "tc" if body == "tc_bf16" and dt == torch.float32 else body
+    # under mxu_bf16 the f32 projections stay f32, on the same cores
+    products = f32_body(body) if dt == torch.float32 else body
     layer_projection(x_rows, w_qkv, b_qkv, products, qkv)
     sums = _launch_groups(
         "edge_attention_sums_mm", body,
@@ -495,9 +521,8 @@ def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
     walked, each slot scaled by its validity. ``gather`` names the JAX body
     ('dma': ``_fused_kernel``, 'vmem': ``_fused_kernel_vmem``); one kernel
     serves both. The body is K6's rule (``body`` names one; at most
-    SIMT_MAX_GROUP on the CUDA cores): bf16 rows run the bf16 body, within
-    the tensor cores' range only (the JAX v1 bodies have no mxu_bf16). CPU
-    tensors run the plain version."""
+    SIMT_MAX_GROUP on the CUDA cores): bf16 rows run a bf16 body (the JAX
+    v1 bodies have no mxu_bf16). CPU tensors run the plain version."""
     if gather not in ("dma", "vmem"):
         raise ValueError(f"gather must be 'dma' or 'vmem', got {gather!r}")
     t, emax = tile_senders.shape
@@ -511,7 +536,7 @@ def edge_attention_sums_v1(q_rows, kv_rows, tile_senders, tile_recv, tile_valid,
     d, dt = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
     _check_tiled(q_rows.device, tile_senders, tile_recv, tile_valid)
     body = body_of("edge_attention_sums_v1", body, s, d, num_heads, ("kv_rows", kv_rows))
-    if body == "simt" and group > SIMT_MAX_GROUP:
+    if body in SIMT_BODIES and group > SIMT_MAX_GROUP:
         raise ValueError(f"group={group} must be at most {SIMT_MAX_GROUP} on the CUDA cores")
     out = _launch_groups(
         "edge_attention_sums_v1", body,
@@ -547,16 +572,16 @@ def edge_attention_sums_chunked(q_rows, kv_rows, chunk_senders, chunk_valid,
     one). ``piece`` (1..chunk): on the CUDA cores, the edges of a chunk
     taken per step, None = ``_chunk_piece``'s choice; the working set goes
     to device memory where it does not fit shared memory. The tensor cores
-    take one edge a step whatever the piece. K8 has no bf16 body: bf16
-    rows raise on the card. CPU tensors run the plain version."""
+    take one edge a step whatever the piece. bf16 rows run a bf16 body (the
+    JAX chunked body has no mxu_bf16); the sums are f32. CPU tensors run the
+    plain version."""
     if not q_rows.is_cuda:
         return edge_attention_sums_chunked_plain(
             q_rows, kv_rows, chunk_senders, chunk_valid, chunk_start, chunk_count,
             s=s, sp=sp, num_heads=num_heads, softmax=softmax, chunk=chunk)
-    check_f32_only("edge_attention_sums_chunked", q_rows, kv_rows)
     dev = q_rows.device
     nt = chunk_start.numel()
-    d, _ = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
+    d, dt = _check_rows(q_rows, kv_rows, nt, sp, num_heads)
     check_index("chunk_senders", chunk_senders, dev)
     check_index("chunk_valid", chunk_valid, dev, chunk_senders.numel())
     check_index("chunk_start", chunk_start, dev)
@@ -566,9 +591,11 @@ def edge_attention_sums_chunked(q_rows, kv_rows, chunk_senders, chunk_valid,
                          f"{chunk_senders.numel()} slots")
     body = body_of("edge_attention_sums_chunked", body, s, d, num_heads, ("kv_rows", kv_rows))
     piece = _chunk_piece(s, d, num_heads, chunk, piece)
-    per_step = (piece,) if body == "simt" else ()     # the tensor cores take one edge a step
+    # the tensor cores take one edge a step
+    per_step = (piece,) if body in SIMT_BODIES else ()
     out = torch.empty(nt * sp, d, dtype=torch.float32, device=dev)
-    launch_body("edge_attention_sums_chunked", body, _entry(*_SUMS_CHUNKED[body]), (
+    lib_fn = _entry(*entry_of("edge_attention_sums_chunked", _SUMS_CHUNKED, body, dt))
+    launch_body("edge_attention_sums_chunked", body, lib_fn, (
         q_rows.data_ptr(), q_rows.stride(0), kv_rows.data_ptr(), kv_rows.stride(0),
         chunk_senders.data_ptr(), chunk_valid.data_ptr(), chunk_start.data_ptr(),
         chunk_count.data_ptr(), out.data_ptr(), nt, chunk, *per_step,

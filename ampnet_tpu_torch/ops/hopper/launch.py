@@ -3,19 +3,19 @@ the libraries ``build.py`` makes, the current stream, the checks a wrapper
 runs before it hands pointers to a kernel (device, type, shape, contiguity,
 alignment), and the rule that picks a kernel's body.
 
-K1-K9 each have two hand-written bodies on f32 rows: one on the tensor
-cores (3xTF32) within the range they are instantiated for, and one on the
-CUDA cores beyond it, at any shape. K1-K7 and K9 have a third, ``tc_bf16``:
-the tensor cores in bf16 products with f32 sums (``mma.sync`` m16n8k16),
-for bf16 rows, and for K1, K2's attention and K6 (and K7's attention, K6's
-body) also for f32 rows whose products the caller asks to round to bf16
-(``mxu_bf16``). ``body`` picks from (S,
-D, H), the rows' type and whether the gathered rows take 16-byte copies,
-before any launch; bf16 beyond the tensor cores' range raises (the
-CUDA-core bodies take f32 only). The CUDA-core bodies keep their working
-set in shared memory where it fits a block and in device memory beyond
-that (``simt_work``). A check raises; nothing here falls back after a
-failed launch."""
+K1-K9 each have four hand-written bodies. On f32 rows: one on the tensor
+cores (``tc``, 3xTF32) within the range they are instantiated for, and one
+on the CUDA cores (``simt``) beyond it, at any shape. With bf16 products
+(bf16 rows, and for K1, K2's attention and K6 (and K7's attention, K6's
+body) also f32 rows whose products the caller asks to round to bf16,
+``mxu_bf16``): one on the tensor cores in bf16 products with f32 sums
+(``tc_bf16``, ``mma.sync`` m16n8k16) within the same range, and one on the
+CUDA cores (``simt_bf16``, f32 FMAs on bf16-rounded operands) beyond it, at
+any shape. ``body`` picks from (S, D, H), the rows' type and whether the
+gathered rows take 16-byte copies, before any launch. The CUDA-core bodies
+keep their working set in f32, in shared memory where it fits a block and
+in device memory beyond that (``simt_work``), whatever the rows' type. A
+check raises; nothing here falls back after a failed launch."""
 from __future__ import annotations
 
 import ctypes
@@ -141,7 +141,7 @@ def check_tensor_core(what: str, s: int, d: int, num_heads: int,
         raise ValueError(f"{what}: {err}")
 
 
-# ---- the two bodies of K1-K6, K8 and K9, and the rule between them
+# ---- the bodies of K1-K6, K8 and K9, and the rule between them
 
 # the kernels with a tensor-core and a CUDA-core body. K7
 # (edge_attention_layer_mm) runs K6's bodies in its attention launch, and
@@ -152,14 +152,11 @@ TENSOR_CORE_KERNELS = ("edge_attention_sums", "edge_attention_layer",
                        "edge_attention_sums_chunked", "edge_attention_sums_v1")
 # the edge-group kernels: their blocks walk (tile, group) items, not nodes
 GROUP_KERNELS = ("edge_attention_sums_mm", "edge_attention_sums_v1")
-BODIES = ("tc", "simt", "tc_bf16")
-# the kernels with a bf16 tensor-core body (``tc_bf16``; K7 runs K6's, with
-# K2's bf16 projection); K8 takes f32 rows only on the card
-# (``check_f32_only``)
-BF16_KERNELS = ("edge_attention_sums", "edge_attention_layer",
-                "edge_attention_bwd_dq", "edge_attention_bwd_dkv",
-                "edge_attention_bwd_stream", "edge_attention_sums_mm",
-                "edge_attention_sums_v1")
+BODIES = ("tc", "simt", "tc_bf16", "simt_bf16")
+# the bodies with bf16 products, and the CUDA-core ones (whose working set
+# may be in device memory)
+BF16_BODIES = ("tc_bf16", "simt_bf16")
+SIMT_BODIES = ("simt", "simt_bf16")
 # the kernels whose bf16 body also takes f32 rows and rounds their
 # products' operands (``mxu_bf16``), where the JAX body honours the flag:
 # K1, K2's attention launch, K6 (v2_mm) and with it K7's attention launch
@@ -174,7 +171,8 @@ WORK_BYTES = 256 * 1024 * 1024
 
 
 def simt_smem_bytes(kernel: str, s: int, d: int, num_heads: int, group: int = 0) -> int:
-    """Working set per block of a kernel's CUDA-core body: the
+    """Working set per block of a kernel's CUDA-core body ('simt' and
+    'simt_bf16' alike: both keep it in f32): the
     ``smem_floats`` of csrc/edge_attention.cu (K1, and K2's attention
     launch), of csrc/edge_attention_bwd.cu (K3, K4, K5), of
     csrc/edge_attention_groups.cu (K6 with its buffer of ``group`` messages,
@@ -229,30 +227,39 @@ def simt_work(kernel: str, s: int, d: int, num_heads: int, num_nodes: int, devic
 
 def body(kernel: str, s: int, d: int, num_heads: int, rows_aligned: bool,
          bf16: bool = False) -> str:
-    """The body a kernel runs at (S, D, H): with ``bf16`` (bf16 rows, or
-    products rounded to bf16) 'tc_bf16', whose range ``body_of`` holds;
-    otherwise 'tc' (tensor cores, 3xTF32) within the instantiated range
-    where the gathered rows take 16-byte copies, else 'simt' (CUDA cores)."""
+    """The body a kernel runs at (S, D, H): the tensor cores within the
+    instantiated range where the gathered rows take 16-byte copies, else the
+    CUDA cores; in bf16 products with ``bf16`` (bf16 rows, or products
+    rounded to bf16: 'tc_bf16' or 'simt_bf16'), else in f32 ('tc', 3xTF32,
+    or 'simt')."""
     if kernel not in TENSOR_CORE_KERNELS:
         raise ValueError(f"unknown kernel {kernel}")
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
+    tensor_cores = rows_aligned and tensor_core_range_error(s, d, num_heads) is None
     if bf16:
-        return "tc_bf16"
-    if rows_aligned and tensor_core_range_error(s, d, num_heads) is None:
-        return "tc"
-    return "simt"
+        return "tc_bf16" if tensor_cores else "simt_bf16"
+    return "tc" if tensor_cores else "simt"
+
+
+def f32_body(body_name: str) -> str:
+    """The f32 body on the same cores: what a launch that mxu_bf16 does not
+    reach (K2's and K7's projections of f32 rows) runs beside the bf16
+    attention."""
+    return {"tc_bf16": "tc", "simt_bf16": "simt"}.get(body_name, body_name)
 
 
 def body_of(kernel: str, body_name: Optional[str], s: int, d: int, num_heads: int,
             *gathered: Tuple[str, torch.Tensor], mxu_bf16: bool = False) -> str:
     """The body a wrapper runs on the rows it was given: ``body_name`` where
     the caller names one (raises where that body does not take the call),
-    else ``body``'s choice. bf16 products run on 'tc_bf16' and only there:
-    bf16 rows, and f32 rows under ``mxu_bf16`` (``MXU_KERNELS`` only); ``mxu_bf16`` is the one switch for f32 rows, so a
-    named 'tc_bf16' without it raises, as does a named 'tc' or 'simt' with
-    it. Beyond the tensor cores' range, or on rows the 16-byte copies cannot
-    take, 'tc_bf16' raises: the CUDA-core bodies take f32 only."""
+    else ``body``'s choice. bf16 products run on 'tc_bf16' or 'simt_bf16'
+    and only there: bf16 rows, and f32 rows under ``mxu_bf16``
+    (``MXU_KERNELS`` only); ``mxu_bf16`` is the one switch for f32 rows, so
+    a named bf16 body without it raises, as does a named 'tc' or 'simt'
+    with it. Beyond the tensor cores' range, or on rows the 16-byte copies
+    cannot take, a named 'tc' or 'tc_bf16' raises; 'simt_bf16' takes any
+    shape, as 'simt' does."""
     rows_bf16 = any(rows.dtype == torch.bfloat16 for _, rows in gathered)
     if mxu_bf16 and not rows_bf16 and kernel not in MXU_KERNELS:
         raise ValueError(f"{kernel}: mxu_bf16 reaches {MXU_KERNELS} only")
@@ -261,16 +268,14 @@ def body_of(kernel: str, body_name: Optional[str], s: int, d: int, num_heads: in
         body_name = body(kernel, s, d, num_heads, _rows_error(gathered) is None, bf16)
     elif body_name not in BODIES:
         raise ValueError(f"{kernel}: body {body_name!r} is not one of {BODIES}")
-    elif (body_name == "tc_bf16") != bf16:
-        raise ValueError(f"{kernel}: bf16 rows and mxu_bf16 run on the 'tc_bf16' body, "
-                         f"f32 rows without mxu_bf16 on 'tc' or 'simt', not {body_name!r}")
+    elif (body_name in BF16_BODIES) != bf16:
+        raise ValueError(f"{kernel}: bf16 rows and mxu_bf16 run on the 'tc_bf16' body or "
+                         f"on 'simt_bf16', f32 rows without mxu_bf16 on 'tc' or 'simt', "
+                         f"not {body_name!r}")
     if body_name == "tc_bf16":
-        if kernel not in BF16_KERNELS:
-            raise ValueError(f"{kernel}: no bf16 body yet (bf16 bodies: {BF16_KERNELS})")
         err = tensor_core_range_error(s, d, num_heads) or _rows_error(gathered)
         if err:
-            raise ValueError(f"{kernel}: {err}; bf16 runs on the tensor cores only "
-                             f"(the CUDA-core bodies take f32 only)")
+            raise ValueError(f"{kernel}: {err}; beyond it bf16 runs on 'simt_bf16'")
     elif body_name == "tc":
         check_tensor_core(kernel, s, d, num_heads, *gathered)
     return body_name
@@ -288,13 +293,6 @@ def entry_of(kernel: str, table: dict, body_name: str, dtype: torch.dtype):
                          f"for {dtype} rows") from None
 
 
-def check_f32_only(kernel: str, *rows: torch.Tensor) -> None:
-    """On the card, the kernel without a bf16 body (K8) refuses bf16 rows."""
-    if any(t.dtype == torch.bfloat16 for t in rows):
-        raise ValueError(f"{kernel}: no bf16 body on the card yet (bf16 rows run on "
-                         f"{BF16_KERNELS}; {kernel} takes f32 rows)")
-
-
 # launches of a CUDA-core body whose working set was in device memory, by
 # kernel (K7's attention launch is K6's); cleared with the launch counts
 device_memory_launches: Dict[str, int] = {}
@@ -307,7 +305,7 @@ def launch_body(kernel: str, body_name: str, lib_fn, args: Sequence, s: int, d: 
     set in device memory (pointer, blocks; 0, 0 for shared memory), then
     the stream."""
     lib, fn = lib_fn
-    if body_name == "simt":
+    if body_name in SIMT_BODIES:
         # freed on return, once the launch is queued: the stream orders its reuse
         work, blocks = simt_work(kernel, s, d, num_heads, num_nodes, device, group)
         args = (*args, 0 if work is None else work.data_ptr(), blocks)

@@ -68,15 +68,33 @@ model limits):
      without a new capture; a Predictor at S=20 (K1 at the whole graph's
      bucket, where the JAX predicate finds v6 too large, K2 at a 1,024-node
      bucket) and a transformer-block + CLS model at S=40 (41 tokens, K1).
-  bf16  the bf16 bodies (K1-K7 and K9 on bf16 rows; K1, K2, K6 and K7 also
-     on f32 rows under mxu_bf16), each at the shape its path gives it,
-     against its plain version and timed in turns with its 3xTF32 body;
+  bf16  the bf16 tensor-core bodies (K1-K9 on bf16 rows; K1, K2, K6 and K7
+     also on f32 rows under mxu_bf16), each at the shape its path gives
+     it (K8 at S=40 and S=20 through its public wrapper), against its
+     plain version and timed in turns with its 3xTF32 body;
      path C in compute_dtype='bfloat16'; stream_bf16 and mxu_bf16 on the f32
      recipes; bf16 Predictors; path F on a bf16 model and under stream_bf16
      (2 K1 + 2 K5 a step on tc_bf16, captured = eager bit for bit, the
      gradients against float64, the final accuracy beside the f32 model's
      after the same steps); G, H and I on bf16 models, and G and H under
-     mxu_bf16 at S=20; the refusals (K8's bf16 rows, bf16 rows at S=49).
+     mxu_bf16 at S=20.
+  bf16_wide  every `routes` shape (and two S=20, H=8 evals, whose forward
+     is K2, or K7 under MM_SCATTER_DEFAULT) as a bf16 conv, and where the
+     JAX body honours mxu_bf16 as an f32 conv under it: the CUDA-core bf16
+     bodies ('simt_bf16', K1-K9) beyond the tensor cores' range and on bf16
+     rows the 16-byte copies cannot take (D=100), their working set in
+     device memory where the f32 bodies' is; each conv against the same
+     conv through the kernels' plain versions on the card and against
+     float64 on the CPU, launches by body; K8 on bf16 rows at the chunked
+     routes' shapes; the named bodies that still refuse (they launch
+     nothing).
+  J  the recommended recipe at S=64 (experiments/token_scale_tuning.py's
+     default) as a bf16 model through train_full_batch: 2 K1 + 2 K3 + 2 K4
+     a step, all on 'simt_bf16' (K3 and K4 in device memory); gradients
+     against float64, 3 captured steps = eager bit for bit, an 8-draw eval
+     against float64, the f32 model's step (its 'simt' bodies) in turns.
+     Then each 'simt_bf16' body's kernel row at a shape J or bf16_wide ran
+     it, timed in turns with the f32 CUDA-core body.
 K8 has no caller on the model path (as in the JAX package): its phase calls
 the public wrapper on the chunked layout of the same graph, its counts set
 to 0 just before and read just after. The `captured` phase holds captured
@@ -448,7 +466,7 @@ PORT_KERNEL_FUNCTIONS = (
     "dkv_tc_kernel", "stream_tc_kernel", "groups_tc_kernel", "chunked_tc_kernel",
     "edge_attention_kernel", "edge_attention_bwd_kernel", "edge_group_kernel",
     "edge_chunk_kernel", "projection_kernel", "sums_bf16_kernel", "dq_bf16_kernel",
-    "dkv_bf16_kernel", "projection_bf16_kernel")
+    "dkv_bf16_kernel", "projection_bf16_kernel", "chunked_bf16_kernel")
 _PORT_KERNEL_WORDS = {fn: re.compile(rf"(?<![A-Za-z0-9_]){fn}(?![A-Za-z0-9_])")
                       for fn in PORT_KERNEL_FUNCTIONS}
 
@@ -1035,16 +1053,13 @@ def staged_w_attention(qkv, w, invdeg, idx, nt, kw):
                 l2_blocks_per_sm=info["l2"])
 
 
-def route_phase(data, gen, dev):
-    """AMPConv at the shapes of ROUTES, forward and (training) one backward
-    with dropout 0 on the card, each against the same layer in float64 on
-    the CPU through the plain oracle: the output at the model limits, every
-    gradient (x's too) within GRAD_RTOL of its largest entry. The launches
-    must show the body that ran; the report names the kernels whose
-    working set was in device memory."""
+def route_graphs(data, dev):
+    """The graphs of the routes phases: {training: (graph, runtime mask,
+    layout)} (an eval graph of Cora's node count with every 10th edge, a
+    training graph of the edges among the first ROUTE_NODES nodes, every 7th
+    live edge dropped at run time), and the training graph's layout without
+    a sender side."""
     from ampnet_tpu_torch.core.graph import from_arrays
-    from ampnet_tpu_torch.models.layers import AMPConv
-    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper.format import compute_layout
 
     ei = data.edge_index
@@ -1056,7 +1071,20 @@ def route_phase(data, gen, dev):
         mask = g.edge_mask.clone()
         mask[torch.nonzero(mask)[::7, 0]] = False             # dropped at run time
         graphs[train] = (g, mask, compute_layout(g))
-    no_sender_side = compute_layout(graphs[True][0], sender_layout=False)
+    return graphs, compute_layout(graphs[True][0], sender_layout=False)
+
+
+def route_phase(data, gen, dev):
+    """AMPConv at the shapes of ROUTES, forward and (training) one backward
+    with dropout 0 on the card, each against the same layer in float64 on
+    the CPU through the plain oracle: the output at the model limits, every
+    gradient (x's too) within GRAD_RTOL of its largest entry. The launches
+    must show the body that ran; the report names the kernels whose
+    working set was in device memory."""
+    from ampnet_tpu_torch.models.layers import AMPConv
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    graphs, no_sender_side = route_graphs(data, dev)
     report = []
     for s, d, h, train, want, want_device_memory, flag in ROUTES:
         graph, mask, layout = graphs[train]
@@ -1186,13 +1214,15 @@ def chunked_routes(eval_graph, gen, dev):
     return report
 
 
-def tensor_cores_only(name, counts):
-    """Fail where a path at the recipes' shapes ran a CUDA-core body."""
+def tensor_cores_only(name, counts, allowed=("tc", "tc_bf16")):
+    """Fail where a path ran a body other than ``allowed`` (at the recipes'
+    shapes: a CUDA-core body)."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
 
     bodies = eaf.body_launch_counts()
-    if any(b["simt"] for b in bodies.values()):
-        fail(f"path {name}: a kernel ran its CUDA-core body ({bodies}; launches {counts})")
+    if any(n for b in bodies.values() for k, n in b.items() if k not in allowed):
+        fail(f"path {name}: a kernel ran a body other than {allowed} ({bodies}; "
+             f"launches {counts})")
     return bodies
 
 
@@ -1508,13 +1538,13 @@ def state_gap(name, step, eager, st, st_e, graph, layout) -> dict:
 
 
 def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
-                   want_step=None, grad_rtol=GRAD_RTOL):
+                   want_step=None, grad_rtol=GRAD_RTOL, allowed=("tc", "tc_bf16")):
     """create_train_state + train_full_batch (captured steps), counts read
     around it; before that, on models of their own, the gradient check, one
     captured step's launch counts (``want_step``, default 2 K1 + 2 K3 + 2
     K4), and the captured step against the eager body from the same
     initial state (step_costs of both, and where their states stand after
-    the same steps)."""
+    the same steps). Every launch runs one of the ``allowed`` bodies."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper.format import compute_layout
     from ampnet_tpu_torch.train import (Logfile, create_train_state, make_optimizer,
@@ -1545,7 +1575,7 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
     per_step = eaf.launch_counts()
     if per_step != want_step:
         fail(f"path {name}: one training step launched {per_step}, expected {want_step}")
-    tensor_cores_only(name, per_step)
+    tensor_cores_only(name, per_step, allowed)
     eager(state_e, graph, layout)
     costs = eager_and_captured(name, lambda: eager(state_e, graph, layout),
                                lambda: step(state, graph, layout), 10, first_ms)
@@ -1564,7 +1594,7 @@ def drive_training(name, cfg, tcfg, data, graph, seed, dev, check_gradients,
     torch.cuda.synchronize()
     report["train_full_batch_s"] = time.perf_counter() - t0
     counts = eaf.launch_counts()
-    tensor_cores_only(name, counts)
+    tensor_cores_only(name, counts, allowed)
     history, final = result["history"], result["final_metrics"]
     losses = [row["loss"] for row in history]
     if len(history) != tcfg.epochs or not finite(losses + list(final.values())):
@@ -2224,17 +2254,18 @@ def serving_phase(recipe, reference, data, graph, seed, dev) -> dict:
 
 
 def bf16_only(name, kernels=("edge_attention_sums", "edge_attention_bwd_dq",
-                             "edge_attention_bwd_dkv")):
+                             "edge_attention_bwd_dkv"), body="tc_bf16"):
     """Fail unless every launch of ``kernels`` since the counts were set to 0
-    ran the bf16 tensor-core body; returns the body counts."""
+    ran the bf16 ``body`` (default the tensor cores'), and every kernel that
+    ran it ran no other; returns the counts on ``body``."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
 
     bodies = eaf.body_launch_counts()
     wrong = {k: b for k, b in bodies.items()
-             if (b["tc"] or b["simt"]) and (k in kernels or b["tc_bf16"])}
-    if wrong or not all(bodies[k]["tc_bf16"] for k in kernels):
-        fail(f"{name}: launches off the bf16 body ({bodies})")
-    return {k: b["tc_bf16"] for k, b in bodies.items() if b["tc_bf16"]}
+             if any(n for x, n in b.items() if x != body) and (k in kernels or b[body])}
+    if wrong or not all(bodies[k][body] for k in kernels):
+        fail(f"{name}: launches off the bf16 body {body} ({bodies})")
+    return {k: b[body] for k, b in bodies.items() if b[body]}
 
 
 def bf16_body_row(name, source, replaces, run, plain, tf32, limit, nbytes, flops, lib,
@@ -2292,7 +2323,8 @@ def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
-    from ampnet_tpu_torch.ops.hopper.format import edge_slot_valid, snd_slot_valid
+    from ampnet_tpu_torch.ops.hopper.format import (chunk_slot_valid, compute_chunked_layout,
+                                                    edge_slot_valid, snd_slot_valid)
     from ampnet_tpu_torch.ops.segment import segment_count
 
     bf = torch.bfloat16
@@ -2350,6 +2382,34 @@ def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
             BF16_KERNEL_LIMIT, 4 * d * n * s * 2 + 2 * d * n * s * 4 + snd_index_bytes,
             8 * s * s * d * live_edges, "edge_attention_bwd_tc_bf16",
             "ampnet_edge_attention_bwd_dkv_bf16_info", s, ("dkv_bf16_kernel", nkt), "bf16")
+
+    # K8 on the chunked layout of the same graph and mask; no model path
+    # reaches it, so its launches are its public wrapper's, one call at each
+    # S with the counts set to 0 just before and read just after
+    chunked = compute_chunked_layout(graph, chunk_edges=CHUNK_EDGES)
+    chunks = (chunked.senders, chunk_slot_valid(chunked, mask), chunked.chunk_start,
+              chunked.chunk_count)
+    chunk_bytes = 4 * (2 * chunked.senders.numel() + 2 * chunked.chunk_start.numel())
+
+    def k8(key, s, q16, q32, kw, kw32):
+        nkt = f"ILi{-(-s // 8)}E"
+        ck, ck32 = dict(kw, chunk=CHUNK_EDGES), dict(kw32, chunk=CHUNK_EDGES)
+        eaf.reset_launch_counts()
+        eav.edge_attention_sums_chunked(q16[:, :d], q16[:, d:], *chunks, **ck)
+        torch.cuda.synchronize()
+        launched = bf16_only(f"K8 bf16 S={s}", ("edge_attention_sums_chunked",))
+        rows[key] = row(
+            "edge_attention_sums_chunked",
+            "edge_attention_chunked_tc_bf16.cu + edge_attention_tc_bf16.cuh",
+            "ampnet_tpu/ops/pallas/edge_attention_fused.py:1225",
+            lambda: eav.edge_attention_sums_chunked(q16[:, :d], q16[:, d:], *chunks, **ck),
+            lambda: eav.edge_attention_sums_chunked_plain(q16[:, :d], q16[:, d:], *chunks,
+                                                          **ck),
+            lambda: eav.edge_attention_sums_chunked(q32[:, :d], q32[:, d:], *chunks, **ck32),
+            BF16_KERNEL_LIMIT, 3 * d * n * s * 2 + d * n * s * 4 + chunk_bytes,
+            4 * s * s * d * live_edges, "edge_attention_chunked_tc_bf16",
+            "ampnet_edge_attention_sums_chunked_bf16_info", s, ("chunked_bf16_kernel", nkt),
+            "bf16", launches=launched["edge_attention_sums_chunked"])
 
     rows = {}
     s, sp, sp32 = 40, 48, 40
@@ -2440,10 +2500,14 @@ def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
         "ampnet_edge_attention_groups_bf16_info", s,
         ("groups_bf16_kernel", nkt + "13__nv_bfloat16"), "bf16",
         items=tiles * (emax // v1_group), repeats=False)
+    k8("k8_bf16", s, q16, q32, kw, kw32)
     del q16, q32, dsum16, qdm16, qdm32
     # K3 and K4 where H's S=20 steps run them on a bf16 model (SP=32; the
-    # 3xTF32 body on f32 rows at SP=24)
-    k3_k4("bf16_s20", 20, *inputs(20, 32, 24))
+    # 3xTF32 body on f32 rows at SP=24); K8 at S=20
+    s20 = inputs(20, 32, 24)
+    k3_k4("bf16_s20", 20, *s20)
+    k8("k8_bf16_s20", 20, s20[0], s20[3], s20[5], s20[6])
+    del s20
 
     # K1 under mxu_bf16 where the main path runs it: the S=20 training
     # step's f32 'vmem' rows (SP=24; at S=40 the JAX 'dma' body ignores the
@@ -2606,42 +2670,674 @@ def bf16_kernel_rows(graph, layout, gen, dev) -> dict:
     return rows
 
 
-def bf16_refusals(dev) -> dict:
-    """On the card bf16 runs on the tensor cores only, and K8 (no model
-    path reaches it) has no bf16 body: bf16 rows raise on K8 and beyond the
-    tensor cores' range (S=49). The phase fails if either call does not
-    raise, or launches anything."""
-    import numpy as np
-    from ampnet_tpu_torch.core.graph import from_arrays
+# ---- bf16 beyond the tensor cores: the CUDA-core bf16 bodies (bf16_wide, J)
+
+# bf16_wide's evals beyond the warp limit at S=20 (16 warps where S <= 24
+# takes 8), whose forward is the whole layer (the JAX predicate: v6 fits at
+# S=20 on the 'vmem' gather): K2, and K7 under MM_SCATTER_DEFAULT, so that
+# both run their CUDA-core bf16 bodies on a model path
+WIDE_EVALS = ((20, 128, 8, False, "simt", (), None), (20, 128, 8, False, "simt", (), MM))
+# a conv's output against float64 on the CPU on the same inputs (a bf16
+# conv's inputs and weights rounded to bf16 on both sides), of its largest
+# entry. The bodies round where the JAX bodies round, and those roundings
+# are the distance to float64: an f32 output (mxu_bf16; K8's sums) carries
+# its messages' rounded operands (q times the scale, k, the weights, v:
+# half a step each), 0.5-1.2 steps where every dot product has few terms
+# (D=3, measured on an H100), so two steps; a bf16 conv's output is a bf16
+# tensor, rounded again after its mean and its q, k and v rows were,
+# 1.1-2.3 steps, so four
+WIDE_F64_LIMIT = 2 * 2.0 ** -8
+WIDE_BF16_F64_LIMIT = 4 * 2.0 ** -8
+# a conv's gradients through the kernels against the same conv through
+# their plain versions on the card, of each gradient's largest entry: both
+# round at the same points, so they differ where a value near a bf16
+# rounding boundary (the dsum rows, the weights, the gradients themselves,
+# each rounded to bf16) falls on the other side after f32 sums taken in
+# another order, and that step passes through the next product
+BF16_WIDE_GRAD_LIMIT = 4 * 2.0 ** -8
+K1_, K2_, K3_, K4_, K5_, K6_, K7_, K8_, K9_ = KERNELS
+
+
+def release_graphs() -> dict:
+    """Drop what earlier phases left behind before a phase that needs room:
+    a captured graph keeps its memory pool until it is collected, and the
+    steps that own them sit in reference cycles. Returns the bytes the
+    allocator holds after."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(memory_reserved=torch.cuda.memory_reserved(),
+                memory_allocated=torch.cuda.memory_allocated())
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The fused op's kernel wrappers (K1-K7, K9) replaced by their plain
+    versions for the block: the same op with the same rounding points, torch
+    products on the card in place of the kernels (bf16_wide's yardstick);
+    nothing is launched or counted."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
-    from ampnet_tpu_torch.ops.hopper.format import compute_chunked_layout, compute_layout
 
-    rng = np.random.default_rng(0)
-    g = from_arrays((rng.random((64, 8)) < 0.5).astype(np.float32),
-                    np.stack([rng.integers(0, 64, 256), rng.integers(0, 64, 256)]))
-    lay = compute_layout(g).to(dev)
-    ck = compute_chunked_layout(g, chunk_edges=CHUNK_EDGES).to(dev)
-    nt, d = lay.recv_ptr.numel() - 1, 128
-    idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
-    out = {}
+    def mm_group(group):
+        return eav.MM_GROUP if group is None else group
+
+    swaps = {
+        (eaf, K1_): lambda *a, body=None, **k: eaf.edge_attention_sums_plain(*a, **k),
+        (eaf, K2_): lambda *a, body=None, **k: eaf.edge_attention_layer_plain(*a, **k),
+        (bwd, K3_): lambda *a, body=None, **k: bwd.edge_attention_bwd_dq_plain(*a, **k),
+        (bwd, K4_): lambda *a, body=None, **k: bwd.edge_attention_bwd_dkv_plain(*a, **k),
+        (sb, K5_): lambda *a, body=None, **k: sb.edge_attention_bwd_stream_plain(*a, **k),
+        (eav, K6_): lambda *a, body=None, group=None, **k: eav.edge_attention_sums_mm_plain(
+            *a, group=mm_group(group), **k),
+        (eav, K7_): lambda *a, body=None, group=None, **k: eav.edge_attention_layer_mm_plain(
+            *a, group=mm_group(group), **k),
+        (eav, K9_): lambda *a, body=None, gather="dma", **k: eav.edge_attention_sums_v1_plain(
+            *a, **k)}
+    before = {key: getattr(*key) for key in swaps}
+    try:
+        for (mod, name), fn in swaps.items():
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for (mod, name), fn in before.items():
+            setattr(mod, name, fn)
+
+
+def conv_forward(s, d, dtype, n, layout, flag, train) -> tuple:
+    """(the forward kernel, the gather) of one AMPConv call on rows of
+    ``dtype`` by the port's copy of the JAX predicates: the whole layer (K2,
+    K7 under MM_SCATTER_DEFAULT) for an eval where v6 fits, K9 on the 'dma'
+    gather under DMA_V1_DEFAULT, else K1 (K6 under MM_SCATTER_DEFAULT)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    x = torch.empty(n, s, d, dtype=dtype, device="meta")
+    nt, sp, gather = eaf._grid(x, torch.empty(d, 3 * d, dtype=dtype, device="meta"),
+                               layout.tile_senders, layout.recv_ptr, layout.tile_nodes,
+                               "auto", False)
+    if not train and eaf._v6_usable(n, nt, sp, d, x.element_size(), layout.tile_nodes,
+                                    eaf._auto_group(sp), gather):
+        return (K7_ if flag == MM else K2_), gather
+    if gather != "vmem" and flag == V1:
+        return K9_, gather
+    return (K6_ if flag == MM else K1_), gather
+
+
+def bf16_body_of(kernel, s, d, h, rows_bf16) -> str:
+    """The bf16 body the route gives ``kernel`` on the q|k|v rows a conv
+    projects: 'tc_bf16' within the tensor cores' range where the rows it
+    gathers take 16-byte copies (K4 gathers its packed [Q | dsum] rows, 2D
+    values apart; the others views of the q|k|v rows, 3D apart and D in),
+    else 'simt_bf16'."""
+    from ampnet_tpu_torch.ops.hopper import launch as hl
+
+    if hl.tensor_core_range_error(s, d, h):
+        return "simt_bf16"
+    per_copy = 8 if rows_bf16 else 4
+    aligned = (2 * d) % per_copy == 0 if kernel == K4_ else d % per_copy == 0
+    return "tc_bf16" if aligned else "simt_bf16"
+
+
+def rel_err(got, ref) -> float:
+    return float((got.double() - ref.double()).abs().max()) / max(
+        float(ref.double().abs().max()), 1e-30)
+
+
+def bf16_wide(data, gen, dev) -> tuple:
+    """AMPConv in bf16 products at every shape of ROUTES and WIDE_EVALS, as
+    a bf16 conv (dtype bfloat16) and, where the JAX body honours mxu_bf16
+    (the 'vmem' gather's K1 and K6, and the whole layer), as an f32 conv
+    under it; forward and (training) one backward with dropout 0 on the
+    card. Each against the same conv through the kernels' plain versions on
+    the card (``plain_versions``; outputs within BF16_OUTPUT_LIMIT (bf16) or
+    BF16_KERNEL_LIMIT (f32), gradients within BF16_WIDE_GRAD_LIMIT of each
+    one's largest entry) and against float64 on the CPU through the plain
+    oracle on the same bf16 values (output within WIDE_BF16_F64_LIMIT for a
+    bf16 conv, WIDE_F64_LIMIT for an f32 one, gradients within
+    BF16_GRAD_RTOL); the launches exact by kernel and by body (every
+    kernel of a bf16 conv on its bf16 body, 'simt_bf16' beyond the tensor
+    cores; an f32 conv's forward on its bf16 body and its backward on its
+    f32 one), the device-memory launches as the f32 rows'. Then K8 on bf16
+    rows at CHUNKED_ROUTES, against its plain version and K1's float64 sums;
+    then the named bodies that still refuse, which must launch nothing.
+    Returns (report, {(kernel, body, rows, S, D, H, training): launches})."""
+    from ampnet_tpu_torch.models.layers import AMPConv
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+    from ampnet_tpu_torch.ops.hopper.format import (chunk_slot_valid, compute_chunked_layout,
+                                                    edge_slot_valid)
+
+    t_phase = time.perf_counter()
+    memory_at_start = release_graphs()
+    bf = torch.bfloat16
+    graphs, no_sender_side = route_graphs(data, dev)
+    rows = ROUTES + WIDE_EVALS
+    cases, ran, report = [], {}, []
+    for mode in ("bf16", "mxu"):
+        cases += [(row, mode) for row in rows]
+    for (s, d, h, train, want, want_memory, flag), mode in cases:
+        graph, mask, layout = graphs[train]
+        if flag == STREAM:
+            layout = no_sender_side
+        n = graph.num_nodes_padded
+        rows_bf16 = mode == "bf16"
+        forward, gather = conv_forward(s, d, bf if rows_bf16 else torch.float32, n, layout,
+                                       flag, train)
+        if not rows_bf16 and not (forward in (K2_, K7_)
+                                  or (gather == "vmem" and forward in (K1_, K6_))):
+            continue                    # the JAX body ignores mxu_bf16 there
+        name = (f"S={s} D={d} H={h} {'training' if train else 'eval'} {mode}"
+                + (f" {flag}" if flag else ""))
+        conv = AMPConv(d, h, use_pallas=True, dtype=bf if rows_bf16 else None,
+                       generator=torch.Generator().manual_seed(s + d + h)).to(dev)
+        with torch.no_grad():
+            conv.b_qkv.normal_(0.0, 0.1, generator=gen)
+            conv.b_out.normal_(0.0, 0.1, generator=gen)
+        x = torch.randn(n, s, d, generator=gen, device=dev)
+        gout = torch.randn(n, s, d, generator=gen, device=dev)
+
+        def run(layer, xx, lay, args):
+            xx = xx.detach().requires_grad_(train)
+            layer.zero_grad(set_to_none=True)
+            with torch.set_grad_enabled(train):
+                out, _ = layer(xx, *args, return_weights=False, layout=lay)
+                if train:            # in f32 (f64 for the float64 reference)
+                    wide = torch.promote_types(out.dtype, torch.float32)
+                    (out.to(wide) * gout.to(out.device, wide)).sum().backward()
+            grads = {"x": xx.grad} if train else {}
+            grads.update({k: p.grad for k, p in layer.named_parameters() if train})
+            return out.detach(), grads
+
+        args = (graph.senders, graph.receivers, mask)
+        with contextlib.ExitStack() as flags:
+            for f in ([flag] if flag in (MM, V1) else []) + ([] if rows_bf16 else
+                                                             ["MXU_BF16_DEFAULT"]):
+                flags.enter_context(dispatch_flag(f))
+            eaf.reset_launch_counts()
+            t0 = time.perf_counter()
+            out, grads = run(conv, x, layout, args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts, bodies = eaf.launch_counts(), eaf.body_launch_counts()
+            memory = eaf.device_memory_launch_counts()
+            with plain_versions():
+                out_p, grads_p = run(conv, x, layout, args)
+            torch.cuda.synchronize()
+        if eaf.launch_counts() != counts:
+            fail(f"bf16_wide {name}: the plain versions launched a kernel")
+        backward = (dict(k5=1) if flag == STREAM else dict(k3=1, k4=1)) if train else {}
+        expected = {**launches(**backward), forward: 1}
+        if counts != expected:
+            fail(f"bf16_wide {name}: launched {counts}; expected {expected}")
+        want_bodies = {k: (bf16_body_of(k, s, d, h, rows_bf16) if rows_bf16 or k == forward
+                           else want) for k, c in counts.items() if c}
+        got_bodies = {k: {b: c for b, c in bodies[k].items() if c} for k in want_bodies}
+        if any(got_bodies[k] != {b: counts[k]} for k, b in want_bodies.items()):
+            fail(f"bf16_wide {name}: the kernels ran the bodies {got_bodies}, expected "
+                 f"{want_bodies}")
+        attention = K6_ if forward == K7_ else forward
+        in_memory = tuple(k for k in (*want_bodies, attention) if memory.get(k))
+        if set(in_memory) != set(want_memory):
+            fail(f"bf16_wide {name}: working sets in device memory {in_memory}, expected "
+                 f"{want_memory}")
+        for k, b in want_bodies.items():
+            key = (k, b, mode, s, d, h, train)
+            ran[key] = ran.get(key, 0) + counts[k]
+
+        limit = BF16_OUTPUT_LIMIT if rows_bf16 else BF16_KERNEL_LIMIT
+        plain_err = rel_err(out, out_p)
+        grad_plain = max((rel_err(grads[k], grads_p[k]) for k in grads), default=None)
+        if not torch.isfinite(out).all() or plain_err > limit or (
+                grad_plain is not None and grad_plain > BF16_WIDE_GRAD_LIMIT):
+            fail(f"bf16_wide {name}: against the plain versions: output {plain_err:.3g} "
+                 f"(limit {limit:.3g}), gradients {grad_plain} (limit "
+                 f"{BF16_WIDE_GRAD_LIMIT:.3g}) of their largest entries")
+        ref_conv = copy.deepcopy(conv).to("cpu", torch.float64)
+        ref_conv.use_pallas, ref_conv.dtype = False, None
+        x_ref = x.cpu()
+        if rows_bf16:                   # the same bf16 values, in float64
+            x_ref = x_ref.to(bf)
+            with torch.no_grad():
+                for p in ref_conv.parameters():
+                    p.copy_(p.to(bf))
+        g = graph.to("cpu")
+        ref, ref_grads = run(ref_conv, x_ref.double(), None,
+                             (g.senders, g.receivers, mask.cpu()))
+        f64_err = rel_err(out.cpu(), ref)
+        f64_limit = WIDE_BF16_F64_LIMIT if rows_bf16 else WIDE_F64_LIMIT
+        grad_f64 = {k: rel_err(grads[k].cpu(), r) for k, r in ref_grads.items()}
+        if f64_err > f64_limit or (grad_f64 and max(grad_f64.values()) > BF16_GRAD_RTOL):
+            worst = max(grad_f64, key=grad_f64.get) if grad_f64 else None
+            fail(f"bf16_wide {name}: against float64 on the CPU: output {f64_err:.3g} of its "
+                 f"largest entry (limit {f64_limit:.3g}), gradient of {worst} "
+                 f"{grad_f64.get(worst)} (limit {BF16_GRAD_RTOL})")
+        report.append(dict(
+            case=name, forward=forward, gather=gather, bodies=want_bodies,
+            launches={k: v for k, v in counts.items() if v}, working_set_in_device_memory=in_memory,
+            plain_rel_err=plain_err, plain_grad_rel_err=grad_plain, f64_rel_err=f64_err,
+            f64_limit=f64_limit, f64_grad_rel_err=max(grad_f64.values()) if grad_f64 else None,
+            card_ms=ms))
+        print(json.dumps({"bf16_wide_case": report[-1]}), flush=True)
+        del conv, x, gout, out, out_p, grads, grads_p, ref, ref_grads
+
+    # K8 on bf16 rows, on the eval graph's chunked layout (its runtime mask too)
+    graph, mask, layout = graphs[False]
+    chunked = compute_chunked_layout(graph, chunk_edges=CHUNK_EDGES)
+    chunk_args = (chunked.senders, chunk_slot_valid(chunked, mask), chunked.chunk_start,
+                  chunked.chunk_count)
+    idx = [t.cpu() for t in (layout.tile_senders, edge_slot_valid(layout, mask),
+                             layout.recv_ptr, layout.recv_slots)]
+    nt, d, h = chunked.chunk_start.numel(), 128, 4
+    for s, want_memory in CHUNKED_ROUTES:
+        sp = -(-s // 16) * 16
+        name = f"K8 S={s} D={d} H={h} eval bf16"
+        kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
+        qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=dev).to(bf)
+        eaf.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eav.edge_attention_sums_chunked(qkv[:, :d], qkv[:, d:], *chunk_args, **kw,
+                                              chunk=CHUNK_EDGES)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts, body = eaf.launch_counts(), eaf.body_launch_counts()[K8_]
+        if counts != launches(k8=1) or body["simt_bf16"] != 1:
+            fail(f"bf16_wide {name}: launched {counts} on the bodies {body}; expected one on "
+                 f"simt_bf16")
+        in_memory = bool(eaf.device_memory_launch_counts().get(K8_))
+        if in_memory != want_memory:
+            fail(f"bf16_wide {name}: working set in device memory {in_memory}, expected "
+                 f"{want_memory}")
+        key = (K8_, "simt_bf16", "bf16", s, d, h, False)
+        ran[key] = ran.get(key, 0) + 1
+        plain_err = rel_err(out, eav.edge_attention_sums_chunked_plain(
+            qkv[:, :d], qkv[:, d:], *chunk_args, **kw, chunk=CHUNK_EDGES))
+        f64_err = rel_err(out.cpu(), eaf.edge_attention_sums_plain(
+            qkv[:, :d].cpu().double(), qkv[:, d:].cpu().double(), *idx, **kw))
+        if not torch.isfinite(out).all() or plain_err > BF16_KERNEL_LIMIT or \
+                f64_err > WIDE_F64_LIMIT:
+            fail(f"bf16_wide {name}: {plain_err:.3g} from its plain version, {f64_err:.3g} "
+                 f"from K1's float64 sums, of the largest entry")
+        report.append(dict(case=name, forward=K8_, bodies={K8_: "simt_bf16"},
+                           launches={K8_: 1},
+                           working_set_in_device_memory=(K8_,) if in_memory else (),
+                           plain_rel_err=plain_err, f64_rel_err=f64_err, card_ms=ms))
+        del qkv, out
+
+    # the named bodies that do not take the call still raise, and launch nothing
+    lay = graphs[True][2]
+    nt = lay.recv_ptr.numel() - 1
+    r_idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
+    slots = (lay.tile_senders, lay.tile_recv, lay.tile_valid)
+    q49 = torch.zeros(nt * 64, 3 * d, dtype=bf, device=dev)
+    f40 = torch.zeros(nt * 40, 3 * d, device=dev)
+    kw49, kw40 = dict(s=49, sp=64, num_heads=4, softmax=True), dict(s=40, sp=40, num_heads=4,
+                                                                    softmax=True)
+    refusals = {}
     eaf.reset_launch_counts()
-    for what, s, sp, call in (
-            ("K8 bf16 rows", 40, 48, lambda q, s, sp: eav.edge_attention_sums_chunked(
-                q[:, :d], q[:, d:], ck.senders, ck.valid, ck.chunk_start, ck.chunk_count,
-                s=s, sp=sp, num_heads=4, softmax=True, chunk=CHUNK_EDGES)),
-            ("K1 bf16 rows at S=49", 49, 64, lambda q, s, sp: eaf.edge_attention_sums(
-                q[:, :d], q[:, d:], *idx, s=s, sp=sp, num_heads=4, softmax=True))):
-        q = torch.zeros(nt * sp, 3 * d, dtype=torch.bfloat16, device=dev)
+    for what, call in (
+            ("K1 'tc_bf16' named beyond the tensor cores (S=49)", lambda: eaf.edge_attention_sums(
+                q49[:, :d], q49[:, d:], *r_idx, **kw49, body="tc_bf16")),
+            ("K1 'simt' named for bf16 rows", lambda: eaf.edge_attention_sums(
+                q49[:, :d], q49[:, d:], *r_idx, **kw49, body="simt")),
+            ("K3 'simt_bf16' named on f32 rows", lambda: bwd.edge_attention_bwd_dq(
+                f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40, body="simt_bf16")),
+            ("K5 'tc_bf16' named on f32 rows", lambda: sb.edge_attention_bwd_stream(
+                f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40, body="tc_bf16")),
+            ("K9 'simt_bf16' named on f32 rows", lambda: eav.edge_attention_sums_v1(
+                f40[:, :d], f40[:, d:], *slots, **kw40, tile_nodes=lay.tile_nodes, group=1,
+                body="simt_bf16")),
+            ("K1 'simt' named under mxu_bf16", lambda: eaf.edge_attention_sums(
+                f40[:, :d], f40[:, d:], *r_idx, **kw40, body="simt", mxu_bf16=True))):
         try:
-            call(q, s, sp)
+            call()
         except ValueError as e:
-            out[what] = str(e)[:160]
+            refusals[what] = str(e)[:160]
         else:
-            fail(f"bf16 refusals: {what} did not raise")
+            fail(f"bf16_wide refusals: {what} did not raise")
     torch.cuda.synchronize()
     if any(eaf.launch_counts().values()):
-        fail(f"bf16 refusals: a refused call launched {eaf.launch_counts()}")
+        fail(f"bf16_wide refusals: a refused call launched {eaf.launch_counts()}")
+    return dict(graphs={("training" if t else "eval"): dict(
+        nodes=g.num_nodes_padded, edges=int(g.edge_mask.sum()), live_edges=int(m.sum()))
+        for t, (g, m, _) in graphs.items()}, cases=report, refusals=refusals,
+        memory_at_start=memory_at_start, phase_s=time.perf_counter() - t_phase), ran
+
+
+# path J: the recipe at S=64 (experiments/token_scale_tuning.py's default)
+# as a bf16 model, 20 epochs with selection every 10
+J_S, J_EPOCHS = 64, 20
+
+
+def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
+    """Path J: the recommended recipe at S=64 in compute_dtype='bfloat16'
+    through train_full_batch (J_EPOCHS, selection every 10). The JAX route
+    by the port's mirrored predicates: bf16 K|V of 2,752 x 64 x 256 x 2 B
+    exceed the 80 MiB budget, so the 'dma' gather (v4 forward, then
+    _dq_kernel_dma and _dkv_kernel_dma), in the port K1, K3 and K4, all on
+    'simt_bf16' (S=64 is beyond the tensor cores' range; K3 and K4 work in
+    device memory). One step's gradients against float64 autograd on the
+    CPU (BF16_GRAD_RTOL), 3 captured steps = eager bit for bit (no atomics
+    in these bodies), an 8-draw eval against float64 (BF16_LOGITS_RTOL),
+    exact launch counts by body, and one captured step of the bf16 model and
+    of the f32 one (its CUDA-core 'simt' bodies) in turns. Returns (report,
+    launches by kernel on simt_bf16 in train_full_batch)."""
+    from ampnet_tpu_torch.core.config import TrainConfig
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper import launch as hl
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    t_phase = time.perf_counter()
+    memory_at_start = release_graphs()
+    cfg = dataclasses.replace(recipe, num_sampled_vectors=J_S, compute_dtype="bfloat16")
+    f32 = dataclasses.replace(recipe, num_sampled_vectors=J_S)
+    d, h = cfg.embedding_dim, cfg.num_heads
+    forward, gather = conv_forward(J_S, d, torch.bfloat16, graph.num_nodes_padded, layout,
+                                   None, True)
+    if (forward, gather) != (K1_, "dma"):
+        fail(f"path J: the predicates route its training forward to {forward} on '{gather}', "
+             f"expected K1 on 'dma'")
+    smem = {k: hl.simt_smem_bytes(k, J_S, d, h) for k in (K1_, K3_, K4_)}
+    tcfg = TrainConfig(learning_rate=3e-3, weight_decay=1e-3, epochs=J_EPOCHS, seed=seed,
+                       cosine_t0=None, grad_clip=1.0, select_best_every=10,
+                       num_eval_samples=8, epochs_per_dispatch=10, log_every=10)
+    name = f"J S={J_S} recommended recipe, bf16, training"
+    counts, report = drive_training(name, cfg, tcfg, data, graph, seed, dev, True,
+                                    grad_rtol=BF16_GRAD_RTOL, allowed=("simt_bf16",))
+    evals = J_EPOCHS // tcfg.select_best_every + 1
+    want = launches(k1=2 * J_EPOCHS + 2 * 8 * evals, k3=2 * J_EPOCHS, k4=2 * J_EPOCHS)
+    if counts != want:
+        fail(f"path J launched {counts}, expected {want}")
+    # drive_training held every launch of the loop to simt_bf16
+    bodies = {k: n for k, n in counts.items() if n}
+    report.update(route=dict(forward=forward, gather=gather, simt_smem_bytes=smem,
+                             max_smem=hl.MAX_SMEM), bodies=bodies,
+                  memory_at_start=memory_at_start)
+    report["captured_equals_eager"] = captured_equals_eager(
+        "J", cfg, data, graph, layout, seed, dev, want_step=launches(k1=2, k3=2, k4=2),
+        body="simt_bf16")
+    _, _, report["eval"] = bf16_eval("J S=64", cfg, data, graph, layout, seed, dev,
+                                     rtol=BF16_LOGITS_RTOL, body="simt_bf16")
+    # one captured step of each in turns, from states of their own; the f32
+    # model runs the f32 CUDA-core bodies
+    report["memory_before_turns"] = release_graphs()
+    steps = {}
+    for key, c in (("f32", f32), ("bf16", cfg)):
+        model = recipe_model(c, data, seed, dev)
+        st = create_train_state(model, make_optimizer(model.parameters(), 3e-3,
+                                                      weight_decay=1e-3, grad_clip=1.0),
+                                seed=seed)
+        step = make_train_step(model)
+        eaf.reset_launch_counts()
+        step(st, graph, layout)
+        torch.cuda.synchronize()
+        body = "simt" if key == "f32" else "simt_bf16"
+        if {k: b[body] for k, b in eaf.body_launch_counts().items() if b[body]} != \
+                {K1_: 2, K3_: 2, K4_: 2}:
+            fail(f"path J {key} step: launched {eaf.body_launch_counts()}, expected 2 K1 + "
+                 f"2 K3 + 2 K4 on {body}")
+        steps[key] = (lambda step=step, st=st: step(st, graph, layout))
+    t = [sync_ms(steps[k], 5) for k in ("f32", "bf16", "bf16", "f32")]
+    e = [cuda_ms(steps[k], 5) for k in ("f32", "bf16", "bf16", "f32")]
+    report["in_turns_with_f32"] = dict(
+        f32_warm_ms=(t[0] + t[3]) / 2, bf16_warm_ms=(t[1] + t[2]) / 2,
+        f32_event_ms=(e[0] + e[3]) / 2, bf16_event_ms=(e[1] + e[2]) / 2,
+        bf16_profile=busy_share(device_profile(steps["bf16"]), (t[1] + t[2]) / 2),
+        f32_profile=busy_share(device_profile(steps["f32"]), (t[0] + t[3]) / 2))
+    del steps
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, {k: n for k, n in bodies.items()}
+
+
+# Each kernel's 'simt_bf16' body at one shape where path J or bf16_wide
+# launched it: (row key, kernel, rows ('bf16', or f32 rows under mxu_bf16),
+# S, D, H, graph: 'J' (the whole surrogate), 'eval' or 'training' (the
+# bf16_wide graphs; 'stream' the training graph without a sender side),
+# the TPU kernel it replaces)
+SIMT_BF16_ROWS = (
+    ("k1_simt_bf16", K1_, "bf16", J_S, 128, 4, "J", "edge_attention_fused.py:942"),
+    ("k2_simt_bf16", K2_, "bf16", 20, 128, 8, "eval", "edge_attention_fused.py:763"),
+    ("k3_simt_bf16", K3_, "bf16", J_S, 128, 4, "J", "edge_attention_bwd_scatterfree.py:211"),
+    ("k4_simt_bf16", K4_, "bf16", J_S, 128, 4, "J", "edge_attention_bwd_scatterfree.py:319"),
+    ("k5_simt_bf16", K5_, "bf16", 49, 128, 4, "stream", "edge_attention_bwd.py:178"),
+    ("k6_simt_bf16", K6_, "bf16", 96, 128, 4, "eval", "edge_attention_fused.py:1126"),
+    ("k7_simt_bf16", K7_, "bf16", 20, 128, 8, "eval", "edge_attention_fused.py:865"),
+    ("k8_simt_bf16", K8_, "bf16", 96, 128, 4, "eval", "edge_attention_fused.py:1225"),
+    ("k9_simt_bf16", K9_, "bf16", 96, 128, 4, "eval", "edge_attention_fused.py:186"),
+    ("k1_simt_mxu", K1_, "mxu", 40, 128, 8, "training", "edge_attention_fused.py:691"),
+    ("k2_simt_mxu", K2_, "mxu", 20, 128, 8, "eval", "edge_attention_fused.py:763"),
+    ("k6_simt_mxu", K6_, "mxu", 40, 128, 8, "training", "edge_attention_fused.py:731"),
+    ("k7_simt_mxu", K7_, "mxu", 20, 128, 8, "eval", "edge_attention_fused.py:865"))
+
+
+def simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches) -> list:
+    """The kernel rows of SIMT_BF16_ROWS: each 'simt_bf16' body on random
+    rows at its shape and graph (runtime mask included) against its plain
+    version on the card within BF16_KERNEL_LIMIT of the largest entry (K2
+    and K7's bf16 outputs BF16_OUTPUT_LIMIT), launched twice and equal bit
+    for bit where it uses no atomics (K1-K5, K8), timed in turns with the
+    f32 CUDA-core body ('simt', f32 rows at the f32 row stride), its bound
+    at bf16 widths and the bf16 rate, registers and spills (ptxas) of the
+    instantiation it launched, whether its working set was in device
+    memory; ``launches`` where path J (K1, K3, K4) or bf16_wide launched it
+    at that shape."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
+    from ampnet_tpu_torch.ops.hopper.format import (chunk_slot_valid, compute_chunked_layout,
+                                                    edge_slot_valid, snd_slot_valid)
+    from ampnet_tpu_torch.ops.segment import segment_count
+
+    bf = torch.bfloat16
+    release_graphs()
+    graphs, no_sender_side = route_graphs(data, dev)
+    mask = graph.edge_mask.clone()
+    mask[torch.nonzero(mask)[::50, 0]] = False
+    setting = {"J": (graph, mask, layout), "eval": graphs[False], "training": graphs[True],
+               "stream": (*graphs[True][:2], no_sender_side)}
+    out = []
+    for key, kernel, rows_mode, s, d, h, where, replaces in SIMT_BF16_ROWS:
+        g, m, lay = setting[where]
+        n, nt = g.num_nodes_padded, lay.recv_ptr.numel() - 1
+        tn = lay.tile_nodes
+        rows_bf16 = rows_mode == "bf16"
+        sp = -(-s // 16) * 16 if rows_bf16 else -(-s // 8) * 8
+        sp32 = -(-s // 8) * 8
+        mxu = dict() if rows_bf16 else dict(mxu_bf16=True)
+        valid = edge_slot_valid(lay, m)
+        idx = (lay.tile_senders, valid, lay.recv_ptr, lay.recv_slots)
+        slots = (lay.tile_senders, lay.tile_recv, valid)
+        live = int(valid.sum())
+        index_bytes = 4 * (2 * lay.tile_senders.numel() + lay.recv_ptr.numel()
+                           + lay.recv_slots.numel())
+        slot_bytes = 4 * 3 * lay.tile_senders.numel()
+        width = 2 if rows_bf16 else 4
+
+        def rand(rows, cols, stride):
+            t = torch.randn(nt * stride, cols, generator=gen, device=dev)
+            return t.to(bf) if rows_bf16 else t
+
+        q, q32 = rand(nt, 3 * d, sp), torch.randn(nt * sp32, 3 * d, generator=gen, device=dev)
+        kw, kw32 = dict(s=s, sp=sp, num_heads=h, softmax=True), dict(s=s, sp=sp32, num_heads=h,
+                                                                     softmax=True)
+        repeats, limit, extra = True, BF16_KERNEL_LIMIT, {}
+        if kernel == K1_:
+            run = lambda: eaf.edge_attention_sums(q[:, :d], q[:, d:], *idx, **kw, **mxu)  # noqa
+            plain = lambda: eaf.edge_attention_sums_plain(q[:, :d], q[:, d:], *idx, **kw,  # noqa
+                                                          **mxu)
+            f32 = lambda: eaf.edge_attention_sums(q32[:, :d], q32[:, d:], *idx, **kw32,  # noqa
+                                                  body="simt")
+            nbytes, flops = 3 * d * n * s * width + d * n * s * 4 + index_bytes, \
+                4 * s * s * d * live
+            lib, fn, targs = "edge_attention", "edge_attention_kernel", "Lb0ELb{}E{}Lb1EE"
+        elif kernel in (K3_, K4_, K5_):
+            dsum = torch.randn(nt, sp, d, generator=gen, device=dev)
+            dsum[:, s:] = 0.0
+            dsum = dsum.reshape(nt * sp, d).to(bf)
+            dsum32 = torch.randn(nt * sp32, d, generator=gen, device=dev)
+            if kernel == K3_:
+                run = lambda: bwd.edge_attention_bwd_dq(q[:, :d], q[:, d:], dsum, *idx,  # noqa
+                                                        **kw)
+                plain = lambda: bwd.edge_attention_bwd_dq_plain(  # noqa: E731
+                    q[:, :d], q[:, d:], dsum, *idx, **kw)
+                f32 = lambda: bwd.edge_attention_bwd_dq(  # noqa: E731
+                    q32[:, :d], q32[:, d:], dsum32, *idx, **kw32, body="simt")
+                nbytes, flops = 4 * d * n * s * 2 + d * n * s * 4 + index_bytes, \
+                    6 * s * s * d * live
+            elif kernel == K4_:
+                s_idx = (lay.snd_receivers, snd_slot_valid(lay, m), lay.snd_ptr, lay.snd_slots)
+                qdm, qdm32 = torch.cat([q[:, :d], dsum], 1), torch.cat([q32[:, :d], dsum32], 1)
+                run = lambda: bwd.edge_attention_bwd_dkv(qdm, q[:, d:], *s_idx, **kw)  # noqa
+                plain = lambda: bwd.edge_attention_bwd_dkv_plain(  # noqa: E731
+                    qdm, q[:, d:], *s_idx, **kw)
+                f32 = lambda: bwd.edge_attention_bwd_dkv(  # noqa: E731
+                    qdm32, q32[:, d:], *s_idx, **kw32, body="simt")
+                nbytes = 4 * d * n * s * 2 + 2 * d * n * s * 4 + 4 * (
+                    2 * lay.snd_receivers.numel() + lay.snd_ptr.numel() + lay.snd_slots.numel())
+                flops = 8 * s * s * d * live
+            else:
+                walked = lay.recv_slots.long()
+
+                def run():
+                    dq, stream = sb.edge_attention_bwd_stream(q[:, :d], q[:, d:], dsum, *idx,
+                                                              **kw)
+                    per_slot = stream.view(-1, sp, 2 * d)[walked]
+                    return dq, per_slot[..., :d], per_slot[..., d:]
+
+                def plain():
+                    dq, stream = sb.edge_attention_bwd_stream_plain(q[:, :d], q[:, d:], dsum,
+                                                                    *idx, **kw)
+                    per_slot = stream.view(-1, sp, 2 * d)[walked]
+                    return dq, per_slot[..., :d], per_slot[..., d:]
+
+                f32 = lambda: sb.edge_attention_bwd_stream(  # noqa: E731
+                    q32[:, :d], q32[:, d:], dsum32, *idx, **kw32, body="simt")
+                nbytes = 4 * d * n * s * 2 + d * n * s * 4 + walked.numel() * s * 2 * d * 4 \
+                    + index_bytes
+                flops = 10 * s * s * d * live
+            lib, fn = "edge_attention_bwd", "edge_attention_bwd_kernel"
+            targs = "Li" + str((K3_, K4_, K5_).index(kernel)) + "ELb{}E13__nv_bfloat16EE"
+        elif kernel in (K6_, K9_):
+            mm, mm32 = dict(kw, tile_nodes=tn), dict(kw32, tile_nodes=tn)
+            tiles, emax = lay.tile_senders.shape
+            if kernel == K6_:
+                run = lambda: eav.edge_attention_sums_mm(  # noqa: E731
+                    q[:, :d], q[:, d:], *slots, lay.tile_counts, **mm, **mxu)
+                plain = lambda: eav.edge_attention_sums_mm_plain(  # noqa: E731
+                    q[:, :d], q[:, d:], *slots, lay.tile_counts, **mm, **mxu,
+                    group=eav._mm_group("simt_bf16", s, d, h, None))
+                f32 = lambda: eav.edge_attention_sums_mm(  # noqa: E731
+                    q32[:, :d], q32[:, d:], *slots, lay.tile_counts, **mm32, body="simt")
+                nbytes = 3 * d * n * s * width + d * n * s * 4 + slot_bytes + 4 * tiles
+                extra["group"] = eav._mm_group("simt_bf16", s, d, h, None)
+            else:
+                group = 8 if emax % 8 == 0 else 1
+                run = lambda: eav.edge_attention_sums_v1(  # noqa: E731
+                    q[:, :d], q[:, d:], *slots, **mm, group=group)
+                plain = lambda: eav.edge_attention_sums_v1_plain(  # noqa: E731
+                    q[:, :d], q[:, d:], *slots, **mm, group=group)
+                f32 = lambda: eav.edge_attention_sums_v1(  # noqa: E731
+                    q32[:, :d], q32[:, d:], *slots, **mm32, group=group, body="simt")
+                nbytes = 3 * d * n * s * width + d * n * s * 4 + slot_bytes
+            flops, repeats = 4 * s * s * d * live, False
+            lib, fn = "edge_attention_groups", "edge_group_kernel"
+            targs = ("Lb1E" if kernel == K6_ else "Lb0E") + "Lb{}E{}Lb1EE"
+        elif kernel == K8_:
+            chunked = compute_chunked_layout(g, chunk_edges=CHUNK_EDGES)
+            chunks = (chunked.senders, chunk_slot_valid(chunked, m), chunked.chunk_start,
+                      chunked.chunk_count)
+            ck, ck32 = dict(kw, chunk=CHUNK_EDGES), dict(kw32, chunk=CHUNK_EDGES)
+            run = lambda: eav.edge_attention_sums_chunked(q[:, :d], q[:, d:], *chunks,  # noqa
+                                                          **ck)
+            plain = lambda: eav.edge_attention_sums_chunked_plain(  # noqa: E731
+                q[:, :d], q[:, d:], *chunks, **ck)
+            f32 = lambda: eav.edge_attention_sums_chunked(  # noqa: E731
+                q32[:, :d], q32[:, d:], *chunks, **ck32, body="simt")
+            nbytes = 3 * d * n * s * 2 + d * n * s * 4 + 4 * (
+                2 * chunked.senders.numel() + 2 * chunked.chunk_start.numel())
+            flops = 4 * s * s * d * live
+            lib, fn, targs = "edge_attention_chunked", "edge_chunk_kernel", "Lb{}E13__nv_bfloat16EE"
+        else:                           # K2, K7: the whole layer over x rows
+            conv_w = [torch.randn(*shape, generator=gen, device=dev) * sc for shape, sc in (
+                ((d, 3 * d), d ** -0.5), ((3 * d,), 0.1), ((d, d), d ** -0.5), ((d,), 0.1))]
+            w = [t.to(bf).contiguous() for t in conv_w] if rows_bf16 else conv_w
+            count = segment_count(g.receivers, n, m)
+            invdeg = torch.nn.functional.pad(torch.where(
+                count > 0, 1.0 / count.clamp_min(1.0), torch.zeros_like(count)), (0, nt - n))
+            x = q[:, :d].contiguous()
+            x32 = q32[:, :d].contiguous()
+            live_recv = int((count > 0).sum())
+            flops = 2 * n * s * d * 3 * d + 4 * s * s * d * live + 2 * s * d * d * live_recv
+            nbytes = width * (2 * n * s * d + 4 * d * d + 4 * d) + 4 * nt
+            if kernel == K2_:
+                run = lambda: eaf.edge_attention_layer(x, *w, invdeg, *idx, **kw, **mxu)  # noqa
+                plain = lambda: eaf.edge_attention_layer_plain(  # noqa: E731
+                    x, *w, invdeg, *idx, **kw, **mxu)
+                f32 = lambda: eaf.edge_attention_layer(  # noqa: E731
+                    x32, *conv_w, invdeg, *idx, **kw32, body="simt")
+                nbytes += index_bytes
+                lib, fn, targs = "edge_attention", "edge_attention_kernel", "Lb1ELb{}E{}Lb1EE"
+            else:
+                mm, mm32 = dict(kw, tile_nodes=tn), dict(kw32, tile_nodes=tn)
+                run = lambda: eav.edge_attention_layer_mm(  # noqa: E731
+                    x, *w, invdeg, *slots, lay.tile_counts, **mm, **mxu)
+                plain = lambda: eav.edge_attention_layer_mm_plain(  # noqa: E731
+                    x, *w, invdeg, *slots, lay.tile_counts, **mm, **mxu,
+                    group=eav._mm_group("simt_bf16", s, d, h, None))
+                f32 = lambda: eav.edge_attention_layer_mm(  # noqa: E731
+                    x32, *conv_w, invdeg, *slots, lay.tile_counts, **mm32, body="simt")
+                nbytes += slot_bytes + 4 * lay.tile_senders.shape[0]
+                repeats = False
+                lib, fn, targs = "edge_attention_groups", "edge_group_kernel", "Lb1ELb{}E{}Lb1EE"
+            limit = BF16_OUTPUT_LIMIT if rows_bf16 else BF16_KERNEL_LIMIT
+            if rows_bf16:
+                extra["projection_spills"] = ptxas_of(
+                    "qkv_projection", "projection_kernelI" + (
+                        "Lb0E" if kernel == K2_ else "Lb1E") + "13__nv_bfloat16EE")["spills"]
+
+        def parts(o):
+            return o if isinstance(o, tuple) else (o,)
+
+        eaf.reset_launch_counts()
+        got = parts(run())
+        again = parts(run()) if repeats else None
+        torch.cuda.synchronize()
+        bodies = eaf.body_launch_counts()[kernel]
+        in_memory = bool(eaf.device_memory_launch_counts())
+        if bodies != dict(tc=0, simt=0, tc_bf16=0, simt_bf16=1 + repeats):
+            fail(f"{key}: ran the bodies {bodies}, expected simt_bf16 alone")
+        ref = parts(plain())
+        errs = [float((a.double() - b.double()).abs().max()) for a, b in zip(got, ref)]
+        rel = [e / max(float(b.double().abs().max()), 1e-30) for e, b in zip(errs, ref)]
+        if not max(rel) <= limit or not all(torch.isfinite(a).all() for a in got):
+            fail(f"{key} S={s}: the simt_bf16 body disagrees with its plain version "
+                 f"({max(rel):.3g} of the largest entry, limit {limit:.3g})")
+        if repeats and not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{key} S={s}: a second launch differs from the first")
+        del got, again, ref
+        ms, f32_ms = in_turns(f32, run)
+        b, by = bf16_bound_ms(nbytes, flops)
+        ptx = ptxas_of(lib, fn + "I" + targs.format(
+            int(in_memory), "13__nv_bfloat16" if rows_bf16 else "f"))
+        launched = (j_launches.get(kernel, 0) if where == "J" else
+                    wide_ran.get((kernel, "simt_bf16", rows_mode, s, d, h, where != "eval"), 0))
+        out.append(dict(
+            name=kernel, route="cuda", source=f"ampnet_tpu_torch/ops/hopper/csrc/{lib}.cu",
+            replaces=f"ampnet_tpu/ops/pallas/{replaces}", launches=launched, s=s, d=d, h=h,
+            body="simt_bf16", max_abs_err=max(errs), rel_err=max(rel), limit=limit, ms=ms,
+            f32_simt_ms=f32_ms, speedup_vs_f32_simt=f32_ms / ms, plain_ms=cuda_ms(plain, 3),
+            bound_ms=b, bound_by=by, library_ms=None, regs=ptx["regs"], spills=ptx["spills"],
+            device_memory=in_memory, graph=where,
+            precision=("bf16 on the CUDA cores" if rows_bf16 else
+                       "bf16 products of f32 rows (mxu_bf16) on the CUDA cores"), **extra))
+        if launched < 1:
+            fail(f"{key}: no launch of the body at S={s} D={d} H={h} on a path")
     return out
 
 
@@ -2665,10 +3361,11 @@ def card_gradients(model, graph, layout, sidx):
 
 
 def captured_equals_eager(name, cfg, data, graph, layout, seed, dev, steps=3,
-                          want_step=None) -> dict:
+                          want_step=None, body="tc_bf16") -> dict:
     """``steps`` captured training steps against as many eager bodies from
     one initial state: every metric, parameter and Adam tensor bit for
-    bit; each captured step's launches exact (``want_step``)."""
+    bit; each captured step's launches exact (``want_step``), on the bf16
+    ``body``."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.train import create_train_state, make_optimizer, make_train_step
     from ampnet_tpu_torch.train.state import _train_step_body
@@ -2679,7 +3376,7 @@ def captured_equals_eager(name, cfg, data, graph, layout, seed, dev, steps=3,
             model.parameters(), 3e-3, weight_decay=1e-3, grad_clip=1.0), seed=seed)
 
     one, eager = state(), state()
-    step, body = make_train_step(one.model), _train_step_body(eager.model)
+    step, eager_body = make_train_step(one.model), _train_step_body(eager.model)
     losses = []
     for _ in range(steps):
         eaf.reset_launch_counts()
@@ -2688,8 +3385,8 @@ def captured_equals_eager(name, cfg, data, graph, layout, seed, dev, steps=3,
         counts = eaf.launch_counts()
         if want_step is not None and counts != want_step:
             fail(f"{name}: a captured step launched {counts}, expected {want_step}")
-        bodies = bf16_only(name)
-        want = body(eager, graph, layout)[1]
+        bodies = bf16_only(name, body=body)
+        want = eager_body(eager, graph, layout)[1]
         for k in want:
             if not torch.equal(got[k], want[k]):
                 fail(f"{name}: captured {k} differs from the eager body's")
@@ -2807,25 +3504,27 @@ def forward_route(cfg, graph, layout) -> str:
     return "edge_attention_sums_mm" if eaf.MM_SCATTER_DEFAULT else "edge_attention_sums"
 
 
-# The forward kernel of each eval of bf16_routes as the JAX package's
-# predicates give it on the whole surrogate (2,752 nodes, D=128, H=4):
-# S=40 bf16 rows take the 'dma' gather and no whole-layer body, S=20 rows
-# (bf16, or f32 under mxu_bf16) the 'vmem' gather and the whole layer
-# (tests/test_torch_bf16.py::test_route_is_the_jax_predicates holds both
-# packages' predicates to these on the CPU).
+# The forward kernel of each eval of bf16_routes (and path J) as the JAX
+# package's predicates give it on the whole surrogate (2,752 nodes, D=128,
+# H=4): S=40 and S=64 bf16 rows take the 'dma' gather and no whole-layer
+# body, S=20 rows (bf16, or f32 under mxu_bf16) the 'vmem' gather and the
+# whole layer (tests/test_torch_bf16.py::test_route_is_the_jax_predicates
+# holds both packages' predicates to these on the CPU).
 BF16_EVAL_ROUTES = {"G S=40": "edge_attention_sums_mm", "G S=20": "edge_attention_layer_mm",
                     "I S=40": "edge_attention_sums_v1",
-                    "G S=20 mxu_bf16": "edge_attention_layer_mm"}
+                    "G S=20 mxu_bf16": "edge_attention_layer_mm",
+                    "J S=64": "edge_attention_sums"}
 
 
-def bf16_eval(name, cfg, data, graph, layout, seed, dev, rtol=None, atol=None) -> tuple:
+def bf16_eval(name, cfg, data, graph, layout, seed, dev, rtol=None, atol=None,
+              body="tc_bf16") -> tuple:
     """One 8-draw captured eval (counts set to 0 just before it, read just
     after): 16 launches of the kernel the port's predicates give
     (``forward_route``), which must be the JAX predicates' kernel
-    (``BF16_EVAL_ROUTES[name]``), all on tc_bf16; one fixed draw against the CPU
+    (``BF16_EVAL_ROUTES[name]``), all on the bf16 ``body``; one fixed draw against the CPU
     float64 forward within ``rtol`` of the reference's largest entry (a
     bf16 model), or within ``atol`` (f32 rows under mxu_bf16). Returns
-    (kernel, launches on tc_bf16, report)."""
+    (kernel, launches on ``body``, report)."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.tokenize import sample_present_features, tfidf_sample_features
     from ampnet_tpu_torch.train import make_eval_step
@@ -2840,9 +3539,9 @@ def bf16_eval(name, cfg, data, graph, layout, seed, dev, rtol=None, atol=None) -
     metrics = step(graph, torch.Generator(device=dev).manual_seed(seed), layout)
     torch.cuda.synchronize()
     counts = eaf.launch_counts()
-    bodies = bf16_only(name, (kernel,))
+    bodies = bf16_only(name, (kernel,), body)
     if counts != {**launches(), kernel: 16} or bodies[kernel] != 16:
-        fail(f"{name}: launched {counts} ({bodies} on tc_bf16), expected 16 {kernel}")
+        fail(f"{name}: launched {counts} ({bodies} on {body}), expected 16 {kernel}")
     draw = torch.Generator(device=dev).manual_seed(seed + 2)
     sidx = (tfidf_sample_features(graph.x, cfg.num_sampled_vectors, node_mask=graph.node_mask,
                                   generator=draw)
@@ -3199,7 +3898,6 @@ def bf16_phase(recipe, reference, saint_cfg, tcfg, data, graph, layout, seed, de
     report["saint"], k5_bf16 = bf16_saint(saint_cfg, data, graph, seed, dev)
     report["routes"], route_launches = bf16_routes(recipe, reference, data, graph, layout,
                                                    seed, dev)
-    report["refusals"] = bf16_refusals(dev)
     report["phase_s"] = time.perf_counter() - t_phase
 
     # each row's launches ran at the row's own S
@@ -3215,7 +3913,8 @@ def bf16_phase(recipe, reference, saint_cfg, tcfg, data, graph, layout, seed, de
         dict(rows["k5_bf16"], launches=k5_bf16),
         *(dict(rows[key], launches=route_launches[key])
           for key in ("k3_bf16_s20", "k4_bf16_s20", "k6_bf16", "k6_mxu", "k7_bf16",
-                      "k7_mxu", "k9_bf16"))]
+                      "k7_mxu", "k9_bf16")),
+        rows["k8_bf16"], rows["k8_bf16_s20"]]
     if any(r["launches"] < 1 for r in kernel_rows):
         fail(f"bf16: a body was never launched on its path "
              f"({[r['launches'] for r in kernel_rows]})")
@@ -3379,6 +4078,14 @@ def main() -> int:
                                         args.seed, dev, path_c)
     emit({"bf16": dict(bf16_report, card=smi)})
 
+    # bf16 beyond the tensor cores: every routes shape as a bf16 conv and
+    # under mxu_bf16, K8 on bf16 rows, the refusals that remain; path J
+    wide, wide_ran = bf16_wide(data, gen, dev)
+    emit({"bf16_wide": dict(wide, card=smi)})
+    path_j_report, j_launches = path_j(recipe, data, graph, layout, args.seed, dev)
+    emit(dict(path_j_report, card=smi))
+    simt_rows = simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches)
+
     # launches: K2 from the inference path that runs it (B); K1, K3, K4 from
     # the training path C (K1's count includes that path's eval forwards); K5
     # from path F; K6 from the training path H, K7 from path G at S=20, K9
@@ -3410,8 +4117,9 @@ def main() -> int:
     if len(kernels) != len(KERNELS) or any(k["launches"] < 1 for k in kernels):
         fail(f"a kernel of the paths was never launched: "
              f"{ {k['name']: k['launches'] for k in kernels} }")
-    # and a row for each bf16 body (launches from the bf16 phase's paths)
-    kernels += bf16_rows
+    # and a row for each bf16 body (launches from the bf16 phase's paths,
+    # bf16_wide and path J)
+    kernels += bf16_rows + simt_rows
     # a row's `s` (the bf16 rows') beside its launches: the shape they ran at
     keys = ("name", "route", "source", "replaces", "launches", "s", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "prev_ms", "speedup", "regs",
@@ -3420,7 +4128,8 @@ def main() -> int:
             "prev_out_projection_ms", "projection_library_ms", "k1_max_abs_err",
             "k2_max_abs_err", "by_group_ms", "by_piece_ms", "s20", "tf32_ms",
             "speedup_vs_tf32", "rel_err", "limit", "tf32_attention_ms", "tf32_projection_ms",
-            "tf32_out_projection_ms", "pass_b_ms")
+            "tf32_out_projection_ms", "pass_b_ms", "body", "d", "h", "f32_simt_ms",
+            "speedup_vs_f32_simt", "device_memory", "graph", "group", "projection_spills")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

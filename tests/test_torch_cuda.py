@@ -373,7 +373,7 @@ def test_cuda_core_bodies_beyond_shared_memory_match_plain(cuda, s, d, h, softma
     assert in_device_memory
     assert set(eaf.device_memory_launch_counts()) == in_device_memory
     bodies = eaf.body_launch_counts()
-    assert all(bodies[k] == dict(tc=0, simt=2, tc_bf16=0) for k in K1_TO_K4), bodies
+    assert all(bodies[k] == dict(tc=0, simt=2, tc_bf16=0, simt_bf16=0) for k in K1_TO_K4), bodies
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -443,7 +443,8 @@ def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
                   eav.edge_attention_sums_v1_plain(q, kv, *slots, **kw, tile_nodes=16, group=8))
     for k in ("edge_attention_sums_mm", "edge_attention_sums_v1"):
         assert eaf.body_launch_counts()[k] == dict(tc=bodies[k]["tc"] + 2,
-                                                   simt=bodies[k]["simt"] + 2, tc_bf16=0)
+                                                   simt=bodies[k]["simt"] + 2, tc_bf16=0,
+                                                   simt_bf16=0)
     ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=3).to(cuda)
     assert int(ck.chunk_count.max()) >= 2
     chunks = (ck.senders, chunk_slot_valid(ck, mask.to(cuda)), ck.chunk_start,
@@ -462,7 +463,7 @@ def test_variant_sums_match_plain_and_k1_on_card(cuda, s, d, h, softmax):
         edge_attention_sums_mm=4, edge_attention_sums_v1=4,
         edge_attention_sums_chunked=5)
     assert eaf.body_launch_counts()["edge_attention_sums_chunked"] == dict(
-        tc=k8_bodies["tc"] + 2, simt=k8_bodies["simt"] + 3, tc_bf16=0)
+        tc=k8_bodies["tc"] + 2, simt=k8_bodies["simt"] + 3, tc_bf16=0, simt_bf16=0)
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -624,7 +625,7 @@ def test_edge_group_kernels_beyond_the_tensor_cores_match_plain(cuda, s, d, h, s
         assert (got.reshape(nt, sp, d)[:, s:] == 0).all()
     bodies = eaf.body_launch_counts()
     for k in ("edge_attention_sums_mm", "edge_attention_sums_v1", "edge_attention_layer_mm"):
-        assert bodies[k] == dict(tc=0, simt=1, tc_bf16=0), bodies
+        assert bodies[k] == dict(tc=0, simt=1, tc_bf16=0, simt_bf16=0), bodies
     expect = {k: n for k, group, n in (
         ("edge_attention_sums_mm", eav._mm_group("simt", s, d, h, None), 2),
         ("edge_attention_sums_v1", 8, 1))
@@ -691,7 +692,8 @@ def test_chunked_tensor_core_body_matches_plain_and_cuda_cores(cuda, s, chunk, s
     assert (got.reshape(nt, sp, d)[:, s:] == 0).all()
     assert torch.equal(got, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=chunk))
     after = eaf.body_launch_counts()["edge_attention_sums_chunked"]
-    assert after == dict(tc=before["tc"] + 2, simt=before["simt"] + 1, tc_bf16=0)
+    assert after == dict(tc=before["tc"] + 2, simt=before["simt"] + 1, tc_bf16=0,
+                         simt_bf16=0)
 
 
 @pytest.mark.parametrize("s,d,h,piece,device_memory", [
@@ -719,8 +721,8 @@ def test_chunked_cuda_core_body_beyond_the_tensor_cores_matches_plain(
     assert (got.reshape(chunks[2].numel(), kw["sp"], d)[:, s:] == 0).all()
     assert torch.equal(got, eav.edge_attention_sums_chunked(q, kv, *chunks, **kw, chunk=8,
                                                             piece=piece, body=body))
-    assert eaf.body_launch_counts()["edge_attention_sums_chunked"] == dict(tc=0, simt=2,
-                                                                           tc_bf16=0)
+    assert eaf.body_launch_counts()["edge_attention_sums_chunked"] == dict(
+        tc=0, simt=2, tc_bf16=0, simt_bf16=0)
     assert eaf.device_memory_launch_counts() == (
         {"edge_attention_sums_chunked": 2} if device_memory else {})
 
@@ -957,7 +959,7 @@ def test_tc_kernels_refuse_what_they_do_not_take(cuda):
     assert after["edge_attention_bwd_dkv"]["simt"] == before["edge_attention_bwd_dkv"]["simt"] + 1
     assert after["edge_attention_bwd_stream"] == dict(
         tc=before["edge_attention_bwd_stream"]["tc"],
-        simt=before["edge_attention_bwd_stream"]["simt"] + 2, tc_bf16=0)
+        simt=before["edge_attention_bwd_stream"]["simt"] + 2, tc_bf16=0, simt_bf16=0)
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -983,8 +985,7 @@ def test_simt_baselines_match_plain_on_card(cuda, s, d, h, softmax):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
     after = eaf.body_launch_counts()
-    assert all(after[k] == dict(tc=before[k]["tc"], simt=before[k]["simt"] + 1,
-                                tc_bf16=before[k]["tc_bf16"]) for k in K1_TO_K4)
+    assert all(after[k] == dict(before[k], simt=before[k]["simt"] + 1) for k in K1_TO_K4)
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -1024,7 +1025,7 @@ def test_simt_shared_memory_mirror_matches_the_libraries(cuda):
     _, k34 = launch.entry("edge_attention_bwd", "ampnet_edge_attention_bwd_smem_bytes",
                           [launch.I] * 4, ctypes.c_size_t)
     for s, d, h in [(40, 128, 4), (20, 128, 4), (40, 128, 8), (49, 128, 4), (96, 128, 4),
-                    (7, 100, 4), (40, 3, 1), (33, 64, 2)]:
+                    (7, 100, 4), (40, 3, 1), (33, 64, 2), (64, 128, 4)]:
         for kernel in ("edge_attention_sums", "edge_attention_layer"):
             assert launch.simt_smem_bytes(kernel, s, d, h) == k1(s, d, h)
         for mode, kernel in enumerate(("edge_attention_bwd_dq", "edge_attention_bwd_dkv",
@@ -1088,7 +1089,7 @@ def test_stream_tensor_core_body_matches_plain_and_cuda_cores(cuda, s, softmax):
     dq_ref, st_ref = sb.edge_attention_bwd_stream_plain(q, kv, dsum, *r_idx, **kw)
     torch.cuda.synchronize()
     assert eaf.body_launch_counts()["edge_attention_bwd_stream"] == dict(
-        tc=before["tc"] + 1, simt=before["simt"] + 1, tc_bf16=0)
+        tc=before["tc"] + 1, simt=before["simt"] + 1, tc_bf16=0, simt_bf16=0)
     got = st.view(rows)[slots]
     scale = max(1.0, float(dq_ref.abs().max()), float(st_ref.abs().max()))
     for a, b in ((dq, dq_ref), (dq, dq_simt), (got, st_ref.view(rows)[slots]),
@@ -1127,7 +1128,7 @@ def test_layer_mm_tensor_core_launches_match_plain_and_k2(cuda, s, d, h):
     k2 = eaf.edge_attention_layer(x_rows, *w, invdeg, *r_idx, **kw)
     torch.cuda.synchronize()
     assert eaf.body_launch_counts()["edge_attention_layer_mm"] == dict(
-        tc=before["tc"] + 1, simt=before["simt"] + 1, tc_bf16=0)
+        tc=before["tc"] + 1, simt=before["simt"] + 1, tc_bf16=0, simt_bf16=0)
     for other in (ref, simt, k2):
         torch.testing.assert_close(got, other, rtol=RTOL, atol=ATOL)
     live = torch.zeros(nt, dtype=torch.bool, device=cuda)
@@ -1480,7 +1481,8 @@ def test_predictor_hot_swap_needs_no_new_capture(cuda, tmp_path, monkeypatch):
 
 
 # ---- bf16: the tensor-core bodies in bf16 products (K1-K7, K9), the
-# refusals, and a bf16 model's captured steps
+# CUDA-core bodies in bf16 products (K1-K9) and K8's bf16 tensor-core body,
+# the refusals that remain, and a bf16 model's captured steps
 
 # bf16 body vs its plain version on the card, relative to the output's
 # largest entry: one bf16 step (2**-8). The products are exact in f32 and
@@ -1652,38 +1654,245 @@ def test_bf16_route_bodies_match_plain_on_card(cuda, s, d, h, softmax):
         assert after[k] == dict(before[k], tc_bf16=before[k]["tc_bf16"] + n), k
 
 
+# (S, D, H) beyond the bf16 tensor-core bodies' range: a seventh key tile,
+# 24 warps, bf16 rows of 200 bytes (D=100: no 16-byte copies), path J's S=64
+# (K3 and K4 in device memory), and S=96 (every working set in device memory)
+SIMT_BF16_SHAPES = [(49, 128, 4), (40, 128, 8), (20, 100, 4), (64, 128, 4), (96, 128, 4)]
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,d,h", SIMT_BF16_SHAPES)
+def test_simt_bf16_bodies_match_plain_on_card(cuda, s, d, h, softmax):
+    """Every kernel's 'simt_bf16' body, picked by the route itself beyond the
+    tensor cores' range: K1, K2, K6 and K7 on bf16 rows and on f32 rows
+    under mxu_bf16, K3, K4, K5, K8 and K9 on bf16 rows, against their plain
+    versions within one bf16 step of the largest entry (K2 and K7's bf16
+    outputs two); the bodies without atomics launched twice and equal bit
+    for bit; pad token rows and a receiver of degree 0 exactly 0; the
+    launches counted by body, the device-memory ones where
+    launch.simt_smem_bytes says the working set does not fit."""
+    g, mask = graph(0, first_sender=1)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=8).to(cuda)
+    nt = lay.recv_ptr.numel() - 1
+    t, emax = lay.tile_senders.shape
+    sp = -(-s // 16) * 16
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=cuda)
+    dsum = torch.randn(nt, sp, d, generator=gen, device=cuda)
+    dsum[:, s:] = 0.0                                  # pad token rows, as the op makes them
+    b16 = qkv.to(torch.bfloat16)
+    d16 = dsum.reshape(nt * sp, d).to(torch.bfloat16)
+    qdm16 = torch.cat([b16[:, :d], d16], 1)
+    valid = edge_slot_valid(lay, mask.to(cuda))
+    r_idx = (lay.tile_senders, valid, lay.recv_ptr, lay.recv_slots)
+    s_idx = (lay.snd_receivers, snd_slot_valid(lay, mask.to(cuda)), lay.snd_ptr, lay.snd_slots)
+    slots = (lay.tile_senders, lay.tile_recv, valid)
+    chunks = (ck.senders, chunk_slot_valid(ck, mask.to(cuda)), ck.chunk_start, ck.chunk_count)
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax)
+    mm = dict(kw, tile_nodes=16)
+    w = [t_.to(cuda) for t_ in params(2, d)]
+    w16 = [t_.to(torch.bfloat16).contiguous() for t_ in w]
+    deg = torch.bincount(g.receivers[mask], minlength=nt).to(cuda, torch.float32)
+    invdeg = torch.where(deg > 0, 1.0 / deg.clamp_min(1.0), torch.zeros_like(deg))
+    x16, x32 = b16[:, :d].contiguous(), qkv[:, :d].contiguous()
+    group = 8 if emax % 8 == 0 else 1
+    f32, bf = torch.float32, torch.bfloat16
+    # name: (kernel, run, plain, limit, output type, repeats bit for bit)
+    cases = {
+        "k1 bf16": ("edge_attention_sums",
+                    lambda: eaf.edge_attention_sums(b16[:, :d], b16[:, d:], *r_idx, **kw),
+                    lambda: eaf.edge_attention_sums_plain(b16[:, :d], b16[:, d:], *r_idx, **kw),
+                    BF16_LIMIT, f32, True),
+        "k1 mxu": ("edge_attention_sums",
+                   lambda: eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *r_idx, **kw,
+                                                   mxu_bf16=True),
+                   lambda: eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *r_idx, **kw,
+                                                         mxu_bf16=True), BF16_LIMIT, f32, True),
+        "k2 bf16": ("edge_attention_layer",
+                    lambda: eaf.edge_attention_layer(x16, *w16, invdeg, *r_idx, **kw),
+                    lambda: eaf.edge_attention_layer_plain(x16, *w16, invdeg, *r_idx, **kw),
+                    BF16_OUT_LIMIT, bf, True),
+        "k2 mxu": ("edge_attention_layer",
+                   lambda: eaf.edge_attention_layer(x32, *w, invdeg, *r_idx, **kw,
+                                                    mxu_bf16=True),
+                   lambda: eaf.edge_attention_layer_plain(x32, *w, invdeg, *r_idx, **kw,
+                                                          mxu_bf16=True), BF16_LIMIT, f32, True),
+        "k3 bf16": ("edge_attention_bwd_dq",
+                    lambda: bwd.edge_attention_bwd_dq(b16[:, :d], b16[:, d:], d16, *r_idx, **kw),
+                    lambda: bwd.edge_attention_bwd_dq_plain(b16[:, :d], b16[:, d:], d16, *r_idx,
+                                                            **kw), BF16_LIMIT, f32, True),
+        "k4 bf16": ("edge_attention_bwd_dkv",
+                    lambda: bwd.edge_attention_bwd_dkv(qdm16, b16[:, d:], *s_idx, **kw),
+                    lambda: bwd.edge_attention_bwd_dkv_plain(qdm16, b16[:, d:], *s_idx, **kw),
+                    BF16_LIMIT, f32, True),
+        "k5 bf16": ("edge_attention_bwd_stream",
+                    lambda: sb.edge_attention_bwd_stream(b16[:, :d], b16[:, d:], d16, *r_idx,
+                                                         **kw)[0],
+                    lambda: sb.edge_attention_bwd_stream_plain(b16[:, :d], b16[:, d:], d16,
+                                                               *r_idx, **kw)[0],
+                    BF16_LIMIT, f32, True),
+        "k6 bf16": ("edge_attention_sums_mm",
+                    lambda: eav.edge_attention_sums_mm(b16[:, :d], b16[:, d:], *slots,
+                                                       lay.tile_counts, **mm),
+                    lambda: eav.edge_attention_sums_mm_plain(
+                        b16[:, :d], b16[:, d:], *slots, lay.tile_counts, **mm,
+                        group=eav.MM_GROUP), BF16_LIMIT, f32, False),
+        "k6 mxu": ("edge_attention_sums_mm",
+                   lambda: eav.edge_attention_sums_mm(qkv[:, :d], qkv[:, d:], *slots,
+                                                      lay.tile_counts, **mm, mxu_bf16=True),
+                   lambda: eav.edge_attention_sums_mm_plain(
+                       qkv[:, :d], qkv[:, d:], *slots, lay.tile_counts, **mm,
+                       group=eav.MM_GROUP, mxu_bf16=True), BF16_LIMIT, f32, False),
+        "k7 bf16": ("edge_attention_layer_mm",
+                    lambda: eav.edge_attention_layer_mm(x16, *w16, invdeg, *slots,
+                                                        lay.tile_counts, **mm),
+                    lambda: eav.edge_attention_layer_mm_plain(
+                        x16, *w16, invdeg, *slots, lay.tile_counts, **mm,
+                        group=eav.MM_GROUP), BF16_OUT_LIMIT, bf, False),
+        "k7 mxu": ("edge_attention_layer_mm",
+                   lambda: eav.edge_attention_layer_mm(x32, *w, invdeg, *slots,
+                                                       lay.tile_counts, **mm, mxu_bf16=True),
+                   lambda: eav.edge_attention_layer_mm_plain(
+                       x32, *w, invdeg, *slots, lay.tile_counts, **mm, group=eav.MM_GROUP,
+                       mxu_bf16=True), BF16_LIMIT, f32, False),
+        "k8 bf16": ("edge_attention_sums_chunked",
+                    lambda: eav.edge_attention_sums_chunked(b16[:, :d], b16[:, d:], *chunks,
+                                                            **kw, chunk=8),
+                    lambda: eav.edge_attention_sums_chunked_plain(b16[:, :d], b16[:, d:],
+                                                                  *chunks, **kw, chunk=8),
+                    BF16_LIMIT, f32, True),
+        "k9 bf16": ("edge_attention_sums_v1",
+                    lambda: eav.edge_attention_sums_v1(b16[:, :d], b16[:, d:], *slots, **mm,
+                                                       group=group),
+                    lambda: eav.edge_attention_sums_v1_plain(b16[:, :d], b16[:, d:], *slots,
+                                                             **mm, group=group),
+                    BF16_LIMIT, f32, False),
+    }
+    if launch.tensor_core_range_error(s, d, h) is None:
+        # f32 rows of D=100 take 16-byte copies: under mxu_bf16 the route is
+        # 'tc_bf16' there (test_bf16_bodies_match_plain_on_card)
+        cases = {k: v for k, v in cases.items() if not k.endswith("mxu")}
+    for name, (kernel, run, plain, limit, dtype, repeats) in cases.items():
+        eaf.reset_launch_counts()
+        got = run()
+        again = run() if repeats else None
+        torch.cuda.synchronize()
+        counts, memory = eaf.body_launch_counts()[kernel], eaf.device_memory_launch_counts()
+        ref = plain()
+        assert got.dtype == ref.dtype == dtype, name
+        close_to_largest(got, ref, limit)
+        if repeats:
+            assert torch.equal(got, again), name
+        if kernel != "edge_attention_bwd_stream":
+            assert (got.view(nt, sp, -1)[:, s:] == 0).all(), name
+            # degree 0: node 39 never receives, node 0 never sends (K4's rows)
+            zero = 0 if kernel == "edge_attention_bwd_dkv" else 39
+            assert (got.view(nt, sp, -1)[zero] == 0).all(), name
+        # at D=100 (within the range) K4's packed [Q | dsum] rows, 200 values
+        # a row, take 16-byte copies: its tensor-core bf16 body
+        body = ("tc_bf16" if kernel == "edge_attention_bwd_dkv"
+                and launch.tensor_core_range_error(s, d, h) is None else "simt_bf16")
+        assert counts == {**dict.fromkeys(launch.BODIES, 0), body: 1 + repeats}, (name, counts)
+        # the working set in device memory where it does not fit a block's
+        # shared memory (K7's attention launch counts as K6's)
+        attention = "edge_attention_sums_mm" if kernel == "edge_attention_layer_mm" else kernel
+        part = (eav._mm_group("simt_bf16", s, d, h, None) if attention == "edge_attention_sums_mm"
+                else eav._chunk_piece(s, d, h, 8, None) if kernel == "edge_attention_sums_chunked"
+                else 0)
+        in_memory = launch.simt_smem_bytes(attention, s, d, h, part) > launch.MAX_SMEM
+        assert bool(memory.get(attention)) == in_memory, (name, memory)
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s,chunk", [(40, 8), (20, 8), (40, 3), (48, 8)])
+def test_chunked_bf16_tensor_core_body_matches_plain_on_card(cuda, s, chunk, softmax):
+    """K8's 'tc_bf16' body on bf16 rows (runtime mask, partial chunks)
+    against its plain version and its 'simt_bf16' body within one bf16 step
+    of the largest entry; f32 sums; pad token rows and a receiver of degree
+    0 exactly 0; a second launch repeats the first bit for bit."""
+    d, h = 128, 4
+    q, kv, chunks, kw, _ = chunked_inputs(cuda, s, d, h, softmax, chunk)
+    sp = -(-s // 16) * 16
+    nt = chunks[2].numel()
+    rows = torch.nn.functional.pad(torch.cat([q, kv], 1).view(nt, kw["sp"], 3 * d),
+                                   (0, 0, 0, sp - kw["sp"])).reshape(nt * sp, 3 * d)
+    b16 = rows.to(torch.bfloat16)
+    kw = dict(kw, sp=sp)
+    eaf.reset_launch_counts()
+    got = eav.edge_attention_sums_chunked(b16[:, :d], b16[:, d:], *chunks, **kw, chunk=chunk)
+    again = eav.edge_attention_sums_chunked(b16[:, :d], b16[:, d:], *chunks, **kw, chunk=chunk)
+    simt = eav.edge_attention_sums_chunked(b16[:, :d], b16[:, d:], *chunks, **kw, chunk=chunk,
+                                           body="simt_bf16")
+    ref = eav.edge_attention_sums_chunked_plain(b16[:, :d], b16[:, d:], *chunks, **kw,
+                                                chunk=chunk)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    for other in (ref, simt):
+        close_to_largest(got, other, BF16_LIMIT)
+    assert (got.reshape(nt, sp, d)[39] == 0).all()
+    assert (got.reshape(nt, sp, d)[:, s:] == 0).all()
+    assert eaf.body_launch_counts()["edge_attention_sums_chunked"] == dict(
+        tc=0, simt=0, tc_bf16=2, simt_bf16=1)
+
+
 def test_bf16_refusals_on_card(cuda):
-    """On the card bf16 runs on the tensor cores only: beyond their range
-    bf16 rows raise (the CUDA-core bodies take f32 only), as do bf16 rows on
-    K8 (no bf16 body), mixed row types, the f32 bodies named for bf16 rows
-    or under mxu_bf16, and 'tc_bf16' named on f32 rows (K3-K5 and K9 have no
-    bf16 body for f32 rows; K1, K2 and K6 take them under mxu_bf16 only);
-    nothing is launched."""
+    """bf16 runs at every shape the f32 path takes: beyond the tensor cores'
+    range the default route runs bf16 rows (and f32 rows under mxu_bf16) on
+    'simt_bf16', and K8 takes bf16 rows. The refusals that remain are the
+    named bodies that do not take the call ('tc_bf16' beyond the range,
+    'tc' or 'simt' named for bf16 rows, 'tc_bf16' or 'simt_bf16' named on
+    f32 rows without mxu_bf16, where K3-K5 and K9 never take it) and mixed
+    row types; they launch nothing."""
     g, mask = graph(0, first_sender=1)
     lay = compute_layout(g, tile_nodes=16).to(cuda)
     nt = lay.recv_ptr.numel() - 1
     d = 128
     r_idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
     s_idx = (lay.snd_receivers, lay.snd_valid, lay.snd_ptr, lay.snd_slots)
-    q49 = torch.zeros(nt * 64, 3 * d, dtype=torch.bfloat16, device=cuda)
-    q40 = torch.zeros(nt * 48, 3 * d, dtype=torch.bfloat16, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q49 = torch.randn(nt * 64, 3 * d, generator=gen, device=cuda).to(torch.bfloat16)
+    q40 = torch.randn(nt * 48, 3 * d, generator=gen, device=cuda).to(torch.bfloat16)
     kw49 = dict(s=49, sp=64, num_heads=4, softmax=True)
     kw40 = dict(s=40, sp=48, num_heads=4, softmax=True)
-    before = eaf.body_launch_counts()
-    with pytest.raises(ValueError, match="CUDA-core bodies take f32 only"):
-        eaf.edge_attention_sums(q49[:, :d], q49[:, d:], *r_idx, **kw49)
-    with pytest.raises(ValueError, match="CUDA-core bodies take f32 only"):
-        bwd.edge_attention_bwd_dkv(q49[:, : 2 * d], q49[:, d:], *s_idx, **kw49)
-    with pytest.raises(ValueError, match="CUDA-core bodies take f32 only"):
-        sb.edge_attention_bwd_stream(q49[:, :d], q49[:, d:], q49[:, :d], *r_idx, **kw49)
     slots = (lay.tile_senders, lay.tile_recv, lay.tile_valid)
-    with pytest.raises(ValueError, match="CUDA-core bodies take f32 only"):
-        eav.edge_attention_sums_mm(q49[:, :d], q49[:, d:], *slots, lay.tile_counts, **kw49,
-                                   tile_nodes=16)
     ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=8).to(cuda)
-    with pytest.raises(ValueError, match="no bf16 body"):
-        eav.edge_attention_sums_chunked(q40[:, :d], q40[:, d:], ck.senders, ck.valid,
-                                        ck.chunk_start, ck.chunk_count, **kw40, chunk=8)
+    chunks = (ck.senders, ck.valid, ck.chunk_start, ck.chunk_count)
+    # what used to raise runs: S=49 on the CUDA cores in bf16, K8 on bf16 rows
+    eaf.reset_launch_counts()
+    runs = {
+        "k1": (lambda: eaf.edge_attention_sums(q49[:, :d], q49[:, d:], *r_idx, **kw49),
+               lambda: eaf.edge_attention_sums_plain(q49[:, :d], q49[:, d:], *r_idx, **kw49)),
+        "k4": (lambda: bwd.edge_attention_bwd_dkv(q49[:, : 2 * d], q49[:, d:], *s_idx, **kw49),
+               lambda: bwd.edge_attention_bwd_dkv_plain(q49[:, : 2 * d], q49[:, d:], *s_idx,
+                                                        **kw49)),
+        "k5": (lambda: sb.edge_attention_bwd_stream(q49[:, :d], q49[:, d:], q49[:, :d], *r_idx,
+                                                    **kw49)[0],
+               lambda: sb.edge_attention_bwd_stream_plain(q49[:, :d], q49[:, d:], q49[:, :d],
+                                                          *r_idx, **kw49)[0]),
+        "k6": (lambda: eav.edge_attention_sums_mm(q49[:, :d], q49[:, d:], *slots,
+                                                  lay.tile_counts, **kw49, tile_nodes=16),
+               lambda: eav.edge_attention_sums_mm_plain(q49[:, :d], q49[:, d:], *slots,
+                                                        lay.tile_counts, **kw49, tile_nodes=16,
+                                                        group=eav.MM_GROUP)),
+        "k8": (lambda: eav.edge_attention_sums_chunked(q40[:, :d], q40[:, d:], *chunks, **kw40,
+                                                       chunk=8),
+               lambda: eav.edge_attention_sums_chunked_plain(q40[:, :d], q40[:, d:], *chunks,
+                                                             **kw40, chunk=8)),
+    }
+    for name, (run, plain) in runs.items():
+        close_to_largest(run(), plain(), BF16_LIMIT)
+    bodies = eaf.body_launch_counts()
+    assert all(bodies[k]["simt_bf16"] == 1 for k in (
+        "edge_attention_sums", "edge_attention_bwd_dkv", "edge_attention_bwd_stream",
+        "edge_attention_sums_mm")), bodies
+    assert bodies["edge_attention_sums_chunked"]["tc_bf16"] == 1, bodies
+    before = eaf.body_launch_counts()
+    with pytest.raises(ValueError, match="beyond it bf16 runs on 'simt_bf16'"):
+        eaf.edge_attention_sums(q49[:, :d], q49[:, d:], *r_idx, **kw49, body="tc_bf16")
+    with pytest.raises(ValueError, match="beyond it bf16 runs on 'simt_bf16'"):
+        eav.edge_attention_sums_chunked(q49[:, :d], q49[:, d:], *chunks, **kw49, chunk=8,
+                                        body="tc_bf16")
     f40 = q40.float()
     with pytest.raises(ValueError, match="float32 or bfloat16 rows of one type"):
         bwd.edge_attention_bwd_dq(q40[:, :d], f40[:, d:], q40[:, :d], *r_idx, **kw40)
@@ -1692,24 +1901,27 @@ def test_bf16_refusals_on_card(cuda):
     with pytest.raises(ValueError, match="tc_bf16"):
         eaf.edge_attention_sums(q40[:, :d], q40[:, d:], *r_idx, **kw40, body="tc")
     with pytest.raises(ValueError, match="tc_bf16"):
+        eaf.edge_attention_sums(q49[:, :d], q49[:, d:], *r_idx, **kw49, body="simt")
+    with pytest.raises(ValueError, match="tc_bf16"):
         eav.edge_attention_sums_v1(q40[:, :d], q40[:, d:], *slots, **kw40, tile_nodes=16,
                                    group=1, body="tc")
     # bf16 products of f32 rows take mxu_bf16 only, and reach K1, K2 and K6
-    # only: 'tc_bf16' named on f32 rows raises on every kernel
+    # only: a bf16 body named on f32 rows raises on every kernel
     f_qdm = torch.cat([f40[:, :d], f40[:, :d]], 1)
-    with pytest.raises(ValueError, match="'tc_bf16' body"):
-        bwd.edge_attention_bwd_dq(f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40,
-                                  body="tc_bf16")
-    with pytest.raises(ValueError, match="'tc_bf16' body"):
-        bwd.edge_attention_bwd_dkv(f_qdm, f40[:, d:], *s_idx, **kw40, body="tc_bf16")
-    with pytest.raises(ValueError, match="'tc_bf16' body"):
-        sb.edge_attention_bwd_stream(f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40,
-                                     body="tc_bf16")
-    with pytest.raises(ValueError, match="'tc_bf16' body"):
-        eav.edge_attention_sums_v1(f40[:, :d], f40[:, d:], *slots, **kw40, tile_nodes=16,
-                                   group=1, body="tc_bf16")
-    with pytest.raises(ValueError, match="'tc_bf16' body"):
-        eaf.edge_attention_sums(f40[:, :d], f40[:, d:], *r_idx, **kw40, body="tc_bf16")
+    for b in ("tc_bf16", "simt_bf16"):
+        with pytest.raises(ValueError, match="'tc_bf16' body"):
+            bwd.edge_attention_bwd_dq(f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40,
+                                      body=b)
+        with pytest.raises(ValueError, match="'tc_bf16' body"):
+            bwd.edge_attention_bwd_dkv(f_qdm, f40[:, d:], *s_idx, **kw40, body=b)
+        with pytest.raises(ValueError, match="'tc_bf16' body"):
+            sb.edge_attention_bwd_stream(f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40,
+                                         body=b)
+        with pytest.raises(ValueError, match="'tc_bf16' body"):
+            eav.edge_attention_sums_v1(f40[:, :d], f40[:, d:], *slots, **kw40, tile_nodes=16,
+                                       group=1, body=b)
+        with pytest.raises(ValueError, match="'tc_bf16' body"):
+            eaf.edge_attention_sums(f40[:, :d], f40[:, d:], *r_idx, **kw40, body=b)
     with pytest.raises(ValueError, match="'tc_bf16' body"):
         eaf.edge_attention_sums(f40[:, :d], f40[:, d:], *r_idx, **kw40, body="tc",
                                 mxu_bf16=True)
@@ -1744,7 +1956,7 @@ def test_bf16_model_captured_step_equals_eager(cuda):
     assert_same_state(one, eager)
     bodies = eaf.body_launch_counts()
     for k in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv"):
-        assert bodies[k] == dict(tc=0, simt=0, tc_bf16=12), bodies
+        assert bodies[k] == dict(tc=0, simt=0, tc_bf16=12, simt_bf16=0), bodies
     assert all(p.dtype == torch.float32 for p in one.model.parameters())
 
 
@@ -1783,7 +1995,7 @@ def test_bf16_stream_backward_captured_step_equals_eager(cuda, monkeypatch, mode
     assert_same_state(one, eager)
     bodies = eaf.body_launch_counts()
     for k in ("edge_attention_sums", "edge_attention_bwd_stream"):
-        assert bodies[k] == dict(tc=0, simt=0, tc_bf16=12), bodies
+        assert bodies[k] == dict(tc=0, simt=0, tc_bf16=12, simt_bf16=0), bodies
     assert not any(sum(bodies[k].values()) for k in bodies
                    if k not in ("edge_attention_sums", "edge_attention_bwd_stream")), bodies
     assert all(p.dtype == torch.float32 for p in one.model.parameters())

@@ -328,7 +328,9 @@ def test_bf16_products_take_one_switch(kernel):
     f32 rows under mxu_bf16, which reaches K1, K2's attention and K6 (K7's
     attention) only: on K3-K5 and K9 it raises. A named 'tc_bf16' on f32
     rows without mxu_bf16 raises, as does a named f32 body on bf16 rows or
-    under mxu_bf16."""
+    under mxu_bf16. Beyond the tensor cores' range (S=49) they run on
+    'simt_bf16', which the same switch holds: named on f32 rows without
+    mxu_bf16 it raises."""
     f32 = ("kv_rows", torch.zeros(64, 3 * 128)[:, 128:])
     bf16 = ("kv_rows", torch.zeros(64, 3 * 128, dtype=torch.bfloat16)[:, 128:])
     shape = (40, 128, 4)
@@ -338,11 +340,19 @@ def test_bf16_products_take_one_switch(kernel):
     for named, rows in (("tc_bf16", f32), (TC, bf16), (SIMT, bf16)):
         with pytest.raises(ValueError, match="'tc_bf16' body"):
             launch.body_of(kernel, named, *shape, rows)
+    beyond = (49, 128, 4)
+    assert launch.body_of(kernel, None, *beyond, bf16) == "simt_bf16"
+    assert launch.body_of(kernel, "simt_bf16", *shape, bf16) == "simt_bf16"
+    with pytest.raises(ValueError, match="'tc_bf16' body"):
+        launch.body_of(kernel, "simt_bf16", *shape, f32)
     if kernel in launch.MXU_KERNELS:
         assert launch.body_of(kernel, None, *shape, f32, mxu_bf16=True) == "tc_bf16"
         assert launch.body_of(kernel, "tc_bf16", *shape, f32, mxu_bf16=True) == "tc_bf16"
         with pytest.raises(ValueError, match="'tc_bf16' body"):
             launch.body_of(kernel, TC, *shape, f32, mxu_bf16=True)
+        assert launch.body_of(kernel, None, *beyond, f32, mxu_bf16=True) == "simt_bf16"
+        with pytest.raises(ValueError, match="'tc_bf16' body"):
+            launch.body_of(kernel, SIMT, *beyond, f32, mxu_bf16=True)
     else:
         with pytest.raises(ValueError, match="mxu_bf16 reaches"):
             launch.body_of(kernel, None, *shape, f32, mxu_bf16=True)
@@ -353,9 +363,9 @@ def test_bf16_products_take_one_switch(kernel):
 def test_entry_point_by_body_and_row_type(kernel):
     """The wrappers with a bf16 body (K1-K6, K9; K2's and K7's projection
     launches, K7's out-projection) take their entry point from (body, row
-    type): the f32 bodies on f32 rows, 'tc_bf16' on bf16 rows, and on f32
-    rows only where mxu_bf16 reaches (K1, K2's attention, K6); anything else
-    raises before a pointer is handed over."""
+    type): the f32 bodies on f32 rows, 'tc_bf16' and 'simt_bf16' on bf16
+    rows, and on f32 rows only where mxu_bf16 reaches (K1, K2's attention,
+    K6); anything else raises before a pointer is handed over."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
@@ -369,45 +379,58 @@ def test_entry_point_by_body_and_row_type(kernel):
     assert {launch.entry_of(kernel, table, b, f32) for b in (TC, SIMT)} == {
         table[(TC, f32)], table[(SIMT, f32)]}
     assert launch.entry_of(kernel, table, "tc_bf16", bf16)[1].endswith("_bf16")
+    assert launch.entry_of(kernel, table, "simt_bf16", bf16)[1].endswith("_bf16")
     for b in (TC, SIMT):
         with pytest.raises(ValueError, match="no entry point"):
             launch.entry_of(kernel, table, b, bf16)
     if kernel in launch.MXU_KERNELS:
         assert launch.entry_of(kernel, table, "tc_bf16", f32)[1].endswith("_mxu")
+        assert launch.entry_of(kernel, table, "simt_bf16", f32)[1].endswith("_mxu")
     else:
-        with pytest.raises(ValueError, match="no entry point"):
-            launch.entry_of(kernel, table, "tc_bf16", f32)
+        for b in launch.BF16_BODIES:
+            with pytest.raises(ValueError, match="no entry point"):
+                launch.entry_of(kernel, table, b, f32)
 
 
 def test_chunked_sums_stay_f32_only():
-    """K8 (no model path reaches it) has no bf16 body: bf16 rows and a named
-    'tc_bf16' raise at the rule, the wrapper's guard raises on bf16 rows,
-    and mxu_bf16 does not reach it; f32 rows keep their two bodies."""
+    """K8 (no model path reaches it) takes bf16 rows as the JAX chunked body
+    does, on its two bf16 bodies: 'tc_bf16' at the rule within the tensor
+    cores' range, 'simt_bf16' beyond it; mxu_bf16 does not reach it (the
+    JAX body has no such flag), and f32 rows keep their two bodies. Each
+    body has its entry point by row type, f32 sums from either."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_variants as eav
 
     f32 = ("kv_rows", torch.zeros(64, 3 * 128)[:, 128:])
     bf16 = ("kv_rows", torch.zeros(64, 3 * 128, dtype=torch.bfloat16)[:, 128:])
-    assert K8 not in launch.BF16_KERNELS and K8 not in launch.MXU_KERNELS
+    assert K8 not in launch.MXU_KERNELS
     assert launch.body_of(K8, None, 40, 128, 4, f32) == TC
     for named, rows in ((None, bf16), ("tc_bf16", bf16)):
-        with pytest.raises(ValueError, match="no bf16 body"):
-            launch.body_of(K8, named, 40, 128, 4, rows)
+        assert launch.body_of(K8, named, 40, 128, 4, rows) == "tc_bf16"
+    assert launch.body_of(K8, None, 96, 128, 4, bf16) == "simt_bf16"
     with pytest.raises(ValueError, match="mxu_bf16 reaches"):
         launch.body_of(K8, None, 40, 128, 4, f32, mxu_bf16=True)
-    with pytest.raises(ValueError, match="no bf16 body"):
-        launch.check_f32_only(K8, bf16[1])
-    launch.check_f32_only(K8, f32[1])
-    # every other kernel of the family has its bf16 body
-    assert set(launch.BF16_KERNELS) == set(launch.TENSOR_CORE_KERNELS) - {K8}
+    assert launch.entry_of(K8, eav._SUMS_CHUNKED, "tc_bf16", torch.bfloat16) == (
+        "edge_attention_chunked_tc_bf16", "ampnet_edge_attention_sums_chunked_bf16")
+    assert launch.entry_of(K8, eav._SUMS_CHUNKED, "tc", torch.float32)[1] == \
+        "ampnet_edge_attention_sums_chunked"
+    # every kernel of the family has its two bf16 bodies on bf16 rows
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    for table in (eaf._SUMS, eaf._LAYER_ATTENTION, bwd._DQ, bwd._DKV, sb._BODIES,
+                  eav._SUMS_MM, eav._SUMS_V1, eav._SUMS_CHUNKED):
+        assert {("tc_bf16", torch.bfloat16), ("simt_bf16", torch.bfloat16)} <= set(table)
 
 
 def test_count_launch_splits_by_body():
     def wrapper():
         pass
     wrapper.launches, wrapper.body_launches = 0, dict.fromkeys(launch.BODIES, 0)
-    for b in (TC, SIMT, TC, "tc_bf16"):
+    for b in (TC, SIMT, TC, "tc_bf16", "simt_bf16"):
         launch.count_launch(wrapper, b)
-    assert wrapper.launches == 4 and wrapper.body_launches == {TC: 2, SIMT: 1, "tc_bf16": 1}
+    assert wrapper.launches == 5 and wrapper.body_launches == {TC: 2, SIMT: 1, "tc_bf16": 1,
+                                                               "simt_bf16": 1}
 
 
 # ---- AMPConv beyond shared memory: the fused op against the JAX XLA path
