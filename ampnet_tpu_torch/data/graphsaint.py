@@ -14,10 +14,14 @@ Walks are pointer chasing and stay on the host; ``prefetch`` samples in a
 background thread so that they overlap the device's work. The graphs are
 CPU tensors: the training loop moves each to the model's device.
 
-With the same seed this sampler draws the same random numbers in the same
-order as the JAX package's numpy path (``use_native=False``) and yields
-array-equal subgraphs. The JAX package's native (C++) sampling core is not
-ported yet, so there is no ``use_native`` switch here.
+Two sampling cores, as in the JAX package. ``use_native=True`` (the
+default, the JAX package's too) draws the walks, the induced edges and the
+normalization pre-pass from the C++ core (``data/native.py``, built at
+first use); ``use_native=False`` runs them in numpy. With the same seed
+and core this sampler draws the same random numbers in the same order as
+the JAX package's and yields array-equal norms, pad sizes and subgraphs.
+Where the JAX package falls back to numpy when its library does not build,
+the port raises.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from ampnet_tpu_torch.core.graph import Graph, build_csr, from_arrays
+from ampnet_tpu_torch.data import native
 
 
 def random_walk(
@@ -67,7 +72,8 @@ class GraphSaintRandomWalkSampler:
 
     batch_size = walk roots, walk_length, num_steps = subgraphs per epoch,
     sample_coverage = the normalization pre-pass (0 disables it). Pad sizes
-    default to a generous bound from a 20-draw dry run."""
+    default to a generous bound from a 20-draw dry run. ``use_native``
+    selects the C++ sampling core (else numpy)."""
 
     def __init__(
         self,
@@ -84,6 +90,7 @@ class GraphSaintRandomWalkSampler:
         pad_nodes_to: Optional[int] = None,
         pad_edges_to: Optional[int] = None,
         seed: int = 0,
+        use_native: bool = True,
     ):
         self.x = np.asarray(x, dtype=np.float32)
         self.edge_index = np.asarray(edge_index, dtype=np.int64)
@@ -110,6 +117,10 @@ class GraphSaintRandomWalkSampler:
         self._src_indptr[1:] = np.cumsum(np.bincount(self._src_sorted, minlength=self.N))
         # relabel scratch of _collate: only the touched entries are reset
         self._relabel = np.full(self.N, -1, np.int64)
+        self.use_native = use_native
+        if use_native:
+            self._native_induced = native.NativeInducedEdges(
+                self._src_indptr, self._dst_sorted, self._edge_order, self.N)
 
         if sample_coverage > 0:
             self.node_norm, self.edge_norm = self._compute_norm()
@@ -131,14 +142,22 @@ class GraphSaintRandomWalkSampler:
     # -- sampling core ------------------------------------------------------
     def _sample_nodes(self, rng: np.random.Generator) -> np.ndarray:
         starts = rng.integers(0, self.N, size=self.batch_size)
-        walks = random_walk(self.indptr, self.indices, starts, self.walk_length, rng)
+        if self.use_native:
+            # the native walk takes its own seed, drawn after the starts
+            walks = native.random_walk_native(self.indptr, self.indices, starts,
+                                              self.walk_length, int(rng.integers(2**63)))
+        else:
+            walks = random_walk(self.indptr, self.indices, starts, self.walk_length, rng)
         return np.unique(walks)
 
     def _induced_edge_ids(self, nodes: np.ndarray) -> np.ndarray:
         """Original edge ids whose endpoints are both in ``nodes`` (a sorted
-        set): candidates by source membership (each node's span start
-        repeated, plus a per-span ramp from one cumsum), kept by destination
+        set), in the order of the (src, dst)-sorted edge list. In numpy:
+        candidates by source membership (each node's span start repeated,
+        plus a per-span ramp from one cumsum), kept by destination
         membership."""
+        if self.use_native:
+            return self._native_induced(nodes)
         in_set = np.zeros(self.N, dtype=bool)
         in_set[nodes] = True
         starts_ = self._src_indptr[nodes]
@@ -158,7 +177,14 @@ class GraphSaintRandomWalkSampler:
 
     # -- normalization pre-pass ---------------------------------------------
     def _compute_norm(self) -> Tuple[np.ndarray, np.ndarray]:
-        norm_rng = np.random.default_rng(int(self.rng.integers(2**63)))
+        norm_seed = int(self.rng.integers(2**63))
+        if self.use_native:
+            node_count, edge_count, num_samples = native.norm_prepass_native(
+                self.indptr, self.indices, self._src_indptr, self._dst_sorted,
+                self._edge_order, self.N, self.batch_size, self.walk_length,
+                self.sample_coverage, self.num_steps, norm_seed)
+            return self._finish_norm(node_count, edge_count, num_samples)
+        norm_rng = np.random.default_rng(norm_seed)
         node_count = np.zeros(self.N, dtype=np.float64)
         edge_count = np.zeros(self.E, dtype=np.float64)
         num_samples = total_sampled = 0

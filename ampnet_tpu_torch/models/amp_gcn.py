@@ -72,19 +72,23 @@ def _raw_residual_mode(cfg: AMPGCNConfig):
 class AMPGCN(nn.Module):
     """Parameters are made on the CPU from ``generator`` (seed 0 when
     None), then moved to ``device``. ``scaler_stats`` = (mean, std) from
-    ``ops.tokenize.fit_scaler`` for scaler='precomputed'."""
+    ``ops.tokenize.fit_scaler`` for scaler='precomputed';
+    ``pca_embedding`` [F, feat_emb_dim] from
+    ``ops.tokenize.pca_feature_embedding`` for frontend='pca' (constants,
+    as in the JAX package: buffers, not parameters)."""
 
     def __init__(self, config: AMPGCNConfig,
                  scaler_stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 device="cuda", pca_embedding: Optional[np.ndarray] = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.config = cfg = config
         d = cfg.embedding_dim
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
-        self.tokenizer = FeatureTokenizer(cfg.tokenizer(), generator=generator)
+        self.tokenizer = FeatureTokenizer(cfg.tokenizer(), generator=generator,
+                                          pca_embedding=pca_embedding)
         self.conv1 = AMPConv(d, cfg.num_heads, cfg.attn_softmax, cfg.use_pallas, generator,
                              dtype)
         self.conv2 = AMPConv(d, cfg.num_heads, cfg.attn_softmax, cfg.use_pallas, generator,

@@ -115,6 +115,27 @@ def attention_core(
     return out.to(q.dtype), weights.to(q.dtype).mean(dim=1)
 
 
+def multihead_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    params: MHAParams,
+    num_heads: int,
+    softmax: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full MHA on [B, S, D] batches (torch nn.MultiheadAttention's math in
+    the JAX layout): the packed projection's thirds, ``attention_core``,
+    the out-projection. Returns (out [B, S, D], head-averaged weights
+    [B, S, S]). No attention dropout: the reference runs its MHA at 0."""
+    d = query.shape[-1]
+    w, b = params.w_qkv, params.b_qkv
+    q = query @ w[:, :d] + b[:d]
+    k = key @ w[:, d : 2 * d] + b[d : 2 * d]
+    v = value @ w[:, 2 * d :] + b[2 * d :]
+    out, weights = attention_core(q, k, v, num_heads, softmax=softmax)
+    return out @ params.w_out + params.b_out, weights
+
+
 def edge_attention_weights(
     x: torch.Tensor,
     senders: torch.Tensor,

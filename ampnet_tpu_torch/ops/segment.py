@@ -1,4 +1,5 @@
-"""Masked segment reductions (``ampnet_tpu/ops/segment.py`` in torch).
+"""Masked segment reductions (``ampnet_tpu/ops/segment.py`` in torch): sum,
+count, mean, max and softmax.
 
 All ops take an explicit validity mask so padded edges contribute nothing.
 
@@ -83,3 +84,60 @@ def segment_mean(
     total = segment_sum(data, segment_ids, num_segments, mask)
     count = segment_count(segment_ids, num_segments, mask).clamp_min(1.0)
     return total / count.reshape((-1,) + (1,) * (total.ndim - 1))
+
+
+def segment_max(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+    initial: Optional[float] = None,
+) -> torch.Tensor:
+    """Masked segment max. Empty segments (and segments whose every live row
+    is the dtype's lowest value or -inf) yield ``initial`` when given, else
+    0. Integer inputs keep their dtype. Max is order-free, so
+    ``scatter_reduce``'s atomics give the same bits every run."""
+    lowest = (torch.finfo(data.dtype).min if data.is_floating_point()
+              else torch.iinfo(data.dtype).min)
+    ids = segment_ids.long()
+    if mask is not None:
+        data = torch.where(mask.reshape((-1,) + (1,) * (data.ndim - 1)), data,
+                           torch.full((), lowest, dtype=data.dtype, device=data.device))
+        ids = torch.where(mask, ids, torch.zeros_like(ids))   # lowest changes no max
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), lowest, dtype=data.dtype,
+                     device=data.device)
+    index = ids.reshape((-1,) + (1,) * (data.ndim - 1)).expand_as(data)
+    out = out.scatter_reduce(0, index, data, reduce="amax", include_self=True)
+    empty = out == lowest
+    if out.is_floating_point():
+        empty |= torch.isneginf(out)
+    fill = torch.full((), 0 if initial is None else initial, dtype=out.dtype,
+                      device=out.device)
+    return torch.where(empty, fill, out)
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Numerically stable softmax within each segment over the leading axis;
+    masked lanes come out 0.
+
+    Masked lanes are clamped to the segment max BEFORE exp (the double
+    where): exp of a masked logit far above the live max overflows to inf,
+    and 0 * inf = nan would then poison the live lanes' gradients."""
+    ids = segment_ids.long()
+    if mask is not None:
+        ids = torch.where(mask, ids, torch.zeros_like(ids))
+    maxes = segment_max(logits, ids, num_segments, mask)
+    shifted = logits - maxes[ids]
+    if mask is not None:
+        m = mask.reshape((-1,) + (1,) * (shifted.ndim - 1))
+        shifted = torch.where(m, shifted, torch.zeros_like(shifted))
+    exp = torch.exp(shifted)
+    if mask is not None:
+        exp = torch.where(m, exp, torch.zeros_like(exp))
+    denom = segment_sum(exp, ids, num_segments, mask).clamp_min(1e-16)
+    return exp / denom[ids]

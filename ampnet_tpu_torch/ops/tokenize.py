@@ -2,7 +2,11 @@
 
 Port of ``ampnet_tpu/ops/tokenize.py``. Randomness comes from an explicit
 ``torch.Generator``; the samplers also take precomputed uniforms ``u`` so
-that a test can feed both packages the same draws.
+that a test can feed both packages the same draws. Balanced sampling
+without replacement is Gumbel top-k, as in the JAX package, on Gumbel
+noise from the torch generator (so its draws differ from JAX's, not its
+distribution). The PCA feature embedding is host numpy, computed once per
+dataset.
 """
 from __future__ import annotations
 
@@ -124,3 +128,58 @@ def gather_tokens(
     emb = feat_embedding[idx]
     vals = torch.take_along_dim(x_norm, idx, dim=1)
     return torch.cat([emb, vals[..., None]], dim=-1)
+
+
+def balanced_sample_features(
+    x: torch.Tensor,
+    num_samples: int,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,   # [N, F] in [0, 1)
+) -> torch.Tensor:
+    """Per node, ``num_samples`` indices WITHOUT replacement, the probability
+    mass split 50/50 between present (nonzero) and absent features
+    (amp_gcn.py:208-231; a node with none of one kind gives all the mass to
+    the other), by Gumbel top-k (Plackett-Luce: the distribution of
+    np.random.choice(replace=False, p=...)). Returns [N, num_samples] int64."""
+    n, f = x.shape
+    present = x != 0
+    n_present = present.sum(dim=1, keepdim=True).to(torch.float32)
+    n_absent = f - n_present
+    p_present = torch.where(n_present > 0, 0.5 / n_present.clamp_min(1.0),
+                            torch.zeros_like(n_present))
+    p_absent = torch.where(n_absent > 0, 0.5 / n_absent.clamp_min(1.0),
+                           torch.zeros_like(n_absent))
+    probs = torch.where(present, p_present, p_absent)
+    probs = probs / probs.sum(dim=1, keepdim=True)
+    logp = torch.log(probs.clamp_min(1e-30))
+    u = _uniforms((n, f), x.device, generator, u)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.topk(logp + gumbel, num_samples, dim=1).indices
+
+
+def tile_all_tokens(
+    x_norm: torch.Tensor,
+    feat_embedding: torch.Tensor,
+    feature_repeats: int,
+) -> torch.Tensor:
+    """The non-downsampled XOR path: the whole table tiled
+    ``feature_repeats`` times, every feature value attached
+    (amp_gcn.py:168-180). Tiled token j carries feature j % F: the values
+    are tiled to match the table's rows. Returns
+    [N, table_rows * feature_repeats, feat_dim + 1]."""
+    n = x_norm.shape[0]
+    table = feat_embedding.repeat(feature_repeats, 1)          # [S, feat_dim]
+    s = table.shape[0]
+    emb = table[None].expand(n, s, table.shape[1])
+    vals = x_norm.repeat(1, feature_repeats)[:, :s]
+    return torch.cat([emb, vals[..., None].to(emb.dtype)], dim=-1)
+
+
+def pca_feature_embedding(x: np.ndarray, n_components: int) -> np.ndarray:
+    """PCA of the transposed feature matrix, rows = features, columns = nodes
+    (amp_gcn.py:185-206 / utils/preprocess.py:8-26), on the host in float64
+    by an economy SVD. Returns [F, n_components] float32."""
+    xt = np.asarray(x, dtype=np.float64).T      # [F, N]
+    xt = xt - xt.mean(axis=0, keepdims=True)    # sklearn PCA centers columns
+    u, sv, _ = np.linalg.svd(xt, full_matrices=False)
+    return (u[:, :n_components] * sv[:n_components]).astype(np.float32)

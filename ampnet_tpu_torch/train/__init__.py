@@ -9,6 +9,7 @@ from ampnet_tpu_torch.train.checkpoint import (
 )
 from ampnet_tpu_torch.train.loop import train_full_batch, train_saint
 from ampnet_tpu_torch.train.losses import (
+    bce_with_logits,
     masked_accuracy,
     masked_mean_nll,
     nll_loss,
@@ -29,7 +30,7 @@ from ampnet_tpu_torch.train.state import (
 
 __all__ = [
     "cosine_warm_restarts", "make_optimizer", "nll_loss",
-    "masked_mean_nll", "masked_accuracy", "TrainState", "create_train_state",
+    "masked_mean_nll", "masked_accuracy", "bce_with_logits", "TrainState", "create_train_state",
     "make_train_step", "make_scan_train_step", "make_eval_step",
     "make_predict_step", "save_checkpoint", "load_checkpoint",
     "load_checkpoint_params", "save_params", "load_params", "restore_best", "resume_or_create",

@@ -1,6 +1,8 @@
 """Loss and metric functions (``ampnet_tpu/train/losses.py`` in torch)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -31,6 +33,20 @@ def saint_weighted_mean_nll(log_probs: torch.Tensor, labels: torch.Tensor,
     dominate the update)."""
     w = node_norm * mask.to(log_probs.dtype)
     return (nll_loss(log_probs, labels) * w).sum() / w.sum().clamp_min(1e-12)
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Binary cross entropy on logits (the sigmoid-out and XOR heads), in
+    its stable form max(z, 0) - z t + log1p(exp(-|z|)); the mean over the
+    masked entries when a mask is given."""
+    logits = logits.reshape(-1)
+    targets = targets.reshape(-1).to(logits.dtype)
+    per = logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    if mask is not None:
+        m = mask.reshape(-1).to(logits.dtype)
+        return (per * m).sum() / m.sum().clamp_min(1.0)
+    return per.mean()
 
 
 def masked_accuracy(log_probs: torch.Tensor, labels: torch.Tensor,

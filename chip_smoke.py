@@ -39,8 +39,13 @@ model limits):
      the loss must be finite and fall;
   D  a few training steps at S=20 (row stride SP=24 > S): the training
      forward runs K1 where inference runs K2;
+  native  the sampler of E and F (8 roots x 150 steps, coverage 100, seed
+     1) built on the native core (data/native.py, g++ at first use) and on
+     the numpy core in turns: build seconds and ms a subgraph of each; two
+     native builds array-equal; every induced edge inside its node set,
+     their count the numpy recount's;
   E  GraphSAINT training, the stabilized recipe (S=40, tfidf, gcn2 head, no
-     edge dropout; sampler of 8 roots x 150 steps, coverage 100; lr 3e-3
+     edge dropout; the native sampler of 8 roots x 150 steps, coverage 100; lr 3e-3
      cosine over the run, clip 1.0, saint_loss='mean', selection every epoch
      with the 8-draw full-graph eval) through train_saint, cut to
      SAINT_EPOCHS x SAINT_STEPS: subgraphs share one per-tile edge budget,
@@ -58,6 +63,23 @@ model limits):
      set: 2 K6 + 2 K3 + 2 K4 per step and no K1, gradients checked as in C;
      then the steps of D (S=20) with it: K6 where D runs K1;
   I  the eval of A with DMA_V1_DEFAULT set: K9 twice per draw and no K1.
+  K  the synthetic XOR recipe (experiments/synthetic_training_modular.py:
+     duplicated-feature XOR, 400 + 400 nodes, get_model('AMPNet') at D=32,
+     H=2, S=20 with use_pallas, Adam 5e-3, clip 1.0): all 200 epochs as
+     captured steps (2 K1 + 2 K3 + 2 K4, tensor cores) and one-draw evals of
+     the test graph (2 K1 or 2 K2, whichever the route picks); one step's
+     gradients and an eval against float64, the captured step against the
+     eager body bit for bit; then its GraphSAINT variant, 50 epochs of 10
+     subgraphs from native samplers (the node_norm-weighted sum), each
+     step's and each eval's launches exact. K1-K4 then get kernel rows at
+     K's shape (D=32, H=2, S=20 on its graphs), whose launches are K's.
+  synthetic_models  GCN, GCNOneLayer (PCA table), LinearLayer,
+     TwoLayerSigmoid and AMPNetClassifier (on the fused kernels) through
+     get_model, 3 captured steps each on the XOR graph and a forward against
+     float64; an RPG and a cyclic-CA graph through AMPGCN.
+  tokenizers  AMPGCN evals through the pca frontend, balanced sampling and
+     no downsampling (feature_repeats 1 and 5), launches by body, each
+     against float64.
   serving  the recommended recipe's model, trained a few steps and saved
      with save_params, served by a Predictor (default buckets of 512 nodes
      and 4096 edges): 6 requests in 3 buckets (the whole surrogate and
@@ -1643,13 +1665,21 @@ def loss_fell(name, losses, k=10):
     return dict(steps=len(losses), loss_first_mean=head, loss_last_mean=tail)
 
 
-def saint_sampler(data, seed_steps):
+def saint_sampler(data, seed_steps, use_native=True):
+    """The recipe's sampler on the Cora surrogate: 8 roots x 150 steps,
+    coverage 100, seed 1, on the native core (the JAX recipe's default)
+    unless ``use_native`` is False."""
     from ampnet_tpu_torch.data.graphsaint import GraphSaintRandomWalkSampler
 
     return GraphSaintRandomWalkSampler(
         data.x, data.edge_index, y=data.y, train_mask=data.train_mask,
         val_mask=data.val_mask, test_mask=data.test_mask, batch_size=8,
-        walk_length=150, num_steps=seed_steps, sample_coverage=100, seed=1)
+        walk_length=150, num_steps=seed_steps, sample_coverage=100, seed=1,
+        use_native=use_native)
+
+
+def sampler_core(sampler) -> str:
+    return "native" if sampler.use_native else "numpy"
 
 
 def warm_steps_ms(step, state, subs, layouts, passes=5):
@@ -1786,6 +1816,7 @@ def drive_saint(cfg, data, graph, seed, dev):
     name_e = "E S=40 GraphSAINT, train_saint"
     report_e = dict(path=name_e, cut=f"{SAINT_EPOCHS} epochs x {SAINT_STEPS} subgraphs "
                                      f"of the recipe's 50 x 200",
+                    sampler_core=sampler_core(sampler),
                     sampler_build_s=time.perf_counter() - t0,
                     pad_nodes_to=sampler.pad_nodes_to, pad_edges_to=sampler.pad_edges_to,
                     edge_budget=budget)
@@ -1838,6 +1869,7 @@ def drive_saint(cfg, data, graph, seed, dev):
     state = saint_state(model, tcfg, seed)
     step_f = make_pallas_train_step(model, loss_mode="saint_mean")
     sampler = saint_sampler(data, total)
+    report_f["sampler_core"] = sampler_core(sampler)
     losses = []
     eaf.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3921,6 +3953,521 @@ def bf16_phase(recipe, reference, saint_cfg, tcfg, data, graph, layout, seed, de
     return report, kernel_rows
 
 
+# ---- the native sampling core, the synthetic XOR recipe (path K), the
+# classifiers and the tokenizer modes
+
+# experiments/synthetic_training_modular.py's ARGS (:24-37) and model
+# (:63-70): duplicated-feature XOR, 400 + 400 nodes, noise 0.3, 10 nearest
+# neighbours, 5 repeats (10 features); AMPNet at D=32, H=2, S=20, dropout
+# rates 0; Adam at 5e-3, clip 1.0, masked-mean NLL, 200 epochs
+XOR_DATA = (400, 400, 0.3, 10, 5)
+XOR_MODEL = dict(embedding_dim=32, num_heads=2, num_node_features=10, num_sampled_vectors=20,
+                 output_dim=2, feat_emb_dim=31, val_emb_dim=1, dropout_rate=0.0,
+                 dropout_adj_rate=0.0, use_pallas=True)
+XOR_LR, XOR_EPOCHS = 5e-3, 200
+# its GraphSAINT variant (synthetic_training_modular_graphsaint.py:30-53):
+# one native sampler per split, the node_norm-weighted NLL sum, 50 epochs
+XOR_SAINT = dict(batch_size=4, walk_length=20, num_steps=10, sample_coverage=20, seed=0)
+XOR_SAINT_EPOCHS = 50
+
+
+def native_phase(data, seed) -> dict:
+    """The sampler of paths E and F (batch 8, walk 150, coverage 100, seed
+    1) built on each core in turns (native, numpy, native): build seconds
+    (pre-pass and pad probe) and host ms a subgraph of each; the two native
+    builds array-equal (norms, pad sizes, 10 padded subgraphs); every
+    induced edge of 20 native subgraphs inside its node set, no edge twice,
+    and as many edges as a numpy recount finds."""
+    import numpy as np
+
+    from ampnet_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    native.build_native()
+    report = {"library_build_s": time.perf_counter() - t0, "cores": {}}
+    built = []
+    for use_native in (True, False, True):
+        t0 = time.perf_counter()
+        sampler = saint_sampler(data, SAINT_STEPS, use_native)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        subs = [sampler.sample() for _ in range(10)]
+        ms = (time.perf_counter() - t0) * 1e3 / len(subs)
+        built.append((sampler, subs))
+        report["cores"].setdefault(sampler_core(sampler), []).append(dict(
+            sampler_build_s=build_s, ms_per_subgraph=ms,
+            pad_nodes_to=sampler.pad_nodes_to, pad_edges_to=sampler.pad_edges_to,
+            mean_nodes=float(np.mean([g.num_nodes for g in subs])),
+            mean_edges=float(np.mean([g.num_edges for g in subs])),
+            node_norm_mean=float(sampler.node_norm.mean())))
+    (a, subs_a), _, (b, subs_b) = built
+    same = (np.array_equal(a.node_norm, b.node_norm) and np.array_equal(a.edge_norm, b.edge_norm)
+            and (a.pad_nodes_to, a.pad_edges_to) == (b.pad_nodes_to, b.pad_edges_to)
+            and all(torch.equal(getattr(ga, f.name), getattr(gb, f.name))
+                    for ga, gb in zip(subs_a, subs_b) for f in dataclasses.fields(ga)
+                    if getattr(ga, f.name) is not None))
+    if not same:
+        fail("native: two builds of the native sampler differ for one seed")
+    rng = np.random.default_rng(seed)
+    edges = 0
+    for _ in range(20):
+        nodes, eids = a._subgraph(rng)
+        inside = np.zeros(a.N, bool)
+        inside[nodes] = True
+        recount = int((inside[a.edge_index[0]] & inside[a.edge_index[1]]).sum())
+        if (not inside[a.edge_index[:, eids]].all() or len(np.unique(eids)) != len(eids)
+                or recount != len(eids)):
+            fail(f"native: an induced subgraph of {len(nodes)} nodes has {len(eids)} edges, "
+                 f"the numpy recount {recount}, or an edge with an end outside its nodes")
+        edges += len(eids)
+    report.update(builds_equal=True, induced_subgraphs_checked=20, induced_edges_checked=edges)
+    return report
+
+
+def xor_graphs(dev=None):
+    """The recipe's (train, test) duplicated-XOR graphs, on ``dev``."""
+    from ampnet_tpu_torch.data.synthetic import get_duplicated_xor_graphs
+
+    graphs = get_duplicated_xor_graphs(*XOR_DATA, seed=0)
+    return tuple(g.to(dev) for g in graphs) if dev is not None else graphs
+
+
+def xor_model(seed, dev, **over):
+    from ampnet_tpu_torch.models import get_model
+
+    return get_model("AMPNet", **{**XOR_MODEL, **over},
+                     generator=torch.Generator().manual_seed(seed), device=dev)
+
+
+def xor_state(model, seed):
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer
+
+    return create_train_state(model, make_optimizer(model.parameters(), XOR_LR, grad_clip=1.0),
+                              seed=seed)
+
+
+def f64_check(name, model, graph, layout, sampled_idx=None, limits=(MODEL_RTOL, MODEL_ATOL),
+              **call):
+    """One deterministic forward on the card (its draw ``sampled_idx``)
+    against the same model and draw in float64 on the CPU, its AMPConvs on
+    the plain oracle; fail beyond the model limits. Returns the max abs
+    error."""
+    with torch.no_grad():
+        card = model(graph, sampled_idx=sampled_idx, edge_layout=layout, **call).cpu()
+        ref = copy.deepcopy(model).to("cpu", torch.float64)
+        for conv in (getattr(ref, "conv1", None), getattr(ref, "conv2", None)):
+            if hasattr(conv, "use_pallas"):
+                conv.use_pallas, conv.dtype = False, None
+        g = graph.to("cpu")
+        g.x = g.x.double()
+        want = ref(g, sampled_idx=None if sampled_idx is None else sampled_idx.cpu(), **call)
+    if not torch.isfinite(card).all():
+        fail(f"{name}: non-finite output on the card")
+    err = float((card.double() - want).abs().max())
+    if not torch.allclose(card.double(), want, rtol=limits[0], atol=limits[1]):
+        fail(f"{name}: the card's output disagrees with the CPU float64 forward "
+             f"(max abs err {err:.3g})")
+    return err
+
+
+def used(bodies) -> dict:
+    """body_launch_counts() without the bodies that did not run."""
+    return {k: {b: n for b, n in v.items() if n} for k, v in bodies.items() if any(v.values())}
+
+
+def eval_launches(name, evaluate, graph, layout, dev, seed):
+    """The launches of one captured eval (its capture and one replay): 2 of
+    K1 or 2 of K2, whichever the forward route picks, on the tensor cores."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    eaf.reset_launch_counts()
+    metrics = evaluate(graph, torch.Generator(device=dev).manual_seed(seed), layout)
+    counts = eaf.launch_counts()
+    if counts not in (launches(k1=2), launches(k2=2)):
+        fail(f"{name}: one eval launched {counts}, expected 2 K1 or 2 K2")
+    if not finite([float(v) for v in metrics.values()]):
+        fail(f"{name}: non-finite eval metrics {metrics}")
+    return counts, used(tensor_cores_only(name, counts, ("tc",)))
+
+
+def path_k(seed, dev) -> tuple:
+    """Path K, the synthetic XOR recipe on the card: get_model('AMPNet'),
+    make_train_step (a captured step: 2 K1 + 2 K3 + 2 K4, tensor cores) and
+    make_eval_step on the test graph (one draw an epoch, as the script's
+    PRNGKey(epoch)) for all 200 epochs; before that one step's gradients
+    against float64 autograd, and the captured step against the eager body
+    from one state (step costs of both; after the same steps, parameters,
+    Adam's state and generator equal bit for bit); after it the test
+    graph's logits of one draw against float64. Then the GraphSAINT
+    variant through native samplers (per step the same launches, per eval
+    one kernel's). Returns (the XOR recipe's launches, the GraphSAINT
+    variant's, report)."""
+    import numpy as np
+
+    from ampnet_tpu_torch.data.graphsaint import GraphSaintRandomWalkSampler
+    from ampnet_tpu_torch.data.synthetic import create_duplicated_xor_data
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.ops.tokenize import sample_present_features
+    from ampnet_tpu_torch.train import make_eval_step, make_train_step
+    from ampnet_tpu_torch.train.loop import _saint_layout_budget
+    from ampnet_tpu_torch.train.state import _train_step_body
+
+    name = "K synthetic XOR recipe, D=32 H=2 S=20"
+    train_g, test_g = xor_graphs(dev)
+    lay_train, lay_test = compute_layout(train_g), compute_layout(test_g)
+    report = dict(path=name, source="experiments/synthetic_training_modular.py:24-37,63-70",
+                  nodes_edges=[[g.num_nodes, g.num_edges] for g in (train_g, test_g)])
+    report["gradient_check"] = gradient_check(name, xor_model(seed, dev), train_g, lay_train,
+                                              seed)
+
+    probe, twin = xor_model(seed, dev), xor_model(seed, dev)
+    state, state_e = xor_state(probe, seed), xor_state(twin, seed)
+    step, eager = make_train_step(probe), _train_step_body(twin)
+    eaf.reset_launch_counts()
+    _, first_ms, peak = first_call(lambda: step(state, train_g, lay_train))
+    per_step = eaf.launch_counts()
+    if per_step != launches(k1=2, k3=2, k4=2):
+        fail(f"path {name}: one training step launched {per_step}, expected 2 K1 + 2 K3 + 2 K4")
+    step_bodies = used(tensor_cores_only(name, per_step, ("tc",)))
+    eager(state_e, train_g, lay_train)
+    costs = eager_and_captured(name, lambda: eager(state_e, train_g, lay_train),
+                               lambda: step(state, train_g, lay_train), 10, first_ms)
+    pairs = {k: (p, q) for (k, p), q in zip(probe.named_parameters(), twin.parameters())}
+    for i, (p, q) in enumerate(zip(state.optimizer.params, state_e.optimizer.params)):
+        for k, t in state.optimizer.adam.state[p].items():
+            pairs[f"adam_{i}_{k}"] = (t, state_e.optimizer.adam.state[q][k])
+    pairs["generator"] = (state.generator.get_state(), state_e.generator.get_state())
+    report.update(train_step_first_ms=first_ms, first_call_max_memory_allocated=peak,
+                  train_step_warm_ms=costs["captured"]["warm_ms"],
+                  eager_train_step_warm_ms=costs["eager"]["warm_ms"],
+                  capture_ms=costs["capture_ms"], profile=costs["captured"]["profile"],
+                  eager=costs["eager"], captured=costs["captured"],
+                  captured_equals_eager=dict(steps=state.step, compared=len(pairs),
+                                             max_abs_diff=bit_for_bit("K", pairs)),
+                  per_step_launches=per_step, per_step_bodies=step_bodies)
+
+    model = xor_model(seed, dev)
+    st = xor_state(model, seed)
+    step, evaluate = make_train_step(model, loss_mode="full"), make_eval_step(model)
+    report["per_eval_launches"], report["per_eval_bodies"] = eval_launches(
+        name, evaluate, test_g, lay_test, dev, seed)
+    rows = []
+    eaf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in range(XOR_EPOCHS):
+        st, m = step(st, train_g, lay_train)
+        tm = evaluate(test_g, torch.Generator(device=dev).manual_seed(epoch), lay_test)
+        rows.append((m["loss"], m["train_acc"], tm["train_acc"]))
+    torch.cuda.synchronize()
+    report["train_s"] = time.perf_counter() - t0
+    counts = eaf.launch_counts()
+    bodies = used(tensor_cores_only(name, counts, ("tc",)))
+    want = {k: XOR_EPOCHS * (per_step[k] + report["per_eval_launches"][k]) for k in KERNELS}
+    if counts != want:
+        fail(f"path {name} launched {counts}, expected {want}")
+    losses, train_acc, test_acc = ([float(r[i]) for r in rows] for i in range(3))
+    report.update(epochs=XOR_EPOCHS, **loss_fell(name, losses), max_train_acc=max(train_acc),
+                  max_test_acc=max(test_acc), final_test_acc=test_acc[-1], launches=counts,
+                  bodies=bodies)
+    sidx = sample_present_features(test_g.x, XOR_MODEL["num_sampled_vectors"],
+                                   generator=torch.Generator(device=dev).manual_seed(seed + 2))
+    report["eval_cpu_f64_max_abs_err"] = f64_check(name, model, test_g, lay_test, sidx)
+
+    # the GraphSAINT variant: train and test streamed through native samplers
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    samplers = []
+    for ns in XOR_DATA[:2]:
+        x, y, _, ei = create_duplicated_xor_data(ns, *XOR_DATA[2:], rng)
+        samplers.append(GraphSaintRandomWalkSampler(
+            x, ei, y=y.astype(np.int32), train_mask=np.ones(ns, bool), **XOR_SAINT))
+    train_s, test_s = samplers
+    budgets = [_saint_layout_budget(s) for s in samplers]
+    saint = dict(source="experiments/synthetic_training_modular_graphsaint.py:30-53",
+                 sampler_core=sampler_core(train_s), sampler_build_s=time.perf_counter() - t0,
+                 pad=[[s.pad_nodes_to, s.pad_edges_to] for s in samplers], edge_budget=budgets)
+    model = xor_model(seed, dev)
+    st = xor_state(model, seed)
+    step, evaluate = make_train_step(model, loss_mode="saint"), make_eval_step(model)
+    rows, per_eval = [], None
+    eaf.reset_launch_counts()
+    t0 = time.perf_counter()
+    for epoch in range(XOR_SAINT_EPOCHS):
+        for sub in train_s.prefetch():
+            lay = compute_layout(sub, edges_per_tile=budgets[0])
+            st, m = step(st, sub.to(dev), lay.to(dev))
+        sub = test_s.sample()
+        before = eaf.launch_counts()
+        tm = evaluate(sub.to(dev), torch.Generator(device=dev).manual_seed(epoch),
+                      compute_layout(sub, edges_per_tile=budgets[1]).to(dev))
+        # every eval runs one subgraph of the test sampler's padded shape:
+        # the same kernel, 2 K1 or 2 K2, each time
+        one = {k: n - before[k] for k, n in eaf.launch_counts().items()}
+        if per_eval is None and one in (launches(k1=2), launches(k2=2)):
+            per_eval = one
+        if one != per_eval:
+            fail(f"path {name}, GraphSAINT: eval {epoch} launched {one}, expected "
+                 f"{per_eval or '2 K1 or 2 K2'}")
+        rows.append((m["loss"], m["train_acc"], tm["train_acc"]))
+    torch.cuda.synchronize()
+    saint["train_s"] = time.perf_counter() - t0
+    counts_s = eaf.launch_counts()
+    saint_bodies = used(tensor_cores_only(name, counts_s, ("tc",)))
+    steps = XOR_SAINT_EPOCHS * XOR_SAINT["num_steps"]
+    want = {k: steps * per_step[k] + XOR_SAINT_EPOCHS * per_eval[k] for k in KERNELS}
+    if counts_s != want:
+        fail(f"path {name}, GraphSAINT: launched {counts_s} in {steps} steps and "
+             f"{XOR_SAINT_EPOCHS} evals, expected {want}")
+    losses, train_acc, test_acc = ([float(r[i]) for r in rows] for i in range(3))
+    if not finite(losses):
+        fail(f"path {name}, GraphSAINT: a non-finite loss")
+    saint.update(epochs=XOR_SAINT_EPOCHS, steps=steps, loss_first=losses[0],
+                 loss_last=losses[-1], max_train_acc=max(train_acc), max_test_acc=max(test_acc),
+                 per_eval_launches=per_eval, launches=counts_s, bodies=saint_bodies)
+    report["graphsaint"] = saint
+    return counts, counts_s, report
+
+
+def xor_kernel_rows(seed, dev, counts_k, by_path) -> list:
+    """K1, K3 and K4 on path K's training graph and K2 on its test graph,
+    at the XOR model's D=32, H=2, S=20 (every edge live, as the recipe's
+    graphs are): each against its plain version, its time, its plain
+    version's and its bound. ``launches`` is path K's count (its 200 epochs
+    ran at this shape); ``launches_by_path`` adds the slice's other paths,
+    which ran the kernel at other shapes (GraphSAINT subgraphs, D=8, the
+    tokenizer configs)."""
+    from ampnet_tpu_torch.models.layers import AMPConv
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper.format import (compute_layout, edge_slot_valid,
+                                                    snd_slot_valid)
+    from ampnet_tpu_torch.ops.segment import segment_count
+
+    d, h = XOR_MODEL["embedding_dim"], XOR_MODEL["num_heads"]
+    s = XOR_MODEL["num_sampled_vectors"]
+    sp = -(-s // 8) * 8
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+
+    def row(name, graph_name, source, replaces, run, plain, nbytes, flops):
+        eaf.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        tensor_cores_only(f"K {name}", eaf.launch_counts(), ("tc",))
+        err = compare(f"{name} (path K's shape)", got, plain())
+        if not torch.equal(got, run()):
+            fail(f"{name} (path K's shape): a second launch differs from the first")
+        b, by = bound_ms(nbytes, flops, True)
+        paths = {k: c[name] for k, c in by_path.items() if c[name]}
+        rows.append(dict(
+            name=name, route="cuda", source=f"ampnet_tpu_torch/ops/hopper/csrc/{source}",
+            replaces=replaces, launches=counts_k[name], launches_by_path=paths, s=s, d=d, h=h,
+            graph=graph_name, max_abs_err=err, ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+            bound_ms=b, bound_by=by, library_ms=None, precision="3xtf32"))
+
+    train_g, test_g = xor_graphs(dev)
+    layout = compute_layout(train_g)
+    n, nt = train_g.num_nodes_padded, layout.recv_ptr.numel() - 1
+    idx = (layout.tile_senders, edge_slot_valid(layout, train_g.edge_mask), layout.recv_ptr,
+           layout.recv_slots)
+    snd_idx = (layout.snd_receivers, snd_slot_valid(layout, train_g.edge_mask),
+               layout.snd_ptr, layout.snd_slots)
+    live = int(idx[1].sum())
+    index_bytes = 4 * (2 * layout.tile_senders.numel() + layout.recv_ptr.numel()
+                       + layout.recv_slots.numel())
+    snd_index_bytes = 4 * (2 * layout.snd_receivers.numel() + layout.snd_ptr.numel()
+                           + layout.snd_slots.numel())
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=dev)
+    q, kv = qkv[:, :d], qkv[:, d:]
+    dsum = torch.randn(nt * sp, d, generator=gen, device=dev)
+    qdm = torch.cat([q, dsum], 1)
+    # the bytes and products as kernel_phases prices them at the Cora shapes
+    row("edge_attention_sums", "XOR train", "edge_attention_tc.cu",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:691",
+        lambda: eaf.edge_attention_sums(q, kv, *idx, **kw),
+        lambda: eaf.edge_attention_sums_plain(q, kv, *idx, **kw),
+        4 * d * n * s * 4 + index_bytes, 4 * s * s * d * live)
+    row("edge_attention_bwd_dq", "XOR train", "edge_attention_bwd_dq_tc.cu",
+        "ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:167",
+        lambda: bwd.edge_attention_bwd_dq(q, kv, dsum, *idx, **kw),
+        lambda: bwd.edge_attention_bwd_dq_plain(q, kv, dsum, *idx, **kw),
+        5 * d * n * s * 4 + index_bytes, 6 * s * s * d * live)
+    row("edge_attention_bwd_dkv", "XOR train", "edge_attention_bwd_tc.cu",
+        "ampnet_tpu/ops/pallas/edge_attention_bwd_scatterfree.py:280",
+        lambda: bwd.edge_attention_bwd_dkv(qdm, kv, *snd_idx, **kw),
+        lambda: bwd.edge_attention_bwd_dkv_plain(qdm, kv, *snd_idx, **kw),
+        6 * d * n * s * 4 + snd_index_bytes, 8 * s * s * d * live)
+    del qkv, q, kv, dsum, qdm
+
+    layout = compute_layout(test_g)
+    n, nt = test_g.num_nodes_padded, layout.recv_ptr.numel() - 1
+    idx = (layout.tile_senders, edge_slot_valid(layout, test_g.edge_mask), layout.recv_ptr,
+           layout.recv_slots)
+    live = int(idx[1].sum())
+    index_bytes = 4 * (2 * layout.tile_senders.numel() + layout.recv_ptr.numel()
+                       + layout.recv_slots.numel())
+    conv = AMPConv(d, h, generator=torch.Generator().manual_seed(seed)).to(dev)
+    with torch.no_grad():
+        conv.b_qkv.normal_(0.0, 0.1, generator=gen)
+        conv.b_out.normal_(0.0, 0.1, generator=gen)
+    w = [t.detach().contiguous() for t in conv.params()]
+    x_rows = torch.randn(nt * sp, d, generator=gen, device=dev)
+    count = segment_count(test_g.receivers, n, test_g.edge_mask)
+    invdeg = torch.where(count > 0, 1.0 / count.clamp_min(1.0), torch.zeros_like(count))
+    invdeg = torch.nn.functional.pad(invdeg, (0, nt - n))
+    live_recv = int((count > 0).sum())
+    row("edge_attention_layer", "XOR test",
+        "edge_attention_layer_tc.cu + ampnet_tpu_torch/ops/hopper/csrc/edge_attention_tc.cuh",
+        "ampnet_tpu/ops/pallas/edge_attention_fused.py:763",
+        lambda: eaf.edge_attention_layer(x_rows, *w, invdeg, *idx, **kw),
+        lambda: eaf.edge_attention_layer_plain(x_rows, *w, invdeg, *idx, **kw),
+        4 * (2 * n * s * d + 4 * d * d + 4 * d + nt) + index_bytes,
+        2 * n * s * d * 3 * d + 4 * s * s * d * live + 2 * s * d * d * live_recv)
+    return rows
+
+
+def two_class_forward(model):
+    """A one-logit head's training forward as two-class log-probs
+    [log(1 - sigmoid(z)), log sigmoid(z)]: their NLL is the BCE on z."""
+    def forward(graph, layout, generator):
+        z = model(graph, deterministic=False, generator=generator, edge_layout=layout)
+        return torch.cat([torch.nn.functional.logsigmoid(-z),
+                          torch.nn.functional.logsigmoid(z)], dim=1)
+    return forward
+
+
+def synthetic_models_phase(seed, dev) -> tuple:
+    """The classifiers through get_model on the recipe's XOR training graph:
+    3 captured training steps each (Adam 5e-3, clip 1.0; the one-logit MLPs
+    on BCE, as two-class log-probs), finite losses, then one deterministic
+    forward on the card against float64 on the CPU (GCNOneLayer on a fixed
+    balanced draw). AMPNetClassifier on embed_features_old's tokens (S=10,
+    D=8, H=2) through the fused kernels. Then one RPG and one cyclic-CA
+    graph through AMPGCN (use_pallas) on the card: an eval and a fixed
+    draw against float64. Returns (launches, report)."""
+    import numpy as np
+
+    from ampnet_tpu_torch.data.synthetic import make_cyclic_ca_graph, make_rpg_graph
+    from ampnet_tpu_torch.models import get_model
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.ops.tokenize import (balanced_sample_features,
+                                               pca_feature_embedding, sample_present_features)
+    from ampnet_tpu_torch.train import make_eval_step, make_train_step
+    from ampnet_tpu_torch.utils import embed_features_old
+
+    host, _ = xor_graphs()
+    x = host.x[: host.num_nodes].numpy()
+    nf = XOR_MODEL["num_node_features"]
+    tokens = np.zeros((host.x.shape[0], nf * 8), np.float32)
+    tokens[: host.num_nodes] = embed_features_old(x, 7, 1)
+    gen = torch.Generator().manual_seed(seed)
+    cases = {
+        "GCN": (dict(num_node_features=nf, feat_emb_dim=7, val_emb_dim=1, output_dim=2), host),
+        "GCNOneLayer": (dict(pca_embedding=pca_feature_embedding(x, 7), num_node_features=nf,
+                             num_sampled_vectors=5, output_dim=2, feat_emb_dim=7,
+                             val_emb_dim=1), host),
+        "LinearLayer": (dict(in_dim=nf), host),
+        "TwoLayerSigmoid": (dict(in_dim=nf), host),
+        "AMPNetClassifier": (dict(num_heads=2, embed_dim=8, n_original_features=nf, out_dim=2),
+                             dataclasses.replace(host, x=torch.from_numpy(tokens))),
+    }
+    report, total = {}, launches()
+    for name, (kw, g) in cases.items():
+        g = g.to(dev)
+        model = get_model(name, generator=gen, device=dev, **kw)
+        layout = compute_layout(g) if name == "AMPNetClassifier" else None
+        one_logit = name in ("LinearLayer", "TwoLayerSigmoid")
+        step = make_train_step(model, "full", forward=two_class_forward(model)
+                               if one_logit else None)
+        st = xor_state(model, seed)
+        eaf.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [float(step(st, g, layout)[1]["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        counts = eaf.launch_counts()
+        want = launches(k1=6, k3=6, k4=6) if layout is not None else launches()
+        if counts != want or not finite(losses):
+            fail(f"synthetic_models, {name}: 3 steps launched {counts} (expected {want}), "
+                 f"losses {losses}")
+        sidx = (balanced_sample_features(g.x, 5, generator=torch.Generator(device=dev)
+                                         .manual_seed(seed)) if name == "GCNOneLayer" else None)
+        report[name] = dict(steps_s=time.perf_counter() - t0, losses=losses, launches=counts,
+                            bodies=used(tensor_cores_only(name, counts, ("tc",))),
+                            cpu_f64_max_abs_err=f64_check(name, model, g, layout, sidx))
+        total = {k: total[k] + counts[k] for k in KERNELS}
+
+    for name, g, classes in (
+            ("RPG", make_rpg_graph(3, 100, rng=np.random.default_rng(seed)), 3),
+            ("cyclic CA", make_cyclic_ca_graph(rng=np.random.default_rng(seed)), 6)):
+        g = g.to(dev)
+        layout = compute_layout(g)
+        model = xor_model(seed, dev, num_node_features=3, num_sampled_vectors=8,
+                          output_dim=classes)
+        counts, bodies = eval_launches(name, make_eval_step(model), g, layout, dev, seed)
+        sidx = sample_present_features(g.x, 8, generator=torch.Generator(device=dev)
+                                       .manual_seed(seed))
+        report[name] = dict(nodes_edges=[g.num_nodes, g.num_edges], eval_launches=counts,
+                            bodies=bodies,
+                            cpu_f64_max_abs_err=f64_check(name, model, g, layout, sidx))
+        total = {k: total[k] + counts[k] for k in KERNELS}
+    return total, report
+
+
+def tokenizers_phase(seed, dev) -> tuple:
+    """AMPGCN evals (use_pallas, a captured eval step) through the
+    tokenizer's other modes: the pca frontend and balanced sampling on the
+    recipe's XOR graph, and no downsampling on the XOR config of the verify
+    notes (F=2, D=16, H=2, get_xor_graphs(64, 64)) at feature_repeats 1 and
+    5; each with its launches by body and one draw against float64.
+    Returns (launches, report)."""
+    from ampnet_tpu_torch.data.synthetic import get_xor_graphs
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.ops.tokenize import (balanced_sample_features,
+                                               pca_feature_embedding, sample_present_features)
+    from ampnet_tpu_torch.train import make_eval_step
+
+    host, _ = xor_graphs()
+    x = host.x[: host.num_nodes].numpy()
+    xor2 = get_xor_graphs(64, 64, seed=seed)[0]
+    plain = dict(embedding_dim=16, feat_emb_dim=15, val_emb_dim=1, num_heads=2,
+                 num_node_features=2, num_sampled_vectors=2, output_dim=2,
+                 downsample_feature_vectors=False)
+    cases = {
+        "pca": (host, dict(embedding_dim=8, feat_emb_dim=7, frontend="pca"),
+                dict(pca_embedding=pca_feature_embedding(x, 7))),
+        # without replacement: S <= F
+        "balanced_sampling": (host, dict(num_sampled_vectors=8), {}),
+        "downsample=False, feature_repeats=1": (xor2, dict(plain, feature_repeats=1), {}),
+        "downsample=False, feature_repeats=5": (xor2, dict(plain, feature_repeats=5), {}),
+    }
+    report, total = {}, launches()
+    for name, (g, over, kw) in cases.items():
+        g = g.to(dev)
+        layout = compute_layout(g)
+        model = xor_model(seed, dev, **over, **kw)
+        if name == "balanced_sampling":
+            model.tokenizer.config = dataclasses.replace(model.tokenizer.config,
+                                                         balanced_sampling=True)
+        counts, bodies = eval_launches(name, make_eval_step(model), g, layout, dev, seed)
+        sidx = None
+        if model.config.downsample_feature_vectors:
+            draw = (balanced_sample_features if name == "balanced_sampling"
+                    else sample_present_features)
+            sidx = draw(g.x, model.config.num_sampled_vectors,
+                        generator=torch.Generator(device=dev).manual_seed(seed))
+        with torch.no_grad():
+            out = model(g, sampled_idx=sidx, edge_layout=layout, return_aux=True)
+        report[name] = dict(tokens=out.aux["attn_weights_1"].shape[-1], eval_launches=counts,
+                            bodies=bodies,
+                            cpu_f64_max_abs_err=f64_check(name, model, g, layout, sidx))
+        total = {k: total[k] + counts[k] for k in KERNELS}
+    return total, report
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4016,6 +4563,12 @@ def main() -> int:
     if counts_d != want_d:
         fail(f"path D launched {counts_d}, expected {want_d}")
 
+    # the sampler of E and F on both cores; then E and F on the native one
+    t0 = time.perf_counter()
+    native_report = native_phase(data, args.seed)
+    native_report["phase_s"] = time.perf_counter() - t0
+    emit({"native": native_report})
+
     # paths E and F: GraphSAINT subgraph training, through both backwards
     saint = dataclasses.replace(recipe, dropout_adj_rate=0.0)
     counts_e, path_e, counts_f, path_f, prep = drive_saint(saint, data, graph, args.seed, dev)
@@ -4069,6 +4622,21 @@ def main() -> int:
         if counts_i != launches(k9=16):
             fail(f"path I launched {counts_i}, expected 16 edge_attention_sums_v1")
 
+    # path K (the synthetic XOR recipe and its GraphSAINT variant), the
+    # classifiers, the tokenizer modes
+    t0 = t_k = time.perf_counter()
+    counts_k, counts_k_saint, path_k_report = path_k(args.seed, dev)
+    path_k_report["phase_s"] = time.perf_counter() - t0
+    emit(dict(path_k_report, card=smi))
+    slice_counts = {"K": counts_k, "K GraphSAINT": counts_k_saint}
+    for key, phase in (("synthetic_models", synthetic_models_phase),
+                       ("tokenizers", tokenizers_phase)):
+        t0 = time.perf_counter()
+        slice_counts[key], phase_report = phase(args.seed, dev)
+        emit({key: dict(phase_report, phase_s=time.perf_counter() - t0, card=smi)})
+    emit({"native_and_synthetic_s": native_report["phase_s"] + time.perf_counter() - t_k})
+    xor_rows = xor_kernel_rows(args.seed, dev, counts_k, slice_counts)
+
     # the serving path: Predictor, one captured graph per bucket, hot swap
     emit({"serving": serving_phase(recipe, reference, data, graph, args.seed, dev)})
 
@@ -4117,11 +4685,14 @@ def main() -> int:
     if len(kernels) != len(KERNELS) or any(k["launches"] < 1 for k in kernels):
         fail(f"a kernel of the paths was never launched: "
              f"{ {k['name']: k['launches'] for k in kernels} }")
-    # and a row for each bf16 body (launches from the bf16 phase's paths,
-    # bf16_wide and path J)
-    kernels += bf16_rows + simt_rows
+    # K1-K4 at path K's shape (launches from path K; path K's GraphSAINT
+    # variant, synthetic_models and tokenizers apart, by path), and a row
+    # for each bf16 body (launches from the bf16 phase's paths, bf16_wide
+    # and path J)
+    kernels += xor_rows + bf16_rows + simt_rows
     # a row's `s` (the bf16 rows') beside its launches: the shape they ran at
-    keys = ("name", "route", "source", "replaces", "launches", "s", "max_abs_err", "ms",
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "s",
+            "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "prev_ms", "speedup", "regs",
             "spills", "blocks_per_sm", "stages", "smem_bytes", "precision", "projection_ms",
             "attention_ms", "out_projection_ms", "prev_projection_ms", "prev_attention_ms",

@@ -100,14 +100,15 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ampnet_tpu")
 PORT_MODULES = {
     "": ["__init__", "convert", "serving"],
     "core": ["__init__", "config", "graph"],
-    "data": ["__init__", "graphsaint", "planetoid"],
-    "models": ["__init__", "amp_gcn", "layers", "tokenizer"],
-    "ops": ["__init__", "edge_attention", "gcn", "segment", "tokenize"],
+    "data": ["__init__", "graphsaint", "native", "planetoid", "synthetic"],
+    "models": ["__init__", "amp_gcn", "classifiers", "layers", "tokenizer"],
+    "ops": ["__init__", "custom_mha", "edge_attention", "gcn", "segment", "tokenize"],
     "ops/hopper": ["__init__", "build", "edge_attention_bwd",
                    "edge_attention_bwd_scatterfree", "edge_attention_fused",
                    "edge_attention_variants", "format", "launch"],
     "train": ["__init__", "checkpoint", "graphs", "loop", "losses", "optim", "pallas_step",
               "profiling", "rundir", "state"],
+    "utils": ["__init__", "preprocess"],
 }
 # the port's scripts outside the package
 PORT_SCRIPTS = ["chip_smoke.py", "scripts/torch_body_sweep.py", "scripts/torch_path_a_replay.py"]

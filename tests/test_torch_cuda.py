@@ -1999,3 +1999,46 @@ def test_bf16_stream_backward_captured_step_equals_eager(cuda, monkeypatch, mode
     assert not any(sum(bodies[k].values()) for k in bodies
                    if k not in ("edge_attention_sums", "edge_attention_bwd_stream")), bodies
     assert all(p.dtype == torch.float32 for p in one.model.parameters())
+
+
+@pytest.mark.parametrize("feature_repeats,downsample", [(5, True), (1, False)])
+def test_xor_model_fused_matches_plain_on_card(cuda, feature_repeats, downsample):
+    """The synthetic XOR recipe's model (get_model('AMPNet'), D=32, H=2,
+    S=20; and the non-downsampled config, every feature a token) with
+    use_pallas on a layout against the same weights on the plain path, on
+    the card: logits of one draw and every gradient of the masked-mean NLL;
+    the forward runs K1 and the backward K3 + K4 on the tensor cores."""
+    from ampnet_tpu_torch.data.synthetic import get_duplicated_xor_graphs
+    from ampnet_tpu_torch.models import get_model
+    from ampnet_tpu_torch.train.losses import masked_mean_nll
+
+    gt, _ = get_duplicated_xor_graphs(96, 32, 0.3, 10, feature_repeats, seed=0)
+    nf = 2 * feature_repeats
+    d = 32 if downsample else 16
+    kw = dict(embedding_dim=d, num_heads=2, num_node_features=nf, num_sampled_vectors=20,
+              output_dim=2, feat_emb_dim=d - 1, val_emb_dim=1, dropout_rate=0.0,
+              dropout_adj_rate=0.0, downsample_feature_vectors=downsample,
+              feature_repeats=feature_repeats)
+    fused = get_model("AMPNet", use_pallas=True, device=cuda, **kw)
+    plain = get_model("AMPNet", device=cuda, **kw)
+    plain.load_state_dict(fused.state_dict())
+    g = gt.to(cuda)
+    layout = compute_layout(g).to(cuda)
+    sidx = (torch.randint(0, nf, (g.x.shape[0], 20), generator=torch.Generator().manual_seed(0))
+            .to(cuda) if downsample else None)
+    out = {}
+    eaf.reset_launch_counts()
+    for name, model, lay in (("fused", fused, layout), ("plain", plain, None)):
+        model.zero_grad(set_to_none=True)
+        logits = model(g, deterministic=False, generator=torch.Generator(device=cuda),
+                       sampled_idx=sidx, edge_layout=lay)
+        masked_mean_nll(logits, g.y, g.train_mask & g.node_mask).backward()
+        out[name] = (logits.detach(), {k: p.grad for k, p in model.named_parameters()})
+    counts = eaf.launch_counts()
+    assert counts["edge_attention_sums"] == 2 and counts["edge_attention_bwd_dq"] == 2
+    assert counts["edge_attention_bwd_dkv"] == 2
+    assert all(b == "tc" for k in eaf.body_launch_counts().values() for b, n in k.items() if n)
+    torch.testing.assert_close(out["fused"][0], out["plain"][0], rtol=RTOL, atol=ATOL)
+    for k, gp in out["plain"][1].items():
+        torch.testing.assert_close(out["fused"][1][k], gp, rtol=RTOL,
+                                   atol=ATOL * max(1.0, float(gp.abs().max())), msg=k)

@@ -121,12 +121,14 @@ def test_single_draw_eval_step_matches_jax_step_shape(rng):
 
 
 def test_unported_model_options_raise(rng):
-    """The options still to port raise; bfloat16 compute, ported now, builds
-    and runs (finite f32 log-probs of the padded graph's shape), and an
-    unknown compute type raises."""
-    for over in (dict(frontend="pca"), dict(downsample_feature_vectors=False)):
-        with pytest.raises(NotImplementedError):
-            AMPGCN(dataclasses.replace(AMPGCNConfig(**CFG), **over), device="cpu")
+    """Every model option is ported now: the pca frontend without its table
+    and an unknown frontend raise as the JAX package's do; bfloat16 compute
+    builds and runs (finite f32 log-probs of the padded graph's shape), and
+    an unknown compute type raises."""
+    with pytest.raises(ValueError, match="pca_embedding"):
+        AMPGCN(dataclasses.replace(AMPGCNConfig(**CFG), frontend="pca"), device="cpu")
+    with pytest.raises(ValueError, match="unknown frontend"):
+        AMPGCN(dataclasses.replace(AMPGCNConfig(**CFG), frontend="onehot"), device="cpu")
     x, _, gt = graphs(rng)
     model = AMPGCN(dataclasses.replace(AMPGCNConfig(**CFG), compute_dtype="bfloat16"),
                    scaler_stats=fit_scaler(x), device="cpu")

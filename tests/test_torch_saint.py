@@ -1,5 +1,6 @@
 """The port's GraphSAINT slice against the JAX package: the sampler
-(array-equal subgraphs for one seed, the JAX side on its numpy path), the
+(array-equal subgraphs for one seed, both on the numpy core; the native
+core's parity is tests/test_torch_native.py's), the
 node_norm-weighted losses, one whole ``make_pallas_train_step`` step on a
 layout without a sender side (JAX: Pallas in interpret mode), and
 ``train_saint`` on a tiny problem on the CPU.
@@ -101,14 +102,15 @@ def test_random_walk_matches_jax_and_stays_put_without_edges():
     assert (still == starts[:, None]).all()
 
 
+@pytest.mark.parametrize("native", [False, True], ids=["numpy", "native"])
 @pytest.mark.parametrize("seed,coverage", [(1, 5), (4, 0)])
-def test_sampler_yields_the_jax_samplers_subgraphs(seed, coverage):
-    """Same seed -> array-equal norms, pad sizes and padded subgraphs, over
-    two epochs."""
+def test_sampler_yields_the_jax_samplers_subgraphs(seed, coverage, native):
+    """Same seed and core -> array-equal norms, pad sizes and padded
+    subgraphs, over two epochs."""
     base = base_graph()
     kw = {**SAMPLER, "sample_coverage": coverage}
-    ours = GraphSaintRandomWalkSampler(**base, **kw, seed=seed)
-    theirs = JaxSampler(**base, **kw, seed=seed, use_native=False)
+    ours = GraphSaintRandomWalkSampler(**base, **kw, seed=seed, use_native=native)
+    theirs = JaxSampler(**base, **kw, seed=seed, use_native=native)
     np.testing.assert_array_equal(ours.node_norm, theirs.node_norm)
     np.testing.assert_array_equal(ours.edge_norm, theirs.edge_norm)
     assert (ours.pad_nodes_to, ours.pad_edges_to) == (theirs.pad_nodes_to, theirs.pad_edges_to)
@@ -146,7 +148,7 @@ def test_prefetch_yields_the_sequence_of_iter():
 def test_pad_regrow_matches_jax():
     base = base_graph()
     kw = dict(**SAMPLER, pad_nodes_to=8, pad_edges_to=128, seed=3)
-    ours = GraphSaintRandomWalkSampler(**base, **kw)
+    ours = GraphSaintRandomWalkSampler(**base, **kw, use_native=False)
     theirs = JaxSampler(**base, **kw, use_native=False)
     with pytest.warns(UserWarning, match="exceeds pad budget"):
         gt = ours.sample()
@@ -211,7 +213,7 @@ def test_pallas_train_step_matches_jax(rng, monkeypatch, loss_mode):
     stream backward too (no snd_*), in interpret mode."""
     monkeypatch.setattr(jeaf, "_auto_group", lambda sp, emax, gather: 8)
     base = base_graph()
-    gt = next(iter(GraphSaintRandomWalkSampler(**base, **SAMPLER, seed=1)))
+    gt = next(iter(GraphSaintRandomWalkSampler(**base, **SAMPLER, seed=1, use_native=False)))
     gj = next(iter(JaxSampler(**base, **SAMPLER, seed=1, use_native=False)))
     lt = pallas_step.compute_layout(gt, tile_nodes=TN, edges_per_tile=128,
                                     sender_layout=False)

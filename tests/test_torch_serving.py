@@ -226,10 +226,9 @@ def test_save_and_load_params_round_trip_in_place(rng, tmp_path, as_module):
 
 
 def test_exports_match_the_jax_package():
-    """The port exports what the JAX package does, but the classifiers
-    (models/classifiers.py, not ported yet)."""
-    classifiers = {"AMPNetClassifier", "GCN", "GCNOneLayer", "LinearLayer", "TwoLayerSigmoid"}
-    assert set(ampnet_tpu_torch.__all__) == set(ampnet_tpu.__all__) - classifiers
+    """The port exports what the JAX package does, the classifiers
+    included."""
+    assert set(ampnet_tpu_torch.__all__) == set(ampnet_tpu.__all__)
     for name in ampnet_tpu_torch.__all__:
         assert getattr(ampnet_tpu_torch, name) is not None
 
