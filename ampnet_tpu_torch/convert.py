@@ -11,7 +11,10 @@ AMPConv parameters, the embedding tables, the CLS and mask tokens keep
 their layout; flax Dense kernels (a GCNConv's ``Dense_0`` too) are [in,
 out] and torch Linear weights [out, in], hence the transposes. The
 transformer block's LayerNorms have no parameters (no scale, no bias); the
-PCA embeddings and scaler stats are constants, not parameters.
+PCA embeddings and scaler stats are constants, not parameters. An
+``SSLPretrainer`` tree (``params['backbone']``, and in 'predictive' mode the
+Dense ``feature_predictor``) maps onto ``backbone.*`` and
+``feature_predictor.*``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,13 @@ def _t(a) -> torch.Tensor:
 def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Map the JAX package's params of any of its models (or a tree shaped
     like them: gradients, updated params) onto the port's parameter names."""
+    if "backbone" in params:                                 # an SSLPretrainer
+        sd = {f"backbone.{k}": v for k, v in flax_to_state_dict(params["backbone"]).items()}
+        if "feature_predictor" in params:
+            dense = params["feature_predictor"]
+            sd["feature_predictor.weight"] = _t(dense["kernel"]).T.contiguous()
+            sd["feature_predictor.bias"] = _t(dense["bias"])
+        return sd
     sd = {}
     if "feature_embedding_table" in params.get("tokenizer", {}):
         sd["tokenizer.feature_embedding_table"] = _t(

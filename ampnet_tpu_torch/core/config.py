@@ -7,6 +7,7 @@ so one config value means the same model in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -155,3 +156,9 @@ class TrainConfig:
     # capture) into <run_dir>/profile/trace.json; needs run_dir; forces
     # epochs_per_dispatch to 1.
     profile_steps: int = 0
+
+
+def replace(cfg, **kw):
+    """A copy of a (frozen) config with ``kw`` fields changed
+    (``dataclasses.replace``, validation included)."""
+    return dataclasses.replace(cfg, **kw)

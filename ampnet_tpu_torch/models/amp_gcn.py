@@ -139,6 +139,7 @@ class AMPGCN(nn.Module):
         edge_layout: Optional[EdgeLayout] = None,
         fused_fns: Optional[Sequence[Callable]] = None,
         return_aux: bool = False,
+        attention_weights: bool = True,
     ) -> Union[torch.Tensor, ModelOutput]:
         """Log-probs [N, C] (sigmoid probs when softmax_out=False); with
         ``return_aux`` a ``ModelOutput`` whose aux holds ``sampled_idx``,
@@ -151,7 +152,10 @@ class AMPGCN(nn.Module):
         come from the plain weights-only pass on the side, as in the JAX
         package); ``fused_fns`` = (fn, fn), one fused call per conv
         (``train/pallas_step.py::make_fused_fns``), replaces the call each
-        conv would build from the layout."""
+        conv would build from the layout. ``attention_weights=False`` leaves
+        the weights out of the aux (None) and skips the pass that makes
+        them: a caller that reads only the pooled tokens (``train/ssl.py``)
+        pays nothing for them, as XLA drops the unused output in JAX."""
         cfg = self.config
         edge_mask = graph.edge_mask
         rate = 0.0 if deterministic else cfg.dropout_rate
@@ -180,7 +184,8 @@ class AMPGCN(nn.Module):
 
         def conv(i, x):
             return (self.conv1, self.conv2)[i](
-                x, graph.senders, graph.receivers, edge_mask, return_weights=return_aux,
+                x, graph.senders, graph.receivers, edge_mask,
+                return_weights=return_aux and attention_weights,
                 layout=edge_layout, fused_fn=None if fused_fns is None else fused_fns[i])
 
         attns, embs = [], []

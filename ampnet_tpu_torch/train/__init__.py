@@ -19,6 +19,12 @@ from ampnet_tpu_torch.train.losses import (
 from ampnet_tpu_torch.train.optim import cosine_warm_restarts, make_optimizer
 from ampnet_tpu_torch.train.profiling import StepTimer, StepTraceCapture, trace
 from ampnet_tpu_torch.train.rundir import Logfile, create_run_dir
+from ampnet_tpu_torch.train.ssl import (
+    SSLPretrainer,
+    make_ssl_train_step,
+    predictive_masked_feature_loss,
+    skipgram_loss,
+)
 from ampnet_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -36,5 +42,6 @@ __all__ = [
     "load_checkpoint_params", "save_params", "load_params", "restore_best", "resume_or_create",
     "train_full_batch", "train_saint", "saint_weighted_nll",
     "saint_weighted_mean_nll", "create_run_dir", "Logfile", "trace",
-    "StepTraceCapture", "StepTimer",
+    "StepTraceCapture", "StepTimer", "skipgram_loss", "predictive_masked_feature_loss",
+    "SSLPretrainer", "make_ssl_train_step",
 ]

@@ -81,9 +81,12 @@ class Optimizer:
 
     def _init_state(self) -> None:
         """Adam's state as its first step would make it (moments 0, step
-        count 0 on the device), made now, outside any capture."""
+        count 0 on the device), made now, outside any capture; a frozen
+        parameter gets none."""
         scalar = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
         for p in self.params:
+            if not p.requires_grad:
+                continue
             st = self.adam.state[p]
             if not st:
                 st["step"] = torch.zeros((), dtype=scalar, device=p.device)
@@ -117,7 +120,15 @@ class Optimizer:
 
     def step(self, lr: Optional[torch.Tensor] = None) -> None:
         """One step at ``self.learning_rate``; on the card ``lr`` (a device
-        scalar, the entry of a captured step's rate table) takes its place."""
+        scalar, the entry of a captured step's rate table) takes its place.
+        A trainable parameter the loss did not reach (an SSL loss leaves
+        the classifier head out) steps on a zero gradient, as optax sees
+        it: its L2 term still moves it, and Adam's moments and count
+        advance as every other parameter's. A frozen parameter
+        (``requires_grad=False``) keeps no gradient and does not move."""
+        for p in self.params:
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         if self.grad_clip is not None:
             clip_by_global_norm([p.grad for p in self.params if p.grad is not None],
                                 self.grad_clip)
@@ -146,6 +157,8 @@ class Optimizer:
             group["lr"] = lr
             for p in self.params:
                 st = self.adam.state[p]
+                if "step" not in st:    # frozen: never stepped
+                    continue
                 st["step"] = torch.as_tensor(st["step"], device=p.device,
                                              dtype=lr.dtype).reshape(())
         if "count" in state:

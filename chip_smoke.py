@@ -117,6 +117,27 @@ model limits):
      against float64, the f32 model's step (its 'simt' bodies) in turns.
      Then each 'simt_bf16' body's kernel row at a shape J or bf16_wide ran
      it, timed in turns with the f32 CUDA-core body.
+  ssl  SSLPretrainer (train/ssl.py) in both modes on the recommended
+     recipe's backbone through the fused op: make_ssl_train_step's captured
+     step (2 K1 + 2 K3 + 2 K4, tensor cores; the negatives drawn inside the
+     graph), 10 steps against the eager body bit for bit (losses,
+     parameters, Adam's state, generator), 30 steps from a fresh state
+     (launches exact, the loss falling, the classifier head moved by its
+     L2 term alone), warm ms of both; one forward with the tokens and
+     negatives injected and each mode's backward against float64 autograd
+     on the CPU; a draw of negatives on the card, every one a valid node.
+  drivers  the main path's drivers through their `train` functions:
+     experiments/cora_benchmark_full --raw-residual for all 150 epochs
+     (launches exact, the loss falling, test accuracy >= 0.80) and
+     cora_benchmark_graphsaint --stabilized --fused --raw-residual
+     --decay-lr cut to 3 epochs (launches exact); each history.csv written.
+  interpret  visualize_cora_attn_coeffs's heatmaps (class pairs (0,0),
+     (3,3), (0,3)) from the full driver's final checkpoint, the card's
+     against a CPU float64 forward of the same params and draw; the
+     activation stages and flattened gradients finite.
+  entry  graft_entry.entry()'s fn (the flagship forward, a captured predict
+     step; the plain path, no kernel launched): [768, 7], captured = eager
+     bit for bit, against float64.
 K8 has no caller on the model path (as in the JAX package): its phase calls
 the public wrapper on the chunked layout of the same graph, its counts set
 to 0 just before and read just after. The `captured` phase holds captured
@@ -4468,6 +4489,385 @@ def tokenizers_phase(seed, dev) -> tuple:
     return total, report
 
 
+# ------------------------------------- SSL, the drivers, interpretation, graft entry
+
+SSL_MODES = ("contrastive", "predictive")
+SSL_STEPS, SSL_COMPARED = 30, 10
+SSL_LR = 3e-3                    # the recipe's rate
+RUNS_DIR = Path(__file__).resolve().parent / "runs" / "chip_smoke"
+DRIVERS_DIR = Path(__file__).resolve().parent / "chiprun_out" / "drivers"
+SAINT_DRIVER_EPOCHS = 3          # of the recipe's 50: the cut
+JAX_FULL_BAND = (0.874, 0.023)   # the JAX package over 11 surrogate draws (README)
+PORT_C_BAND = (0.857, 0.014)     # path C's recipe at 150 epochs, seeds 0-7 (PERF.md §6)
+MIN_FULL_TEST_ACC = 0.80
+
+
+def ssl_model(recipe, mode, data, seed, dev):
+    from ampnet_tpu_torch.train.ssl import SSLPretrainer
+
+    return SSLPretrainer(recipe_model(recipe, data, seed, dev), mode=mode,
+                         num_features=recipe.num_node_features,
+                         generator=torch.Generator().manual_seed(seed + 1))
+
+
+def ssl_state(model, seed):
+    from ampnet_tpu_torch.train import create_train_state, make_optimizer
+
+    return create_train_state(model, make_optimizer(model.parameters(), SSL_LR,
+                                                    weight_decay=1e-3, grad_clip=1.0), seed=seed)
+
+
+def ssl_gradient_check(recipe, data, graph, layout, seed, dev):
+    """One SSL forward with dropout rates 0, the tokens and the negatives
+    injected, and the backward of each mode's loss: both heads on one
+    backbone (its forward runs once, 2 K1; each loss's backward 2 K3 + 2
+    K4). The card's gradients against float64 autograd on the CPU through
+    the plain oracle, every parameter each loss reaches, within GRAD_RTOL
+    of its largest entry (each ReLU's branch taken as the card took it, as
+    in gradient_check)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.tokenize import tfidf_sample_features
+    from ampnet_tpu_torch.train.ssl import (SSLPretrainer, draw_negatives,
+                                            predictive_masked_feature_loss, skipgram_loss)
+
+    backbone = recipe_model(recipe, data, seed, dev)
+    heads = {mode: SSLPretrainer(backbone, mode=mode, num_features=recipe.num_node_features,
+                                 generator=torch.Generator().manual_seed(seed + 1))
+             for mode in SSL_MODES}
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    sidx = tfidf_sample_features(graph.x, recipe.num_sampled_vectors, node_mask=graph.node_mask,
+                                 generator=gen)
+    neg = draw_negatives(gen, graph.senders.shape[0], heads["contrastive"].num_negatives,
+                         graph.num_nodes_padded, graph.node_mask)
+    if not bool(graph.node_mask[neg].all()):
+        fail("ssl: a negative is not a valid node")
+    branches, flips = {}, {}
+
+    def grads(hs, g, idx, ng, lay, record):
+        bb = hs["contrastive"].backbone
+        bb.config = dataclasses.replace(recipe, dropout_rate=0.0, dropout_adj_rate=0.0)
+        hooks = relu_branch_hooks(bb, branches, None if record else flips)
+        try:
+            pooled = bb(g, deterministic=False, sampled_idx=idx, edge_layout=lay,
+                        generator=torch.Generator(device=g.x.device), return_aux=True,
+                        attention_weights=False).aux["pooled"]
+            losses = {"contrastive": skipgram_loss(
+                          pooled, g.senders, g.receivers, g.edge_mask, None,
+                          hs["contrastive"].num_negatives, g.node_mask, neg_idx=ng),
+                      "predictive": predictive_masked_feature_loss(
+                          pooled, g.x, g.node_mask, hs["predictive"].feature_predictor)}
+            out = {}
+            for mode, loss in losses.items():
+                names, params = zip(*hs[mode].named_parameters())
+                got = torch.autograd.grad(loss, params, retain_graph=True, allow_unused=True)
+                out[mode] = {k: v.detach().cpu().double() for k, v in zip(names, got)
+                             if v is not None}
+        finally:
+            bb.config = recipe
+            for h in hooks:
+                h.remove()
+        return {m: float(v.detach()) for m, v in losses.items()}, out
+
+    eaf.reset_launch_counts()
+    loss_card, card = grads(heads, graph, sidx, neg, layout, True)
+    torch.cuda.synchronize()
+    counts = eaf.launch_counts()
+    if counts != launches(k1=2, k3=4, k4=4):
+        fail(f"ssl: one forward and two backwards launched {counts}, "
+             f"expected 2 K1 + 4 K3 + 4 K4")
+    t0 = time.perf_counter()
+    ref_heads = copy.deepcopy(heads)          # one backbone, shared as on the card
+    for h in ref_heads.values():
+        h.to("cpu", torch.float64)
+    for conv in (ref_heads["contrastive"].backbone.conv1, ref_heads["contrastive"].backbone.conv2):
+        conv.use_pallas, conv.dtype = False, None
+    g = graph.to("cpu")
+    g.x = g.x.double()
+    loss_ref, ref = grads(ref_heads, g, sidx.cpu(), neg.cpu(), None, False)
+    report = dict(cpu_f64_s=time.perf_counter() - t0, launches=counts,
+                  relu_branches_moved=flips, negatives_valid=True)
+    for mode in SSL_MODES:
+        if set(card[mode]) != set(ref[mode]):
+            fail(f"ssl {mode}: the card's gradients name "
+                 f"{sorted(set(card[mode]) ^ set(ref[mode]))} apart from float64's")
+        rel = {}
+        for k, r in ref[mode].items():
+            scale = float(r.abs().max())
+            if scale == 0.0 or not torch.isfinite(card[mode][k]).all():
+                fail(f"ssl {mode}: gradient of {k}: reference max {scale}")
+            rel[k] = float((card[mode][k] - r).abs().max()) / scale
+        worst = max(rel, key=rel.get)
+        if rel[worst] > GRAD_RTOL:
+            fail(f"ssl {mode}: gradient of {worst} disagrees with float64 autograd on the "
+                 f"CPU ({rel[worst]:.3g} of its largest entry)")
+        report[mode] = dict(
+            loss_card=loss_card[mode], loss_cpu_f64=loss_ref[mode], parameters=len(ref[mode]),
+            without_gradient=sorted(k for k, _ in heads[mode].named_parameters()
+                                    if k not in ref[mode]),
+            grad_max_rel_err=rel[worst], grad_worst_parameter=worst)
+    return report
+
+
+def ssl_phase(recipe, data, graph, layout, seed, dev) -> tuple:
+    """SSLPretrainer in both modes on the recommended recipe's backbone (S=40
+    tfidf, precomputed scaler, gcn2 head, dropout 0.3, edge dropout 0.1,
+    the fused op on the surrogate's layout), Adam 3e-3 with L2 1e-3 and
+    clip 1.0: a captured step launches exactly 2 K1 + 2 K3 + 2 K4 on the
+    tensor cores; SSL_COMPARED captured steps equal as many eager bodies bit
+    for bit (each loss, the parameters, Adam's state, the generator);
+    SSL_STEPS captured steps from a fresh state, their launches exact and
+    the loss falling; warm ms of both; one step's gradients against float64
+    (``ssl_gradient_check``); the static-shape negative draw on the card
+    only ever picks valid nodes. Returns ({mode: launches of the
+    SSL_STEPS steps}, report)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.train.ssl import _ssl_step_body, draw_negatives, make_ssl_train_step
+
+    step_want = launches(k1=2, k3=2, k4=2)
+    report, counts_by_mode = {}, {}
+    for mode in SSL_MODES:
+        name = f"ssl {mode}"
+        one, twin = ssl_model(recipe, mode, data, seed, dev), ssl_model(recipe, mode, data,
+                                                                       seed, dev)
+        state, state_e = ssl_state(one, seed), ssl_state(twin, seed)
+        step, eager = make_ssl_train_step(one), _ssl_step_body(twin)
+        eaf.reset_launch_counts()
+        first, first_ms, peak = first_call(lambda: step(state, graph, layout))
+        per_step = eaf.launch_counts()
+        if per_step != step_want:
+            fail(f"{name}: one captured step launched {per_step}, expected {step_want}")
+        bodies = used(tensor_cores_only(name, per_step, ("tc",)))
+        losses = []
+        for i in range(SSL_COMPARED):
+            got = first[1]["loss"] if i == 0 else step(state, graph, layout)[1]["loss"]
+            if not torch.equal(got, eager(state_e, graph, layout)[1]["loss"]):
+                fail(f"{name}: captured step {i} loss differs from the eager body's")
+            losses.append(float(got))
+        pairs = {k: (p.detach(), q.detach())
+                 for (k, p), q in zip(one.named_parameters(), twin.parameters())}
+        for i, (p, q) in enumerate(zip(state.optimizer.params, state_e.optimizer.params)):
+            for k, t in state.optimizer.adam.state[p].items():
+                pairs[f"adam_{i}_{k}"] = (t, state_e.optimizer.adam.state[q][k])
+        pairs["generator"] = (state.generator.get_state(), state_e.generator.get_state())
+        if state.step != state_e.step:
+            fail(f"{name}: {state.step} captured steps against {state_e.step} eager")
+        compared = dict(steps=state.step, compared=len(pairs),
+                        max_abs_diff=bit_for_bit(name, pairs))
+        warm = dict(captured_ms=sync_ms(lambda: step(state, graph, layout), 10),
+                    eager_ms=sync_ms(lambda: eager(state_e, graph, layout), 10))
+
+        fresh = ssl_model(recipe, mode, data, seed, dev)
+        st = ssl_state(fresh, seed)
+        train = make_ssl_train_step(fresh)
+        head = fresh.backbone.final_linear_out.weight.detach().clone()
+        eaf.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = [train(st, graph, layout)[1]["loss"] for _ in range(SSL_STEPS)]
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = eaf.launch_counts()
+        want = {k: SSL_STEPS * n for k, n in step_want.items()}
+        if counts != want:
+            fail(f"{name}: {SSL_STEPS} captured steps launched {counts}, expected {want}")
+        tensor_cores_only(name, counts, ("tc",))
+        losses_run = [float(v) for v in run]
+        head_moved = float((fresh.backbone.final_linear_out.weight - head).abs().max())
+        if not head_moved > 0.0:
+            fail(f"{name}: the classifier head (outside the loss) did not move under L2")
+        counts_by_mode[mode] = counts
+        report[mode] = dict(
+            per_step_launches=per_step, per_step_bodies=bodies, first_call_ms=first_ms,
+            first_call_max_memory_allocated=peak, captured_equals_eager=compared,
+            compared_losses=losses, captured_step_warm_ms=warm["captured_ms"],
+            eager_step_warm_ms=warm["eager_ms"], capture_ms=first_ms - warm["captured_ms"],
+            train_s=train_s, launches=counts,
+            **loss_fell(name, losses_run, k=5), head_max_abs_change=head_moved)
+    report["gradient_check"] = ssl_gradient_check(recipe, data, graph, layout, seed, dev)
+    # the draw alone, as the step makes it: only valid nodes, spread evenly
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    neg = draw_negatives(gen, graph.senders.shape[0], 5, graph.num_nodes_padded,
+                         graph.node_mask)
+    if not bool(graph.node_mask[neg].all()):
+        fail("ssl: a negative drawn on the card is not a valid node")
+    per_node = torch.bincount(neg.reshape(-1), minlength=graph.num_nodes_padded)
+    per_node = per_node[graph.node_mask].double()
+    report["negatives"] = dict(draws=neg.numel(), valid_nodes=int(graph.node_mask.sum()),
+                               per_node_min=int(per_node.min()), per_node_max=int(per_node.max()),
+                               chi_square=float(((per_node - per_node.mean()) ** 2).sum()
+                                                / per_node.mean()))
+    return counts_by_mode, report
+
+
+def driver_run(name, train, want, dev, falls, **kw) -> tuple:
+    """One driver's ``train`` through its entry point, its launch counts set
+    to 0 just before and read just after (exact: ``want``), the run's
+    seconds, its loss falling from the first epoch's to the last's where
+    ``falls``, its history.csv written in its run dir and copied to
+    DRIVERS_DIR. Returns (launches, result, report)."""
+    from ampnet_tpu_torch.interpret.curves import history_to_csv
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    eaf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = train(device=dev, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = eaf.launch_counts()
+    if counts != want:
+        fail(f"driver {name} launched {counts}, expected {want}")
+    bodies = used(tensor_cores_only(name, counts, ("tc",)))
+    history, final = result["history"], result["final_metrics"]
+    losses = [row["loss"] for row in history]
+    if not finite(losses + list(final.values())):
+        fail(f"driver {name}: a non-finite loss or metric ({final})")
+    if falls and not losses[-1] < losses[0]:
+        fail(f"driver {name}: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    csv = Path(history_to_csv(history, os.path.join(result["run_dir"], "history.csv")))
+    DRIVERS_DIR.mkdir(parents=True, exist_ok=True)
+    shutil.copy(csv, DRIVERS_DIR / f"{name}_history.csv")
+    return counts, result, dict(
+        seconds=seconds, epochs=len(history), loss_first=losses[0], loss_last=losses[-1],
+        final_test_acc=final.get("test_acc"), final_val_acc=final.get("val_acc"),
+        launches=counts, bodies=bodies, history_csv=str(csv.relative_to(RUNS_DIR.parents[1])))
+
+
+def drivers_phase(dev) -> tuple:
+    """The main path's drivers as a user runs them (on the card, the
+    surrogate): cora_benchmark_full --raw-residual for its whole 150
+    epochs (2 K1 + 2 K3 + 2 K4 a step, 8-draw evals every 10 epochs and at
+    the end: test accuracy >= MIN_FULL_TEST_ACC), then
+    cora_benchmark_graphsaint --stabilized --fused --raw-residual --decay-lr
+    cut to SAINT_DRIVER_EPOCHS epochs of 200 subgraphs (an 8-draw eval an
+    epoch and at the end). Returns ({driver: launches}, the full driver's
+    run dir, report)."""
+    from ampnet_tpu_torch.experiments import cora_benchmark_full as full
+    from ampnet_tpu_torch.experiments import cora_benchmark_graphsaint as saint
+
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    epochs = 150
+    evals = epochs // 10 + 1
+    want = launches(k1=2 * epochs + 16 * evals, k3=2 * epochs, k4=2 * epochs)
+    counts_full, result, rep_full = driver_run(
+        "cora_benchmark_full", full.train, want, dev, True, epochs=epochs, raw_residual=True,
+        run_base=str(RUNS_DIR / "full"))
+    acc = rep_full["final_test_acc"]
+    if not acc >= MIN_FULL_TEST_ACC:
+        fail(f"driver cora_benchmark_full --raw-residual: final test accuracy {acc:.4f} "
+             f"below {MIN_FULL_TEST_ACC}")
+    rep_full.update(command="cora_benchmark_full --raw-residual", train_full_batch_s=
+                    rep_full["seconds"], jax_band=JAX_FULL_BAND, port_path_c_band=PORT_C_BAND)
+
+    steps = SAINT_DRIVER_EPOCHS * 200
+    want_s = launches(k1=2 * steps + 16 * (SAINT_DRIVER_EPOCHS + 1), k3=2 * steps, k4=2 * steps)
+    counts_saint, _, rep_saint = driver_run(
+        "cora_benchmark_graphsaint", saint.train, want_s, dev, False,
+        epochs=SAINT_DRIVER_EPOCHS,
+        stabilized=True, fused=True, raw_residual=True, decay_lr=True,
+        run_base=str(RUNS_DIR / "saint"))
+    rep_saint.update(command="cora_benchmark_graphsaint --stabilized --fused --raw-residual "
+                             f"--decay-lr --epochs {SAINT_DRIVER_EPOCHS}",
+                     cut=f"{SAINT_DRIVER_EPOCHS} of 50 epochs (200 subgraphs each)",
+                     train_saint_s=rep_saint["seconds"], steps=steps,
+                     per_step_launches=launches(k1=2, k3=2, k4=2),
+                     per_eval_launches=launches(k1=16))
+    return ({"cora_benchmark_full": counts_full, "cora_benchmark_graphsaint": counts_saint},
+            result["run_dir"],
+            {"cora_benchmark_full": rep_full, "cora_benchmark_graphsaint": rep_saint})
+
+
+def interpret_phase(run_dir, data, graph, seed, dev) -> dict:
+    """visualize_cora_attn_coeffs's numbers from the full driver's final
+    checkpoint (its model flags: --stabilized --raw-residual gcn2, the
+    plain convs, as in JAX): the heatmaps of class pairs (0,0), (3,3) and
+    (0,3) from one card forward on the padded x and y, against the same
+    heatmaps from a CPU float64 forward of the same params and
+    sampled_idx, at the model limits; the activation stages of the card's
+    aux and the flattened gradients of one training step, all finite."""
+    import numpy as np
+
+    from ampnet_tpu_torch.experiments import visualize_cora_attn_coeffs as viz
+    from ampnet_tpu_torch.interpret.attention import attention_heatmaps
+    from ampnet_tpu_torch.interpret.histograms import (_flatten_weight_grads,
+                                                       activation_stages_from_aux)
+    from ampnet_tpu_torch.train.state import training_loss
+
+    model = viz.build_model(data, stabilized=True, raw_residual="gcn2",
+                            checkpoint_path=os.path.join(run_dir, "checkpoint_final.pkl"),
+                            device=dev)
+    t0 = time.perf_counter()
+    card = viz.attention_inputs(model, graph, seed=seed)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_model = copy.deepcopy(model).to("cpu", torch.float64)
+    g64 = graph.to("cpu")
+    g64.x = g64.x.double()
+    ref = viz.attention_inputs(ref_model, g64, sampled_idx=torch.from_numpy(card["sampled_idx"]))
+    ref_s = time.perf_counter() - t0
+    heat = attention_heatmaps(**card, class_pairs=viz.CLASS_PAIRS)
+    want = attention_heatmaps(**ref, class_pairs=viz.CLASS_PAIRS)
+    pairs = {}
+    for pair, (h, src_top, dst_top) in heat.items():
+        w = want[pair][0]
+        err = float(abs(h - w).max())
+        if not (np.isfinite(h).all() and torch.allclose(
+                torch.from_numpy(h), torch.from_numpy(w), rtol=MODEL_RTOL, atol=MODEL_ATOL)):
+            fail(f"interpret: heatmap {pair} on the card disagrees with float64 ({err:.3g})")
+        pairs[f"{pair[0]}->{pair[1]}"] = dict(max_abs_err=err, mean=float(h.mean()),
+                                              max=float(h.max()), cells=int((h != 0).sum()))
+    gdev = graph.to(dev)
+    with torch.no_grad():
+        out = model(gdev, generator=torch.Generator(device=dev).manual_seed(seed),
+                    return_aux=True)
+    stages = activation_stages_from_aux(out.aux, out.logits)
+    model.zero_grad(set_to_none=True)
+    logits = model(gdev, deterministic=False, generator=torch.Generator(device=dev)
+                   .manual_seed(seed))
+    training_loss("full", logits, gdev).backward()
+    flat = _flatten_weight_grads({n: p.grad for n, p in model.named_parameters()})
+    bad = [k for k, v in {**stages, **flat}.items() if not np.isfinite(v).all()]
+    if bad or not flat or len(stages) != 7:
+        fail(f"interpret: stages {sorted(stages)}, {len(flat)} flattened gradients, "
+             f"non-finite: {bad}")
+    return dict(checkpoint="checkpoint_final.pkl of cora_benchmark_full --raw-residual",
+                heatmaps=pairs, card_forward_s=card_s, cpu_f64_s=ref_s, stages=sorted(stages),
+                flattened_gradients=len(flat))
+
+
+def entry_phase(dev) -> dict:
+    """graft_entry.entry()'s fn on the card (the flagship forward, one
+    captured predict graph): [768, 7] log-probs, no kernel launched (the
+    JAX defaults: the plain path), captured = eager bit for bit from one
+    generator state, and that draw against the CPU float64 forward at the
+    model limits; warm ms of fn."""
+    from ampnet_tpu_torch.graft_entry import entry
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    eaf.reset_launch_counts()
+    fn, (g, gen) = entry(device=dev)
+    start = gen.get_state()
+    _, first_ms, _ = first_call(lambda: fn(g, gen))
+    gen.set_state(start)
+    out = fn(g, gen).clone()
+    counts = eaf.launch_counts()
+    if tuple(out.shape) != (768, 7) or not bool(torch.isfinite(out).all()):
+        fail(f"entry: fn gave {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+    if any(counts.values()):
+        fail(f"entry: the plain flagship launched {counts}")
+    eager_gen = torch.Generator(device=g.x.device)
+    eager_gen.set_state(start)
+    with torch.no_grad():
+        eager = fn.model(g, generator=eager_gen, return_aux=True)
+    if not torch.equal(out, eager.logits):
+        fail("entry: the captured forward differs from the eager one")
+    if not torch.equal(gen.get_state(), eager_gen.get_state()):
+        fail("entry: the captured forward advanced the generator unlike the eager one")
+    err = f64_check("entry", fn.model, g, None, eager.aux["sampled_idx"])
+    return dict(shape=list(out.shape), launches=counts, first_call_ms=first_ms,
+                warm_ms=sync_ms(lambda: fn(g, gen), 10), captured_equals_eager=True,
+                cpu_f64_max_abs_err=err, use_pallas=fn.model.config.use_pallas)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4654,6 +5054,23 @@ def main() -> int:
     emit(dict(path_j_report, card=smi))
     simt_rows = simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches)
 
+    # SSL pretraining on the recipe's backbone, the main path's drivers as a
+    # user runs them, the interpretation suite on the full driver's
+    # checkpoint, the single-device entry
+    emit({"release_graphs": release_graphs()})
+    t0 = time.perf_counter()
+    ssl_counts, ssl_report = ssl_phase(recipe, data, graph, layout, args.seed, dev)
+    emit({"ssl": dict(ssl_report, phase_s=time.perf_counter() - t0, card=smi)})
+    t0 = time.perf_counter()
+    driver_counts, full_run, drivers_report = drivers_phase(dev)
+    emit({"drivers": dict(drivers_report, phase_s=time.perf_counter() - t0, card=smi)})
+    t0 = time.perf_counter()
+    emit({"interpret": dict(interpret_phase(full_run, data, graph, args.seed, dev),
+                            phase_s=time.perf_counter() - t0)})
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    emit({"entry": dict(entry_phase(dev), phase_s=time.perf_counter() - t0, card=smi)})
+
     # launches: K2 from the inference path that runs it (B); K1, K3, K4 from
     # the training path C (K1's count includes that path's eval forwards); K5
     # from path F; K6 from the training path H, K7 from path G at S=20, K9
@@ -4669,6 +5086,11 @@ def main() -> int:
         rows["edge_attention_sums_mm_s20"]["by_group_ms"]
     rows["edge_attention_sums_chunked_s40"]["s20"]["by_piece_ms"] = \
         rows["edge_attention_sums_chunked_s20"]["by_piece_ms"]
+    # K1, K3, K4 also run in the SSL steps and the drivers: their launches there
+    for name in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv"):
+        rows[f"{name}_s40"]["launches_by_path"] = {
+            "C": counts_c[name], **{f"ssl {m}": c[name] for m, c in ssl_counts.items()},
+            **{d: c[name] for d, c in driver_counts.items()}}
     kernels = [
         dict(rows["edge_attention_sums_s40"], launches=counts_c["edge_attention_sums"]),
         dict(rows["edge_attention_layer_s20"], launches=counts_b["edge_attention_layer"]),

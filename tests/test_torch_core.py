@@ -98,16 +98,20 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ampnet_tpu")
 # every file of the port, by name, so that each counts as a case; the test
 # below holds this list against the tree
 PORT_MODULES = {
-    "": ["__init__", "convert", "serving"],
+    "": ["__init__", "convert", "graft_entry", "serving"],
     "core": ["__init__", "config", "graph"],
     "data": ["__init__", "graphsaint", "native", "planetoid", "synthetic"],
+    "experiments": ["__init__", "common", "contrastive_ssl_AMPNet", "cora_benchmark_full",
+                    "cora_benchmark_graphsaint", "predictive_ssl_AMPNet",
+                    "visualize_cora_attn_coeffs"],
+    "interpret": ["__init__", "attention", "curves", "embedding", "histograms"],
     "models": ["__init__", "amp_gcn", "classifiers", "layers", "tokenizer"],
     "ops": ["__init__", "custom_mha", "edge_attention", "gcn", "segment", "tokenize"],
     "ops/hopper": ["__init__", "build", "edge_attention_bwd",
                    "edge_attention_bwd_scatterfree", "edge_attention_fused",
                    "edge_attention_variants", "format", "launch"],
     "train": ["__init__", "checkpoint", "graphs", "loop", "losses", "optim", "pallas_step",
-              "profiling", "rundir", "state"],
+              "profiling", "rundir", "ssl", "state"],
     "utils": ["__init__", "preprocess"],
 }
 # the port's scripts outside the package
