@@ -61,6 +61,7 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     I,
     P,
     body_of,
+    check_node_rows,
     check_rows,
     check_same_dtype,
     check_walk,
@@ -129,7 +130,7 @@ def edge_attention_bwd_stream_plain(q_rows, kv_rows, dsum_rows, tile_senders,
     recv, snd, w = _walk(tile_senders, tile_valid, ptr - ptr[0], slots)
     q = q_rows.reshape(nt, sp, d)[n0:n1, :s][recv]
     dm = dsum_rows.reshape(nt, sp, d)[n0:n1, :s][recv] * w[:, None, None]
-    kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]
+    kv = kv_rows.reshape(-1, sp, 2 * d)[:, :s][snd]
     qh, kh, dmh, wts, ds, scale = _recompute(q, kv[..., :d], kv[..., d:], dm,
                                              num_heads, softmax)
     dt = q_rows.dtype
@@ -154,8 +155,9 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
     """K5, pass A over the receivers of tiles [t0, t1) (default: all):
     (dQ rows [(t1-t0)*TN*sp, D], dK|dV stream [(t1-t0)*EMAX*sp, 2D]), f32.
 
-    q_rows, dsum_rows [NT*sp, D] and kv_rows [NT*sp, 2D] are the WHOLE
-    graph's rows, all f32 or all bf16, and may be row-strided views; dsum
+    q_rows, dsum_rows [NT*sp, D] and kv_rows [KV*sp, 2D] are the WHOLE
+    graph's rows (KV, the whole nodes of kv_rows, more than NT on the
+    edge-partitioned path), all f32 or all bf16, and may be row-strided views; dsum
     is the gradient of the per-receiver SUM of messages. The index arrays
     are int32 (format.py); tile_valid may carry a runtime mask. The stream
     holds sp rows per slot of the range, the first being slot t0*EMAX; rows
@@ -176,7 +178,7 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
     dt = check_same_dtype(("q_rows", q_rows), ("dsum_rows", dsum_rows), ("kv_rows", kv_rows))
     check_rows("q_rows", q_rows, dev, nt * sp, d, dt)
     check_rows("dsum_rows", dsum_rows, dev, nt * sp, d, dt)
-    check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d, dt)
+    check_node_rows("kv_rows", kv_rows, dev, sp, 2 * d, dt)
     check_walk(dev, tile_senders, tile_valid, recv_ptr, recv_slots,
                ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
     t0, t1, tn, emax = _tile_range(tile_senders, recv_ptr, tiles)
@@ -215,7 +217,7 @@ def walked_slots(tile_senders, recv_ptr, tiles: Tuple[int, int]) -> torch.Tensor
 
 
 def stream_to_senders(dkv_stream, tile_senders, take, slot0: int, out, *, s, sp):
-    """Pass B: ``out`` [NT, S, 2D] += the stream rows (slot ``slot0`` and the
+    """Pass B: ``out`` [KV, S, 2D] += the stream rows (slot ``slot0`` and the
     ones after it, one per stream slot) where ``take`` holds, summed by the
     slot's sender in a fixed order (``segment_sum_into``: on the card the
     sorted sum, so a step repeats bit for bit, as the reference's XLA
@@ -231,7 +233,8 @@ def stream_to_senders(dkv_stream, tile_senders, take, slot0: int, out, *, s, sp)
 def stream_backward(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
                     recv_ptr, recv_slots, *, s, sp, num_heads, softmax,
                     chunk_bytes: Optional[int] = None):
-    """Pass A + pass B: (dQ rows [NT*sp, D], dK|dV per node [NT, S, 2D]).
+    """Pass A + pass B: (dQ rows [NT*sp, D], dK|dV per node [KV, S, 2D]),
+    KV the whole nodes of kv_rows.
 
     With ``chunk_bytes`` the tiles run in chunks whose stream fits that many
     bytes, each folded into the per-node sums before the next is made (the
@@ -241,13 +244,13 @@ def stream_backward(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
     back to the host and a fixed-capacity layout's shapes stay fixed."""
     t, emax = tile_senders.shape
     d = q_rows.shape[1]
-    nt = recv_ptr.numel() - 1
     n_chunks = 1
     if chunk_bytes:
         n_chunks = max(1, -(-t * emax * sp * 2 * d * 4 // chunk_bytes))
     tc = -(-t // n_chunks)                      # tiles per chunk
     edges = list(range(0, t, tc)) + [t]         # chunk ci = tiles [edges[ci], edges[ci+1])
-    dkv = torch.zeros(nt, s, 2 * d, dtype=torch.float32, device=q_rows.device)
+    dkv = torch.zeros(kv_rows.shape[0] // sp, s, 2 * d, dtype=torch.float32,
+                      device=q_rows.device)
     dq_parts = []
     for t0, t1 in zip(edges, edges[1:]):
         dq_c, stream_c = edge_attention_bwd_stream(

@@ -49,6 +49,7 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     I,
     P,
     body_of,
+    check_node_rows,
     check_rows,
     check_same_dtype,
     check_walk,
@@ -137,13 +138,13 @@ def edge_attention_bwd_dq_plain(q_rows, kv_rows, dsum_rows, tile_senders,
                                 tile_valid, recv_ptr, recv_slots, *, s, sp,
                                 num_heads, softmax):
     """Pass R in plain torch: dQ rows [NT*sp, D] f32 (pad token rows 0)
-    from f32 or bf16 rows."""
+    from f32 or bf16 rows; kv_rows may hold more nodes than NT."""
     nt = recv_ptr.numel() - 1
     d = q_rows.shape[1]
     recv, snd, w = _walk(tile_senders, tile_valid, recv_ptr, recv_slots)
     q = q_rows.reshape(nt, sp, d)[:, :s][recv]
     dm = dsum_rows.reshape(nt, sp, d)[:, :s][recv]
-    kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]
+    kv = kv_rows.reshape(-1, sp, 2 * d)[:, :s][snd]
     _, kh, _, _, ds, scale = _recompute(q, kv[..., :d], kv[..., d:], dm,
                                         num_heads, softmax)
     dq = _merge(dot_in(ds, kh, q.dtype)) * scale
@@ -156,11 +157,11 @@ def edge_attention_bwd_dkv_plain(qdm_rows, kv_rows, snd_receivers, snd_valid,
                                  snd_ptr, snd_slots, *, s, sp, num_heads,
                                  softmax):
     """Pass S in plain torch: dK|dV rows [NT*sp, 2D] f32 (pad token rows 0)
-    from f32 or bf16 rows."""
+    from f32 or bf16 rows; qdm_rows may hold fewer nodes than NT."""
     nt = snd_ptr.numel() - 1
     d = kv_rows.shape[1] // 2
     snd, recv, w = _walk(snd_receivers, snd_valid, snd_ptr, snd_slots)
-    qdm = qdm_rows.reshape(nt, sp, 2 * d)[:, :s][recv]
+    qdm = qdm_rows.reshape(-1, sp, 2 * d)[:, :s][recv]
     kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]
     qh, _, dmh, wts, ds, scale = _recompute(qdm[..., :d], kv[..., :d], kv[..., d:],
                                             qdm[..., d:], num_heads, softmax)
@@ -179,9 +180,11 @@ def edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
                           recv_ptr, recv_slots, *, s, sp, num_heads, softmax, body=None):
     """K3, pass R: dQ rows [NT*sp, D] f32 (pad token rows 0).
 
-    q_rows, dsum_rows [NT*sp, D] and kv_rows [NT*sp, 2D], all f32 or all
+    q_rows, dsum_rows [NT*sp, D] and kv_rows [KV*sp, 2D], all f32 or all
     bf16, may be row-strided views; dsum is the gradient of the
-    per-receiver SUM of messages. The tensor-core bodies gather kv_rows in
+    per-receiver SUM of messages. KV, the whole nodes kv_rows hold, may
+    exceed NT (K1's rule): the grid is NT receivers, the gathered k|v rows
+    any. The tensor-core bodies gather kv_rows in
     16-byte copies within K1's range; beyond it, or on rows they cannot
     copy, the CUDA-core body of the rows' type runs (``launch.body_of``;
     ``body`` names one, else the rule picks). The index
@@ -198,7 +201,7 @@ def edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
     dt = check_same_dtype(("q_rows", q_rows), ("dsum_rows", dsum_rows), ("kv_rows", kv_rows))
     check_rows("q_rows", q_rows, dev, nt * sp, d, dt)
     check_rows("dsum_rows", dsum_rows, dev, nt * sp, d, dt)
-    check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d, dt)
+    check_node_rows("kv_rows", kv_rows, dev, sp, 2 * d, dt)
     check_walk(dev, tile_senders, tile_valid, recv_ptr, recv_slots,
                ("tile_senders", "tile_valid", "recv_ptr", "recv_slots"))
     body = body_of("edge_attention_bwd_dq", body, s, d, num_heads, ("kv_rows", kv_rows))
@@ -218,8 +221,10 @@ def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
                            snd_slots, *, s, sp, num_heads, softmax, body=None):
     """K4, pass S: dK|dV rows [NT*sp, 2D] f32 (pad token rows 0).
 
-    qdm_rows [NT*sp, 2D] packs [Q | dsum] per row; kv_rows [NT*sp, 2D]; both
-    f32 or both bf16, and may be row-strided views. The tensor-core bodies
+    qdm_rows [Q*sp, 2D] packs [Q | dsum] per row; kv_rows [NT*sp, 2D]; both
+    f32 or both bf16, and may be row-strided views. NT is the sender grid
+    (``snd_ptr``), Q the whole nodes of qdm_rows (the receivers), which
+    the edge-partitioned path makes fewer than its senders. The tensor-core bodies
     gather qdm_rows in 16-byte copies and take S <= 48, D/H <= 32 and H *
     ceil(S/16) <= 12 warps (8 up to S=24; ``launch.tensor_core_range_error``);
     beyond that, or on rows they cannot copy, the CUDA-core body of the
@@ -238,7 +243,7 @@ def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
     dt = check_same_dtype(("qdm_rows", qdm_rows), ("kv_rows", kv_rows))
-    check_rows("qdm_rows", qdm_rows, dev, nt * sp, 2 * d, dt)
+    check_node_rows("qdm_rows", qdm_rows, dev, sp, 2 * d, dt)
     check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d, dt)
     check_walk(dev, snd_receivers, snd_valid, snd_ptr, snd_slots,
                ("snd_receivers", "snd_valid", "snd_ptr", "snd_slots"))

@@ -104,6 +104,7 @@ from ampnet_tpu_torch.ops.hopper.launch import (
     I,
     P,
     body_of,
+    check_node_rows,
     check_rows,
     check_same_dtype,
     check_walk,
@@ -194,6 +195,7 @@ def edge_attention_sums_plain(q_rows, kv_rows, tile_senders, tile_valid,
     """Per-receiver sums over the receiver-major index, in plain torch:
     gather q / k|v per live slot, attend over the S real key rows, scale by
     validity (times invdeg when given), index_add into receiver rows.
+    kv_rows may hold more nodes than the receivers.
     The products' operands are in the rows' type (bf16 under ``mxu_bf16``),
     the messages and their sums f32, as the JAX bodies take them. Returns
     [NT*sp, D] f32 (f64 for f64 rows) with pad token rows 0."""
@@ -209,7 +211,7 @@ def edge_attention_sums_plain(q_rows, kv_rows, tile_senders, tile_valid,
     if invdeg is not None:
         w = w * invdeg[recv]
     q = q_rows.reshape(nt, sp, d)[:, :s][recv]
-    kv = kv_rows.reshape(nt, sp, 2 * d)[:, :s][snd]
+    kv = kv_rows.reshape(-1, sp, 2 * d)[:, :s][snd]
     msg, _ = attend(q, kv[..., :d], kv[..., d:], num_heads, softmax,
                     torch.bfloat16 if mxu_bf16 else None)
     acc = torch.zeros(nt, s, d, dtype=acc_dtype, device=q_rows.device)
@@ -293,8 +295,12 @@ def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
                         mxu_bf16=False):
     """K1: per-receiver sums [NT*sp, D] f32 (pad token rows 0).
 
-    q_rows [NT*sp, D] and kv_rows [NT*sp, 2D], both f32 or both bf16, may
+    q_rows [NT*sp, D] and kv_rows [KV*sp, 2D], both f32 or both bf16, may
     be row-strided views (e.g. column slices of one packed q|k|v buffer).
+    KV, the whole nodes kv_rows hold, may exceed NT: the edge-partitioned path's
+    queries are a shard's own nodes, its keys and values its own plus the
+    exchanged ones (``fused_attention_aggregate``); the grid is NT, the
+    gathered rows take 64-bit offsets.
     The tensor-core bodies gather kv_rows in 16-byte copies and take S <=
     48, D/H <= 32 and H * ceil(S/16) <= 12 warps (8 up to S=24;
     ``launch.tensor_core_range_error``); beyond that, or where kv_rows'
@@ -314,7 +320,7 @@ def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
     dt = check_same_dtype(("q_rows", q_rows), ("kv_rows", kv_rows))
     check_rows("q_rows", q_rows, dev, nt * sp, d, dt)
-    check_rows("kv_rows", kv_rows, dev, nt * sp, 2 * d, dt)
+    check_node_rows("kv_rows", kv_rows, dev, sp, 2 * d, dt)
     _check_layout(dev, tile_senders, tile_valid, recv_ptr, recv_slots)
     body = body_of("edge_attention_sums", body, s, d, num_heads, ("kv_rows", kv_rows),
                    mxu_bf16=mxu_bf16)
@@ -488,9 +494,9 @@ def _grid(x, w_qkv, tile_senders, recv_ptr, tile_nodes, gather, stream_bf16):
 
 
 def _token_rows(x, nt, sp):
-    """[N, S, D] -> [NT*sp, D]: tokens padded to the row stride and node
-    rows to the tile grid; pad rows are never read as keys or kept as
-    queries."""
+    """[N, S, C] -> [NT*sp, C]: tokens padded to the row stride and node
+    rows to NT (the tile grid, or the K|V rows); pad rows are never read as
+    keys or kept as queries."""
     n, s, d = x.shape
     return F.pad(x, (0, 0, 0, sp - s, 0, nt - n)).reshape(nt * sp, d)
 
@@ -773,6 +779,125 @@ def amp_edge_attention_fused(
                    recv_slots, tile_recv, tile_counts, num_heads, softmax, tile_nodes,
                    gather, mm_scatter, DMA_V1_DEFAULT, 0, mxu_bf16, stream_bf16)
     return _FusedOp.apply(x, *params, (route, senders, snd, backward))
+
+
+# ---------------------------------------------------------------- the partitioned op
+
+
+class _AggregateOp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_tokens, kv_tokens, args):
+        walk, snd, kw, ntg = args
+        n_loc, s, d = q_tokens.shape
+        n_all = kv_tokens.shape[0]
+        nt = walk[2].numel() - 1
+        q_rows = _token_rows(q_tokens, nt, kw["sp"])
+        kv_rows = _token_rows(kv_tokens, n_all, kw["sp"])
+        sums = edge_attention_sums(q_rows, kv_rows, *walk, **kw)
+        ctx.save_for_backward(q_tokens, kv_tokens, *walk, *(snd or ()))
+        ctx.kw, ctx.ntg, ctx.scatterfree = kw, ntg, snd is not None
+        return sums[: n_loc * kw["sp"]].reshape(n_loc, kw["sp"], d)[:, :s]
+
+    @staticmethod
+    def backward(ctx, g):
+        q_tokens, kv_tokens, *arrays = ctx.saved_tensors
+        walk, snd = arrays[:4], arrays[4:]
+        kw = ctx.kw
+        sp = kw["sp"]
+        n_loc, s, d = q_tokens.shape
+        n_all = kv_tokens.shape[0]
+        nt = walk[2].numel() - 1
+        q_rows = _token_rows(q_tokens, nt, sp)
+        kv_rows = _token_rows(kv_tokens, n_all, sp)
+        dsum_rows = _token_rows(g.to(q_rows.dtype), nt, sp)
+        if ctx.scatterfree:
+            # dQ by local receiver, dK|dV by sender over the sender tiles of
+            # the K|V axis (K|V padded to that grid, Q|dsum gathered by
+            # local receiver)
+            dq_rows = bwd.edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, *walk, **kw)
+            qdm = torch.cat([q_rows, dsum_rows], dim=1)
+            kv_g = _token_rows(kv_tokens, ctx.ntg, sp)
+            dkv = bwd.edge_attention_bwd_dkv(qdm, kv_g, *snd, **kw)
+            dkv = dkv.reshape(ctx.ntg, sp, 2 * d)[:n_all, :s]
+        else:
+            dq_rows, dkv = bwd_stream.stream_backward(q_rows, kv_rows, dsum_rows, *walk, **kw)
+        dq = dq_rows.reshape(nt, sp, d)[:n_loc, :s]
+        return dq.to(q_tokens.dtype), dkv.to(kv_tokens.dtype), None
+
+
+def fused_attention_aggregate(
+    q_tokens: torch.Tensor,          # [N_loc, S, D] projected queries (local nodes)
+    kv_tokens: torch.Tensor,         # [N_all, S, 2D] projected packed K|V
+    tile_senders: torch.Tensor,      # [T, EMAX] int32 sender rows of kv_tokens
+    tile_valid: torch.Tensor,        # [T, EMAX] int32 (may carry a runtime mask)
+    recv_ptr: torch.Tensor,          # [T*TN + 1] int32 receiver-major index
+    recv_slots: torch.Tensor,        # [live slots] int32
+    num_heads: int,
+    softmax: bool = True,
+    tile_nodes: int = DEFAULT_TILE_NODES,
+    snd_receivers: Optional[torch.Tensor] = None,  # [Tg, EMAXS] LOCAL receiver ids
+    snd_valid: Optional[torch.Tensor] = None,      # the sender side over the
+    snd_ptr: Optional[torch.Tensor] = None,        # Tg tiles of the K|V axis:
+    snd_slots: Optional[torch.Tensor] = None,      # the scatter-free backward
+    scatterfree: Optional[bool] = None,  # None = AMPNET_SCATTERFREE_BWD
+) -> torch.Tensor:
+    """Fused per-edge attention + per-receiver SUM on projected tensors
+    (the JAX package's ``fused_attention_aggregate``,
+    ``ampnet_tpu/ops/pallas/edge_attention_fused.py:2508-2660``): the
+    building block of the edge-partitioned path (``parallel/edge_partition.py``).
+    Q comes from the shard's local nodes, K|V from the exchanged rows
+    (local plus halo, or all-gathered); the layout covers the local
+    receivers with sender ids into K|V. The exchange stays outside, so its
+    own backward carries the boundary rows' gradients home.
+
+    Returns the SUM of messages per local receiver [N_loc, S, D] (f32; the
+    mean, the out-projection and the zero-degree mask are the caller's).
+    Forward K1 over N_loc receivers gathering from N_all K|V rows. Backward:
+    with the sender side (four ``snd_*`` arrays, Tg tiles covering N_all)
+    and ``scatterfree``, K3 over the receivers plus K4 over the Tg sender
+    tiles; else K5 plus pass B summing into N_all rows."""
+    num_tiles = tile_senders.shape[0]
+    n_loc, s, d = q_tokens.shape
+    n_all = kv_tokens.shape[0]
+    if kv_tokens.shape[1:] != (s, 2 * d):
+        raise ValueError(f"kv_tokens {tuple(kv_tokens.shape)} vs q_tokens "
+                         f"{tuple(q_tokens.shape)}: expected [N_all, {s}, {2 * d}]")
+    # tile_nodes must match the value the layout was built with: the tile
+    # grid must cover the local rows exactly
+    if not ((num_tiles - 1) * tile_nodes < n_loc <= num_tiles * tile_nodes):
+        raise ValueError(
+            f"tile_nodes={tile_nodes} inconsistent with layout: {num_tiles} "
+            f"tiles x {tile_nodes} vs {n_loc} local node rows — pass the "
+            f"tile_nodes the layout was built with (partition_layouts)")
+    if recv_ptr.numel() != num_tiles * tile_nodes + 1:
+        raise ValueError(f"recv_ptr has {recv_ptr.numel()} entries, expected "
+                         f"{num_tiles * tile_nodes + 1}")
+    snd = (snd_receivers, snd_valid, snd_ptr, snd_slots)
+    if any(t is None for t in snd):
+        if any(t is not None for t in snd):
+            raise ValueError("pass all of snd_receivers, snd_valid, snd_ptr and "
+                             "snd_slots, or none of them")
+        snd = None
+    if scatterfree is None:
+        scatterfree = SCATTERFREE_BWD_DEFAULT
+    ntg = 0
+    if snd is not None and scatterfree:
+        t_g = snd_receivers.shape[0]
+        # the sender grid tiles the K|V axis (local + halo, or all-gathered)
+        if not ((t_g - 1) * tile_nodes < n_all <= t_g * tile_nodes):
+            raise ValueError(
+                f"sender layout grid {t_g} x {tile_nodes} inconsistent with "
+                f"{n_all} K|V node rows — build it over the exchanged axis "
+                f"with the same tile_nodes (partition_layouts)")
+        ntg = t_g * tile_nodes
+        if snd_ptr.numel() != ntg + 1:
+            raise ValueError(f"snd_ptr has {snd_ptr.numel()} entries, expected {ntg + 1}")
+    else:
+        snd = None
+    align = _stream_align(q_tokens.dtype, False)
+    kw = dict(s=s, sp=-(-s // align) * align, num_heads=num_heads, softmax=softmax)
+    walk = (tile_senders, tile_valid, recv_ptr, recv_slots)
+    return _AggregateOp.apply(q_tokens, kv_tokens, (walk, snd, kw, ntg))
 
 
 # ---------------------------------------------------------------- fixed graphs

@@ -54,6 +54,17 @@ def check_rows(name: str, t: torch.Tensor, device, rows: int, cols: int,
                          f"stride, got {tuple(t.shape)} strides {t.stride()}")
 
 
+def check_node_rows(name: str, t: torch.Tensor, device, sp: int, cols: int,
+                    dtype: torch.dtype = torch.float32) -> None:
+    """check_rows for the gathered side of a kernel: whole nodes of ``sp``
+    rows, as many as ``t`` holds (the edge-partitioned path's K|V rows
+    outnumber its receivers)."""
+    if t.dim() != 2 or not t.shape[0] or t.shape[0] % sp:
+        raise ValueError(f"{name}: expected a positive multiple of sp={sp} rows, "
+                         f"got {tuple(t.shape)}")
+    check_rows(name, t, device, t.shape[0], cols, dtype)
+
+
 def check_same_dtype(*named: Tuple[str, torch.Tensor]) -> torch.dtype:
     """The one row type (f32 or bf16) of a kernel's row arguments."""
     dt = named[0][1].dtype

@@ -100,15 +100,20 @@ def tfidf_sample_features(
     node_mask: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     u: Optional[torch.Tensor] = None,
+    doc_freq: Optional[torch.Tensor] = None,
+    num_rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per node, `num_samples` present features with replacement, weighted
     by TF-IDF (idf_j = log(N / (1 + df_j))). With `node_mask`, N is the
     REAL node count: the padded count would add log(N_pad/N_real) to every
-    idf and flatten the weighting. Returns [N, num_samples] int64."""
+    idf and flatten the weighting. ``doc_freq`` [F] and ``num_rows`` give
+    df and N from elsewhere (the edge-partitioned forward's sums over the
+    shards). Returns [N, num_samples] int64."""
     present = x != 0
-    n_real = (node_mask.to(torch.float32).sum() if node_mask is not None
+    n_real = (num_rows if num_rows is not None
+              else node_mask.to(torch.float32).sum() if node_mask is not None
               else torch.full((), float(x.shape[0]), device=x.device))
-    df = present.sum(dim=0).to(torch.float32)
+    df = doc_freq if doc_freq is not None else present.sum(dim=0).to(torch.float32)
     idf = torch.log(n_real / (1.0 + df))
     weights = x.abs() * idf.clamp_min(1e-3)[None, :]
     any_present = present.any(dim=1, keepdim=True)

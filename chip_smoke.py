@@ -138,6 +138,27 @@ model limits):
   entry  graft_entry.entry()'s fn (the flagship forward, a captured predict
      step; the plain path, no kernel launched): [768, 7], captured = eager
      bit for bit, against float64.
+  parallel  (after release_graphs, before ssl) parallelism over
+     torch.distributed, every rank a process of its own started by
+     parallel.launch.spawn (their reports come back to this process; no rank
+     prints a JSON line): (a) graft_entry.dryrun_multichip(4), data 2 x
+     graph 2, four gloo ranks sharing the card at the cora scale (4,096 /
+     32,768, D=128, H=4, S=20) with the halo exchange: a finite loss, the
+     same on every rank, 2 K1 + 2 K3 + 2 K4 per rank on the tensor cores,
+     N_all > N_loc; (b) the recommended recipe (dropout off) partitioned
+     over graph=2 gloo ranks with the halo on the surrogate: the eval
+     log-probs against the single-device port's eval on the same draw
+     (MODEL_RTOL / MODEL_ATOL), one step's gradients through K3 + K4 and
+     through K5 + pass B against the single-device step's (GRAD_RTOL of the
+     largest entry), launches per rank, the eager step's ms; K1, K3, K4 and
+     K5 + pass B at each rank's shape against their plain versions, ms and
+     bound; (d) in the same group the head-parallel forward (heads 4 -> 2 +
+     2) against the single-device plain forward, and the distributed
+     GraphSAINT driver (DRIVER_EPOCHS x DRIVER_STEPS, its loss falling);
+     (c) a one-rank NCCL group: the data x graph = 1 x 1 step's gradients
+     against the single-device step's. The gloo collectives the card takes
+     on CUDA tensors run on them; the point-to-point halo is staged through
+     host memory (the line's `staged` counts).
 K8 has no caller on the model path (as in the JAX package): its phase calls
 the public wrapper on the chunked layout of the same graph, its counts set
 to 0 just before and read just after. The `captured` phase holds captured
@@ -4868,6 +4889,387 @@ def entry_phase(dev) -> dict:
                 cpu_f64_max_abs_err=err, use_pallas=fn.model.config.use_pallas)
 
 
+# ---------------------------------------------------------------- the parallel phase
+
+# the recipe partitioned over graph=2 against the single-device port on the
+# card: log-probs (MODEL_RTOL / MODEL_ATOL), one step's gradients (GRAD_RTOL
+# of each gradient's largest entry); the halo's kernels at each rank's shape
+# against their plain versions (KERNEL_RTOL / KERNEL_ATOL)
+PARALLEL_TILE_NODES = 256
+# the distributed GraphSAINT driver on 2 ranks: epochs x subgraphs per rank
+# (the JAX driver's 30 x 10 cut to 3 x 10); its loss must fall from the first
+# epoch's median to the last's (a subgraph's weighted loss can jump several
+# fold: measured 0.41 among ~0.08 on an H100)
+DRIVER_EPOCHS, DRIVER_STEPS = 3, 10
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rank_launches(eaf) -> dict:
+    """The launches by body of the kernels a partitioned step may run."""
+    counts = eaf.body_launch_counts()
+    return {k: {b: n for b, n in counts[k].items() if n}
+            for k in (K1_, K3_, K4_, K5_) if eaf.launch_counts()[k]}
+
+
+def _grads(model) -> dict:
+    return {k: p.grad.detach().cpu().numpy().copy() for k, p in model.named_parameters()}
+
+
+def _partitioned_kernel_rows(rank, mesh, lay, plan, pg, s, d, h) -> dict:
+    """K1, K3, K4 and K5 + pass B at this rank's partitioned shape (queries
+    its N_loc rows, K|V its N_loc + halo rows), random rows, against their
+    plain versions on the same card tensors; ms (20 launches after one), the
+    plain version's ms, the bound by PERF.md's rule."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    index = (mesh.index("graph"),)
+    loc = lay.local(index, mesh.device)
+    walk = (loc.tile_senders, loc.tile_valid, loc.recv_ptr, loc.recv_slots)
+    snd = (loc.snd_receivers, loc.snd_valid, loc.snd_ptr, loc.snd_slots)
+    n_loc, n_all = pg.x.shape[1], pg.x.shape[1] + plan.halo_width
+    nt, ntg = loc.recv_ptr.numel() - 1, loc.snd_ptr.numel() - 1
+    sp = -(-s // 8) * 8
+    gen = torch.Generator(device=mesh.device).manual_seed(100 + rank)
+    q = torch.randn(nt * sp, d, generator=gen, device=mesh.device)
+    dsum = torch.randn(nt * sp, d, generator=gen, device=mesh.device)
+    kv = torch.randn(ntg * sp, 2 * d, generator=gen, device=mesh.device)
+    kv_all = kv[: n_all * sp]
+    qdm = torch.cat([q, dsum], dim=1)
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
+    edges = int(loc.recv_ptr[-1])
+    index_bytes = 4 * (2 * loc.tile_senders.numel() + loc.recv_ptr.numel()
+                       + loc.recv_slots.numel())
+    snd_index_bytes = 4 * (2 * loc.snd_receivers.numel() + loc.snd_ptr.numel()
+                           + loc.snd_slots.numel())
+    q_bytes, kv_bytes = 4 * d * n_loc * s, 4 * 2 * d * n_all * s
+    take = sb.walked_slots(loc.tile_senders, loc.recv_ptr, (0, loc.tile_senders.shape[0]))
+
+    def pass_b_plain():
+        dq_p, stream = sb.edge_attention_bwd_stream_plain(q, kv_all, dsum, *walk, **kw)
+        out = torch.zeros(n_all, s, 2 * d, device=mesh.device)
+        return dq_p, sb.stream_to_senders(stream, loc.tile_senders, take, 0, out, s=s, sp=sp)
+
+    cases = {
+        # name: (kernel, plain, bytes, flops, source, replaces)
+        K1_: (lambda: eaf.edge_attention_sums(q, kv_all, *walk, **kw),
+              lambda: eaf.edge_attention_sums_plain(q, kv_all, *walk, **kw),
+              2 * q_bytes + kv_bytes + index_bytes, 4 * s * s * d * edges,
+              "edge_attention_tc.cu", "edge_attention_fused.py:691"),
+        K3_: (lambda: bwd.edge_attention_bwd_dq(q, kv_all, dsum, *walk, **kw),
+              lambda: bwd.edge_attention_bwd_dq_plain(q, kv_all, dsum, *walk, **kw),
+              3 * q_bytes + kv_bytes + index_bytes, 6 * s * s * d * edges,
+              "edge_attention_bwd_dq_tc.cu", "edge_attention_bwd_scatterfree.py:167"),
+        K4_: (lambda: bwd.edge_attention_bwd_dkv(qdm, kv, *snd, **kw),
+              lambda: bwd.edge_attention_bwd_dkv_plain(qdm, kv, *snd, **kw),
+              2 * q_bytes + 2 * kv_bytes + snd_index_bytes, 8 * s * s * d * edges,
+              "edge_attention_bwd_tc.cu", "edge_attention_bwd_scatterfree.py:280"),
+        K5_: (lambda: sb.stream_backward(q, kv_all, dsum, *walk, **kw),
+              pass_b_plain,
+              # the function from q, dsum, K|V to dQ and dK|dV, timed whole: its
+              # inputs read once, its outputs written once (the per-edge stream
+              # between K5 and pass B is the kernel's choice, not the function's)
+              3 * q_bytes + 2 * kv_bytes + index_bytes,
+              10 * s * s * d * edges,
+              "edge_attention_bwd_stream_tc.cu + pass B (edge_attention_bwd.py)",
+              "edge_attention_bwd.py:178"),
+    }
+    rows = {}
+    on_card = mesh.device.type == "cuda"
+    for name, (run, plain, nbytes, flops, source, replaces) in cases.items():
+        eaf.reset_launch_counts()
+        got, want = run(), plain()
+        _sync(mesh.device)
+        body = {b: n for b, n in eaf.body_launch_counts()[name].items() if n}
+        if on_card and body != {"tc": 1}:
+            raise RuntimeError(f"{name} at the partitioned shape ran {body}, expected one "
+                               f"tensor-core launch")
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        if not all(torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+                   for a, b in zip(got, want)):
+            raise RuntimeError(f"{name} at the partitioned shape disagrees with its plain "
+                               f"version (max abs err {err:.3g})")
+        b, by = bound_ms(nbytes, flops, True)
+        rows[name] = dict(name=name, route="cuda",
+                          source=f"ampnet_tpu_torch/ops/hopper/csrc/{source}",
+                          replaces=f"ampnet_tpu/ops/pallas/{replaces}", max_abs_err=err,
+                          ms=cuda_ms(run, 20) if on_card else None,
+                          plain_ms=cuda_ms(plain, 3) if on_card else None, bound_ms=b,
+                          bound_by=by, library_ms=None, n_loc=n_loc, n_all=n_all,
+                          q_grid=nt, kv_grid=ntg, live_edges=edges, s=s)
+    return rows
+
+
+def parallel_rank(rank: int, payload: dict) -> dict:
+    """One of two gloo ranks sharing the card: (b) the recipe partitioned
+    over graph=2 with the halo (eval log-probs, one step's gradients through
+    K3 + K4 and through K5 + pass B, the step's eager ms, the kernels at
+    this rank's shape), (d) the head-parallel forward (heads 4 -> 2 + 2) and
+    the distributed GraphSAINT driver. Reports to the parent; prints no
+    JSON line."""
+    from ampnet_tpu_torch.experiments import cora_benchmark_graphsaint_distributed as dist_saint
+    from ampnet_tpu_torch.models import AMPGCN
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.parallel import (amp_gcn_forward_local, build_halo_plan,
+                                           make_mesh, make_partitioned_train_step,
+                                           partition_graph, partition_layouts)
+    from ampnet_tpu_torch.parallel.head_parallel import amp_gcn_forward_heads, tp_shard_model
+    from ampnet_tpu_torch.train.state import TrainState
+
+    pin_ieee_f32()
+    cfg, state, stats = payload["cfg"], payload["state"], payload["stats"]
+    out = {"rank": rank}
+    dev = payload["device"]
+    mesh = make_mesh(graph=2, device=dev)
+    g = payload["graph"]
+    pg = partition_graph(g, 2)
+    plan = build_halo_plan(pg)
+    lay = partition_layouts(pg, tile_nodes=PARALLEL_TILE_NODES, halo_plan=plan)
+    i = (mesh.index("graph"),)
+    shard, loc, halo = pg.local(i, mesh.device), lay.local(i, mesh.device), \
+        plan.local(i, mesh.device)
+    sidx = torch.from_numpy(payload["part_idx"][i]).to(mesh.device)
+    model = AMPGCN(cfg, scaler_stats=stats, device=mesh.device)
+    model.load_state_dict(state)
+    out.update(n_loc=pg.x.shape[1], n_all=pg.x.shape[1] + plan.halo_width,
+               halo_offsets=list(plan.offsets), halo_rows=list(plan.sizes),
+               pair_rows=plan.pair_counts[i].tolist())
+    eaf.reset_launch_counts()
+    with torch.no_grad():
+        out["logits"] = amp_gcn_forward_local(model, shard, mesh, layout=loc,
+                                              tile_nodes=PARALLEL_TILE_NODES, halo=halo,
+                                              sampled_idx=sidx).cpu().numpy()
+    _sync(dev)
+    out["eval_launches"] = _rank_launches(eaf)
+    st = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                    torch.Generator(device=mesh.device))
+    step = make_partitioned_train_step(model, mesh, loss_mode="full", use_pallas=True,
+                                       tile_nodes=PARALLEL_TILE_NODES, use_halo=True)
+    for route, scatterfree in (("scatterfree", True), ("stream", False)):
+        eaf.SCATTERFREE_BWD_DEFAULT = scatterfree
+        eaf.reset_launch_counts()
+        before = dict(mesh.staged)
+        _, m = step(st, shard, loc, halo, sampled_idx=sidx)
+        _sync(dev)
+        out[f"step_{route}"] = dict(
+            loss=float(m["loss"]), launches=_rank_launches(eaf), grads=_grads(model),
+            staged={k: n - before.get(k, 0) for k, n in mesh.staged.items()})
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(st, shard, loc, halo, sampled_idx=sidx)
+        _sync(dev)
+        out[f"step_{route}"]["eager_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+        # the same steps with the collectives timed (each synchronizes the
+        # card before and after itself): ms per step in each, the wait for
+        # the peer rank included, and the whole step's ms under that timing
+        mesh.spans = {}
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(st, shard, loc, halo, sampled_idx=sidx)
+        _sync(dev)
+        out[f"step_{route}"].update(
+            timed_ms=(time.perf_counter() - t0) * 1e3 / reps,
+            collective_ms={k: v * 1e3 / reps for k, v in sorted(mesh.spans.items())})
+        mesh.spans = None
+    eaf.SCATTERFREE_BWD_DEFAULT = True
+    # the kernels at this rank's shape, one rank after the other: the two
+    # share the card, and a time taken beside the other's launches is not
+    # the kernel's
+    for r in range(2):
+        if r == rank:
+            out["kernels"] = _partitioned_kernel_rows(rank, mesh, lay, plan, pg,
+                                                      cfg.num_sampled_vectors,
+                                                      cfg.embedding_dim, cfg.num_heads)
+        torch.distributed.barrier()
+
+    # (d) heads 4 -> 2 + 2 on the whole graph, the same draw
+    tp_mesh = make_mesh(heads=2, device=dev)
+    tp_model = AMPGCN(cfg, scaler_stats=stats, device=mesh.device)
+    tp_model.load_state_dict(state)
+    tp_shard_model(tp_model, tp_mesh)
+    with torch.no_grad():
+        out["tp_logits"] = amp_gcn_forward_heads(
+            tp_model, g.to(mesh.device), tp_mesh,
+            sampled_idx=torch.from_numpy(payload["full_idx"]).to(mesh.device)).cpu().numpy()
+    out["tp_staged"] = dict(tp_mesh.staged)
+    out["driver"] = dist_saint.run_rank(rank, DRIVER_EPOCHS, DRIVER_STEPS, 2, device=dev)
+    return out
+
+
+def nccl_rank(rank: int, payload: dict) -> dict:
+    """(c) a one-rank NCCL group: the data x graph = 1 x 1 partitioned step
+    (layouts, halo plan with no offsets) on the whole graph, its gradients."""
+    import torch.distributed as dist
+
+    from ampnet_tpu_torch.models import AMPGCN
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.parallel import (build_halo_plan, make_dp_partitioned_train_step,
+                                           make_mesh, partition_graph, partition_layouts,
+                                           stack_halos, stack_layouts, stack_partitioned)
+    from ampnet_tpu_torch.train.state import TrainState
+
+    pin_ieee_f32()
+    mesh = make_mesh(data=1, graph=1, device=payload["device"])
+    pg = partition_graph(payload["graph"], 1)
+    plan = build_halo_plan(pg)
+    lay = partition_layouts(pg, tile_nodes=PARALLEL_TILE_NODES, halo_plan=plan)
+    model = AMPGCN(payload["cfg"], scaler_stats=payload["stats"], device=mesh.device)
+    model.load_state_dict(payload["state"])
+    st = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                    torch.Generator(device=mesh.device))
+    step = make_dp_partitioned_train_step(model, mesh, loss_mode="full", use_pallas=True,
+                                          tile_nodes=PARALLEL_TILE_NODES, use_halo=True)
+    eaf.reset_launch_counts()
+    _, m = step(st, stack_partitioned([pg]), stack_layouts([lay]), stack_halos([plan]),
+                sampled_idx=payload["part_idx_1"][None])
+    _sync(mesh.device)
+    return dict(backend=dist.get_backend(), loss=float(m["loss"]), grads=_grads(model),
+                launches=_rank_launches(eaf), staged=dict(mesh.staged),
+                groups={a: g is not None for a, g in mesh.groups.items()})
+
+
+def _grad_gap(name, got: dict, want: dict) -> float:
+    """The largest gradient gap over the parameters, each over its
+    gradient's largest entry; fails above GRAD_RTOL."""
+    import numpy as np
+
+    worst = 0.0
+    for k, w in want.items():
+        gap = float(np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30))
+        if gap > GRAD_RTOL:
+            fail(f"parallel {name}: gradient of {k} {gap:.3g} of its largest entry from "
+                 f"the single-device step's")
+        worst = max(worst, gap)
+    return worst
+
+
+def parallel_phase(recipe, data, graph, seed, dev) -> dict:
+    """(a) dryrun_multichip(4) at the cora scale, (b) + (d) the 2-rank group
+    (parallel_rank), (c) the one-rank NCCL step, each against what it must
+    equal; the single-device references on the card in this process."""
+    import numpy as np
+
+    from ampnet_tpu_torch.graft_entry import dryrun_multichip
+    from ampnet_tpu_torch.models import AMPGCN
+    from ampnet_tpu_torch.ops.hopper.format import compute_layout
+    from ampnet_tpu_torch.ops.tokenize import fit_scaler, tfidf_sample_features
+    from ampnet_tpu_torch.parallel import partition_graph
+    from ampnet_tpu_torch.parallel.collectives import GLOO_CUDA
+    from ampnet_tpu_torch.parallel.launch import spawn
+    from ampnet_tpu_torch.train.losses import masked_mean_nll
+
+    report = {"gloo_cuda": sorted(GLOO_CUDA)}
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(4, device=dev.type)
+    want = {K1_: {"tc": 2}, K3_: {"tc": 2}, K4_: {"tc": 2}}
+    for r in ranks:
+        got = {k: {b: n for b, n in v.items() if n} for k, v in r["body_launches"].items()
+               if r["launches"][k]}
+        if got != want:
+            fail(f"parallel (a): rank {r['rank']} launched {got}, expected {want}")
+        if not (r["n_all"] > r["n_loc"] and r["backend"] == "gloo"):
+            fail(f"parallel (a): rank {r['rank']} N_all {r['n_all']} vs N_loc {r['n_loc']}, "
+                 f"backend {r['backend']}")
+    if len({r["loss"] for r in ranks}) != 1 or not finite([ranks[0]["loss"]]):
+        fail(f"parallel (a): losses {[r['loss'] for r in ranks]}")
+    report["dryrun"] = dict(
+        s=time.perf_counter() - t0, mesh=ranks[0]["mesh"], loss=ranks[0]["loss"],
+        ranks=[{k: r[k] for k in ("rank", "data", "graph", "device", "n_loc", "n_all",
+                                  "halo_offsets", "halo_rows", "pair_rows", "step_s",
+                                  "staged")} for r in ranks],
+        launches_per_rank=want)
+
+    # the single-device port on the card: the recipe deterministic, one draw
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(recipe, dropout_rate=0.0)
+    stats = fit_scaler(data.x)
+    model = AMPGCN(cfg, scaler_stats=stats, generator=torch.Generator().manual_seed(seed),
+                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sidx = tfidf_sample_features(graph.x, cfg.num_sampled_vectors, node_mask=graph.node_mask,
+                                 generator=gen)
+    layout = compute_layout(graph)
+    logits = model(graph, sampled_idx=sidx, edge_layout=layout)
+    masked_mean_nll(logits, graph.y, graph.train_mask & graph.node_mask).backward()
+    want_grads = _grads(model)
+    with torch.no_grad():
+        plain = dataclasses.replace(cfg, use_pallas=False)
+        plain_model = AMPGCN(plain, scaler_stats=stats, device=dev)
+        plain_model.load_state_dict(model.state_dict())
+        plain_logits = plain_model(graph, sampled_idx=sidx).cpu().numpy()
+    host = graph.to("cpu")
+    n_loc = partition_graph(host, 2).x.shape[1]
+    idx = sidx.cpu().numpy()
+    part_idx = np.zeros((2 * n_loc, idx.shape[1]), idx.dtype)
+    part_idx[: idx.shape[0]] = idx
+    payload = dict(cfg=cfg, state={k: v.cpu() for k, v in model.state_dict().items()},
+                   stats=stats, graph=host, part_idx=part_idx.reshape(2, n_loc, -1),
+                   part_idx_1=idx[None], full_idx=idx, device=dev.type)
+    ref_logits = logits.detach().cpu().numpy()
+    report["references_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    two = spawn(parallel_rank, 2, payload, device=dev.type)
+    got_logits = np.concatenate([r["logits"] for r in two])[: graph.num_nodes_padded]
+    err = float(np.abs(got_logits - ref_logits).max())
+    if not np.allclose(got_logits, ref_logits, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+        fail(f"parallel (b): partitioned log-probs {err:.3g} from the single-device eval")
+    for r in two:
+        if r["eval_launches"] != {K1_: {"tc": 2}}:
+            fail(f"parallel (b): rank {r['rank']}'s eval launched {r['eval_launches']}")
+    steps = {}
+    for route, launched in (("scatterfree", {K1_: {"tc": 2}, K3_: {"tc": 2}, K4_: {"tc": 2}}),
+                            ("stream", {K1_: {"tc": 2}, K5_: {"tc": 2}})):
+        for r in two:
+            if r[f"step_{route}"]["launches"] != launched:
+                fail(f"parallel (b): rank {r['rank']}'s {route} step launched "
+                     f"{r[f'step_{route}']['launches']}, expected {launched}")
+        steps[route] = dict(
+            grad_gap=max(_grad_gap(f"(b) {route}", r[f"step_{route}"]["grads"], want_grads)
+                         for r in two),
+            loss=two[0][f"step_{route}"]["loss"],
+            eager_ms=[r[f"step_{route}"]["eager_ms"] for r in two],
+            timed_ms=[r[f"step_{route}"]["timed_ms"] for r in two],
+            collective_ms=[r[f"step_{route}"]["collective_ms"] for r in two],
+            staged=two[0][f"step_{route}"]["staged"], launches_per_rank=launched)
+    tp_err = max(float(np.abs(r["tp_logits"] - plain_logits).max()) for r in two)
+    if not all(np.allclose(r["tp_logits"], plain_logits, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+               for r in two):
+        fail(f"parallel (d): head-parallel log-probs {tp_err:.3g} from the single-device "
+             f"forward")
+    losses = two[0]["driver"]["losses"]
+    k = DRIVER_STEPS
+    if not (finite(losses) and np.median(losses[-k:]) < np.median(losses[:k])):
+        fail(f"parallel (d): the distributed driver's loss did not fall: {losses}")
+    report["partitioned"] = dict(
+        s=time.perf_counter() - t0, logits_max_abs_err=err,
+        ranks=[{k_: r[k_] for k_ in ("rank", "n_loc", "n_all", "halo_offsets", "halo_rows",
+                                     "pair_rows")} for r in two],
+        steps=steps, kernels=[list(r["kernels"].values()) for r in two])
+    report["tp"] = dict(logits_max_abs_err=tp_err, staged=two[0]["tp_staged"])
+    report["driver"] = dict(losses=losses, test_acc=two[0]["driver"].get("test_acc"),
+                            seconds=two[0]["driver"]["seconds"],
+                            staged=two[0]["driver"]["staged"])
+
+    t0 = time.perf_counter()
+    (one,) = spawn(nccl_rank, 1, payload, backend="nccl" if dev.type == "cuda" else "gloo",
+                   device=dev.type)
+    if one["backend"] != "nccl" or one["staged"] or one["launches"] != {
+            K1_: {"tc": 2}, K3_: {"tc": 2}, K4_: {"tc": 2}}:
+        fail(f"parallel (c): {one['backend']}, staged {one['staged']}, launched "
+             f"{one['launches']}")
+    report["nccl"] = dict(s=time.perf_counter() - t0, loss=one["loss"], groups=one["groups"],
+                          grad_gap=_grad_gap("(c) nccl", one["grads"], want_grads))
+    return report
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5058,6 +5460,12 @@ def main() -> int:
     # user runs them, the interpretation suite on the full driver's
     # checkpoint, the single-device entry
     emit({"release_graphs": release_graphs()})
+    # parallelism over torch.distributed: the 4-rank dry run, the recipe
+    # partitioned over 2 gloo ranks sharing the card, a one-rank NCCL group,
+    # the head-parallel forward and the distributed driver
+    t0 = time.perf_counter()
+    emit({"parallel": dict(parallel_phase(recipe, data, graph, args.seed, dev),
+                           phase_s=time.perf_counter() - t0, card=smi)})
     t0 = time.perf_counter()
     ssl_counts, ssl_report = ssl_phase(recipe, data, graph, layout, args.seed, dev)
     emit({"ssl": dict(ssl_report, phase_s=time.perf_counter() - t0, card=smi)})

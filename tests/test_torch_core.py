@@ -102,11 +102,14 @@ PORT_MODULES = {
     "core": ["__init__", "config", "graph"],
     "data": ["__init__", "graphsaint", "native", "planetoid", "synthetic"],
     "experiments": ["__init__", "common", "contrastive_ssl_AMPNet", "cora_benchmark_full",
-                    "cora_benchmark_graphsaint", "predictive_ssl_AMPNet",
-                    "visualize_cora_attn_coeffs"],
+                    "cora_benchmark_graphsaint", "cora_benchmark_graphsaint_distributed",
+                    "predictive_ssl_AMPNet", "ssl_transfer",
+                    "visualize_attention_coefficients", "visualize_cora_attn_coeffs"],
     "interpret": ["__init__", "attention", "curves", "embedding", "histograms"],
     "models": ["__init__", "amp_gcn", "classifiers", "layers", "tokenizer"],
     "ops": ["__init__", "custom_mha", "edge_attention", "gcn", "segment", "tokenize"],
+    "parallel": ["__init__", "collectives", "data_parallel", "edge_partition",
+                 "head_parallel", "launch", "mesh"],
     "ops/hopper": ["__init__", "build", "edge_attention_bwd",
                    "edge_attention_bwd_scatterfree", "edge_attention_fused",
                    "edge_attention_variants", "format", "launch"],
@@ -115,7 +118,8 @@ PORT_MODULES = {
     "utils": ["__init__", "preprocess"],
 }
 # the port's scripts outside the package
-PORT_SCRIPTS = ["chip_smoke.py", "scripts/torch_body_sweep.py", "scripts/torch_path_a_replay.py"]
+PORT_SCRIPTS = ["chip_smoke.py", "scripts/torch_body_sweep.py", "scripts/torch_path_a_replay.py",
+                "scripts/torch_gloo_cuda_probe.py"]
 PORT_FILES = PORT_SCRIPTS + [
     "/".join(filter(None, ("ampnet_tpu_torch", sub, f"{mod}.py")))
     for sub, mods in PORT_MODULES.items() for mod in mods]
