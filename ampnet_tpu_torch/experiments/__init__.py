@@ -12,9 +12,32 @@ run as ``python -m ampnet_tpu_torch.experiments.<name>``:
 * ``visualize_cora_attn_coeffs``: attention heatmaps per class pair from a
   checkpoint;
 * ``visualize_attention_coefficients``: the XOR model's attention entries
-  by truth-table quadrant pair.
+  by truth-table quadrant pair;
+* ``eval_checkpoint``: a run's (or a file's) checkpoint evaluated on the
+  full graph with the ensemble protocol (``--fused``: the fused kernels);
+* ``seed_robustness``, ``seed_ensemble``: the recipe over seeds (mean and
+  spread; the ensemble of the seeds' mean log-probs);
+* ``raw_residual_tuning``, ``token_scale_tuning``, ``transformer_tuning``:
+  recipe sweeps over ``train_full_batch``;
+* ``synthetic_training_modular`` (``ARGS``, ``train_model``),
+  ``synthetic_training_modular_graphsaint``, ``grid_search`` (``--workers
+  N``: a spawn pool on the card), ``synthetic_training`` (the early MSE
+  trainer), ``synthetic_rgb_generate``: the synthetic XOR / RPG family;
+* ``ampnet_freeze_check``, ``cora_overfit_one_subgraph``,
+  ``cora_linear_layer_baseline``, ``cosine_lr_scheduler_test``: sanity
+  harnesses and baselines;
+* ``partitioned_graph1_timing``, ``scaling_bench``,
+  ``halo_comm_accounting``, ``halo_budget_run``: the partitioned step's
+  timing and halo accounting over ``parallel/*`` (ranks started by
+  ``parallel.launch.spawn``; on one card they share it).
 
-Each ``main`` runs on the card unless given ``device="cpu"``; where the
-JAX driver trains and then plots, a function of its own (``train``)
-trains and returns the result, and ``main`` calls it and plots.
+Only ``experiments/reference_baseline.py`` of the JAX package's drivers has
+no counterpart: it runs the original PyTorch reference, which is not in the
+repository.
+
+Each ``main`` runs on the card unless given ``device="cpu"`` (``--device
+cpu``); where the JAX driver trains and then plots, a function of its own
+(``train`` or ``run``) trains and returns the numbers, and ``main`` calls
+it and plots. A driver writes its CSV or JSON whether or not matplotlib is
+installed (``common.can_draw``); the card machine has none.
 """

@@ -22,3 +22,24 @@ def cora_graph(pad_nodes_to: int = 2752,
         pad_nodes_to=pad_nodes_to, pad_edges_to=pad_edges_to,
     )
     return d, g
+
+
+def can_draw() -> bool:
+    """Whether matplotlib is installed: a driver writes its numbers (CSV or
+    JSON) first and draws only where it can."""
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def release_graphs() -> None:
+    """Collect what an earlier run left behind before the next one in a
+    driver's loop: a captured CUDA graph keeps its memory pool until the
+    step that owns it, which sits in a reference cycle, is collected."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()

@@ -21,6 +21,16 @@ exchange) is staged explicitly through host memory (copy to the CPU, the
 collective, copy back), and ``Mesh.staged`` counts each staged call by
 name. NCCL never stages; an axis of size 1 exchanges nothing.
 
+Bytes: every collective adds to ``Mesh.moved``, under the names below,
+the bytes this rank receives from its peers: the exchange's received
+rows, the all-gather's other ranks' blocks, the reduce-scatter's other
+ranks' contributions to its rows, and for an all-reduce the payload from
+each other rank (what a rank needs, whatever the backend's algorithm).
+A staged call counts its payload once, not its copies through the host.
+The exchange counts its receive buffers, which the caller's ``sizes``
+shape: the count shows how many exchanges ran and their row width, not
+that the plan's sizes are right.
+
 Timing: while ``Mesh.spans`` is a dict, each collective synchronizes the
 rank's device before and after itself and adds its seconds under its name
 ('halo_exchange', 'halo_exchange_bwd', 'all_gather', 'reduce_scatter',
@@ -54,6 +64,14 @@ def _staged(mesh: Mesh, name: str, t: torch.Tensor) -> bool:
     return True
 
 
+def _count(mesh: Mesh, name: str, nbytes: int) -> None:
+    mesh.moved[name] = mesh.moved.get(name, 0) + int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 @contextmanager
 def _span(mesh: Mesh, name: str):
     if mesh.spans is None:
@@ -69,11 +87,12 @@ def _span(mesh: Mesh, name: str):
     mesh.spans[name] = mesh.spans.get(name, 0.0) + time.perf_counter() - t0
 
 
-def _all_reduce(t: torch.Tensor, mesh: Mesh, axis) -> None:
+def _all_reduce(t: torch.Tensor, mesh: Mesh, axis, name: str = "all_reduce") -> None:
     for a in ((axis,) if isinstance(axis, str) else axis):
         group = mesh.groups.get(a)
         if group is None:
             continue
+        _count(mesh, name, (mesh.size(a) - 1) * _nbytes(t))
         if _staged(mesh, "all_reduce", t):
             host = t.cpu()
             dist.all_reduce(host, group=group)
@@ -98,6 +117,7 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
 def _all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     n = mesh.size(axis)
     t = t.contiguous()
+    _count(mesh, "all_gather", (n - 1) * _nbytes(t))
     if _staged(mesh, "all_gather", t):
         host = t.cpu()
         out = torch.empty((n * host.shape[0],) + tuple(host.shape[1:]), dtype=host.dtype)
@@ -112,6 +132,7 @@ def _reduce_scatter(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     n = mesh.size(axis)
     t = t.contiguous()
     rows = t.shape[0] // n
+    _count(mesh, "reduce_scatter", (n - 1) * _nbytes(t) // n)
     if _staged(mesh, "reduce_scatter", t):
         host = t.cpu()
         out = torch.empty((rows,) + tuple(host.shape[1:]), dtype=host.dtype)
@@ -169,6 +190,8 @@ def _ring(mesh: Mesh, blocks: List[torch.Tensor], offsets: Sequence[int], sizes:
              for b, o in zip(blocks, offsets)]
     recvs = [(torch.empty((h,) + tuple(ref.shape[1:]), dtype=ref.dtype, device=dev),
               members[(i - sign * o) % p]) for h, o in zip(sizes, offsets)]
+    _count(mesh, "halo_exchange" if sign > 0 else "halo_exchange_bwd",
+           sum(_nbytes(t) for t, _ in recvs))
     _p2p(mesh, sends, recvs)
     return [t.to(ref.device) for t, _ in recvs]
 
@@ -252,7 +275,7 @@ def all_reduce_grads(params, mesh: Mesh, axis, scale: float = 1.0) -> None:
             p.grad = torch.zeros_like(p)
     flat = torch.cat([p.grad.reshape(-1) for p in params])
     with _span(mesh, "grad_all_reduce"):
-        _all_reduce(flat, mesh, axis)
+        _all_reduce(flat, mesh, axis, "grad_all_reduce")
     if scale != 1.0:
         flat.mul_(scale)
     start = 0

@@ -77,7 +77,9 @@ class Mesh:
     world's ranks), its index on each, the process group of each axis
     (None for an axis of size 1 in a larger world: nothing to exchange), the global ranks of
     its group on each axis by axis index, its device and the backend.
-    ``spans``, when a dict, times the collectives (``collectives.py``)."""
+    ``spans``, when a dict, times the collectives; ``moved`` counts the
+    bytes each collective brought this rank from its peers
+    (``collectives.py``)."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
@@ -87,6 +89,7 @@ class Mesh:
     backend: str
     staged: Dict[str, int] = field(default_factory=dict)   # collectives.py
     spans: Optional[Dict[str, float]] = None                 # collectives.py
+    moved: Dict[str, int] = field(default_factory=dict)      # collectives.py
 
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)

@@ -138,6 +138,18 @@ model limits):
   entry  graft_entry.entry()'s fn (the flagship forward, a captured predict
      step; the plain path, no kernel launched): [768, 7], captured = eager
      bit for bit, against float64.
+  experiments  (after interpret) every other driver of experiments/
+     through its entry function (experiments_phase; the cuts in its line):
+     eval_checkpoint on the full driver's checkpoint_best.pkl with --fused
+     (16 K1, test accuracy >= 0.80), the seed and tuning drivers on the
+     plain convs, the XOR drivers on the fused kernels (launches exact),
+     grid_search in 2 children on the card, the freeze check (conv1 bit for
+     bit), the MSE trainer, the RPG generator, the overfit harness, the
+     linear baseline, the LR schedule, partitioned_graph1_timing (a
+     one-rank NCCL group and a captured device loop: its ratio, its loss
+     against the single-device step's), scaling_bench and
+     halo_comm_accounting's counted bytes against the plan's on ranks
+     sharing the card, halo_budget_run cut to HALO_BUDGET.
   parallel  (after release_graphs, before ssl) parallelism over
      torch.distributed, every rank a process of its own started by
      parallel.launch.spawn (their reports come back to this process; no rank
@@ -4889,6 +4901,284 @@ def entry_phase(dev) -> dict:
                 cpu_f64_max_abs_err=err, use_pallas=fn.model.config.use_pallas)
 
 
+# ---------------------------------------------------------------- the experiments phase
+
+# the remaining drivers of experiments/ through their entry functions on the
+# card; each cut below is listed in the line (`cuts`)
+EXP_EPOCHS = 20                   # the seed and tuning drivers: of their 300
+EXP_SEEDS = (1, 2)                # seed_robustness, seed_ensemble: of (1, 2, 3)
+XOR_SAINT_DRIVER_EPOCHS = 10      # synthetic_training_modular_graphsaint: of 50
+GRID = dict(noise_stds=(0.3,), repeats=2, workers=2)   # of 6 x 5, 100 epochs each
+LINEAR_EPOCHS = 2                 # cora_linear_layer_baseline: of 10
+SCALING_SHARDS = 2                # scaling_bench: of 1, 2, 4, 8 ranks
+HALO_MEASURED_SHARDS = 2          # halo_comm_accounting --measured: of 8 ranks
+TIMING_ITERS = 10                 # partitioned_graph1_timing: its default
+# halo_budget_run: the JAX driver's shape is 1,048,576 nodes, 262,144 edges,
+# window 8192 on 2 ranks; both ranks share this one card, and the port's
+# plain partitioned step holds several times its K|V buffer (ROADMAP.md §C,
+# open), so the run is cut to a quarter of each (HALO_BUDGET_CUT in the line)
+HALO_BUDGET_FULL = dict(nodes=1_048_576, edges=262_144, window=8192)
+HALO_BUDGET = dict(nodes=262_144, edges=65_536, window=2048)
+HALO_BUDGET_CUT = ("two causes together: the JAX driver's two ranks (P=2) share this one "
+                   "card, and the port's plain partitioned step peaks at about seven times "
+                   "its rank's halo K|V buffer (an open fault, ROADMAP.md section C), so at "
+                   "1,048,576 nodes a rank needs about four times its peak at a quarter of "
+                   "the nodes, more than half the card")
+OVERFIT_MIN_ACC = 0.95
+
+
+def experiment_run(name, fn, want, dev, **kw) -> tuple:
+    """One driver's entry function on the card, after the earlier phases'
+    captured graphs are collected (``release_graphs``), its launch counts
+    set to 0 just before and read just after (exact: ``want``; the plain
+    drivers' none), on the tensor cores. Returns (result, report)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+
+    memory = release_graphs()
+    eaf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn(device=dev, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = eaf.launch_counts()
+    if counts != want:
+        fail(f"experiments: {name} launched {counts}, expected {want}")
+    bodies = used(tensor_cores_only(name, counts, ("tc",)))
+    return result, dict(seconds=seconds, launches={k: n for k, n in counts.items() if n},
+                        bodies=bodies, memory_reserved_before=memory["memory_reserved"])
+
+
+def times(k: int, per: dict) -> dict:
+    return {n: k * c for n, c in per.items()}
+
+
+def plus(*counts) -> dict:
+    return {n: sum(c[n] for c in counts) for n in KERNELS}
+
+
+def experiments_phase(full_run, per_eval_k, per_eval_k_saint, dev) -> tuple:
+    """Every driver of experiments/ that the earlier phases do not run,
+    through its entry function (its cuts in EXP_* above): eval_checkpoint
+    on the full driver's checkpoint_best.pkl (--stabilized --raw-residual
+    gcn2 --fused: 16 K1, test accuracy >= MIN_FULL_TEST_ACC); the seed and
+    tuning drivers on the plain convs (no launch); the XOR drivers on the
+    fused kernels (launches exact: path K's per step and per eval);
+    grid_search in a pool of 2 children on the card; the freeze check (conv1
+    bit for bit); the MSE trainer; the RPG generator; the overfit harness
+    (train accuracy >= OVERFIT_MIN_ACC); the linear baseline; the LR
+    schedule; partitioned_graph1_timing (a one-rank NCCL group: its ratio,
+    its first loss against the single-device step's, launches exact);
+    scaling_bench and halo_comm_accounting's measured bytes on ranks
+    sharing the card (the counted halo bytes against the plan's);
+    halo_budget_run at HALO_BUDGET. Returns ({driver: launches}, report)."""
+    from ampnet_tpu_torch.experiments import (
+        ampnet_freeze_check, cora_linear_layer_baseline, cora_overfit_one_subgraph,
+        cosine_lr_scheduler_test, eval_checkpoint, grid_search, halo_budget_run,
+        halo_comm_accounting, partitioned_graph1_timing, raw_residual_tuning, scaling_bench,
+        seed_ensemble, seed_robustness, synthetic_rgb_generate, synthetic_training,
+        synthetic_training_modular, synthetic_training_modular_graphsaint,
+        token_scale_tuning, transformer_tuning)
+    from ampnet_tpu_torch.parallel import build_halo_plan, partition_graph
+
+    none = launches()
+    step_k = launches(k1=2, k3=2, k4=2)
+    report, by_driver = {}, {}
+    report["cuts"] = dict(
+        seed_and_tuning_epochs=f"{EXP_EPOCHS} of 300", seeds=f"{list(EXP_SEEDS)} of [1, 2, 3]",
+        raw_residual_tuning="gcn2_drop0.3_adj0.1_wd1e-3 of 5 configs",
+        transformer_tuning="drop0.3_adj0.2_wd1e-3 of 3 configs",
+        synthetic_training_modular_graphsaint=f"{XOR_SAINT_DRIVER_EPOCHS} of 50 epochs",
+        grid_search=f"noise {list(GRID['noise_stds'])} of 6 levels, {GRID['repeats']} of 5 "
+                    f"repeats, {GRID['workers']} workers",
+        cora_linear_layer_baseline=f"{LINEAR_EPOCHS} of 10 epochs",
+        scaling_bench=f"1 and {SCALING_SHARDS} ranks of 1, 2, 4, 8",
+        halo_comm_accounting=f"measured on {HALO_MEASURED_SHARDS} of 8 ranks",
+        halo_budget_run=dict(ran=HALO_BUDGET, jax_shape=HALO_BUDGET_FULL,
+                             why=HALO_BUDGET_CUT))
+
+    def record(name, result_report, counts=None):
+        report[name] = result_report
+        if counts is not None:
+            by_driver[name] = counts
+
+    # eval_checkpoint on the full driver's banked best
+    res, rep = experiment_run("eval_checkpoint", eval_checkpoint.evaluate, launches(k1=16),
+                              dev, path=full_run, stabilized=True, raw_residual="gcn2",
+                              fused=True)
+    if not res["test_acc"] >= MIN_FULL_TEST_ACC:
+        fail(f"experiments: eval_checkpoint test accuracy {res['test_acc']:.4f} below "
+             f"{MIN_FULL_TEST_ACC}")
+    rep.update(checkpoint=os.path.basename(res["checkpoint"]), val_acc=res["val_acc"],
+               test_acc=res["test_acc"], eval_s=res["eval_s"],
+               command="eval_checkpoint <cora_benchmark_full run> --stabilized "
+                       "--raw-residual gcn2 --fused")
+    record("eval_checkpoint", rep, launches(k1=16))
+
+    # the seed and tuning drivers: plain convs
+    res, rep = experiment_run("seed_robustness", seed_robustness.run, none, dev,
+                              epochs=EXP_EPOCHS, seeds=EXP_SEEDS)
+    rep.update(test=res["test"], val=res["val"])
+    record("seed_robustness", rep)
+    res, rep = experiment_run("seed_ensemble", seed_ensemble.run, none, dev,
+                              epochs=EXP_EPOCHS, seeds=EXP_SEEDS)
+    rep.update({k: res[k] for k in ("val_acc", "test_acc", "single_test_accs")})
+    record("seed_ensemble", rep)
+    for name, mod, kw in (
+            ("raw_residual_tuning", raw_residual_tuning,
+             dict(configs="gcn2_drop0.3_adj0.1_wd1e-3")),
+            ("token_scale_tuning", token_scale_tuning, dict(s="64")),
+            ("transformer_tuning", transformer_tuning, dict(configs="drop0.3_adj0.2_wd1e-3"))):
+        res, rep = experiment_run(name, mod.run, none, dev, epochs=EXP_EPOCHS, **kw)
+        rep["rows"] = [{k: v for k, v in r.items() if k != "final_metrics"}
+                       | {"test_acc": r["final_metrics"]["test_acc"],
+                          "val_acc": r["final_metrics"]["val_acc"]} for r in res]
+        if not finite([r["test_acc"] for r in rep["rows"]]):
+            fail(f"experiments: {name} gave a non-finite accuracy")
+        record(name, rep)
+
+    # the XOR family on the fused kernels at path K's shape
+    epochs = synthetic_training_modular.ARGS["epochs"]
+    want = plus(times(epochs, step_k), times(epochs, per_eval_k))
+    runs = RUNS_DIR / "experiments"
+    res, rep = experiment_run("synthetic_training_modular", synthetic_training_modular.train,
+                              want, dev, run_base=str(runs / "xor"))
+    ckpts = sorted(p.name for p in Path(res["run_dir"]).glob("checkpoint_ep*.pkl"))
+    if len(ckpts) != epochs // 20:
+        fail(f"experiments: synthetic_training_modular wrote {ckpts}")
+    rep.update(epochs=epochs, max_train_acc=res["max_train_acc"],
+               max_test_acc=res["max_test_acc"], checkpoints=len(ckpts),
+               loss_first=res["history"][0]["loss"], loss_last=res["history"][-1]["loss"])
+    record("synthetic_training_modular", rep, want)
+    steps = XOR_SAINT_DRIVER_EPOCHS * 10
+    want = plus(times(steps, step_k), times(XOR_SAINT_DRIVER_EPOCHS, per_eval_k_saint))
+    res, rep = experiment_run("synthetic_training_modular_graphsaint",
+                              synthetic_training_modular_graphsaint.train, want, dev,
+                              args={"epochs": XOR_SAINT_DRIVER_EPOCHS},
+                              run_base=str(runs / "xor_saint"))
+    rep.update(steps=steps, max_train_acc=res["max_train_acc"],
+               max_test_acc=res["max_test_acc"])
+    record("synthetic_training_modular_graphsaint", rep, want)
+    res, rep = experiment_run("grid_search", grid_search.controller, none, dev,
+                              run_base=str(runs / "grid"), **GRID)
+    child = plus(times(grid_search.EPOCHS, step_k), times(grid_search.EPOCHS, per_eval_k))
+    child = {k: n for k, n in child.items() if n}
+    for where in res["where"]:
+        if not where["device"].startswith("cuda") or where["launches"] != child:
+            fail(f"experiments: a grid_search child trained on {where['device']} and "
+                 f"launched {where['launches']}, expected cuda and {child}")
+    if len({w["pid"] for w in res["where"]}) != GRID["workers"]:
+        fail(f"experiments: grid_search ran in {res['where']}, not {GRID['workers']} children")
+    if not (Path(res["run_base"]) / "grid_search.csv").exists():
+        fail("experiments: grid_search wrote no grid_search.csv")
+    rep.update(results=res["results"], children=res["where"])
+    record("grid_search", rep, {k: sum(w["launches"].get(k, 0) for w in res["where"])
+                                for k in KERNELS})
+
+    # the sanity harnesses and baselines
+    res, rep = experiment_run("ampnet_freeze_check", ampnet_freeze_check.train_model, none, dev)
+    if res["conv1_max_delta"] != 0.0:
+        fail(f"experiments: a frozen conv1 parameter moved by {res['conv1_max_delta']}")
+    rep.update(conv1_max_delta=res["conv1_max_delta"], trainable=res["trainable"],
+               loss_first=res["losses"][0], loss_last=res["losses"][-1],
+               train_acc_last=res["train_accs"][-1])
+    record("ampnet_freeze_check", rep)
+    res, rep = experiment_run("synthetic_training", synthetic_training.train, none, dev,
+                              run_base=str(runs / "mse"), draw=False)
+    rep.update({k: res[k] for k in ("final_test_acc", "max_test_acc", "max_train_acc")})
+    record("synthetic_training", rep)
+    t0 = time.perf_counter()
+    paths = synthetic_rgb_generate.main(["-o", str(runs / "rgb")])
+    record("synthetic_rgb_generate", dict(seconds=time.perf_counter() - t0,
+                                          splits=sorted(paths), host_only=True))
+    res, rep = experiment_run("cora_overfit_one_subgraph", cora_overfit_one_subgraph.main,
+                              none, dev)
+    if not res["train_acc"] >= OVERFIT_MIN_ACC:
+        fail(f"experiments: the overfit harness reached {res['train_acc']:.4f} train "
+             f"accuracy, below {OVERFIT_MIN_ACC}")
+    rep.update(train_acc=res["train_acc"], loss=res["loss"], nodes=res["nodes"],
+               edges=res["edges"])
+    record("cora_overfit_one_subgraph", rep)
+    res, rep = experiment_run("cora_linear_layer_baseline", cora_linear_layer_baseline.main,
+                              none, dev, epochs=LINEAR_EPOCHS)
+    rep.update(test_acc=res["test_acc"], epoch_losses=res["epoch_losses"])
+    if not finite([res["test_acc"], *res["epoch_losses"]]):
+        fail("experiments: the linear baseline gave a non-finite loss or accuracy")
+    record("cora_linear_layer_baseline", rep)
+    rates = cosine_lr_scheduler_test.main()
+    record("cosine_lr_scheduler_test", dict(rates=len(rates), first=rates[0], last=rates[-1],
+                                            host_only=True))
+
+    # partitioned timing and halo accounting, over parallel/*
+    res, rep = experiment_run("partitioned_graph1_timing", partitioned_graph1_timing.run,
+                              none, dev, iters=TIMING_ITERS)
+    got = res["launches"]
+    part = {k: n for k, n in plus(step_k).items() if n}
+    want_t = {"single": {K1_: 2 * res["steps"], K5_: 2 * res["steps"]},
+              "partitioned_fused": times(res["steps"], part),
+              "partitioned_fused_deviceloop": times(res["loop_steps"], part),
+              "partitioned_xla": {}, "partitioned_xla_deviceloop": {}}
+    if got != want_t:
+        fail(f"experiments: partitioned_graph1_timing launched {got}, expected {want_t}")
+    gap = abs(res["loss_partitioned"] - res["loss_single"]) / abs(res["loss_single"])
+    if not (res["loss_finite"] and gap <= MODEL_RTOL and res["backend"] == "nccl"):
+        fail(f"experiments: partitioned_graph1_timing losses {res['loss_partitioned']} vs "
+             f"{res['loss_single']} (backend {res['backend']})")
+    rep.update({k: v for k, v in res.items() if k != "note"}, loss_rel_gap=gap,
+               launches=got)
+    record("partitioned_graph1_timing", rep, plus(
+        launches(k1=2 * res["steps"], k5=2 * res["steps"]),
+        times(res["steps"] + res["loop_steps"], step_k)))
+    res, rep = experiment_run("scaling_bench", scaling_bench.main, none, dev,
+                              max_shards=SCALING_SHARDS, use_halo=True)
+    rep["shards"] = res
+    record("scaling_bench", rep)
+    t0 = time.perf_counter()
+    table = halo_comm_accounting.analytic()
+    analytic_s = time.perf_counter() - t0
+    res, rep = experiment_run("halo_comm_accounting", halo_comm_accounting.measured, none,
+                              dev, n_shards=HALO_MEASURED_SHARDS)
+    plan_halo = res["plan_halo_bytes_per_conv"]
+    for r in res["halo"]:
+        if r["moved"].get("halo_exchange") != 2 * plan_halo or \
+                r["moved"].get("halo_exchange_bwd") != 2 * plan_halo:
+            fail(f"experiments: rank {r['rank']} moved {r['moved']} in the halo step, the "
+                 f"plan says {plan_halo} bytes per conv each way")
+    for r in res["allgather"]:
+        if r["moved"].get("all_gather") != 2 * res["plan_allgather_bytes_per_conv"]:
+            fail(f"experiments: rank {r['rank']} moved {r['moved']} in the all-gather step")
+    rep.update(analytic_s=analytic_s, analytic=table, measured=res)
+    record("halo_comm_accounting", rep)
+    # halo_budget_run: the cut run, then the JAX shape's plan on the host
+    res, rep = experiment_run("halo_budget_run", halo_budget_run.run, none, dev,
+                              **HALO_BUDGET)
+    if not res["ok"]:
+        fail(f"experiments: halo_budget_run gave a non-finite loss ({res.get('loss')})")
+    t0 = time.perf_counter()
+    full = HALO_BUDGET_FULL
+    pg = partition_graph(halo_budget_run.budget_graph(full["nodes"], full["edges"],
+                                                      full["window"], 128), 2)
+    plan = build_halo_plan(pg)
+    rep.update({k: v for k, v in res.items() if k not in ("ranks", "seconds")},
+               step_s=res["seconds"],
+               # the open fault's measure (ROADMAP.md section C): a rank's peak
+               # over its halo K|V buffer
+               peak_over_halo_kv=max(r.get("peak_gb") or 0.0 for r in res["ranks"])
+               / res["halo_kv_gb"],
+               ranks=[{k: r.get(k) for k in ("rank", "n_loc", "halo_width", "seconds", "peak_gb",
+                                         "spans", "moved", "staged", "loss", "prepare_s")}
+                      for r in res["ranks"]],
+               jax_shape=dict(full, n_loc=pg.x.shape[1], halo_width=plan.halo_width,
+                              halo_kv_gb=halo_budget_run.kv_gb(pg.x.shape[1]
+                                                               + plan.halo_width),
+                              replicated_kv_gb=halo_budget_run.kv_gb(full["nodes"]),
+                              plan_s=time.perf_counter() - t0))
+    del pg
+    record("halo_budget_run", rep)
+    shutil.rmtree(runs, ignore_errors=True)
+    return by_driver, report
+
+
 # ---------------------------------------------------------------- the parallel phase
 
 # the recipe partitioned over graph=2 against the single-device port on the
@@ -5475,6 +5765,13 @@ def main() -> int:
     t0 = time.perf_counter()
     emit({"interpret": dict(interpret_phase(full_run, data, graph, args.seed, dev),
                             phase_s=time.perf_counter() - t0)})
+    # the remaining drivers of experiments/, eval_checkpoint on the full
+    # driver's run
+    t0 = time.perf_counter()
+    exp_counts, exp_report = experiments_phase(
+        full_run, path_k_report["per_eval_launches"],
+        path_k_report["graphsaint"]["per_eval_launches"], dev)
+    emit({"experiments": dict(exp_report, phase_s=time.perf_counter() - t0, card=smi)})
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     emit({"entry": dict(entry_phase(dev), phase_s=time.perf_counter() - t0, card=smi)})
@@ -5499,6 +5796,19 @@ def main() -> int:
         rows[f"{name}_s40"]["launches_by_path"] = {
             "C": counts_c[name], **{f"ssl {m}": c[name] for m, c in ssl_counts.items()},
             **{d: c[name] for d, c in driver_counts.items()}}
+    # the experiments phase's drivers: eval_checkpoint at S=40 (K1), the
+    # partitioned timing at S=20 (K1, K3, K4, K5), the XOR drivers at path
+    # K's shape (their rows below)
+    xor_drivers = ("synthetic_training_modular", "synthetic_training_modular_graphsaint",
+                   "grid_search")
+    for name in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv",
+                 "edge_attention_bwd_stream"):
+        row = rows[f"{name}_s40"]
+        row["launches_by_path"] = dict(row.get("launches_by_path", {}), **{
+            d: c[name] for d, c in exp_counts.items() if c[name] and d not in xor_drivers})
+    for row in xor_rows:
+        row["launches_by_path"].update({d: exp_counts[d][row["name"]] for d in xor_drivers
+                                        if exp_counts[d][row["name"]]})
     kernels = [
         dict(rows["edge_attention_sums_s40"], launches=counts_c["edge_attention_sums"]),
         dict(rows["edge_attention_layer_s20"], launches=counts_b["edge_attention_layer"]),

@@ -101,10 +101,17 @@ PORT_MODULES = {
     "": ["__init__", "convert", "graft_entry", "serving"],
     "core": ["__init__", "config", "graph"],
     "data": ["__init__", "graphsaint", "native", "planetoid", "synthetic"],
-    "experiments": ["__init__", "common", "contrastive_ssl_AMPNet", "cora_benchmark_full",
-                    "cora_benchmark_graphsaint", "cora_benchmark_graphsaint_distributed",
-                    "predictive_ssl_AMPNet", "ssl_transfer",
-                    "visualize_attention_coefficients", "visualize_cora_attn_coeffs"],
+    "experiments": ["__init__", "ampnet_freeze_check", "common", "contrastive_ssl_AMPNet",
+                    "cora_benchmark_full", "cora_benchmark_graphsaint",
+                    "cora_benchmark_graphsaint_distributed", "cora_linear_layer_baseline",
+                    "cora_overfit_one_subgraph", "cosine_lr_scheduler_test", "eval_checkpoint",
+                    "grid_search", "halo_budget_run", "halo_comm_accounting",
+                    "partitioned_graph1_timing", "predictive_ssl_AMPNet", "raw_residual_tuning",
+                    "scaling_bench", "seed_ensemble", "seed_robustness", "ssl_transfer",
+                    "synthetic_rgb_generate", "synthetic_training", "synthetic_training_modular",
+                    "synthetic_training_modular_graphsaint", "token_scale_tuning",
+                    "transformer_tuning", "visualize_attention_coefficients",
+                    "visualize_cora_attn_coeffs"],
     "interpret": ["__init__", "attention", "curves", "embedding", "histograms"],
     "models": ["__init__", "amp_gcn", "classifiers", "layers", "tokenizer"],
     "ops": ["__init__", "custom_mha", "edge_attention", "gcn", "segment", "tokenize"],
