@@ -10,6 +10,9 @@ locality window (the regime partitioning exists for). One training step
 (``make_partitioned_train_step``, the halo exchange, the convs recomputed
 in the backward: ``remat=True``; the plain convs, as the JAX driver's)
 on ``--shards`` spawned ranks; ``--fwd-only`` runs the forward alone.
+With remat the plain halo step runs ``edge_partition._LeanHaloConv``, so
+a rank's peak stays near its halo K|V buffer (about 3.6x on an H100): at
+the JAX shape both ranks fit one 80 GB card.
 
 The budget is the card's own memory (``torch.cuda.get_device_properties``),
 reported beside the two buffers (``budget_gb``, ``replicated_kv_gb``,

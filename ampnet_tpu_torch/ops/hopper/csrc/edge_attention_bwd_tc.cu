@@ -55,7 +55,22 @@
 // dMsg row, their dS is 0); rows S..SP-1 of the output are written as 0;
 // dh not a multiple of 8 is zero-padded within the head. Instantiated for
 // S <= 48 (NQT = ceil(S/8) query tiles), dh <= 32 and at most 12 warps (8
-// up to S=24); the wrapper routes other shapes to the CUDA-core body.
+// up to S=24), and for 48 < S <= 64 with dh a multiple of 8, below; the
+// wrapper routes other shapes to the CUDA-core body.
+//
+// 48 < S <= 64 (path J's S=64): a block of every head would take 16 warps
+// at H=4 and, at 201 KB of shared memory already at S=48, not fit. The
+// grid is (senders, heads) instead: a block takes one head of a sender, its
+// 4 key tiles (4 warps), so the softmax over keys stays within the block's
+// warps, and it gathers only that head's columns of the receivers' [Q |
+// dMsg] (S x 2dh, row stride 2dh + 4), so the bytes read stay those of
+// every head once. At S=64, dh=32: 17 KB a stage, 16 KB of K|V fragments,
+// 1.5 KB of scratch. The 16 x 64 tiles S^T and dW^T (64 registers) spilled
+// in one pass even at 255 registers, so the queries run in two groups of 4
+// tiles (two pairs of head barriers an edge; dV's and dK's sums over the
+// queries keep their order); registers capped at 168, 3 blocks of 128
+// threads per SM. Each
+// (sender, head) is summed by one block in slot order: bit-reproducible.
 
 #include "common.cuh"
 #include "mma_tf32.cuh"
@@ -81,42 +96,51 @@ __device__ __forceinline__ float quad_rows_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
-// up to S=24 (at most 8 warps) the registers are capped for two blocks per SM
+// up to S=24 (at most 8 warps) the registers are capped for two blocks per
+// SM; at S > 48, blocks of one head, three per SM
 template <int NQT>
-__global__ void __launch_bounds__(NQT <= 3 ? 256 : kMaxThreads, NQT <= 3 ? 2 : 1)
+__global__ void __launch_bounds__(NQT > 6 ? kWideThreads : NQT <= 3 ? 256 : kMaxThreads,
+                                  NQT > 6 ? 3 : NQT <= 3 ? 2 : 1)
 dkv_tc_kernel(const float* __restrict__ qdm, int ldqdm, const float* __restrict__ kv,
               int ldkv, const int* __restrict__ snd_receivers,
               const int* __restrict__ snd_valid, const int* __restrict__ snd_ptr,
               const int* __restrict__ snd_slots, float* __restrict__ dkv, int num_nodes,
               int s, int sp, int d, int num_heads, int softmax, int stages) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int kCols = 8 * NQT;  // query columns of the scratch
-  const int ldr = 2 * d + 4;
-  const int stage_floats = s * ldr;
+  // query tiles a pass: all up to S=48; beyond, groups of 4 (the 16 x 64
+  // tiles S^T and dW^T in one pass spilled at 255 registers)
+  constexpr int kQG = NQT > 6 ? 4 : NQT;
+  constexpr int kCols = 8 * kQG;  // query columns of the scratch
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int mtiles = (s + 15) / 16;
-  const int head = warp / mtiles, mt = warp % mtiles;
+  constexpr bool kWide = NQT > 6;  // a block of one head, blockIdx.y
+  const int bh = kWide ? 0 : warp / mtiles, mt = warp % mtiles;  // the warp's head in the block
   const int dh = d / num_heads;
-  const int hc = head * dh;
+  const int heads = kWide ? 1 : num_heads;
+  const int hc = (kWide ? blockIdx.y : bh) * dh;  // the warp's head, first column
+  const int gw = kWide ? dh : d;  // the block's columns of Q (and of dMsg)
+  const int ldr = 2 * gw + 4;
+  const int stage_floats = s * ldr;
   const int k0 = 16 * mt;  // the warp's first key row
   const float scale = 1.0f / sqrtf((float)dh);
   // [8][threads] float4: each lane's own K and V fragments; the ring; the
   // scratch [3][heads][mtiles][kCols]: max, sum(e), sum(dW e) partials
   float4* kvfrag = reinterpret_cast<float4*>(smem) + threadIdx.x;
   float* ring = smem + 32 * blockDim.x;
-  const int nred = num_heads * mtiles * kCols;
-  float* rmax = ring + stages * stage_floats + head * mtiles * kCols;
+  const int nred = heads * mtiles * kCols;
+  float* rmax = ring + stages * stage_floats + bh * mtiles * kCols;
   float* rsum = rmax + nred;
   float* rdot = rsum + nred;
-  const int bar_id = 1 + head, bar_threads = 32 * mtiles;
+  const int bar_id = 1 + bh, bar_threads = 32 * mtiles;
 
   LiveWalk prod;  // the gathers run stages - 1 live edges ahead
   prod.start(snd_ptr, blockIdx.x, num_nodes);
   for (int i = 0; i < stages - 1; ++i) {
     const int slot = prod.next(snd_ptr, snd_slots, snd_valid, num_nodes);
     if (slot >= 0)
-      fill_stage(ring + i * stage_floats, ldr, qdm, (size_t)snd_receivers[slot] * sp, ldqdm, s, d);
+      fill_heads(ring + i * stage_floats, ldr, qdm, (size_t)snd_receivers[slot] * sp, ldqdm, s,
+                 d, (kWide ? hc : 0), gw);
     cp_async_commit();
   }
   int stage = 0;
@@ -152,123 +176,134 @@ dkv_tc_kernel(const float* __restrict__ qdm, int ldqdm, const float* __restrict_
       if (valid == 0) continue;  // the same for every thread of the block
       cp_async_wait(stages - 2);
       __syncthreads();  // this edge's stage has landed; the previous one is free
-      const float* qr = ring + stage * stage_floats + hc;
-      const float* mr = qr + d;
+      const float* qr = ring + stage * stage_floats + (kWide ? 0 : hc);
+      const float* mr = qr + gw;
       const int free_stage = stage == 0 ? stages - 1 : stage - 1;
       stage = stage + 1 == stages ? 0 : stage + 1;
 
-      // S^T and dW^T: 16 keys x 8*NQT queries
-      float st[NQT][4], dw[NQT][4];
+      // the queries in groups of kQG tiles (one group up to S=48): per group
+      // S^T and dW^T, the softmax over keys, then dV and dK, whose sums over
+      // queries run in the same order as in one pass
+      auto query_group = [&](int j0) {
+        // S^T and dW^T: 16 keys x 8*kQG queries
+        float st[kQG][4], dw[kQG][4];
 #pragma unroll
-      for (int j = 0; j < NQT; ++j)
+        for (int j = 0; j < kQG; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dw[j][e] = 0.0f;
+          for (int e = 0; e < 4; ++e) st[j][e] = dw[j][e] = 0.0f;
 #pragma unroll 1  // unrolled, NQT = 5 and 6 spill at 168 registers
-      for (int kk = 0; kk < 4; ++kk) {
-        if (8 * kk >= dh) break;
-        const FragA ak = split_a(kvfrag[kk * blockDim.x]);
-        const FragA av = split_a(kvfrag[(4 + kk) * blockDim.x]);
-        const int c0 = 8 * kk + t, c1 = c0 + 4;
+        for (int kk = 0; kk < 4; ++kk) {
+          if (8 * kk >= dh) break;
+          const FragA ak = split_a(kvfrag[kk * blockDim.x]);
+          const FragA av = split_a(kvfrag[(4 + kk) * blockDim.x]);
+          const int c0 = 8 * kk + t, c1 = c0 + 4;
 #pragma unroll
-        for (int j = 0; j < NQT; ++j) {
-          const int qi = 8 * j + g;
-          const float* qp = qr + qi * ldr;
-          const float* mp = mr + qi * ldr;
-          mma_3xtf32(st[j], ak, split_b(qi < s && c0 < dh ? qp[c0] : 0.0f,
-                                        qi < s && c1 < dh ? qp[c1] : 0.0f));
-          mma_3xtf32(dw[j], av, split_b(qi < s && c0 < dh ? mp[c0] : 0.0f,
-                                        qi < s && c1 < dh ? mp[c1] : 0.0f));
+          for (int j = 0; j < kQG; ++j) {
+            const int qi = 8 * (j0 + j) + g;  // past s (the last group's tail): read as 0
+            const float* qp = qr + qi * ldr;
+            const float* mp = mr + qi * ldr;
+            mma_3xtf32(st[j], ak, split_b(qi < s && c0 < dh ? qp[c0] : 0.0f,
+                                          qi < s && c1 < dh ? qp[c1] : 0.0f));
+            mma_3xtf32(dw[j], av, split_b(qi < s && c0 < dh ? mp[c0] : 0.0f,
+                                          qi < s && c1 < dh ? mp[c1] : 0.0f));
+          }
         }
-      }
 
-      {  // the gather of the edge stages - 1 ahead, while the products run
-        const int slot = prod.next(snd_ptr, snd_slots, snd_valid, num_nodes);
-        if (slot >= 0)
-          fill_stage(ring + free_stage * stage_floats, ldr, qdm, (size_t)snd_receivers[slot] * sp,
-                     ldqdm, s, d);
-        cp_async_commit();
-      }
+        if (j0 == 0) {  // the gather of the edge stages - 1 ahead, while the products run
+          const int slot = prod.next(snd_ptr, snd_slots, snd_valid, num_nodes);
+          if (slot >= 0)
+            fill_heads(ring + free_stage * stage_floats, ldr, qdm,
+                       (size_t)snd_receivers[slot] * sp, ldqdm, s, d, (kWide ? hc : 0), gw);
+          cp_async_commit();
+        }
 
-      const float w = (float)valid;
-      if (softmax) {  // per query column (C columns 2t + e), over the head's keys
-        if (r0 >= s)
+        const float w = (float)valid;
+        if (softmax) {  // per query column (C columns 2t + e), over the head's keys
+          if (r0 >= s)
 #pragma unroll
-          for (int j = 0; j < NQT; ++j) st[j][0] = st[j][1] = -INFINITY;
-        if (r1 >= s)
+            for (int j = 0; j < kQG; ++j) st[j][0] = st[j][1] = -INFINITY;
+          if (r1 >= s)
 #pragma unroll
-          for (int j = 0; j < NQT; ++j) st[j][2] = st[j][3] = -INFINITY;
-        float m[NQT][2];
+            for (int j = 0; j < kQG; ++j) st[j][2] = st[j][3] = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < NQT; ++j)
+          for (int j = 0; j < kQG; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            m[j][e] = quad_rows_max(fmaxf(st[j][e], st[j][2 + e]));
-            if (g == 0) rmax[mt * kCols + 8 * j + 2 * t + e] = m[j][e];
-          }
-        head_barrier(bar_id, bar_threads);
-#pragma unroll
-        for (int j = 0; j < NQT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * j + 2 * t + e;
-            float mx = rmax[col];
-            for (int u = 1; u < mtiles; ++u) mx = fmaxf(mx, rmax[u * kCols + col]);
-            st[j][e] = expf(st[j][e] - mx);
-            st[j][2 + e] = expf(st[j][2 + e] - mx);
-            const float sum = quad_rows_sum(st[j][e] + st[j][2 + e]);
-            const float dot = quad_rows_sum(fmaf(dw[j][e], st[j][e], dw[j][2 + e] * st[j][2 + e]));
-            if (g == 0) {
-              rsum[mt * kCols + col] = sum;
-              rdot[mt * kCols + col] = dot;
+            for (int e = 0; e < 2; ++e) {
+              const float m = quad_rows_max(fmaxf(st[j][e], st[j][2 + e]));
+              if (g == 0) rmax[mt * kCols + 8 * j + 2 * t + e] = m;
             }
-          }
-        head_barrier(bar_id, bar_threads);
+          head_barrier(bar_id, bar_threads);
 #pragma unroll
-        for (int j = 0; j < NQT; ++j)
+          for (int j = 0; j < kQG; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * j + 2 * t + e;
-            float sum = rsum[col], dot = rdot[col];
-            for (int u = 1; u < mtiles; ++u) {
-              sum += rsum[u * kCols + col];
-              dot += rdot[u * kCols + col];
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * t + e;
+              float mx = rmax[col];
+              for (int u = 1; u < mtiles; ++u) mx = fmaxf(mx, rmax[u * kCols + col]);
+              st[j][e] = expf(st[j][e] - mx);
+              st[j][2 + e] = expf(st[j][2 + e] - mx);
+              const float sum = quad_rows_sum(st[j][e] + st[j][2 + e]);
+              const float dot =
+                  quad_rows_sum(fmaf(dw[j][e], st[j][e], dw[j][2 + e] * st[j][2 + e]));
+              if (g == 0) {
+                rsum[mt * kCols + col] = sum;
+                rdot[mt * kCols + col] = dot;
+              }
             }
-            dot = dot / sum;  // rowsum(dW W) of this query
-            const float inv = 1.0f / sum;
+          head_barrier(bar_id, bar_threads);
 #pragma unroll
-            for (int r = 0; r < 4; r += 2) {
-              const float wt = st[j][r + e] * inv;
-              st[j][r + e] = wt * w;
-              dw[j][r + e] = wt * (dw[j][r + e] - dot) * w;
+          for (int j = 0; j < kQG; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * t + e;
+              float sum = rsum[col], dot = rdot[col];
+              for (int u = 1; u < mtiles; ++u) {
+                sum += rsum[u * kCols + col];
+                dot += rdot[u * kCols + col];
+              }
+              dot = dot / sum;  // rowsum(dW W) of this query
+              const float inv = 1.0f / sum;
+#pragma unroll
+              for (int r = 0; r < 4; r += 2) {
+                const float wt = st[j][r + e] * inv;
+                st[j][r + e] = wt * w;
+                dw[j][r + e] = wt * (dw[j][r + e] - dot) * w;
+              }
             }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kQG; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              st[j][e] *= w;
+              dw[j][e] *= w;
+            }
+        }
+
+        // dV += W^T dMsg, dK += dS^T Q (1/sqrt(dh) applied once, at the end)
+#pragma unroll
+        for (int j = 0; j < kQG; ++j) {
+          const FragA aw = c_as_a(st[j]);
+          const FragA as = c_as_a(dw[j]);
+          const int qi = 8 * (j0 + j) + 2 * t;
+          const float* q0 = qr + qi * ldr;
+          const float* m0 = mr + qi * ldr;
+#pragma unroll
+          for (int nn = 0; nn < 4; ++nn) {
+            if (8 * nn >= dh) break;
+            const int c = 8 * nn + g;
+            mma_3xtf32(dv[nn], aw, split_b(qi < s && c < dh ? m0[c] : 0.0f,
+                                           qi + 1 < s && c < dh ? m0[ldr + c] : 0.0f));
+            mma_3xtf32(dk[nn], as, split_b(qi < s && c < dh ? q0[c] : 0.0f,
+                                           qi + 1 < s && c < dh ? q0[ldr + c] : 0.0f));
           }
+        }
+      };
+      if constexpr (NQT > 6) {
+#pragma unroll 1
+        for (int j0 = 0; j0 < NQT; j0 += kQG) query_group(j0);
       } else {
-#pragma unroll
-        for (int j = 0; j < NQT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            st[j][e] *= w;
-            dw[j][e] *= w;
-          }
-      }
-
-      // dV += W^T dMsg, dK += dS^T Q (1/sqrt(dh) applied once, at the end)
-#pragma unroll
-      for (int j = 0; j < NQT; ++j) {
-        const FragA aw = c_as_a(st[j]);
-        const FragA as = c_as_a(dw[j]);
-        const int qi = 8 * j + 2 * t;
-        const float* q0 = qr + qi * ldr;
-        const float* m0 = mr + qi * ldr;
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) {
-          if (8 * nn >= dh) break;
-          const int c = 8 * nn + g;
-          mma_3xtf32(dv[nn], aw, split_b(qi < s && c < dh ? m0[c] : 0.0f,
-                                         qi + 1 < s && c < dh ? m0[ldr + c] : 0.0f));
-          mma_3xtf32(dk[nn], as, split_b(qi < s && c < dh ? q0[c] : 0.0f,
-                                         qi + 1 < s && c < dh ? q0[ldr + c] : 0.0f));
-        }
+        query_group(0);
       }
     }
 
@@ -286,29 +321,30 @@ dkv_tc_kernel(const float* __restrict__ qdm, int ldqdm, const float* __restrict_
       }
     }
     float* pad = dkv + own0 * 2 * d;
-    for (int e = s * 2 * d + threadIdx.x; e < sp * 2 * d; e += blockDim.x) pad[e] = 0.0f;
+    if (!kWide || blockIdx.y == 0)
+      for (int e = s * 2 * d + threadIdx.x; e < sp * 2 * d; e += blockDim.x) pad[e] = 0.0f;
   }
   cp_async_wait(0);
 }
 
-// A persistent launch (blocks per SM x SMs, at most one block per sender),
-// or, with info, what it would run with.
+// A persistent launch (blocks per SM x SMs, at most one block per sender
+// and head group), or, with info, what it would run with.
 template <int NQT>
 int launch(const float* qdm, int ldqdm, const float* kv, int ldkv, const int* snd_receivers,
            const int* snd_valid, const int* snd_ptr, const int* snd_slots, float* dkv,
            int num_nodes, int s, int sp, int d, int num_heads, int softmax,
            cudaStream_t stream, int* info) {
   static RingPlan plan;
-  const int threads = 32 * num_heads * ((s + 15) / 16);
+  const int heads = block_heads(s, num_heads);
+  const int threads = 32 * heads * ((s + 15) / 16);
   // K and V fragments, the scratch
   const size_t fixed = (size_t)threads * 32 * sizeof(float) +
-                       (size_t)3 * (threads / 32) * 8 * NQT * sizeof(float);
-  const int err = ring_plan(dkv_tc_kernel<NQT>, threads, s, d, fixed, plan);
+                       (size_t)3 * (threads / 32) * 8 * (NQT > 6 ? 4 : NQT) * sizeof(float);
+  const int err = ring_plan(dkv_tc_kernel<NQT>, threads, s, heads * (d / num_heads), fixed, plan);
   if (err) return err;
-  const int grid = num_nodes < plan.blocks_per_sm * plan.sms ? num_nodes
-                                                             : plan.blocks_per_sm * plan.sms;
-  if (info) return ring_info(dkv_tc_kernel<NQT>, plan, grid, info);
-  if (grid > 0)
+  const dim3 grid = ring_grid(plan, num_nodes, num_heads / heads);
+  if (info) return ring_info(dkv_tc_kernel<NQT>, plan, grid.x * grid.y, info);
+  if (grid.x > 0)
     dkv_tc_kernel<NQT><<<grid, threads, plan.smem, stream>>>(
         qdm, ldqdm, kv, ldkv, snd_receivers, snd_valid, snd_ptr, snd_slots, dkv, num_nodes, s,
         sp, d, num_heads, softmax, plan.stages);
@@ -319,9 +355,7 @@ int dispatch(const float* qdm, int ldqdm, const float* kv, int ldkv, const int* 
              const int* snd_valid, const int* snd_ptr, const int* snd_slots, float* dkv,
              int num_nodes, int s, int sp, int d, int num_heads, int softmax,
              cudaStream_t stream, int* info) {
-  if (s < 1 || num_heads < 1 || d % num_heads || d / num_heads > 32 ||
-      num_heads * ((s + 15) / 16) > (s <= 24 ? 8 : kMaxWarps))
-    return (int)cudaErrorInvalidValue;
+  if (!wide_shape_ok(s, d, num_heads)) return (int)cudaErrorInvalidValue;
 #define AMPNET_K4_CASE(N)                                                                   \
   case N:                                                                                   \
     return launch<N>(qdm, ldqdm, kv, ldkv, snd_receivers, snd_valid, snd_ptr, snd_slots, dkv, \
@@ -329,6 +363,7 @@ int dispatch(const float* qdm, int ldqdm, const float* kv, int ldkv, const int* 
   switch ((s + 7) / 8) {
     AMPNET_K4_CASE(1) AMPNET_K4_CASE(2) AMPNET_K4_CASE(3)
     AMPNET_K4_CASE(4) AMPNET_K4_CASE(5) AMPNET_K4_CASE(6)
+    AMPNET_K4_CASE(7) AMPNET_K4_CASE(8)
   }
 #undef AMPNET_K4_CASE
   return (int)cudaErrorInvalidValue;
@@ -341,8 +376,9 @@ extern "C" {
 // K4. qdm: rows of q|dsum (2d floats, stride ldqdm, both 16-byte aligned);
 // kv: rows of k|v (2d floats, stride ldkv); snd_receivers / snd_valid over
 // the sender-tiled slots, snd_ptr / snd_slots the sender-major index; dkv:
-// [num_nodes*sp, 2d] contiguous rows of dk|dv. S <= 48, d / num_heads <= 32,
-// num_heads * ceil(S/16) <= 12 (8 up to S=24).
+// [num_nodes*sp, 2d] contiguous rows of dk|dv. d / num_heads <= 32; S <= 48
+// with num_heads * ceil(S/16) <= 12 (8 up to S=24), or 48 < S <= 64 with
+// d / num_heads a multiple of 8.
 int ampnet_edge_attention_bwd_dkv(const float* qdm, int ldqdm, const float* kv, int ldkv,
                                   const int* snd_receivers, const int* snd_valid,
                                   const int* snd_ptr, const int* snd_slots, float* dkv,

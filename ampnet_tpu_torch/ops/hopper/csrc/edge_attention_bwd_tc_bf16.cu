@@ -25,8 +25,17 @@
 // head, partials added in warp order); the ring holds bf16 [Q | dMsg] rows
 // (row stride 2D + 8); a persistent grid walks senders; no atomics:
 // bit-reproducible. Within the tensor cores' range only (S <= 48, dh <= 32,
-// at most 12 warps, 8 up to S=24); beyond it the wrapper runs the CUDA-core
-// bf16 body (edge_attention_bwd.cu). Trouble spots as in the 3xTF32 body.
+// at most 12 warps, 8 up to S=24; and 48 < S <= 64 with dh a multiple of
+// 8); beyond it the wrapper runs the CUDA-core bf16 body
+// (edge_attention_bwd.cu). Trouble spots as in the 3xTF32 body.
+//
+// 48 < S <= 64 (path J's S=64) takes the 3xTF32 body's grid of (senders,
+// heads): a block of one head (4 warps, its 4 key tiles; the softmax over
+// keys within the block) gathers that head's columns of [Q | dMsg] (row
+// stride 2dh + 8 values), 9 KB a stage at dh = 32. At S=40 the body of every
+// head took 168 registers at 12 warps; a warp's S^T and dW^T at S=64 are 64
+// registers, so the cap is 255 (2 blocks of 128 threads per SM; at 168 they
+// spilled 224 bytes).
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
@@ -63,7 +72,8 @@ __device__ __forceinline__ uint32_t scaled_pair(const bf16* p, int c, int lim, f
 }
 
 template <int NQT>
-__global__ void __launch_bounds__(NQT <= 3 ? 256 : kMaxThreads, NQT <= 3 ? 2 : 1)
+__global__ void __launch_bounds__(NQT > 6 ? kWideThreads : NQT <= 3 ? 256 : kMaxThreads,
+                                  NQT > 6 || NQT <= 3 ? 2 : 1)
 dkv_bf16_kernel(const bf16* __restrict__ qdm, int ldqdm, const bf16* __restrict__ kv, int ldkv,
                 const int* __restrict__ snd_receivers, const int* __restrict__ snd_valid,
                 const int* __restrict__ snd_ptr, const int* __restrict__ snd_slots,
@@ -71,32 +81,35 @@ dkv_bf16_kernel(const bf16* __restrict__ qdm, int ldqdm, const bf16* __restrict_
                 int softmax, int stages) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kCols = 8 * NQT;  // query columns of the scratch
-  const int ldr = 2 * d + kPad;
-  const int stage_values = s * ldr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int mtiles = (s + 15) / 16;
-  const int head = warp / mtiles, mt = warp % mtiles;
+  constexpr bool kWide = NQT > 6;  // a block of one head, blockIdx.y
+  const int bh = kWide ? 0 : warp / mtiles, mt = warp % mtiles;  // the warp's head in the block
   const int dh = d / num_heads;
-  const int hc = head * dh;
+  const int heads = kWide ? 1 : num_heads;
+  const int hc = (kWide ? blockIdx.y : bh) * dh;  // the warp's head, first column
+  const int gw = kWide ? dh : d;  // the block's columns of Q (and of dMsg)
+  const int ldr = 2 * gw + kPad;
+  const int stage_values = s * ldr;
   const int k0 = 16 * mt;  // the warp's first key row
   const float qscale = head_scale<bf16>(dh);            // the scores' q scale, bf16
   const float scale = (float)(1.0 / sqrt((double)dh));  // dK's, f32
   // the ring; then the scratch [3][heads][mtiles][kCols]: max, sum(e), sum(dW e)
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  const int nred = num_heads * mtiles * kCols;
-  float* rmax = reinterpret_cast<float*>(ring + stages * stage_values) + head * mtiles * kCols;
+  const int nred = heads * mtiles * kCols;
+  float* rmax = reinterpret_cast<float*>(ring + stages * stage_values) + bh * mtiles * kCols;
   float* rsum = rmax + nred;
   float* rdot = rsum + nred;
-  const int bar_id = 1 + head, bar_threads = 32 * mtiles;
+  const int bar_id = 1 + bh, bar_threads = 32 * mtiles;
 
   LiveWalk prod;  // the gathers run stages - 1 live edges ahead
   prod.start(snd_ptr, blockIdx.x, num_nodes);
   for (int i = 0; i < stages - 1; ++i) {
     const int slot = prod.next(snd_ptr, snd_slots, snd_valid, num_nodes);
     if (slot >= 0)
-      fill_rows(ring + i * stage_values, ldr, qdm, (size_t)snd_receivers[slot] * sp, ldqdm, s,
-                2 * d);
+      fill_heads(ring + i * stage_values, ldr, qdm, (size_t)snd_receivers[slot] * sp, ldqdm, s,
+                 d, (kWide ? hc : 0), gw);
     cp_async_commit();
   }
   int stage = 0;
@@ -133,8 +146,8 @@ dkv_bf16_kernel(const bf16* __restrict__ qdm, int ldqdm, const bf16* __restrict_
       if (valid == 0) continue;  // the same for every thread of the block
       cp_async_wait(stages - 2);
       __syncthreads();  // this edge's stage has landed; the previous one is free
-      const bf16* qr = ring + stage * stage_values + hc;
-      const bf16* mr = qr + d;
+      const bf16* qr = ring + stage * stage_values + (kWide ? 0 : hc);
+      const bf16* mr = qr + gw;
       const int free_stage = stage == 0 ? stages - 1 : stage - 1;
       stage = stage + 1 == stages ? 0 : stage + 1;
 
@@ -165,8 +178,8 @@ dkv_bf16_kernel(const bf16* __restrict__ qdm, int ldqdm, const bf16* __restrict_
       {  // the gather of the edge stages - 1 ahead, while the products run
         const int slot = prod.next(snd_ptr, snd_slots, snd_valid, num_nodes);
         if (slot >= 0)
-          fill_rows(ring + free_stage * stage_values, ldr, qdm, (size_t)snd_receivers[slot] * sp,
-                    ldqdm, s, 2 * d);
+          fill_heads(ring + free_stage * stage_values, ldr, qdm, (size_t)snd_receivers[slot] * sp,
+                     ldqdm, s, d, (kWide ? hc : 0), gw);
         cp_async_commit();
       }
 
@@ -278,28 +291,30 @@ dkv_bf16_kernel(const bf16* __restrict__ qdm, int ldqdm, const bf16* __restrict_
       }
     }
     float* pad = dkv + own0 * 2 * d;
-    for (int e = s * 2 * d + threadIdx.x; e < sp * 2 * d; e += blockDim.x) pad[e] = 0.0f;
+    if (!kWide || blockIdx.y == 0)
+      for (int e = s * 2 * d + threadIdx.x; e < sp * 2 * d; e += blockDim.x) pad[e] = 0.0f;
   }
   cp_async_wait(0);
 }
 
-// A persistent launch (blocks per SM x SMs, at most one block per sender),
-// or, with info, what it would run with.
+// A persistent launch (blocks per SM x SMs, at most one block per sender
+// and head group), or, with info, what it would run with.
 template <int NQT>
 int launch(const bf16* qdm, int ldqdm, const bf16* kv, int ldkv, const int* snd_receivers,
            const int* snd_valid, const int* snd_ptr, const int* snd_slots, float* dkv,
            int num_nodes, int s, int sp, int d, int num_heads, int softmax,
            cudaStream_t stream, int* info) {
   static RingPlan plan;
-  const int threads = 32 * num_heads * ((s + 15) / 16);
+  const int heads = block_heads(s, num_heads);
+  const int gw = heads * (d / num_heads);
+  const int threads = 32 * heads * ((s + 15) / 16);
   const size_t fixed = (size_t)3 * (threads / 32) * 8 * NQT * sizeof(float);  // the scratch
-  const size_t stage_bytes = (size_t)s * (2 * d + kPad) * sizeof(bf16);
-  const int err = ring_plan_bytes(dkv_bf16_kernel<NQT>, threads, s, d, fixed, stage_bytes, plan);
+  const size_t stage_bytes = (size_t)s * (2 * gw + kPad) * sizeof(bf16);
+  const int err = ring_plan_bytes(dkv_bf16_kernel<NQT>, threads, s, gw, fixed, stage_bytes, plan);
   if (err) return err;
-  const int grid = num_nodes < plan.blocks_per_sm * plan.sms ? num_nodes
-                                                             : plan.blocks_per_sm * plan.sms;
-  if (info) return ring_info(dkv_bf16_kernel<NQT>, plan, grid, info);
-  if (grid > 0)
+  const dim3 grid = ring_grid(plan, num_nodes, num_heads / heads);
+  if (info) return ring_info(dkv_bf16_kernel<NQT>, plan, grid.x * grid.y, info);
+  if (grid.x > 0)
     dkv_bf16_kernel<NQT><<<grid, threads, plan.smem, stream>>>(
         qdm, ldqdm, kv, ldkv, snd_receivers, snd_valid, snd_ptr, snd_slots, dkv, num_nodes, s,
         sp, d, num_heads, softmax, plan.stages);
@@ -310,9 +325,7 @@ int dispatch(const bf16* qdm, int ldqdm, const bf16* kv, int ldkv, const int* sn
              const int* snd_valid, const int* snd_ptr, const int* snd_slots, float* dkv,
              int num_nodes, int s, int sp, int d, int num_heads, int softmax,
              cudaStream_t stream, int* info) {
-  if (s < 1 || num_heads < 1 || d % num_heads || d / num_heads > 32 ||
-      num_heads * ((s + 15) / 16) > (s <= 24 ? 8 : kMaxWarps))
-    return (int)cudaErrorInvalidValue;
+  if (!wide_shape_ok(s, d, num_heads)) return (int)cudaErrorInvalidValue;
 #define AMPNET_K4_BF16_CASE(N)                                                              \
   case N:                                                                                   \
     return launch<N>(qdm, ldqdm, kv, ldkv, snd_receivers, snd_valid, snd_ptr, snd_slots, dkv, \
@@ -320,6 +333,7 @@ int dispatch(const bf16* qdm, int ldqdm, const bf16* kv, int ldkv, const int* sn
   switch ((s + 7) / 8) {
     AMPNET_K4_BF16_CASE(1) AMPNET_K4_BF16_CASE(2) AMPNET_K4_BF16_CASE(3)
     AMPNET_K4_BF16_CASE(4) AMPNET_K4_BF16_CASE(5) AMPNET_K4_BF16_CASE(6)
+    AMPNET_K4_BF16_CASE(7) AMPNET_K4_BF16_CASE(8)
   }
 #undef AMPNET_K4_BF16_CASE
   return (int)cudaErrorInvalidValue;

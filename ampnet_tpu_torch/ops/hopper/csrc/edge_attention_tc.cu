@@ -17,8 +17,9 @@ extern "C" {
 
 // K1. q: [num_nodes*sp] rows of d floats, row stride ldq; kv: rows of k|v
 // (2d floats), row stride ldkv, kv and ldkv 16-byte aligned; out:
-// [num_nodes*sp, d] contiguous. S <= 48, d / num_heads <= 32, num_heads *
-// ceil(S/16) <= 12 (8 up to S=24, the rule K4 needs).
+// [num_nodes*sp, d] contiguous. d / num_heads <= 32; S <= 48 with num_heads *
+// ceil(S/16) <= 12 (8 up to S=24, the rule K4 needs), or 48 < S <= 64 with
+// d / num_heads a multiple of 8 (one block per receiver and head).
 int ampnet_edge_attention_sums(const float* q, int ldq, const float* kv, int ldkv,
                                const int* tile_senders, const int* tile_valid,
                                const int* recv_ptr, const int* recv_slots, float* out,

@@ -60,8 +60,21 @@
 // are -inf before the softmax and their values 0. Head widths that are not
 // a multiple of 8 (D=100, H=4: dh=25) are zero-padded within the head.
 // Instantiated for S <= 48 (NKT = ceil(S/8) key tiles), dh <= 32 and at most
-// 12 warps (8 up to S=24, K4's rule); the wrappers route other shapes to the
+// 12 warps (8 up to S=24, K4's rule), and for K1 alone (not K2, K6, K9) at
+// 48 < S <= 64 (NKT = 7, 8), below; the wrappers route other shapes to the
 // CUDA-core bodies, and rows the 16-byte copies cannot take as well.
+//
+// K1 at 48 < S <= 64 (path J's S=64): a block of every head would take 16
+// warps at H=4, one block per SM, and a ring of 64 KB an edge. Instead the
+// grid is (receivers, heads): a block takes one head of a receiver (4 warps,
+// its 4 query tiles) and gathers only that head's columns of K|V (S x 2dh,
+// row stride 2dh + 4: free of bank conflicts at dh = 32, as 2D + 4 at D =
+// 128), so the bytes read stay those of every head once. At S=64, dh=32 a
+// stage is 17 KB; the registers are capped at 168 a thread (3 blocks of 128
+// threads per SM: at 128 S = 49-56 spilled); a warp's 16 x 64 score tile is
+// sc[8][4].
+// A receiver's rows of one head are summed by one block in in-edge order:
+// still no atomics, bit-reproducible.
 #pragma once
 
 #include "common.cuh"
@@ -189,9 +202,12 @@ __device__ __forceinline__ void softmax_pv(float (&sc)[NKT][4], float (&o)[4][4]
 // and 41-48 (NKT = 4, 6), which get one block per SM (ptxas, on sm_90a). With
 // kLayer at S = 33-40 the staged mean leaves room for one block anyway (and
 // at 80 registers it spilled).
+// At NKT = 7, 8 (K1 only) blocks of one head, registers capped for 3 per SM
+// (at 4, 128 registers, S = 49-56 spilled).
 template <int NKT, bool kLayer, bool kStageW = false>
-__global__ void __launch_bounds__(kMaxThreads,
-                                  NKT == 4 || NKT == 6 || (kLayer && NKT == 5) ? 1 : 2)
+__global__ void __launch_bounds__(NKT > 6 ? kWideThreads : kMaxThreads,
+                                  NKT > 6 ? 3
+                                          : NKT == 4 || NKT == 6 || (kLayer && NKT == 5) ? 1 : 2)
 sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ kv,
                int ldkv, const int* __restrict__ tile_senders,
                const int* __restrict__ tile_valid, const int* __restrict__ recv_ptr,
@@ -204,8 +220,11 @@ sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ k
   const int g = lane / 4, t = lane % 4;
   const int mtiles = (s + 15) / 16;
   const int dh = d / num_heads;
-  const int head = warp / mtiles;
+  constexpr bool kWide = NKT > 6;       // a block of one head, blockIdx.y
+  const int head = kWide ? blockIdx.y : warp / mtiles;
   const int hc = head * dh;             // the warp's head, first column
+  const int gw = kWide ? dh : d;        // the block's columns of K (and of V)
+  const int rc = kWide ? 0 : hc;        // the warp's head in the ring
   const int m0 = 16 * (warp % mtiles);  // the warp's first query row
   const float scale = 1.0f / sqrtf((float)dh);
   // [4][threads] float4: each lane's own Q fragments; with kLayer the
@@ -216,7 +235,7 @@ sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ k
   float* mean = smem + 16 * blockDim.x;
   float* wsm = mean + (kLayer ? 16 * mtiles * ldm : 0);
   float* ring = wsm + (kStageW ? d * ldw : 0);
-  const int ldr = 2 * d + 4;
+  const int ldr = 2 * gw + 4;
   const int stage_floats = s * ldr;
   if (kStageW)  // read after the epilogue's first barrier
     for (int e = threadIdx.x; e < d * d; e += blockDim.x) wsm[(e / d) * ldw + e % d] = w_out[e];
@@ -226,7 +245,8 @@ sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ k
   for (int i = 0; i < stages - 1; ++i) {
     const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
     if (slot >= 0)
-      fill_stage(ring + i * stage_floats, ldr, kv, (size_t)tile_senders[slot] * sp, ldkv, s, d);
+      fill_heads(ring + i * stage_floats, ldr, kv, (size_t)tile_senders[slot] * sp, ldkv, s, d,
+                 hc - rc, gw);
     cp_async_commit();
   }
   int stage = 0;  // the stage of the next live edge
@@ -250,8 +270,8 @@ sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ k
       if (valid == 0) continue;  // the same for every thread of the block
       cp_async_wait(stages - 2);
       __syncthreads();  // this edge's stage has landed; the previous one is free
-      const float* kr = ring + stage * stage_floats + hc;
-      const float* vr = kr + d;
+      const float* kr = ring + stage * stage_floats + rc;
+      const float* vr = kr + gw;
       const int free_stage = stage == 0 ? stages - 1 : stage - 1;
       stage = stage + 1 == stages ? 0 : stage + 1;
 
@@ -261,8 +281,8 @@ sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ k
       {  // the gather of the edge stages - 1 ahead, while the products run
         const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
         if (slot >= 0)
-          fill_stage(ring + free_stage * stage_floats, ldr, kv, (size_t)tile_senders[slot] * sp,
-                     ldkv, s, d);
+          fill_heads(ring + free_stage * stage_floats, ldr, kv, (size_t)tile_senders[slot] * sp,
+                     ldkv, s, d, hc - rc, gw);
         cp_async_commit();
       }
 
@@ -350,13 +370,14 @@ sums_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ k
         }
       }
     }
-    for (int e = s * d + threadIdx.x; e < sp * d; e += blockDim.x) orow[e] = 0.0f;
+    if (!kWide || blockIdx.y == 0)
+      for (int e = s * d + threadIdx.x; e < sp * d; e += blockDim.x) orow[e] = 0.0f;
   }
   cp_async_wait(0);
 }
 
-// A persistent launch (blocks per SM x SMs, at most one block per receiver),
-// or, with info, what it would run with.
+// A persistent launch (blocks per SM x SMs, at most one block per receiver
+// and head group), or, with info, what it would run with.
 template <int NKT, bool kLayer, bool kStageW>
 int launch_sums_tc(const float* q, int ldq, const float* kv, int ldkv, const int* tile_senders,
                    const int* tile_valid, const int* recv_ptr, const int* recv_slots,
@@ -364,17 +385,18 @@ int launch_sums_tc(const float* q, int ldq, const float* kv, int ldkv, const int
                    int num_nodes, int s, int sp, int d, int num_heads, int softmax,
                    cudaStream_t stream, int* info) {
   static RingPlan plan;
-  const int threads = 32 * num_heads * ((s + 15) / 16);
+  const int heads = block_heads(s, num_heads);
+  const int threads = 32 * heads * ((s + 15) / 16);
   // Q fragments, with kLayer the staged mean, with kStageW w_out
   const size_t fixed = (size_t)threads * 16 * sizeof(float) +
                        (kLayer ? (size_t)16 * ((s + 15) / 16) * (d + 4) * sizeof(float) : 0) +
                        (kStageW ? (size_t)d * (d + 8) * sizeof(float) : 0);
-  const int err = ring_plan(sums_tc_kernel<NKT, kLayer, kStageW>, threads, s, d, fixed, plan);
+  const int err = ring_plan(sums_tc_kernel<NKT, kLayer, kStageW>, threads, s,
+                            heads * (d / num_heads), fixed, plan);
   if (err) return err;
-  const int grid = num_nodes < plan.blocks_per_sm * plan.sms ? num_nodes
-                                                             : plan.blocks_per_sm * plan.sms;
-  if (info) return ring_info(sums_tc_kernel<NKT, kLayer, kStageW>, plan, grid, info);
-  if (grid > 0)
+  const dim3 grid = ring_grid(plan, num_nodes, num_heads / heads);
+  if (info) return ring_info(sums_tc_kernel<NKT, kLayer, kStageW>, plan, grid.x * grid.y, info);
+  if (grid.x > 0)
     sums_tc_kernel<NKT, kLayer, kStageW><<<grid, threads, plan.smem, stream>>>(
         q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots, invdeg, w_out, b_out,
         out, num_nodes, s, sp, d, num_heads, softmax, plan.stages);
@@ -387,9 +409,7 @@ int dispatch_sums_tc(const float* q, int ldq, const float* kv, int ldkv,
                      const int* recv_slots, const float* invdeg, const float* w_out,
                      const float* b_out, float* out, int num_nodes, int s, int sp, int d,
                      int num_heads, int softmax, cudaStream_t stream, int* info) {
-  if (s < 1 || num_heads < 1 || d % num_heads || d / num_heads > 32 ||
-      num_heads * ((s + 15) / 16) > (s <= 24 ? 8 : kMaxWarps))
-    return (int)cudaErrorInvalidValue;
+  if (!wide_shape_ok(s, d, num_heads) || (kLayer && s > 48)) return (int)cudaErrorInvalidValue;
 #define AMPNET_SUMS_TC_CASE(N)                                                               \
   case N:                                                                                    \
     return launch_sums_tc<N, kLayer, kStageW>(q, ldq, kv, ldkv, tile_senders, tile_valid,    \
@@ -399,6 +419,9 @@ int dispatch_sums_tc(const float* q, int ldq, const float* kv, int ldkv,
   switch ((s + 7) / 8) {
     AMPNET_SUMS_TC_CASE(1) AMPNET_SUMS_TC_CASE(2) AMPNET_SUMS_TC_CASE(3)
     AMPNET_SUMS_TC_CASE(4) AMPNET_SUMS_TC_CASE(5) AMPNET_SUMS_TC_CASE(6)
+  }
+  if constexpr (!kLayer) {
+    switch ((s + 7) / 8) { AMPNET_SUMS_TC_CASE(7) AMPNET_SUMS_TC_CASE(8) }
   }
 #undef AMPNET_SUMS_TC_CASE
   return (int)cudaErrorInvalidValue;

@@ -17,8 +17,9 @@ extern "C" {
 
 // K1, bf16 rows. q: [num_nodes*sp] rows of d bf16, row stride ldq; kv: rows
 // of k|v (2d bf16), row stride ldkv, kv and ldkv in whole 16-byte pieces;
-// out: [num_nodes*sp, d] f32, contiguous. S <= 48, d / num_heads <= 32,
-// num_heads * ceil(S/16) <= 12 (8 up to S=24).
+// out: [num_nodes*sp, d] f32, contiguous. d / num_heads <= 32; S <= 48 with
+// num_heads * ceil(S/16) <= 12 (8 up to S=24), or 48 < S <= 64 with d /
+// num_heads a multiple of 8.
 int ampnet_edge_attention_sums_bf16(const __nv_bfloat16* q, int ldq, const __nv_bfloat16* kv,
                                     int ldkv, const int* tile_senders, const int* tile_valid,
                                     const int* recv_ptr, const int* recv_slots, float* out,

@@ -49,7 +49,15 @@
 // 0 (their ring rows hold an earlier edge's values); dh not a multiple of 16
 // is zero-padded; rows S..SP-1 of the output are written as 0. Within the
 // tensor cores' range only (S <= 48, dh <= 32, at most 12 warps, 8 up to
-// S=24): beyond it the wrappers run the CUDA-core bf16 bodies.
+// S=24; for K1 also 48 < S <= 64 with dh a multiple of 8): beyond it the
+// wrappers run the CUDA-core bf16 bodies.
+//
+// K1 at 48 < S <= 64 (path J's S=64) takes the 3xTF32 body's grid of
+// (receivers, heads), edge_attention_tc.cuh: a block of one head (4 warps)
+// gathers that head's columns of K|V (row stride 2dh + 8 values: 36 words at
+// dh = 32, free of bank conflicts as 2D + 8 at D = 128), 9 KB a stage of bf16
+// rows; registers capped at 168 a thread (3 blocks of 128 threads per SM: at
+// 128, f32 rows under mxu_bf16 spilled).
 #pragma once
 
 #include <type_traits>
@@ -204,8 +212,9 @@ template <bool kLayer, typename T>
 using SumsOut = std::conditional_t<kLayer, T, float>;
 
 template <int NKT, bool kLayer, typename T>
-__global__ void __launch_bounds__(kBf16MaxThreads,
-                                  NKT == 4 || NKT == 6 || (kLayer && NKT == 5) ? 1 : 2)
+__global__ void __launch_bounds__(NKT > 6 ? kWideThreads : kBf16MaxThreads,
+                                  NKT > 6 ? 3
+                                          : NKT == 4 || NKT == 6 || (kLayer && NKT == 5) ? 1 : 2)
 sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int ldkv,
                  const int* __restrict__ tile_senders, const int* __restrict__ tile_valid,
                  const int* __restrict__ recv_ptr, const int* __restrict__ recv_slots,
@@ -217,8 +226,11 @@ sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int
   const int g = lane / 4, t = lane % 4;
   const int mtiles = (s + 15) / 16;
   const int dh = d / num_heads;
-  const int head = warp / mtiles;
+  constexpr bool kWide = NKT > 6;       // a block of one head, blockIdx.y
+  const int head = kWide ? blockIdx.y : warp / mtiles;
   const int hc = head * dh;             // the warp's head, first column
+  const int gw = kWide ? dh : d;        // the block's columns of K (and of V)
+  const int rc = kWide ? 0 : hc;        // the warp's head in the ring
   const int m0 = 16 * (warp % mtiles);  // the warp's first query row
   const float scale = head_scale<T>(dh);
   // [2][threads] uint4: each lane's own Q fragments (registers decide the
@@ -228,7 +240,7 @@ sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int
   const int ldm = d + ring_pad<T>();
   T* mean = reinterpret_cast<T*>(smem_raw + 2 * sizeof(uint4) * blockDim.x);
   T* ring = mean + (kLayer ? 16 * mtiles * ldm : 0);
-  const int ldr = 2 * d + ring_pad<T>();
+  const int ldr = 2 * gw + ring_pad<T>();
   const int stage_values = s * ldr;
 
   LiveWalk prod;  // the gathers run stages - 1 live edges ahead
@@ -236,8 +248,8 @@ sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int
   for (int i = 0; i < stages - 1; ++i) {
     const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
     if (slot >= 0)
-      fill_rows(ring + i * stage_values, ldr, kv, (size_t)tile_senders[slot] * sp, ldkv, s,
-                2 * d);
+      fill_heads(ring + i * stage_values, ldr, kv, (size_t)tile_senders[slot] * sp, ldkv, s, d,
+                 hc - rc, gw);
     cp_async_commit();
   }
   int stage = 0;  // the stage of the next live edge
@@ -259,8 +271,8 @@ sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int
       if (valid == 0) continue;  // the same for every thread of the block
       cp_async_wait(stages - 2);
       __syncthreads();  // this edge's stage has landed; the previous one is free
-      const T* kr = ring + stage * stage_values + hc;
-      const T* vr = kr + d;
+      const T* kr = ring + stage * stage_values + rc;
+      const T* vr = kr + gw;
       const int free_stage = stage == 0 ? stages - 1 : stage - 1;
       stage = stage + 1 == stages ? 0 : stage + 1;
 
@@ -270,8 +282,8 @@ sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int
       {  // the gather of the edge stages - 1 ahead, while the products run
         const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
         if (slot >= 0)
-          fill_rows(ring + free_stage * stage_values, ldr, kv, (size_t)tile_senders[slot] * sp,
-                    ldkv, s, 2 * d);
+          fill_heads(ring + free_stage * stage_values, ldr, kv, (size_t)tile_senders[slot] * sp,
+                     ldkv, s, d, hc - rc, gw);
         cp_async_commit();
       }
 
@@ -378,13 +390,14 @@ sums_bf16_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ kv, int
         }
       }
     }
-    for (int e = s * d + threadIdx.x; e < sp * d; e += blockDim.x) orow[e] = from_f32<O>(0.0f);
+    if (!kWide || blockIdx.y == 0)
+      for (int e = s * d + threadIdx.x; e < sp * d; e += blockDim.x) orow[e] = from_f32<O>(0.0f);
   }
   cp_async_wait(0);
 }
 
-// A persistent launch (blocks per SM x SMs, at most one block per receiver),
-// or, with info, what it would run with.
+// A persistent launch (blocks per SM x SMs, at most one block per receiver
+// and head group), or, with info, what it would run with.
 template <int NKT, bool kLayer, typename T>
 int launch_sums_bf16(const T* q, int ldq, const T* kv, int ldkv, const int* tile_senders,
                      const int* tile_valid, const int* recv_ptr, const int* recv_slots,
@@ -392,18 +405,19 @@ int launch_sums_bf16(const T* q, int ldq, const T* kv, int ldkv, const int* tile
                      SumsOut<kLayer, T>* out, int num_nodes, int s, int sp, int d,
                      int num_heads, int softmax, cudaStream_t stream, int* info) {
   static RingPlan plan;
-  const int threads = 32 * num_heads * ((s + 15) / 16);
+  const int heads = block_heads(s, num_heads);
+  const int gw = heads * (d / num_heads);
+  const int threads = 32 * heads * ((s + 15) / 16);
   // Q fragments; with kLayer the staged mean
   const size_t fixed = (size_t)threads * 2 * sizeof(uint4) +
       (kLayer ? (size_t)16 * ((s + 15) / 16) * (d + ring_pad<T>()) * sizeof(T) : 0);
-  const size_t stage_bytes = (size_t)s * (2 * d + ring_pad<T>()) * sizeof(T);
-  const int err = ring_plan_bytes(sums_bf16_kernel<NKT, kLayer, T>, threads, s, d, fixed,
+  const size_t stage_bytes = (size_t)s * (2 * gw + ring_pad<T>()) * sizeof(T);
+  const int err = ring_plan_bytes(sums_bf16_kernel<NKT, kLayer, T>, threads, s, gw, fixed,
                                   stage_bytes, plan);
   if (err) return err;
-  const int grid = num_nodes < plan.blocks_per_sm * plan.sms ? num_nodes
-                                                             : plan.blocks_per_sm * plan.sms;
-  if (info) return ring_info(sums_bf16_kernel<NKT, kLayer, T>, plan, grid, info);
-  if (grid > 0)
+  const dim3 grid = ring_grid(plan, num_nodes, num_heads / heads);
+  if (info) return ring_info(sums_bf16_kernel<NKT, kLayer, T>, plan, grid.x * grid.y, info);
+  if (grid.x > 0)
     sums_bf16_kernel<NKT, kLayer, T><<<grid, threads, plan.smem, stream>>>(
         q, ldq, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots, invdeg, w_out, b_out,
         out, num_nodes, s, sp, d, num_heads, softmax, plan.stages);
@@ -416,9 +430,7 @@ int dispatch_sums_bf16(const T* q, int ldq, const T* kv, int ldkv, const int* ti
                        const float* invdeg, const T* w_out, const T* b_out,
                        SumsOut<kLayer, T>* out, int num_nodes, int s, int sp, int d,
                        int num_heads, int softmax, cudaStream_t stream, int* info) {
-  if (s < 1 || num_heads < 1 || d % num_heads || d / num_heads > 32 ||
-      num_heads * ((s + 15) / 16) > (s <= 24 ? 8 : kBf16MaxWarps))
-    return (int)cudaErrorInvalidValue;
+  if (!wide_shape_ok(s, d, num_heads) || (kLayer && s > 48)) return (int)cudaErrorInvalidValue;
 #define AMPNET_SUMS_BF16_CASE(N)                                                            \
   case N:                                                                                   \
     return launch_sums_bf16<N, kLayer, T>(q, ldq, kv, ldkv, tile_senders, tile_valid,       \
@@ -428,6 +440,9 @@ int dispatch_sums_bf16(const T* q, int ldq, const T* kv, int ldkv, const int* ti
   switch ((s + 7) / 8) {
     AMPNET_SUMS_BF16_CASE(1) AMPNET_SUMS_BF16_CASE(2) AMPNET_SUMS_BF16_CASE(3)
     AMPNET_SUMS_BF16_CASE(4) AMPNET_SUMS_BF16_CASE(5) AMPNET_SUMS_BF16_CASE(6)
+  }
+  if constexpr (!kLayer) {
+    switch ((s + 7) / 8) { AMPNET_SUMS_BF16_CASE(7) AMPNET_SUMS_BF16_CASE(8) }
   }
 #undef AMPNET_SUMS_BF16_CASE
   return (int)cudaErrorInvalidValue;

@@ -1,8 +1,9 @@
 // Tensor-core helpers of the port's bf16 bodies on Hopper (sm_90a): one
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 per product (a bf16
 // times a bf16 is exact in f32, and the products are summed in f32), the
-// packing of operands into its fragments, and the ring of gathered rows for
-// rows of 2 or 4 bytes.
+// packing of operands into its fragments, and the plan of a ring of
+// gathered rows of 2 or 4 bytes (their copies, fill_rows and fill_heads, are
+// mma_tf32.cuh's).
 //
 // Fragments of the m16n8k16 product for the lane with group g = lane / 4 and
 // thread-in-group t = lane % 4, two bf16 per 32-bit register, the lower
@@ -62,21 +63,6 @@ __device__ __forceinline__ uint32_t column_pair_bf16(const T* p, int ld, int c, 
 template <typename T>
 __device__ __forceinline__ __nv_bfloat16 scaled_bf16(T q, float scale) {
   return __float2bfloat16_rn(to_f32(q) * scale);
-}
-
-// Rows [row0, row0 + s) of src (row stride ld values, width values wide)
-// into a ring stage (row stride ldr values), 16 bytes per cp.async, all
-// threads of the block; src, ld, width and ldr in whole 16-byte pieces (the
-// wrappers check the rows)
-template <typename T>
-__device__ __forceinline__ void fill_rows(T* stage, int ldr, const T* __restrict__ src,
-                                          size_t row0, int ld, int s, int width) {
-  constexpr int kPer = 16 / sizeof(T);
-  const int chunks = width / kPer;
-  for (int e = threadIdx.x; e < s * chunks; e += blockDim.x) {
-    const int r = e / chunks, c = kPer * (e - r * chunks);
-    cp_async16(stage + r * ldr + c, src + (row0 + r) * (size_t)ld + c);
-  }
 }
 
 // ring_plan (mma_tf32.cuh) for stages of stage_bytes: 3 stages unless 2

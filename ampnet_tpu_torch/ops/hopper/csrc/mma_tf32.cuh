@@ -1,7 +1,8 @@
 // Tensor-core helpers of the port's f32 kernels on Hopper (sm_90a): f32
 // products at f32-level accuracy on the TF32 tensor cores (3xTF32), the
-// cp.async copies that fill a ring of gathered rows in shared memory, the
-// node walk of a persistent block, and the plan of its launch.
+// cp.async copies that fill a ring of gathered rows in shared memory (f32,
+// and any row type: fill_rows, fill_heads), the node walk of a persistent
+// block, and the plan of its launch.
 //
 // 3xTF32. TF32 keeps 10 of f32's 23 mantissa bits, so one TF32 product is
 // good to ~3 decimal digits: too coarse for the port's checks (1e-4 against
@@ -175,6 +176,42 @@ __device__ __forceinline__ void fill_stage(float* stage, int ldr, const float* _
   }
 }
 
+// Rows [row0, row0 + s) of src (row stride ld values, width values wide)
+// into a ring stage (row stride ldr values), 16 bytes per cp.async, all
+// threads of the block; src, ld, width and ldr in whole 16-byte pieces (the
+// wrappers check the rows)
+template <typename T>
+__device__ __forceinline__ void fill_rows(T* stage, int ldr, const T* __restrict__ src,
+                                          size_t row0, int ld, int s, int width) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int chunks = width / kPer;
+  for (int e = threadIdx.x; e < s * chunks; e += blockDim.x) {
+    const int r = e / chunks, c = kPer * (e - r * chunks);
+    cp_async16(stage + r * ldr + c, src + (row0 + r) * (size_t)ld + c);
+  }
+}
+
+// The columns of a block's heads in rows [row0, row0 + s) of src (row
+// stride ld values, k|v packed 2d wide): k's [c0, c0 + w) and v's [d + c0,
+// d + c0 + w) into a ring stage's [0, w) and [w, 2w) (row stride ldr
+// values), 16 bytes per cp.async, all threads of the block. A block of
+// every head (w = d) copies each row as one span of 2d values (fill_rows).
+// src, ld, c0 and w (or 2d) are whole 16-byte pieces: the wrappers check
+// the rows, and the range gives a block of one head dh a multiple of 8.
+template <typename T>
+__device__ __forceinline__ void fill_heads(T* stage, int ldr, const T* __restrict__ src,
+                                           size_t row0, int ld, int s, int d, int c0, int w) {
+  if (w == d) return fill_rows(stage, ldr, src, row0, ld, s, 2 * d);
+  constexpr int kPer = 16 / (int)sizeof(T);
+  const int chunks = w / kPer;  // 16-byte chunks per span
+  for (int e = threadIdx.x; e < s * 2 * chunks; e += blockDim.x) {
+    const int r = e / (2 * chunks), j = e - r * 2 * chunks;
+    const int v = j >= chunks;  // the v span
+    const int c = kPer * (j - v * chunks);
+    cp_async16(stage + r * ldr + v * w + c, src + (row0 + r) * (size_t)ld + v * d + c0 + c);
+  }
+}
+
 // ---- the launch of a persistent kernel with a ring
 
 // A launch plan: threads per block, (s, d) it was made for, ring stages,
@@ -219,6 +256,32 @@ int ring_plan(Kernel kernel, int threads, int s, int d, size_t fixed, RingPlan& 
   if (p.blocks_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   cache = p;
   return 0;
+}
+
+// K1 and K4 (edge_attention_tc.cuh, edge_attention_tc_bf16.cuh,
+// edge_attention_bwd_tc.cu, edge_attention_bwd_tc_bf16.cu) take S <= 48 with
+// one block of every head per node, H * ceil(S/16) warps, at most 12 (8 up
+// to S=24), and 48 < S <= 64 with one block per (node, head), 4 warps, where
+// dh is a multiple of 8 (a head's columns are whole 16-byte pieces); dh <= 32
+// throughout. The other tensor-core kernels keep S <= 48.
+constexpr int kWideMaxS = 64;
+constexpr int kWideThreads = 128;
+
+inline bool wide_shape_ok(int s, int d, int num_heads) {
+  if (s < 1 || num_heads < 1 || d % num_heads || d / num_heads > 32 || s > kWideMaxS) return false;
+  if (s > 48) return (d / num_heads) % 8 == 0;
+  return num_heads * ((s + 15) / 16) <= (s <= 24 ? 8 : 12);
+}
+
+// the heads one block of K1 or K4 takes at S
+inline int block_heads(int s, int num_heads) { return s > 48 ? 1 : num_heads; }
+
+// The persistent grid of a plan over num_nodes nodes and `groups` head
+// groups (blockIdx.y): at most one block per node and group, as many blocks
+// in all as the SMs hold
+inline dim3 ring_grid(const RingPlan& p, int num_nodes, int groups) {
+  const int per_group = (p.blocks_per_sm * p.sms + groups - 1) / groups;
+  return dim3(num_nodes < per_group ? num_nodes : per_group, groups);
 }
 
 // What a launch runs with, for the *_info entry points: registers per

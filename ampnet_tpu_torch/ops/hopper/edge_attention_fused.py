@@ -302,7 +302,8 @@ def edge_attention_sums(q_rows, kv_rows, tile_senders, tile_valid, recv_ptr,
     exchanged ones (``fused_attention_aggregate``); the grid is NT, the
     gathered rows take 64-bit offsets.
     The tensor-core bodies gather kv_rows in 16-byte copies and take S <=
-    48, D/H <= 32 and H * ceil(S/16) <= 12 warps (8 up to S=24;
+    48, D/H <= 32 and H * ceil(S/16) <= 12 warps (8 up to S=24), and 48 <
+    S <= 64 with D/H <= 32 a multiple of 8 (one block per receiver and head;
     ``launch.tensor_core_range_error``); beyond that, or where kv_rows'
     address, row stride or width is not a multiple of 16 bytes, the
     CUDA-core body runs (``launch.body_of``; ``body`` names one, else the

@@ -102,21 +102,39 @@ def check_walk(device, peer_ids, valid, ptr, slots, names) -> None:
 # block's shared memory stays under the 227 KB it may have (201 KB for K4
 # and 225 KB for K5 at S=48).
 TC_MAX_S, TC_MAX_DH = 48, 32
+# K1 and K4 (WIDE_KERNELS) also take 48 < S <= WIDE_MAX_S (path J's S=64):
+# one block per (node, head), its 4 warps the head's 16-row tiles, gathering
+# that head's columns alone, so dh must be whole 16-byte pieces of f32 and
+# of bf16 (a multiple of 8); any H (mma_tf32.cuh, wide_shape_ok). K2, K3,
+# K5-K9 keep S <= 48: beyond it they run their CUDA-core bodies.
+WIDE_KERNELS = ("edge_attention_sums", "edge_attention_bwd_dkv")
+WIDE_MAX_S = 64
 
 
 def tc_max_warps(s: int) -> int:
     return 8 if s <= 24 else 12
 
 
-def tensor_core_range_error(s: int, d: int, num_heads: int) -> Optional[str]:
-    """Why the tensor-core kernels do not take (S, D, H), or None."""
+def tensor_core_range_error(s: int, d: int, num_heads: int,
+                            kernel: Optional[str] = None) -> Optional[str]:
+    """Why ``kernel``'s tensor-core bodies do not take (S, D, H), or None;
+    without a kernel, the range every tensor-core kernel takes."""
     if d % num_heads:
         return f"D={d} is not a multiple of num_heads={num_heads}"
+    dh = d // num_heads
+    if kernel in WIDE_KERNELS and TC_MAX_S < s <= WIDE_MAX_S:
+        if dh <= TC_MAX_DH and dh % 8 == 0:
+            return None
+        return (f"S={s}, D={d}, H={num_heads} is beyond {kernel}'s tensor-core range at "
+                f"{TC_MAX_S} < S <= {WIDE_MAX_S} (one block per head: D/H <= {TC_MAX_DH} "
+                f"and a multiple of 8)")
     warps = num_heads * -(-s // 16)
-    if not (1 <= s <= TC_MAX_S and d // num_heads <= TC_MAX_DH and warps <= tc_max_warps(s)):
+    if not (1 <= s <= TC_MAX_S and dh <= TC_MAX_DH and warps <= tc_max_warps(s)):
         return (f"S={s}, D={d}, H={num_heads} is beyond the tensor-core kernels' "
                 f"instantiated range (S <= {TC_MAX_S}, D/H <= {TC_MAX_DH}, "
-                f"H * ceil(S/16) <= {tc_max_warps(s)} warps at this S)")
+                f"H * ceil(S/16) <= {tc_max_warps(s)} warps at this S"
+                + (f"; {kernel} also {TC_MAX_S} < S <= {WIDE_MAX_S}"
+                   if kernel in WIDE_KERNELS else "") + ")")
     return None
 
 
@@ -147,7 +165,7 @@ def check_tensor_core(what: str, s: int, d: int, num_heads: int,
                       *gathered: Tuple[str, torch.Tensor]) -> None:
     """Raise ValueError where a tensor-core kernel does not take the shape
     or the rows it copies in 16-byte pieces (``(name, rows)`` pairs)."""
-    err = tensor_core_range_error(s, d, num_heads) or _rows_error(gathered)
+    err = tensor_core_range_error(s, d, num_heads, what) or _rows_error(gathered)
     if err:
         raise ValueError(f"{what}: {err}")
 
@@ -239,7 +257,8 @@ def simt_work(kernel: str, s: int, d: int, num_heads: int, num_nodes: int, devic
 def body(kernel: str, s: int, d: int, num_heads: int, rows_aligned: bool,
          bf16: bool = False) -> str:
     """The body a kernel runs at (S, D, H): the tensor cores within the
-    instantiated range where the gathered rows take 16-byte copies, else the
+    kernel's instantiated range (``tensor_core_range_error``: S <= 48, and
+    for K1 and K4 S <= 64) where the gathered rows take 16-byte copies, else the
     CUDA cores; in bf16 products with ``bf16`` (bf16 rows, or products
     rounded to bf16: 'tc_bf16' or 'simt_bf16'), else in f32 ('tc', 3xTF32,
     or 'simt')."""
@@ -247,7 +266,7 @@ def body(kernel: str, s: int, d: int, num_heads: int, rows_aligned: bool,
         raise ValueError(f"unknown kernel {kernel}")
     if d % num_heads:
         raise ValueError(f"D={d} is not a multiple of num_heads={num_heads}")
-    tensor_cores = rows_aligned and tensor_core_range_error(s, d, num_heads) is None
+    tensor_cores = rows_aligned and tensor_core_range_error(s, d, num_heads, kernel) is None
     if bf16:
         return "tc_bf16" if tensor_cores else "simt_bf16"
     return "tc" if tensor_cores else "simt"
@@ -284,7 +303,7 @@ def body_of(kernel: str, body_name: Optional[str], s: int, d: int, num_heads: in
                          f"on 'simt_bf16', f32 rows without mxu_bf16 on 'tc' or 'simt', "
                          f"not {body_name!r}")
     if body_name == "tc_bf16":
-        err = tensor_core_range_error(s, d, num_heads) or _rows_error(gathered)
+        err = tensor_core_range_error(s, d, num_heads, kernel) or _rows_error(gathered)
         if err:
             raise ValueError(f"{kernel}: {err}; beyond it bf16 runs on 'simt_bf16'")
     elif body_name == "tc":

@@ -196,21 +196,27 @@ def _ring(mesh: Mesh, blocks: List[torch.Tensor], offsets: Sequence[int], sizes:
     return [t.to(ref.device) for t, _ in recvs]
 
 
+def ring_exchange_rows(buf: torch.Tensor, mesh: Mesh, offsets: Sequence[int],
+                       sizes: Sequence[int], axis: str = "graph",
+                       reverse: bool = False) -> torch.Tensor:
+    """``ring_exchange`` without autograd: block j of ``buf`` to the rank
+    ``offsets[j]`` ahead, the block from as far behind in its place;
+    ``reverse``, its backward (each block back to the rank it came from)."""
+    blocks = list(torch.split(buf, list(sizes)))
+    with _span(mesh, "halo_exchange_bwd" if reverse else "halo_exchange"):
+        return torch.cat(_ring(mesh, blocks, offsets, sizes, axis, -1 if reverse else +1))
+
+
 class _RingExchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, buf, mesh, offsets, sizes, axis):
         ctx.mesh, ctx.offsets, ctx.sizes, ctx.axis = mesh, offsets, sizes, axis
-        blocks = list(torch.split(buf, list(sizes)))
-        with _span(mesh, "halo_exchange"):
-            return torch.cat(_ring(mesh, blocks, offsets, sizes, axis, +1))
+        return ring_exchange_rows(buf, mesh, offsets, sizes, axis)
 
     @staticmethod
     def backward(ctx, g):
-        # each received block's gradient goes back to the rank it came from
-        blocks = list(torch.split(g, list(ctx.sizes)))
-        with _span(ctx.mesh, "halo_exchange_bwd"):
-            back = _ring(ctx.mesh, blocks, ctx.offsets, ctx.sizes, ctx.axis, -1)
-        return torch.cat(back), None, None, None, None
+        return (ring_exchange_rows(g, ctx.mesh, ctx.offsets, ctx.sizes, ctx.axis, reverse=True),
+                None, None, None, None)
 
 
 def ring_exchange(buf: torch.Tensor, mesh: Mesh, offsets: Sequence[int],

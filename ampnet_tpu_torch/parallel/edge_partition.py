@@ -49,7 +49,7 @@ from ampnet_tpu_torch.ops.hopper.format import (
     build_tiled_csr,
     receiver_index,
 )
-from ampnet_tpu_torch.ops.segment import segment_count, segment_sum
+from ampnet_tpu_torch.ops.segment import segment_count, segment_sum, segment_sum_into
 from ampnet_tpu_torch.ops.tokenize import (
     gather_tokens,
     sample_present_features,
@@ -60,6 +60,7 @@ from ampnet_tpu_torch.parallel.collectives import (
     all_reduce,
     all_reduce_grads,
     ring_exchange,
+    ring_exchange_rows,
 )
 from ampnet_tpu_torch.parallel.mesh import Mesh
 
@@ -404,6 +405,167 @@ def _sharded_amp_conv(tokens_local, shard: Shard, conv, num_heads: int, softmax:
     return torch.where((count > 0)[:, None, None], out, torch.zeros_like(out))
 
 
+# the lean conv's chunks: a node or edge chunk holds about this many bytes
+# of [rows, S, 2D] rows
+LEAN_CHUNK_BYTES = 64 * 1024 * 1024
+
+
+class _LeanEnv(NamedTuple):
+    """What a lean conv needs beside its tensors."""
+    shard: Shard
+    halo: LocalHalo
+    mesh: Mesh
+    axis: str
+    num_heads: int
+    softmax: bool
+    pool: bool                  # relu, then the mean over tokens (conv2); else relu (conv1)
+    sampled_idx: Optional[torch.Tensor]   # conv1: its tokens' draw
+    count: torch.Tensor         # [N_loc] live in-degree
+
+
+def _spans(n: int, s: int, d: int):
+    """[a, b) chunks of n node or edge rows, LEAN_CHUNK_BYTES of [S, 2D]
+    f32 rows each."""
+    rows = max(LEAN_CHUNK_BYTES // (s * 2 * d * 4), 1)
+    return [(a, min(a + rows, n)) for a in range(0, n, rows)]
+
+
+def _lean_input(h, x_norm, table, env: _LeanEnv, rows, grad: bool = False):
+    """X[rows], the conv's input rows: rows of ``h``, or (conv1, h None)
+    its tokens rebuilt from x_norm, the draw and the table. With ``grad``,
+    (X, leaf): X differentiable in the leaf its gradient goes to, h's rows
+    or the table (x_norm is data)."""
+    if h is not None:
+        x = h[rows]
+        if grad:
+            x = x.detach().requires_grad_()
+            return x, x
+        return x
+    if not grad:
+        return gather_tokens(x_norm[rows], env.sampled_idx[rows], table)
+    leaf = table.detach().requires_grad_()
+    return gather_tokens(x_norm[rows], env.sampled_idx[rows], leaf), leaf
+
+
+def _lean_sums(h, x_norm, table, w_qkv, b_qkv, env: _LeanEnv):
+    """(K|V [N_all, S, 2D], the per-receiver sums [N_loc, S, D]): the local
+    K|V projected in node chunks into the head of one buffer, the halo rows
+    received into its tail, then the attention in edge chunks (Q projected
+    per edge from the receiver's input rows) added into the sums."""
+    sh, n_loc = env.shard, env.count.shape[0]
+    d = w_qkv.shape[0]
+    s = h.shape[1] if h is not None else env.sampled_idx.shape[1]
+    offsets, sizes = env.halo.meta
+    kv = torch.empty(n_loc + sum(sizes), s, 2 * d, dtype=w_qkv.dtype, device=w_qkv.device)
+    for a, b in _spans(n_loc, s, d):
+        torch.matmul(_lean_input(h, x_norm, table, env, slice(a, b)), w_qkv[:, d:], out=kv[a:b])
+        kv[a:b] += b_qkv[d:]
+    if offsets:
+        kv[n_loc:] = ring_exchange_rows(kv[env.halo.send_idx[: sum(sizes)]], env.mesh, offsets,
+                                        sizes, env.axis)
+    total = torch.zeros(n_loc, s, d, dtype=kv.dtype, device=kv.device)
+    for a, b in _spans(sh.receivers_local.shape[0], s, d):
+        recv = sh.receivers_local[a:b]
+        q = _lean_input(h, x_norm, table, env, recv) @ w_qkv[:, :d] + b_qkv[:d]
+        kve = kv[env.halo.senders_ext[a:b]]
+        msg, _ = attention_core(q, kve[..., :d], kve[..., d:], env.num_heads,
+                                softmax=env.softmax)
+        segment_sum_into(total, msg, recv, sh.edge_mask[a:b])
+    return kv, total
+
+
+def _lean_finish(total, a, b, w_out, b_out, env: _LeanEnv):
+    """The conv's output rows [a, b) before the relu: the mean over live
+    in-edges times w_out plus b_out, 0 where no edge is live."""
+    cnt = env.count[a:b][:, None, None]
+    mean = total[a:b] / cnt.clamp_min(1.0)
+    return mean, torch.where(cnt > 0, mean @ w_out + b_out, mean.new_zeros(()))
+
+
+class _LeanHaloConv(torch.autograd.Function):
+    """One AMPConv with the halo exchange, the plain attention and relu
+    (conv2: then the mean over tokens) whose working set stays near its K|V
+    buffer: the step with ``remat``. It keeps only its input (conv1: x_norm,
+    the draw and the table, from which it rebuilds the tokens) and
+    recomputes the rest in the backward, in node and edge chunks of
+    LEAN_CHUNK_BYTES: no packed q|k|v, no per-edge rows beyond a chunk, the
+    mean, out-projection and zero-degree mask per node chunk, the sums'
+    buffer reused for the output and then for dsum. The backward holds the
+    input, K|V and dK|V (the halo rows' gradients sent back by the reverse
+    exchange, then added into their owners' rows), dsum and the input's
+    gradient. The exchanges run in the same order on every rank: the
+    forward's, then in the backward the forward's again and its reverse."""
+
+    @staticmethod
+    def forward(ctx, w_qkv, b_qkv, w_out, b_out, h, x_norm, table, env):
+        ctx.env = env
+        ctx.save_for_backward(w_qkv, b_qkv, w_out, b_out, h, x_norm, table)
+        kv, out = _lean_sums(h, x_norm, table, w_qkv, b_qkv, env)
+        del kv
+        for a, b in _spans(*out.shape):
+            out[a:b] = torch.relu(_lean_finish(out, a, b, w_out, b_out, env)[1])
+        return out.mean(dim=1) if env.pool else out
+
+    @staticmethod
+    def backward(ctx, g):
+        w_qkv, b_qkv, w_out, b_out, h, x_norm, table = ctx.saved_tensors
+        env = ctx.env
+        sh, n_loc, d = env.shard, env.count.shape[0], w_qkv.shape[0]
+        grads = [torch.zeros_like(t) if t is not None else None
+                 for t in (w_qkv, b_qkv, w_out, b_out, h, None, table)]
+        dw_qkv, db_qkv, dw_out, db_out, dh, _, dtable = grads
+
+        def push(got, rows):
+            """The input rows' gradients into h's rows, or the table's."""
+            if h is None:
+                dtable.add_(got)
+            elif isinstance(rows, slice):
+                dh[rows] += got
+            else:
+                segment_sum_into(dh, got, rows)
+
+        with torch.no_grad():
+            kv, dsum = _lean_sums(h, x_norm, table, w_qkv, b_qkv, env)
+            s = kv.shape[1]
+            for a, b in _spans(n_loc, s, d):  # the finish again, its backward; dsum in place
+                mean, y = _lean_finish(dsum, a, b, w_out, b_out, env)
+                gy = (g[a:b, None, :] / s if env.pool else g[a:b]) * (y > 0)
+                dw_out += mean.reshape(-1, d).T @ gy.reshape(-1, d)
+                db_out += gy.sum(dim=(0, 1))
+                dsum[a:b] = (gy @ w_out.T) / env.count[a:b].clamp_min(1.0)[:, None, None]
+            dkv = torch.zeros_like(kv)
+            for a, b in _spans(sh.receivers_local.shape[0], s, d):  # the attention's backward
+                recv, m = sh.receivers_local[a:b], sh.edge_mask[a:b]
+                with torch.enable_grad():
+                    x, leaf = _lean_input(h, x_norm, table, env, recv, grad=True)
+                    w, bias = (t.detach().requires_grad_() for t in (w_qkv, b_qkv))
+                    kve = kv[env.halo.senders_ext[a:b]].requires_grad_()
+                    msg, _ = attention_core(x @ w[:, :d] + bias[:d], kve[..., :d], kve[..., d:],
+                                            env.num_heads, softmax=env.softmax)
+                    gm = torch.where(m[:, None, None], dsum[recv], dsum.new_zeros(()))
+                    gx, gw, gb, gkv = torch.autograd.grad(msg, [leaf, w, bias, kve], gm)
+                push(gx, recv)
+                dw_qkv += gw
+                db_qkv += gb
+                segment_sum_into(dkv, gkv, env.halo.senders_ext[a:b])
+            del kv, dsum
+            offsets, sizes = env.halo.meta
+            if offsets:  # the halo rows' gradients back to their owners
+                back = ring_exchange_rows(dkv[n_loc:], env.mesh, offsets, sizes, env.axis,
+                                          reverse=True)
+                segment_sum_into(dkv[:n_loc], back, env.halo.send_idx[: sum(sizes)])
+            for a, b in _spans(n_loc, s, d):  # the K|V projection's backward
+                with torch.enable_grad():
+                    x, leaf = _lean_input(h, x_norm, table, env, slice(a, b), grad=True)
+                    w, bias = (t.detach().requires_grad_() for t in (w_qkv, b_qkv))
+                    gx, gw, gb = torch.autograd.grad(x @ w[:, d:] + bias[d:], [leaf, w, bias],
+                                                     dkv[a:b])
+                push(gx, slice(a, b))
+                dw_qkv += gw
+                db_qkv += gb
+        return (*grads[:4], dh, None, dtable, None)
+
+
 def _sharded_gcn_conv(x_local, gcn, shard: Shard, mesh: Mesh, axis: str = "graph",
                       halo: Optional[LocalHalo] = None) -> torch.Tensor:
     """One Kipf-Welling GCN hop (``gcn``: a GCNConv) on a receiver-owned
@@ -429,6 +591,26 @@ def _sharded_gcn_conv(x_local, gcn, shard: Shard, mesh: Mesh, axis: str = "graph
     return agg + gcn.bias
 
 
+def _convs(model, tokens, shard: Shard, mesh: Mesh, axis: str, layout, tile_nodes: int,
+           halo, remat: bool) -> torch.Tensor:
+    """The two convs, relu each, then the mean over tokens: [N_loc, D]."""
+    cfg = model.config
+
+    def conv(tokens_in, layer):
+        return _sharded_amp_conv(tokens_in, shard, layer, cfg.num_heads, cfg.attn_softmax, mesh,
+                                 axis, layout=layout, tile_nodes=tile_nodes, halo=halo)
+
+    def run(tokens_in, layer):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(conv, tokens_in, layer,
+                                                     use_reentrant=False)
+        return conv(tokens_in, layer)
+
+    h = torch.relu(run(tokens, model.conv1))
+    h = torch.relu(run(h, model.conv2))
+    return h.mean(dim=1)
+
+
 def amp_gcn_forward_local(
     model,
     shard: Shard,
@@ -451,7 +633,9 @@ def amp_gcn_forward_local(
     [N_loc, S] injects the draw, else it comes from ``generator``.
     ``remat`` recomputes each conv in the backward
     (``torch.utils.checkpoint``; its exchange then runs again, in the same
-    order on every rank)."""
+    order on every rank); on the plain path with the halo exchange, through
+    ``_LeanHaloConv``, which keeps across the step no more than conv2's
+    input and rebuilds conv1's tokens from the draw."""
     cfg = model.config
     x = shard.x
     if cfg.scaler == "precomputed":
@@ -480,21 +664,20 @@ def amp_gcn_forward_local(
                                                 doc_freq=df, num_rows=n_rows)
         else:
             sampled_idx = sample_present_features(x, cfg.num_sampled_vectors, generator=generator)
-    tokens = gather_tokens(x_norm, sampled_idx, model.tokenizer.table())
+    if remat and layout is None and halo is not None:
+        count = segment_count(shard.receivers_local, x.shape[0], shard.edge_mask)
 
-    def conv(tokens_in, layer):
-        return _sharded_amp_conv(tokens_in, shard, layer, cfg.num_heads, cfg.attn_softmax, mesh,
-                                 axis, layout=layout, tile_nodes=tile_nodes, halo=halo)
+        def lean(layer, pool, h=None, idx=None):
+            env = _LeanEnv(shard, halo, mesh, axis, cfg.num_heads, cfg.attn_softmax, pool, idx,
+                           count)
+            return _LeanHaloConv.apply(layer.w_qkv, layer.b_qkv, layer.w_out, layer.b_out, h,
+                                       None if h is not None else x_norm,
+                                       None if h is not None else model.tokenizer.table(), env)
 
-    def run(tokens_in, layer):
-        if remat:
-            return torch.utils.checkpoint.checkpoint(conv, tokens_in, layer,
-                                                     use_reentrant=False)
-        return conv(tokens_in, layer)
-
-    h = torch.relu(run(tokens, model.conv1))
-    h = torch.relu(run(h, model.conv2))
-    pooled = h.mean(dim=1)
+        pooled = lean(model.conv2, True, h=lean(model.conv1, False, idx=sampled_idx.long()))
+    else:
+        pooled = _convs(model, gather_tokens(x_norm, sampled_idx, model.tokenizer.table()),
+                        shard, mesh, axis, layout, tile_nodes, halo, remat)
 
     if model.raw_mode:
         if model.raw_mode == "mlp":

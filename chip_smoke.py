@@ -112,11 +112,14 @@ model limits):
      nothing).
   J  the recommended recipe at S=64 (experiments/token_scale_tuning.py's
      default) as a bf16 model through train_full_batch: 2 K1 + 2 K3 + 2 K4
-     a step, all on 'simt_bf16' (K3 and K4 in device memory); gradients
-     against float64, 3 captured steps = eager bit for bit, an 8-draw eval
-     against float64, the f32 model's step (its 'simt' bodies) in turns.
-     Then each 'simt_bf16' body's kernel row at a shape J or bf16_wide ran
-     it, timed in turns with the f32 CUDA-core body.
+     a step, K1 and K4 on 'tc_bf16' (a block per node and head), K3 on
+     'simt_bf16' (in device memory); gradients against float64, 3 captured
+     steps = eager bit for bit, an 8-draw eval against float64, the f32
+     model's step (K1 and K4 on 'tc', K3 on 'simt') in turns. Then each
+     'simt_bf16' body's kernel row at a shape J or bf16_wide ran it, timed
+     in turns with the f32 CUDA-core body, and K1's and K4's tensor-core
+     rows at S=64 ('tc_bf16' and 'tc'), timed in turns with their CUDA-core
+     bodies.
   ssl  SSLPretrainer (train/ssl.py) in both modes on the recommended
      recipe's backbone through the fused op: make_ssl_train_step's captured
      step (2 K1 + 2 K3 + 2 K4, tensor cores; the negatives drawn inside the
@@ -149,7 +152,8 @@ model limits):
      one-rank NCCL group and a captured device loop: its ratio, its loss
      against the single-device step's), scaling_bench and
      halo_comm_accounting's counted bytes against the plan's on ranks
-     sharing the card, halo_budget_run cut to HALO_BUDGET.
+     sharing the card, halo_budget_run at the JAX driver's shape with both
+     ranks on the card (HALO_BUDGET_FULL).
   parallel  (after release_graphs, before ssl) parallelism over
      torch.distributed, every rank a process of its own started by
      parallel.launch.spawn (their reports come back to this process; no rank
@@ -240,6 +244,7 @@ KERNELS = ("edge_attention_sums", "edge_attention_layer", "edge_attention_bwd_dq
            "edge_attention_bwd_dkv", "edge_attention_bwd_stream",
            "edge_attention_sums_mm", "edge_attention_layer_mm",
            "edge_attention_sums_chunked", "edge_attention_sums_v1")
+K1_, K2_, K3_, K4_, K5_, K6_, K7_, K8_, K9_ = KERNELS
 # K8's chunk: build_chunked_csr's default
 CHUNK_EDGES = 8
 # modules whose outputs are compared stage by stage when the logits disagree
@@ -292,9 +297,11 @@ TENSOR_CORE_LIBS = ("edge_attention_tc", "edge_attention_layer_tc", "edge_attent
                     "edge_attention_bwd_tc", "edge_attention_bwd_stream_tc",
                     "edge_attention_groups_tc", "edge_attention_chunked_tc")
 # the `routes` phase: AMPConv at shapes beyond the tensor-core range (S, D,
-# H, training, the body K1-K4 (K6, K9) must run, the kernels whose working
-# set must be in device memory, the forward route: K1, or K6 under
-# MM_SCATTER_DEFAULT, or K9 under DMA_V1_DEFAULT). An eval runs on a graph
+# H, training, the body K1-K4 (K6, K9) must run (one for all, or by
+# kernel: K1 and K4 take 48 < S <= 64 on the tensor cores, the others do
+# not), the kernels whose working set must be in device memory, the
+# forward route: K1, or K6 under MM_SCATTER_DEFAULT, or K9 under
+# DMA_V1_DEFAULT). An eval runs on a graph
 # of Cora's node count (the JAX gather rule then picks K1, not K2, from S=29
 # on: 'dma', so K6 and K9 too) with every 10th of its edges, a training step
 # on the edges among its first ROUTE_NODES nodes: the float64 reference on
@@ -307,16 +314,17 @@ ROUTES = (
     (40, 128, 2, True, "simt", (), None),     # D/H = 64
     (20, 128, 8, True, "simt", (), None),     # 16 warps where S <= 24 takes 8
     (40, 128, 8, True, "simt", (), None),     # 24 warps; K4's CUDA-core body at 225,920 B
-    (49, 128, 4, False, "simt", (), None),    # an eval through K1's CUDA-core body
+    (49, 128, 4, False, "tc", (), None),      # K1 at a seventh key tile: a block per head
     (40, 3, 1, True, "simt", (), None),       # odd D: no 16-byte copies
     (40, 100, 4, True, "tc", (), None),       # dh = 25: stays on the tensor cores
     (96, 128, 4, False, "simt", ("edge_attention_sums",), None),    # 345 KB a block
-    (49, 128, 4, True, "simt", ("edge_attention_bwd_dkv",), None),  # 242 KB a block
+    (49, 128, 4, True, {K1_: "tc", K3_: "simt", K4_: "tc"}, (), None),  # K3 at 216,880 B
+    (65, 128, 4, True, "simt", (K3_, K4_), None),  # beyond S=64: 319 KB and 353 KB a block
     (96, 128, 4, False, "simt", ("edge_attention_sums_mm",), MM),   # K6 at group 1: 345 KB
     (96, 128, 4, False, "simt", ("edge_attention_sums_v1",), V1),   # K9: 296 KB
-    (49, 128, 4, True, "simt", ("edge_attention_bwd_dkv",), MM),    # K6 beyond the tensor cores
+    (49, 128, 4, True, {K6_: "simt", K3_: "simt", K4_: "tc"}, (), MM),  # K6 beyond the tcs
     (40, 128, 8, True, "simt", (), MM),       # K6 beyond the warp limit
-    (49, 128, 4, True, "simt", (), STREAM),   # K5 beyond the tensor cores: 216,880 B
+    (49, 128, 4, True, {K1_: "tc", K5_: "simt"}, (), STREAM),  # K5 beyond them: 216,880 B
 )
 ROUTE_NODES = 768
 # where a failed model check keeps its operands and stage outputs (in a
@@ -1150,6 +1158,11 @@ def route_graphs(data, dev):
     return graphs, compute_layout(graphs[True][0], sender_layout=False)
 
 
+def want_of(want, kernel) -> str:
+    """A ROUTES row's body for ``kernel``: one for all, or by kernel."""
+    return want[kernel] if isinstance(want, dict) else want
+
+
 def route_phase(data, gen, dev):
     """AMPConv at the shapes of ROUTES, forward and (training) one backward
     with dropout 0 on the card, each against the same layer in float64 on
@@ -1199,7 +1212,7 @@ def route_phase(data, gen, dev):
         if counts != expected:
             fail(f"routes {name}: launched {counts}; expected {expected}")
         ran = {k: b for k, b in bodies.items() if counts[k]}
-        if any(b[want] != counts[k] for k, b in ran.items()):
+        if any(b[want_of(want, k)] != counts[k] for k, b in ran.items()):
             fail(f"routes {name}: the kernels ran the bodies {ran}, expected {want}")
         in_device_memory = eaf.device_memory_launch_counts()
         device_memory = tuple(k for k in ran if in_device_memory.get(k))
@@ -2342,16 +2355,19 @@ def serving_phase(recipe, reference, data, graph, seed, dev) -> dict:
 def bf16_only(name, kernels=("edge_attention_sums", "edge_attention_bwd_dq",
                              "edge_attention_bwd_dkv"), body="tc_bf16"):
     """Fail unless every launch of ``kernels`` since the counts were set to 0
-    ran the bf16 ``body`` (default the tensor cores'), and every kernel that
-    ran it ran no other; returns the counts on ``body``."""
+    ran the bf16 ``body`` (default the tensor cores'; or a body by kernel, a
+    dict), and every kernel that ran it ran no other; returns the counts on
+    each kernel's body."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
 
     bodies = eaf.body_launch_counts()
+    want = body if isinstance(body, dict) else dict.fromkeys(bodies, body)
     wrong = {k: b for k, b in bodies.items()
-             if any(n for x, n in b.items() if x != body) and (k in kernels or b[body])}
-    if wrong or not all(bodies[k][body] for k in kernels):
+             if any(n for x, n in b.items() if x != want.get(k))
+             and (k in kernels or b.get(want.get(k), 0))}
+    if wrong or not all(bodies[k][want[k]] for k in kernels):
         fail(f"{name}: launches off the bf16 body {body} ({bodies})")
-    return {k: b[body] for k, b in bodies.items() if b[body]}
+    return {k: b[want[k]] for k, b in bodies.items() if k in want and b[want[k]]}
 
 
 def bf16_body_row(name, source, replaces, run, plain, tf32, limit, nbytes, flops, lib,
@@ -2781,7 +2797,6 @@ WIDE_BF16_F64_LIMIT = 4 * 2.0 ** -8
 # each rounded to bf16) falls on the other side after f32 sums taken in
 # another order, and that step passes through the next product
 BF16_WIDE_GRAD_LIMIT = 4 * 2.0 ** -8
-K1_, K2_, K3_, K4_, K5_, K6_, K7_, K8_, K9_ = KERNELS
 
 
 def release_graphs() -> dict:
@@ -2861,7 +2876,7 @@ def bf16_body_of(kernel, s, d, h, rows_bf16) -> str:
     else 'simt_bf16'."""
     from ampnet_tpu_torch.ops.hopper import launch as hl
 
-    if hl.tensor_core_range_error(s, d, h):
+    if hl.tensor_core_range_error(s, d, h, kernel):
         return "simt_bf16"
     per_copy = 8 if rows_bf16 else 4
     aligned = (2 * d) % per_copy == 0 if kernel == K4_ else d % per_copy == 0
@@ -2962,7 +2977,7 @@ def bf16_wide(data, gen, dev) -> tuple:
         if counts != expected:
             fail(f"bf16_wide {name}: launched {counts}; expected {expected}")
         want_bodies = {k: (bf16_body_of(k, s, d, h, rows_bf16) if rows_bf16 or k == forward
-                           else want) for k, c in counts.items() if c}
+                           else want_of(want, k)) for k, c in counts.items() if c}
         got_bodies = {k: {b: c for b, c in bodies[k].items() if c} for k in want_bodies}
         if any(got_bodies[k] != {b: counts[k]} for k, b in want_bodies.items()):
             fail(f"bf16_wide {name}: the kernels ran the bodies {got_bodies}, expected "
@@ -3060,17 +3075,17 @@ def bf16_wide(data, gen, dev) -> tuple:
     nt = lay.recv_ptr.numel() - 1
     r_idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
     slots = (lay.tile_senders, lay.tile_recv, lay.tile_valid)
-    q49 = torch.zeros(nt * 64, 3 * d, dtype=bf, device=dev)
+    q65 = torch.zeros(nt * 80, 3 * d, dtype=bf, device=dev)
     f40 = torch.zeros(nt * 40, 3 * d, device=dev)
-    kw49, kw40 = dict(s=49, sp=64, num_heads=4, softmax=True), dict(s=40, sp=40, num_heads=4,
+    kw65, kw40 = dict(s=65, sp=80, num_heads=4, softmax=True), dict(s=40, sp=40, num_heads=4,
                                                                     softmax=True)
     refusals = {}
     eaf.reset_launch_counts()
     for what, call in (
-            ("K1 'tc_bf16' named beyond the tensor cores (S=49)", lambda: eaf.edge_attention_sums(
-                q49[:, :d], q49[:, d:], *r_idx, **kw49, body="tc_bf16")),
+            ("K1 'tc_bf16' named beyond the tensor cores (S=65)", lambda: eaf.edge_attention_sums(
+                q65[:, :d], q65[:, d:], *r_idx, **kw65, body="tc_bf16")),
             ("K1 'simt' named for bf16 rows", lambda: eaf.edge_attention_sums(
-                q49[:, :d], q49[:, d:], *r_idx, **kw49, body="simt")),
+                q65[:, :d], q65[:, d:], *r_idx, **kw65, body="simt")),
             ("K3 'simt_bf16' named on f32 rows", lambda: bwd.edge_attention_bwd_dq(
                 f40[:, :d], f40[:, d:], f40[:, :d], *r_idx, **kw40, body="simt_bf16")),
             ("K5 'tc_bf16' named on f32 rows", lambda: sb.edge_attention_bwd_stream(
@@ -3096,8 +3111,11 @@ def bf16_wide(data, gen, dev) -> tuple:
 
 
 # path J: the recipe at S=64 (experiments/token_scale_tuning.py's default)
-# as a bf16 model, 20 epochs with selection every 10
+# as a bf16 model, 20 epochs with selection every 10; K1 and K4 on the
+# tensor cores (a block per node and head), K3 on the CUDA cores, by body
 J_S, J_EPOCHS = 64, 20
+J_BODIES = {"edge_attention_sums": "tc_bf16", "edge_attention_bwd_dq": "simt_bf16",
+            "edge_attention_bwd_dkv": "tc_bf16"}
 
 
 def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
@@ -3105,14 +3123,15 @@ def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
     through train_full_batch (J_EPOCHS, selection every 10). The JAX route
     by the port's mirrored predicates: bf16 K|V of 2,752 x 64 x 256 x 2 B
     exceed the 80 MiB budget, so the 'dma' gather (v4 forward, then
-    _dq_kernel_dma and _dkv_kernel_dma), in the port K1, K3 and K4, all on
-    'simt_bf16' (S=64 is beyond the tensor cores' range; K3 and K4 work in
-    device memory). One step's gradients against float64 autograd on the
-    CPU (BF16_GRAD_RTOL), 3 captured steps = eager bit for bit (no atomics
-    in these bodies), an 8-draw eval against float64 (BF16_LOGITS_RTOL),
-    exact launch counts by body, and one captured step of the bf16 model and
-    of the f32 one (its CUDA-core 'simt' bodies) in turns. Returns (report,
-    launches by kernel on simt_bf16 in train_full_batch)."""
+    _dq_kernel_dma and _dkv_kernel_dma), in the port K1, K3 and K4: K1 and
+    K4 on 'tc_bf16' (a block per node and head), K3 on 'simt_bf16' (S=64 is
+    beyond its tensor-core range; it works in device memory). One step's
+    gradients against float64 autograd on the CPU (BF16_GRAD_RTOL), 3
+    captured steps = eager bit for bit (no atomics in these bodies), an
+    8-draw eval against float64 (BF16_LOGITS_RTOL), exact launch counts by
+    body, and one captured step of the bf16 model and of the f32 one (K1
+    and K4 on 'tc', K3 on 'simt') in turns. Returns (report, {(kernel,
+    body): launches} of train_full_batch and of the f32 step)."""
     from ampnet_tpu_torch.core.config import TrainConfig
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper import launch as hl
@@ -3128,29 +3147,31 @@ def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
     if (forward, gather) != (K1_, "dma"):
         fail(f"path J: the predicates route its training forward to {forward} on '{gather}', "
              f"expected K1 on 'dma'")
-    smem = {k: hl.simt_smem_bytes(k, J_S, d, h) for k in (K1_, K3_, K4_)}
+    smem = {K3_: hl.simt_smem_bytes(K3_, J_S, d, h)}
     tcfg = TrainConfig(learning_rate=3e-3, weight_decay=1e-3, epochs=J_EPOCHS, seed=seed,
                        cosine_t0=None, grad_clip=1.0, select_best_every=10,
                        num_eval_samples=8, epochs_per_dispatch=10, log_every=10)
     name = f"J S={J_S} recommended recipe, bf16, training"
     counts, report = drive_training(name, cfg, tcfg, data, graph, seed, dev, True,
-                                    grad_rtol=BF16_GRAD_RTOL, allowed=("simt_bf16",))
+                                    grad_rtol=BF16_GRAD_RTOL, allowed=("tc_bf16", "simt_bf16"))
     evals = J_EPOCHS // tcfg.select_best_every + 1
     want = launches(k1=2 * J_EPOCHS + 2 * 8 * evals, k3=2 * J_EPOCHS, k4=2 * J_EPOCHS)
     if counts != want:
         fail(f"path J launched {counts}, expected {want}")
-    # drive_training held every launch of the loop to simt_bf16
-    bodies = {k: n for k, n in counts.items() if n}
+    # every launch since the loop's counts were set to 0 (the loop's, then
+    # its 10-step graph captured alone) on its kernel's body in J_BODIES
+    bodies = bf16_only(name, tuple(J_BODIES), J_BODIES)
     report.update(route=dict(forward=forward, gather=gather, simt_smem_bytes=smem,
                              max_smem=hl.MAX_SMEM), bodies=bodies,
                   memory_at_start=memory_at_start)
     report["captured_equals_eager"] = captured_equals_eager(
         "J", cfg, data, graph, layout, seed, dev, want_step=launches(k1=2, k3=2, k4=2),
-        body="simt_bf16")
+        body=J_BODIES)
     _, _, report["eval"] = bf16_eval("J S=64", cfg, data, graph, layout, seed, dev,
-                                     rtol=BF16_LOGITS_RTOL, body="simt_bf16")
+                                     rtol=BF16_LOGITS_RTOL, body="tc_bf16")
     # one captured step of each in turns, from states of their own; the f32
-    # model runs the f32 CUDA-core bodies
+    # model runs the f32 bodies of J_BODIES
+    ran = {(k, b): counts[k] for k, b in J_BODIES.items()}
     report["memory_before_turns"] = release_graphs()
     steps = {}
     for key, c in (("f32", f32), ("bf16", cfg)):
@@ -3162,11 +3183,15 @@ def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
         eaf.reset_launch_counts()
         step(st, graph, layout)
         torch.cuda.synchronize()
-        body = "simt" if key == "f32" else "simt_bf16"
-        if {k: b[body] for k, b in eaf.body_launch_counts().items() if b[body]} != \
-                {K1_: 2, K3_: 2, K4_: 2}:
+        want_bodies = {k: hl.f32_body(b) if key == "f32" else b for k, b in J_BODIES.items()}
+        got = {k: {b: n for b, n in eaf.body_launch_counts()[k].items() if n}
+               for k in want_bodies}
+        if got != {k: {b: 2} for k, b in want_bodies.items()} or \
+                eaf.launch_counts() != launches(k1=2, k3=2, k4=2):
             fail(f"path J {key} step: launched {eaf.body_launch_counts()}, expected 2 K1 + "
-                 f"2 K3 + 2 K4 on {body}")
+                 f"2 K3 + 2 K4 on {want_bodies}")
+        if key == "f32":
+            ran.update({(k, b): 2 for k, b in want_bodies.items()})
         steps[key] = (lambda step=step, st=st: step(st, graph, layout))
     t = [sync_ms(steps[k], 5) for k in ("f32", "bf16", "bf16", "f32")]
     e = [cuda_ms(steps[k], 5) for k in ("f32", "bf16", "bf16", "f32")]
@@ -3177,19 +3202,22 @@ def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
         f32_profile=busy_share(device_profile(steps["f32"]), (t[0] + t[3]) / 2))
     del steps
     report["phase_s"] = time.perf_counter() - t_phase
-    return report, {k: n for k, n in bodies.items()}
+    return report, ran
 
 
 # Each kernel's 'simt_bf16' body at one shape where path J or bf16_wide
 # launched it: (row key, kernel, rows ('bf16', or f32 rows under mxu_bf16),
 # S, D, H, graph: 'J' (the whole surrogate), 'eval' or 'training' (the
 # bf16_wide graphs; 'stream' the training graph without a sender side),
-# the TPU kernel it replaces)
+# the TPU kernel it replaces). K1 and K4 run S=64 on the tensor cores
+# (WIDE_TC_ROWS, timed there in turns with these bodies at S=64); their
+# rows here are beyond it.
 SIMT_BF16_ROWS = (
-    ("k1_simt_bf16", K1_, "bf16", J_S, 128, 4, "J", "edge_attention_fused.py:942"),
+    ("k1_simt_bf16", K1_, "bf16", 96, 128, 4, "eval", "edge_attention_fused.py:942"),
     ("k2_simt_bf16", K2_, "bf16", 20, 128, 8, "eval", "edge_attention_fused.py:763"),
     ("k3_simt_bf16", K3_, "bf16", J_S, 128, 4, "J", "edge_attention_bwd_scatterfree.py:211"),
-    ("k4_simt_bf16", K4_, "bf16", J_S, 128, 4, "J", "edge_attention_bwd_scatterfree.py:319"),
+    ("k4_simt_bf16", K4_, "bf16", 65, 128, 4, "training",
+     "edge_attention_bwd_scatterfree.py:319"),
     ("k5_simt_bf16", K5_, "bf16", 49, 128, 4, "stream", "edge_attention_bwd.py:178"),
     ("k6_simt_bf16", K6_, "bf16", 96, 128, 4, "eval", "edge_attention_fused.py:1126"),
     ("k7_simt_bf16", K7_, "bf16", 20, 128, 8, "eval", "edge_attention_fused.py:865"),
@@ -3210,8 +3238,8 @@ def simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches) -> list:
     f32 CUDA-core body ('simt', f32 rows at the f32 row stride), its bound
     at bf16 widths and the bf16 rate, registers and spills (ptxas) of the
     instantiation it launched, whether its working set was in device
-    memory; ``launches`` where path J (K1, K3, K4) or bf16_wide launched it
-    at that shape."""
+    memory; ``launches`` where path J (K3) or bf16_wide launched it at that
+    shape."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
@@ -3411,7 +3439,7 @@ def simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches) -> list:
         b, by = bf16_bound_ms(nbytes, flops)
         ptx = ptxas_of(lib, fn + "I" + targs.format(
             int(in_memory), "13__nv_bfloat16" if rows_bf16 else "f"))
-        launched = (j_launches.get(kernel, 0) if where == "J" else
+        launched = (j_launches.get((kernel, "simt_bf16"), 0) if where == "J" else
                     wide_ran.get((kernel, "simt_bf16", rows_mode, s, d, h, where != "eval"), 0))
         out.append(dict(
             name=kernel, route="cuda", source=f"ampnet_tpu_torch/ops/hopper/csrc/{lib}.cu",
@@ -3424,6 +3452,120 @@ def simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches) -> list:
                        "bf16 products of f32 rows (mxu_bf16) on the CUDA cores"), **extra))
         if launched < 1:
             fail(f"{key}: no launch of the body at S={s} D={d} H={h} on a path")
+    return out
+
+
+# K1's and K4's tensor-core bodies at path J's S=64, D=128, H=4 (one block
+# per node and head): (kernel, body, library, its launch-info entry point,
+# the kernel's name in ptxas, the TPU kernel it replaces)
+WIDE_TC_ROWS = (
+    (K1_, "tc_bf16", "edge_attention_tc_bf16", "ampnet_edge_attention_sums_bf16_info",
+     "sums_bf16_kernelILi8ELb0E13__nv_bfloat16", "edge_attention_fused.py:942"),
+    (K4_, "tc_bf16", "edge_attention_bwd_tc_bf16", "ampnet_edge_attention_bwd_dkv_bf16_info",
+     "dkv_bf16_kernelILi8E", "edge_attention_bwd_scatterfree.py:319"),
+    (K1_, "tc", "edge_attention_tc", "ampnet_edge_attention_sums_info",
+     "sums_tc_kernelILi8E", "edge_attention_fused.py:942"),
+    (K4_, "tc", "edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv_info",
+     "dkv_tc_kernelILi8E", "edge_attention_bwd_scatterfree.py:319"),
+)
+
+
+def wide_tc_rows(graph, layout, gen, dev, j_launches) -> list:
+    """The rows of WIDE_TC_ROWS on path J's graph and layout (every 50th
+    live edge masked at run time) at the row strides its models use (bf16
+    rows 16, f32 rows 8): each body on random rows against its plain
+    version on the card ('tc': KERNEL_RTOL / KERNEL_ATOL; 'tc_bf16':
+    BF16_KERNEL_LIMIT of the largest entry), launched twice and equal bit
+    for bit, every launch on the body; timed in turns with the CUDA-core
+    body of the same rows ('simt_bf16', 'simt': ``prev_ms``); its bound (the
+    rows' bytes once, the products at the bf16 rate, or at the TF32 rate
+    three times over for 3xTF32), registers and spills (ptxas), blocks per
+    SM, ring stages; ``launches`` from path J (bf16: train_full_batch; f32:
+    its f32 step)."""
+    from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
+    from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.ops.hopper.format import edge_slot_valid, snd_slot_valid
+    from ampnet_tpu_torch.ops.hopper.launch import kernel_info
+
+    release_graphs()
+    s, d, h = J_S, 128, 4
+    mask = graph.edge_mask.clone()
+    mask[torch.nonzero(mask)[::50, 0]] = False
+    n, nt = graph.num_nodes_padded, layout.recv_ptr.numel() - 1
+    r_idx = (layout.tile_senders, edge_slot_valid(layout, mask), layout.recv_ptr,
+             layout.recv_slots)
+    s_idx = (layout.snd_receivers, snd_slot_valid(layout, mask), layout.snd_ptr,
+             layout.snd_slots)
+    live = int(r_idx[1].sum())
+    r_bytes = 4 * (2 * layout.tile_senders.numel() + layout.recv_ptr.numel()
+                   + layout.recv_slots.numel())
+    s_bytes = 4 * (2 * layout.snd_receivers.numel() + layout.snd_ptr.numel()
+                   + layout.snd_slots.numel())
+    out = []
+    for kernel, body, lib, info_fn, ptx_name, replaces in WIDE_TC_ROWS:
+        bf16 = body == "tc_bf16"
+        width, sp = (2, -(-s // 16) * 16) if bf16 else (4, -(-s // 8) * 8)
+        q = torch.randn(nt * sp, 3 * d, generator=gen, device=dev)
+        dsum = torch.randn(nt, sp, d, generator=gen, device=dev)
+        dsum[:, s:] = 0.0
+        dsum = dsum.reshape(nt * sp, d)
+        if bf16:
+            q, dsum = q.to(torch.bfloat16), dsum.to(torch.bfloat16)
+        kw = dict(s=s, sp=sp, num_heads=h, softmax=True)
+        if kernel == K1_:
+            def run(b=None):
+                return eaf.edge_attention_sums(q[:, :d], q[:, d:], *r_idx, **kw, body=b)
+
+            def plain():
+                return eaf.edge_attention_sums_plain(q[:, :d], q[:, d:], *r_idx, **kw)
+
+            nbytes, flops = 3 * d * n * s * width + d * n * s * 4 + r_bytes, 4 * s * s * d * live
+        else:
+            qdm = torch.cat([q[:, :d], dsum], 1)
+
+            def run(b=None):
+                return bwd.edge_attention_bwd_dkv(qdm, q[:, d:], *s_idx, **kw, body=b)
+
+            def plain():
+                return bwd.edge_attention_bwd_dkv_plain(qdm, q[:, d:], *s_idx, **kw)
+
+            nbytes = 4 * d * n * s * width + 2 * d * n * s * 4 + s_bytes
+            flops = 8 * s * s * d * live
+        eaf.reset_launch_counts()
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        if eaf.body_launch_counts()[kernel] != {**dict.fromkeys(("tc", "simt", "tc_bf16",
+                                                                 "simt_bf16"), 0), body: 2}:
+            fail(f"{kernel} S={s} {body}: ran the bodies {eaf.body_launch_counts()[kernel]}")
+        ref = plain()
+        if bf16:
+            err, limit = float((got - ref).abs().max()), BF16_KERNEL_LIMIT
+            rel = err / max(float(ref.abs().max()), 1e-30)
+            if not rel <= limit or not torch.isfinite(got).all():
+                fail(f"{kernel} S={s} {body}: {rel:.3g} of the largest entry from its plain "
+                     f"version (limit {limit:.3g})")
+        else:
+            err = compare(f"{kernel} S={s} {body}", got, ref)
+            rel, limit = err / max(float(ref.abs().max()), 1e-30), None
+        if not torch.equal(got, again):
+            fail(f"{kernel} S={s} {body}: a second launch differs from the first")
+        del got, again, ref
+        ms, simt_ms = in_turns(lambda: run("simt_bf16" if bf16 else "simt"), run)
+        b, by = bf16_bound_ms(nbytes, flops) if bf16 else bound_ms(nbytes, flops, True)
+        info = kernel_info(lib, info_fn, nt, s, d, h)
+        launched = j_launches.get((kernel, body), 0)
+        if launched < 1:
+            fail(f"{kernel} {body}: path J did not launch it at S={s}")
+        out.append(dict(
+            name=kernel, route="cuda", source=f"ampnet_tpu_torch/ops/hopper/csrc/{lib}.cu",
+            replaces=f"ampnet_tpu/ops/pallas/{replaces}", launches=launched, s=s, d=d, h=h,
+            body=body, max_abs_err=err, rel_err=rel, limit=limit, ms=ms, prev_ms=simt_ms,
+            speedup=simt_ms / ms, plain_ms=cuda_ms(plain, 3), bound_ms=b, bound_by=by,
+            library_ms=None, regs=info["regs"], spills=ptxas_of(lib, ptx_name)["spills"],
+            blocks_per_sm=info["blocks_per_sm"], stages=info["stages"],
+            smem_bytes=info["smem_bytes"], graph="J",
+            precision="bf16 products on the tensor cores" if bf16 else "3xtf32"))
+        del q, dsum
     return out
 
 
@@ -4913,17 +5055,13 @@ LINEAR_EPOCHS = 2                 # cora_linear_layer_baseline: of 10
 SCALING_SHARDS = 2                # scaling_bench: of 1, 2, 4, 8 ranks
 HALO_MEASURED_SHARDS = 2          # halo_comm_accounting --measured: of 8 ranks
 TIMING_ITERS = 10                 # partitioned_graph1_timing: its default
-# halo_budget_run: the JAX driver's shape is 1,048,576 nodes, 262,144 edges,
-# window 8192 on 2 ranks; both ranks share this one card, and the port's
-# plain partitioned step holds several times its K|V buffer (ROADMAP.md §C,
-# open), so the run is cut to a quarter of each (HALO_BUDGET_CUT in the line)
+# halo_budget_run at the JAX driver's shape (1,048,576 nodes, 262,144 edges,
+# window 8192) on its 2 ranks, both on this one card: the plain step with
+# remat (the lean conv) holds a rank's peak near its halo K|V buffer; a
+# rank over HALO_PEAK_LIMIT times its buffer fails (the design's floor is
+# ~3.5: conv2's input, K|V, dsum, dK|V and the input's gradient)
 HALO_BUDGET_FULL = dict(nodes=1_048_576, edges=262_144, window=8192)
-HALO_BUDGET = dict(nodes=262_144, edges=65_536, window=2048)
-HALO_BUDGET_CUT = ("two causes together: the JAX driver's two ranks (P=2) share this one "
-                   "card, and the port's plain partitioned step peaks at about seven times "
-                   "its rank's halo K|V buffer (an open fault, ROADMAP.md section C), so at "
-                   "1,048,576 nodes a rank needs about four times its peak at a quarter of "
-                   "the nodes, more than half the card")
+HALO_PEAK_LIMIT = 3.8
 OVERFIT_MIN_ACC = 0.95
 
 
@@ -4971,7 +5109,9 @@ def experiments_phase(full_run, per_eval_k, per_eval_k_saint, dev) -> tuple:
     its first loss against the single-device step's, launches exact);
     scaling_bench and halo_comm_accounting's measured bytes on ranks
     sharing the card (the counted halo bytes against the plan's);
-    halo_budget_run at HALO_BUDGET. Returns ({driver: launches}, report)."""
+    halo_budget_run at HALO_BUDGET_FULL (a rank's peak within
+    HALO_PEAK_LIMIT of its halo K|V buffer). Returns ({driver: launches},
+    report)."""
     from ampnet_tpu_torch.experiments import (
         ampnet_freeze_check, cora_linear_layer_baseline, cora_overfit_one_subgraph,
         cosine_lr_scheduler_test, eval_checkpoint, grid_search, halo_budget_run,
@@ -4979,7 +5119,6 @@ def experiments_phase(full_run, per_eval_k, per_eval_k_saint, dev) -> tuple:
         seed_ensemble, seed_robustness, synthetic_rgb_generate, synthetic_training,
         synthetic_training_modular, synthetic_training_modular_graphsaint,
         token_scale_tuning, transformer_tuning)
-    from ampnet_tpu_torch.parallel import build_halo_plan, partition_graph
 
     none = launches()
     step_k = launches(k1=2, k3=2, k4=2)
@@ -4993,9 +5132,7 @@ def experiments_phase(full_run, per_eval_k, per_eval_k_saint, dev) -> tuple:
                     f"repeats, {GRID['workers']} workers",
         cora_linear_layer_baseline=f"{LINEAR_EPOCHS} of 10 epochs",
         scaling_bench=f"1 and {SCALING_SHARDS} ranks of 1, 2, 4, 8",
-        halo_comm_accounting=f"measured on {HALO_MEASURED_SHARDS} of 8 ranks",
-        halo_budget_run=dict(ran=HALO_BUDGET, jax_shape=HALO_BUDGET_FULL,
-                             why=HALO_BUDGET_CUT))
+        halo_comm_accounting=f"measured on {HALO_MEASURED_SHARDS} of 8 ranks")
 
     def record(name, result_report, counts=None):
         report[name] = result_report
@@ -5149,31 +5286,21 @@ def experiments_phase(full_run, per_eval_k, per_eval_k_saint, dev) -> tuple:
             fail(f"experiments: rank {r['rank']} moved {r['moved']} in the all-gather step")
     rep.update(analytic_s=analytic_s, analytic=table, measured=res)
     record("halo_comm_accounting", rep)
-    # halo_budget_run: the cut run, then the JAX shape's plan on the host
+    # halo_budget_run at the JAX shape, both ranks on this card
     res, rep = experiment_run("halo_budget_run", halo_budget_run.run, none, dev,
-                              **HALO_BUDGET)
+                              **HALO_BUDGET_FULL)
     if not res["ok"]:
         fail(f"experiments: halo_budget_run gave a non-finite loss ({res.get('loss')})")
-    t0 = time.perf_counter()
-    full = HALO_BUDGET_FULL
-    pg = partition_graph(halo_budget_run.budget_graph(full["nodes"], full["edges"],
-                                                      full["window"], 128), 2)
-    plan = build_halo_plan(pg)
+    ranks = [dict({k: r.get(k) for k in ("rank", "n_loc", "halo_width", "seconds", "peak_gb",
+                                         "spans", "moved", "staged", "loss", "prepare_s")},
+                  peak_over_halo_kv=r["peak_gb"] / res["halo_kv_gb"]) for r in res["ranks"]]
+    worst = max(r["peak_over_halo_kv"] for r in ranks)
+    if worst > HALO_PEAK_LIMIT:
+        fail(f"experiments: halo_budget_run's rank peaked at {worst:.3f} times its halo K|V "
+             f"buffer ({res['halo_kv_gb']:.2f} GiB), limit {HALO_PEAK_LIMIT}")
     rep.update({k: v for k, v in res.items() if k not in ("ranks", "seconds")},
-               step_s=res["seconds"],
-               # the open fault's measure (ROADMAP.md section C): a rank's peak
-               # over its halo K|V buffer
-               peak_over_halo_kv=max(r.get("peak_gb") or 0.0 for r in res["ranks"])
-               / res["halo_kv_gb"],
-               ranks=[{k: r.get(k) for k in ("rank", "n_loc", "halo_width", "seconds", "peak_gb",
-                                         "spans", "moved", "staged", "loss", "prepare_s")}
-                      for r in res["ranks"]],
-               jax_shape=dict(full, n_loc=pg.x.shape[1], halo_width=plan.halo_width,
-                              halo_kv_gb=halo_budget_run.kv_gb(pg.x.shape[1]
-                                                               + plan.halo_width),
-                              replicated_kv_gb=halo_budget_run.kv_gb(full["nodes"]),
-                              plan_s=time.perf_counter() - t0))
-    del pg
+               step_s=res["seconds"], peak_over_halo_kv=worst, limit=HALO_PEAK_LIMIT,
+               ranks=ranks)
     record("halo_budget_run", rep)
     shutil.rmtree(runs, ignore_errors=True)
     return by_driver, report
@@ -5745,6 +5872,7 @@ def main() -> int:
     path_j_report, j_launches = path_j(recipe, data, graph, layout, args.seed, dev)
     emit(dict(path_j_report, card=smi))
     simt_rows = simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches)
+    wide_rows = wide_tc_rows(graph, layout, gen, dev, j_launches)
 
     # SSL pretraining on the recipe's backbone, the main path's drivers as a
     # user runs them, the interpretation suite on the full driver's
@@ -5826,10 +5954,10 @@ def main() -> int:
         fail(f"a kernel of the paths was never launched: "
              f"{ {k['name']: k['launches'] for k in kernels} }")
     # K1-K4 at path K's shape (launches from path K; path K's GraphSAINT
-    # variant, synthetic_models and tokenizers apart, by path), and a row
-    # for each bf16 body (launches from the bf16 phase's paths, bf16_wide
-    # and path J)
-    kernels += xor_rows + bf16_rows + simt_rows
+    # variant, synthetic_models and tokenizers apart, by path), a row for
+    # each bf16 body (launches from the bf16 phase's paths, bf16_wide and
+    # path J), and K1's and K4's tensor-core bodies at S=64 (path J)
+    kernels += xor_rows + bf16_rows + simt_rows + wide_rows
     # a row's `s` (the bf16 rows') beside its launches: the shape they ran at
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "s",
             "max_abs_err", "ms",

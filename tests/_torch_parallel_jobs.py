@@ -55,6 +55,22 @@ def grads_of(model):
     return {k: v.grad.detach().numpy().copy() for k, v in model.named_parameters()}
 
 
+def saved_for_backward(model, shard, mesh, halo, idx, remat):
+    """The tensors autograd keeps between the plain partitioned forward
+    (the halo exchange) and its backward, one entry per distinct tensor:
+    (shape, bytes)."""
+    kept = {}
+
+    def pack(t):
+        kept[(t.untyped_storage().data_ptr(), t.storage_offset(), tuple(t.shape))] = (
+            tuple(t.shape), t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        amp_gcn_forward_local(model, shard, mesh, halo=halo, remat=remat, sampled_idx=idx)
+    return list(kept.values())
+
+
 def two_ranks(rank, inp):
     """graph=2: the partitioned forward (halo and all-gather, plain and
     through the fused op) and one partitioned SGD step (halo, plain and
@@ -80,7 +96,12 @@ def two_ranks(rank, inp):
                 tile_nodes=TILE, halo=None if halo is None else halo.local(i, "cpu"),
                 sampled_idx=idx).numpy()
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
+    from ampnet_tpu_torch.parallel import edge_partition as ep
+
+    # the lean conv (plain_remat) in chunks of 3 node or edge rows
+    ep.LEAN_CHUNK_BYTES = 3 * cfg.num_sampled_vectors * 2 * cfg.embedding_dim * 4
     for name, use_pallas, scatterfree, remat in (("plain", False, True, False),
+                                                 ("plain_remat", False, True, True),
                                                  ("fused", True, True, False),
                                                  ("fused_stream", True, False, False),
                                                  ("fused_remat", True, True, True)):
@@ -95,6 +116,9 @@ def two_ranks(rank, inp):
         out[f"step_{name}"] = (params_of(model), grads_of(model), float(m["loss"]),
                                float(m["train_acc"]))
     eaf.SCATTERFREE_BWD_DEFAULT = True
+    out["saved"] = {remat: saved_for_backward(model_of(cfg, state, stats), shard, mesh,
+                                              plan.local(i, "cpu"), idx, remat)
+                    for remat in (False, True)}
     # the fused step again with the collectives timed (Mesh.spans)
     model = model_of(cfg, state, stats)
     step = make_partitioned_train_step(model, mesh, loss_mode="full", use_pallas=True,

@@ -334,7 +334,7 @@ def test_fused_op_stream_gradients_on_card_match_plain_cpu(cuda, monkeypatch, s,
 
 
 @pytest.mark.parametrize("softmax", [True, False])
-@pytest.mark.parametrize("s,d,h", [(96, 128, 4), (49, 128, 4), (20, 1024, 1)])
+@pytest.mark.parametrize("s,d,h", [(96, 128, 4), (65, 128, 4), (20, 1024, 1)])
 def test_cuda_core_bodies_beyond_shared_memory_match_plain(cuda, s, d, h, softmax):
     """Where a CUDA-core body's working set exceeds a block's shared memory
     (launch.simt_work_blocks > 0), K1-K5 keep it in device memory and agree
@@ -915,18 +915,19 @@ def test_tc_kernels_refuse_what_they_do_not_take(cuda):
                                   **kw, body="tc")
     with pytest.raises(ValueError, match="16-byte"):
         bwd.edge_attention_bwd_dkv(buf[:, 1: 2 * d + 1], qkv[:, d:], *s_idx, **kw, body="tc")
-    big = torch.randn(nt * 56, 3 * d, generator=torch.Generator(device=cuda).manual_seed(4),
+    # beyond every tensor-core body's range (K1 and K4 reach S=64)
+    big = torch.randn(nt * 72, 3 * d, generator=torch.Generator(device=cuda).manual_seed(4),
                       device=cuda)
-    kw56 = dict(s=49, sp=56, num_heads=4, softmax=True)
+    kw65 = dict(s=65, sp=72, num_heads=4, softmax=True)
     with pytest.raises(ValueError, match="range"):
-        eaf.edge_attention_sums(big[:, :d], big[:, d:], *r_idx, **kw56, body="tc")
+        eaf.edge_attention_sums(big[:, :d], big[:, d:], *r_idx, **kw65, body="tc")
     with pytest.raises(ValueError, match="range"):
-        bwd.edge_attention_bwd_dkv(big[:, : 2 * d], big[:, d:], *s_idx, **kw56, body="tc")
+        bwd.edge_attention_bwd_dkv(big[:, : 2 * d], big[:, d:], *s_idx, **kw65, body="tc")
     with pytest.raises(ValueError, match="16-byte"):
         sb.edge_attention_bwd_stream(buf[:, :d], buf[:, d + 1: 3 * d + 1], qdm[:, d:], *r_idx,
                                      **kw, body="tc")
     with pytest.raises(ValueError, match="range"):
-        sb.edge_attention_bwd_stream(big[:, :d], big[:, d:], big[:, :d], *r_idx, **kw56,
+        sb.edge_attention_bwd_stream(big[:, :d], big[:, d:], big[:, :d], *r_idx, **kw65,
                                      body="tc")
     assert eaf.body_launch_counts() == before
 
@@ -936,16 +937,16 @@ def test_tc_kernels_refuse_what_they_do_not_take(cuda):
              eaf.edge_attention_sums_plain(q, kv, *r_idx, **kw)),
             (bwd.edge_attention_bwd_dq(q, kv, qdm[:, d:], *r_idx, **kw),
              bwd.edge_attention_bwd_dq_plain(q, kv, qdm[:, d:], *r_idx, **kw)),
-            (eaf.edge_attention_sums(big[:, :d], big[:, d:], *r_idx, **kw56),
-             eaf.edge_attention_sums_plain(big[:, :d], big[:, d:], *r_idx, **kw56)),
-            # K4's CUDA-core body at 242 KB: its working set in device memory
-            (bwd.edge_attention_bwd_dkv(big[:, : 2 * d], big[:, d:], *s_idx, **kw56),
-             bwd.edge_attention_bwd_dkv_plain(big[:, : 2 * d], big[:, d:], *s_idx, **kw56))):
+            (eaf.edge_attention_sums(big[:, :d], big[:, d:], *r_idx, **kw65),
+             eaf.edge_attention_sums_plain(big[:, :d], big[:, d:], *r_idx, **kw65)),
+            # K4's CUDA-core body at 353 KB: its working set in device memory
+            (bwd.edge_attention_bwd_dkv(big[:, : 2 * d], big[:, d:], *s_idx, **kw65),
+             bwd.edge_attention_bwd_dkv_plain(big[:, : 2 * d], big[:, d:], *s_idx, **kw65))):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
     # K5 left to the rule on the same rows: its CUDA-core body, dQ and the walked stream
     walked = lay.recv_slots.long()
-    for args, kw_ in (((q, kv, qdm[:, d:]), kw), ((big[:, :d], big[:, d:], big[:, :d]), kw56)):
+    for args, kw_ in (((q, kv, qdm[:, d:]), kw), ((big[:, :d], big[:, d:], big[:, :d]), kw65)):
         (dq, st), (dq_ref, st_ref) = (f(*args, *r_idx, **kw_) for f in (
             sb.edge_attention_bwd_stream, sb.edge_attention_bwd_stream_plain))
         torch.cuda.synchronize()
@@ -1035,13 +1036,15 @@ def test_simt_shared_memory_mirror_matches_the_libraries(cuda):
 
 @pytest.mark.parametrize("s,d,h,want", [
     (40, 128, 2, "simt"), (20, 128, 8, "simt"), (40, 128, 8, "simt"), (40, 3, 1, "simt"),
-    (40, 100, 4, "tc"), (49, 128, 4, "simt"), (96, 128, 4, "simt")])
+    (40, 100, 4, "tc"), (49, 128, 4, "tc tc simt"), (65, 128, 4, "simt"),
+    (96, 128, 4, "simt")])
 def test_fused_op_routes_beyond_the_tensor_cores(cuda, s, d, h, want):
     """The fused op at shapes the tensor-core bodies do not take: the
     forward and the five gradients through the CUDA-core bodies (the
-    launches say which body ran; at S=49 K4's and at S=96 every working set
-    is in device memory) against autograd through the plain oracle on the
-    CPU."""
+    launches say which body ran: ``want`` for K1, K4 and K3, or one for all;
+    at S=49 K1 and K4 on the tensor cores, K3 not; at S=65 K3's and K4's and
+    at S=96 every working set in device memory) against autograd through
+    the plain oracle on the CPU."""
     g, mask = graph(3, first_sender=1)
     p = params(4, d)
     x = torch.randn(48, s, d, generator=torch.Generator().manual_seed(5))
@@ -1056,8 +1059,10 @@ def test_fused_op_routes_beyond_the_tensor_cores(cuda, s, d, h, want):
         snd_slots=lay.snd_slots)
     (out * out.cos()).sum().backward()
     bodies = eaf.body_launch_counts()
-    for k in ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv"):
-        assert bodies[k][want] == 1 and sum(bodies[k].values()) == 1, bodies
+    wants = (want.split() * 3)[:3]
+    for k, w in zip(("edge_attention_sums", "edge_attention_bwd_dkv", "edge_attention_bwd_dq"),
+                    wants):
+        assert bodies[k][w] == 1 and sum(bodies[k].values()) == 1, bodies
     cpu = [t.clone().requires_grad_() for t in (x, *p)]
     ref, _ = amp_edge_attention(cpu[0], g.senders, g.receivers, mask, MHAParams(*cpu[1:]), h)
     torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=RTOL, atol=ATOL)
@@ -1564,6 +1569,80 @@ def test_bf16_bodies_match_plain_on_card(cuda, s, d, h, softmax):
         assert after[k] == dict(before[k], tc_bf16=before[k]["tc_bf16"] + n), k
 
 
+# K1's and K4's bodies at 48 < S <= 64: (library, info entry point) by body
+# and rows
+WIDE_INFO = {("k1", "tc"): ("edge_attention_tc", "ampnet_edge_attention_sums_info"),
+             ("k1", "tc_bf16"): ("edge_attention_tc_bf16", "ampnet_edge_attention_sums_bf16_info"),
+             ("k1", "mxu"): ("edge_attention_tc_bf16", "ampnet_edge_attention_sums_mxu_info"),
+             ("k4", "tc"): ("edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv_info"),
+             ("k4", "tc_bf16"): ("edge_attention_bwd_tc_bf16",
+                                 "ampnet_edge_attention_bwd_dkv_bf16_info")}
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("s", [49, 56, 64])
+@pytest.mark.parametrize("d,h", [(128, 4), (128, 8)])
+def test_k1_k4_wide_bodies_match_plain_on_card(cuda, s, d, h, softmax):
+    """K1 and K4 at 48 < S <= 64 (one block per node and head), picked by
+    the route: 'tc' on f32 rows against the plain version within 1e-4 of the
+    largest entry, 'tc_bf16' on bf16 rows (K1 also on f32 rows under
+    mxu_bf16) within one bf16 step; each launched twice and equal bit for
+    bit, pad token rows and the rows of a node of degree 0 exactly 0, every
+    launch on the named body; the instantiation spills nothing and keeps at
+    least two blocks on an SM."""
+    g, mask = graph(0, first_sender=1)
+    lay = compute_layout(g, tile_nodes=16).to(cuda)
+    nt = lay.recv_ptr.numel() - 1
+    sp = -(-s // 16) * 16
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(nt * sp, 3 * d, generator=gen, device=cuda)
+    dsum = torch.randn(nt, sp, d, generator=gen, device=cuda)
+    dsum[:, s:] = 0.0                                  # pad token rows, as the op makes them
+    dsum = dsum.reshape(nt * sp, d)
+    qdm = torch.cat([qkv[:, :d], dsum], 1)
+    b16, qdm16 = qkv.to(torch.bfloat16), qdm.to(torch.bfloat16)
+    r_idx = (lay.tile_senders, edge_slot_valid(lay, mask.to(cuda)), lay.recv_ptr, lay.recv_slots)
+    s_idx = (lay.snd_receivers, snd_slot_valid(lay, mask.to(cuda)), lay.snd_ptr, lay.snd_slots)
+    kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax)
+    # name: (run, plain, limit, body)
+    cases = {
+        ("k1", "tc"): (lambda: eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *r_idx, **kw),
+                       lambda: eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *r_idx,
+                                                             **kw), 1e-4, "tc"),
+        ("k1", "tc_bf16"): (
+            lambda: eaf.edge_attention_sums(b16[:, :d], b16[:, d:], *r_idx, **kw),
+            lambda: eaf.edge_attention_sums_plain(b16[:, :d], b16[:, d:], *r_idx, **kw),
+            BF16_LIMIT, "tc_bf16"),
+        ("k1", "mxu"): (
+            lambda: eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *r_idx, **kw, mxu_bf16=True),
+            lambda: eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *r_idx, **kw,
+                                                  mxu_bf16=True), BF16_LIMIT, "tc_bf16"),
+        ("k4", "tc"): (lambda: bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *s_idx, **kw),
+                       lambda: bwd.edge_attention_bwd_dkv_plain(qdm, qkv[:, d:], *s_idx, **kw),
+                       1e-4, "tc"),
+        ("k4", "tc_bf16"): (
+            lambda: bwd.edge_attention_bwd_dkv(qdm16, b16[:, d:], *s_idx, **kw),
+            lambda: bwd.edge_attention_bwd_dkv_plain(qdm16, b16[:, d:], *s_idx, **kw),
+            BF16_LIMIT, "tc_bf16"),
+    }
+    for name, (run, plain, limit, body) in cases.items():
+        kernel = "edge_attention_sums" if name[0] == "k1" else "edge_attention_bwd_dkv"
+        eaf.reset_launch_counts()
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        assert eaf.body_launch_counts()[kernel] == {**dict.fromkeys(launch.BODIES, 0),
+                                                    body: 2}, name
+        ref = plain()
+        close_to_largest(got, ref, limit)
+        assert torch.equal(got, again), name
+        assert (got.view(nt, sp, -1)[:, s:] == 0).all(), name
+        # degree 0: node 39 never receives, node 0 never sends (K4's rows)
+        assert (got.view(nt, sp, -1)[39 if name[0] == "k1" else 0] == 0).all(), name
+        info = launch.kernel_info(*WIDE_INFO[name], nt, s, d, h)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, (name, info)
+        assert info["threads"] == 128 and info["grid"] % h == 0, (name, info)
+
+
 @pytest.mark.parametrize("softmax", [True, False])
 @pytest.mark.parametrize("s,d,h", [(40, 128, 4), (20, 128, 4), (4, 16, 2)])
 def test_bf16_route_bodies_match_plain_on_card(cuda, s, d, h, softmax):
@@ -1656,7 +1735,8 @@ def test_bf16_route_bodies_match_plain_on_card(cuda, s, d, h, softmax):
 
 # (S, D, H) beyond the bf16 tensor-core bodies' range: a seventh key tile,
 # 24 warps, bf16 rows of 200 bytes (D=100: no 16-byte copies), path J's S=64
-# (K3 and K4 in device memory), and S=96 (every working set in device memory)
+# (K3 in device memory), and S=96 (every working set in device memory). K1
+# and K4 take S=49 and S=64 on 'tc_bf16'.
 SIMT_BF16_SHAPES = [(49, 128, 4), (40, 128, 8), (20, 100, 4), (64, 128, 4), (96, 128, 4)]
 
 
@@ -1773,6 +1853,20 @@ def test_simt_bf16_bodies_match_plain_on_card(cuda, s, d, h, softmax):
         # f32 rows of D=100 take 16-byte copies: under mxu_bf16 the route is
         # 'tc_bf16' there (test_bf16_bodies_match_plain_on_card)
         cases = {k: v for k, v in cases.items() if not k.endswith("mxu")}
+
+    def body_of(name, kernel):
+        # K1 and K4 take 48 < S <= 64 on 'tc_bf16' (test_k1_k4_wide_bodies_
+        # match_plain_on_card), where K1's views of the q|k|v rows take
+        # 16-byte copies (f32 rows under mxu_bf16 at any D here, bf16 rows
+        # at D=128); K4's packed [Q | dsum] rows take them at D=100 too
+        if launch.tensor_core_range_error(s, d, h, kernel) is not None:
+            return "simt_bf16"
+        if kernel == "edge_attention_bwd_dkv":
+            return "tc_bf16"
+        if kernel == "edge_attention_sums" and (name.endswith("mxu") or d % 8 == 0):
+            return "tc_bf16"
+        return "simt_bf16"
+
     for name, (kernel, run, plain, limit, dtype, repeats) in cases.items():
         eaf.reset_launch_counts()
         got = run()
@@ -1789,10 +1883,7 @@ def test_simt_bf16_bodies_match_plain_on_card(cuda, s, d, h, softmax):
             # degree 0: node 39 never receives, node 0 never sends (K4's rows)
             zero = 0 if kernel == "edge_attention_bwd_dkv" else 39
             assert (got.view(nt, sp, -1)[zero] == 0).all(), name
-        # at D=100 (within the range) K4's packed [Q | dsum] rows, 200 values
-        # a row, take 16-byte copies: its tensor-core bf16 body
-        body = ("tc_bf16" if kernel == "edge_attention_bwd_dkv"
-                and launch.tensor_core_range_error(s, d, h) is None else "simt_bf16")
+        body = body_of(name, kernel)
         assert counts == {**dict.fromkeys(launch.BODIES, 0), body: 1 + repeats}, (name, counts)
         # the working set in device memory where it does not fit a block's
         # shared memory (K7's attention launch counts as K6's)
@@ -1800,7 +1891,8 @@ def test_simt_bf16_bodies_match_plain_on_card(cuda, s, d, h, softmax):
         part = (eav._mm_group("simt_bf16", s, d, h, None) if attention == "edge_attention_sums_mm"
                 else eav._chunk_piece(s, d, h, 8, None) if kernel == "edge_attention_sums_chunked"
                 else 0)
-        in_memory = launch.simt_smem_bytes(attention, s, d, h, part) > launch.MAX_SMEM
+        in_memory = body == "simt_bf16" and launch.simt_smem_bytes(
+            attention, s, d, h, part) > launch.MAX_SMEM
         assert bool(memory.get(attention)) == in_memory, (name, memory)
 
 
@@ -1851,29 +1943,29 @@ def test_bf16_refusals_on_card(cuda):
     r_idx = (lay.tile_senders, lay.tile_valid, lay.recv_ptr, lay.recv_slots)
     s_idx = (lay.snd_receivers, lay.snd_valid, lay.snd_ptr, lay.snd_slots)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    q49 = torch.randn(nt * 64, 3 * d, generator=gen, device=cuda).to(torch.bfloat16)
+    q65 = torch.randn(nt * 80, 3 * d, generator=gen, device=cuda).to(torch.bfloat16)
     q40 = torch.randn(nt * 48, 3 * d, generator=gen, device=cuda).to(torch.bfloat16)
-    kw49 = dict(s=49, sp=64, num_heads=4, softmax=True)
+    kw65 = dict(s=65, sp=80, num_heads=4, softmax=True)  # beyond every tensor-core body
     kw40 = dict(s=40, sp=48, num_heads=4, softmax=True)
     slots = (lay.tile_senders, lay.tile_recv, lay.tile_valid)
     ck = compute_chunked_layout(g, tile_nodes=16, chunk_edges=8).to(cuda)
     chunks = (ck.senders, ck.valid, ck.chunk_start, ck.chunk_count)
-    # what used to raise runs: S=49 on the CUDA cores in bf16, K8 on bf16 rows
+    # what used to raise runs: S=65 on the CUDA cores in bf16, K8 on bf16 rows
     eaf.reset_launch_counts()
     runs = {
-        "k1": (lambda: eaf.edge_attention_sums(q49[:, :d], q49[:, d:], *r_idx, **kw49),
-               lambda: eaf.edge_attention_sums_plain(q49[:, :d], q49[:, d:], *r_idx, **kw49)),
-        "k4": (lambda: bwd.edge_attention_bwd_dkv(q49[:, : 2 * d], q49[:, d:], *s_idx, **kw49),
-               lambda: bwd.edge_attention_bwd_dkv_plain(q49[:, : 2 * d], q49[:, d:], *s_idx,
-                                                        **kw49)),
-        "k5": (lambda: sb.edge_attention_bwd_stream(q49[:, :d], q49[:, d:], q49[:, :d], *r_idx,
-                                                    **kw49)[0],
-               lambda: sb.edge_attention_bwd_stream_plain(q49[:, :d], q49[:, d:], q49[:, :d],
-                                                          *r_idx, **kw49)[0]),
-        "k6": (lambda: eav.edge_attention_sums_mm(q49[:, :d], q49[:, d:], *slots,
-                                                  lay.tile_counts, **kw49, tile_nodes=16),
-               lambda: eav.edge_attention_sums_mm_plain(q49[:, :d], q49[:, d:], *slots,
-                                                        lay.tile_counts, **kw49, tile_nodes=16,
+        "k1": (lambda: eaf.edge_attention_sums(q65[:, :d], q65[:, d:], *r_idx, **kw65),
+               lambda: eaf.edge_attention_sums_plain(q65[:, :d], q65[:, d:], *r_idx, **kw65)),
+        "k4": (lambda: bwd.edge_attention_bwd_dkv(q65[:, : 2 * d], q65[:, d:], *s_idx, **kw65),
+               lambda: bwd.edge_attention_bwd_dkv_plain(q65[:, : 2 * d], q65[:, d:], *s_idx,
+                                                        **kw65)),
+        "k5": (lambda: sb.edge_attention_bwd_stream(q65[:, :d], q65[:, d:], q65[:, :d], *r_idx,
+                                                    **kw65)[0],
+               lambda: sb.edge_attention_bwd_stream_plain(q65[:, :d], q65[:, d:], q65[:, :d],
+                                                          *r_idx, **kw65)[0]),
+        "k6": (lambda: eav.edge_attention_sums_mm(q65[:, :d], q65[:, d:], *slots,
+                                                  lay.tile_counts, **kw65, tile_nodes=16),
+               lambda: eav.edge_attention_sums_mm_plain(q65[:, :d], q65[:, d:], *slots,
+                                                        lay.tile_counts, **kw65, tile_nodes=16,
                                                         group=eav.MM_GROUP)),
         "k8": (lambda: eav.edge_attention_sums_chunked(q40[:, :d], q40[:, d:], *chunks, **kw40,
                                                        chunk=8),
@@ -1889,9 +1981,9 @@ def test_bf16_refusals_on_card(cuda):
     assert bodies["edge_attention_sums_chunked"]["tc_bf16"] == 1, bodies
     before = eaf.body_launch_counts()
     with pytest.raises(ValueError, match="beyond it bf16 runs on 'simt_bf16'"):
-        eaf.edge_attention_sums(q49[:, :d], q49[:, d:], *r_idx, **kw49, body="tc_bf16")
+        eaf.edge_attention_sums(q65[:, :d], q65[:, d:], *r_idx, **kw65, body="tc_bf16")
     with pytest.raises(ValueError, match="beyond it bf16 runs on 'simt_bf16'"):
-        eav.edge_attention_sums_chunked(q49[:, :d], q49[:, d:], *chunks, **kw49, chunk=8,
+        eav.edge_attention_sums_chunked(q65[:, :d], q65[:, d:], *chunks, **kw65, chunk=8,
                                         body="tc_bf16")
     f40 = q40.float()
     with pytest.raises(ValueError, match="float32 or bfloat16 rows of one type"):
@@ -1901,7 +1993,7 @@ def test_bf16_refusals_on_card(cuda):
     with pytest.raises(ValueError, match="tc_bf16"):
         eaf.edge_attention_sums(q40[:, :d], q40[:, d:], *r_idx, **kw40, body="tc")
     with pytest.raises(ValueError, match="tc_bf16"):
-        eaf.edge_attention_sums(q49[:, :d], q49[:, d:], *r_idx, **kw49, body="simt")
+        eaf.edge_attention_sums(q65[:, :d], q65[:, d:], *r_idx, **kw65, body="simt")
     with pytest.raises(ValueError, match="tc_bf16"):
         eav.edge_attention_sums_v1(q40[:, :d], q40[:, d:], *slots, **kw40, tile_nodes=16,
                                    group=1, body="tc")

@@ -6,7 +6,9 @@ checks (``tests/_torch_parallel_jobs.py`` holds the ranks' side, which
 imports no jax): two ranks (the edge-partitioned forward with the halo
 exchange and the all-gather, plain and through the fused op's plain
 versions; one partitioned SGD step through both backward routes and with
-remat; one DP step; the head-parallel forward and one TP step), four ranks
+remat, plain (the lean conv, in chunks of 3 rows) and fused; what autograd
+saves for the plain step's backward; one DP step; the head-parallel
+forward and one TP step), four ranks
 (one data x graph step with the halo and the fused op, one data x heads
 step) and ``dryrun_multichip(4, device="cpu")``, which starts its own.
 
@@ -209,18 +211,40 @@ def test_partitioned_forward_matches_jax(ref, two, route):
         np.testing.assert_allclose(res[f"fwd_{route}"], want[rank], rtol=1e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("route", ["plain", "fused", "fused_stream", "fused_remat"])
+@pytest.mark.parametrize("route", ["plain", "plain_remat", "fused", "fused_stream",
+                                   "fused_remat"])
 def test_partitioned_step_matches_jax(ref, two, route):
     """One SGD step over graph=2 with the halo: every rank's parameters
     against JAX's step (the fused op's backward: K3 + K4, or K5 + pass B,
     their plain versions; ``remat``: each conv recomputed in the backward,
-    its exchange again); the ranks agree."""
+    its exchange again; plain with ``remat``: the lean conv in chunks of 3
+    rows, halo_budget_run's route); the ranks agree."""
     params, loss, acc = ref["step"]
     for res in two:
         got, _grads, got_loss, got_acc = res[f"step_{route}"]
         near_params(got, {k: v.numpy() for k, v in params.items()}, route)
         assert got_loss == pytest.approx(loss, rel=1e-5)
         assert got_acc == pytest.approx(acc, abs=1e-7)
+
+
+def test_plain_remat_keeps_one_input_of_token_rows(two):
+    """What autograd saves between the plain partitioned forward with the
+    halo and its backward (``saved_tensors_hooks``): with ``remat`` (the
+    lean conv) one tensor of token rows, conv2's [N_loc, S, D] input, and
+    otherwise rows of features only (per node or per edge, no token axis):
+    not the tokens, the packed q|k|v, the exchanged K|V or the per-edge
+    attention rows, which the step without remat keeps."""
+    n_loc, s, d, f = 8, KW["num_sampled_vectors"], KW["embedding_dim"], KW["num_node_features"]
+    e_loc = 128
+    for res in two:
+        without, lean = res["saved"][False], res["saved"][True]
+        tokens = [shape for shape, _ in lean if len(shape) >= 3 and shape[1] == s]
+        assert tokens == [(n_loc, s, d)], tokens
+        for shape, nbytes in lean:
+            if shape not in tokens:
+                assert nbytes <= 4 * max(n_loc, e_loc) * max(f, 2 * d), shape
+        token_bytes = [b for shape, b in without if len(shape) >= 3 and shape[1] == s]
+        assert len(token_bytes) > 4 and sum(token_bytes) > 4 * n_loc * s * d * 4
 
 
 def test_timed_step_equals_untimed_and_times_each_collective(two):

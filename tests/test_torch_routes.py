@@ -49,7 +49,11 @@ ROUTES = [
     ((40, 128, 2), (SIMT, SIMT, SIMT, SIMT)),    # D/H = 64
     ((20, 128, 8), (SIMT, SIMT, SIMT, SIMT)),    # 16 warps where S <= 24 takes 8
     ((40, 128, 8), (SIMT, SIMT, SIMT, SIMT)),    # 24 warps; K4 at 225,920 B
-    ((49, 128, 4), (SIMT, SIMT, SIMT, SIMT)),    # a seventh key tile; K4 at 241,968 B
+    ((49, 128, 4), (TC, SIMT, SIMT, TC)),        # a seventh key tile: K1, K4 a block per head
+    ((64, 128, 4), (TC, SIMT, SIMT, TC)),        # path J's S=64
+    ((64, 128, 8), (TC, SIMT, SIMT, TC)),        # dh = 16
+    ((49, 100, 4), (SIMT, SIMT, SIMT, SIMT)),    # dh = 25: a head is no whole 16-byte piece
+    ((65, 128, 4), (SIMT, SIMT, SIMT, SIMT)),    # beyond S=64; K4 at 352,816 B
     ((96, 128, 4), (SIMT, SIMT, SIMT, SIMT)),
     ((40, 3, 1), (SIMT, SIMT, SIMT, SIMT)),      # odd D: no 16-byte copies
     ((40, 6, 2), (SIMT, SIMT, SIMT, TC)),        # [Q | dMsg] rows of 12 floats copy, k|v at 6 not
@@ -79,15 +83,18 @@ def test_fused_op_bodies_over_the_fault_list_and_the_repo_shapes(shape, want):
 
 @pytest.mark.parametrize("shape,want", ROUTES)
 def test_edge_group_bodies_follow_k1(shape, want):
-    """K6 and K9 gather k|v rows as K1 does and are instantiated for K1's
-    range: the same body as K1 on the op's k|v view at every shape; K7's
-    attention launch takes K6's body on its own q|k|v buffer."""
+    """K6 and K9 gather k|v rows as K1 and K3 do and are instantiated for
+    the range of S <= 48 (K1's own up to S=48; K1 alone reaches S=64): the
+    same body as K3 on the op's k|v view at every shape; K7's attention
+    launch takes K6's body on its own q|k|v buffer."""
     s, d, _ = shape
     kv = op_rows(s, d)[K1]
-    assert launch.body_of(K6, None, *shape, *kv) == want[0]
-    assert launch.body_of(K9, None, *shape, *kv) == want[0]
+    assert launch.body_of(K6, None, *shape, *kv) == want[2]
+    assert launch.body_of(K9, None, *shape, *kv) == want[2]
     own = torch.zeros(8, 3 * d)[:, d:]
-    assert launch.body_of(K6, None, *shape, ("kv_rows", own)) == want[0]
+    assert launch.body_of(K6, None, *shape, ("kv_rows", own)) == want[2]
+    if s <= launch.TC_MAX_S:
+        assert want[2] == want[0]
 
 
 def test_edge_group_bodies_refuse_a_named_tensor_core_body_beyond_the_range():
@@ -105,11 +112,12 @@ def test_edge_group_bodies_refuse_a_named_tensor_core_body_beyond_the_range():
 
 @pytest.mark.parametrize("shape,want", ROUTES)
 def test_chunked_body_follows_k1(shape, want):
-    """K8 gathers k|v rows as K1 does and is instantiated for K1's range:
-    K1's body on the op's k|v view at every shape of the fault list, the
-    CUDA-core body on rows that do not take 16-byte copies."""
+    """K8 gathers k|v rows as K1 does and is instantiated for K1's range
+    up to S=48: K3's body (K1's up to S=48) on the op's k|v view at every
+    shape of the fault list, the CUDA-core body on rows that do not take
+    16-byte copies."""
     s, d, _ = shape
-    assert launch.body_of(K8, None, *shape, *op_rows(s, d)[K1]) == want[0]
+    assert launch.body_of(K8, None, *shape, *op_rows(s, d)[K1]) == want[2]
     assert launch.body_of(K8, None, *shape, ("kv_rows", torch.zeros(8, 3 * d + 1)[:, 1:])) == SIMT
 
 
@@ -147,7 +155,7 @@ def gemm_takes(a, lda, b, ldb, k, n) -> bool:
             and lda % 4 == 0 and ldb % 4 == 0 and k % 4 == 0 and n % 4 == 0)
 
 
-@pytest.mark.parametrize("shape,want", [(shape, want[0]) for shape, want in ROUTES])
+@pytest.mark.parametrize("shape,want", [(shape, want[2]) for shape, want in ROUTES])
 @pytest.mark.parametrize("x_view", ["own", "column_view", "offset_view"])
 def test_layer_mm_tensor_core_choice_meets_the_gemm_alignment(shape, want, x_view):
     """K7 runs its three launches on one body; where that is the tensor
@@ -311,11 +319,29 @@ def test_body_takes_the_tensor_cores_only_on_aligned_rows():
     assert launch.body(K8, 40, 128, 4, rows_aligned=False) == SIMT
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_body_takes_k1_and_k4_to_the_tensor_cores_at_s64(bf16):
+    """Path J's S=64 at D=128, H=4: K1 and K4 on their tensor-core bodies
+    (one block per node and head), the others on the CUDA cores; the range
+    error names the kernel's own limit."""
+    tc, simt = ("tc_bf16", "simt_bf16") if bf16 else (TC, SIMT)
+    for kernel, want in ((K1, tc), (K4, tc), (K2, simt), (K3, simt), (K5, simt), (K6, simt),
+                         (K8, simt), (K9, simt)):
+        assert launch.body(kernel, 64, 128, 4, rows_aligned=True, bf16=bf16) == want, kernel
+    assert launch.tensor_core_range_error(64, 128, 4, K1) is None
+    assert launch.tensor_core_range_error(49, 128, 8, K4) is None
+    assert "S=64" in launch.tensor_core_range_error(64, 128, 4, K3)
+    assert "S=64" in launch.tensor_core_range_error(64, 128, 4)
+    assert "multiple of 8" in launch.tensor_core_range_error(64, 100, 4, K1)
+    assert "S=65" in launch.tensor_core_range_error(65, 128, 4, K4)
+
+
 def test_body_of_checks_a_named_body():
     qkv = torch.zeros(64, 3 * 128)
     assert launch.body_of(K1, "simt", 40, 128, 4, ("kv_rows", qkv[:, 128:])) == SIMT
+    assert launch.body_of(K1, "tc", 49, 128, 4, ("kv_rows", qkv[:, 128:])) == TC
     with pytest.raises(ValueError, match="range"):
-        launch.body_of(K1, "tc", 49, 128, 4, ("kv_rows", qkv[:, 128:]))
+        launch.body_of(K1, "tc", 65, 128, 4, ("kv_rows", qkv[:, 128:]))
     with pytest.raises(ValueError, match="16-byte"):
         launch.body_of(K1, "tc", 40, 128, 4, ("kv_rows", qkv[:, 129:-1]))
     with pytest.raises(ValueError, match="is not one of"):
@@ -328,7 +354,7 @@ def test_bf16_products_take_one_switch(kernel):
     f32 rows under mxu_bf16, which reaches K1, K2's attention and K6 (K7's
     attention) only: on K3-K5 and K9 it raises. A named 'tc_bf16' on f32
     rows without mxu_bf16 raises, as does a named f32 body on bf16 rows or
-    under mxu_bf16. Beyond the tensor cores' range (S=49) they run on
+    under mxu_bf16. Beyond the tensor cores' range (S=65) they run on
     'simt_bf16', which the same switch holds: named on f32 rows without
     mxu_bf16 it raises."""
     f32 = ("kv_rows", torch.zeros(64, 3 * 128)[:, 128:])
@@ -340,7 +366,7 @@ def test_bf16_products_take_one_switch(kernel):
     for named, rows in (("tc_bf16", f32), (TC, bf16), (SIMT, bf16)):
         with pytest.raises(ValueError, match="'tc_bf16' body"):
             launch.body_of(kernel, named, *shape, rows)
-    beyond = (49, 128, 4)
+    beyond = (65, 128, 4)
     assert launch.body_of(kernel, None, *beyond, bf16) == "simt_bf16"
     assert launch.body_of(kernel, "simt_bf16", *shape, bf16) == "simt_bf16"
     with pytest.raises(ValueError, match="'tc_bf16' body"):
@@ -505,7 +531,7 @@ def test_ampconv_beyond_shared_memory_matches_jax_xla(rng, train, s):
                                    atol=2e-6 * max(1.0, np.abs(r).max()), err_msg=name)
 
 
-@pytest.mark.parametrize("train,s,d,h", [(False, 49, 64, 4), (True, 40, 128, 8),
+@pytest.mark.parametrize("train,s,d,h", [(False, 65, 64, 4), (True, 40, 128, 8),
                                          (True, 20, 64, 1)])
 def test_ampconv_stays_fused_where_a_body_takes_the_call(rng, train, s, d, h):
     """Beyond the tensor cores, within the CUDA-core bodies' shared memory,
