@@ -25,8 +25,8 @@
 //     dK = dS^T Q / sqrt(dh) | dV = W^T dMsg written to a stream in device
 //     memory, which a later pass sums by sender. For layouts that have no
 //     sender side to walk. K5 runs on the tensor cores
-//     (edge_attention_bwd_stream_tc.cu) within K3's range; this body is the
-//     route beyond it.
+//     (edge_attention_bwd_stream_tc.cu) within K3's range up to S=48; this
+//     body is the route beyond it.
 // With softmax=0 the weights are the raw scaled scores and dS = dW.
 //
 // Design. As in the forward (edge_attention.cu), a TPU tile's accumulator

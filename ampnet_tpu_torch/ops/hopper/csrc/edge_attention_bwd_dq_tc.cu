@@ -55,7 +55,34 @@
 // as 0; rows S..SP-1 of the output are written as 0; dh not a multiple of 8
 // is zero-padded within the head; a receiver without a live edge writes
 // exact zeros. Instantiated for S <= 48 (NKT = ceil(S/8) key tiles), dh <= 32
-// and at most 12 warps (8 up to S=24).
+// and at most 12 warps (8 up to S=24), and for 48 < S <= 64 with dh a
+// multiple of 8, below.
+//
+// 48 < S <= 64 (path J's S=64): a block of every head would take 16 warps at
+// H=4; at one block of 384 threads per SM and 168 registers its warps' S and
+// dW tiles (2 x 8 key tiles, 64 registers) do not fit. The grid is
+// (receivers, heads) instead, as K1's and K4's at these S
+// (mma_tf32.cuh: wide_shape_ok, fill_heads, ring_grid): a block takes one
+// head of a receiver, its 4 query tiles (4 warps), and gathers only that
+// head's columns of the senders' K|V rows (S x 2dh, row stride 2dh + 4: 17 KB
+// a stage at dh = 32), so the bytes read stay those of every head once. Each
+// warp runs the per-edge steps of edge_attention_bwd_dq_tc.cuh (edge_scores,
+// softmax_backward, dq_accumulate, store_dq) on the head's ring, as K5's
+// tensor-core body runs them; K5's wide body can call them the same way.
+// Registers: the two ways out the 16-warp layout left open, keys split over
+// two warps (an exchange of the row max, sum(e) and sum(dW e) through shared
+// memory and a named barrier per edge) or S and dW recomputed in two key
+// halves (a third more products), are not needed: K3 keeps one 16 x dh sum
+// (16 registers) where K4 keeps two, so a warp's 16 x 64 tiles S and dW, its
+// dQ sums and one split fragment fit the 255 registers of two blocks of 128
+// threads per SM in one pass (K4's one pass spilled there and runs its queries
+// in two groups). Each (receiver, head) is summed by one block in in-edge
+// order: no atomics, bit-reproducible. With softmax=0 the scores are taken
+// all the same (edge_scores, shared with K5), a third of the products unused.
+// Bound at path J's shapes (2,752 nodes, D=128, 10,344 live edges): 6*S^2*D
+// FLOP per live edge, 32.5 GFLOP, 0.20 ms at 495 TFLOP/s counted three times,
+// against ~450 MB (q, dsum, k|v read, dQ written: 0.13 ms): bound by
+// operations.
 
 #include "common.cuh"
 #include "edge_attention_bwd_dq_tc.cuh"
@@ -196,6 +223,101 @@ dq_tc_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ dm,
   cp_async_wait(0);
 }
 
+// 48 < S <= 64: a block of one head (blockIdx.y), 4 warps, one per query
+// tile; the registers capped for two blocks per SM (see above)
+template <int NKT>
+__global__ void __launch_bounds__(kWideThreads, 2)
+dq_tc_wide_kernel(const float* __restrict__ q, int ldq, const float* __restrict__ dm,
+                  int lddm, const float* __restrict__ kv, int ldkv,
+                  const int* __restrict__ tile_senders, const int* __restrict__ tile_valid,
+                  const int* __restrict__ recv_ptr, const int* __restrict__ recv_slots,
+                  float* __restrict__ dq, int num_nodes, int s, int sp, int d, int num_heads,
+                  int softmax, int stages) {
+  extern __shared__ __align__(16) float smem[];
+  // [8][threads] float4: each lane's own Q and dMsg fragments; then the ring
+  // of the head's K | V columns
+  float4* frag = reinterpret_cast<float4*>(smem) + threadIdx.x;
+  float* ring = smem + 32 * kWideThreads;
+  const int dh = d / num_heads;
+  const int ldr = 2 * dh + 4;
+  const int stage_floats = s * ldr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int hc = blockIdx.y * dh;  // the block's head, first column
+  const int r0 = 16 * warp + g, r1 = r0 + 8;  // the warp's query rows
+  const float scale = 1.0f / sqrtf((float)dh);
+  auto load = [&](int i) { return frag[i * kWideThreads]; };
+
+  LiveWalk prod;  // the gathers run stages - 1 live edges ahead
+  prod.start(recv_ptr, blockIdx.x, num_nodes);
+  for (int i = 0; i < stages - 1; ++i) {
+    const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
+    if (slot >= 0)
+      fill_heads(ring + i * stage_floats, ldr, kv, (size_t)tile_senders[slot] * sp, ldkv, s, d,
+                 hc, dh);
+    cp_async_commit();
+  }
+  int stage = 0;
+
+  for (int n = blockIdx.x; n < num_nodes; n += gridDim.x) {
+    const size_t own0 = (size_t)n * sp;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c0 = 8 * kk + t, c1 = c0 + 4;
+      const float* q0 = q + (own0 + r0) * ldq + hc;
+      const float* q1 = q + (own0 + r1) * ldq + hc;
+      const float* d0 = dm + (own0 + r0) * lddm + hc;
+      const float* d1 = dm + (own0 + r1) * lddm + hc;
+      frag[kk * kWideThreads] = make_float4(r0 < s && c0 < dh ? q0[c0] * scale : 0.0f,
+                                            r1 < s && c0 < dh ? q1[c0] * scale : 0.0f,
+                                            r0 < s && c1 < dh ? q0[c1] * scale : 0.0f,
+                                            r1 < s && c1 < dh ? q1[c1] * scale : 0.0f);
+      frag[(4 + kk) * kWideThreads] = make_float4(r0 < s && c0 < dh ? d0[c0] : 0.0f,
+                                                  r1 < s && c0 < dh ? d1[c0] : 0.0f,
+                                                  r0 < s && c1 < dh ? d0[c1] : 0.0f,
+                                                  r1 < s && c1 < dh ? d1[c1] : 0.0f);
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nn][e] = 0.0f;
+
+    const int end = recv_ptr[n + 1];
+    for (int k = recv_ptr[n]; k < end; ++k) {
+      const int valid = tile_valid[recv_slots[k]];
+      if (valid == 0) continue;  // the same for every thread of the block
+      cp_async_wait(stages - 2);
+      __syncthreads();  // this edge's stage has landed; the previous one is free
+      const float* kr = ring + stage * stage_floats;
+      const float* vr = kr + dh;
+      const int free_stage = stage == 0 ? stages - 1 : stage - 1;
+      stage = stage + 1 == stages ? 0 : stage + 1;
+
+      float sc[NKT][4], dw[NKT][4];
+      edge_scores<NKT>(sc, dw, load, kr, vr, ldr, s, dh, g, t);
+
+      {  // the gather of the edge stages - 1 ahead, while the products run
+        const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
+        if (slot >= 0)
+          fill_heads(ring + free_stage * stage_floats, ldr, kv, (size_t)tile_senders[slot] * sp,
+                     ldkv, s, d, hc, dh);
+        cp_async_commit();
+      }
+
+      softmax_backward<NKT, false>(sc, dw, s, (float)valid, softmax, t);
+      dq_accumulate<NKT>(acc, dw, kr, ldr, s, dh, g, t);
+    }
+
+    store_dq(dq + own0 * d + hc, acc, r0, r1, s, d, dh, scale, t);
+    if (blockIdx.y == 0) {
+      float* pad = dq + own0 * d;
+      for (int e = s * d + threadIdx.x; e < sp * d; e += kWideThreads) pad[e] = 0.0f;
+    }
+  }
+  cp_async_wait(0);
+}
+
 // A persistent launch (blocks per SM x SMs, at most one block per receiver),
 // or, with info, what it would run with.
 template <int NKT>
@@ -218,20 +340,38 @@ int launch(const float* q, int ldq, const float* dm, int lddm, const float* kv, 
   return (int)cudaGetLastError();
 }
 
+// The wide launch: a grid of (receivers, heads), blocks of 4 warps
+template <int NKT>
+int launch_wide(const float* q, int ldq, const float* dm, int lddm, const float* kv, int ldkv,
+                const int* tile_senders, const int* tile_valid, const int* recv_ptr,
+                const int* recv_slots, float* dq, int num_nodes, int s, int sp, int d,
+                int num_heads, int softmax, cudaStream_t stream, int* info) {
+  static RingPlan plan;
+  const size_t fixed = (size_t)kWideThreads * 32 * sizeof(float);  // Q and dMsg fragments
+  const int err = ring_plan(dq_tc_wide_kernel<NKT>, kWideThreads, s, d / num_heads, fixed, plan);
+  if (err) return err;
+  const dim3 grid = ring_grid(plan, num_nodes, num_heads);
+  if (info) return ring_info(dq_tc_wide_kernel<NKT>, plan, grid.x * grid.y, info);
+  if (grid.x > 0)
+    dq_tc_wide_kernel<NKT><<<grid, kWideThreads, plan.smem, stream>>>(
+        q, ldq, dm, lddm, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots, dq,
+        num_nodes, s, sp, d, num_heads, softmax, plan.stages);
+  return (int)cudaGetLastError();
+}
+
 int dispatch(const float* q, int ldq, const float* dm, int lddm, const float* kv, int ldkv,
              const int* tile_senders, const int* tile_valid, const int* recv_ptr,
              const int* recv_slots, float* dq, int num_nodes, int s, int sp, int d,
              int num_heads, int softmax, cudaStream_t stream, int* info) {
-  if (s < 1 || num_heads < 1 || d % num_heads || d / num_heads > 32 ||
-      num_heads * ((s + 15) / 16) > (s <= 24 ? 8 : kMaxWarps))
-    return (int)cudaErrorInvalidValue;
-#define AMPNET_K3_CASE(N)                                                                    \
+  if (!wide_shape_ok(s, d, num_heads)) return (int)cudaErrorInvalidValue;
+#define AMPNET_K3_CASE(N, L)                                                                 \
   case N:                                                                                    \
-    return launch<N>(q, ldq, dm, lddm, kv, ldkv, tile_senders, tile_valid, recv_ptr,         \
-                     recv_slots, dq, num_nodes, s, sp, d, num_heads, softmax, stream, info);
+    return L<N>(q, ldq, dm, lddm, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots,  \
+                dq, num_nodes, s, sp, d, num_heads, softmax, stream, info);
   switch ((s + 7) / 8) {
-    AMPNET_K3_CASE(1) AMPNET_K3_CASE(2) AMPNET_K3_CASE(3)
-    AMPNET_K3_CASE(4) AMPNET_K3_CASE(5) AMPNET_K3_CASE(6)
+    AMPNET_K3_CASE(1, launch) AMPNET_K3_CASE(2, launch) AMPNET_K3_CASE(3, launch)
+    AMPNET_K3_CASE(4, launch) AMPNET_K3_CASE(5, launch) AMPNET_K3_CASE(6, launch)
+    AMPNET_K3_CASE(7, launch_wide) AMPNET_K3_CASE(8, launch_wide)
   }
 #undef AMPNET_K3_CASE
   return (int)cudaErrorInvalidValue;
@@ -245,7 +385,8 @@ extern "C" {
 // kv: rows of k|v (2d floats, row stride ldkv, both 16-byte aligned);
 // tile_senders / tile_valid over the receiver-tiled slots, recv_ptr /
 // recv_slots the receiver-major index; dq: [num_nodes*sp, d] contiguous.
-// S <= 48, d / num_heads <= 32, num_heads * ceil(S/16) <= 12 (8 up to S=24).
+// d / num_heads <= 32; S <= 48 with num_heads * ceil(S/16) <= 12 (8 up to
+// S=24), or 48 < S <= 64 with d / num_heads a multiple of 8.
 int ampnet_edge_attention_bwd_dq(const float* q, int ldq, const float* dsum, int lddsum,
                                  const float* kv, int ldkv, const int* tile_senders,
                                  const int* tile_valid, const int* recv_ptr,

@@ -6,11 +6,14 @@
 // described in edge_attention_bwd_dq_tc.cu.
 //
 // K3 calls softmax_backward and store_dq. Its two product loops, S | dW and
-// dQ += dS K, stay inline in its kernel, and edge_scores and dq_accumulate
-// below repeat them for K5: behind a function boundary the same loops of
-// inline mma.sync compile to another instruction schedule for K3 (the same
-// 157 registers at S=40, 121 instead of 122 at S=20; cuobjdump on an H100
-// build), while these two leave its SASS as it was.
+// dQ += dS K, stay inline in its kernel at S <= 48, and edge_scores and
+// dq_accumulate below repeat them for K5: behind a function boundary the
+// same loops of inline mma.sync compile to another instruction schedule for
+// K3 (the same 157 registers at S=40, 121 instead of 122 at S=20; cuobjdump
+// on an H100 build), while these two leave its SASS as it was. K3's wide
+// body (48 < S <= 64, a block of one head) calls all four on a ring that
+// holds only its head's columns (kr the stage, vr = kr + dh, ldr = 2dh + 4);
+// a wide body of K5 can call them the same way, at any NKT.
 //
 // The lane is (g, t) = (lane / 4, lane % 4); the warp's rows are r0 = m0 +
 // g and r1 = r0 + 8 of its tile; its head's columns start at hc; kr / vr

@@ -21,12 +21,26 @@
 // 16-row query tile); the warp's Q and dMsg fragments stay in registers; the
 // ring holds bf16 k|v rows (row stride 2D + 8); a persistent grid walks
 // receivers; no atomics: bit-reproducible. Within the tensor cores' range
-// only (S <= 48, dh <= 32, at most 12 warps, 8 up to S=24); beyond it the
-// wrapper runs the CUDA-core bf16 body (edge_attention_bwd.cu). Trouble
-// spots as in the 3xTF32 body. The softmax
-// backward and the store of dQ are device functions in
+// only (S <= 48, dh <= 32, at most 12 warps, 8 up to S=24; and 48 < S <= 64
+// with dh a multiple of 8); beyond it the wrapper runs the CUDA-core bf16
+// body (edge_attention_bwd.cu). Trouble spots as in the 3xTF32 body. The
+// softmax backward and the store of dQ are device functions in
 // edge_attention_bwd_dq_tc_bf16.cuh, which K5's bf16 body
 // (edge_attention_bwd_stream_tc_bf16.cu) runs with the rest of these steps.
+//
+// 48 < S <= 64 (path J's S=64) takes the 3xTF32 body's grid of (receivers,
+// heads): a block of one head (4 warps, one per query tile; the softmax over
+// keys within each warp) gathers that head's columns of the senders' k|v
+// (row stride 2dh + 8 values), 9 KB a stage at dh = 32, and each warp runs
+// the steps of edge_attention_bwd_dq_tc_bf16.cuh (load_qdm_frags_bf16,
+// edge_scores_bf16, softmax_backward_bf16, dq_accumulate_bf16,
+// store_dq_bf16), which K5's wide bf16 body can call the same way. Their
+// rounding points are this body's own at S <= 48. A warp's S and dW tiles at
+// 64 keys are 64 registers; the registers are capped at 255 for two blocks
+// of 128 threads per SM, in one pass (the 3xTF32 body says why). Bound at
+// path J's shapes: the bf16 rows (q, dsum, k|v, ~180 MB) and the f32 dQ (~90
+// MB), 0.081 ms at 3.35 TB/s, against 32.5 GFLOP, 0.033 ms at 989 TFLOP/s:
+// bound by bytes.
 
 #include "common.cuh"
 #include "edge_attention_bwd_dq_tc_bf16.cuh"
@@ -182,6 +196,86 @@ dq_bf16_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ dm,
   cp_async_wait(0);
 }
 
+// 48 < S <= 64: a block of one head (blockIdx.y), 4 warps, one per query
+// tile; the registers capped for two blocks per SM
+template <int NKT>
+__global__ void __launch_bounds__(kWideThreads, 2)
+dq_bf16_wide_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ dm,
+                    int lddm, const bf16* __restrict__ kv, int ldkv,
+                    const int* __restrict__ tile_senders, const int* __restrict__ tile_valid,
+                    const int* __restrict__ recv_ptr, const int* __restrict__ recv_slots,
+                    float* __restrict__ dq, int num_nodes, int s, int sp, int d,
+                    int num_heads, int softmax, int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // the head's k | v columns
+  const int dh = d / num_heads;
+  const int ldr = 2 * dh + kPad;
+  const int stage_values = s * ldr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int hc = blockIdx.y * dh;  // the block's head, first column
+  const int r0 = 16 * warp + g, r1 = r0 + 8;  // the warp's query rows
+  const float qscale = head_scale<bf16>(dh);          // the scores' q scale, bf16
+  const float scale = (float)(1.0 / sqrt((double)dh));  // dQ's, f32
+
+  LiveWalk prod;  // the gathers run stages - 1 live edges ahead
+  prod.start(recv_ptr, blockIdx.x, num_nodes);
+  for (int i = 0; i < stages - 1; ++i) {
+    const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
+    if (slot >= 0)
+      fill_heads(ring + i * stage_values, ldr, kv, (size_t)tile_senders[slot] * sp, ldkv, s, d,
+                 hc, dh);
+    cp_async_commit();
+  }
+  int stage = 0;
+
+  for (int n = blockIdx.x; n < num_nodes; n += gridDim.x) {
+    const size_t own0 = (size_t)n * sp;
+    uint32_t qa[2][4], da[2][4];
+    load_qdm_frags_bf16(qa, da, q + (own0 + r0) * ldq + hc, q + (own0 + r1) * ldq + hc,
+                        dm + (own0 + r0) * lddm + hc, dm + (own0 + r1) * lddm + hc, r0, r1, s,
+                        dh, t, qscale);
+    float acc[4][4];
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nn][e] = 0.0f;
+
+    const int end = recv_ptr[n + 1];
+    for (int k = recv_ptr[n]; k < end; ++k) {
+      const int valid = tile_valid[recv_slots[k]];
+      if (valid == 0) continue;  // the same for every thread of the block
+      cp_async_wait(stages - 2);
+      __syncthreads();  // this edge's stage has landed; the previous one is free
+      const bf16* kr = ring + stage * stage_values;
+      const bf16* vr = kr + dh;
+      const int free_stage = stage == 0 ? stages - 1 : stage - 1;
+      stage = stage + 1 == stages ? 0 : stage + 1;
+
+      float sc[NKT][4], dw[NKT][4];
+      edge_scores_bf16<NKT>(sc, dw, qa, da, kr, vr, ldr, s, dh, g, t);
+
+      {  // the gather of the edge stages - 1 ahead, while the products run
+        const int slot = prod.next(recv_ptr, recv_slots, tile_valid, num_nodes);
+        if (slot >= 0)
+          fill_heads(ring + free_stage * stage_values, ldr, kv, (size_t)tile_senders[slot] * sp,
+                     ldkv, s, d, hc, dh);
+        cp_async_commit();
+      }
+
+      if (softmax) softmax_backward_bf16<NKT>(sc, dw, s, t);  // else dS = dW
+      dq_accumulate_bf16<NKT>(acc, dw, kr, ldr, s, dh, g, t, scale);
+    }
+
+    store_dq_bf16(dq + own0 * d + hc, acc, r0, r1, s, d, dh, t);
+    if (blockIdx.y == 0) {
+      float* pad = dq + own0 * d;
+      for (int e = s * d + threadIdx.x; e < sp * d; e += kWideThreads) pad[e] = 0.0f;
+    }
+  }
+  cp_async_wait(0);
+}
+
 // A persistent launch (blocks per SM x SMs, at most one block per receiver),
 // or, with info, what it would run with.
 template <int NKT>
@@ -204,20 +298,41 @@ int launch(const bf16* q, int ldq, const bf16* dm, int lddm, const bf16* kv, int
   return (int)cudaGetLastError();
 }
 
+// The wide launch: a grid of (receivers, heads), blocks of 4 warps
+template <int NKT>
+int launch_wide(const bf16* q, int ldq, const bf16* dm, int lddm, const bf16* kv, int ldkv,
+                const int* tile_senders, const int* tile_valid, const int* recv_ptr,
+                const int* recv_slots, float* dq, int num_nodes, int s, int sp, int d,
+                int num_heads, int softmax, cudaStream_t stream, int* info) {
+  static RingPlan plan;
+  const int dh = d / num_heads;
+  const size_t stage_bytes = (size_t)s * (2 * dh + kPad) * sizeof(bf16);
+  const int err =
+      ring_plan_bytes(dq_bf16_wide_kernel<NKT>, kWideThreads, s, dh, 0, stage_bytes, plan);
+  if (err) return err;
+  const dim3 grid = ring_grid(plan, num_nodes, num_heads);
+  if (info) return ring_info(dq_bf16_wide_kernel<NKT>, plan, grid.x * grid.y, info);
+  if (grid.x > 0)
+    dq_bf16_wide_kernel<NKT><<<grid, kWideThreads, plan.smem, stream>>>(
+        q, ldq, dm, lddm, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots, dq,
+        num_nodes, s, sp, d, num_heads, softmax, plan.stages);
+  return (int)cudaGetLastError();
+}
+
 int dispatch(const bf16* q, int ldq, const bf16* dm, int lddm, const bf16* kv, int ldkv,
              const int* tile_senders, const int* tile_valid, const int* recv_ptr,
              const int* recv_slots, float* dq, int num_nodes, int s, int sp, int d,
              int num_heads, int softmax, cudaStream_t stream, int* info) {
-  if (s < 1 || num_heads < 1 || d % num_heads || d / num_heads > 32 ||
-      num_heads * ((s + 15) / 16) > (s <= 24 ? 8 : kMaxWarps))
-    return (int)cudaErrorInvalidValue;
-#define AMPNET_K3_BF16_CASE(N)                                                               \
+  if (!wide_shape_ok(s, d, num_heads)) return (int)cudaErrorInvalidValue;
+#define AMPNET_K3_BF16_CASE(N, L)                                                            \
   case N:                                                                                    \
-    return launch<N>(q, ldq, dm, lddm, kv, ldkv, tile_senders, tile_valid, recv_ptr,         \
-                     recv_slots, dq, num_nodes, s, sp, d, num_heads, softmax, stream, info);
+    return L<N>(q, ldq, dm, lddm, kv, ldkv, tile_senders, tile_valid, recv_ptr, recv_slots,  \
+                dq, num_nodes, s, sp, d, num_heads, softmax, stream, info);
   switch ((s + 7) / 8) {
-    AMPNET_K3_BF16_CASE(1) AMPNET_K3_BF16_CASE(2) AMPNET_K3_BF16_CASE(3)
-    AMPNET_K3_BF16_CASE(4) AMPNET_K3_BF16_CASE(5) AMPNET_K3_BF16_CASE(6)
+    AMPNET_K3_BF16_CASE(1, launch) AMPNET_K3_BF16_CASE(2, launch)
+    AMPNET_K3_BF16_CASE(3, launch) AMPNET_K3_BF16_CASE(4, launch)
+    AMPNET_K3_BF16_CASE(5, launch) AMPNET_K3_BF16_CASE(6, launch)
+    AMPNET_K3_BF16_CASE(7, launch_wide) AMPNET_K3_BF16_CASE(8, launch_wide)
   }
 #undef AMPNET_K3_BF16_CASE
   return (int)cudaErrorInvalidValue;

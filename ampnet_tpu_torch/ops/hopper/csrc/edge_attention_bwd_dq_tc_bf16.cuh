@@ -16,7 +16,10 @@
 // alone rename registers; cuobjdump on an H100 build), while these two
 // leave its SASS as it was. The two copies round at the same points and
 // must change together, until the product-policy template queued in
-// ROADMAP.md (§A 2b) lets K3 call these and drops its inline copy.
+// ROADMAP.md (§A 2b) lets K3 call these and drops its inline copy. K3's wide
+// body (48 < S <= 64, a block of one head) already calls all five, on a
+// ring that holds only its head's columns (kr the stage, vr = kr + dh, ldr =
+// 2dh + 8); a wide body of K5 can call them the same way, at any NKT.
 //
 // The lane is (g, t) = (lane / 4, lane % 4); the warp's rows are r0 = m0 +
 // g and r1 = r0 + 8 of its tile; its head's columns start at hc; kr / vr

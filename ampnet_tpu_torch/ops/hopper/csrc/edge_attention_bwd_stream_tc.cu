@@ -63,8 +63,8 @@
 // masked at run time is walked and its SP rows are written as 0; rows
 // S..SP-1 of a walked slot are written as 0; slots that are not walked are
 // not written; a receiver without a live edge writes exact zeros for dQ.
-// Instantiated for K3's range: S <= 48 (NKT = ceil(S/8)), dh <= 32, at most
-// 12 warps (8 up to S=24).
+// Instantiated for K3's range up to S=48: S <= 48 (NKT = ceil(S/8)), dh
+// <= 32, at most 12 warps (8 up to S=24).
 
 #include "common.cuh"
 #include "edge_attention_bwd_dq_tc.cuh"

@@ -258,7 +258,8 @@ int ring_plan(Kernel kernel, int threads, int s, int d, size_t fixed, RingPlan& 
   return 0;
 }
 
-// K1 and K4 (edge_attention_tc.cuh, edge_attention_tc_bf16.cuh,
+// K1, K3 and K4 (edge_attention_tc.cuh, edge_attention_tc_bf16.cuh,
+// edge_attention_bwd_dq_tc.cu, edge_attention_bwd_dq_tc_bf16.cu,
 // edge_attention_bwd_tc.cu, edge_attention_bwd_tc_bf16.cu) take S <= 48 with
 // one block of every head per node, H * ceil(S/16) warps, at most 12 (8 up
 // to S=24), and 48 < S <= 64 with one block per (node, head), 4 warps, where
@@ -273,7 +274,7 @@ inline bool wide_shape_ok(int s, int d, int num_heads) {
   return num_heads * ((s + 15) / 16) <= (s <= 24 ? 8 : 12);
 }
 
-// the heads one block of K1 or K4 takes at S
+// the heads one block of K1, K3 or K4 takes at S
 inline int block_heads(int s, int num_heads) { return s > 48 ? 1 : num_heads; }
 
 // The persistent grid of a plan over num_nodes nodes and `groups` head

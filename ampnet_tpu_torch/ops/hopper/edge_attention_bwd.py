@@ -4,9 +4,10 @@ have no sender side to walk (``compute_layout(sender_layout=False)``) and
 for ``scatterfree=False``.
 
 One hand-written kernel beside its plain torch version, with four bodies
-(``launch.body``, K3's rule): on the tensor cores in 3xTF32
+(``launch.body``, K3's rule up to S=48): on the tensor cores in 3xTF32
 (``csrc/edge_attention_bwd_stream_tc.cu``, K3's receiver design with the
-transposed products through a staging tile per head) within K3's range, on
+transposed products through a staging tile per head) within K3's range up
+to S=48 (K3 alone reaches S=64), on
 the CUDA cores (``csrc/edge_attention_bwd.cu``, the third instantiation of
 the body K3 and K4 share there) beyond it, at any shape, its working set in
 device memory where it exceeds a block's shared memory, and for bf16 rows
@@ -161,9 +162,9 @@ def edge_attention_bwd_stream(q_rows, kv_rows, dsum_rows, tile_senders, tile_val
     is the gradient of the per-receiver SUM of messages. The index arrays
     are int32 (format.py); tile_valid may carry a runtime mask. The stream
     holds sp rows per slot of the range, the first being slot t0*EMAX; rows
-    of slots that are not walked are not written. The body is K3's rule
-    (``launch.body_of`` on kv_rows, which the tensor-core bodies gather in
-    16-byte copies; ``body`` names one).
+    of slots that are not walked are not written. The body is K3's rule up
+    to S=48 (``launch.body_of`` on kv_rows, which the tensor-core bodies
+    gather in 16-byte copies; ``body`` names one).
     CPU tensors run the plain version."""
     if not q_rows.is_cuda:
         return edge_attention_bwd_stream_plain(

@@ -184,9 +184,10 @@ def edge_attention_bwd_dq(q_rows, kv_rows, dsum_rows, tile_senders, tile_valid,
     bf16, may be row-strided views; dsum is the gradient of the
     per-receiver SUM of messages. KV, the whole nodes kv_rows hold, may
     exceed NT (K1's rule): the grid is NT receivers, the gathered k|v rows
-    any. The tensor-core bodies gather kv_rows in
-    16-byte copies within S <= 48 (K1 and K4 reach S=64; K3 does not yet);
-    beyond it, or on rows they cannot
+    any. The tensor-core bodies gather kv_rows in 16-byte copies and take S
+    <= 48, D/H <= 32 and H * ceil(S/16) <= 12 warps (8 up to S=24), and 48 <
+    S <= 64 with D/H <= 32 a multiple of 8 (one block per receiver and head;
+    ``launch.tensor_core_range_error``); beyond that, or on rows they cannot
     copy, the CUDA-core body of the rows' type runs (``launch.body_of``;
     ``body`` names one, else the rule picks). The index
     arrays are int32 (format.py). CPU tensors run the plain version."""
@@ -228,7 +229,7 @@ def edge_attention_bwd_dkv(qdm_rows, kv_rows, snd_receivers, snd_valid, snd_ptr,
     the edge-partitioned path makes fewer than its senders. The tensor-core bodies
     gather qdm_rows in 16-byte copies and take S <= 48, D/H <= 32 and H *
     ceil(S/16) <= 12 warps (8 up to S=24), and 48 < S <= 64 with D/H <= 32 a
-    multiple of 8 (one block per sender and head; K3 keeps S <= 48;
+    multiple of 8 (one block per sender and head;
     ``launch.tensor_core_range_error``);
     beyond that, or on rows they cannot copy, the CUDA-core body of the
     rows' type runs (``launch.body_of``; ``body`` names one, else the rule

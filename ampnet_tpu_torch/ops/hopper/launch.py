@@ -102,12 +102,12 @@ def check_walk(device, peer_ids, valid, ptr, slots, names) -> None:
 # block's shared memory stays under the 227 KB it may have (201 KB for K4
 # and 225 KB for K5 at S=48).
 TC_MAX_S, TC_MAX_DH = 48, 32
-# K1 and K4 (WIDE_KERNELS) also take 48 < S <= WIDE_MAX_S (path J's S=64):
-# one block per (node, head), its 4 warps the head's 16-row tiles, gathering
-# that head's columns alone, so dh must be whole 16-byte pieces of f32 and
-# of bf16 (a multiple of 8); any H (mma_tf32.cuh, wide_shape_ok). K2, K3,
-# K5-K9 keep S <= 48: beyond it they run their CUDA-core bodies.
-WIDE_KERNELS = ("edge_attention_sums", "edge_attention_bwd_dkv")
+# K1, K3 and K4 (WIDE_KERNELS) also take 48 < S <= WIDE_MAX_S (path J's
+# S=64): one block per (node, head), its 4 warps the head's 16-row tiles,
+# gathering that head's columns alone, so dh must be whole 16-byte pieces of
+# f32 and of bf16 (a multiple of 8); any H (mma_tf32.cuh, wide_shape_ok). K2
+# and K5-K9 keep S <= 48: beyond it they run their CUDA-core bodies.
+WIDE_KERNELS = ("edge_attention_sums", "edge_attention_bwd_dq", "edge_attention_bwd_dkv")
 WIDE_MAX_S = 64
 
 
@@ -258,7 +258,7 @@ def body(kernel: str, s: int, d: int, num_heads: int, rows_aligned: bool,
          bf16: bool = False) -> str:
     """The body a kernel runs at (S, D, H): the tensor cores within the
     kernel's instantiated range (``tensor_core_range_error``: S <= 48, and
-    for K1 and K4 S <= 64) where the gathered rows take 16-byte copies, else the
+    for K1, K3 and K4 S <= 64) where the gathered rows take 16-byte copies, else the
     CUDA cores; in bf16 products with ``bf16`` (bf16 rows, or products
     rounded to bf16: 'tc_bf16' or 'simt_bf16'), else in f32 ('tc', 3xTF32,
     or 'simt')."""

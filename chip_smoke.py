@@ -112,14 +112,13 @@ model limits):
      nothing).
   J  the recommended recipe at S=64 (experiments/token_scale_tuning.py's
      default) as a bf16 model through train_full_batch: 2 K1 + 2 K3 + 2 K4
-     a step, K1 and K4 on 'tc_bf16' (a block per node and head), K3 on
-     'simt_bf16' (in device memory); gradients against float64, 3 captured
-     steps = eager bit for bit, an 8-draw eval against float64, the f32
-     model's step (K1 and K4 on 'tc', K3 on 'simt') in turns. Then each
-     'simt_bf16' body's kernel row at a shape J or bf16_wide ran it, timed
-     in turns with the f32 CUDA-core body, and K1's and K4's tensor-core
-     rows at S=64 ('tc_bf16' and 'tc'), timed in turns with their CUDA-core
-     bodies.
+     a step, all three on 'tc_bf16' (a block per node and head); gradients
+     against float64, 3 captured steps = eager bit for bit, an 8-draw eval
+     against float64, the f32 model's step (K1, K3 and K4 on 'tc') in
+     turns. Then each 'simt_bf16' body's kernel row at a shape bf16_wide
+     ran it, timed in turns with the f32 CUDA-core body, and K1's, K3's and
+     K4's tensor-core rows at S=64 ('tc_bf16' and 'tc'), timed in turns
+     with their CUDA-core bodies.
   ssl  SSLPretrainer (train/ssl.py) in both modes on the recommended
      recipe's backbone through the fused op: make_ssl_train_step's captured
      step (2 K1 + 2 K3 + 2 K4, tensor cores; the negatives drawn inside the
@@ -298,8 +297,8 @@ TENSOR_CORE_LIBS = ("edge_attention_tc", "edge_attention_layer_tc", "edge_attent
                     "edge_attention_groups_tc", "edge_attention_chunked_tc")
 # the `routes` phase: AMPConv at shapes beyond the tensor-core range (S, D,
 # H, training, the body K1-K4 (K6, K9) must run (one for all, or by
-# kernel: K1 and K4 take 48 < S <= 64 on the tensor cores, the others do
-# not), the kernels whose working set must be in device memory, the
+# kernel: K1, K3 and K4 take 48 < S <= 64 on the tensor cores, the others
+# do not), the kernels whose working set must be in device memory, the
 # forward route: K1, or K6 under MM_SCATTER_DEFAULT, or K9 under
 # DMA_V1_DEFAULT). An eval runs on a graph
 # of Cora's node count (the JAX gather rule then picks K1, not K2, from S=29
@@ -318,11 +317,11 @@ ROUTES = (
     (40, 3, 1, True, "simt", (), None),       # odd D: no 16-byte copies
     (40, 100, 4, True, "tc", (), None),       # dh = 25: stays on the tensor cores
     (96, 128, 4, False, "simt", ("edge_attention_sums",), None),    # 345 KB a block
-    (49, 128, 4, True, {K1_: "tc", K3_: "simt", K4_: "tc"}, (), None),  # K3 at 216,880 B
+    (49, 128, 4, True, "tc", (), None),       # K1, K3 and K4 a block per head
     (65, 128, 4, True, "simt", (K3_, K4_), None),  # beyond S=64: 319 KB and 353 KB a block
     (96, 128, 4, False, "simt", ("edge_attention_sums_mm",), MM),   # K6 at group 1: 345 KB
     (96, 128, 4, False, "simt", ("edge_attention_sums_v1",), V1),   # K9: 296 KB
-    (49, 128, 4, True, {K6_: "simt", K3_: "simt", K4_: "tc"}, (), MM),  # K6 beyond the tcs
+    (49, 128, 4, True, {K6_: "simt", K3_: "tc", K4_: "tc"}, (), MM),  # K6 beyond the tcs
     (40, 128, 8, True, "simt", (), MM),       # K6 beyond the warp limit
     (49, 128, 4, True, {K1_: "tc", K5_: "simt"}, (), STREAM),  # K5 beyond them: 216,880 B
 )
@@ -550,7 +549,8 @@ PORT_KERNEL_FUNCTIONS = (
     "dkv_tc_kernel", "stream_tc_kernel", "groups_tc_kernel", "chunked_tc_kernel",
     "edge_attention_kernel", "edge_attention_bwd_kernel", "edge_group_kernel",
     "edge_chunk_kernel", "projection_kernel", "sums_bf16_kernel", "dq_bf16_kernel",
-    "dkv_bf16_kernel", "projection_bf16_kernel", "chunked_bf16_kernel")
+    "dkv_bf16_kernel", "projection_bf16_kernel", "chunked_bf16_kernel", "dq_tc_wide_kernel",
+    "dq_bf16_wide_kernel")
 _PORT_KERNEL_WORDS = {fn: re.compile(rf"(?<![A-Za-z0-9_]){fn}(?![A-Za-z0-9_])")
                       for fn in PORT_KERNEL_FUNCTIONS}
 
@@ -3111,10 +3111,10 @@ def bf16_wide(data, gen, dev) -> tuple:
 
 
 # path J: the recipe at S=64 (experiments/token_scale_tuning.py's default)
-# as a bf16 model, 20 epochs with selection every 10; K1 and K4 on the
-# tensor cores (a block per node and head), K3 on the CUDA cores, by body
+# as a bf16 model, 20 epochs with selection every 10; K1, K3 and K4 on the
+# tensor cores (a block per node and head), by body
 J_S, J_EPOCHS = 64, 20
-J_BODIES = {"edge_attention_sums": "tc_bf16", "edge_attention_bwd_dq": "simt_bf16",
+J_BODIES = {"edge_attention_sums": "tc_bf16", "edge_attention_bwd_dq": "tc_bf16",
             "edge_attention_bwd_dkv": "tc_bf16"}
 
 
@@ -3123,15 +3123,14 @@ def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
     through train_full_batch (J_EPOCHS, selection every 10). The JAX route
     by the port's mirrored predicates: bf16 K|V of 2,752 x 64 x 256 x 2 B
     exceed the 80 MiB budget, so the 'dma' gather (v4 forward, then
-    _dq_kernel_dma and _dkv_kernel_dma), in the port K1, K3 and K4: K1 and
-    K4 on 'tc_bf16' (a block per node and head), K3 on 'simt_bf16' (S=64 is
-    beyond its tensor-core range; it works in device memory). One step's
-    gradients against float64 autograd on the CPU (BF16_GRAD_RTOL), 3
-    captured steps = eager bit for bit (no atomics in these bodies), an
-    8-draw eval against float64 (BF16_LOGITS_RTOL), exact launch counts by
-    body, and one captured step of the bf16 model and of the f32 one (K1
-    and K4 on 'tc', K3 on 'simt') in turns. Returns (report, {(kernel,
-    body): launches} of train_full_batch and of the f32 step)."""
+    _dq_kernel_dma and _dkv_kernel_dma), in the port K1, K3 and K4, all
+    three on 'tc_bf16' (a block per node and head). One step's gradients
+    against float64 autograd on the CPU (BF16_GRAD_RTOL), 3 captured steps =
+    eager bit for bit (no atomics in these bodies), an 8-draw eval against
+    float64 (BF16_LOGITS_RTOL), exact launch counts by body, and one
+    captured step of the bf16 model and of the f32 one (K1, K3 and K4 on
+    'tc') in turns. Returns (report, {(kernel, body): launches} of
+    train_full_batch and of the f32 step)."""
     from ampnet_tpu_torch.core.config import TrainConfig
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
     from ampnet_tpu_torch.ops.hopper import launch as hl
@@ -3141,13 +3140,11 @@ def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
     memory_at_start = release_graphs()
     cfg = dataclasses.replace(recipe, num_sampled_vectors=J_S, compute_dtype="bfloat16")
     f32 = dataclasses.replace(recipe, num_sampled_vectors=J_S)
-    d, h = cfg.embedding_dim, cfg.num_heads
-    forward, gather = conv_forward(J_S, d, torch.bfloat16, graph.num_nodes_padded, layout,
-                                   None, True)
+    forward, gather = conv_forward(J_S, cfg.embedding_dim, torch.bfloat16,
+                                   graph.num_nodes_padded, layout, None, True)
     if (forward, gather) != (K1_, "dma"):
         fail(f"path J: the predicates route its training forward to {forward} on '{gather}', "
              f"expected K1 on 'dma'")
-    smem = {K3_: hl.simt_smem_bytes(K3_, J_S, d, h)}
     tcfg = TrainConfig(learning_rate=3e-3, weight_decay=1e-3, epochs=J_EPOCHS, seed=seed,
                        cosine_t0=None, grad_clip=1.0, select_best_every=10,
                        num_eval_samples=8, epochs_per_dispatch=10, log_every=10)
@@ -3161,8 +3158,7 @@ def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
     # every launch since the loop's counts were set to 0 (the loop's, then
     # its 10-step graph captured alone) on its kernel's body in J_BODIES
     bodies = bf16_only(name, tuple(J_BODIES), J_BODIES)
-    report.update(route=dict(forward=forward, gather=gather, simt_smem_bytes=smem,
-                             max_smem=hl.MAX_SMEM), bodies=bodies,
+    report.update(route=dict(forward=forward, gather=gather), bodies=bodies,
                   memory_at_start=memory_at_start)
     report["captured_equals_eager"] = captured_equals_eager(
         "J", cfg, data, graph, layout, seed, dev, want_step=launches(k1=2, k3=2, k4=2),
@@ -3205,17 +3201,17 @@ def path_j(recipe, data, graph, layout, seed, dev) -> tuple:
     return report, ran
 
 
-# Each kernel's 'simt_bf16' body at one shape where path J or bf16_wide
-# launched it: (row key, kernel, rows ('bf16', or f32 rows under mxu_bf16),
-# S, D, H, graph: 'J' (the whole surrogate), 'eval' or 'training' (the
-# bf16_wide graphs; 'stream' the training graph without a sender side),
-# the TPU kernel it replaces). K1 and K4 run S=64 on the tensor cores
-# (WIDE_TC_ROWS, timed there in turns with these bodies at S=64); their
-# rows here are beyond it.
+# Each kernel's 'simt_bf16' body at one shape where bf16_wide launched it:
+# (row key, kernel, rows ('bf16', or f32 rows under mxu_bf16), S, D, H,
+# graph: 'eval' or 'training' (the bf16_wide graphs; 'stream' the training
+# graph without a sender side), the TPU kernel it replaces). K1, K3 and K4
+# run S=64 on the tensor cores (WIDE_TC_ROWS, timed there in turns with
+# these bodies at S=64); their rows here are beyond it.
 SIMT_BF16_ROWS = (
     ("k1_simt_bf16", K1_, "bf16", 96, 128, 4, "eval", "edge_attention_fused.py:942"),
     ("k2_simt_bf16", K2_, "bf16", 20, 128, 8, "eval", "edge_attention_fused.py:763"),
-    ("k3_simt_bf16", K3_, "bf16", J_S, 128, 4, "J", "edge_attention_bwd_scatterfree.py:211"),
+    ("k3_simt_bf16", K3_, "bf16", 65, 128, 4, "training",
+     "edge_attention_bwd_scatterfree.py:211"),
     ("k4_simt_bf16", K4_, "bf16", 65, 128, 4, "training",
      "edge_attention_bwd_scatterfree.py:319"),
     ("k5_simt_bf16", K5_, "bf16", 49, 128, 4, "stream", "edge_attention_bwd.py:178"),
@@ -3229,7 +3225,7 @@ SIMT_BF16_ROWS = (
     ("k7_simt_mxu", K7_, "mxu", 20, 128, 8, "eval", "edge_attention_fused.py:865"))
 
 
-def simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches) -> list:
+def simt_bf16_rows(data, gen, dev, wide_ran) -> list:
     """The kernel rows of SIMT_BF16_ROWS: each 'simt_bf16' body on random
     rows at its shape and graph (runtime mask included) against its plain
     version on the card within BF16_KERNEL_LIMIT of the largest entry (K2
@@ -3238,8 +3234,7 @@ def simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches) -> list:
     f32 CUDA-core body ('simt', f32 rows at the f32 row stride), its bound
     at bf16 widths and the bf16 rate, registers and spills (ptxas) of the
     instantiation it launched, whether its working set was in device
-    memory; ``launches`` where path J (K3) or bf16_wide launched it at that
-    shape."""
+    memory; ``launches`` where bf16_wide launched it at that shape."""
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd as sb
     from ampnet_tpu_torch.ops.hopper import edge_attention_bwd_scatterfree as bwd
     from ampnet_tpu_torch.ops.hopper import edge_attention_fused as eaf
@@ -3251,9 +3246,7 @@ def simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches) -> list:
     bf = torch.bfloat16
     release_graphs()
     graphs, no_sender_side = route_graphs(data, dev)
-    mask = graph.edge_mask.clone()
-    mask[torch.nonzero(mask)[::50, 0]] = False
-    setting = {"J": (graph, mask, layout), "eval": graphs[False], "training": graphs[True],
+    setting = {"eval": graphs[False], "training": graphs[True],
                "stream": (*graphs[True][:2], no_sender_side)}
     out = []
     for key, kernel, rows_mode, s, d, h, where, replaces in SIMT_BF16_ROWS:
@@ -3439,8 +3432,7 @@ def simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches) -> list:
         b, by = bf16_bound_ms(nbytes, flops)
         ptx = ptxas_of(lib, fn + "I" + targs.format(
             int(in_memory), "13__nv_bfloat16" if rows_bf16 else "f"))
-        launched = (j_launches.get((kernel, "simt_bf16"), 0) if where == "J" else
-                    wide_ran.get((kernel, "simt_bf16", rows_mode, s, d, h, where != "eval"), 0))
+        launched = wide_ran.get((kernel, "simt_bf16", rows_mode, s, d, h, where != "eval"), 0)
         out.append(dict(
             name=kernel, route="cuda", source=f"ampnet_tpu_torch/ops/hopper/csrc/{lib}.cu",
             replaces=f"ampnet_tpu/ops/pallas/{replaces}", launches=launched, s=s, d=d, h=h,
@@ -3455,16 +3447,20 @@ def simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches) -> list:
     return out
 
 
-# K1's and K4's tensor-core bodies at path J's S=64, D=128, H=4 (one block
-# per node and head): (kernel, body, library, its launch-info entry point,
-# the kernel's name in ptxas, the TPU kernel it replaces)
+# K1's, K3's and K4's tensor-core bodies at path J's S=64, D=128, H=4 (one
+# block per node and head): (kernel, body, library, its launch-info entry
+# point, the kernel's name in ptxas, the TPU kernel it replaces)
 WIDE_TC_ROWS = (
     (K1_, "tc_bf16", "edge_attention_tc_bf16", "ampnet_edge_attention_sums_bf16_info",
      "sums_bf16_kernelILi8ELb0E13__nv_bfloat16", "edge_attention_fused.py:942"),
+    (K3_, "tc_bf16", "edge_attention_bwd_dq_tc_bf16", "ampnet_edge_attention_bwd_dq_bf16_info",
+     "dq_bf16_wide_kernelILi8E", "edge_attention_bwd_scatterfree.py:211"),
     (K4_, "tc_bf16", "edge_attention_bwd_tc_bf16", "ampnet_edge_attention_bwd_dkv_bf16_info",
      "dkv_bf16_kernelILi8E", "edge_attention_bwd_scatterfree.py:319"),
     (K1_, "tc", "edge_attention_tc", "ampnet_edge_attention_sums_info",
      "sums_tc_kernelILi8E", "edge_attention_fused.py:942"),
+    (K3_, "tc", "edge_attention_bwd_dq_tc", "ampnet_edge_attention_bwd_dq_info",
+     "dq_tc_wide_kernelILi8E", "edge_attention_bwd_scatterfree.py:211"),
     (K4_, "tc", "edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv_info",
      "dkv_tc_kernelILi8E", "edge_attention_bwd_scatterfree.py:319"),
 )
@@ -3520,6 +3516,14 @@ def wide_tc_rows(graph, layout, gen, dev, j_launches) -> list:
                 return eaf.edge_attention_sums_plain(q[:, :d], q[:, d:], *r_idx, **kw)
 
             nbytes, flops = 3 * d * n * s * width + d * n * s * 4 + r_bytes, 4 * s * s * d * live
+        elif kernel == K3_:
+            def run(b=None):
+                return bwd.edge_attention_bwd_dq(q[:, :d], q[:, d:], dsum, *r_idx, **kw, body=b)
+
+            def plain():
+                return bwd.edge_attention_bwd_dq_plain(q[:, :d], q[:, d:], dsum, *r_idx, **kw)
+
+            nbytes, flops = 4 * d * n * s * width + d * n * s * 4 + r_bytes, 6 * s * s * d * live
         else:
             qdm = torch.cat([q[:, :d], dsum], 1)
 
@@ -5871,7 +5875,7 @@ def main() -> int:
     emit({"bf16_wide": dict(wide, card=smi)})
     path_j_report, j_launches = path_j(recipe, data, graph, layout, args.seed, dev)
     emit(dict(path_j_report, card=smi))
-    simt_rows = simt_bf16_rows(data, graph, layout, gen, dev, wide_ran, j_launches)
+    simt_rows = simt_bf16_rows(data, gen, dev, wide_ran)
     wide_rows = wide_tc_rows(graph, layout, gen, dev, j_launches)
 
     # SSL pretraining on the recipe's backbone, the main path's drivers as a
@@ -5955,8 +5959,8 @@ def main() -> int:
              f"{ {k['name']: k['launches'] for k in kernels} }")
     # K1-K4 at path K's shape (launches from path K; path K's GraphSAINT
     # variant, synthetic_models and tokenizers apart, by path), a row for
-    # each bf16 body (launches from the bf16 phase's paths, bf16_wide and
-    # path J), and K1's and K4's tensor-core bodies at S=64 (path J)
+    # each bf16 body (launches from the bf16 phase's paths and bf16_wide),
+    # and K1's, K3's and K4's tensor-core bodies at S=64 (path J)
     kernels += xor_rows + bf16_rows + simt_rows + wide_rows
     # a row's `s` (the bf16 rows') beside its launches: the shape they ran at
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "s",

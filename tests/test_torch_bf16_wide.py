@@ -83,8 +83,8 @@ def body_of(kernel, named, s, d, h, rows, mxu_bf16=False):
 @pytest.mark.parametrize("kernel", [K1, K2, K3, K4, K5, K6, K7, K8, K9])
 def test_bf16_rows_take_a_bf16_body_at_every_shape(kernel):
     """bf16 rows run 'tc_bf16' within the tensor cores' range on 16-byte
-    rows (K1 and K4 up to S=64, the others up to S=48), and 'simt_bf16'
-    beyond it (S=49 but for K1 and K4, S=65, D/H=64, 24 warps) or where the
+    rows (K1, K3 and K4 up to S=64, the others up to S=48), and 'simt_bf16'
+    beyond it (S=49 but for K1, K3 and K4, S=65, D/H=64, 24 warps) or where the
     rows do not take 16-byte copies (D=100: bf16 rows of 200 bytes); f32
     rows under mxu_bf16 take the same two where mxu_bf16 reaches (K1, K2,
     K6, K7). The named bodies that do not take the call still raise:
@@ -97,7 +97,7 @@ def test_bf16_rows_take_a_bf16_body_at_every_shape(kernel):
     assert body_of(kernel, None, 40, 128, 4, rows(128)) == "tc_bf16"
     for s in (49, 64):
         assert body_of(kernel, None, s, 128, 4, rows(128)) == (
-            "tc_bf16" if kernel in (K1, K4) else "simt_bf16"), s
+            "tc_bf16" if kernel in (K1, K3, K4) else "simt_bf16"), s
     for s, d, h, aligned in ((65, 128, 4, True), (64, 128, 2, True), (40, 128, 8, True),
                              (40, 100, 4, True), (40, 128, 4, False)):
         r = rows(d, aligned=aligned)

@@ -915,7 +915,7 @@ def test_tc_kernels_refuse_what_they_do_not_take(cuda):
                                   **kw, body="tc")
     with pytest.raises(ValueError, match="16-byte"):
         bwd.edge_attention_bwd_dkv(buf[:, 1: 2 * d + 1], qkv[:, d:], *s_idx, **kw, body="tc")
-    # beyond every tensor-core body's range (K1 and K4 reach S=64)
+    # beyond every tensor-core body's range (K1, K3 and K4 reach S=64)
     big = torch.randn(nt * 72, 3 * d, generator=torch.Generator(device=cuda).manual_seed(4),
                       device=cuda)
     kw65 = dict(s=65, sp=72, num_heads=4, softmax=True)
@@ -1036,13 +1036,13 @@ def test_simt_shared_memory_mirror_matches_the_libraries(cuda):
 
 @pytest.mark.parametrize("s,d,h,want", [
     (40, 128, 2, "simt"), (20, 128, 8, "simt"), (40, 128, 8, "simt"), (40, 3, 1, "simt"),
-    (40, 100, 4, "tc"), (49, 128, 4, "tc tc simt"), (65, 128, 4, "simt"),
+    (40, 100, 4, "tc"), (49, 128, 4, "tc"), (65, 128, 4, "simt"),
     (96, 128, 4, "simt")])
 def test_fused_op_routes_beyond_the_tensor_cores(cuda, s, d, h, want):
     """The fused op at shapes the tensor-core bodies do not take: the
     forward and the five gradients through the CUDA-core bodies (the
     launches say which body ran: ``want`` for K1, K4 and K3, or one for all;
-    at S=49 K1 and K4 on the tensor cores, K3 not; at S=65 K3's and K4's and
+    at S=49 all three on the tensor cores; at S=65 K3's and K4's and
     at S=96 every working set in device memory) against autograd through
     the plain oracle on the CPU."""
     g, mask = graph(3, first_sender=1)
@@ -1569,27 +1569,35 @@ def test_bf16_bodies_match_plain_on_card(cuda, s, d, h, softmax):
         assert after[k] == dict(before[k], tc_bf16=before[k]["tc_bf16"] + n), k
 
 
-# K1's and K4's bodies at 48 < S <= 64: (library, info entry point) by body
-# and rows
+# K1's, K3's and K4's bodies at 48 < S <= 64: (library, info entry point)
+# by body and rows
 WIDE_INFO = {("k1", "tc"): ("edge_attention_tc", "ampnet_edge_attention_sums_info"),
              ("k1", "tc_bf16"): ("edge_attention_tc_bf16", "ampnet_edge_attention_sums_bf16_info"),
              ("k1", "mxu"): ("edge_attention_tc_bf16", "ampnet_edge_attention_sums_mxu_info"),
+             ("k3", "tc"): ("edge_attention_bwd_dq_tc", "ampnet_edge_attention_bwd_dq_info"),
+             ("k3", "tc_bf16"): ("edge_attention_bwd_dq_tc_bf16",
+                                 "ampnet_edge_attention_bwd_dq_bf16_info"),
              ("k4", "tc"): ("edge_attention_bwd_tc", "ampnet_edge_attention_bwd_dkv_info"),
              ("k4", "tc_bf16"): ("edge_attention_bwd_tc_bf16",
                                  "ampnet_edge_attention_bwd_dkv_bf16_info")}
+WIDE_WRAPPERS = {"k1": "edge_attention_sums", "k3": "edge_attention_bwd_dq",
+                 "k4": "edge_attention_bwd_dkv"}
 
 
 @pytest.mark.parametrize("softmax", [True, False])
 @pytest.mark.parametrize("s", [49, 56, 64])
 @pytest.mark.parametrize("d,h", [(128, 4), (128, 8)])
-def test_k1_k4_wide_bodies_match_plain_on_card(cuda, s, d, h, softmax):
-    """K1 and K4 at 48 < S <= 64 (one block per node and head), picked by
-    the route: 'tc' on f32 rows against the plain version within 1e-4 of the
-    largest entry, 'tc_bf16' on bf16 rows (K1 also on f32 rows under
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k4"])
+def test_k1_k4_wide_bodies_match_plain_on_card(cuda, kernel, s, d, h, softmax):
+    """K1, K3 and K4 at 48 < S <= 64 (one block per node and head), picked
+    by the route: 'tc' on f32 rows against the plain version within 1e-4
+    of the largest entry, 'tc_bf16' on bf16 rows (K1 also on f32 rows under
     mxu_bf16) within one bf16 step; each launched twice and equal bit for
     bit, pad token rows and the rows of a node of degree 0 exactly 0, every
     launch on the named body; the instantiation spills nothing and keeps at
-    least two blocks on an SM."""
+    least two blocks on an SM. K3 also with more K|V rows than query rows
+    (the partitioned path's shape: the senders' rows after as many foreign
+    ones), bit for bit what it gives on the rows alone."""
     g, mask = graph(0, first_sender=1)
     lay = compute_layout(g, tile_nodes=16).to(cuda)
     nt = lay.recv_ptr.numel() - 1
@@ -1603,6 +1611,8 @@ def test_k1_k4_wide_bodies_match_plain_on_card(cuda, s, d, h, softmax):
     b16, qdm16 = qkv.to(torch.bfloat16), qdm.to(torch.bfloat16)
     r_idx = (lay.tile_senders, edge_slot_valid(lay, mask.to(cuda)), lay.recv_ptr, lay.recv_slots)
     s_idx = (lay.snd_receivers, snd_slot_valid(lay, mask.to(cuda)), lay.snd_ptr, lay.snd_slots)
+    far_idx = (lay.tile_senders + nt, *r_idx[1:])
+    kv_far = torch.cat([torch.randn(nt * sp, 2 * d, generator=gen, device=cuda), qkv[:, d:]])
     kw = dict(s=s, sp=sp, num_heads=h, softmax=softmax)
     # name: (run, plain, limit, body)
     cases = {
@@ -1617,6 +1627,14 @@ def test_k1_k4_wide_bodies_match_plain_on_card(cuda, s, d, h, softmax):
             lambda: eaf.edge_attention_sums(qkv[:, :d], qkv[:, d:], *r_idx, **kw, mxu_bf16=True),
             lambda: eaf.edge_attention_sums_plain(qkv[:, :d], qkv[:, d:], *r_idx, **kw,
                                                   mxu_bf16=True), BF16_LIMIT, "tc_bf16"),
+        ("k3", "tc"): (
+            lambda: bwd.edge_attention_bwd_dq(qkv[:, :d], qkv[:, d:], dsum, *r_idx, **kw),
+            lambda: bwd.edge_attention_bwd_dq_plain(qkv[:, :d], qkv[:, d:], dsum, *r_idx, **kw),
+            1e-4, "tc"),
+        ("k3", "tc_bf16"): (
+            lambda: bwd.edge_attention_bwd_dq(b16[:, :d], b16[:, d:], qdm16[:, d:], *r_idx, **kw),
+            lambda: bwd.edge_attention_bwd_dq_plain(b16[:, :d], b16[:, d:], qdm16[:, d:],
+                                                    *r_idx, **kw), BF16_LIMIT, "tc_bf16"),
         ("k4", "tc"): (lambda: bwd.edge_attention_bwd_dkv(qdm, qkv[:, d:], *s_idx, **kw),
                        lambda: bwd.edge_attention_bwd_dkv_plain(qdm, qkv[:, d:], *s_idx, **kw),
                        1e-4, "tc"),
@@ -1625,22 +1643,31 @@ def test_k1_k4_wide_bodies_match_plain_on_card(cuda, s, d, h, softmax):
             lambda: bwd.edge_attention_bwd_dkv_plain(qdm16, b16[:, d:], *s_idx, **kw),
             BF16_LIMIT, "tc_bf16"),
     }
+    wrapper = WIDE_WRAPPERS[kernel]
     for name, (run, plain, limit, body) in cases.items():
-        kernel = "edge_attention_sums" if name[0] == "k1" else "edge_attention_bwd_dkv"
+        if name[0] != kernel:
+            continue
         eaf.reset_launch_counts()
         got, again = run(), run()
         torch.cuda.synchronize()
-        assert eaf.body_launch_counts()[kernel] == {**dict.fromkeys(launch.BODIES, 0),
-                                                    body: 2}, name
+        assert eaf.body_launch_counts()[wrapper] == {**dict.fromkeys(launch.BODIES, 0),
+                                                     body: 2}, name
         ref = plain()
         close_to_largest(got, ref, limit)
         assert torch.equal(got, again), name
         assert (got.view(nt, sp, -1)[:, s:] == 0).all(), name
         # degree 0: node 39 never receives, node 0 never sends (K4's rows)
-        assert (got.view(nt, sp, -1)[39 if name[0] == "k1" else 0] == 0).all(), name
+        assert (got.view(nt, sp, -1)[0 if kernel == "k4" else 39] == 0).all(), name
         info = launch.kernel_info(*WIDE_INFO[name], nt, s, d, h)
         assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, (name, info)
         assert info["threads"] == 128 and info["grid"] % h == 0, (name, info)
+        if kernel == "k3":
+            rows = (qkv, dsum) if body == "tc" else (b16, qdm16[:, d:])
+            far = kv_far.to(rows[0].dtype)
+            got_far = bwd.edge_attention_bwd_dq(rows[0][:, :d], far, rows[1], *far_idx, **kw)
+            close_to_largest(got_far, bwd.edge_attention_bwd_dq_plain(
+                rows[0][:, :d], far, rows[1], *far_idx, **kw), limit)
+            assert torch.equal(got_far, got), name
 
 
 @pytest.mark.parametrize("softmax", [True, False])
@@ -1734,9 +1761,9 @@ def test_bf16_route_bodies_match_plain_on_card(cuda, s, d, h, softmax):
 
 
 # (S, D, H) beyond the bf16 tensor-core bodies' range: a seventh key tile,
-# 24 warps, bf16 rows of 200 bytes (D=100: no 16-byte copies), path J's S=64
-# (K3 in device memory), and S=96 (every working set in device memory). K1
-# and K4 take S=49 and S=64 on 'tc_bf16'.
+# 24 warps, bf16 rows of 200 bytes (D=100: no 16-byte copies), path J's S=64,
+# and S=96 (every working set in device memory). K1, K3 and K4 take S=49
+# and S=64 on 'tc_bf16'.
 SIMT_BF16_SHAPES = [(49, 128, 4), (40, 128, 8), (20, 100, 4), (64, 128, 4), (96, 128, 4)]
 
 
@@ -1855,15 +1882,18 @@ def test_simt_bf16_bodies_match_plain_on_card(cuda, s, d, h, softmax):
         cases = {k: v for k, v in cases.items() if not k.endswith("mxu")}
 
     def body_of(name, kernel):
-        # K1 and K4 take 48 < S <= 64 on 'tc_bf16' (test_k1_k4_wide_bodies_
-        # match_plain_on_card), where K1's views of the q|k|v rows take
-        # 16-byte copies (f32 rows under mxu_bf16 at any D here, bf16 rows
-        # at D=128); K4's packed [Q | dsum] rows take them at D=100 too
+        # K1, K3 and K4 take 48 < S <= 64 on 'tc_bf16' (test_k1_k4_wide_
+        # bodies_match_plain_on_card), where K1's and K3's views of the q|k|v
+        # rows take 16-byte copies (K1's f32 rows under mxu_bf16 at any D
+        # here, bf16 rows at D=128); K4's packed [Q | dsum] rows take them at
+        # D=100 too
         if launch.tensor_core_range_error(s, d, h, kernel) is not None:
             return "simt_bf16"
         if kernel == "edge_attention_bwd_dkv":
             return "tc_bf16"
         if kernel == "edge_attention_sums" and (name.endswith("mxu") or d % 8 == 0):
+            return "tc_bf16"
+        if kernel == "edge_attention_bwd_dq" and d % 8 == 0:
             return "tc_bf16"
         return "simt_bf16"
 

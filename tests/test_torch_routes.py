@@ -49,15 +49,21 @@ ROUTES = [
     ((40, 128, 2), (SIMT, SIMT, SIMT, SIMT)),    # D/H = 64
     ((20, 128, 8), (SIMT, SIMT, SIMT, SIMT)),    # 16 warps where S <= 24 takes 8
     ((40, 128, 8), (SIMT, SIMT, SIMT, SIMT)),    # 24 warps; K4 at 225,920 B
-    ((49, 128, 4), (TC, SIMT, SIMT, TC)),        # a seventh key tile: K1, K4 a block per head
-    ((64, 128, 4), (TC, SIMT, SIMT, TC)),        # path J's S=64
-    ((64, 128, 8), (TC, SIMT, SIMT, TC)),        # dh = 16
+    ((49, 128, 4), (TC, SIMT, TC, TC)),          # a seventh key tile: K1, K3, K4 a block per head
+    ((64, 128, 4), (TC, SIMT, TC, TC)),          # path J's S=64
+    ((64, 128, 8), (TC, SIMT, TC, TC)),          # dh = 16
     ((49, 100, 4), (SIMT, SIMT, SIMT, SIMT)),    # dh = 25: a head is no whole 16-byte piece
     ((65, 128, 4), (SIMT, SIMT, SIMT, SIMT)),    # beyond S=64; K4 at 352,816 B
     ((96, 128, 4), (SIMT, SIMT, SIMT, SIMT)),
     ((40, 3, 1), (SIMT, SIMT, SIMT, SIMT)),      # odd D: no 16-byte copies
     ((40, 6, 2), (SIMT, SIMT, SIMT, TC)),        # [Q | dMsg] rows of 12 floats copy, k|v at 6 not
 ]
+
+
+def k5_to_k9_body(shape, want):
+    """K5-K9 gather k|v rows as K3 does and keep the range up to S=48 (K3
+    reaches S=64): K3's body there, the CUDA cores beyond it."""
+    return want[2] if shape[0] <= launch.TC_MAX_S else SIMT
 
 
 def op_rows(s, d):
@@ -77,22 +83,23 @@ def test_fused_op_bodies_over_the_fault_list_and_the_repo_shapes(shape, want):
     gathered = op_rows(shape[0], shape[1])
     got = tuple(launch.body_of(k, None, *shape, *gathered[k]) for k in (K1, K2, K3, K4))
     assert got == want
-    # K5 gathers the k|v rows K3 gathers, in K3's range: K3's body
-    assert launch.body_of(K5, None, *shape, *gathered[K3]) == want[2]
+    # K5 gathers the k|v rows K3 gathers, in K3's range up to S=48
+    assert launch.body_of(K5, None, *shape, *gathered[K3]) == k5_to_k9_body(shape, want)
 
 
 @pytest.mark.parametrize("shape,want", ROUTES)
 def test_edge_group_bodies_follow_k1(shape, want):
     """K6 and K9 gather k|v rows as K1 and K3 do and are instantiated for
-    the range of S <= 48 (K1's own up to S=48; K1 alone reaches S=64): the
-    same body as K3 on the op's k|v view at every shape; K7's attention
-    launch takes K6's body on its own q|k|v buffer."""
+    the range of S <= 48 (K1's own up to S=48; K1, K3 and K4 reach S=64):
+    the same body as K3 on the op's k|v view up to S=48, the CUDA cores
+    beyond; K7's attention launch takes K6's body on its own q|k|v buffer."""
     s, d, _ = shape
     kv = op_rows(s, d)[K1]
-    assert launch.body_of(K6, None, *shape, *kv) == want[2]
-    assert launch.body_of(K9, None, *shape, *kv) == want[2]
+    want_k6 = k5_to_k9_body(shape, want)
+    assert launch.body_of(K6, None, *shape, *kv) == want_k6
+    assert launch.body_of(K9, None, *shape, *kv) == want_k6
     own = torch.zeros(8, 3 * d)[:, d:]
-    assert launch.body_of(K6, None, *shape, ("kv_rows", own)) == want[2]
+    assert launch.body_of(K6, None, *shape, ("kv_rows", own)) == want_k6
     if s <= launch.TC_MAX_S:
         assert want[2] == want[0]
 
@@ -114,10 +121,10 @@ def test_edge_group_bodies_refuse_a_named_tensor_core_body_beyond_the_range():
 def test_chunked_body_follows_k1(shape, want):
     """K8 gathers k|v rows as K1 does and is instantiated for K1's range
     up to S=48: K3's body (K1's up to S=48) on the op's k|v view at every
-    shape of the fault list, the CUDA-core body on rows that do not take
-    16-byte copies."""
+    shape of the fault list up to S=48, the CUDA cores beyond, and the
+    CUDA-core body on rows that do not take 16-byte copies."""
     s, d, _ = shape
-    assert launch.body_of(K8, None, *shape, *op_rows(s, d)[K1]) == want[2]
+    assert launch.body_of(K8, None, *shape, *op_rows(s, d)[K1]) == k5_to_k9_body(shape, want)
     assert launch.body_of(K8, None, *shape, ("kv_rows", torch.zeros(8, 3 * d + 1)[:, 1:])) == SIMT
 
 
@@ -132,8 +139,8 @@ def test_chunked_body_follows_k1(shape, want):
 ])
 def test_stream_backward_takes_k3s_body(shape, want):
     """K5 (pass A of the stream backward) on the tensor cores within K3's
-    range, on the k|v view of the op's q|k|v buffer; its CUDA-core body
-    beyond it; a named tensor-core body beyond it raises."""
+    range up to S=48, on the k|v view of the op's q|k|v buffer; its
+    CUDA-core body beyond it; a named tensor-core body beyond it raises."""
     s, d, h = shape
     kv = op_rows(s, d)[K3]
     assert launch.body_of(K5, None, *shape, *kv) == want
@@ -155,7 +162,8 @@ def gemm_takes(a, lda, b, ldb, k, n) -> bool:
             and lda % 4 == 0 and ldb % 4 == 0 and k % 4 == 0 and n % 4 == 0)
 
 
-@pytest.mark.parametrize("shape,want", [(shape, want[2]) for shape, want in ROUTES])
+@pytest.mark.parametrize("shape,want", [(shape, k5_to_k9_body(shape, want))
+                                        for shape, want in ROUTES])
 @pytest.mark.parametrize("x_view", ["own", "column_view", "offset_view"])
 def test_layer_mm_tensor_core_choice_meets_the_gemm_alignment(shape, want, x_view):
     """K7 runs its three launches on one body; where that is the tensor
@@ -320,17 +328,18 @@ def test_body_takes_the_tensor_cores_only_on_aligned_rows():
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-def test_body_takes_k1_and_k4_to_the_tensor_cores_at_s64(bf16):
-    """Path J's S=64 at D=128, H=4: K1 and K4 on their tensor-core bodies
-    (one block per node and head), the others on the CUDA cores; the range
-    error names the kernel's own limit."""
+def test_body_takes_k1_k3_and_k4_to_the_tensor_cores_at_s64(bf16):
+    """Path J's S=64 at D=128, H=4: K1, K3 and K4 on their tensor-core
+    bodies (one block per node and head), the others on the CUDA cores; the
+    range error names the kernel's own limit."""
     tc, simt = ("tc_bf16", "simt_bf16") if bf16 else (TC, SIMT)
-    for kernel, want in ((K1, tc), (K4, tc), (K2, simt), (K3, simt), (K5, simt), (K6, simt),
+    for kernel, want in ((K1, tc), (K3, tc), (K4, tc), (K2, simt), (K5, simt), (K6, simt),
                          (K8, simt), (K9, simt)):
         assert launch.body(kernel, 64, 128, 4, rows_aligned=True, bf16=bf16) == want, kernel
     assert launch.tensor_core_range_error(64, 128, 4, K1) is None
+    assert launch.tensor_core_range_error(64, 128, 4, K3) is None
     assert launch.tensor_core_range_error(49, 128, 8, K4) is None
-    assert "S=64" in launch.tensor_core_range_error(64, 128, 4, K3)
+    assert "S=64" in launch.tensor_core_range_error(64, 128, 4, K5)
     assert "S=64" in launch.tensor_core_range_error(64, 128, 4)
     assert "multiple of 8" in launch.tensor_core_range_error(64, 100, 4, K1)
     assert "S=65" in launch.tensor_core_range_error(65, 128, 4, K4)
